@@ -1,0 +1,924 @@
+"""Lane-ELL hybrid on PyTorch and CUDA: rows in lanes, slot planes,
+one hand-written kernel.
+
+Counterpart of ``spmv_scpa_tpu/ops/lane_ell.py:prepare_lane_ell_hybrid``
+(read that module's docstring for the format). Three parts:
+
+* ``pack_lane_ell`` — the host packer, a JAX-free copy of the
+  reference's (slot planes, strip demotion and relocation, overflow and
+  dynamic catch-all planes, the idx8 split). It keeps the TPU-tuned
+  cost models as they are, so it produces the same arrays; the parity
+  tests compare them exactly.
+* ``lane_ell_spmv`` — the wrapper of the CUDA kernel
+  (``csrc/lane_ell.cu``), with ``lane_ell_spmv_plain`` beside it: the
+  same function in PyTorch ops. A CPU tensor goes to the plain version,
+  a CUDA tensor to the kernel.
+* ``prepare_lane_ell_hybrid`` — stages x (the ``loc_w`` left pad and
+  the hot columns), runs the core, and adds the compact tail with
+  ``index_add_``.
+
+Branches of the reference that this port does not have yet raise
+``NotImplementedError`` naming their ROADMAP item: the no-locality
+escape to PELL, the ext gather pipeline, the chips tail, big tails and
+the distributed ``core_only`` / ``x_off`` mode.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from spmv_scpa_tpu.formats.csr import CSR
+from spmv_scpa_tpu.formats.panel_ell import BC
+
+from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch.ops.registry import Prepared
+from spmv_scpa_tpu_torch.utils.platform import resolve_device
+
+X_VMEM_BUDGET = 10 << 20     # same budget as the fused PELL kernel
+# bytes-equivalent cost of one extra per-plane strip pass
+# (gather+cmp+select over the (chunk, BC) block each step),
+# calibrated from the flagship's measured 31% select share at ~1
+# extra pass/plane: 88 planes * 6 B * 0.31 / ~80 passes ~= 2 B
+SEL_B = 2.0
+# Tail size (entries) past which the reference routes a split chips tail
+# to the compacted-row PELL delegation; the chips-tail port (ROADMAP
+# queue 1 #7) takes it over with the reference's value.
+BIG_TAIL = 131072
+
+_LOC_CHOICES = (128, 256, 512, 1024, 2048, 4096)
+_HOT_CHOICES = (128, 256, 512, 1024, 2048, 4096, 8192)
+# slot-count candidates for the byte-cost model: fine (8-step) past 8
+# so near-uniform row lengths land exactly (the stencil flagship has
+# 72-nnz rows; a 64->80->96 grid forced Q=80 = 8 always-empty planes
+# streamed per step — ~8% of the core's HBM bytes for nothing)
+_Q_CHOICES = (1, 2, 4, 8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88,
+              96, 104, 112, 120, 128)
+
+# Chips-tail feasibility constants of the reference's packer
+# (spmv_scpa_tpu/ops/chips_tail.py: H_CAP = ext_gather.H_MAX,
+# VPU_BUDGET, W_LOC). They steer its tail cost model, so they come over
+# for parity even though this port has no chips tail yet.
+_CT_H_CAP = 1024
+_CT_VPU_BUDGET = 2e8
+_CT_W_LOC = 4096
+
+# Roadmap items named by the NotImplementedError of each missing branch.
+_TODO_PELL = "ROADMAP queue 1 #8 (PELL family: the no-locality escape)"
+_TODO_EXT = "ROADMAP queue 1 #6 (ext gather route); pass ext=False"
+_TODO_CHIPS = ("ROADMAP queue 1 #7 (chips tail); pass diag='nochips' "
+               "for the compact tail")
+_TODO_BIG_TAIL = ("ROADMAP queue 1 #7/#8 (big tails above tail_xla_max: "
+                  "recursive hybrid or compact PELL)")
+_TODO_DIST = "ROADMAP queue 1 #13 (distributed row shards)"
+
+# Launches of the CUDA kernel by ``lane_ell_spmv`` in this process.
+KERNEL_LAUNCHES = 0
+
+
+def idx8_partition(sets: list, chunk: int):
+    """Plane partition for the int8 idx stream.
+
+    Orders planes so <=2-strip ones lead. ``n8`` is rounded down so
+    the int8 block height (n8*chunk) is 32-aligned (kept from the TPU's
+    int8 sublane tiling, for parity). ``second`` maps each int8 plane
+    to its set's second strip (-1 when single-strip) for the positional
+    bit-7 encoding. Returns (order, reordered_sets, n8, second).
+    """
+    QT = len(sets)
+
+    def _i8ok(s):
+        # dynamic slots (negative members) use nw+j codes that don't
+        # fit the 1-bit positional encoding — int16 always
+        return len(s) <= 2 and all(w >= 0 for w in s)
+
+    order = sorted(range(QT), key=lambda q: not _i8ok(sets[q]))
+    sets2 = [sets[q] for q in order]
+    n8 = sum(_i8ok(s) for s in sets2)
+    step8 = 32 // math.gcd(chunk, 32)
+    n8 = (n8 // step8) * step8
+    second = np.array([s[1] if len(s) == 2 else -1
+                       for s in sets2[:n8]], np.int64)
+    return order, sets2, n8, second
+
+
+def idx8_encode(enc: np.ndarray, second_b: np.ndarray) -> np.ndarray:
+    """Absolute (strip<<7 | lane) int codes -> positional int8 codes:
+    bit 7 = (strip == the plane's second strip), bits 0-6 = lane.
+    ``second_b`` must broadcast against ``enc``."""
+    enc = enc.astype(np.int64)
+    pos = (enc >> 7) == second_b
+    return (np.where(pos, 128 + (enc & 127), enc & 127)
+            .astype(np.uint8).view(np.int8))
+
+
+def _auto_loc_w(rows: np.ndarray, cols: np.ndarray) -> int:
+    d = np.abs(cols - rows)
+    cov = {w: float(np.mean(d <= w)) for w in _LOC_CHOICES}
+    best = cov[_LOC_CHOICES[-1]]
+    for w in _LOC_CHOICES:
+        if cov[w] >= best - 0.02:
+            return w
+    return _LOC_CHOICES[-1]
+
+
+def _auto_hot_k(out_cols: np.ndarray, nnz: int) -> int:
+    if out_cols.size == 0:
+        return 0
+    _, cnt = np.unique(out_cols, return_counts=True)
+    top = np.sort(cnt)[::-1]
+    csum = np.cumsum(top)
+
+    def cov(k):
+        return float(csum[min(k, top.size) - 1])
+
+    if cov(_HOT_CHOICES[-1]) < 0.05 * nnz:
+        return 0                 # hubs don't carry enough to pay strips
+    for k in _HOT_CHOICES:
+        if cov(k) >= 0.9 * cov(_HOT_CHOICES[-1]):
+            return k
+    return _HOT_CHOICES[-1]
+
+
+@dataclass(frozen=True)
+class LaneCfg:
+    """Static geometry of one packed matrix, as the kernel needs it."""
+
+    QT: int        # slot planes in all (Q primary + Qo overflow)
+    n8: int        # leading planes whose index is int8
+    chunk: int     # 128-row groups per step
+    steps: int
+    S: int         # local strips per group window
+    nw: int        # static strips: S local + hot
+    TD: int        # dynamic slots per step (all dynamic planes)
+    P_pad: int     # padded-x rows before the hot panels
+
+    @property
+    def G_pad(self) -> int:
+        return self.steps * self.chunk
+
+    @property
+    def Hs(self) -> int:
+        return self.nw - self.S
+
+
+@dataclass
+class LanePlan:
+    """Host packing result: plane arrays, strip tables, tail triplets."""
+
+    cfg: LaneCfg
+    vals_a: np.ndarray      # (steps*QT*chunk, BC) f32
+    idx8_a: np.ndarray      # (steps*n8*chunk, BC) int8, positional codes
+    idx_a: np.ndarray       # (steps*n16*chunk, BC) int16, strip<<7|lane
+    used: tuple             # per-plane static strip sets (dyn: -1..-K)
+    hot_idx: np.ndarray     # (Hs*BC,) int64 hot columns, zero-padded
+    dynw_a: np.ndarray      # (steps*TD,) int32 per-step dynamic strips
+    dyn_off: dict           # dynamic plane -> its first slot in a step
+    Q: int
+    Qo: int
+    loc_w: int
+    n_local: int
+    m: int
+    trows: np.ndarray       # compact tail triplets (row, col, value)
+    tcols: np.ndarray
+    tvals: np.ndarray
+    meta: dict
+
+    @property
+    def QT(self) -> int:
+        return self.cfg.QT
+
+    @property
+    def n8(self) -> int:
+        return self.cfg.n8
+
+    @property
+    def slot_bytes(self) -> int:
+        """Bytes one slot of every plane costs: f32 value + int8/int16."""
+        return 4 * self.QT + self.n8 + 2 * (self.QT - self.n8)
+
+    def plane_tabs(self) -> np.ndarray:
+        """(QT, 2) int32 decode table of the kernel: for an int8 plane
+        the strips that bit 7 = 0 / 1 select; for an int16 plane its
+        first dynamic slot in a step (0 when it has none)."""
+        tabs = np.zeros((self.QT, 2), np.int32)
+        for q, u in enumerate(self.used):
+            if q < self.n8:
+                if u:
+                    tabs[q] = (u[0], u[-1])
+            else:
+                tabs[q, 0] = self.dyn_off.get(q, 0)
+        return tabs
+
+
+def pack_lane_ell(A: CSR, chunk: int | None = None,
+                  loc_w: int | str = "auto",
+                  slots: int | str = "auto",
+                  hot_k: int | str = "auto",
+                  tail_strategy: str = "pallas-pell",
+                  ext: bool | str = "auto",
+                  idx8: bool = False,
+                  strip_cov: float | None = 0.985,
+                  dyn_strips: bool | str = False,
+                  dyn_k: int = 4,
+                  ov_max: int = 8, ov_budget: int = 64,
+                  aug: bool = True, undrop_min: int = 512,
+                  ded_bytes: int = 32 << 20,
+                  ded_max: int = 4, max_strips: int = 4,
+                  tail_xla_max: int = 32768,
+                  diag: str = "", x_off: int = 0,
+                  core_only: bool = False, **_) -> LanePlan:
+    """Pack ``A`` into lane-ELL slot planes (reference:
+    ``spmv_scpa_tpu/ops/lane_ell.py:prepare_lane_ell_hybrid``, its host
+    part). The knobs and their defaults are the reference's."""
+    if core_only or x_off:
+        raise NotImplementedError(
+            f"lane-ELL core_only / x_off: {_TODO_DIST}")
+
+    m, n = A.m, A.n
+    rows = A.row_ids().astype(np.int64)
+    cols = A.ja.astype(np.int64)
+    nnz = A.nnz
+
+    if (loc_w == "auto" and nnz
+            and ext == "auto" and tail_strategy == "pallas-pell"):
+        # No-locality escape: the reference delegates the whole matrix
+        # to pallas-pell when even the widest diagonal window covers a
+        # minority of entries.
+        d_cov = float(np.mean(np.abs(cols - rows)
+                              <= _LOC_CHOICES[-1]))
+        if d_cov < 0.4:
+            raise NotImplementedError(
+                f"lane-ELL hybrid: diagonal coverage {d_cov:.3f} < 0.4 "
+                f"delegates to PELL: {_TODO_PELL}")
+    if loc_w == "auto":
+        loc_w = _auto_loc_w(rows, cols) if nnz else 128
+    if loc_w % BC:
+        raise ValueError("loc_w must be a multiple of 128")
+    PL = loc_w // BC
+    S = 1 + 2 * PL               # local strips per group window
+
+    grp = rows // BC
+    off = cols - grp * BC + loc_w          # window-relative position
+    is_local = (off >= 0) & (off < S * BC)
+
+    out_cols = cols[~is_local]
+
+    if nnz and out_cols.size and ext in ("auto", True):
+        raise NotImplementedError(
+            f"lane-ELL hybrid: {out_cols.size} out-of-window entries "
+            f"would take the ext gather pipeline: {_TODO_EXT}")
+
+    if hot_k == "auto":
+        hot_k = _auto_hot_k(out_cols, nnz) if nnz else 0
+    Hs = hot_k // BC
+    hot_idx = np.zeros(Hs * BC, np.int64)
+    hot_rank = np.full(nnz, -1, np.int64)
+    if hot_k:
+        uniq, cnt = np.unique(out_cols, return_counts=True)
+        topk = uniq[np.argsort(cnt)[::-1][:hot_k]]
+        hot_idx[:topk.size] = np.sort(topk)
+        lookup = np.full(n, -1, np.int64)
+        lookup[hot_idx[:topk.size]] = np.arange(topk.size)
+        hot_rank = lookup[cols]
+        hot_rank[is_local] = -1
+
+    eligible = is_local | (hot_rank >= 0)
+
+    # per-row rank among eligible entries (CSR order = column order)
+    if nnz:
+        excl = np.cumsum(eligible) - eligible
+        start_excl = np.full(m, np.iinfo(np.int64).max, np.int64)
+        np.minimum.at(start_excl, rows, excl)
+        sl = excl - start_excl[rows]
+    else:
+        sl = np.zeros(0, np.int64)
+
+    G_est = max(1, -(-m // BC))
+    # Chips-tail feasibility probe at the smallest realistic Q (spill
+    # sets shrink with Q, so this bounds every candidate): single
+    # resident pipeline, else the local/far split proxy.
+    cheap_tail = False
+    if nnz:
+        probe0 = ~(eligible & (sl < 8))
+        if int(np.sum(probe0)):
+            pu0 = np.unique(cols[probe0]).size
+            e80 = -(-int(np.sum(probe0)) // (8 * BC)) * 8
+            if (-(-pu0 // BC) <= _CT_H_CAP
+                    and e80 * (-(-pu0 // BC)) * BC * 3
+                    <= _CT_VPU_BUDGET):
+                cheap_tail = True
+            else:
+                pf0 = probe0 & (np.abs(cols - rows) > _CT_W_LOC)
+                fu0 = np.unique(cols[pf0]).size if pf0.any() else 0
+                cheap_tail = -(-fu0 // BC) <= _CT_H_CAP
+    if slots == "auto":
+        # Minimize estimated bytes: each slot plane streams G*BC*(4+2)
+        # bytes regardless of fill, while every spilled or ineligible
+        # entry runs a tail at ~TAIL_BPN effective bytes/nnz (the
+        # reference's TPU-measured costs, kept for parity).
+        TAIL_BPN = 100 if cheap_tail else 2000
+        SCAT_B = 8000 if TAIL_BPN < 2000 else 0
+        rl_elig = np.bincount(rows[eligible], minlength=m) if nnz \
+            else np.zeros(1)
+        best_cost, Q = None, _Q_CHOICES[-1]
+        for cand in _Q_CHOICES:
+            spill = int(np.sum(eligible & (sl >= cand))) + \
+                int(np.sum(~eligible))
+            n_heavy = int(np.sum(rl_elig > cand))
+            cost = (G_est * BC * 6 * cand + TAIL_BPN * spill
+                    + SCAT_B * n_heavy)
+            if best_cost is None or cost < best_cost:
+                best_cost, Q = cost, cand
+    else:
+        Q = int(slots)
+    if chunk is None:
+        chunk = max(8, min(256, (2048 // Q) // 8 * 8))
+    take0 = eligible & (sl < Q)
+
+    # ---- strip demotion + relocation --------------------------------
+    # Each primary plane keeps only its dominant strips (cumulative
+    # coverage >= strip_cov); a demoted entry RELOCATES to another
+    # plane that kept its strip, leftovers go to overflow planes.
+    enc_all = np.where(is_local, off, S * BC + hot_rank)
+    strip_all = enc_all // BC
+    plane = np.where(take0, sl, -1)           # final plane per entry
+    nw = S + Hs
+    n_demoted = n_reloc = 0
+    unpl = np.empty(0, np.int64)
+    # ---- per-step DYNAMIC strip slots --------------------------------
+    # Encoded as NEGATIVE members of used[q] (slot j = -(j+1)); entry
+    # idx codes are nw + j (int16 planes only; dyn planes skip idx8).
+    G_tot = max(1, -(-m // BC))
+    G_pad = -(-G_tot // chunk) * chunk
+    steps = G_pad // chunk
+    dyn_k_of: dict[int, int] = {}        # plane -> dyn slot count
+    dyn_keep: dict[int, np.ndarray] = {}  # plane -> (steps, S) kept
+    dyn_pos: dict[int, np.ndarray] = {}   # plane -> (steps, S) slot j
+    dyn_tab: dict[int, np.ndarray] = {}   # plane -> (steps, K) strips
+    dyn_on = dyn_strips if dyn_strips != "auto" else True
+    if nnz and strip_cov is not None and Q > 0:
+        pair, cnt = np.unique(sl[take0] * nw + strip_all[take0],
+                              return_counts=True)
+        keep = np.zeros((Q, nw), bool)
+        ti = np.flatnonzero(take0)
+        step_all = grp // chunk
+        for q in range(Q):
+            msk = (pair // nw) == q
+            if not msk.any():
+                continue
+            ws, cs = pair[msk] % nw, cnt[msk]
+            n_loc = int(np.sum(ws < S))
+            if dyn_on and n_loc > max_strips:
+                # dynamic plane: hot strips stay static members;
+                # local strips ride per-step slots
+                keep[q, ws[ws >= S]] = True
+                ei = ti[sl[ti] == q]
+                li = ei[strip_all[ei] < S]
+                hist = np.zeros((steps, S), np.int64)
+                np.add.at(hist, (step_all[li], strip_all[li]), 1)
+                K = int(min(dyn_k, max(1, int((hist > 0).sum(
+                    axis=1).max(initial=1)))))
+                # top-K strips per step; ties broken by strip id
+                part = np.argpartition(-hist, K - 1, axis=1)[:, :K]
+                kept = np.zeros((steps, S), bool)
+                np.put_along_axis(kept, part, True, axis=1)
+                kept &= hist > 0
+                # never keep a zero-count slot; stable slot order by
+                # strip id so the table is deterministic
+                pos = np.full((steps, S), -1, np.int64)
+                srt = np.sort(np.where(kept, np.arange(S)[None, :],
+                                       S), axis=1)[:, :K]
+                for j in range(K):
+                    sj = srt[:, j]
+                    ok = sj < S
+                    pos[np.flatnonzero(ok), sj[ok]] = j
+                dyn_k_of[q] = K
+                dyn_keep[q] = kept
+                dyn_pos[q] = pos
+                dyn_tab[q] = np.where(srt < S, srt, 0).astype(np.int32)
+                continue
+            order = np.argsort(cs)                    # ascending
+            cum = np.cumsum(cs[order])
+            ndrop = int(np.searchsorted(
+                cum, (1 - strip_cov) * cum[-1], side="right"))
+            # hard cap: keep at most max_strips and let relocation +
+            # dedicated overflow planes absorb the rest
+            ndrop = max(ndrop, len(ws) - max_strips)
+            ndrop = min(ndrop, len(ws) - 1)
+            keep[q, ws[order[ndrop:]]] = True
+        nat = np.zeros(nnz, bool)
+        nat[ti] = keep[sl[ti], strip_all[ti]]
+        for q, kept in dyn_keep.items():
+            ei = ti[sl[ti] == q]
+            li = ei[strip_all[ei] < S]
+            nat[li] = kept[step_all[li], strip_all[li]]
+        unpl = np.flatnonzero(take0 & ~nat)
+        n_demoted = int(unpl.size)
+        plane[unpl] = -1
+        if unpl.size:
+            base_keys = np.sort(rows[nat] * (Q + 1) + sl[nat])
+            extra_keys = np.empty(0, np.int64)
+
+            def _in_sorted(keys, arr):
+                if not arr.size:
+                    return np.zeros(keys.shape, bool)
+                p = np.minimum(np.searchsorted(arr, keys), arr.size - 1)
+                return arr[p] == keys
+
+            # per-strip keeper-plane lists, tried round-robin (spread
+            # by row so same-strip entries of one row hit distinct
+            # planes in the same pass); dynamic planes accept only
+            # their STATIC members
+            def _reloc(unpl, extra_keys):
+                kp = [np.flatnonzero(keep[:, w]) for w in range(nw)]
+                kp_size = np.array([p.size for p in kp])
+                kp_len = np.maximum(kp_size, 1)
+                kp_tab = np.zeros((nw, int(kp_len.max(initial=1))),
+                                  np.int64)
+                for w, p in enumerate(kp):
+                    if p.size:
+                        kp_tab[w, :p.size] = p
+                n_pass = int(min(kp_len.max(initial=1), 24))
+                for t in range(n_pass):
+                    if not unpl.size:
+                        break
+                    w_u = strip_all[unpl]
+                    slot = (rows[unpl] + t) % kp_len[w_u]
+                    q2 = kp_tab[w_u, slot]
+                    oki = np.flatnonzero(kp_size[w_u] > 0)
+                    if not oki.size:
+                        break
+                    key = rows[unpl[oki]] * (Q + 1) + q2[oki]
+                    free = ~(_in_sorted(key, base_keys)
+                             | _in_sorted(key, extra_keys))
+                    oki, key = oki[free], key[free]
+                    if not oki.size:
+                        continue
+                    _, first = np.unique(key, return_index=True)
+                    oki, key = oki[first], key[first]
+                    plane[unpl[oki]] = q2[oki]
+                    extra_keys = np.sort(np.concatenate([extra_keys,
+                                                         key]))
+                    unpl = np.delete(unpl, oki)
+                return unpl, extra_keys
+
+            unpl, extra_keys = _reloc(unpl, extra_keys)
+
+            # ---- relocation-target augmentation ---------------------
+            # Add a starved strip to high-free-capacity planes while
+            # >= 1024 leftovers could route to each added keeper.
+            if aug and unpl.size > 2048:
+                occ = np.bincount(plane[plane >= 0], minlength=Q)[:Q]
+                free_q = m - occ
+                w_left = strip_all[unpl]
+                mass = np.bincount(w_left, minlength=nw)
+                added = 0
+                for w in np.argsort(-mass):
+                    if mass[w] < 2048:
+                        continue
+                    # a row with k same-strip leftovers needs k
+                    # DISTINCT keeper planes with a free slot in that
+                    # row — size the augmentation by the per-(row)
+                    # rank tiers
+                    lw = unpl[w_left == w]
+                    rk = np.bincount(
+                        np.unique(rows[lw], return_inverse=True)[1])
+                    tier_sz = np.bincount(
+                        np.concatenate([np.arange(k) for k in rk]))
+                    n_add = int(np.sum(tier_sz >= 1024))
+                    # int8-aware target order: prefer planes already at
+                    # >= 3 strips, then 1-strip planes, then 2-strip
+                    n_aug = keep[:Q].sum(axis=1)
+                    cand = sorted(
+                        (q for q in range(Q)
+                         if not keep[q, w] and q not in dyn_k_of
+                         and free_q[q] >= 1024),
+                        key=lambda q: (0 if n_aug[q] >= 3 else
+                                       1 if n_aug[q] <= 1 else 2,
+                                       -free_q[q]))
+                    for q in cand[:n_add]:
+                        if added >= 24:
+                            break
+                        keep[q, w] = True
+                        added += 1
+                if added:
+                    unpl, extra_keys = _reloc(unpl, extra_keys)
+
+            # ---- post-relocation undrop -----------------------------
+            # Return a leftover GROUP to its native (plane, strip) when
+            # the group has >= undrop_min entries or the pass already
+            # exists, and its native slot wasn't taken by a relocation.
+            if unpl.size and undrop_min:
+                gkey = sl[unpl] * np.int64(nw) + strip_all[unpl]
+                skey = rows[unpl] * (Q + 1) + sl[unpl]
+                taken = _in_sorted(skey, extra_keys)
+                u_g, inv_g, c_g = np.unique(
+                    gkey, return_inverse=True, return_counts=True)
+                pm = plane >= 0
+                present = np.unique(plane[pm] * np.int64(nw)
+                                    + strip_all[pm])
+                free_pass = _in_sorted(gkey, present)
+                back = ((c_g[inv_g] >= undrop_min) | free_pass) & ~taken
+                plane[unpl[back]] = sl[unpl[back]]
+                unpl = unpl[~back]
+        n_reloc = n_demoted - int(unpl.size)
+
+    # Leftovers whose row is ALREADY heavy (rank-spilled past Q) ride
+    # the tail, which holds the row regardless.
+    if unpl.size and cheap_tail:
+        rl_all = np.bincount(rows[eligible], minlength=m)
+        already_heavy = rl_all[rows[unpl]] > Q
+        unpl = unpl[~already_heavy]
+
+    # Overflow planes for unrelocatable leftovers, in two tiers:
+    # (a) strip-wise DEDICATED planes — single-strip, sized to each
+    #     strip's max per-(row,strip) count;
+    # (b) a few catch-all planes (full decode) for the remainder.
+    next_q = Q
+    G_tot0 = max(1, -(-m // BC))
+    ov_budget = min(ov_budget,
+                    max(0, int(ded_bytes // (G_tot0 * BC * 6))))
+    # a TINY residue rides the compact tail instead of spawning
+    # near-empty dedicated/catch-all planes
+    if aug and unpl.size <= 384:
+        unpl = np.empty(0, np.int64)
+    if unpl.size:
+        w_u = strip_all[unpl]
+        key = w_u * np.int64(m + 1) + rows[unpl]
+        order = np.argsort(key, kind="stable")
+        ks = key[order]
+        newgrp = np.r_[True, ks[1:] != ks[:-1]]
+        first = np.flatnonzero(newgrp)
+        gid = np.cumsum(newgrp) - 1
+        rank = np.arange(ks.size) - first[gid]
+        rank_u = np.empty(unpl.size, np.int64)
+        rank_u[order] = rank
+        strip_mass = np.bincount(w_u, minlength=nw)
+        placed_mask = np.zeros(unpl.size, bool)
+        for w in np.argsort(-strip_mass):
+            if strip_mass[w] == 0 or next_q - Q >= ov_budget:
+                break
+            mw = w_u == w
+            k_w = min(int(rank_u[mw].max()) + 1, ded_max,
+                      Q + ov_budget - next_q)
+            hit = mw & (rank_u < k_w)
+            plane[unpl[hit]] = next_q + rank_u[hit]
+            placed_mask |= hit
+            next_q += k_w
+        unpl = unpl[~placed_mask]
+    catch0 = next_q
+    if unpl.size:
+        rem = np.zeros(nnz, bool)
+        rem[unpl] = True
+        excl2 = np.cumsum(rem) - rem
+        start2 = np.full(m, np.iinfo(np.int64).max, np.int64)
+        np.minimum.at(start2, rows, excl2)
+        sl2 = excl2 - start2[rows]
+        ov = rem & (sl2 < ov_max)
+        plane[ov] = next_q + sl2[ov]
+        if ov.any():
+            next_q += int(sl2[ov].max()) + 1
+    # Catch-all planes get per-step DYNAMIC local strips instead of the
+    # full strip decode; the per-step top-dyn_k keeps most entries and
+    # the rest join the tail.
+    if next_q > catch0 and nnz:
+        step_all2 = grp // chunk
+        for qc in range(catch0, next_q):
+            ei = np.flatnonzero(plane == qc)
+            li = ei[strip_all[ei] < S]
+            if not li.size:
+                continue
+            hist = np.zeros((steps, S), np.int64)
+            np.add.at(hist, (step_all2[li], strip_all[li]), 1)
+            n_strips_q = int(np.unique(strip_all[li]).size)
+            if n_strips_q <= max_strips:
+                continue                   # static set already short
+            K = int(min(dyn_k, max(1, int((hist > 0).sum(
+                axis=1).max(initial=1)))))
+            part = np.argpartition(-hist, K - 1, axis=1)[:, :K]
+            kept = np.zeros((steps, S), bool)
+            np.put_along_axis(kept, part, True, axis=1)
+            kept &= hist > 0
+            pos = np.full((steps, S), -1, np.int64)
+            srt = np.sort(np.where(kept, np.arange(S)[None, :], S),
+                          axis=1)[:, :K]
+            for j in range(K):
+                sj = srt[:, j]
+                ok = sj < S
+                pos[np.flatnonzero(ok), sj[ok]] = j
+            drop = li[~kept[step_all2[li], strip_all[li]]]
+            plane[drop] = -1
+            dyn_k_of[qc] = K
+            dyn_keep[qc] = kept
+            dyn_pos[qc] = pos
+            dyn_tab[qc] = np.where(srt < S, srt, 0).astype(np.int32)
+    Qo = next_q - Q
+    take = plane >= 0
+    QT = Q + Qo
+
+    # ---- cost-aware demotion acceptance ------------------------------
+    # Demotion trades streamed plane bytes (each plane: 6 B/lane/step)
+    # for select passes (~SEL_B bytes-equivalent each); compare both
+    # packings and keep the cheaper.
+    if n_demoted and nnz:
+        def _strip_ops(pl_arr, msk):
+            return np.unique(pl_arr[msk] * np.int64(nw)
+                             + strip_all[msk]).size
+        if dyn_k_of:
+            # dynamic planes run exactly K select passes per step;
+            # count their static (hot) members from entries as usual
+            dv = np.zeros(QT, bool)
+            dv[list(dyn_k_of)] = True
+            in_dyn = (plane >= 0) & dv[np.clip(plane, 0, QT - 1)]
+            stat = take & (~in_dyn | (strip_all >= S))
+            ops_d = _strip_ops(plane, stat) + sum(dyn_k_of.values())
+        else:
+            ops_d = _strip_ops(plane, take)
+        plane_n = np.where(take0, sl, -1)
+        ops_n = _strip_ops(plane_n, take0)
+        n_tail_d = int(np.sum(take0 & ~take))   # demotion leftovers
+        tb = 100 if cheap_tail else 2000
+        cost_d = (QT * 6 + max(ops_d - QT, 0) * SEL_B) * G_pad * BC \
+            + n_tail_d * tb
+        cost_n = (Q * 6 + max(ops_n - Q, 0) * SEL_B) * G_pad * BC
+        if cost_n < cost_d:
+            plane = plane_n
+            take = plane >= 0
+            Qo, QT = 0, Q
+            n_demoted = n_reloc = 0
+            dyn_k_of, dyn_keep = {}, {}
+            dyn_pos, dyn_tab = {}, {}
+
+    # overflow-plane occupancy BEFORE the idx8 remap permutes ids
+    n_ov_nnz = int(np.sum(plane >= Q)) if nnz else 0
+
+    # ---- pack plane-major arrays ------------------------------------
+    sets: list[tuple] = [() for _ in range(QT)]
+    if nnz:
+        pq = plane[take]
+        pw = (enc_all[take] // BC).astype(np.int64)
+        # dynamic planes list their local strips as negative SLOT
+        # members (-1.. -K), not as static strips
+        dyn_loc = np.zeros(take.sum() if nnz else 0, bool)
+        if dyn_k_of:
+            dvec = np.zeros(QT, bool)
+            dvec[list(dyn_k_of)] = True
+            dyn_loc = dvec[pq] & (pw < S)
+        qs = np.unique(np.stack([pq[~dyn_loc], pw[~dyn_loc]]), axis=1)
+        acc_sets: list[set] = [set() for _ in range(QT)]
+        for q, w in qs.T:
+            acc_sets[int(q)].add(int(w))
+        for q, K in dyn_k_of.items():
+            acc_sets[q].update(-(j + 1) for j in range(K))
+        sets = [tuple(sorted(u)) for u in acc_sets]
+    n8 = 0
+    second8 = np.zeros(0, np.int64)
+    if idx8 and nnz:
+        order, sets, n8, second8 = idx8_partition(sets, chunk)
+        remap = np.zeros(QT, np.int64)
+        for newq, oldq in enumerate(order):
+            remap[oldq] = newq
+        plane[take] = remap[plane[take]]
+        dyn_k_of = {int(remap[q]): K for q, K in dyn_k_of.items()}
+        dyn_pos = {int(remap[q]): v for q, v in dyn_pos.items()}
+        dyn_tab = {int(remap[q]): v for q, v in dyn_tab.items()}
+    used_t = tuple(sets)
+    n16 = QT - n8
+
+    vals_a = np.zeros((steps * QT * chunk, BC), np.float32)
+    idx_a = np.zeros((steps * n16 * chunk, BC), np.int16)
+    idx8_a = np.zeros((steps * n8 * chunk, BC), np.int8)
+    if nnz:
+        tg = grp[take]
+        tq = plane[take]
+        lane = (rows[take] % BC).astype(np.int64)
+        enc = enc_all[take].copy()
+        if dyn_k_of:
+            st_t = tg // chunk
+            pw_t = enc // BC          # absolute strip id
+            for q, posq in dyn_pos.items():
+                mloc = (tq == q) & (pw_t < S)
+                if not mloc.any():
+                    continue
+                j = posq[st_t[mloc], pw_t[mloc]]
+                if (j < 0).any():
+                    raise AssertionError("dyn slot missing for kept entry")
+                enc[mloc] = (nw + j) * BC + enc[mloc] % BC
+        arow = (tg // chunk) * (QT * chunk) + tq * chunk + tg % chunk
+        vals_a[arow, lane] = A.as_[take]
+        m16 = tq >= n8
+        if m16.any():
+            arow16 = ((tg[m16] // chunk) * (n16 * chunk)
+                      + (tq[m16] - n8) * chunk + tg[m16] % chunk)
+            idx_a[arow16, lane[m16]] = enc[m16].astype(np.int16)
+        if n8:
+            m8 = ~m16
+            arow8 = ((tg[m8] // chunk) * (n8 * chunk)
+                     + tq[m8] * chunk + tg[m8] % chunk)
+            idx8_a[arow8, lane[m8]] = idx8_encode(enc[m8],
+                                                  second8[tq[m8]])
+
+    # resident x: loc_w left pad + local span + window slack, then hot
+    P_pad = G_pad + S            # window read for the last step fits
+    x_bytes = (P_pad + Hs) * BC * 4
+    if x_bytes > X_VMEM_BUDGET:
+        # the reference's TPU VMEM refusal, kept for parity until
+        # ROADMAP queue 1 #5 drops it
+        raise ValueError(
+            f"lane-ELL hybrid: resident x ({x_bytes} B) exceeds the "
+            f"budget {X_VMEM_BUDGET} B")
+    n_local = min(n, P_pad * BC - loc_w)
+
+    # per-step dynamic strip table, flattened
+    dyn_off: dict[int, int] = {}
+    TD = 0
+    for q in sorted(dyn_k_of):
+        dyn_off[q] = TD
+        TD += dyn_k_of[q]
+    dynw_a = np.zeros((steps, TD), np.int32)
+    for q, tab in dyn_tab.items():
+        dynw_a[:, dyn_off[q]:dyn_off[q] + dyn_k_of[q]] = tab
+
+    # ---- compact tail ------------------------------------------------
+    tail_nnz = int(np.sum(~take)) if nnz else 0
+    if "notail" in diag:        # diag-only: results invalid, core cost
+        tail_nnz = 0
+    if tail_nnz >= 2048 and "nochips" not in diag:
+        raise NotImplementedError(
+            f"lane-ELL hybrid: a {tail_nnz}-entry tail takes the chips "
+            f"tail: {_TODO_CHIPS}")
+    if tail_nnz > tail_xla_max:
+        raise NotImplementedError(
+            f"lane-ELL hybrid: a {tail_nnz}-entry tail exceeds "
+            f"tail_xla_max={tail_xla_max}: {_TODO_BIG_TAIL}")
+    tm = ~take if tail_nnz else np.zeros(nnz, bool)
+
+    meta = {"loc_w": loc_w, "slots": Q, "ov_slots": Qo,
+            "hot_k": hot_k, "idx8_planes": n8,
+            "ext": False, "ext_h": 0, "ext_windowed": False,
+            "ext_r_hot": 0, "ext_groups": 0, "ext_cov": None,
+            "strips": S, "hot_strips": Hs, "chunk": chunk,
+            "steps": steps,
+            "strip_ops": sum(len(u) for u in used_t),
+            "dyn_planes": len(dyn_k_of),
+            "dyn_k": max(dyn_k_of.values(), default=0),
+            "demoted": n_demoted, "relocated": n_reloc,
+            "ov_nnz": n_ov_nnz,
+            "fill": float(np.sum(take)) / max(G_pad * QT * BC, 1),
+            "tail_nnz": tail_nnz,
+            "tail_kind": "torch-compact" if tail_nnz else None,
+            "tail_meta": None,
+            "tail_frac": tail_nnz / max(nnz, 1)}
+    cfg = LaneCfg(QT=QT, n8=n8, chunk=chunk, steps=steps, S=S, nw=nw,
+                  TD=TD, P_pad=P_pad)
+    return LanePlan(
+        cfg=cfg, vals_a=vals_a, idx8_a=idx8_a, idx_a=idx_a, used=used_t,
+        hot_idx=hot_idx, dynw_a=dynw_a.reshape(-1), dyn_off=dyn_off,
+        Q=Q, Qo=Qo, loc_w=loc_w, n_local=n_local, m=m,
+        trows=rows[tm], tcols=cols[tm], tvals=A.as_[tm], meta=meta)
+
+
+# ---------------------------------------------------------------------------
+# The core kernel and its plain version
+# ---------------------------------------------------------------------------
+
+def _check_args(xpad, vals, idx8, idx16, plane_tabs, dynw, cfg: LaneCfg):
+    want = {
+        "xpad": (xpad, torch.float32, ((cfg.P_pad + cfg.Hs) * BC,)),
+        "vals": (vals, torch.float32, (cfg.steps * cfg.QT * cfg.chunk, BC)),
+        "idx8": (idx8, torch.int8, (cfg.steps * cfg.n8 * cfg.chunk, BC)),
+        "idx16": (idx16, torch.int16,
+                  (cfg.steps * (cfg.QT - cfg.n8) * cfg.chunk, BC)),
+        "plane_tabs": (plane_tabs, torch.int32, (cfg.QT, 2)),
+        "dynw": (dynw, torch.int32, (cfg.steps * cfg.TD,)),
+    }
+    for name, (t, dtype, shape) in want.items():
+        if t.device != xpad.device:
+            raise ValueError(f"lane_ell_spmv: {name} is on {t.device}, "
+                             f"xpad on {xpad.device}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"lane_ell_spmv: {name} is {t.dtype} "
+                             f"{tuple(t.shape)}, expected {dtype} {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"lane_ell_spmv: {name} is not contiguous")
+
+
+def lane_ell_spmv(xpad, vals, idx8, idx16, plane_tabs, dynw,
+                  cfg: LaneCfg) -> torch.Tensor:
+    """Core lane-ELL SpMV: ``y`` of shape (G_pad*128,) f32 (row
+    ``g*128 + l``). CUDA tensors launch ``csrc/lane_ell.cu`` on the
+    current stream; CPU tensors run :func:`lane_ell_spmv_plain`."""
+    global KERNEL_LAUNCHES
+    _check_args(xpad, vals, idx8, idx16, plane_tabs, dynw, cfg)
+    if xpad.device.type == "cpu":
+        return lane_ell_spmv_plain(xpad, vals, idx8, idx16, plane_tabs,
+                                   dynw, cfg)
+    if xpad.device.type != "cuda":
+        raise ValueError(f"lane_ell_spmv: unsupported device {xpad.device}")
+    lib = _kernels.load("lane_ell")
+    y = torch.empty(cfg.G_pad * BC, dtype=torch.float32, device=xpad.device)
+    err = lib.lane_ell_spmv(
+        xpad.data_ptr(), vals.data_ptr(), idx8.data_ptr(),
+        idx16.data_ptr(), plane_tabs.data_ptr(), dynw.data_ptr(),
+        y.data_ptr(), cfg.G_pad, cfg.QT, cfg.n8, cfg.chunk, cfg.S, cfg.nw,
+        cfg.TD, cfg.P_pad, _kernels.stream_handle(xpad.device))
+    _kernels.check(lib, err, "lane_ell_spmv")
+    KERNEL_LAUNCHES += 1
+    return y
+
+
+def lane_ell_spmv_plain(xpad, vals, idx8, idx16, plane_tabs, dynw,
+                        cfg: LaneCfg) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch ops: per plane in ascending
+    order, decode each slot to an absolute padded-x index, gather,
+    multiply and add in f32 (product and sum rounded separately, as the
+    kernel does)."""
+    QT, n8, chunk, steps, S, nw = (cfg.QT, cfg.n8, cfg.chunk, cfg.steps,
+                                   cfg.S, cfg.nw)
+    dev = xpad.device
+    v4 = vals.view(steps, QT, chunk, BC)
+    i8 = idx8.view(steps, n8, chunk, BC)
+    i16 = idx16.view(steps, QT - n8, chunk, BC)
+    tabs = plane_tabs.to(torch.int64)
+    g = torch.arange(cfg.G_pad, device=dev).view(steps, chunk, 1)
+    step_of = torch.arange(steps, device=dev).view(steps, 1, 1)
+    acc = torch.zeros(steps, chunk, BC, dtype=torch.float32, device=dev)
+    for q in range(QT):
+        if q < n8:
+            code = i8[:, q].to(torch.int64) & 255
+            strip = torch.where((code >> 7) == 1, tabs[q, 1], tabs[q, 0])
+        else:
+            code = i16[:, q - n8].to(torch.int64)
+            strip = code >> 7
+            if cfg.TD:
+                slot = (step_of * cfg.TD + tabs[q, 0]
+                        + (strip - nw).clamp(min=0))
+                strip = torch.where(
+                    strip >= nw,
+                    dynw[slot.clamp(max=dynw.numel() - 1)].to(torch.int64),
+                    strip)
+        xrow = torch.where(strip < S, g + strip, cfg.P_pad + strip - S)
+        acc = acc + v4[:, q] * xpad[xrow * BC + (code & 127)]
+    return acc.reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# The strategy
+# ---------------------------------------------------------------------------
+
+def prepare_lane_ell_hybrid(A: CSR, device="cuda", **knobs):
+    """Pack ``A`` (:func:`pack_lane_ell`, same knobs as the reference)
+    and bind ``fn(x) -> y`` on ``device``: stage x, run the core, add
+    the compact tail. ``device`` defaults to the card and raises
+    without one; ``"cpu"`` runs the plain version."""
+    dev = resolve_device(device)
+    plan = pack_lane_ell(A, **knobs)
+    cfg = plan.cfg
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    vals = put(plan.vals_a, torch.float32)
+    idx8 = put(plan.idx8_a, torch.int8)
+    idx16 = put(plan.idx_a, torch.int16)
+    tabs = put(plan.plane_tabs(), torch.int32)
+    dynw = put(plan.dynw_a, torch.int32)
+    hot = put(plan.hot_idx, torch.int64)
+    trows = put(plan.trows, torch.int64)
+    tcols = put(plan.tcols, torch.int64)
+    tvals = put(plan.tvals, torch.float32)
+    has_tail = plan.trows.size > 0
+    loc_w, n_local, m, n = plan.loc_w, plan.n_local, plan.m, A.n
+
+    def stage(xf):
+        """x (f32 on ``dev``) -> the core's arguments: the padded x is
+        the loc_w left pad, x, window slack, then the hot columns."""
+        xpad = torch.zeros((cfg.P_pad + cfg.Hs) * BC, dtype=torch.float32,
+                           device=dev)
+        xpad[loc_w:loc_w + n_local] = xf[:n_local]
+        if cfg.Hs:
+            xpad[cfg.P_pad * BC:] = xf[hot]
+        return xpad, vals, idx8, idx16, tabs, dynw, cfg
+
+    def run(x, core):
+        xf = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        if xf.shape != (n,):
+            raise ValueError(f"cuda-hybrid: x has shape {tuple(xf.shape)}, "
+                             f"expected ({n},)")
+        y = core(*stage(xf))[:m]
+        if has_tail:
+            y.index_add_(0, trows, tvals * xf[tcols])
+        return y
+
+    hbm = cfg.steps * cfg.chunk * BC * plan.slot_bytes \
+        + plan.trows.size * 12
+    return Prepared(
+        "cuda-hybrid", A.name, lambda x: run(x, lane_ell_spmv),
+        device=dev, nnz=A.nnz, ref="pallas-hybrid", hbm_bytes=int(hbm),
+        meta=plan.meta, plain=lambda x: run(x, lane_ell_spmv_plain),
+        kernel_inputs=stage)
