@@ -8,14 +8,16 @@ becomes a hand-written Hopper kernel (``csrc/``, built by nvcc for
 ``sm_90a`` on first use, see ``_kernels.py``) with a plain PyTorch
 version beside it.
 
-This slice is the main path: ``spmv(A, x)`` on a matrix with diagonal
-locality through the lane-ELL hybrid (``cuda-hybrid``), the baselines,
-CUDA-event timing and the stream-probe roofline. JAX-free host modules
-of the reference (CSR, loader, synthetic matrices, oracle, validation)
-are imported from it, not copied.
+``spmv(A, x)`` on a matrix with diagonal locality runs the lane-ELL
+hybrid (``cuda-hybrid``): its core, the ext gather route for
+out-of-window entries and the chips tail for spilled rows. Beside it
+sit the baselines, CUDA-event timing and the stream-probe roofline.
+The port imports nothing of the JAX package: the host modules it needs
+(CSR, loader, synthetic matrices, oracle, validation) are its own
+copies, held equal to the originals by the tests.
 """
 
-from spmv_scpa_tpu.io.loader import load_csr
+from spmv_scpa_tpu_torch.io.loader import load_csr
 from spmv_scpa_tpu_torch.ops.registry import (
     get_strategy,
     list_strategies,

@@ -36,9 +36,13 @@ I64 = ctypes.c_int64
 
 # C entry points of each source: name -> argtypes (restype is int).
 SIGNATURES = {
-    "lane_ell": {"lane_ell_spmv": (P, P, P, P, P, P, P,
-                                   I, I, I, I, I, I, I, I, P)},
+    "lane_ell": {"lane_ell_spmv": (P, P, P, P, P, P, P, P,
+                                   I, I, I, I, I, I, I, I, I, P)},
     "stream_probe": {"stream_reduce": (P, I64, I, P, P)},
+    "ext_gather": {"sorted_gather": (P, P, P, P, P, I, I, I64, P),
+                   "ranked_gather": (P, P, P, P, I, I, P),
+                   "window_gather": (P, P, P, P, P, I, I, I64, P)},
+    "segsum": {"window_segsum": (P, P, P, P, P, I, I, I, I, P)},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -64,22 +68,39 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
-    if out.exists():
-        return out
+    return build_all([name])[0]
+
+
+def build_all(names=None) -> list[Path]:
+    """Compile the given sources (all of ``SIGNATURES`` by default) that
+    are not built yet, one nvcc process each, all started together."""
+    names = list(SIGNATURES if names is None else names)
+    outs = [library_path(name) for name in names]
+    todo = [(name, out) for name, out in zip(names, outs)
+            if not out.exists()]
+    if not todo:
+        return outs
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed to build csrc/{name}.cu (exit "
-            f"{proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    procs = []
+    for name, out in todo:
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs.append((name, out, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        _, stderr = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build csrc/{name}.cu (exit "
+                          f"{proc.returncode}):\n{stderr}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -95,10 +116,6 @@ def load(name: str) -> ctypes.CDLL:
         lib.spmv_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
     return lib
-
-
-def build_all() -> list[Path]:
-    return [build(name) for name in SIGNATURES]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

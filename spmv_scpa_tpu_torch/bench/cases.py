@@ -1,20 +1,56 @@
 """The matrices the port is checked and measured on.
 
 ``SMALL_CASES`` are the small parity matrices with their packing
-knobs; between them they reach every branch of the core kernel.
-``flagship`` is the main path's full-size input: the ML_Laplace
-stand-in of ``bench.py`` (22,588,601 nnz, the size of the SuiteSparse
-ML_Laplace the reference study benchmarks) with bench.py's knobs.
+knobs; between them they reach every branch of the core kernel and each
+kernel of the ext route and the chips tail. ``flagship`` is the main
+path's full-size input: the ML_Laplace stand-in of ``bench.py``
+(22,588,601 nnz, the size of the SuiteSparse ML_Laplace the reference
+study benchmarks) with bench.py's knobs. ``amazon262k`` is the
+amazon0302 stand-in of ``scripts/results.py`` (262,000 rows, about 1M
+nnz; amazon0302 has 262,111 rows and 1.23M nnz), which takes the ext
+route (resident stage 2) and the chips tail with default knobs.
+``ext_windowed1m`` is the windowed ext construction at webbase-1M's row
+count (1,000,000 rows, 5M nnz), the full-size input of the windowed
+stage 2.
 """
 
 from __future__ import annotations
 
-from spmv_scpa_tpu import testing as synth
+import numpy as np
+
+from spmv_scpa_tpu_torch import testing as synth
+from spmv_scpa_tpu_torch.formats.csr import CSR
 
 
 def _stencil4k():
     return synth.stencil_csr(4000, points=6, run_len=8, bandwidth=300,
                              seed=2)
+
+
+def ext_windowed(m: int) -> CSR:
+    """Four near-diagonal entries per row plus one at diagonal + 8000
+    (tests/test_lane_ell.py:258-277): the out-of-window columns form a
+    narrow band per row group, so the ext planner takes the windowed
+    stage 2. Integer and normal draws only, so every numpy version gives
+    the same matrix."""
+    rng = np.random.default_rng(9)
+    n = m
+    r_loc = np.repeat(np.arange(m, dtype=np.int64), 4)
+    c_loc = (r_loc + rng.integers(-30, 30, r_loc.size)) % n
+    r_out = np.arange(m, dtype=np.int64)
+    c_out = (r_out + 8000 + rng.integers(0, 64, m)) % n
+    rows = np.concatenate([r_loc, r_out])
+    cols = np.concatenate([c_loc, c_out])
+    vals = rng.standard_normal(rows.size)
+    return CSR.from_coo("ext_windowed", m, n, rows, cols, vals)
+
+
+def ext_windowed40k() -> CSR:
+    return ext_windowed(40_000)
+
+
+def ext_windowed1m() -> CSR:
+    return ext_windowed(1_000_000)
 
 
 # name -> (matrix factory, prepare knobs)
@@ -35,6 +71,11 @@ SMALL_CASES = {
     # version gives this matrix catch-all planes)
     "amazon20k": (lambda: synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4),
                   {"ext": False, "diag": "nochips"}),
+    # default knobs: ext panels with the resident stage 2, and a chips
+    # tail with the ranked heavy-row merge
+    "amazon60k": (lambda: synth.amazon_csr(m=60000, seed=6), {}),
+    # ext panels with the windowed stage 2, compact tail
+    "ext-windowed40k": (ext_windowed40k, {}),
 }
 
 FLAGSHIP_KNOBS = {"idx8": True, "undrop_min": 2048}
@@ -43,3 +84,7 @@ FLAGSHIP_KNOBS = {"idx8": True, "undrop_min": 2048}
 def flagship():
     return synth.stencil_csr(377_000, points=6, run_len=12, bandwidth=500,
                              seed=3, name="ml_laplace_like")
+
+
+def amazon262k():
+    return synth.amazon_csr(m=262_000, seed=6)

@@ -19,7 +19,9 @@
 // lanes) is dropped: each slot decodes to one absolute index into the
 // padded x and reads it through L2. Products and sums are rounded
 // separately (no FMA contraction) in ascending plane order, so the result
-// equals the plain PyTorch version bit for bit.
+// equals the plain PyTorch version bit for bit. The ext strip is a template
+// branch: a matrix without ext panels runs the instantiation that has no
+// ext compare at all, the same code as before ext existed.
 //
 // Layout (all row-major with 128 lanes):
 //   vals  (steps*QT*chunk, 128) f32;  group g = step*chunk + c, plane q
@@ -29,8 +31,11 @@
 //         are the lane within the strip.
 //   idx16 plane q >= n8: strip = code >> 7; a strip >= nw is dynamic slot
 //         j = strip - nw, whose strip is dynw[step*TD + tabs[q][0] + j].
-//   strip s < S reads xpad row g + s (the sliding local window); a hot
-//   strip s >= S reads xpad row P_pad + s - S.
+//   strip s < S reads xpad row g + s (the sliding local window); strip
+//   ext_w (>= S, or -1 when the matrix has no ext panels) reads lane
+//   `code & 127` of the group's own ext panel, ext row g (the TPU kernel's
+//   step-aligned ext block, lane_ell.py:251-253); any other strip s >= S
+//   is a hot strip and reads xpad row P_pad + s - S.
 // Padding slots hold value 0 and decode to a valid x address.
 
 #include <cstdint>
@@ -40,6 +45,7 @@ namespace {
 
 constexpr int kLanes = 128;
 
+template <bool kExt>
 __global__ void __launch_bounds__(kLanes)
 lane_ell_kernel(const float* __restrict__ xpad,
                 const float* __restrict__ vals,
@@ -47,9 +53,10 @@ lane_ell_kernel(const float* __restrict__ xpad,
                 const int16_t* __restrict__ idx16,
                 const int* __restrict__ tabs,
                 const int* __restrict__ dynw,
+                const float* __restrict__ ext,
                 float* __restrict__ y,
                 int QT, int n8, int chunk, int S, int nw, int TD,
-                int P_pad) {
+                int P_pad, int ext_w) {
   const int g = blockIdx.x;
   const int lane = threadIdx.x;
   const int step = g / chunk;
@@ -73,9 +80,15 @@ lane_ell_kernel(const float* __restrict__ xpad,
         strip = __ldg(dynw + static_cast<int64_t>(step) * TD
                       + __ldg(tabs + 2 * q) + (strip - nw));
     }
-    const int64_t xrow = strip < S ? static_cast<int64_t>(g) + strip
-                                   : static_cast<int64_t>(P_pad) + strip - S;
-    const float xv = __ldg(xpad + xrow * kLanes + (code & (kLanes - 1)));
+    const int xl = code & (kLanes - 1);
+    float xv;
+    if (kExt && strip == ext_w) {
+      xv = __ldg(ext + static_cast<int64_t>(g) * kLanes + xl);
+    } else {
+      const int64_t xrow = strip < S ? static_cast<int64_t>(g) + strip
+                                     : static_cast<int64_t>(P_pad) + strip - S;
+      xv = __ldg(xpad + xrow * kLanes + xl);
+    }
     acc = __fadd_rn(acc, __fmul_rn(v, xv));
   }
   y[static_cast<int64_t>(g) * kLanes + lane] = acc;
@@ -85,17 +98,19 @@ lane_ell_kernel(const float* __restrict__ xpad,
 
 extern "C" int lane_ell_spmv(const void* xpad, const void* vals,
                              const void* idx8, const void* idx16,
-                             const void* tabs, const void* dynw, void* y,
-                             int G_pad, int QT, int n8, int chunk, int S,
-                             int nw, int TD, int P_pad, void* stream) {
-  if (G_pad > 0)
-    lane_ell_kernel<<<G_pad, kLanes, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+                             const void* tabs, const void* dynw,
+                             const void* ext, void* y, int G_pad, int QT,
+                             int n8, int chunk, int S, int nw, int TD,
+                             int P_pad, int ext_w, void* stream) {
+  if (G_pad > 0) {
+    auto kernel = ext_w >= 0 ? lane_ell_kernel<true> : lane_ell_kernel<false>;
+    kernel<<<G_pad, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(xpad), static_cast<const float*>(vals),
         static_cast<const uint8_t*>(idx8),
         static_cast<const int16_t*>(idx16), static_cast<const int*>(tabs),
-        static_cast<const int*>(dynw), static_cast<float*>(y), QT, n8,
-        chunk, S, nw, TD, P_pad);
+        static_cast<const int*>(dynw), static_cast<const float*>(ext),
+        static_cast<float*>(y), QT, n8, chunk, S, nw, TD, P_pad, ext_w);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

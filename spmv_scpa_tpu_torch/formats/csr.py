@@ -1,0 +1,98 @@
+"""Compressed Sparse Row format, host side (counterpart of
+``spmv_scpa_tpu/formats/csr.py``, whose ``CSR`` this copies).
+
+The reference study's ``sparse_csr`` struct (``include/csr.h:7-13``:
+``{name, M, N, NZ, IRP[M+1], JA[NZ], AS[NZ]}``) as NumPy arrays. Every
+packer of the port reads it on the host and ships padded derivatives to
+the card.
+
+``BC`` is the lane width of every panel format of the port: 128 rows
+(or columns) per panel, the width the packed arrays keep so that they
+equal the reference's.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+BC = 128
+
+
+@dataclass
+class CSR:
+    """CSR matrix, host-side. Indices int32 unless nnz or the shape
+    demands int64."""
+
+    name: str
+    m: int
+    n: int
+    irp: np.ndarray  # (m+1,) row pointers
+    ja: np.ndarray   # (nnz,) column indices
+    as_: np.ndarray  # (nnz,) values, float64 on host
+    # Whether (ja) is sorted within each row. The loader guarantees it.
+    sorted_cols: bool = field(default=True)
+
+    @property
+    def nnz(self) -> int:
+        return int(self.ja.shape[0])
+
+    def __post_init__(self):
+        self.irp = np.ascontiguousarray(self.irp)
+        self.ja = np.ascontiguousarray(self.ja)
+        self.as_ = np.ascontiguousarray(self.as_, dtype=np.float64)
+        if self.irp.shape != (self.m + 1,):
+            raise ValueError(f"CSR {self.name}: irp has shape "
+                             f"{self.irp.shape}, expected ({self.m + 1},)")
+        if self.irp[0] != 0 or self.irp[-1] != self.ja.shape[0]:
+            raise ValueError(f"CSR {self.name}: irp must run from 0 to nnz")
+
+    @classmethod
+    def from_coo(cls, name: str, m: int, n: int, row, col, val,
+                 sum_duplicates: bool = False) -> "CSR":
+        """Build CSR from 0-based COO triples, sorted by (row, col).
+        Duplicates are kept unless ``sum_duplicates``, as the reference
+        study keeps them (csr.c:68-146)."""
+        row = np.asarray(row, dtype=np.int64)
+        col = np.asarray(col, dtype=np.int64)
+        val = np.asarray(val, dtype=np.float64)
+        order = np.lexsort((col, row))
+        row, col, val = row[order], col[order], val[order]
+        if sum_duplicates and row.size:
+            key_same = (row[1:] == row[:-1]) & (col[1:] == col[:-1])
+            if key_same.any():
+                seg = np.concatenate([[0], np.cumsum(~key_same)])
+                nseg = int(seg[-1]) + 1
+                out_val = np.zeros(nseg, dtype=np.float64)
+                np.add.at(out_val, seg, val)
+                first = np.concatenate([[True], ~key_same])
+                row, col, val = row[first], col[first], out_val
+        irp = np.zeros(m + 1, dtype=np.int64)
+        np.add.at(irp, row + 1, 1)
+        np.cumsum(irp, out=irp)
+        small = val.shape[0] < 2**31 and n < 2**31 and m < 2**31
+        idx_dtype = np.int32 if small else np.int64
+        return cls(name=name, m=m, n=n, irp=irp.astype(idx_dtype),
+                   ja=col.astype(idx_dtype), as_=val)
+
+    @classmethod
+    def from_dense(cls, name: str, dense: np.ndarray) -> "CSR":
+        dense = np.asarray(dense, dtype=np.float64)
+        row, col = np.nonzero(dense)
+        return cls.from_coo(name, dense.shape[0], dense.shape[1],
+                            row, col, dense[row, col])
+
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros((self.m, self.n), dtype=np.float64)
+        rows = np.repeat(np.arange(self.m), np.diff(self.irp))
+        np.add.at(out, (rows, self.ja), self.as_)
+        return out
+
+    def row_lengths(self) -> np.ndarray:
+        return np.diff(self.irp)
+
+    def row_ids(self) -> np.ndarray:
+        """Per-nonzero row index (the segment ids for segment-sum SpMV)."""
+        return np.repeat(np.arange(self.m, dtype=self.ja.dtype),
+                         np.diff(self.irp))

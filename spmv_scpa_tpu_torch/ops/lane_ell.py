@@ -13,28 +13,30 @@ Counterpart of ``spmv_scpa_tpu/ops/lane_ell.py:prepare_lane_ell_hybrid``
   (``csrc/lane_ell.cu``), with ``lane_ell_spmv_plain`` beside it: the
   same function in PyTorch ops. A CPU tensor goes to the plain version,
   a CUDA tensor to the kernel.
-* ``prepare_lane_ell_hybrid`` — stages x (the ``loc_w`` left pad and
-  the hot columns), runs the core, and adds the compact tail with
-  ``index_add_``.
+* ``prepare_lane_ell_hybrid`` — stages x (the ``loc_w`` left pad, the
+  hot columns, and the ext panels through the two gather stages of
+  ``ops/ext_gather.py``), runs the core, and adds the tail: the chips
+  tail (``ops/chips_tail.py``) for 2048 entries or more, else the
+  compact tail with ``index_add_``.
 
 Branches of the reference that this port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP item: the no-locality
-escape to PELL, the ext gather pipeline, the chips tail, big tails and
-the distributed ``core_only`` / ``x_off`` mode.
+escape to PELL, the split chips plan, big tails and the distributed
+``core_only`` / ``x_off`` mode.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from spmv_scpa_tpu.formats.csr import CSR
-from spmv_scpa_tpu.formats.panel_ell import BC
-
 from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch.formats.csr import BC, CSR
+from spmv_scpa_tpu_torch.ops import chips_tail, ext_gather, segsum_kernel
 from spmv_scpa_tpu_torch.ops.registry import Prepared
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
 
@@ -44,11 +46,6 @@ X_VMEM_BUDGET = 10 << 20     # same budget as the fused PELL kernel
 # calibrated from the flagship's measured 31% select share at ~1
 # extra pass/plane: 88 planes * 6 B * 0.31 / ~80 passes ~= 2 B
 SEL_B = 2.0
-# Tail size (entries) past which the reference routes a split chips tail
-# to the compacted-row PELL delegation; the chips-tail port (ROADMAP
-# queue 1 #7) takes it over with the reference's value.
-BIG_TAIL = 131072
-
 _LOC_CHOICES = (128, 256, 512, 1024, 2048, 4096)
 _HOT_CHOICES = (128, 256, 512, 1024, 2048, 4096, 8192)
 # slot-count candidates for the byte-cost model: fine (8-step) past 8
@@ -58,19 +55,8 @@ _HOT_CHOICES = (128, 256, 512, 1024, 2048, 4096, 8192)
 _Q_CHOICES = (1, 2, 4, 8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88,
               96, 104, 112, 120, 128)
 
-# Chips-tail feasibility constants of the reference's packer
-# (spmv_scpa_tpu/ops/chips_tail.py: H_CAP = ext_gather.H_MAX,
-# VPU_BUDGET, W_LOC). They steer its tail cost model, so they come over
-# for parity even though this port has no chips tail yet.
-_CT_H_CAP = 1024
-_CT_VPU_BUDGET = 2e8
-_CT_W_LOC = 4096
-
 # Roadmap items named by the NotImplementedError of each missing branch.
 _TODO_PELL = "ROADMAP queue 1 #8 (PELL family: the no-locality escape)"
-_TODO_EXT = "ROADMAP queue 1 #6 (ext gather route); pass ext=False"
-_TODO_CHIPS = ("ROADMAP queue 1 #7 (chips tail); pass diag='nochips' "
-               "for the compact tail")
 _TODO_BIG_TAIL = ("ROADMAP queue 1 #7/#8 (big tails above tail_xla_max: "
                   "recursive hybrid or compact PELL)")
 _TODO_DIST = "ROADMAP queue 1 #13 (distributed row shards)"
@@ -152,9 +138,10 @@ class LaneCfg:
     chunk: int     # 128-row groups per step
     steps: int
     S: int         # local strips per group window
-    nw: int        # static strips: S local + hot
+    nw: int        # static strips: S local + hot (+ 1 ext)
     TD: int        # dynamic slots per step (all dynamic planes)
     P_pad: int     # padded-x rows before the hot panels
+    ext_w: int = -1  # strip id of the per-group ext panel, -1: none
 
     @property
     def G_pad(self) -> int:
@@ -162,7 +149,9 @@ class LaneCfg:
 
     @property
     def Hs(self) -> int:
-        return self.nw - self.S
+        """Hot strips (the static strips past the local ones and the
+        ext strip)."""
+        return self.nw - self.S - (self.ext_w >= 0)
 
 
 @dataclass
@@ -182,10 +171,16 @@ class LanePlan:
     loc_w: int
     n_local: int
     m: int
-    trows: np.ndarray       # compact tail triplets (row, col, value)
+    trows: np.ndarray       # tail triplets (row, col, value)
     tcols: np.ndarray
     tvals: np.ndarray
     meta: dict
+    ext: ext_gather.ExtPlan | None = None   # the ext gather plan
+    ext_p2: np.ndarray | None = None        # its stage-2 tables
+    ext_l2: np.ndarray | None = None
+    ext_b8: np.ndarray | None = None        # windowed stage-2 bases
+    chips: chips_tail.ChipsPlan | None = None   # the chips tail's plan
+    landing: tuple | None = None            # chips_tail.landing_tables
 
     @property
     def QT(self) -> int:
@@ -220,6 +215,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
                   hot_k: int | str = "auto",
                   tail_strategy: str = "pallas-pell",
                   ext: bool | str = "auto",
+                  ext_windowed: bool = True,
                   idx8: bool = False,
                   strip_cov: float | None = 0.985,
                   dyn_strips: bool | str = False,
@@ -267,10 +263,24 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
 
     out_cols = cols[~is_local]
 
+    # ---- ext gather route (ops/ext_gather.py): out-of-window entries
+    # read x from per-group ext panels built by two gather stages; the
+    # gate keeps the reference's TPU-measured cost model for parity.
+    eplan = None
     if nnz and out_cols.size and ext in ("auto", True):
-        raise NotImplementedError(
-            f"lane-ELL hybrid: {out_cols.size} out-of-window entries "
-            f"would take the ext gather pipeline: {_TODO_EXT}")
+        eplan = ext_gather.plan_ext(rows, cols, ~is_local, m, n,
+                                    allow_windowed=ext_windowed)
+        if eplan is not None and ext == "auto":
+            G_est0 = max(1, -(-m // BC))
+            h_eff = eplan.r_hot if eplan.windowed else eplan.H
+            vpu_ops = G_est0 * h_eff * BC * 3      # stage-2 dominates
+            if (eplan.covered < 0.5 or eplan.n_out < 2048
+                    or eplan.n_out < 0.005 * nnz
+                    or vpu_ops * 0.74 > eplan.n_out * 500):
+                eplan = None
+    use_ext = eplan is not None
+    if use_ext:
+        hot_k = 0                # ext supersedes the top-k hot region
 
     if hot_k == "auto":
         hot_k = _auto_hot_k(out_cols, nnz) if nnz else 0
@@ -287,6 +297,8 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
         hot_rank[is_local] = -1
 
     eligible = is_local | (hot_rank >= 0)
+    if use_ext:
+        eligible |= eplan.ext_lane >= 0
 
     # per-row rank among eligible entries (CSR order = column order)
     if nnz:
@@ -307,14 +319,14 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
         if int(np.sum(probe0)):
             pu0 = np.unique(cols[probe0]).size
             e80 = -(-int(np.sum(probe0)) // (8 * BC)) * 8
-            if (-(-pu0 // BC) <= _CT_H_CAP
+            if (-(-pu0 // BC) <= chips_tail.H_CAP
                     and e80 * (-(-pu0 // BC)) * BC * 3
-                    <= _CT_VPU_BUDGET):
+                    <= chips_tail.VPU_BUDGET):
                 cheap_tail = True
             else:
-                pf0 = probe0 & (np.abs(cols - rows) > _CT_W_LOC)
+                pf0 = probe0 & (np.abs(cols - rows) > chips_tail.W_LOC)
                 fu0 = np.unique(cols[pf0]).size if pf0.any() else 0
-                cheap_tail = -(-fu0 // BC) <= _CT_H_CAP
+                cheap_tail = -(-fu0 // BC) <= chips_tail.H_CAP
     if slots == "auto":
         # Minimize estimated bytes: each slot plane streams G*BC*(4+2)
         # bytes regardless of fill, while every spilled or ineligible
@@ -344,9 +356,13 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     # coverage >= strip_cov); a demoted entry RELOCATES to another
     # plane that kept its strip, leftovers go to overflow planes.
     enc_all = np.where(is_local, off, S * BC + hot_rank)
+    if use_ext:                  # ext strip sits after the hot strips
+        enc_all = np.where(is_local, enc_all,
+                           (S + Hs) * BC + eplan.ext_lane)
     strip_all = enc_all // BC
     plane = np.where(take0, sl, -1)           # final plane per entry
-    nw = S + Hs
+    nw = S + Hs + (1 if use_ext else 0)
+    ext_w = (S + Hs) if use_ext else -1
     n_demoted = n_reloc = 0
     unpl = np.empty(0, np.int64)
     # ---- per-step DYNAMIC strip slots --------------------------------
@@ -373,7 +389,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
             ws, cs = pair[msk] % nw, cnt[msk]
             n_loc = int(np.sum(ws < S))
             if dyn_on and n_loc > max_strips:
-                # dynamic plane: hot strips stay static members;
+                # dynamic plane: ext/hot strips stay static members;
                 # local strips ride per-step slots
                 keep[q, ws[ws >= S]] = True
                 ei = ti[sl[ti] == q]
@@ -743,24 +759,49 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     for q, tab in dyn_tab.items():
         dynw_a[:, dyn_off[q]:dyn_off[q] + dyn_k_of[q]] = tab
 
-    # ---- compact tail ------------------------------------------------
+    # ---- ext stage-2 tables --------------------------------------------
+    ext_p2 = ext_l2 = ext_b8 = None
+    if use_ext:
+        # the reference's windowed stage-2 needs 8-row output steps; it
+        # falls back to the resident one when G_pad isn't 8-aligned
+        if eplan.windowed and G_pad % 8:
+            eplan.windowed = False    # tables revert to absolute p2
+        G2t = G_pad if eplan.windowed else -(-G_pad // 8) * 8
+        ext_p2, ext_l2 = ext_gather.build_group_tables(eplan, G2t)
+        if eplan.windowed:
+            ext_b8 = ext_gather.build_base8(eplan, G_pad)
+
+    # ---- tail: chips, else compact -----------------------------------
     tail_nnz = int(np.sum(~take)) if nnz else 0
     if "notail" in diag:        # diag-only: results invalid, core cost
         tail_nnz = 0
+    tm = ~take if tail_nnz else np.zeros(nnz, bool)
+    cplan = landing = chips_meta = None
     if tail_nnz >= 2048 and "nochips" not in diag:
-        raise NotImplementedError(
-            f"lane-ELL hybrid: a {tail_nnz}-entry tail takes the chips "
-            f"tail: {_TODO_CHIPS}")
-    if tail_nnz > tail_xla_max:
+        # (the split plan, which the reference may route to the big
+        # tail past BIG_TAIL entries, raises inside plan_chips)
+        cplan = chips_tail.plan_chips(rows[tm], cols[tm], A.as_[tm], m, n)
+    if cplan is not None:
+        landing = chips_tail.landing_tables(cplan.heavy_ids, m, G_pad)
+        chips_meta = {"heavy_rows": cplan.NH, "hot_h": cplan.H,
+                      "split": False,
+                      "panel_merge": landing[0] != "scatter",
+                      "gather_groups": cplan.n_groups,
+                      "tile_rows": cplan.E8,
+                      "windows": cplan.num_windows}
+    elif tail_nnz > tail_xla_max:
         raise NotImplementedError(
             f"lane-ELL hybrid: a {tail_nnz}-entry tail exceeds "
             f"tail_xla_max={tail_xla_max}: {_TODO_BIG_TAIL}")
-    tm = ~take if tail_nnz else np.zeros(nnz, bool)
 
     meta = {"loc_w": loc_w, "slots": Q, "ov_slots": Qo,
             "hot_k": hot_k, "idx8_planes": n8,
-            "ext": False, "ext_h": 0, "ext_windowed": False,
-            "ext_r_hot": 0, "ext_groups": 0, "ext_cov": None,
+            "ext": use_ext,
+            "ext_h": eplan.H if use_ext else 0,
+            "ext_windowed": bool(use_ext and eplan.windowed),
+            "ext_r_hot": eplan.r_hot if use_ext else 0,
+            "ext_groups": eplan.n_groups if use_ext else 0,
+            "ext_cov": round(eplan.covered, 4) if use_ext else None,
             "strips": S, "hot_strips": Hs, "chunk": chunk,
             "steps": steps,
             "strip_ops": sum(len(u) for u in used_t),
@@ -770,23 +811,28 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
             "ov_nnz": n_ov_nnz,
             "fill": float(np.sum(take)) / max(G_pad * QT * BC, 1),
             "tail_nnz": tail_nnz,
-            "tail_kind": "torch-compact" if tail_nnz else None,
-            "tail_meta": None,
+            "tail_kind": (None if not tail_nnz else
+                          "chips" if cplan is not None else
+                          "torch-compact"),
+            "tail_meta": chips_meta,
             "tail_frac": tail_nnz / max(nnz, 1)}
     cfg = LaneCfg(QT=QT, n8=n8, chunk=chunk, steps=steps, S=S, nw=nw,
-                  TD=TD, P_pad=P_pad)
+                  TD=TD, P_pad=P_pad, ext_w=ext_w)
     return LanePlan(
         cfg=cfg, vals_a=vals_a, idx8_a=idx8_a, idx_a=idx_a, used=used_t,
         hot_idx=hot_idx, dynw_a=dynw_a.reshape(-1), dyn_off=dyn_off,
         Q=Q, Qo=Qo, loc_w=loc_w, n_local=n_local, m=m,
-        trows=rows[tm], tcols=cols[tm], tvals=A.as_[tm], meta=meta)
+        trows=rows[tm], tcols=cols[tm], tvals=A.as_[tm], meta=meta,
+        ext=eplan, ext_p2=ext_p2, ext_l2=ext_l2, ext_b8=ext_b8,
+        chips=cplan, landing=landing)
 
 
 # ---------------------------------------------------------------------------
 # The core kernel and its plain version
 # ---------------------------------------------------------------------------
 
-def _check_args(xpad, vals, idx8, idx16, plane_tabs, dynw, cfg: LaneCfg):
+def _check_args(xpad, vals, idx8, idx16, plane_tabs, dynw, ext,
+                cfg: LaneCfg):
     want = {
         "xpad": (xpad, torch.float32, ((cfg.P_pad + cfg.Hs) * BC,)),
         "vals": (vals, torch.float32, (cfg.steps * cfg.QT * cfg.chunk, BC)),
@@ -795,6 +841,8 @@ def _check_args(xpad, vals, idx8, idx16, plane_tabs, dynw, cfg: LaneCfg):
                   (cfg.steps * (cfg.QT - cfg.n8) * cfg.chunk, BC)),
         "plane_tabs": (plane_tabs, torch.int32, (cfg.QT, 2)),
         "dynw": (dynw, torch.int32, (cfg.steps * cfg.TD,)),
+        "ext": (ext, torch.float32,
+                (cfg.G_pad if cfg.ext_w >= 0 else 0, BC)),
     }
     for name, (t, dtype, shape) in want.items():
         if t.device != xpad.device:
@@ -807,16 +855,18 @@ def _check_args(xpad, vals, idx8, idx16, plane_tabs, dynw, cfg: LaneCfg):
             raise ValueError(f"lane_ell_spmv: {name} is not contiguous")
 
 
-def lane_ell_spmv(xpad, vals, idx8, idx16, plane_tabs, dynw,
+def lane_ell_spmv(xpad, vals, idx8, idx16, plane_tabs, dynw, ext,
                   cfg: LaneCfg) -> torch.Tensor:
     """Core lane-ELL SpMV: ``y`` of shape (G_pad*128,) f32 (row
-    ``g*128 + l``). CUDA tensors launch ``csrc/lane_ell.cu`` on the
-    current stream; CPU tensors run :func:`lane_ell_spmv_plain`."""
+    ``g*128 + l``). ``ext`` holds the per-group ext panels (G_pad, 128),
+    or no rows when ``cfg.ext_w < 0``. CUDA tensors launch
+    ``csrc/lane_ell.cu`` on the current stream; CPU tensors run
+    :func:`lane_ell_spmv_plain`."""
     global KERNEL_LAUNCHES
-    _check_args(xpad, vals, idx8, idx16, plane_tabs, dynw, cfg)
+    _check_args(xpad, vals, idx8, idx16, plane_tabs, dynw, ext, cfg)
     if xpad.device.type == "cpu":
         return lane_ell_spmv_plain(xpad, vals, idx8, idx16, plane_tabs,
-                                   dynw, cfg)
+                                   dynw, ext, cfg)
     if xpad.device.type != "cuda":
         raise ValueError(f"lane_ell_spmv: unsupported device {xpad.device}")
     lib = _kernels.load("lane_ell")
@@ -824,19 +874,20 @@ def lane_ell_spmv(xpad, vals, idx8, idx16, plane_tabs, dynw,
     err = lib.lane_ell_spmv(
         xpad.data_ptr(), vals.data_ptr(), idx8.data_ptr(),
         idx16.data_ptr(), plane_tabs.data_ptr(), dynw.data_ptr(),
-        y.data_ptr(), cfg.G_pad, cfg.QT, cfg.n8, cfg.chunk, cfg.S, cfg.nw,
-        cfg.TD, cfg.P_pad, _kernels.stream_handle(xpad.device))
+        ext.data_ptr(), y.data_ptr(), cfg.G_pad, cfg.QT, cfg.n8, cfg.chunk,
+        cfg.S, cfg.nw, cfg.TD, cfg.P_pad, cfg.ext_w,
+        _kernels.stream_handle(xpad.device))
     _kernels.check(lib, err, "lane_ell_spmv")
     KERNEL_LAUNCHES += 1
     return y
 
 
-def lane_ell_spmv_plain(xpad, vals, idx8, idx16, plane_tabs, dynw,
+def lane_ell_spmv_plain(xpad, vals, idx8, idx16, plane_tabs, dynw, ext,
                         cfg: LaneCfg) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch ops: per plane in ascending
-    order, decode each slot to an absolute padded-x index, gather,
-    multiply and add in f32 (product and sum rounded separately, as the
-    kernel does)."""
+    order, decode each slot to an absolute padded-x index (or a lane of
+    the group's ext panel), gather, multiply and add in f32 (product and
+    sum rounded separately, as the kernel does)."""
     QT, n8, chunk, steps, S, nw = (cfg.QT, cfg.n8, cfg.chunk, cfg.steps,
                                    cfg.S, cfg.nw)
     dev = xpad.device
@@ -846,6 +897,7 @@ def lane_ell_spmv_plain(xpad, vals, idx8, idx16, plane_tabs, dynw,
     tabs = plane_tabs.to(torch.int64)
     g = torch.arange(cfg.G_pad, device=dev).view(steps, chunk, 1)
     step_of = torch.arange(steps, device=dev).view(steps, 1, 1)
+    ext_f = ext.reshape(-1)
     acc = torch.zeros(steps, chunk, BC, dtype=torch.float32, device=dev)
     for q in range(QT):
         if q < n8:
@@ -861,9 +913,36 @@ def lane_ell_spmv_plain(xpad, vals, idx8, idx16, plane_tabs, dynw,
                     strip >= nw,
                     dynw[slot.clamp(max=dynw.numel() - 1)].to(torch.int64),
                     strip)
+        lane = code & 127
         xrow = torch.where(strip < S, g + strip, cfg.P_pad + strip - S)
-        acc = acc + v4[:, q] * xpad[xrow * BC + (code & 127)]
+        if cfg.ext_w >= 0:
+            is_ext = strip == cfg.ext_w
+            xv = torch.where(is_ext, ext_f[g * BC + lane],
+                             xpad[torch.where(is_ext, 0, xrow) * BC + lane])
+        else:
+            xv = xpad[xrow * BC + lane]
+        acc = acc + v4[:, q] * xv
     return acc.reshape(-1)
+
+
+class HybridKernels(NamedTuple):
+    """The functions one hybrid call runs: the core and the four
+    kernels of the ext route and the chips tail."""
+
+    lane_ell_spmv: Callable
+    sorted_gather: Callable
+    ranked_gather: Callable
+    window_gather: Callable
+    window_segsum: Callable
+
+
+KERNELS = HybridKernels(lane_ell_spmv, ext_gather.sorted_gather,
+                        ext_gather.ranked_gather, ext_gather.window_gather,
+                        segsum_kernel.window_segsum)
+PLAIN = HybridKernels(lane_ell_spmv_plain, ext_gather.sorted_gather_plain,
+                      ext_gather.ranked_gather_plain,
+                      ext_gather.window_gather_plain,
+                      segsum_kernel.window_segsum_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -872,9 +951,10 @@ def lane_ell_spmv_plain(xpad, vals, idx8, idx16, plane_tabs, dynw,
 
 def prepare_lane_ell_hybrid(A: CSR, device="cuda", **knobs):
     """Pack ``A`` (:func:`pack_lane_ell`, same knobs as the reference)
-    and bind ``fn(x) -> y`` on ``device``: stage x, run the core, add
-    the compact tail. ``device`` defaults to the card and raises
-    without one; ``"cpu"`` runs the plain version."""
+    and bind ``fn(x) -> y`` on ``device``: stage x (with the ext panels
+    when the plan has them), run the core, add the tail (chips tail and
+    landing, or the compact ``index_add_``). ``device`` defaults to the
+    card and raises without one; ``"cpu"`` runs the plain versions."""
     dev = resolve_device(device)
     plan = pack_lane_ell(A, **knobs)
     cfg = plan.cfg
@@ -889,36 +969,85 @@ def prepare_lane_ell_hybrid(A: CSR, device="cuda", **knobs):
     tabs = put(plan.plane_tabs(), torch.int32)
     dynw = put(plan.dynw_a, torch.int32)
     hot = put(plan.hot_idx, torch.int64)
-    trows = put(plan.trows, torch.int64)
-    tcols = put(plan.tcols, torch.int64)
-    tvals = put(plan.tvals, torch.float32)
-    has_tail = plan.trows.size > 0
     loc_w, n_local, m, n = plan.loc_w, plan.n_local, plan.m, A.n
+    no_ext = torch.zeros((0, BC), dtype=torch.float32, device=dev)
+    ep = plan.ext
+    if ep is not None:
+        e_base = put(ep.base, torch.int32)
+        e_p1, e_l1 = put(ep.p1, torch.int32), put(ep.l1, torch.int32)
+        e_p2, e_l2 = put(plan.ext_p2, torch.int32), put(plan.ext_l2,
+                                                         torch.int32)
+        e_b8 = put(plan.ext_b8, torch.int32) if ep.windowed else None
+        n1 = ep.n1p_blocks * ep.R * BC
 
-    def stage(xf):
+    def ext_panels(xf, ops):
+        """Stage 1 into the hot region, stage 2 into (G_pad, 128)."""
+        x1 = torch.zeros(n1, dtype=torch.float32, device=dev)
+        x1[:n] = xf
+        hot1 = ops.sorted_gather(e_base, x1.view(-1, BC), e_p1, e_l1, ep.R)
+        if not ep.windowed:
+            return ops.ranked_gather(hot1, e_p2, e_l2)[:cfg.G_pad]
+        if hot1.shape[0] < ep.H_pad:
+            hot1 = torch.cat([hot1, torch.zeros(
+                (ep.H_pad - hot1.shape[0], BC), dtype=torch.float32,
+                device=dev)])
+        return ops.window_gather(e_b8, hot1[:ep.H_pad].contiguous(), e_p2,
+                                 e_l2, ep.r_hot)
+
+    def stage(xf, ops=KERNELS):
         """x (f32 on ``dev``) -> the core's arguments: the padded x is
-        the loc_w left pad, x, window slack, then the hot columns."""
+        the loc_w left pad, x, window slack, then the hot columns; the
+        ext panels come from the gathers in ``ops``."""
         xpad = torch.zeros((cfg.P_pad + cfg.Hs) * BC, dtype=torch.float32,
                            device=dev)
         xpad[loc_w:loc_w + n_local] = xf[:n_local]
         if cfg.Hs:
             xpad[cfg.P_pad * BC:] = xf[hot]
-        return xpad, vals, idx8, idx16, tabs, dynw, cfg
+        ext = no_ext if ep is None else ext_panels(xf, ops)
+        return xpad, vals, idx8, idx16, tabs, dynw, ext, cfg
 
-    def run(x, core):
+    tail_hbm = 0
+    if plan.chips is not None:
+        contrib, tail_hbm = chips_tail.prepare_chips(plan.chips, n, dev)
+        land, _, extra = chips_tail.make_landing(
+            plan.chips.heavy_ids, m, cfg.G_pad, dev, tables=plan.landing)
+        tail_hbm += extra
+    elif plan.trows.size:
+        trows = put(plan.trows, torch.int64)
+        tcols = put(plan.tcols, torch.int64)
+        tvals = put(plan.tvals, torch.float32)
+        tail_hbm = plan.trows.size * 12
+
+    def run(x, ops):
         xf = torch.as_tensor(x, dtype=torch.float32, device=dev)
         if xf.shape != (n,):
             raise ValueError(f"cuda-hybrid: x has shape {tuple(xf.shape)}, "
                              f"expected ({n},)")
-        y = core(*stage(xf))[:m]
-        if has_tail:
+        y = ops.lane_ell_spmv(*stage(xf, ops))[:m]
+        if plan.chips is not None:
+            y = land(y, contrib(xf, ops), ops)
+        elif plan.trows.size:
             y.index_add_(0, trows, tvals * xf[tcols])
         return y
 
-    hbm = cfg.steps * cfg.chunk * BC * plan.slot_bytes \
-        + plan.trows.size * 12
+    def kernel_calls(xf):
+        """Every kernel call of ``fn(xf)`` in order, as (name, args),
+        recorded through the plain versions (no kernel launches)."""
+        calls = []
+
+        def rec(name, f):
+            def call(*args):
+                calls.append((name, args))
+                return f(*args)
+            return call
+
+        run(xf, HybridKernels(*(rec(name, f) for name, f in
+                                zip(HybridKernels._fields, PLAIN))))
+        return calls
+
+    hbm = cfg.steps * cfg.chunk * BC * plan.slot_bytes + tail_hbm
     return Prepared(
-        "cuda-hybrid", A.name, lambda x: run(x, lane_ell_spmv),
+        "cuda-hybrid", A.name, lambda x: run(x, KERNELS),
         device=dev, nnz=A.nnz, ref="pallas-hybrid", hbm_bytes=int(hbm),
-        meta=plan.meta, plain=lambda x: run(x, lane_ell_spmv_plain),
-        kernel_inputs=stage)
+        meta=plan.meta, plain=lambda x: run(x, PLAIN),
+        kernel_inputs=stage, kernel_calls=kernel_calls)

@@ -23,9 +23,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from spmv_scpa_tpu.formats.csr import CSR
-from spmv_scpa_tpu.ops.oracle import spmv_oracle
-
+from spmv_scpa_tpu_torch.formats.csr import CSR
+from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
 
 
@@ -50,6 +49,10 @@ class Prepared:
     # -> the argument tuple of that kernel's wrapper, for timing the
     # kernel alone.
     kernel_inputs: Callable[[Any], tuple] | None = None
+    # x (f32 tensor on ``device``) -> every kernel call of ``fn(x)`` in
+    # order as (kernel name, wrapper arguments), for checking and timing
+    # each kernel alone at the call's shapes.
+    kernel_calls: Callable[[Any], list] | None = None
 
 
 @dataclass(frozen=True)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from spmv_scpa_tpu.formats.csr import CSR
+from spmv_scpa_tpu_torch.formats.csr import CSR
 
 
 def make_csr_segsum(A: CSR, device: torch.device):

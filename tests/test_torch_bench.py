@@ -4,6 +4,8 @@
 must refuse rather than make a number up; the probe's plain version is
 checked here, its kernel in tests/test_torch_cuda.py."""
 
+import importlib.util
+import pathlib
 import stat
 from types import SimpleNamespace
 
@@ -11,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from spmv_scpa_tpu import testing as synth
 from spmv_scpa_tpu.bench import roofline as jax_roofline
 
 from spmv_scpa_tpu_torch import _kernels, get_strategy
+from spmv_scpa_tpu_torch import testing as synth
 from spmv_scpa_tpu_torch.bench import roofline, timing
 
 
@@ -71,6 +73,16 @@ def test_time_cuda_refuses_without_card(no_card):
 def test_time_cuda_takes_at_least_ten_reps():
     with pytest.raises(ValueError, match="reps"):
         timing.time_cuda(lambda: None, reps=5)
+
+
+def test_time_device_refuses_without_card(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        timing.time_device(lambda: None)
+
+
+def test_time_device_takes_at_least_ten_reps():
+    with pytest.raises(ValueError, match="reps"):
+        timing.time_device(lambda: None, reps=5)
 
 
 def test_time_prepared_refuses_a_cpu_strategy():
@@ -145,7 +157,7 @@ def test_build_is_keyed_by_source_and_reused(build_dir, tmp_path,
                                 'echo built > "$2"\n')
     monkeypatch.setattr(_kernels.shutil, "which", lambda _: nvcc)
     paths = _kernels.build_all()
-    assert [p.parent for p in paths] == [build_dir] * 2
+    assert [p.parent for p in paths] == [build_dir] * len(_kernels.SIGNATURES)
     assert sorted(p.name for p in build_dir.iterdir()) == \
         sorted(p.name for p in paths)             # no temporaries left
     monkeypatch.setattr(_kernels.shutil, "which", lambda _: None)
@@ -163,3 +175,56 @@ def test_nvcc_flags_target_sm90a():
     assert "-shared" in flags and "-fPIC" in flags
     assert set(_kernels.SIGNATURES) == {
         p.stem for p in _kernels.CSRC_DIR.glob("*.cu")}
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bound_case(name):
+    """One small call of ``name`` and the bytes its bound must count:
+    the gathers' in-range indices name 4 distinct source elements (rows
+    0-1, lanes 0-1) and a third of them are out of range; the
+    segment-sum has one quantum in five as padding."""
+    i32 = torch.int32
+    r, j = np.meshgrid(np.arange(16), np.arange(128), indexing="ij")
+    p = torch.as_tensor(np.array([0, 1, 4])[(r + j) % 3], dtype=i32)
+    l = torch.as_tensor(j % 2, dtype=i32)
+    src = torch.arange(8 * 128, dtype=torch.float32).view(8, 128)
+    zero2 = torch.zeros(2, dtype=i32)
+    tables = p.numel() * 8 + 16 * 128 * 4        # p, l and the output
+    if name == "sorted_gather":
+        return (zero2, src, p, l, 4), tables + 8 + 4 * 4
+    if name == "ranked_gather":
+        return (src[:4].contiguous(), p, l), tables + 4 * 4
+    if name == "window_gather":                  # one base per row
+        return (torch.zeros(16, dtype=i32), src, p, l, 4), \
+            tables + 16 * 4 + 4 * 4
+    part = torch.ones(16, 128)
+    rbl = torch.as_tensor(np.arange(256) % 5, dtype=i32)     # 4 = padding
+    live = int((rbl < 4).sum())
+    return ((part, rbl, zero2, 1, 4, 8),
+            256 * 4 + 2 * 4 + live * 8 * 4 + 4 * 8 * 4)
+
+
+@pytest.mark.parametrize("name", ["sorted_gather", "ranked_gather",
+                                  "window_gather", "window_segsum"])
+def test_chip_smoke_bound_counts_what_the_data_reads(name):
+    """A gather's bound charges its index tables, its output and the
+    distinct in-range source elements, never the whole source; the
+    segment-sum's only the partials of quanta that are not padding. A
+    gather's library yardstick returns what the gather does."""
+    cs = _chip_smoke()
+    from spmv_scpa_tpu_torch.ops import lane_ell
+    args, nbytes = _bound_case(name)
+    out = getattr(lane_ell.PLAIN, name)(*args)
+    ms, by = cs.bound(name, args, out)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / cs.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    if name != "window_segsum":
+        lib = cs.gather_library(name, args)()
+        assert torch.equal(lib.view_as(out), out)

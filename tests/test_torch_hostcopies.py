@@ -1,0 +1,249 @@
+"""The port's own copies of the JAX package's host modules
+(spmv_scpa_tpu_torch/{formats/csr,errors,io,ops/oracle,utils/validation,
+utils/vector,testing}.py, bench/timing.py's BenchResult and
+compute_gflops), and the import boundary that makes them necessary: the
+port and ``chip_smoke.py`` import neither ``jax`` nor any module of
+``spmv_scpa_tpu``.
+
+Each copy is held equal to its original: the same arrays from every
+generator and seed, the same CSR from ``load_csr`` on the same file, the
+same oracle output and the same ``validate_result`` verdicts. All
+comparisons are exact.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from spmv_scpa_tpu import errors as jax_errors
+from spmv_scpa_tpu import testing as jax_synth
+from spmv_scpa_tpu.bench import timing as jax_timing
+from spmv_scpa_tpu.formats import panel_ell as jax_panel_ell
+from spmv_scpa_tpu.formats.csr import CSR as JaxCSR
+from spmv_scpa_tpu.io import loader as jax_loader
+from spmv_scpa_tpu.io import mmio as jax_mmio
+from spmv_scpa_tpu.ops.oracle import spmv_oracle as jax_oracle
+from spmv_scpa_tpu.utils import validation as jax_validation
+from spmv_scpa_tpu.utils.vector import make_x as jax_make_x
+
+from spmv_scpa_tpu_torch import errors, load_csr, testing as synth
+from spmv_scpa_tpu_torch.bench import timing
+from spmv_scpa_tpu_torch.formats.csr import BC, CSR
+from spmv_scpa_tpu_torch.io import mmio
+from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
+from spmv_scpa_tpu_torch.utils import validation
+from spmv_scpa_tpu_torch.utils.vector import make_x
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "spmv_scpa_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "spmv_scpa_tpu")
+
+
+def _same_csr(a, b):
+    assert (a.name, a.m, a.n, a.nnz) == (b.name, b.m, b.n, b.nnz)
+    for field in ("irp", "ja", "as_"):
+        x, y = getattr(a, field), getattr(b, field)
+        assert x.dtype == y.dtype, field
+        np.testing.assert_array_equal(x, y, err_msg=field)
+
+
+# ---- the import boundary ---------------------------------------------------
+
+def _port_modules():
+    mods = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_port_and_chip_smoke_load_no_jax_package():
+    """In a fresh interpreter (tests/conftest.py imports both packages),
+    importing every module of the port and chip_smoke loads neither."""
+    mods = _port_modules()
+    assert "spmv_scpa_tpu_torch.ops.chips_tail" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(len(sys.modules), bad)\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split(" ", 1)[1].strip() == "[]", out.stdout
+
+
+def _imported(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_file_of_the_port_imports_the_jax_package(path):
+    for mod in _imported(path):
+        assert mod.split(".")[0] not in FORBIDDEN, f"{path} imports {mod}"
+
+
+# ---- the copies against their originals ------------------------------------
+
+# case -> (generator, arguments)
+GENERATORS = {
+    "banded": ("banded_csr", dict(m=700, row_nnz=9, bandwidth=40, seed=1)),
+    "banded-runs": ("banded_csr", dict(m=512, row_nnz=12, bandwidth=96,
+                                       runs=3, seed=7)),
+    "banded-rect": ("banded_csr", dict(m=300, n=200, row_nnz=7,
+                                       bandwidth=64, seed=2)),
+    "stencil": ("stencil_csr", dict(m=4000, points=6, run_len=8,
+                                    bandwidth=300, seed=2)),
+    "random": ("random_csr", dict(m=200, n=300, density=0.02, seed=3)),
+    "powerlaw": ("powerlaw_csr", dict(m=400, n=400, seed=4)),
+    "webbase": ("webbase_csr", dict(m=20000, seed=5)),
+    "amazon": ("amazon_csr", dict(m=3000, seed=6)),
+    "amazon-avg": ("amazon_csr", dict(m=20000, avg_nnz=4.7, seed=4)),
+    "diag": ("diag_csr", dict(m=37)),
+    "tiny": ("tiny_fixture_csr", dict()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GENERATORS))
+def test_generators_draw_the_same_matrices(name):
+    fn, kw = GENERATORS[name]
+    _same_csr(getattr(synth, fn)(**kw), getattr(jax_synth, fn)(**kw))
+
+
+def test_csr_from_coo_and_views_match():
+    rng = np.random.default_rng(11)
+    m, n, k = 50, 40, 400
+    r, c = rng.integers(0, m, k), rng.integers(0, n, k)
+    v = rng.standard_normal(k)
+    for dup in (False, True):
+        a = CSR.from_coo("t", m, n, r, c, v, sum_duplicates=dup)
+        b = JaxCSR.from_coo("t", m, n, r, c, v, sum_duplicates=dup)
+        _same_csr(a, b)
+        np.testing.assert_array_equal(a.row_ids(), b.row_ids())
+        np.testing.assert_array_equal(a.row_lengths(), b.row_lengths())
+        np.testing.assert_array_equal(a.to_dense(), b.to_dense())
+    d = rng.standard_normal((9, 7)) * (rng.random((9, 7)) < 0.3)
+    _same_csr(CSR.from_dense("d", d), JaxCSR.from_dense("d", d))
+    assert BC == jax_panel_ell.BC
+
+
+def _write_mtx(path, kind, rng):
+    m, n = (60, 60) if kind != "general" else (60, 45)
+    k = 300
+    r, c = rng.integers(0, m, k), rng.integers(0, n, k)
+    if kind == "symmetric":
+        r, c = np.maximum(r, c), np.minimum(r, c)       # lower triangle
+    val = None if kind == "pattern" else rng.standard_normal(k)
+    mmio.write(path, m, n, r, c, val,
+               symmetry="symmetric" if kind == "symmetric" else "general",
+               comment="written by the port's mmio.write")
+
+
+@pytest.mark.parametrize("kind", ["general", "symmetric", "pattern"])
+def test_load_csr_matches_the_original(tmp_path, kind):
+    path = tmp_path / f"m_{kind}.mtx"
+    _write_mtx(path, kind, np.random.default_rng(len(kind)))
+    a = load_csr(str(path))
+    b = jax_loader.load_csr(str(path), use_native=False)
+    _same_csr(a, b)
+    assert a.name == f"m_{kind}"
+    # the port's writer and the original's write the same file
+    coo = mmio.read(str(path))
+    other = tmp_path / "again.mtx"
+    jax_mmio.write(other, coo.nrows, coo.ncols, coo.row, coo.col, coo.val,
+                   symmetry=coo.banner.symmetry,
+                   comment="written by the port's mmio.write")
+    assert other.read_bytes() == path.read_bytes()
+
+
+def test_load_csr_errors_match(tmp_path):
+    bad = tmp_path / "bad.mtx"
+    bad.write_text("%%MatrixMarket matrix array real general\n2 2\n1\n2\n3\n4\n")
+    with pytest.raises(errors.MatrixFormatError) as e1:
+        load_csr(str(bad))
+    with pytest.raises(jax_errors.MatrixFormatError) as e2:
+        jax_loader.load_csr(str(bad), use_native=False)
+    assert str(e1.value) == str(e2.value)
+    oob = tmp_path / "oob.mtx"
+    oob.write_text("%%MatrixMarket matrix coordinate real general\n"
+                   "2 2 1\n3 1 1.0\n")
+    with pytest.raises(errors.MatrixBoundsError):
+        load_csr(str(oob))
+    with pytest.raises(jax_errors.MatrixBoundsError):
+        jax_loader.load_csr(str(oob), use_native=False)
+    for cls in ("MatrixFormatError", "MatrixBoundsError", "ValidationError"):
+        assert getattr(errors, cls).code == getattr(jax_errors, cls).code
+
+
+def test_load_csr_native_waits_for_its_roadmap_item(tmp_path):
+    path = tmp_path / "g.mtx"
+    _write_mtx(path, "general", np.random.default_rng(0))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        load_csr(str(path), use_native=True)
+
+
+def test_oracle_and_make_x_match():
+    for A_p, A_j in ((synth.amazon_csr(m=3000, seed=6),
+                      jax_synth.amazon_csr(m=3000, seed=6)),
+                     (synth.tiny_fixture_csr(), jax_synth.tiny_fixture_csr())):
+        x = make_x(A_p.n)
+        np.testing.assert_array_equal(x, jax_make_x(A_j.n))
+        np.testing.assert_array_equal(spmv_oracle(A_p, x),
+                                      jax_oracle(A_j, x))
+    np.testing.assert_array_equal(make_x(33, seed=5), jax_make_x(33, seed=5))
+    np.testing.assert_array_equal(make_x(10, cols=3), jax_make_x(10, cols=3))
+
+
+@pytest.mark.parametrize("scale, noise", [
+    (1.0, 0.0), (1.0, 1e-6), (1.0, 1e-2), (1e-3, 1e-5), (1e-3, 1e-2),
+    (50.0, 1e-7), (50.0, 1e-3)])
+def test_validate_result_verdicts_match(scale, noise):
+    rng = np.random.default_rng(7)
+    want = rng.standard_normal(500) * scale
+    got = want * (1 + noise * rng.standard_normal(500))
+    verdicts = []
+    for mod in (validation, jax_validation):
+        try:
+            verdicts.append(("ok", mod.validate_result(want, got, what="t")))
+        except Exception as err:                      # noqa: BLE001
+            verdicts.append((type(err).__name__, str(err)))
+    assert verdicts[0] == verdicts[1]
+    with pytest.raises(errors.ValidationError):
+        validation.validate_result(want, got[:-1])
+    assert validation.l2_error(want, got) == jax_validation.l2_error(want,
+                                                                      got)
+
+
+def test_bench_result_and_gflops_match():
+    for nnz, ms, cols in ((22_588_601, 0.1034, 1), (1000, 0.0, 1),
+                          (999_563, 0.25, 4)):
+        assert timing.compute_gflops(nnz, ms, cols) == \
+            jax_timing.compute_gflops(nnz, ms, cols)
+    a = timing.BenchResult(1.5, 2.0, reps=3)
+    b = jax_timing.BenchResult(1.5, 2.0, reps=3)
+    assert (a.duration_ms, a.gflops, a.data, a.reps, a.all_ms) == \
+        (b.duration_ms, b.gflops, b.data, b.reps, b.all_ms)

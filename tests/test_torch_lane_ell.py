@@ -1,65 +1,148 @@
 """The port's lane-ELL hybrid (spmv_scpa_tpu_torch/ops/lane_ell.py)
 against the JAX package's ``prepare_lane_ell_hybrid``, run in interpret
-mode on the CPU as tests/test_lane_ell.py runs it. The CUDA kernel
-itself is held against its plain version in tests/test_torch_cuda.py.
+mode on the CPU as tests/test_lane_ell.py runs it. Each side builds its
+matrix with its own generator from the same seed. The CUDA kernels
+themselves are held against their plain versions in
+tests/test_torch_cuda.py.
+
+The cases are ``bench/cases.py``'s small cases: the core's branches,
+and ``amazon60k`` (ext panels with the resident stage 2, a chips tail
+landing through the ranked merge) and ``ext-windowed40k`` (the windowed
+stage 2).
 
 Tolerances:
-* packed arrays and meta against JAX: exact equality (the packer is a
-  copy and keeps the reference's cost models);
-* the port's plain y against the JAX hybrid's y: rel-L2 <= 1e-6 — both
-  sum the planes in the same order in f32; the slack covers XLA's
-  possible mul-add contraction and the tail's summation order;
+* packed arrays, gather tables and meta against JAX: exact equality
+  (the packer and planners are copies and keep the reference's cost
+  models);
+* the port's plain y against the JAX hybrid's y: rel-L2 <= 1e-6 and,
+  per row, |dy| <= 1e-5 * (|A||x|)_row. The core sums the planes in the
+  same order in f32 and the gathers move values exactly; the slack
+  covers XLA's possible mul-add contraction, the compact tail's
+  summation order, and the chips tail's segment-sum, which JAX runs as a
+  one-hot matmul with b split in three bf16 terms (f32-grade: the three
+  terms carry 24 bits of b) while the port adds the f32 partials;
 * everything against ``spmv_oracle``: ``validate_result`` defaults.
 """
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
-from spmv_scpa_tpu import testing as synth
+from spmv_scpa_tpu import testing as jax_synth
+from spmv_scpa_tpu.formats.csr import CSR as JaxCSR
 from spmv_scpa_tpu.ops.lane_ell import prepare_lane_ell_hybrid as jax_prepare
-from spmv_scpa_tpu.ops.oracle import spmv_oracle
-from spmv_scpa_tpu.utils.validation import validate_result
-from spmv_scpa_tpu.utils.vector import make_x
 
 from spmv_scpa_tpu_torch import spmv
+from spmv_scpa_tpu_torch import testing as synth
 from spmv_scpa_tpu_torch.bench.cases import SMALL_CASES as CASES
+from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.ops import lane_ell
+from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import pick_auto, to_numpy
+from spmv_scpa_tpu_torch.utils.validation import validate_result
+from spmv_scpa_tpu_torch.utils.vector import make_x
 
 PLAIN_VS_JAX_REL_L2 = 1e-6
+PLAIN_VS_JAX_ROW = 1e-5
+
+
+def _jax_ext_windowed40k():
+    """The JAX side of ``bench.cases.ext_windowed40k``: the same draws,
+    built with the JAX package's CSR."""
+    rng = np.random.default_rng(9)
+    m = n = 40000
+    r_loc = np.repeat(np.arange(m, dtype=np.int64), 4)
+    c_loc = (r_loc + rng.integers(-30, 30, r_loc.size)) % n
+    r_out = np.arange(m, dtype=np.int64)
+    c_out = (r_out + 8000 + rng.integers(0, 64, m)) % n
+    rows = np.concatenate([r_loc, r_out])
+    cols = np.concatenate([c_loc, c_out])
+    vals = rng.standard_normal(rows.size)
+    return JaxCSR.from_coo("ext_windowed", m, n, rows, cols, vals)
+
+
+def _jax_stencil4k():
+    return jax_synth.stencil_csr(4000, points=6, run_len=8, bandwidth=300,
+                                 seed=2)
+
+
+# each small case's matrix built by the JAX package's generator
+JAX_CASES = {
+    "banded512": lambda: jax_synth.banded_csr(512, row_nnz=12, bandwidth=96,
+                                              runs=3, seed=7),
+    "stencil4k": _jax_stencil4k,
+    "stencil4k-idx8": _jax_stencil4k,
+    "stencil4k-dyn": _jax_stencil4k,
+    "amazon20k": lambda: jax_synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4),
+    "amazon60k": lambda: jax_synth.amazon_csr(m=60000, seed=6),
+    "ext-windowed40k": _jax_ext_windowed40k,
+}
+
+
+def test_jax_cases_cover_the_small_cases():
+    assert set(JAX_CASES) == set(CASES)
+
+
+@functools.cache
+def _port(name):
+    """One small case's matrix, knobs, packed plan and CPU-bound
+    ``cuda-hybrid``, built once for the whole module (the tests do not
+    mutate them)."""
+    make, kw = CASES[name]
+    A = make()
+    return (A, kw, lane_ell.pack_lane_ell(A, **kw),
+            lane_ell.prepare_lane_ell_hybrid(A, device="cpu", **kw))
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request):
-    make, kw = CASES[request.param]
-    A = make()
+    A, kw, plan, prep = _port(request.param)
+    A_jax = JAX_CASES[request.param]()
+    np.testing.assert_array_equal(A.ja, A_jax.ja)
+    np.testing.assert_array_equal(A.as_, A_jax.as_)
     x = make_x(A.n)
-    jprep = jax_prepare(A, interpret=True, **kw)
+    jprep = jax_prepare(A_jax, interpret=True, **kw)
     y_jax = np.asarray(jprep.fn(x), dtype=np.float64)
-    return request.param, A, kw, x, jprep, y_jax
+    return request.param, A, kw, x, jprep, y_jax, plan, prep
 
 
 def _jax_arrays(jprep, plan):
-    """The JAX Prepared's args by role. The idx streams are mapped by
-    n8/n16: idx16 is absent when n8 == QT (lane_ell.py:1270-1274)."""
+    """The JAX Prepared's args by role (lane_ell.py:1398-1528): the core's
+    (vals, idx streams, hot, ext tables, dynamic strips), then the
+    tail's (chips pipeline and landing tables, or the compact tail). The
+    idx streams are mapped by n8/n16: idx16 is absent when n8 == QT
+    (lane_ell.py:1270-1274)."""
     args = [np.asarray(a) for a in jprep.args]
     out = {"vals": args[0]}
     i = 1
+
+    def take(*names):
+        nonlocal i
+        for name in names:
+            out[name] = args[i]
+            i += 1
+
     if plan.n8:
-        out["idx8"] = args[i]
-        i += 1
+        take("idx8")
     if plan.QT - plan.n8 or not plan.n8:
-        out["idx16"] = args[i]
-        i += 1
-    out["hot"] = args[i]
-    i += 1
+        take("idx16")
+    take("hot")
+    if plan.ext is not None:
+        take("e_base", "e_p1", "e_l1", "e_p2", "e_l2")
+        if plan.ext.windowed:
+            take("e_b8")
     if plan.cfg.TD:
-        out["dynw"] = args[i]
-        i += 1
-    if plan.trows.size:
-        out["seg"], out["tc"], out["tv"], out["ridx"] = args[i:i + 4]
-        i += 4
+        take("dynw")
+    if plan.chips is not None:
+        take("c_base", "c_p1", "c_l1", "c_p2", "c_l2", "c_vals", "c_rbl",
+             "c_hid", "c_win")
+        kind = plan.landing[0]
+        take(*{"windowed": ("m_b8", "m_p2", "m_l2"),
+               "ranked": ("m_p2", "m_l2"), "scatter": ()}[kind])
+    elif plan.trows.size:
+        take("seg", "tc", "tv", "ridx")
     assert i == len(args)
     return out
 
@@ -69,8 +152,7 @@ def _rel_l2(a, b):
 
 
 def test_plan_arrays_match_jax(case):
-    name, A, kw, _, jprep, _ = case
-    plan = lane_ell.pack_lane_ell(A, **kw)
+    name, A, kw, _, jprep, _, plan, _ = case
     ja = _jax_arrays(jprep, plan)
     np.testing.assert_array_equal(plan.vals_a, ja["vals"])
     if plan.n8:
@@ -86,7 +168,31 @@ def test_plan_arrays_match_jax(case):
         np.testing.assert_array_equal(plan.dynw_a, ja["dynw"])
     else:
         assert plan.dynw_a.size == 0
-    if plan.trows.size:
+    ep = plan.ext
+    if ep is not None:
+        for mine, key in ((ep.base, "e_base"), (ep.p1, "e_p1"),
+                          (ep.l1, "e_l1"), (plan.ext_p2, "e_p2"),
+                          (plan.ext_l2, "e_l2")):
+            np.testing.assert_array_equal(mine, ja[key], err_msg=key)
+        if ep.windowed:
+            np.testing.assert_array_equal(plan.ext_b8, ja["e_b8"])
+        assert plan.cfg.ext_w == plan.cfg.S + plan.cfg.Hs
+    else:
+        assert plan.cfg.ext_w == -1
+    cp = plan.chips
+    if cp is not None:
+        for mine, key in ((cp.base, "c_base"), (cp.p1, "c_p1"),
+                          (cp.l1, "c_l1"), (cp.p2, "c_p2"), (cp.l2, "c_l2"),
+                          (cp.vals, "c_vals"), (cp.rbl, "c_rbl"),
+                          (cp.heavy_ids, "c_hid"),
+                          (cp.win_of_step, "c_win")):
+            np.testing.assert_array_equal(mine, ja[key], err_msg=key)
+        kind, tabs = plan.landing
+        names = {"windowed": ("m_b8", "m_p2", "m_l2"),
+                 "ranked": ("m_p2", "m_l2"), "scatter": ()}[kind]
+        for mine, key in zip(tabs or (), names):
+            np.testing.assert_array_equal(mine, ja[key], err_msg=key)
+    elif plan.trows.size:
         np.testing.assert_array_equal(plan.tcols, ja["tc"])
         np.testing.assert_array_equal(plan.tvals.astype(np.float32),
                                       ja["tv"])
@@ -94,8 +200,7 @@ def test_plan_arrays_match_jax(case):
 
 
 def test_plan_meta_matches_jax(case):
-    name, A, kw, _, jprep, _ = case
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", **kw)
+    name, A, kw, _, jprep, _, _, prep = case
     want = dict(jprep.meta)
     if want["tail_kind"] == "xla-compact":
         want["tail_kind"] = "torch-compact"
@@ -105,20 +210,21 @@ def test_plan_meta_matches_jax(case):
 
 
 def test_plain_y_matches_jax_and_oracle(case):
-    name, A, kw, x, _, y_jax = case
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", **kw)
+    name, A, kw, x, _, y_jax, _, prep = case
     before = lane_ell.KERNEL_LAUNCHES
     y = to_numpy(prep.fn(x))
     assert lane_ell.KERNEL_LAUNCHES == before      # CPU: plain version
     assert _rel_l2(y, y_jax) <= PLAIN_VS_JAX_REL_L2
+    absA = CSR(A.name, A.m, A.n, A.irp, A.ja, np.abs(A.as_))
+    assert np.all(np.abs(y - y_jax)
+                  <= PLAIN_VS_JAX_ROW * spmv_oracle(absA, np.abs(x)))
     gold = spmv_oracle(A, x)
     validate_result(gold, y, what=f"port cuda-hybrid (plain) on {name}")
     validate_result(gold, y_jax, what=f"pallas-hybrid on {name}")
 
 
 def test_plane_tabs_decode_the_strip_sets(case):
-    _, A, kw, *_ = case
-    plan = lane_ell.pack_lane_ell(A, **kw)
+    plan = case[6]
     tabs = plan.plane_tabs()
     assert tabs.shape == (plan.QT, 2) and tabs.dtype == np.int32
     for q, u in enumerate(plan.used):
@@ -130,10 +236,54 @@ def test_plane_tabs_decode_the_strip_sets(case):
             assert tabs[q, 0] == plan.dyn_off.get(q, 0)
 
 
+# the kernels one call of each case runs, in order
+KERNEL_ROUTES = {
+    "amazon60k": ["sorted_gather", "ranked_gather", "lane_ell_spmv",
+                  "sorted_gather", "ranked_gather", "window_segsum",
+                  "ranked_gather"],
+    "ext-windowed40k": ["sorted_gather", "window_gather", "lane_ell_spmv"],
+    "banded512": ["lane_ell_spmv"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_ROUTES))
+def test_kernel_calls_follow_the_route(name):
+    A, _, _, prep = _port(name)
+    xf = torch.as_tensor(make_x(A.n), dtype=torch.float32)
+    calls = prep.kernel_calls(xf)
+    assert [c[0] for c in calls] == KERNEL_ROUTES[name]
+    ops = lane_ell.KERNELS
+    for kname, args in calls:           # each call replays alone
+        out = getattr(ops, kname)(*args)
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    core = [a for k, a in calls if k == "lane_ell_spmv"][0]
+    assert torch.equal(lane_ell.lane_ell_spmv(*core),
+                       lane_ell.lane_ell_spmv(*prep.kernel_inputs(xf)))
+
+
+def test_ext_strip_reads_the_group_panel():
+    """A slot whose strip is ``ext_w`` reads lane ``code & 127`` of its
+    group's ext panel, whatever lies in the padded x."""
+    A, _, _, prep = _port("ext-windowed40k")
+    xf = torch.as_tensor(make_x(A.n), dtype=torch.float32)
+    xpad, vals, idx8, idx16, tabs, dynw, ext, cfg = prep.kernel_inputs(xf)
+    assert cfg.ext_w >= 0 and ext.shape == (cfg.G_pad, BC)
+    y = lane_ell.lane_ell_spmv(xpad, vals, idx8, idx16, tabs, dynw, ext, cfg)
+    y0 = lane_ell.lane_ell_spmv(xpad, vals, idx8, idx16, tabs, dynw,
+                                torch.zeros_like(ext), cfg)
+    y_noise = lane_ell.lane_ell_spmv(xpad, vals, idx8, idx16, tabs, dynw,
+                                     ext + 1.0, cfg)
+    assert not torch.equal(y, y0)       # the panels carry the ext entries
+    # a unit shift of every panel adds each row's ext values' sum
+    code = idx16.view(cfg.steps, -1, cfg.chunk, BC).to(torch.int64)
+    is_ext = (code >> 7) == cfg.ext_w
+    v = vals.view(cfg.steps, cfg.QT, cfg.chunk, BC)[:, cfg.n8:]
+    shift = (v * is_ext).sum(1).reshape(-1)
+    torch.testing.assert_close(y_noise - y, shift, rtol=1e-5, atol=1e-5)
+
+
 def test_wrapper_runs_plain_version_for_cpu_tensors():
-    A = CASES["amazon20k"][0]()
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu",
-                                            **CASES["amazon20k"][1])
+    A, _, _, prep = _port("amazon20k")
     xf = torch.as_tensor(make_x(A.n), dtype=torch.float32)
     args = prep.kernel_inputs(xf)
     before = lane_ell.KERNEL_LAUNCHES
@@ -144,38 +294,53 @@ def test_wrapper_runs_plain_version_for_cpu_tensors():
 
 
 def test_wrapper_rejects_wrong_dtype_and_shape():
-    A = CASES["banded512"][0]()
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu")
-    xpad, vals, idx8, idx16, tabs, dynw, cfg = prep.kernel_inputs(
+    A, _, _, prep = _port("banded512")
+    xpad, vals, idx8, idx16, tabs, dynw, ext, cfg = prep.kernel_inputs(
         torch.zeros(A.n))
     with pytest.raises(ValueError, match="vals"):
         lane_ell.lane_ell_spmv(xpad, vals.double(), idx8, idx16, tabs,
-                               dynw, cfg)
+                               dynw, ext, cfg)
     with pytest.raises(ValueError, match="xpad"):
         lane_ell.lane_ell_spmv(xpad[:-1], vals, idx8, idx16, tabs, dynw,
-                               cfg)
+                               ext, cfg)
     with pytest.raises(ValueError, match="contiguous"):
         lane_ell.lane_ell_spmv(xpad, vals.t().contiguous().t(), idx8,
-                               idx16, tabs, dynw, cfg)
+                               idx16, tabs, dynw, ext, cfg)
+    with pytest.raises(ValueError, match="ext"):
+        lane_ell.lane_ell_spmv(xpad, vals, idx8, idx16, tabs, dynw,
+                               torch.zeros(cfg.G_pad, BC), cfg)
     with pytest.raises(ValueError, match="x has shape"):
         prep.fn(np.ones(A.n + 1))
 
 
+@functools.cache
+def heavy_scatter_csr(m=150_000, heavy=16, per=8000, seed=12):
+    """Four near-diagonal entries per row, plus ``heavy`` rows of
+    ``per`` uniformly scattered columns: a chips tail whose unique
+    columns exceed the single plan's budgets (integer and normal draws
+    only)."""
+    rng = np.random.default_rng(seed)
+    r_loc = np.repeat(np.arange(m, dtype=np.int64), 4)
+    c_loc = (r_loc + rng.integers(-30, 30, r_loc.size)) % m
+    r_h = np.repeat(rng.choice(m, heavy, replace=False).astype(np.int64),
+                    per)
+    c_h = rng.integers(0, m, r_h.size)
+    rows = np.concatenate([r_loc, r_h])
+    cols = np.concatenate([c_loc, c_h])
+    return CSR.from_coo("heavy_scatter", m, m, rows, cols,
+                        rng.standard_normal(rows.size))
+
+
 @pytest.mark.parametrize("A_make, kw, what", [
     (lambda: synth.powerlaw_csr(20000, seed=4), {}, "PELL"),
-    (lambda: synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4),
-     {"ext": True}, "ext"),
-    (lambda: synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4), {}, "ext"),
-    (lambda: synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4),
-     {"ext": False}, "chips"),
+    (heavy_scatter_csr, {}, "split chips"),
     (lambda: synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4),
      {"ext": False, "diag": "nochips", "tail_xla_max": 1000}, "big tails"),
     (lambda: synth.banded_csr(512, row_nnz=12, bandwidth=96, seed=7),
      {"core_only": True}, "distributed"),
     (lambda: synth.banded_csr(512, row_nnz=12, bandwidth=96, seed=7),
      {"x_off": 128}, "distributed"),
-], ids=["no-locality", "ext-forced", "ext-auto", "chips", "big-tail",
-        "core-only", "x-off"])
+], ids=["no-locality", "split-chips", "big-tail", "core-only", "x-off"])
 def test_missing_branches_raise_not_implemented(A_make, kw, what):
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         lane_ell.prepare_lane_ell_hybrid(A_make(), device="cpu", **kw)
@@ -183,7 +348,7 @@ def test_missing_branches_raise_not_implemented(A_make, kw, what):
 
 
 def test_auto_does_not_swallow_not_implemented():
-    A = synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4)
+    A = heavy_scatter_csr()
     assert pick_auto(A) == "cuda-hybrid"
     with pytest.raises(NotImplementedError):
         spmv(A, make_x(A.n), "auto", device="cpu")
