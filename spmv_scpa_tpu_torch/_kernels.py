@@ -42,7 +42,11 @@ SIGNATURES = {
     "ext_gather": {"sorted_gather": (P, P, P, P, P, I, I, I64, P),
                    "ranked_gather": (P, P, P, P, I, I, P),
                    "window_gather": (P, P, P, P, P, I, I, I64, P)},
-    "segsum": {"window_segsum": (P, P, P, P, P, I, I, I, I, P)},
+    "segsum": {"span_segsum": (P, P, P, P, P, P, I, I, I, I, I, P)},
+    "pell": {"pell_tiles": (P, P, P, P, P, I64, I, I, I, I, I, P),
+             "pell_fused": (P, P, P, P, P, P, P, P, P,
+                            I, I, I, I, I, I, I, I, I, I, P),
+             "pell_unpermute": (P, P, P, I64, I, P)},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -60,8 +64,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives once built."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    """Where the library of ``csrc/<name>.cu`` lives once built (the hash
+    covers the source, the shared headers ``csrc/*.cuh`` and the flags)."""
+    src = (CSRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

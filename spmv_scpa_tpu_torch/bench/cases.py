@@ -11,7 +11,11 @@ nnz; amazon0302 has 262,111 rows and 1.23M nnz), which takes the ext
 route (resident stage 2) and the chips tail with default knobs.
 ``ext_windowed1m`` is the windowed ext construction at webbase-1M's row
 count (1,000,000 rows, 5M nnz), the full-size input of the windowed
-stage 2.
+stage 2. ``powerlaw100k`` (the synthetic suite's no-locality stress
+case, ``scripts/results.py``) takes the hybrid's no-locality escape to
+``cuda-pell``; ``webbase1m`` (the webbase-1M stand-in of the reference
+study's matrix) leaves the hybrid a big tail that runs as compact PELL.
+``PELL_CASES`` are the small PELL-family cases.
 """
 
 from __future__ import annotations
@@ -88,3 +92,48 @@ def flagship():
 
 def amazon262k():
     return synth.amazon_csr(m=262_000, seed=6)
+
+
+def powerlaw100k():
+    return synth.powerlaw_csr(100_000, 100_000, avg_nnz=8, seed=5)
+
+
+def webbase1m():
+    return synth.webbase_csr(1_000_000, seed=7)
+
+
+def empty_windows() -> CSR:
+    """Entries in rows 1100-1199 and 5900-5949 of 6000 only: with windows
+    of 128 (or 16) row blocks, leading, interior and trailing windows
+    are empty (tests/test_kernels.py:58-99)."""
+    rows = np.concatenate([np.arange(1100, 1200), np.arange(5900, 5950)])
+    cols = (rows * 7) % 512
+    vals = np.linspace(1.0, 2.0, rows.shape[0])
+    return CSR.from_coo("empty_windows", 6000, 512, rows, cols, vals)
+
+
+def _powerlaw1500():
+    return synth.powerlaw_csr(1500, avg_nnz=20, seed=0)
+
+
+# name -> (matrix factory, strategy, prepare knobs). Between them they
+# run the fused scheme with and without the row sort and with int8 and
+# int16 indices, the span and pure schemes, empty windows, and BCSR's
+# dense tiles: all four PELL-family kernels and the window segment-sum.
+PELL_CASES = {
+    "pell-pl3000": (lambda: synth.powerlaw_csr(3000, 2000, seed=31),
+                    "cuda-pell", {"chunk": 8, "quantum": 8,
+                                  "row_sort": True}),
+    "pell-pl4000": (lambda: synth.powerlaw_csr(4000, 4000, seed=5),
+                    "cuda-pell", {}),
+    "pell-span1500": (_powerlaw1500, "cuda-pell", {"scheme": "span"}),
+    "pell-pure1500": (_powerlaw1500, "cuda-pell", {"scheme": "pure"}),
+    "pell-banded2000": (lambda: synth.banded_csr(2000, row_nnz=11,
+                                                 bandwidth=48, seed=5),
+                        "cuda-pell", {}),
+    "pell-empty-windows": (empty_windows, "cuda-pell", {"scheme": "pure"}),
+    "pell-empty-fused": (empty_windows, "cuda-pell", {"row_sort": False}),
+    "bcsr-banded200": (lambda: synth.banded_csr(200, row_nnz=11,
+                                                bandwidth=48, seed=5),
+                       "cuda-bcsr", {"chunk": 4}),
+}

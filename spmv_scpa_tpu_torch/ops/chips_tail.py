@@ -23,8 +23,10 @@ The device functions take ``ops``, the kernels to run by name
 (``lane_ell.KERNELS``, or ``lane_ell.PLAIN`` for the plain versions).
 The host planner is a JAX-free copy of the reference's. The split plan
 (``plan_chips_split``, used when the tail's unique columns exceed the
-resident budgets) is not ported yet: :func:`plan_chips` raises
-``NotImplementedError`` where the reference would plan one.
+resident budgets) is not ported yet: where the reference would plan one,
+:func:`plan_chips` returns None for a tail that the hybrid sends to its
+big-tail branch anyway (the reference drops a split plan past
+``BIG_TAIL`` entries), and raises ``NotImplementedError`` otherwise.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from spmv_scpa_tpu_torch.formats.csr import BC
-from spmv_scpa_tpu_torch.ops import ext_gather
+from spmv_scpa_tpu_torch.ops import ext_gather, segsum_kernel
 
 # resident stage-2 hot cap, in rows of 128 lanes (= ext_gather.H_MAX)
 H_CAP = ext_gather.H_MAX
@@ -119,11 +121,15 @@ class ChipsPlan:
 
 
 def plan_chips(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
-               m: int, n: int, h: int = 256, rows_per_step: int = 8):
+               m: int, n: int, h: int = 256, rows_per_step: int = 8,
+               big_tail: bool = False):
     """Plan the chips tail for ``(rows, cols, vals)`` entries (CSR
     order): the single resident pipeline when the dedup'd columns fit
-    the budgets. Where the reference would fall back to the split plan
-    this raises ``NotImplementedError``. None for no entries."""
+    the budgets. Where the reference would fall back to the split plan,
+    this returns None when ``big_tail`` (the caller drops a split plan
+    for its big-tail branch, as the reference does past ``BIG_TAIL``
+    entries, and a split planner that gives up leads there too) and
+    raises ``NotImplementedError`` otherwise. None for no entries."""
     n_e = int(rows.size)
     if n_e == 0:
         return None
@@ -135,6 +141,8 @@ def plan_chips(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
         p = _plan_single(rows, cols, vals, m, n, h, rows_per_step)
         if p is not None:
             return p
+    if big_tail:
+        return None
     raise NotImplementedError(
         f"chips tail: {n_e} entries over {uniq.size} unique columns need "
         f"the split plan: {_TODO_SPLIT}")
@@ -209,6 +217,8 @@ def prepare_chips(plan: ChipsPlan, n: int, device):
     vals = _put(plan.vals, torch.float32, device)
     rbl = _put(plan.rbl, torch.int32, device)
     win = _put(plan.win_of_step, torch.int32, device)
+    lists = segsum_kernel.device_lists(segsum_kernel.window_rel(
+        plan.rbl, plan.win_of_step.size), plan.h, device)
     n1 = plan.n1p_blocks * plan.R * BC
     NH = plan.NH
 
@@ -218,7 +228,7 @@ def prepare_chips(plan: ChipsPlan, n: int, device):
         hot = ops.sorted_gather(base, x1.view(-1, BC), p1, l1, plan.R)
         xg = ops.ranked_gather(hot, p2, l2)
         ys = ops.window_segsum(vals * xg, rbl, win, plan.num_windows,
-                               plan.h, plan.rows_per_step)
+                               plan.h, plan.rows_per_step, lists)
         return ys.view(-1)[:NH]
 
     hbm = (plan.E8 * BC * (4 + 4 + 4 + 4)        # vals, p2, l2, xg

@@ -17,12 +17,20 @@ Counterpart of ``spmv_scpa_tpu/ops/lane_ell.py:prepare_lane_ell_hybrid``
   hot columns, and the ext panels through the two gather stages of
   ``ops/ext_gather.py``), runs the core, and adds the tail: the chips
   tail (``ops/chips_tail.py``) for 2048 entries or more, else the
-  compact tail with ``index_add_``.
+  compact tail with ``index_add_``, or, past ``tail_xla_max`` entries,
+  the big-tail branch: PELL over the tail's rows renumbered 0..NH-1
+  (``ops/pell.py``) landed through ``chips_tail.make_landing``, or
+  under ``tail_strategy="auto"`` a second hybrid over the tail when it
+  has locality, y summed on the device. A matrix whose widest diagonal
+  window covers under 40% of its entries goes to ``cuda-pell`` whole
+  (the no-locality escape).
 
 Branches of the reference that this port does not have yet raise
-``NotImplementedError`` naming their ROADMAP item: the no-locality
-escape to PELL, the split chips plan, big tails and the distributed
-``core_only`` / ``x_off`` mode.
+``NotImplementedError`` naming their ROADMAP item: the split chips plan
+(a tail of 2048 to ``BIG_TAIL`` entries whose single plan does not fit,
+or ``diag="forcechips"``), big tails through a ``tail_strategy`` other
+than PELL or ``"auto"``, and the distributed ``core_only`` / ``x_off``
+mode.
 """
 
 from __future__ import annotations
@@ -36,8 +44,8 @@ import torch
 
 from spmv_scpa_tpu_torch import _kernels
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import chips_tail, ext_gather, segsum_kernel
-from spmv_scpa_tpu_torch.ops.registry import Prepared
+from spmv_scpa_tpu_torch.ops import chips_tail, ext_gather, pell, segsum_kernel
+from spmv_scpa_tpu_torch.ops.registry import Prepared, record_calls
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
 
 X_VMEM_BUDGET = 10 << 20     # same budget as the fused PELL kernel
@@ -55,10 +63,13 @@ _HOT_CHOICES = (128, 256, 512, 1024, 2048, 4096, 8192)
 _Q_CHOICES = (1, 2, 4, 8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88,
               96, 104, 112, 120, 128)
 
+# a split chips plan past this many tail entries goes to the big-tail
+# branch (the reference's TPU-measured cut, kept for parity)
+BIG_TAIL = 131072
+
 # Roadmap items named by the NotImplementedError of each missing branch.
-_TODO_PELL = "ROADMAP queue 1 #8 (PELL family: the no-locality escape)"
-_TODO_BIG_TAIL = ("ROADMAP queue 1 #7/#8 (big tails above tail_xla_max: "
-                  "recursive hybrid or compact PELL)")
+_TODO_BIG_TAIL = ("ROADMAP queue 1 #8d (big tails through strategies "
+                  "other than PELL)")
 _TODO_DIST = "ROADMAP queue 1 #13 (distributed row shards)"
 
 # Launches of the CUDA kernel by ``lane_ell_spmv`` in this process.
@@ -181,6 +192,8 @@ class LanePlan:
     ext_b8: np.ndarray | None = None        # windowed stage-2 bases
     chips: chips_tail.ChipsPlan | None = None   # the chips tail's plan
     landing: tuple | None = None            # chips_tail.landing_tables
+    big_tail: str | None = None   # the big-tail route: "pallas-hybrid"
+                                  # or "pallas-pell"
 
     @property
     def QT(self) -> int:
@@ -225,6 +238,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
                   ded_bytes: int = 32 << 20,
                   ded_max: int = 4, max_strips: int = 4,
                   tail_xla_max: int = 32768,
+                  depth: int = 0, max_depth: int = 2,
                   diag: str = "", x_off: int = 0,
                   core_only: bool = False, **_) -> LanePlan:
     """Pack ``A`` into lane-ELL slot planes (reference:
@@ -239,17 +253,6 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     cols = A.ja.astype(np.int64)
     nnz = A.nnz
 
-    if (loc_w == "auto" and nnz
-            and ext == "auto" and tail_strategy == "pallas-pell"):
-        # No-locality escape: the reference delegates the whole matrix
-        # to pallas-pell when even the widest diagonal window covers a
-        # minority of entries.
-        d_cov = float(np.mean(np.abs(cols - rows)
-                              <= _LOC_CHOICES[-1]))
-        if d_cov < 0.4:
-            raise NotImplementedError(
-                f"lane-ELL hybrid: diagonal coverage {d_cov:.3f} < 0.4 "
-                f"delegates to PELL: {_TODO_PELL}")
     if loc_w == "auto":
         loc_w = _auto_loc_w(rows, cols) if nnz else 128
     if loc_w % BC:
@@ -776,11 +779,14 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     if "notail" in diag:        # diag-only: results invalid, core cost
         tail_nnz = 0
     tm = ~take if tail_nnz else np.zeros(nnz, bool)
-    cplan = landing = chips_meta = None
+    cplan = landing = chips_meta = big = None
     if tail_nnz >= 2048 and "nochips" not in diag:
-        # (the split plan, which the reference may route to the big
-        # tail past BIG_TAIL entries, raises inside plan_chips)
-        cplan = chips_tail.plan_chips(rows[tm], cols[tm], A.as_[tm], m, n)
+        # a tail whose single plan does not fit: past BIG_TAIL entries
+        # the reference drops the split plan for the big-tail branch;
+        # below it, or with "forcechips", plan_chips raises
+        cplan = chips_tail.plan_chips(
+            rows[tm], cols[tm], A.as_[tm], m, n,
+            big_tail=tail_nnz > BIG_TAIL and "forcechips" not in diag)
     if cplan is not None:
         landing = chips_tail.landing_tables(cplan.heavy_ids, m, G_pad)
         chips_meta = {"heavy_rows": cplan.NH, "hot_h": cplan.H,
@@ -790,9 +796,19 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
                       "tile_rows": cplan.E8,
                       "windows": cplan.num_windows}
     elif tail_nnz > tail_xla_max:
-        raise NotImplementedError(
-            f"lane-ELL hybrid: a {tail_nnz}-entry tail exceeds "
-            f"tail_xla_max={tail_xla_max}: {_TODO_BIG_TAIL}")
+        # big tails: a second hybrid when the tail keeps diagonal or hub
+        # locality ("auto"), else PELL over the tail's rows compacted
+        big = tail_strategy
+        if big == "auto":
+            d = np.abs(cols[tm] - rows[tm])
+            local = float(np.mean(d <= 4096))
+            big = ("pallas-hybrid" if depth < max_depth and local >= 0.4
+                   else "pallas-pell")
+        if big not in ("pallas-hybrid", "pallas-pell"):
+            raise NotImplementedError(
+                f"lane-ELL hybrid: a {tail_nnz}-entry tail exceeds "
+                f"tail_xla_max={tail_xla_max} and tail_strategy {big!r} "
+                f"is not ported for big tails: {_TODO_BIG_TAIL}")
 
     meta = {"loc_w": loc_w, "slots": Q, "ov_slots": Qo,
             "hot_k": hot_k, "idx8_planes": n8,
@@ -813,7 +829,9 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
             "tail_nnz": tail_nnz,
             "tail_kind": (None if not tail_nnz else
                           "chips" if cplan is not None else
-                          "torch-compact"),
+                          "torch-compact" if big is None else
+                          f"hybrid-r{depth + 1}" if big == "pallas-hybrid"
+                          else "compact-cuda-pell"),
             "tail_meta": chips_meta,
             "tail_frac": tail_nnz / max(nnz, 1)}
     cfg = LaneCfg(QT=QT, n8=n8, chunk=chunk, steps=steps, S=S, nw=nw,
@@ -824,7 +842,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
         Q=Q, Qo=Qo, loc_w=loc_w, n_local=n_local, m=m,
         trows=rows[tm], tcols=cols[tm], tvals=A.as_[tm], meta=meta,
         ext=eplan, ext_p2=ext_p2, ext_l2=ext_l2, ext_b8=ext_b8,
-        chips=cplan, landing=landing)
+        chips=cplan, landing=landing, big_tail=big)
 
 
 # ---------------------------------------------------------------------------
@@ -925,37 +943,73 @@ def lane_ell_spmv_plain(xpad, vals, idx8, idx16, plane_tabs, dynw, ext,
     return acc.reshape(-1)
 
 
-class HybridKernels(NamedTuple):
-    """The functions one hybrid call runs: the core and the four
-    kernels of the ext route and the chips tail."""
-
-    lane_ell_spmv: Callable
-    sorted_gather: Callable
-    ranked_gather: Callable
-    window_gather: Callable
-    window_segsum: Callable
-
+# The functions one hybrid call runs: the core, the three gathers of the
+# ext route and the chips tail, and the PELL family's
+# (:class:`pell.PellKernels`, the window segment-sum among them) for the
+# chips tail, the no-locality escape and the compact big tail.
+HybridKernels = NamedTuple("HybridKernels", [
+    (name, Callable) for name in ("lane_ell_spmv", "sorted_gather",
+                                  "ranked_gather", "window_gather")
+    + pell.PellKernels._fields])
 
 KERNELS = HybridKernels(lane_ell_spmv, ext_gather.sorted_gather,
                         ext_gather.ranked_gather, ext_gather.window_gather,
-                        segsum_kernel.window_segsum)
+                        *pell.KERNELS)
 PLAIN = HybridKernels(lane_ell_spmv_plain, ext_gather.sorted_gather_plain,
                       ext_gather.ranked_gather_plain,
-                      ext_gather.window_gather_plain,
-                      segsum_kernel.window_segsum_plain)
+                      ext_gather.window_gather_plain, *pell.PLAIN)
 
 
 # ---------------------------------------------------------------------------
 # The strategy
 # ---------------------------------------------------------------------------
 
+def no_locality(A: CSR, loc_w="auto", ext="auto",
+                tail_strategy="pallas-pell", depth: int = 0,
+                core_only: bool = False, x_off: int = 0, **_):
+    """The reference's no-locality escape (lane_ell.py:618-634): with
+    the default ``loc_w``, ``ext`` and ``tail_strategy`` at depth 0, a
+    matrix whose widest diagonal window (4096 columns) covers under 40%
+    of its entries goes to PELL whole. Returns that coverage when the
+    escape applies, else None."""
+    if not (loc_w == "auto" and depth == 0 and not core_only and A.nnz
+            and ext == "auto" and tail_strategy == "pallas-pell"):
+        return None
+    d = np.abs(A.ja.astype(np.int64) - x_off - A.row_ids())
+    d_cov = float(np.mean(d <= _LOC_CHOICES[-1]))
+    return d_cov if d_cov < 0.4 else None
+
+
 def prepare_lane_ell_hybrid(A: CSR, device="cuda", **knobs):
     """Pack ``A`` (:func:`pack_lane_ell`, same knobs as the reference)
     and bind ``fn(x) -> y`` on ``device``: stage x (with the ext panels
     when the plan has them), run the core, add the tail (chips tail and
-    landing, or the compact ``index_add_``). ``device`` defaults to the
+    landing, the compact ``index_add_``, or the big-tail branch). A
+    matrix without diagonal locality returns ``cuda-pell``'s Prepared
+    instead, its meta marked ``delegated``. ``device`` defaults to the
     card and raises without one; ``"cpu"`` runs the plain versions."""
     dev = resolve_device(device)
+    d_cov = no_locality(A, **knobs)
+    if d_cov is not None:
+        prep = pell.prepare_pell(A, device=dev)
+        prep.meta.setdefault("tail_kind", "cuda-pell")
+        prep.meta["delegated"] = "cuda-pell"
+        prep.meta["d_cov"] = round(d_cov, 4)
+        return prep
+    plan, run, stage, hbm = _bind(A, dev, **knobs)
+    return Prepared(
+        "cuda-hybrid", A.name, lambda x: run(x, KERNELS),
+        device=dev, nnz=A.nnz, ref="pallas-hybrid", hbm_bytes=int(hbm),
+        meta=plan.meta, plain=lambda x: run(x, PLAIN),
+        kernel_inputs=stage,
+        kernel_calls=lambda xf: record_calls(lambda ops: run(xf, ops),
+                                             PLAIN))
+
+
+def _bind(A: CSR, dev, **knobs):
+    """Pack ``A`` and bind it on ``dev``: returns (plan, run, stage,
+    hbm_bytes) with ``run(x, ops) -> y`` (m,) and ``stage(xf)`` the
+    core's arguments. Fills the plan's meta for a big tail."""
     plan = pack_lane_ell(A, **knobs)
     cfg = plan.cfg
 
@@ -1007,11 +1061,35 @@ def prepare_lane_ell_hybrid(A: CSR, device="cuda", **knobs):
         return xpad, vals, idx8, idx16, tabs, dynw, ext, cfg
 
     tail_hbm = 0
+    land = None
     if plan.chips is not None:
         contrib, tail_hbm = chips_tail.prepare_chips(plan.chips, n, dev)
         land, _, extra = chips_tail.make_landing(
             plan.chips.heavy_ids, m, cfg.G_pad, dev, tables=plan.landing)
         tail_hbm += extra
+    elif plan.big_tail == "pallas-hybrid":
+        # the tail as a second hybrid over all m rows (the reference
+        # passes on only the depth and tail_xla_max)
+        tail = CSR.from_coo(A.name + "_tail", m, n, plan.trows,
+                            plan.tcols, plan.tvals)
+        sub, sub_run, _, sub_hbm = _bind(
+            tail, dev, depth=knobs.get("depth", 0) + 1,
+            max_depth=knobs.get("max_depth", 2),
+            tail_xla_max=knobs.get("tail_xla_max", 32768))
+        plan.meta["tail_meta"] = sub.meta
+        tail_hbm = sub_hbm
+    elif plan.big_tail is not None:
+        # PELL over the tail's NH rows renumbered 0..NH-1, landed like
+        # the chips tail's per-row sums
+        R = np.unique(plan.trows)
+        tail = CSR.from_coo(A.name + "_tail", int(R.size), n,
+                            np.searchsorted(R, plan.trows), plan.tcols,
+                            plan.tvals)
+        tplan = pell.plan_pell(tail)
+        sub_run = pell.bind_plan(tplan, dev)
+        land, _, extra = chips_tail.make_landing(R, m, cfg.G_pad, dev)
+        plan.meta["tail_meta"] = tplan.meta
+        tail_hbm = extra + tplan.hbm_bytes
     elif plan.trows.size:
         trows = put(plan.trows, torch.int64)
         tcols = put(plan.tcols, torch.int64)
@@ -1026,28 +1104,13 @@ def prepare_lane_ell_hybrid(A: CSR, device="cuda", **knobs):
         y = ops.lane_ell_spmv(*stage(xf, ops))[:m]
         if plan.chips is not None:
             y = land(y, contrib(xf, ops), ops)
+        elif land is not None:
+            y = land(y, sub_run(xf, ops), ops)
+        elif plan.big_tail is not None:
+            y = y + sub_run(xf, ops)
         elif plan.trows.size:
             y.index_add_(0, trows, tvals * xf[tcols])
         return y
 
-    def kernel_calls(xf):
-        """Every kernel call of ``fn(xf)`` in order, as (name, args),
-        recorded through the plain versions (no kernel launches)."""
-        calls = []
-
-        def rec(name, f):
-            def call(*args):
-                calls.append((name, args))
-                return f(*args)
-            return call
-
-        run(xf, HybridKernels(*(rec(name, f) for name, f in
-                                zip(HybridKernels._fields, PLAIN))))
-        return calls
-
     hbm = cfg.steps * cfg.chunk * BC * plan.slot_bytes + tail_hbm
-    return Prepared(
-        "cuda-hybrid", A.name, lambda x: run(x, KERNELS),
-        device=dev, nnz=A.nnz, ref="pallas-hybrid", hbm_bytes=int(hbm),
-        meta=plan.meta, plain=lambda x: run(x, PLAIN),
-        kernel_inputs=stage, kernel_calls=kernel_calls)
+    return plan, run, stage, hbm

@@ -9,6 +9,8 @@ of the JAX package it is held against:
  name               ref                  what
 =================  ===================  ==================================
  cuda-hybrid        pallas-hybrid        lane-ELL hybrid, CUDA core kernel
+ cuda-pell          pallas-pell          PELL, fused / span / pure schemes
+ cuda-bcsr          pallas-bcsr          dense (8, 128) tiles, tile kernel
  torch-csr-segsum   xla-csr-segsum       gather + ``index_add_`` baseline
  torch-dense        xla-dense            dense matvec (tiny matrices)
  oracle-csr         oracle-csr           fp64 host oracle
@@ -55,10 +57,27 @@ class Prepared:
     kernel_calls: Callable[[Any], list] | None = None
 
 
+def record_calls(run: Callable[[Any], Any], plain) -> list:
+    """Every kernel call of ``run(ops)`` in order, as (name, args), with
+    ``ops`` the plain versions ``plain`` (a NamedTuple of the kernels by
+    name) each wrapped to record its call: no kernel launches."""
+    calls = []
+
+    def rec(name, f):
+        def call(*args):
+            calls.append((name, args))
+            return f(*args)
+        return call
+
+    run(type(plain)(*(rec(name, f) for name, f in
+                      zip(plain._fields, plain))))
+    return calls
+
+
 @dataclass(frozen=True)
 class StrategySpec:
     name: str
-    fmt: str                          # CSR | HLL | DENSE
+    fmt: str                          # CSR | HLL | PELL | BCSR | DENSE
     backend: str                      # host | torch | cuda
     ref: str
     prepare: Callable[..., Prepared] = None
@@ -67,9 +86,15 @@ class StrategySpec:
 _REGISTRY: dict[str, StrategySpec] = {}
 
 # Strategies of the JAX package's pick_auto that the port lacks, and
-# the port's stand-in for each (ROADMAP queue 1 #8 and #9).
-AUTO_STAND_INS = {"pallas-pell": "torch-csr-segsum",
-                  "pallas-xpose": "torch-csr-segsum"}
+# the port's stand-in for each (ROADMAP queue 1 #9).
+AUTO_STAND_INS = {"pallas-xpose": "torch-csr-segsum"}
+
+# The XPOSE planner's envelope (the reference's ops/xpose_plan.py
+# constants), for pick_auto's cheap check.
+_XPOSE_J1_MAX = 254         # S1 steps
+_XPOSE_CCAP = 127           # colors per side
+_XPOSE_B2_MAX = 248         # out-blocks
+_XPOSE_ROWS_PER_BLK = 64 * 128
 
 
 def register(spec: StrategySpec) -> StrategySpec:
@@ -119,7 +144,7 @@ def spmv(A: CSR, x, strategy: str = "auto", device="cuda",
             raise
         # auto fallback chain for a refusal mid-plan (the reference's
         # registry.py:138-157); NotImplementedError is not caught
-        for fb in ("cuda-hybrid", "torch-csr-segsum"):
+        for fb in ("cuda-hybrid", "cuda-pell", "torch-csr-segsum"):
             if fb == strategy:
                 continue
             try:
@@ -132,13 +157,26 @@ def spmv(A: CSR, x, strategy: str = "auto", device="cuda",
     return to_numpy(prep.fn(x))
 
 
+def quick_envelope_ok(A: CSR) -> bool:
+    """Copy of the reference's ``xpose_plan.quick_envelope_ok``: the
+    cheap necessary condition under which its ``pick_auto`` chooses
+    ``pallas-xpose`` for a matrix without diagonal locality."""
+    if A.nnz == 0 or A.m == 0:
+        return False
+    if A.nnz > _XPOSE_J1_MAX * _XPOSE_CCAP * 128:
+        return False
+    if int(np.diff(A.irp).max(initial=0)) > 16_384:
+        return False
+    return A.m <= _XPOSE_B2_MAX * _XPOSE_ROWS_PER_BLK
+
+
 def pick_auto(A: CSR) -> str:
     """The JAX package's choice on a TPU (``registry.pick_auto``, its
     TPU branch), mapped onto the port: ``xla-dense`` -> ``torch-dense``,
-    ``pallas-hybrid`` -> ``cuda-hybrid``, and the strategies the port
-    lacks go to their stand-in in :data:`AUTO_STAND_INS`. The thresholds
-    are the TPU's, kept until ROADMAP queue 1 #5 measures them on the
-    card."""
+    ``pallas-hybrid`` -> ``cuda-hybrid``, ``pallas-pell`` ->
+    ``cuda-pell``, and the strategies the port lacks go to their
+    stand-in in :data:`AUTO_STAND_INS`. The thresholds are the TPU's,
+    kept until ROADMAP queue 1 #5 measures them on the card."""
     if A.m * A.n <= 500_000:
         return "torch-dense"
     if A.nnz:
@@ -152,7 +190,9 @@ def pick_auto(A: CSR) -> str:
             loc = float(np.mean(d <= 4096))
             if loc >= 0.98 or (loc >= 0.5 and avg >= 3.0):
                 return "cuda-hybrid"
-    return AUTO_STAND_INS["pallas-pell"]
+        if quick_envelope_ok(A):
+            return AUTO_STAND_INS["pallas-xpose"]
+    return "cuda-pell"
 
 
 # ---------------------------------------------------------------------------
@@ -170,6 +210,7 @@ def _ensure_builtin():
 
     from spmv_scpa_tpu_torch.ops import torch_ops
     from spmv_scpa_tpu_torch.ops.lane_ell import prepare_lane_ell_hybrid
+    from spmv_scpa_tpu_torch.ops.pell import prepare_bcsr, prepare_pell
 
     def _prep_oracle_csr(A: CSR, **_):
         return Prepared("oracle-csr", A.name, lambda x: spmv_oracle(A, x),
@@ -203,3 +244,7 @@ def _ensure_builtin():
                           prepare=_prep_dense))
     register(StrategySpec("cuda-hybrid", "HLL", "cuda", "pallas-hybrid",
                           prepare=prepare_lane_ell_hybrid))
+    register(StrategySpec("cuda-pell", "PELL", "cuda", "pallas-pell",
+                          prepare=prepare_pell))
+    register(StrategySpec("cuda-bcsr", "BCSR", "cuda", "pallas-bcsr",
+                          prepare=prepare_bcsr))

@@ -228,3 +228,43 @@ def test_chip_smoke_bound_counts_what_the_data_reads(name):
     if name != "window_segsum":
         lib = cs.gather_library(name, args)()
         assert torch.equal(lib.view_as(out), out)
+
+
+def test_build_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """A library's name covers the headers its source includes: an
+    edited csrc/*.cuh builds anew."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "segsum.cu").write_text('#include "segsum_pass.cuh"\n')
+    (src / "segsum_pass.cuh").write_text("// one\n")
+    monkeypatch.setattr(_kernels, "CSRC_DIR", src)
+    first = _kernels.library_path("segsum")
+    (src / "segsum_pass.cuh").write_text("// two\n")
+    assert _kernels.library_path("segsum") != first
+
+
+@pytest.mark.parametrize("name", ["pell-pl3000", "pell-span1500",
+                                  "pell-pure1500", "bcsr-banded200"])
+def test_chip_smoke_pell_yardsticks_compute_the_kernels_function(name):
+    """Each PELL-family kernel's library yardstick computes what the
+    kernel does (run here on the plain versions), and its bound is set
+    by bytes and counts fewer x elements than the slots name."""
+    cs = _chip_smoke()
+    from spmv_scpa_tpu_torch.bench.cases import PELL_CASES
+    from spmv_scpa_tpu_torch.ops import lane_ell
+    from spmv_scpa_tpu_torch.utils.vector import make_x
+    make, strategy, kw = PELL_CASES[name]
+    A = make()
+    prep = get_strategy(strategy).prepare(A, device="cpu", **kw)
+    xd = torch.as_tensor(make_x(A.n), dtype=torch.float32)
+    for kname, args in prep.kernel_calls(xd):
+        out = getattr(lane_ell.PLAIN, kname)(*args)
+        ms, by = cs.bound(kname, args, out)
+        assert by == "bytes" and ms > 0
+        lib = cs.library(kname, args, None, xd)
+        got = lib().to_dense() if lib().is_sparse else lib()
+        got = got.reshape(-1)[:out.numel()].view_as(out)
+        if kname == "unpermute":
+            assert torch.equal(got, out)
+        else:
+            torch.testing.assert_close(got, out, rtol=1e-5, atol=1e-5)

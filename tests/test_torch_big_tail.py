@@ -1,0 +1,162 @@
+"""The hybrid's PELL delegations (spmv_scpa_tpu_torch/ops/lane_ell.py):
+the no-locality escape to ``cuda-pell``, and the big-tail branch as
+compact PELL or as a second hybrid, against the JAX package's
+``prepare_lane_ell_hybrid`` run in interpret mode on the CPU; and the
+webbase-1M stand-in at 200k rows through the port alone.
+
+Tolerances: meta (with the port's names for the tail routes, below) and
+bytes, exact; the port's y (plain versions) against JAX, rel-L2 <= 1e-4
+(the TPU's PELL kernels reduce in bf16 split passes), and against
+``spmv_oracle``, rel-L2 <= 1e-6 and ``validate_result``.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+from spmv_scpa_tpu import testing as jax_synth
+from spmv_scpa_tpu.ops import chips_tail as jax_ct
+from spmv_scpa_tpu.ops import lane_ell as jax_lane_ell
+from spmv_scpa_tpu.ops.lane_ell import prepare_lane_ell_hybrid as jax_prepare
+
+from spmv_scpa_tpu_torch import testing as synth
+from spmv_scpa_tpu_torch.ops import chips_tail, lane_ell
+from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
+from spmv_scpa_tpu_torch.ops.registry import to_numpy
+from spmv_scpa_tpu_torch.utils.validation import validate_result
+from spmv_scpa_tpu_torch.utils.vector import make_x
+
+VS_JAX_REL_L2 = 1e-4
+VS_ORACLE_REL_L2 = 1e-6
+
+# the reference's names of the tail routes and strategies -> the port's
+PORT_NAMES = {"xla-compact": "torch-compact", "pallas-pell": "cuda-pell",
+              "compact-pallas-pell": "compact-cuda-pell"}
+
+
+def _port_meta(meta):
+    """The JAX meta with the reference's route names mapped to the
+    port's (hybrid-rN keeps its name), nested tail meta included."""
+    out = dict(meta)
+    for key in ("tail_kind", "delegated"):
+        if out.get(key) in PORT_NAMES:
+            out[key] = PORT_NAMES[out[key]]
+    if isinstance(out.get("tail_meta"), dict):
+        out["tail_meta"] = _port_meta(out["tail_meta"])
+    return out
+
+
+def _rel_l2(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _amazon20k(s):
+    return s.amazon_csr(m=20000, avg_nnz=4.7, seed=4)
+
+
+# name -> (generator call on either package's testing module, knobs)
+ROUTES = {
+    # the smallest size of the reference's escape matrix
+    # (powerlaw_csr(30_000, ...)) whose diagonal coverage stays < 0.4;
+    # its test is tests/test_torch_pell_escape.py, run apart because
+    # the JAX side's interpret-mode compile takes most of its time
+    "escape": (lambda s: s.powerlaw_csr(17000, 17000, avg_nnz=8, seed=5),
+               {}),
+    # a 3,091-entry tail past tail_xla_max, no chips
+    "compact-pell": (_amazon20k, {"ext": False, "diag": "nochips",
+                                  "tail_xla_max": 1000}),
+    "recursion": (_amazon20k, {"ext": False, "diag": "nochips",
+                               "tail_xla_max": 1000,
+                               "tail_strategy": "auto"}),
+}
+
+
+@functools.cache
+def _route(name):
+    make, kw = ROUTES[name]
+    A = make(synth)
+    x = make_x(A.n)
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", **kw)
+    jprep = jax_prepare(make(jax_synth), interpret=True, **kw)
+    return A, x, prep, jprep, to_numpy(prep.fn(x)), \
+        np.asarray(jprep.fn(x), dtype=np.float64)
+
+
+def check_route(name):
+    A, x, prep, jprep, y, y_jax = _route(name)
+    assert prep.meta == _port_meta(jprep.meta)
+    assert prep.hbm_bytes == jprep.hbm_bytes
+    assert PORT_NAMES.get(jprep.strategy, "cuda-hybrid") == prep.strategy
+    gold = spmv_oracle(A, x)
+    assert _rel_l2(y, y_jax) <= VS_JAX_REL_L2
+    assert _rel_l2(y, gold) <= VS_ORACLE_REL_L2
+    validate_result(gold, y, what=f"port hybrid (plain), {name}")
+
+
+def kernel_route(name):
+    A, _, prep, *_ = _route(name)
+    return [k for k, _ in prep.kernel_calls(make_x(A.n))]
+
+
+@pytest.mark.parametrize("name", ["compact-pell", "recursion"])
+def test_route_matches_jax(name):
+    check_route(name)
+
+
+def test_big_tail_routes_take_their_branches():
+    meta = {name: _route(name)[2].meta
+            for name in ("compact-pell", "recursion")}
+    assert meta["compact-pell"]["tail_kind"] == "compact-cuda-pell"
+    assert meta["compact-pell"]["tail_meta"]["scheme"] == "fused"
+    assert meta["recursion"]["tail_kind"] == "hybrid-r1"
+    assert meta["recursion"]["tail_meta"]["tail_kind"] is not None
+    compact = kernel_route("compact-pell")
+    assert compact[0] == "lane_ell_spmv" and "pell_fused" in compact
+    assert kernel_route("recursion").count("lane_ell_spmv") == 2
+
+
+def test_webbase200k_big_tail_runs_compact_pell():
+    """The webbase-1M stand-in at 200k rows (the reference pins this
+    route, tests/test_round3_mechanisms.py:56-63): its tail passes
+    BIG_TAIL, the single chips plan does not fit, so the tail runs as
+    compact PELL."""
+    A = synth.webbase_csr(m=200_000, seed=7)
+    x = make_x(A.n)
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu")
+    m = prep.meta
+    assert m["tail_kind"] == "compact-cuda-pell", m["tail_kind"]
+    assert m["tail_nnz"] > lane_ell.BIG_TAIL
+    y = to_numpy(prep.fn(x))
+    gold = spmv_oracle(A, x)
+    assert _rel_l2(y, gold) <= VS_ORACLE_REL_L2
+    validate_result(gold, y, what="port hybrid (plain) on webbase200k")
+
+
+def test_big_tail_constant_matches_jax():
+    assert lane_ell.BIG_TAIL == jax_lane_ell.BIG_TAIL
+
+
+def test_plan_chips_gives_up_only_for_big_tails():
+    """Where the reference plans a split, plan_chips returns None when
+    the caller routes the tail to the big-tail branch, and raises
+    (naming the split plan's ROADMAP item) otherwise."""
+    rng = np.random.default_rng(12)
+    m = n = 150_000
+    rows = np.repeat(np.sort(rng.choice(m, 16, replace=False)), 8000)
+    cols = rng.integers(0, n, rows.size)
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order].astype(np.int64), cols[order].astype(np.int64)
+    vals = rng.standard_normal(rows.size)
+    assert isinstance(jax_ct.plan_chips(rows, cols, vals, m, n),
+                      jax_ct.SplitChipsPlan)
+    assert chips_tail.plan_chips(rows, cols, vals, m, n,
+                                 big_tail=True) is None
+    with pytest.raises(NotImplementedError, match="ROADMAP.*split chips"):
+        chips_tail.plan_chips(rows, cols, vals, m, n)
+
+
+def test_forcechips_keeps_raising():
+    A = synth.webbase_csr(m=200_000, seed=7)
+    with pytest.raises(NotImplementedError, match="split chips"):
+        lane_ell.prepare_lane_ell_hybrid(A, device="cpu", diag="forcechips")

@@ -13,18 +13,25 @@ varying order on the card) is held to rel-L2 <= 1e-6 and, per row,
 arithmetic: bit-equal. The segment-sum adds in a fixed order, the order
 of its plain version on the CPU: bit-equal to that; against the plain
 version on the card (atomics) rel-L2 <= 1e-6. The stream probe sums
-ones, which is exact in f32 in any order: bit-equal. Against
-``spmv_oracle``: ``validate_result`` defaults.
+ones, which is exact in f32 in any order: bit-equal. The PELL family:
+the tile kernel rounds as its plain version does and the un-permute
+moves values, so both are bit-equal to their plain versions on the
+card; the fused kernel and the span segment-sum add in the fixed order
+of their plain versions on the CPU (bit-equal) and are within rel-L2
+1e-6 of those on the card. Against ``spmv_oracle``: ``validate_result``
+defaults.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from spmv_scpa_tpu_torch import get_strategy
 from spmv_scpa_tpu_torch.bench import roofline, timing
-from spmv_scpa_tpu_torch.bench.cases import SMALL_CASES
+from spmv_scpa_tpu_torch.bench.cases import PELL_CASES, SMALL_CASES
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import ext_gather, lane_ell, segsum_kernel
+from spmv_scpa_tpu_torch.ops import (ext_gather, lane_ell, pell,
+                                     segsum_kernel)
 from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import to_numpy
 from spmv_scpa_tpu_torch.utils.validation import validate_result
@@ -157,11 +164,13 @@ def test_window_segsum_matches_plain(card):
     rbl_np = rng.integers(0, h + 1, steps * g).astype(np.int32)  # h = pad
     rbl_np[:7] = (h, h, 3, 3, 0, h - 1, 3)
     rbl = torch.as_tensor(rbl_np, device=card)
+    lists = segsum_kernel.device_lists(
+        segsum_kernel.window_rel(rbl_np, steps), h, card)
     for order in ([0, 0, 2, 2, 2], [2, 0, 2, 0, 2]):
         win = torch.as_tensor(order, dtype=torch.int32, device=card)
         args = (part, rbl, win, 3, h, rows_per_step)
         before = segsum_kernel.KERNEL_LAUNCHES
-        y = segsum_kernel.window_segsum(*args)
+        y = segsum_kernel.window_segsum(*args, lists)
         assert segsum_kernel.KERNEL_LAUNCHES == before + 1
         torch.cuda.synchronize()
         assert y.shape == (3 * h, 8)
@@ -171,6 +180,118 @@ def test_window_segsum_matches_plain(card):
         yt = segsum_kernel.window_segsum_plain(*args)
         assert float((y - yt).norm()) <= \
             KERNEL_VS_PLAIN_REL_L2 * float(yt.norm())
+    with pytest.raises(ValueError, match="lists"):
+        segsum_kernel.window_segsum(*args, None)
+
+
+# the kernels that add in a fixed order whose plain versions use
+# index_add_ (atomics on the card)
+ORDERED = ("pell_fused", "span_segsum", "window_segsum")
+
+
+def _replay(name, args):
+    """One recorded kernel call against its plain versions."""
+    out = getattr(lane_ell.KERNELS, name)(*args)
+    torch.cuda.synchronize()
+    plain = getattr(lane_ell.PLAIN, name)(*args)
+    if name in ORDERED:
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else
+               tuple(t.cpu() for t in a) if isinstance(a, tuple) else a
+               for a in args]
+        assert torch.equal(out.cpu(), getattr(lane_ell.PLAIN, name)(*cpu))
+        assert float((out - plain).norm()) <= \
+            KERNEL_VS_PLAIN_REL_L2 * float(plain.norm())
+    else:
+        assert torch.equal(out, plain), name
+
+
+@pytest.mark.parametrize("name", sorted(PELL_CASES))
+def test_pell_case_kernels_match_plain(card, name):
+    make, strategy, kw = PELL_CASES[name]
+    A = make()
+    x = make_x(A.n)
+    prep = get_strategy(strategy).prepare(A, device=card, **kw)
+    xd = torch.as_tensor(x, dtype=torch.float32, device=card)
+    before = (dict(pell.LAUNCHES), segsum_kernel.SPAN_LAUNCHES,
+              segsum_kernel.KERNEL_LAUNCHES)
+    yk = to_numpy(prep.fn(xd))
+    calls = prep.kernel_calls(xd)
+    launched = {**{k: pell.LAUNCHES[k] - before[0][k] for k in pell.LAUNCHES},
+                "span_segsum": segsum_kernel.SPAN_LAUNCHES - before[1],
+                "window_segsum": segsum_kernel.KERNEL_LAUNCHES - before[2]}
+    assert {k for k, v in launched.items() if v} == {k for k, _ in calls}
+    yt = to_numpy(prep.plain(xd))
+    assert np.linalg.norm(yk - yt) <= \
+        KERNEL_VS_PLAIN_REL_L2 * max(np.linalg.norm(yt), 1e-30)
+    validate_result(spmv_oracle(A, x), yk, what=f"{strategy} on {name}")
+    for kname, args in calls:
+        _replay(kname, args)
+
+
+@pytest.mark.parametrize("quantum", [1, 2, 4, 8, 16, 32, 128])
+@pytest.mark.parametrize("kind", ["int8", "int16", "dense"])
+def test_pell_tiles_matches_plain(card, kind, quantum):
+    """Every quantum size and index kind, columns past n reading 0."""
+    rng = np.random.default_rng(quantum)
+    T, n = 40, 1000
+    vals = torch.as_tensor(rng.standard_normal((T * 8, BC)),
+                           dtype=torch.float32, device=card)
+    pw = 4 if kind == "int16" else 1
+    idx = None if kind == "dense" else torch.as_tensor(
+        rng.integers(0, BC * pw, (T * 8, BC)),
+        dtype=torch.int8 if kind == "int8" else torch.int16, device=card)
+    pan = torch.as_tensor(rng.integers(0, -(-n // (BC * pw)) + 1, T),
+                          dtype=torch.int32, device=card)
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                        device=card)
+    before = pell.LAUNCHES["pell_tiles"]
+    part = pell.pell_tiles(vals, idx, pan, x, quantum, pw)
+    assert pell.LAUNCHES["pell_tiles"] == before + 1
+    torch.cuda.synchronize()
+    assert part.shape == (T * 8, BC // quantum)
+    assert torch.equal(part, pell.pell_tiles_plain(vals, idx, pan, x,
+                                                   quantum, pw))
+
+
+def test_pell_fused_takes_a_large_step(card):
+    """chunk 256 at quantum 8 (the scattered regime's auto choice): a
+    step's partials take 128 KB of shared memory, past the 48 KB a
+    block gets unasked."""
+    from spmv_scpa_tpu_torch import testing as synth
+    A = synth.powerlaw_csr(4000, 4000, seed=5)
+    prep = pell.prepare_pell(A, device=card, chunk=256, quantum=8,
+                             g_max=4096)
+    assert prep.meta["scheme"] == "fused" and prep.meta["chunk"] == 256
+    x = make_x(A.n)
+    validate_result(spmv_oracle(A, x), to_numpy(prep.fn(x)),
+                    what="cuda-pell chunk 256")
+    for kname, args in prep.kernel_calls(
+            torch.as_tensor(x, dtype=torch.float32, device=card)):
+        _replay(kname, args)
+
+
+def test_span_segsum_matches_plain(card):
+    """Steps straddling windows, in order and out of it."""
+    rng = np.random.default_rng(5)
+    h, rps, nq, span, num_win = 32, 16, 16, 3, 6
+    g = rps // 8 * nq
+    for base_np in ([0, 0, 1, 3, 3, 4], [3, 0, 1, 4, 0, 3]):
+        base_np = np.asarray(base_np, np.int32)
+        steps = base_np.size
+        rbl_np = (base_np[:, None] * h + rng.integers(
+            -4, span * h + 4, (steps, g))).astype(np.int32)
+        part = torch.as_tensor(rng.standard_normal((steps * rps, nq)),
+                               dtype=torch.float32, device=card)
+        lists = segsum_kernel.device_lists(
+            segsum_kernel.span_rel(rbl_np, base_np, h), span * h, card)
+        args = (part, torch.as_tensor(rbl_np.reshape(-1), device=card),
+                torch.as_tensor(base_np, device=card), num_win, h, span,
+                rps, lists)
+        before = segsum_kernel.SPAN_LAUNCHES
+        y = segsum_kernel.span_segsum(*args)
+        assert segsum_kernel.SPAN_LAUNCHES == before + 1
+        assert y.shape == (num_win * h, 8)
+        _replay("span_segsum", args)
 
 
 def test_stream_probe_matches_plain_exactly(card):

@@ -23,17 +23,21 @@ import pytest
 from spmv_scpa_tpu import errors as jax_errors
 from spmv_scpa_tpu import testing as jax_synth
 from spmv_scpa_tpu.bench import timing as jax_timing
+from spmv_scpa_tpu.formats import bcsr as jax_bcsr
 from spmv_scpa_tpu.formats import panel_ell as jax_panel_ell
 from spmv_scpa_tpu.formats.csr import CSR as JaxCSR
 from spmv_scpa_tpu.io import loader as jax_loader
 from spmv_scpa_tpu.io import mmio as jax_mmio
+from spmv_scpa_tpu.ops import xpose_plan as jax_xpose_plan
 from spmv_scpa_tpu.ops.oracle import spmv_oracle as jax_oracle
 from spmv_scpa_tpu.utils import validation as jax_validation
 from spmv_scpa_tpu.utils.vector import make_x as jax_make_x
 
 from spmv_scpa_tpu_torch import errors, load_csr, testing as synth
 from spmv_scpa_tpu_torch.bench import timing
+from spmv_scpa_tpu_torch.formats import bcsr, panel_ell
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
+from spmv_scpa_tpu_torch.ops import registry
 from spmv_scpa_tpu_torch.io import mmio
 from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
 from spmv_scpa_tpu_torch.utils import validation
@@ -67,7 +71,10 @@ def test_port_and_chip_smoke_load_no_jax_package():
     """In a fresh interpreter (tests/conftest.py imports both packages),
     importing every module of the port and chip_smoke loads neither."""
     mods = _port_modules()
-    assert "spmv_scpa_tpu_torch.ops.chips_tail" in mods
+    assert {"spmv_scpa_tpu_torch.ops.chips_tail",
+            "spmv_scpa_tpu_torch.ops.pell",
+            "spmv_scpa_tpu_torch.formats.panel_ell",
+            "spmv_scpa_tpu_torch.formats.bcsr"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -247,3 +254,75 @@ def test_bench_result_and_gflops_match():
     b = jax_timing.BenchResult(1.5, 2.0, reps=3)
     assert (a.duration_ms, a.gflops, a.data, a.reps, a.all_ms) == \
         (b.duration_ms, b.gflops, b.data, b.reps, b.all_ms)
+
+
+# ---- the PELL-family formats ------------------------------------------------
+
+PELL_KNOBS = [
+    dict(),
+    dict(quantum=8, window_h=16, chunk_align=4),
+    dict(quantum=8, chunk_align=1, min_chunk_align=1, panel_w=4),
+    dict(quantum=32, window_h=48, chunk_align=64, min_chunk_align=16),
+    dict(quantum=128, chunk_align=1, min_chunk_align=1, panel_w=8),
+]
+
+
+def _same_fields(a, b, fields):
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype, f
+            np.testing.assert_array_equal(x, y, err_msg=f)
+        else:
+            assert x == y, f
+
+
+@pytest.mark.parametrize("name", ["banded", "powerlaw", "webbase",
+                                  "random", "tiny"])
+def test_csr_to_pell_matches_the_original(name):
+    fn, kw = GENERATORS[name]
+    a, b = getattr(synth, fn)(**kw), getattr(jax_synth, fn)(**kw)
+    for knobs in PELL_KNOBS:
+        _same_fields(panel_ell.csr_to_pell(a, **knobs),
+                     jax_panel_ell.csr_to_pell(b, **knobs),
+                     ("name", "m", "n", "nnz", "quantum", "vals", "lcol",
+                      "panel", "rowblk", "window_h", "chunk_align",
+                      "window", "rbl", "panel_w"))
+    empty = CSR.from_coo("e", 3000, 40, np.zeros(0, np.int64),
+                         np.zeros(0, np.int64), np.zeros(0))
+    empty_j = JaxCSR.from_coo("e", 3000, 40, np.zeros(0, np.int64),
+                              np.zeros(0, np.int64), np.zeros(0))
+    _same_fields(panel_ell.csr_to_pell(empty, chunk_align=4),
+                 jax_panel_ell.csr_to_pell(empty_j, chunk_align=4),
+                 ("vals", "lcol", "panel", "rowblk", "window", "rbl"))
+    assert (panel_ell.BR, panel_ell.BC, panel_ell.DEFAULT_QUANTUM,
+            panel_ell.DEFAULT_WINDOW_H) == (
+        jax_panel_ell.BR, jax_panel_ell.BC, jax_panel_ell.DEFAULT_QUANTUM,
+        jax_panel_ell.DEFAULT_WINDOW_H)
+
+
+@pytest.mark.parametrize("name", ["banded", "banded-rect", "stencil",
+                                  "random", "diag"])
+def test_csr_to_bcsr_matches_the_original(name):
+    fn, kw = GENERATORS[name]
+    a, b = getattr(synth, fn)(**kw), getattr(jax_synth, fn)(**kw)
+    for br, bc in ((8, 128), (4, 64)):
+        mine = bcsr.csr_to_bcsr(a, br=br, bc=bc)
+        want = jax_bcsr.csr_to_bcsr(b, br=br, bc=bc)
+        _same_fields(mine, want, ("name", "m", "n", "nnz", "br", "bc",
+                                  "vals", "col_panel", "rowptr"))
+        assert mine.fill == want.fill
+
+
+@pytest.mark.parametrize("name", sorted(GENERATORS))
+def test_quick_envelope_ok_matches_the_original(name):
+    fn, kw = GENERATORS[name]
+    a, b = getattr(synth, fn)(**kw), getattr(jax_synth, fn)(**kw)
+    assert registry.quick_envelope_ok(a) == jax_xpose_plan.quick_envelope_ok(b)
+    big_row = CSR.from_coo("r", 10, 20000, np.zeros(16385, np.int64),
+                           np.arange(16385), np.ones(16385))
+    assert registry.quick_envelope_ok(big_row) is False
+    assert (registry._XPOSE_J1_MAX, registry._XPOSE_CCAP,
+            registry._XPOSE_B2_MAX, registry._XPOSE_ROWS_PER_BLK) == (
+        jax_xpose_plan.J1_MAX, jax_xpose_plan.CCAP, jax_xpose_plan.B2_MAX,
+        jax_xpose_plan.ROWS_PER_BLK)

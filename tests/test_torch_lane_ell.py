@@ -332,10 +332,15 @@ def heavy_scatter_csr(m=150_000, heavy=16, per=8000, seed=12):
 
 
 @pytest.mark.parametrize("A_make, kw, what", [
-    (lambda: synth.powerlaw_csr(20000, seed=4), {}, "PELL"),
+    # the escape to PELL with an x past its resident bound: the striped
+    # path
+    (lambda: synth.random_csr(2000, 3_200_000, density=1e-6, seed=4), {},
+     "PELL column stripes"),
     (heavy_scatter_csr, {}, "split chips"),
+    # a big tail through a strategy outside the PELL family
     (lambda: synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4),
-     {"ext": False, "diag": "nochips", "tail_xla_max": 1000}, "big tails"),
+     {"ext": False, "diag": "nochips", "tail_xla_max": 1000,
+      "tail_strategy": "pallas-xpose"}, "big tails"),
     (lambda: synth.banded_csr(512, row_nnz=12, bandwidth=96, seed=7),
      {"core_only": True}, "distributed"),
     (lambda: synth.banded_csr(512, row_nnz=12, bandwidth=96, seed=7),

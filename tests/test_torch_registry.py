@@ -34,7 +34,7 @@ PKG = ROOT / "spmv_scpa_tpu_torch"
 
 # The port's strategy for each strategy the JAX pick_auto can return.
 PORT_OF = {"pallas-hybrid": "cuda-hybrid", "xla-dense": "torch-dense",
-           **AUTO_STAND_INS}
+           "pallas-pell": "cuda-pell", **AUTO_STAND_INS}
 
 BASELINES = ("torch-csr-segsum", "torch-dense", "oracle-csr")
 ZOO_SIZE = 7        # tests/conftest.py: matrices()
@@ -77,14 +77,18 @@ def test_pick_auto_maps_the_jax_tpu_choice(monkeypatch, name):
 
 def test_strategies_and_refs():
     names = list_strategies()
-    assert names == sorted(["cuda-hybrid", "oracle-csr",
-                            "torch-csr-segsum", "torch-dense"])
+    assert names == sorted(["cuda-bcsr", "cuda-hybrid", "cuda-pell",
+                            "oracle-csr", "torch-csr-segsum",
+                            "torch-dense"])
     jax_names = set(jax_registry.list_strategies())
     for name in names:
         spec = get_strategy(name)
         assert spec.ref in jax_names
     assert get_strategy("cuda-hybrid").ref == "pallas-hybrid"
-    assert list_strategies(backend="cuda") == ["cuda-hybrid"]
+    assert get_strategy("cuda-pell").ref == "pallas-pell"
+    assert get_strategy("cuda-bcsr").ref == "pallas-bcsr"
+    assert list_strategies(backend="cuda") == ["cuda-bcsr", "cuda-hybrid",
+                                               "cuda-pell"]
     with pytest.raises(KeyError, match="unknown strategy"):
         get_strategy("pallas-pell")
 
@@ -123,8 +127,46 @@ def test_auto_falls_back_on_a_refusal(monkeypatch):
         spmv(A, x, "cuda-hybrid", device="cpu")
 
 
+@pytest.mark.parametrize("index", range(ZOO_SIZE))
+@pytest.mark.parametrize("strategy", ["cuda-pell", "cuda-bcsr"])
+def test_pell_family_matches_oracle_on_zoo(matrices, strategy, index):
+    """The two PELL-family strategies, their plain versions on the CPU,
+    on every matrix of the zoo."""
+    Aj = matrices[index]
+    A = CSR(Aj.name, Aj.m, Aj.n, Aj.irp, Aj.ja, Aj.as_)
+    x = make_x(A.n)
+    y = spmv(A, x, strategy, device="cpu")
+    assert y.shape == (A.m,)
+    validate_result(spmv_oracle(A, x), y, what=f"{strategy} on {A.name}")
+
+
+def test_pick_auto_sends_scattered_matrices_to_cuda_pell(monkeypatch):
+    """``pallas-pell`` is ported: where the JAX package on a TPU picks
+    it (here a scattered matrix with a row past XPOSE's envelope),
+    pick_auto picks ``cuda-pell``, and only ``pallas-xpose`` keeps a
+    stand-in."""
+    from spmv_scpa_tpu.formats.csr import CSR as JaxCSR
+    assert AUTO_STAND_INS == {"pallas-xpose": "torch-csr-segsum"}
+    rng = np.random.default_rng(8)
+    m, n = 3000, 40000
+    rows = np.concatenate([rng.integers(0, m, 30000),
+                           np.full(17000, 7)])
+    cols = np.concatenate([rng.integers(0, n, 30000),
+                           rng.choice(n, 17000, replace=False)])
+    coo = (rows, cols, rng.standard_normal(rows.size))
+    monkeypatch.setattr(jax_platform, "is_tpu", lambda: True)
+    assert jax_registry.pick_auto(JaxCSR.from_coo("s", m, n, *coo)) \
+        == "pallas-pell"
+    A = CSR.from_coo("s", m, n, *coo)
+    assert pick_auto(A) == "cuda-pell"
+    x = make_x(A.n)
+    validate_result(spmv_oracle(A, x), spmv(A, x, device="cpu"),
+                    what="auto on a scattered matrix")
+
+
 @pytest.mark.parametrize("strategy", ["cuda-hybrid", "torch-csr-segsum",
-                                      "torch-dense"])
+                                      "torch-dense", "cuda-pell",
+                                      "cuda-bcsr"])
 def test_prepare_refuses_cuda_without_a_card(strategy):
     if torch.cuda.is_available():
         pytest.skip("a card is present; this pins the CPU-only refusal")
