@@ -41,12 +41,26 @@ the script exits non-zero:
 11. ``powerlaw100k`` through ``cuda-pell`` with ``scheme="span"``: the
    tile kernel and the span segment-sum at full size;
 12. the flagship through ``cuda-bcsr``: the tile kernel on dense tiles
-   and the window segment-sum at full size.
+   and the window segment-sum at full size;
+13. small XPOSE cases: every matrix of ``bench/cases.py``'s
+   ``XPOSE_CASES`` through ``cuda-xpose``, and the hybrid with an XPOSE
+   big tail (``XPOSE_TAIL``), checked as the small hybrid cases are;
+   between them they must launch the mirror, S1 and S3;
+14. main path 6, ``webbase1m`` through ``spmv``'s auto route:
+   ``pick_auto`` must choose ``cuda-xpose`` and its planner must accept
+   the matrix (a refusal fails, printing the reason, instead of falling
+   back); ``spmv(A, x)`` must launch the three XPOSE kernels and no
+   other; validated, timed, each kernel alone, host against device over
+   200 calls, a profiler window, cuSPARSE of the whole matrix;
+15. main path 7, ``random30k`` (uniform scatter) the same way;
+16. main path 8, ``amazon262k`` through ``cuda-nearfar``: the band
+   through the hybrid, the scattered rest through XPOSE; the core and
+   the three XPOSE kernels must launch.
 
 Each path sets the launch counts to 0 just before it and reads them
 just after; replays that hold a kernel against its plain version come
 after the read. Each prints its packing time. Then one JSON line of the
-ten kernels' numbers, the card line, and the contract line ``{"ok":
+thirteen kernels' numbers, the card line, and the contract line ``{"ok":
 true, "device": {...}}`` last. Without a card it prints no result and
 exits 2.
 
@@ -55,8 +69,9 @@ per row |dy| <= 1e-5 * (|A||x|)_row: the core, the gathers, the tile
 kernel and the un-permute are bit-equal to their plain versions, while
 the plain segment-sums, the plain fused kernel and the compact tail's
 ``index_add_`` add with atomics in a varying order on the card. Each
-kernel call replayed alone: the core, the gathers, the tile kernel and
-the un-permute bit-equal to their plain versions; the segment-sums and
+kernel call replayed alone: the core, the gathers, the tile kernel, the
+un-permute and XPOSE's mirror, S1 and S3 bit-equal to their plain
+versions; the segment-sums and
 the fused kernel bit-equal to their plain versions run on the CPU (the
 same fixed order) and within rel-L2 1e-6 of the plain versions on the
 card. Against ``spmv_oracle``: ``validate_result`` (rel 1e-4).
@@ -64,10 +79,12 @@ card. Against ``spmv_oracle``: ``validate_result`` (rel 1e-4).
 ``bound_ms`` is the least time for the same work on an H100 SXM: the
 bytes of every input read once and every output written once over
 3.35 TB/s, or the f32 operations over 67 TFLOP/s, whichever is larger
-(all ten kernels are bound by bytes). Where the data decides what is
-read, only that counts: a gather's distinct in-range source elements,
+(all thirteen kernels are bound by bytes). Where the data decides what
+is read, only that counts: a gather's distinct in-range source elements,
 the segment-sums' partials that land in y, the distinct x elements the
-tile and fused kernels read. Kernel and library times are
+tile and fused kernels read, the mirror's distinct source rows, S1's
+distinct x elements (of its entries) and S3's distinct product
+elements. Kernel and library times are
 device times (``bench.timing.time_device``: the host's enqueue does not
 enter them); a plain version and a whole call are timed as their caller
 sees them (event pairs, ``time_cuda``/``time_prepared``). ``library_ms``
@@ -75,9 +92,12 @@ times one PyTorch
 call computing the same function: a cuSPARSE CSR product for the core
 (of the whole matrix), for the fused kernel (of the matrix its tiles
 hold) and for the tile kernel (of a matrix with one row per tile row
-and quantum, whose product is the partials), ``sum`` for the probe,
-flat indexing for a gather and the un-permute, ``index_add_`` for the
-segment-sums. The port never calls these yardsticks.
+and quantum, whose product is the partials; for S1, of a matrix with
+one row per product slot holding its one entry, whose product is S1's
+product array), ``sum`` for the probe, flat indexing for a gather, the
+un-permute and the mirror, ``index_add_`` for the segment-sums and, after
+a flat gather of the routed products, for S3. The port never calls these
+yardsticks.
 """
 
 import json
@@ -88,14 +108,15 @@ import time
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels, get_strategy
+from spmv_scpa_tpu_torch import _kernels, get_strategy, spmv
 from spmv_scpa_tpu_torch.bench import cases, roofline as roof
 from spmv_scpa_tpu_torch.bench.timing import (time_cuda, time_device,
                                               time_prepared)
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import ext_gather, lane_ell, pell, segsum_kernel
+from spmv_scpa_tpu_torch.ops import (ext_gather, lane_ell, pell,
+                                     segsum_kernel, xpose, xpose_plan)
 from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
-from spmv_scpa_tpu_torch.ops.registry import to_numpy
+from spmv_scpa_tpu_torch.ops.registry import pick_auto, to_numpy
 from spmv_scpa_tpu_torch.utils.platform import card_label, cuda_device
 from spmv_scpa_tpu_torch.utils.validation import validate_result
 from spmv_scpa_tpu_torch.utils.vector import make_x
@@ -109,6 +130,7 @@ HYBRID_KERNELS = ("lane_ell_spmv", "sorted_gather", "ranked_gather",
                   "window_gather", "window_segsum")
 PELL_KERNELS = ("pell_fused", "pell_tiles", "span_segsum", "window_segsum",
                 "unpermute")
+XPOSE_KERNELS = ("xpose_mirror", "xpose_s1", "xpose_s3")
 # kernels whose plain versions add with index_add_ (atomics on the card):
 # held bit-equal to the plain version run on the CPU
 ORDERED = ("window_segsum", "span_segsum", "pell_fused")
@@ -133,10 +155,17 @@ SOURCES = {
                     "spmv_scpa_tpu/ops/segsum_kernel.py:120"),
     "unpermute": ("spmv_scpa_tpu_torch/csrc/pell.cu",
                   "spmv_scpa_tpu/ops/pallas_kernels.py:1518"),
+    "xpose_mirror": ("spmv_scpa_tpu_torch/csrc/xpose.cu",
+                     "spmv_scpa_tpu/ops/xpose.py:137"),
+    "xpose_s1": ("spmv_scpa_tpu_torch/csrc/xpose.cu",
+                 "spmv_scpa_tpu/ops/xpose.py:62"),
+    "xpose_s3": ("spmv_scpa_tpu_torch/csrc/xpose.cu",
+                 "spmv_scpa_tpu/ops/xpose.py:87"),
 }
 LINE_ORDER = ("lane_ell_spmv", "stream_reduce", "sorted_gather",
               "ranked_gather", "window_gather", "window_segsum",
-              "pell_fused", "pell_tiles", "span_segsum", "unpermute")
+              "pell_fused", "pell_tiles", "span_segsum", "unpermute",
+              "xpose_mirror", "xpose_s1", "xpose_s3")
 
 
 # ---- launch counts -----------------------------------------------------------
@@ -147,7 +176,8 @@ def counts() -> dict:
             **ext_gather.LAUNCHES,
             "window_segsum": segsum_kernel.KERNEL_LAUNCHES,
             **pell.LAUNCHES,
-            "span_segsum": segsum_kernel.SPAN_LAUNCHES}
+            "span_segsum": segsum_kernel.SPAN_LAUNCHES,
+            **xpose.LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -155,7 +185,7 @@ def reset_counts() -> None:
     roof.KERNEL_LAUNCHES = 0
     segsum_kernel.KERNEL_LAUNCHES = 0
     segsum_kernel.SPAN_LAUNCHES = 0
-    for table in (ext_gather.LAUNCHES, pell.LAUNCHES):
+    for table in (ext_gather.LAUNCHES, pell.LAUNCHES, xpose.LAUNCHES):
         for k in table:
             table[k] = 0
 
@@ -319,6 +349,20 @@ def bound(name, args, out) -> tuple:
         src, flat, ok = gather_flat(name, args)
         nbytes += (torch.unique(flat[ok]).numel() * src.element_size()
                    - tensor_bytes((src,)))
+    elif name == "xpose_mirror":
+        x, flat = mirror_flat(args)
+        rows = torch.unique(flat[flat < x.numel()] // BC)
+        nbytes += (torch.clamp(x.numel() - rows * BC, max=BC).sum().item()
+                   * 4 - tensor_bytes((x,)))
+    elif name == "xpose_s1":
+        _, col, _ = s1_slots(args)
+        ops = col.numel()
+        nbytes += (torch.unique(col).numel() * 4
+                   - tensor_bytes(args[:2]))
+    elif name == "xpose_s3":
+        src, _ = s3_slots(args)
+        ops = args[1].shape[1] * BC
+        nbytes += torch.unique(src).numel() * 4 - tensor_bytes(args[:1])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -387,6 +431,86 @@ def tiles_library(args):
     return lambda: A.matmul(x2)
 
 
+def mirror_flat(args):
+    """(x, flat) of a mirror call: each output element's index into x, or
+    x.numel() where it reads 0.0 (a source past x)."""
+    x, msw, sel, sub = args
+    v = torch.arange(sel.shape[0], device=x.device)[:, None]
+    row = (msw.long()[v * 4 + sel.long().clamp(max=3)] * BC
+           + sub.long())[:, :, None]
+    flat = row * BC + torch.arange(BC, device=x.device)
+    ok = ((sel < 4) & (sub < BC))[:, :, None] & (flat >= 0) \
+        & (flat < x.numel())
+    return x, torch.where(ok, flat, x.numel()).view(-1, BC)
+
+
+def s1_slots(args):
+    """The product slots of an S1 call that hold an entry: each slot's
+    flat index into mid (B2, J1, 128), the flat index of the element of
+    x_ext (x zero-padded to nw0 windows, then the mirror table) that it
+    reads, and its value."""
+    x, xm, win, gidx, asv, r2, r3, nw0, B2 = args
+    J1, dev = win.numel(), x.device
+    c1 = r3.long().view(J1, B2, BC)
+    c1c = c1.clamp(max=BC - 1)
+    r = r2.long().view(J1, B2, BC).gather(2, c1c)
+    rc = r.clamp(max=BC - 1)
+    step = torch.arange(J1, device=dev).view(J1, 1, 1)
+    pos = (step * BC + rc) * BC + c1c
+    g = gidx.view(-1).long()[pos]
+    a = asv.view(-1)[pos]
+    w = win.long().view(J1, 1, 1)
+    ok = ((c1 < xpose_plan.CCAP) & (r < BC) & (g < BC) & (a != 0)
+          & (w >= 0) & (w < nw0 + xm.shape[0] // BC))
+    col = (w * BC + rc) * BC + g
+    slot = ((torch.arange(B2, device=dev).view(1, B2, 1) * J1 + step) * BC
+            + torch.arange(BC, device=dev))
+    return slot[ok], col[ok], a[ok]
+
+
+def s3_slots(args):
+    """The occupied final slots of an S3 call: each slot's flat index into
+    mid and the row of y_all whose sum it enters (the row whose end,
+    named by the first extraction pass, is the first at or after it)."""
+    mid, planes, m2 = args
+    B2, J1 = mid.shape[:2]
+    dev = mid.device
+    P = planes.long().view(8, B2, BC, BC)
+    sub, r3b, rpre1, ys1, r3y1 = P[:5]
+    blk = torch.arange(B2, device=dev).view(B2, 1, 1)
+    c = r3b.clamp(max=BC - 1)
+    s = sub.gather(2, c)
+    occ = (r3b < xpose_plan.CCAP) & (s < J1)
+    src = ((blk * J1 + s) * BC + c)[occ]
+    pos = ((blk * BC + torch.arange(BC, device=dev).view(1, BC, 1)) * BC
+           + torch.arange(BC, device=dev))[occ]
+    r = r3y1[:, :xpose.STAGE_ROWS]
+    rc = r.clamp(max=BC - 1)
+    fe = ys1[:, :xpose.STAGE_ROWS].gather(2, rc).clamp(max=BC - 1)
+    end = (blk * BC + fe) * BC + rpre1.reshape(-1)[(blk * BC + fe) * BC + rc]
+    row = blk + torch.arange(xpose.STAGE_ROWS * BC, device=dev).view(
+        1, xpose.STAGE_ROWS, BC) * B2
+    live = (r < BC) & (row < m2)
+    end, order = end[live].sort()
+    return src, row[live][order][torch.searchsorted(end, pos)]
+
+
+def s1_library(args):
+    """A cuSPARSE CSR product that forms S1's product array: one row per
+    product slot (k, s, c2), holding at most its one entry, over x_ext."""
+    x, xm, nw0 = args[0], args[1], args[7]
+    slot, col, a = s1_slots(args)
+    xe = torch.zeros(nw0 * BC * BC + xm.numel(), device=x.device)
+    xe[:x.numel()] = x
+    xe[nw0 * BC * BC:] = xm.view(-1)
+    J1, B2 = args[2].numel(), args[8]
+    A = torch.sparse_coo_tensor(
+        torch.stack([slot, col]), a,
+        (B2 * J1 * BC, xe.numel())).coalesce().to_sparse_csr()
+    x2 = xe.view(-1, 1)
+    return lambda: A.matmul(x2)
+
+
 def matrix_library(A, xd):
     """A cuSPARSE CSR product of the whole matrix."""
     dev = xd.device
@@ -411,6 +535,17 @@ def library(name, args, A, xd):
         return fused_library(args)
     if name == "pell_tiles":
         return tiles_library(args)
+    if name == "xpose_mirror":
+        x, flat = mirror_flat(args)
+        xz = torch.cat([x, x.new_zeros(1)])
+        return lambda: xz[flat]
+    if name == "xpose_s1":
+        return s1_library(args)
+    if name == "xpose_s3":
+        src, dest = s3_slots(args)
+        midf, m2 = args[0].view(-1), args[2]
+        return lambda: torch.zeros(m2, device=midf.device) \
+            .index_add_(0, dest, midf[src])
     if name == "lane_ell_spmv" and A is not None:
         return matrix_library(A, xd)
     return None          # the core without its whole matrix
@@ -494,15 +629,37 @@ def phase_line(rows):
     return " | ".join(out)
 
 
-def pell_path(name, A, strategy, knobs, dev, card, kernels, branch,
-              branch_what, timing=True):
-    """One full-size path of the PELL family: the launch counts set to 0,
-    ``A`` prepared (packing timed), the call validated against the
-    oracle and timed, the counts read; then the branch ``branch(meta)``
-    and the ``kernels`` that must have launched are checked, the call
-    held against its plain call and each kernel replayed alone.
-    ``timing`` adds host enqueue against device time over 200 calls.
-    Returns (the kernel table, the counts)."""
+def pell_meta(prep):
+    """What a PELL-family path's line says of its plan."""
+    m = prep.meta
+    tail = m.get("tail_meta") if isinstance(m.get("tail_meta"), dict) \
+        else {}
+    pm = tail if "scheme" in tail else m
+    return (f"{prep.strategy} delegated {m.get('delegated')} d_cov "
+            f"{m.get('d_cov')} | tail_nnz {m.get('tail_nnz')} tail_kind "
+            f"{m.get('tail_kind')} | PELL scheme {pm.get('scheme', 'bcsr')} "
+            f"quantum {pm.get('quantum', BC)} panel_w {pm.get('panel_w', 1)} "
+            f"row_sort {pm.get('row_sort', False)} chunk {pm.get('chunk')} "
+            f"window_h {pm.get('window_h')} tiles {pm.get('num_blocks')} "
+            f"fill {pm.get('fill', 0.0):.4f}")
+
+
+def xpose_meta(m):
+    """What a line says of an XPOSE plan's meta."""
+    return (f"J1 {m['J1']} B2 {m['B2']} W1 {m['W1']} NWm {m['NWm']} fill "
+            f"{m['fill']:.4f} x_bytes {m['x_bytes']}")
+
+
+def full_path(name, A, strategy, knobs, dev, card, kernels, branch,
+              branch_what, timing=True, describe=pell_meta, profile=False):
+    """One full-size path: the launch counts set to 0, ``A`` prepared
+    (packing timed), the call validated against the oracle and timed, the
+    counts read; then the branch ``branch(meta)`` and the ``kernels``
+    that must have launched are checked, the call held against its plain
+    call and each kernel replayed alone. ``timing`` adds host enqueue
+    against device time over 200 calls, ``profile`` a profiler window;
+    ``describe(prep)`` says what the line prints of the plan. Returns
+    (the kernel table, the counts)."""
     x = make_x(A.n)
     gold = spmv_oracle(A, x)
     reset_counts()
@@ -514,37 +671,188 @@ def pell_path(name, A, strategy, knobs, dev, card, kernels, branch,
     r = time_prepared(prep, x)
     validate_result(gold, r.data, what=f"{strategy} timed run, {name}")
     launched = counts()
-    m = prep.meta
-    if not branch(m):
+    if not branch(prep.meta):
         raise AssertionError(f"{name}: {prep.strategy} did not take "
-                             f"{branch_what} (meta {m})")
+                             f"{branch_what} (meta {prep.meta})")
     require(launched, kernels, name)
     xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
     rel_l2, row_rel, _ = twin_check(A, x, prep.fn(xd), prep.plain(xd), name)
     table = kernel_table(prep, xd, name, A=A)
-    tail = m.get("tail_meta") if isinstance(m.get("tail_meta"), dict) \
-        else {}
-    pm = tail if "scheme" in tail else m
-    print(f"[{name}] nnz {A.nnz} pack {pack_s:.2f} s | {prep.strategy} "
-          f"delegated {m.get('delegated')} d_cov {m.get('d_cov')} | "
-          f"tail_nnz {m.get('tail_nnz')} tail_kind {m.get('tail_kind')} | "
-          f"PELL scheme {pm.get('scheme', 'bcsr')} quantum "
-          f"{pm.get('quantum', BC)} panel_w {pm.get('panel_w', 1)} "
-          f"row_sort {pm.get('row_sort', False)} chunk {pm.get('chunk')} "
-          f"window_h {pm.get('window_h')} tiles {pm.get('num_blocks')} "
-          f"fill {pm.get('fill', 0.0):.4f} | hbm_bytes {prep.hbm_bytes} | "
-          f"vs oracle rel {rel_o:.3e} | vs plain rel-L2 {rel_l2:.3e} row "
-          f"{row_rel:.3e}", flush=True)
+    print(f"[{name}] nnz {A.nnz} pack {pack_s:.2f} s | {describe(prep)} | "
+          f"hbm_bytes {prep.hbm_bytes} | vs oracle rel {rel_o:.3e} | vs "
+          f"plain rel-L2 {rel_l2:.3e} row {row_rel:.3e}", flush=True)
+    report_times(name, prep, xd, r, launched, card, timing, profile)
+    print(f"[{name}] kernels alone: {phase_line(table)}", flush=True)
+    return table, launched
+
+
+def report_times(name, prep, xd, r, launched, card, timing, profile):
+    """The call's time line: the timed median, optionally host enqueue
+    against device time over 200 calls and a profiler window (device busy
+    time, idle share, device ms by kernel)."""
     hd = ""
     if timing:
         host_ms, dev_ms = host_vs_device(prep.fn, xd)
         hd = (f" | 200 calls back to back: host enqueue {host_ms:.4f} "
               f"ms/call, device {dev_ms:.4f} ms/call")
+    if profile:
+        by_name, busy_ms, idle = device_busy(prep.fn, xd)
+        hd += (f" | profiler, 50 calls: device busy {busy_ms:.4f} ms/call, "
+               f"idle share {idle:.3f}")
     print(f"[{name}] call {r.duration_ms:.4f} ms = {r.gflops:.2f} GFLOP/s "
           f"(median of {r.reps}){hd} | launches {launched} | {card}",
           flush=True)
+    if profile:
+        print(f"[{name}] device ms/call by name: " + ", ".join(
+            f"{k[:60]} {v:.4f}" for k, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:12]), flush=True)
+
+
+def auto_xpose_path(name, A, dev, card, profile):
+    """A main path of the scattered regime: ``pick_auto`` must choose
+    ``cuda-xpose``, whose plan must accept the matrix (a refusal fails
+    here, printing the planner's reason, rather than let ``spmv`` fall
+    back to the hybrid). With the launch counts set to 0, ``spmv(A, x)``
+    runs the auto route and must launch the three XPOSE kernels and no
+    other; the prepared call is then validated and timed, the counts
+    read, the call held against its plain call and ``spmv``'s y, and each
+    kernel replayed alone. Returns (the kernel table, the counts)."""
+    x = make_x(A.n)
+    gold = spmv_oracle(A, x)
+    picked = pick_auto(A)
+    if picked != "cuda-xpose":
+        raise AssertionError(f"{name}: pick_auto chose {picked}, not "
+                             "cuda-xpose")
+    t0 = time.perf_counter()
+    try:
+        prep = get_strategy("cuda-xpose").prepare(A, device=dev)
+    except ValueError as err:
+        print(f"[{name}] the XPOSE planner refuses {A.nnz} nnz: "
+              f"{xpose_plan.REJECT_REASON}", flush=True)
+        raise AssertionError(f"{name}: {err}") from err
+    pack_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    y_auto = spmv(A, x)
+    auto_s = time.perf_counter() - t0
+    auto_counts = counts()
+    others = {k: v for k, v in auto_counts.items()
+              if v and k not in XPOSE_KERNELS}
+    require(auto_counts, XPOSE_KERNELS, f"{name} through spmv's auto route")
+    if others:
+        raise AssertionError(f"{name}: the auto route launched {others}")
+    rel_o = validate_result(gold, to_numpy(prep.fn(x)),
+                            what=f"cuda-xpose on {name}")
+    validate_result(gold, y_auto, what=f"spmv auto on {name}")
+    r = time_prepared(prep, x)
+    validate_result(gold, r.data, what=f"cuda-xpose timed run, {name}")
+    launched = counts()
+    xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    rel_l2, row_rel, _ = twin_check(A, x, prep.fn(xd), prep.plain(xd), name)
+    auto_l2, _, _ = twin_check(A, x, torch.as_tensor(y_auto), prep.fn(xd),
+                               f"{name}: spmv's y against the prepared call")
+    table = kernel_table(prep, xd, name, A=A)
+    m = prep.meta
+    print(f"[{name}] nnz {A.nnz} ({A.nnz / A.m:.2f} per row) pick_auto "
+          f"{picked} | pack {pack_s:.2f} s, spmv auto (pack + call) "
+          f"{auto_s:.2f} s | {xpose_meta(m)} virtual rows {m['virtual_rows']} | "
+          f"hbm_bytes {prep.hbm_bytes} ({prep.hbm_bytes / A.nnz:.1f} B/nnz) "
+          f"| vs oracle rel {rel_o:.3e} | vs plain rel-L2 {rel_l2:.3e} row "
+          f"{row_rel:.3e} | spmv vs prepared rel-L2 {auto_l2:.3e}",
+          flush=True)
+    report_times(name, prep, xd, r, launched, card, True, profile)
     print(f"[{name}] kernels alone: {phase_line(table)}", flush=True)
+    print(f"[{name}] cuSPARSE CSR of the whole matrix: "
+          f"{median_ms(matrix_library(A, xd)):.4f} ms", flush=True)
     return table, launched
+
+
+def small_phase(tag, items, kernels, describe, dev, what):
+    """Small cases ``(name, A, strategy, knobs)``: each call against its
+    plain call and the oracle, each kernel call replayed against its plain
+    version; the ``kernels`` must launch across the cases.
+    ``describe(prep, A)`` says what a case's line prints of its plan."""
+    launches = dict.fromkeys(kernels, 0)
+    for name, A, strategy, kw in items:
+        prep = get_strategy(strategy).prepare(A, device=dev, **kw)
+        x = make_x(A.n)
+        xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        before = counts()
+        yk = prep.fn(xd)
+        torch.cuda.synchronize()
+        after = counts()
+        for k in kernels:
+            launches[k] += after[k] - before[k]
+        rel_l2, row_rel, dmax = twin_check(A, x, yk, prep.plain(xd), name)
+        rel_o = validate_result(spmv_oracle(A, x), to_numpy(yk),
+                                what=f"{strategy} on {name}")
+        calls = prep.kernel_calls(xd)
+        errs = [check_call(k, a, name) for k, a in calls]
+        print(f"[{tag}] {name}: {describe(prep, A)} | vs plain rel-L2 "
+              f"{rel_l2:.3e} row {row_rel:.3e} max|d| {dmax:.3e} | vs oracle "
+              f"rel {rel_o:.3e} | kernels {[k for k, _ in calls]} each vs "
+              f"plain max|d| {max(errs):.1e}", flush=True)
+    require(launches, kernels, what)
+    print(f"[{tag}] launches across the cases: {launches}", flush=True)
+
+
+def hybrid_small_meta(prep, A):
+    m = prep.meta
+    return (f"nnz {A.nnz} QT {m['slots'] + m['ov_slots']} idx8 "
+            f"{m['idx8_planes']} hot {m['hot_strips']} dyn {m['dyn_planes']} "
+            f"ext {m['ext']} (windowed {m['ext_windowed']}) tail "
+            f"{m['tail_nnz']} {m['tail_kind']}")
+
+
+def pell_small_meta(prep, A):
+    m = prep.meta
+    return (f"{prep.strategy} nnz {A.nnz} scheme {m.get('scheme', 'bcsr')} "
+            f"quantum {m.get('quantum', BC)} panel_w {m.get('panel_w', 1)} "
+            f"row_sort {m.get('row_sort', False)} tiles {m['num_blocks']} "
+            f"fill {m['fill']:.3f}")
+
+
+def xpose_small_meta(prep, A):
+    m = prep.meta
+    if "tail_kind" in m:
+        return (f"{prep.strategy} nnz {A.nnz} tail {m['tail_kind']} "
+                f"{xpose_meta(m['tail_meta'])}")
+    return f"{prep.strategy} nnz {A.nnz} {xpose_meta(m)}"
+
+
+def xpose_phases(dev, card):
+    """Phases 13-16: the small XPOSE cases and the hybrid with an XPOSE
+    big tail, the scattered regime's two main paths through the auto
+    route, and near/far on amazon262k. Returns webbase1m's kernel table
+    and counts, which the kernels line reports."""
+    # 13. the small XPOSE cases, and the hybrid with an XPOSE big tail
+    spec, tail_kw = cases.XPOSE_TAIL
+    small = [(name, cases.make(sp), "cuda-xpose", {})
+             for name, sp in cases.XPOSE_CASES.items()]
+    small.append(("amazon20k-xpose-tail", cases.make(spec), "cuda-hybrid",
+                  tail_kw))
+    small_phase("small-xpose", small, XPOSE_KERNELS, xpose_small_meta, dev,
+                "small XPOSE cases")
+
+    # 14-15. main paths 6 and 7: the scattered regime through spmv's auto
+    # route, which must pick cuda-xpose
+    wx, wx_counts = auto_xpose_path("webbase1m-xpose", cases.webbase1m(),
+                                    dev, card, profile=True)
+    auto_xpose_path("random30k", cases.random30k(), dev, card,
+                    profile=False)
+
+    # 16. main path 8: amazon262k through cuda-nearfar, the band on the
+    # hybrid and the scattered rest on XPOSE
+    full_path(
+        "amazon262k-nearfar", cases.amazon262k(), "cuda-nearfar", {}, dev,
+        card, ("lane_ell_spmv",) + XPOSE_KERNELS, lambda m: "W" in m,
+        "the split into band and scattered rest",
+        describe=lambda p: (
+            f"W {p.meta['W']} near_frac {p.meta['near_frac']} near_nnz "
+            f"{p.meta['near_nnz']} far_nnz {p.meta['far_nnz']} | near: "
+            f"tail {p.meta['near']['tail_kind']} ext {p.meta['near']['ext']}"
+            f" | far: {xpose_meta(p.meta['far'])}"), profile=True)
+    return wx, wx_counts
 
 
 def main() -> int:
@@ -574,36 +882,9 @@ def main() -> int:
 
     # 3. the small cases: call against plain call and oracle, each
     # kernel call replayed against its plain version
-    small_launches = dict.fromkeys(HYBRID_KERNELS, 0)
-    for name, (make, kw) in cases.SMALL_CASES.items():
-        A = make()
-        prep = hybrid.prepare(A, device=dev, **kw)
-        x = make_x(A.n)
-        xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
-        before = counts()
-        yk = prep.fn(xd)
-        torch.cuda.synchronize()
-        after = counts()
-        for k in HYBRID_KERNELS:
-            small_launches[k] += after[k] - before[k]
-        yt = prep.plain(xd)
-        rel_l2, row_rel, dmax = twin_check(A, x, yk, yt, name)
-        rel_o = validate_result(spmv_oracle(A, x), to_numpy(yk),
-                                what=f"cuda-hybrid on {name}")
-        calls = prep.kernel_calls(xd)
-        errs = [check_call(k, a, name) for k, a in calls]
-        m = prep.meta
-        print(f"[small] {name}: nnz {A.nnz} QT {m['slots'] + m['ov_slots']}"
-              f" idx8 {m['idx8_planes']} hot {m['hot_strips']} dyn "
-              f"{m['dyn_planes']} ext {m['ext']} (windowed "
-              f"{m['ext_windowed']}) tail {m['tail_nnz']} {m['tail_kind']} "
-              f"| vs plain rel-L2 {rel_l2:.3e} row {row_rel:.3e} max|d| "
-              f"{dmax:.3e} | vs oracle rel {rel_o:.3e} | kernels "
-              f"{[k for k, _ in calls]} each vs plain max|d| "
-              f"{max(errs):.1e}", flush=True)
-    require(small_launches, HYBRID_KERNELS, "small cases")
-    print(f"[small] launches across the cases: {small_launches}",
-          flush=True)
+    small_phase("small", [(name, make(), "cuda-hybrid", kw) for name, (
+        make, kw) in cases.SMALL_CASES.items()], HYBRID_KERNELS,
+        hybrid_small_meta, dev, "small cases")
 
     # 4. stream probe against its plain version
     buf = torch.ones(roof.PROBE_BYTES // 4, dtype=torch.float32, device=dev)
@@ -747,58 +1028,34 @@ def main() -> int:
     del prep, xd
 
     # 8. the small PELL cases
-    pell_launches = dict.fromkeys(PELL_KERNELS, 0)
-    for name, (make, strategy, kw) in cases.PELL_CASES.items():
-        A = make()
-        prep = get_strategy(strategy).prepare(A, device=dev, **kw)
-        x = make_x(A.n)
-        xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
-        before = counts()
-        yk = prep.fn(xd)
-        torch.cuda.synchronize()
-        after = counts()
-        for k in PELL_KERNELS:
-            pell_launches[k] += after[k] - before[k]
-        rel_l2, row_rel, dmax = twin_check(A, x, yk, prep.plain(xd), name)
-        rel_o = validate_result(spmv_oracle(A, x), to_numpy(yk),
-                                what=f"{strategy} on {name}")
-        calls = prep.kernel_calls(xd)
-        errs = [check_call(k, a, name) for k, a in calls]
-        m = prep.meta
-        print(f"[small-pell] {name}: {strategy} nnz {A.nnz} scheme "
-              f"{m.get('scheme', 'bcsr')} quantum {m.get('quantum', BC)} "
-              f"panel_w {m.get('panel_w', 1)} row_sort "
-              f"{m.get('row_sort', False)} tiles {m['num_blocks']} fill "
-              f"{m['fill']:.3f} | vs plain rel-L2 {rel_l2:.3e} row "
-              f"{row_rel:.3e} max|d| {dmax:.3e} | vs oracle rel {rel_o:.3e}"
-              f" | kernels {[k for k, _ in calls]} each vs plain max|d| "
-              f"{max(errs):.1e}", flush=True)
-    require(pell_launches, PELL_KERNELS, "small PELL cases")
-    print(f"[small-pell] launches across the cases: {pell_launches}",
-          flush=True)
+    small_phase("small-pell", [(name, make(), strategy, kw) for name, (
+        make, strategy, kw) in cases.PELL_CASES.items()], PELL_KERNELS,
+        pell_small_meta, dev, "small PELL cases")
 
     # 9-12. the PELL family at full size: two main paths through the
     # hybrid, then the span scheme and BCSR
-    pw, pw_counts = pell_path(
+    pw, pw_counts = full_path(
         "powerlaw100k", cases.powerlaw100k(), "cuda-hybrid", {}, dev, card,
         ("pell_fused", "unpermute"),
         lambda m: (m.get("delegated") == "cuda-pell"
                    and m["scheme"] == "fused" and m["row_sort"]),
         "the no-locality escape to cuda-pell (fused, row-sorted)")
-    wb, wb_counts = pell_path(
+    wb, wb_counts = full_path(
         "webbase1m", cases.webbase1m(), "cuda-hybrid", {}, dev, card,
         ("lane_ell_spmv", "pell_fused", "unpermute"),
         lambda m: (m["tail_kind"] == "compact-cuda-pell"
                    and m["tail_nnz"] > lane_ell.BIG_TAIL),
         "a compact-PELL tail past BIG_TAIL")
-    sp, sp_counts = pell_path(
+    sp, sp_counts = full_path(
         "powerlaw100k-span", cases.powerlaw100k(), "cuda-pell",
         {"scheme": "span"}, dev, card, ("pell_tiles", "span_segsum"),
         lambda m: m["scheme"] == "span", "the span scheme", timing=False)
-    bc, bc_counts = pell_path(
+    bc, bc_counts = full_path(
         "flagship-bcsr", flagship_A, "cuda-bcsr", {}, dev, card,
         ("pell_tiles", "window_segsum"), lambda m: True, "dense tiles",
         timing=False)
+
+    wx, wx_counts = xpose_phases(dev, card)
 
     # the kernels line: each kernel timed on the path that runs it
     measured = {"lane_ell_spmv": (flag, flag_counts),
@@ -810,7 +1067,8 @@ def main() -> int:
                 "pell_fused": (pw["pell_fused"], pw_counts),
                 "unpermute": (pw["unpermute"], pw_counts),
                 "pell_tiles": (sp["pell_tiles"], sp_counts),
-                "span_segsum": (sp["span_segsum"], sp_counts)}
+                "span_segsum": (sp["span_segsum"], sp_counts),
+                **{k: (wx[k], wx_counts) for k in XPOSE_KERNELS}}
     line = []
     for name in LINE_ORDER:
         row, launched = measured[name]

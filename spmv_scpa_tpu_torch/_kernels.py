@@ -47,6 +47,9 @@ SIGNATURES = {
              "pell_fused": (P, P, P, P, P, P, P, P, P,
                             I, I, I, I, I, I, I, I, I, I, P),
              "pell_unpermute": (P, P, P, I64, I, P)},
+    "xpose": {"xpose_mirror": (P, I64, P, P, P, P, I, P),
+              "xpose_s1": (P, I64, P, I, I, P, P, P, P, P, P, I, I, P),
+              "xpose_s3": (P, P, P, I, I, I64, P)},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -15,7 +15,14 @@ stage 2. ``powerlaw100k`` (the synthetic suite's no-locality stress
 case, ``scripts/results.py``) takes the hybrid's no-locality escape to
 ``cuda-pell``; ``webbase1m`` (the webbase-1M stand-in of the reference
 study's matrix) leaves the hybrid a big tail that runs as compact PELL.
-``PELL_CASES`` are the small PELL-family cases.
+``PELL_CASES`` are the small PELL-family cases. ``XPOSE_CASES`` are the
+small ``cuda-xpose`` cases: the JAX package's XPOSE test matrices
+(``tests/test_xpose.py:_cases``), webbase and amazon stand-ins with
+mirror windows and virtual rows, and ``webbase200k``, whose plan routes
+S1 through two output windows (W1 = 2). ``random30k``
+(``random_csr(30000, density=0.0005, seed=3)``, the mac_econ-like
+uniform scatter) and ``webbase1m`` are what ``pick_auto`` sends to
+``cuda-xpose`` at full size.
 """
 
 from __future__ import annotations
@@ -137,3 +144,33 @@ PELL_CASES = {
                                                 bandwidth=48, seed=5),
                        "cuda-bcsr", {"chunk": 4}),
 }
+
+
+def random30k() -> CSR:
+    return synth.random_csr(30000, density=0.0005, seed=3)
+
+
+def make(spec, module=synth) -> CSR:
+    """The matrix of a ``(generator name, arguments)`` spec, drawn by
+    ``module`` (the port's ``testing`` by default; the parity tests pass
+    the JAX package's to draw the same matrix there)."""
+    fn, kw = spec
+    return getattr(module, fn)(**kw)
+
+
+# name -> (generator of testing.py, arguments)
+XPOSE_CASES = {
+    "rand-1k": ("random_csr", dict(m=1000, density=0.004, seed=1)),
+    "banded-2k": ("banded_csr", dict(m=2000, row_nnz=9, bandwidth=64,
+                                     seed=2)),
+    "rand-8k": ("random_csr", dict(m=8000, density=0.0008, seed=3)),
+    "webbase30k": ("webbase_csr", dict(m=30000, seed=7)),
+    "amazon8k": ("amazon_csr", dict(m=8000, seed=6)),
+    "webbase200k": ("webbase_csr", dict(m=200_000, seed=7)),
+}
+
+# The hybrid with a big tail through XPOSE: the amazon20k small case's
+# 3,091-entry tail past tail_xla_max, planned by XPOSE.
+XPOSE_TAIL = (("amazon_csr", dict(m=20000, avg_nnz=4.7, seed=4)),
+              {"ext": False, "diag": "nochips", "tail_xla_max": 1000,
+               "tail_strategy": "pallas-xpose"})

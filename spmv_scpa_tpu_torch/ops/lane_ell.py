@@ -18,10 +18,11 @@ Counterpart of ``spmv_scpa_tpu/ops/lane_ell.py:prepare_lane_ell_hybrid``
   ``ops/ext_gather.py``), runs the core, and adds the tail: the chips
   tail (``ops/chips_tail.py``) for 2048 entries or more, else the
   compact tail with ``index_add_``, or, past ``tail_xla_max`` entries,
-  the big-tail branch: PELL over the tail's rows renumbered 0..NH-1
-  (``ops/pell.py``) landed through ``chips_tail.make_landing``, or
-  under ``tail_strategy="auto"`` a second hybrid over the tail when it
-  has locality, y summed on the device. A matrix whose widest diagonal
+  the big-tail branch: PELL (or, under ``tail_strategy="pallas-xpose"``,
+  XPOSE, ``ops/xpose.py``) over the tail's rows renumbered 0..NH-1
+  landed through ``chips_tail.make_landing``, or under
+  ``tail_strategy="auto"`` a second hybrid over the tail when it has
+  locality, y summed on the device. A matrix whose widest diagonal
   window covers under 40% of its entries goes to ``cuda-pell`` whole
   (the no-locality escape).
 
@@ -29,8 +30,8 @@ Branches of the reference that this port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP item: the split chips plan
 (a tail of 2048 to ``BIG_TAIL`` entries whose single plan does not fit,
 or ``diag="forcechips"``), big tails through a ``tail_strategy`` other
-than PELL or ``"auto"``, and the distributed ``core_only`` / ``x_off``
-mode.
+than PELL, XPOSE or ``"auto"``, and the distributed ``core_only`` /
+``x_off`` mode.
 """
 
 from __future__ import annotations
@@ -44,7 +45,8 @@ import torch
 
 from spmv_scpa_tpu_torch import _kernels
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import chips_tail, ext_gather, pell, segsum_kernel
+from spmv_scpa_tpu_torch.ops import (chips_tail, ext_gather, pell,
+                                     segsum_kernel, xpose)
 from spmv_scpa_tpu_torch.ops.registry import Prepared, record_calls
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
 
@@ -69,7 +71,7 @@ BIG_TAIL = 131072
 
 # Roadmap items named by the NotImplementedError of each missing branch.
 _TODO_BIG_TAIL = ("ROADMAP queue 1 #8d (big tails through strategies "
-                  "other than PELL)")
+                  "other than PELL and XPOSE)")
 _TODO_DIST = "ROADMAP queue 1 #13 (distributed row shards)"
 
 # Launches of the CUDA kernel by ``lane_ell_spmv`` in this process.
@@ -797,14 +799,15 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
                       "windows": cplan.num_windows}
     elif tail_nnz > tail_xla_max:
         # big tails: a second hybrid when the tail keeps diagonal or hub
-        # locality ("auto"), else PELL over the tail's rows compacted
+        # locality ("auto"), else PELL (or XPOSE when asked for) over
+        # the tail's rows compacted
         big = tail_strategy
         if big == "auto":
             d = np.abs(cols[tm] - rows[tm])
             local = float(np.mean(d <= 4096))
             big = ("pallas-hybrid" if depth < max_depth and local >= 0.4
                    else "pallas-pell")
-        if big not in ("pallas-hybrid", "pallas-pell"):
+        if big not in ("pallas-hybrid", "pallas-pell", "pallas-xpose"):
             raise NotImplementedError(
                 f"lane-ELL hybrid: a {tail_nnz}-entry tail exceeds "
                 f"tail_xla_max={tail_xla_max} and tail_strategy {big!r} "
@@ -831,6 +834,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
                           "chips" if cplan is not None else
                           "torch-compact" if big is None else
                           f"hybrid-r{depth + 1}" if big == "pallas-hybrid"
+                          else "compact-cuda-xpose" if big == "pallas-xpose"
                           else "compact-cuda-pell"),
             "tail_meta": chips_meta,
             "tail_frac": tail_nnz / max(nnz, 1)}
@@ -944,20 +948,22 @@ def lane_ell_spmv_plain(xpad, vals, idx8, idx16, plane_tabs, dynw, ext,
 
 
 # The functions one hybrid call runs: the core, the three gathers of the
-# ext route and the chips tail, and the PELL family's
+# ext route and the chips tail, the PELL family's
 # (:class:`pell.PellKernels`, the window segment-sum among them) for the
-# chips tail, the no-locality escape and the compact big tail.
+# chips tail, the no-locality escape and the compact big tail, and
+# XPOSE's (:class:`xpose.XposeKernels`) for the compact XPOSE big tail.
 HybridKernels = NamedTuple("HybridKernels", [
     (name, Callable) for name in ("lane_ell_spmv", "sorted_gather",
                                   "ranked_gather", "window_gather")
-    + pell.PellKernels._fields])
+    + pell.PellKernels._fields + xpose.XposeKernels._fields])
 
 KERNELS = HybridKernels(lane_ell_spmv, ext_gather.sorted_gather,
                         ext_gather.ranked_gather, ext_gather.window_gather,
-                        *pell.KERNELS)
+                        *pell.KERNELS, *xpose.KERNELS)
 PLAIN = HybridKernels(lane_ell_spmv_plain, ext_gather.sorted_gather_plain,
                       ext_gather.ranked_gather_plain,
-                      ext_gather.window_gather_plain, *pell.PLAIN)
+                      ext_gather.window_gather_plain, *pell.PLAIN,
+                      *xpose.PLAIN)
 
 
 # ---------------------------------------------------------------------------
@@ -1079,17 +1085,24 @@ def _bind(A: CSR, dev, **knobs):
         plan.meta["tail_meta"] = sub.meta
         tail_hbm = sub_hbm
     elif plan.big_tail is not None:
-        # PELL over the tail's NH rows renumbered 0..NH-1, landed like
-        # the chips tail's per-row sums
+        # PELL or XPOSE over the tail's NH rows renumbered 0..NH-1,
+        # landed like the chips tail's per-row sums
         R = np.unique(plan.trows)
         tail = CSR.from_coo(A.name + "_tail", int(R.size), n,
                             np.searchsorted(R, plan.trows), plan.tcols,
                             plan.tvals)
-        tplan = pell.plan_pell(tail)
-        sub_run = pell.bind_plan(tplan, dev)
+        if plan.big_tail == "pallas-xpose":
+            tplan = xpose.plan_or_raise(tail)
+            sub_run = xpose.bind_plan(tplan, dev)
+            t_meta, t_hbm = (xpose.plan_meta(tplan, tail.nnz),
+                             xpose.hbm_bytes(tplan))
+        else:
+            tplan = pell.plan_pell(tail)
+            sub_run = pell.bind_plan(tplan, dev)
+            t_meta, t_hbm = tplan.meta, tplan.hbm_bytes
         land, _, extra = chips_tail.make_landing(R, m, cfg.G_pad, dev)
-        plan.meta["tail_meta"] = tplan.meta
-        tail_hbm = extra + tplan.hbm_bytes
+        plan.meta["tail_meta"] = t_meta
+        tail_hbm = extra + t_hbm
     elif plan.trows.size:
         trows = put(plan.trows, torch.int64)
         tcols = put(plan.tcols, torch.int64)

@@ -11,6 +11,10 @@ of the JAX package it is held against:
  cuda-hybrid        pallas-hybrid        lane-ELL hybrid, CUDA core kernel
  cuda-pell          pallas-pell          PELL, fused / span / pure schemes
  cuda-bcsr          pallas-bcsr          dense (8, 128) tiles, tile kernel
+ cuda-xpose         pallas-xpose         static-routed transpose (mirror,
+                                         S1 and S3 kernels)
+ cuda-nearfar       pallas-nearfar       cuda-hybrid on the diagonal band +
+                                         cuda-xpose on the scattered rest
  torch-csr-segsum   xla-csr-segsum       gather + ``index_add_`` baseline
  torch-dense        xla-dense            dense matvec (tiny matrices)
  oracle-csr         oracle-csr           fp64 host oracle
@@ -27,6 +31,7 @@ import torch
 
 from spmv_scpa_tpu_torch.formats.csr import CSR
 from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
+from spmv_scpa_tpu_torch.ops.xpose_plan import quick_envelope_ok
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
 
 
@@ -84,17 +89,6 @@ class StrategySpec:
 
 
 _REGISTRY: dict[str, StrategySpec] = {}
-
-# Strategies of the JAX package's pick_auto that the port lacks, and
-# the port's stand-in for each (ROADMAP queue 1 #9).
-AUTO_STAND_INS = {"pallas-xpose": "torch-csr-segsum"}
-
-# The XPOSE planner's envelope (the reference's ops/xpose_plan.py
-# constants), for pick_auto's cheap check.
-_XPOSE_J1_MAX = 254         # S1 steps
-_XPOSE_CCAP = 127           # colors per side
-_XPOSE_B2_MAX = 248         # out-blocks
-_XPOSE_ROWS_PER_BLK = 64 * 128
 
 
 def register(spec: StrategySpec) -> StrategySpec:
@@ -157,26 +151,14 @@ def spmv(A: CSR, x, strategy: str = "auto", device="cuda",
     return to_numpy(prep.fn(x))
 
 
-def quick_envelope_ok(A: CSR) -> bool:
-    """Copy of the reference's ``xpose_plan.quick_envelope_ok``: the
-    cheap necessary condition under which its ``pick_auto`` chooses
-    ``pallas-xpose`` for a matrix without diagonal locality."""
-    if A.nnz == 0 or A.m == 0:
-        return False
-    if A.nnz > _XPOSE_J1_MAX * _XPOSE_CCAP * 128:
-        return False
-    if int(np.diff(A.irp).max(initial=0)) > 16_384:
-        return False
-    return A.m <= _XPOSE_B2_MAX * _XPOSE_ROWS_PER_BLK
-
-
 def pick_auto(A: CSR) -> str:
     """The JAX package's choice on a TPU (``registry.pick_auto``, its
     TPU branch), mapped onto the port: ``xla-dense`` -> ``torch-dense``,
-    ``pallas-hybrid`` -> ``cuda-hybrid``, ``pallas-pell`` ->
-    ``cuda-pell``, and the strategies the port lacks go to their
-    stand-in in :data:`AUTO_STAND_INS`. The thresholds are the TPU's,
-    kept until ROADMAP queue 1 #5 measures them on the card."""
+    ``pallas-hybrid`` -> ``cuda-hybrid``, ``pallas-xpose`` ->
+    ``cuda-xpose`` (``quick_envelope_ok`` is necessary only: a mid-plan
+    refusal is ``spmv``'s fallback), ``pallas-pell`` -> ``cuda-pell``.
+    The thresholds are the TPU's, kept until ROADMAP queue 1 #5
+    measures them on the card."""
     if A.m * A.n <= 500_000:
         return "torch-dense"
     if A.nnz:
@@ -191,7 +173,7 @@ def pick_auto(A: CSR) -> str:
             if loc >= 0.98 or (loc >= 0.5 and avg >= 3.0):
                 return "cuda-hybrid"
         if quick_envelope_ok(A):
-            return AUTO_STAND_INS["pallas-xpose"]
+            return "cuda-xpose"
     return "cuda-pell"
 
 
@@ -210,7 +192,9 @@ def _ensure_builtin():
 
     from spmv_scpa_tpu_torch.ops import torch_ops
     from spmv_scpa_tpu_torch.ops.lane_ell import prepare_lane_ell_hybrid
+    from spmv_scpa_tpu_torch.ops.nearfar import prepare_nearfar
     from spmv_scpa_tpu_torch.ops.pell import prepare_bcsr, prepare_pell
+    from spmv_scpa_tpu_torch.ops.xpose import prepare_xpose
 
     def _prep_oracle_csr(A: CSR, **_):
         return Prepared("oracle-csr", A.name, lambda x: spmv_oracle(A, x),
@@ -248,3 +232,7 @@ def _ensure_builtin():
                           prepare=prepare_pell))
     register(StrategySpec("cuda-bcsr", "BCSR", "cuda", "pallas-bcsr",
                           prepare=prepare_bcsr))
+    register(StrategySpec("cuda-xpose", "XPOSE", "cuda", "pallas-xpose",
+                          prepare=prepare_xpose))
+    register(StrategySpec("cuda-nearfar", "XPOSE", "cuda", "pallas-nearfar",
+                          prepare=prepare_nearfar))

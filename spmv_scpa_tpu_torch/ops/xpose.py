@@ -1,0 +1,382 @@
+"""XPOSE on PyTorch and CUDA (counterpart of ``spmv_scpa_tpu/ops/xpose.py``):
+the static-routed transpose SpMV of the scattered regime, ``cuda-xpose``.
+
+The host plan (``ops/xpose_plan.py``, the reference's planner copied)
+turns the matrix into uint8 routing planes; three kernels execute them:
+
+* :func:`xpose_mirror` copies popular x ranges into mirror windows;
+* :func:`xpose_s1`, per step of one (128, 128) x window, gathers x,
+  multiplies by the values and routes the products to their out-blocks,
+  storing them straight in S3's layout ``mid[k, s, :]`` (the reference's
+  S2 ``swapaxes`` is folded into these stores);
+* :func:`xpose_s3`, per out-block, routes the products to dense
+  row-major slots, takes the block's prefix sum and writes
+  ``y[row] = prefix(end of row) - prefix(end of previous row)`` straight
+  into y's row order.
+
+Virtual (split) rows add back onto their rows with ``index_add_``, an
+XLA scatter outside any kernel in the reference too. Each kernel's
+wrapper launches ``csrc/xpose.cu`` on a CUDA tensor and runs its plain
+PyTorch version on a CPU tensor; an index outside its range reads 0.0.
+The plain versions repeat the kernels' arithmetic (one f32 product per
+slot; the prefix sums as Hillis-Steele steps ``p[l] + p[l - d]``), so
+kernel and plain version agree bit for bit.
+
+The reference's TPU-only geometry (G_SUB step batching, the VMEM caps,
+the K1p padding of S3's planes and W3's two-window split) has no role
+here and is recorded in ``meta["tpu_knobs"]``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch.formats.csr import BC, CSR
+from spmv_scpa_tpu_torch.ops import xpose_plan
+from spmv_scpa_tpu_torch.ops.registry import Prepared, record_calls
+from spmv_scpa_tpu_torch.ops.xpose_plan import CCAP, X_EXT_BUDGET, XposePlan
+from spmv_scpa_tpu_torch.utils.platform import resolve_device
+
+# The reference's TPU step batching and the VMEM bound derived from it
+# (ops/xpose.py:42-47), recorded for parity only.
+G_SUB = 8
+X_VMEM_CAP = X_EXT_BUDGET + (G_SUB - 1) * BC * BC * 4
+STAGE_ROWS = 64              # y staging rows (of 128) per out-block
+N_S3_PLANES = 8              # sub, r3b, rpre1, ys1, r3y1, rpre2, ys2, r3y2
+
+# Launches of each CUDA kernel by its wrapper in this process.
+LAUNCHES = {"xpose_mirror": 0, "xpose_s1": 0, "xpose_s3": 0}
+
+
+# ---------------------------------------------------------------------------
+# The kernels: wrappers and plain versions
+# ---------------------------------------------------------------------------
+
+def _check(what: str, tensors: dict, dev):
+    """Each ``name: (tensor, dtype, shape)`` on ``dev``, of that dtype and
+    shape, contiguous."""
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    for name, (t, dtype, shape) in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} is on {t.device}, x on {dev}")
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} is {t.dtype} "
+                             f"{tuple(t.shape)}, expected {dtype} "
+                             f"{tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+
+
+def _check_x(what: str, x):
+    if x.dtype != torch.float32 or x.dim() != 1:
+        raise ValueError(f"{what}: x is {x.dtype} {tuple(x.shape)}, "
+                         "expected float32 (n,)")
+
+
+def _launch(what: str, out, *args):
+    lib = _kernels.load("xpose")
+    err = getattr(lib, what)(*args, _kernels.stream_handle(out.device))
+    _kernels.check(lib, err, what)
+    LAUNCHES[what] += 1
+    return out
+
+
+def _x_rows(x, rows: int):
+    """x zero-padded to ``rows`` rows of 128 (the plain versions' view of
+    the normal windows)."""
+    xr = torch.zeros(rows * BC, dtype=torch.float32, device=x.device)
+    k = min(x.numel(), rows * BC)
+    xr[:k] = x[:k]
+    return xr.view(rows, BC)
+
+
+def xpose_mirror(x, msw, mir_sel, mir_sub) -> torch.Tensor:
+    """The mirror windows (replaces ``_mirror_kernel``): ``out[v*128 + s,
+    l]`` = row ``msw[v*4 + mir_sel[v, s]] * 128 + mir_sub[v, s]`` of x as
+    rows of 128, lane ``l`` (0.0 past x). ``x`` (n,) f32, ``msw`` int32
+    (NWm*4,), ``mir_sel``/``mir_sub`` (NWm, 128) uint8; returns
+    (NWm*128, 128) f32."""
+    _check_x("xpose_mirror", x)
+    nwm = mir_sel.shape[0]
+    _check("xpose_mirror", {
+        "msw": (msw, torch.int32, (nwm * 4,)),
+        "mir_sel": (mir_sel, torch.uint8, (nwm, BC)),
+        "mir_sub": (mir_sub, torch.uint8, (nwm, BC))}, x.device)
+    if x.device.type == "cpu":
+        return xpose_mirror_plain(x, msw, mir_sel, mir_sub)
+    out = torch.empty((nwm * BC, BC), dtype=torch.float32, device=x.device)
+    return _launch("xpose_mirror", out, x.data_ptr(), x.numel(),
+                   msw.data_ptr(), mir_sel.data_ptr(), mir_sub.data_ptr(),
+                   out.data_ptr(), nwm)
+
+
+def xpose_mirror_plain(x, msw, mir_sel, mir_sub) -> torch.Tensor:
+    nwm = mir_sel.shape[0]
+    dev = x.device
+    sel = mir_sel.to(torch.int64)
+    sub = mir_sub.to(torch.int64)
+    v = torch.arange(nwm, device=dev)[:, None]
+    src = msw.to(torch.int64)[v * 4 + sel.clamp(max=3)] * BC + sub
+    idx = src[:, :, None] * BC + torch.arange(BC, device=dev)
+    ok = ((sel < 4) & (sub < BC))[:, :, None] & (idx >= 0) \
+        & (idx < x.numel())
+    xz = torch.cat([x, x.new_zeros(1)])
+    return xz[torch.where(ok, idx, x.numel())].view(nwm * BC, BC)
+
+
+def xpose_s1(x, xm, win, gidx, asv, r2, r3, nw0: int,
+             B2: int) -> torch.Tensor:
+    """Stage S1 (replaces ``_s1_kernel`` and the S2 transpose): per step
+    ``s`` with window ``xw`` (``win[s] < nw0``: rows of x, else rows of
+    the mirror table ``xm``), ``slab[r, c] = xw[r, gidx[s*128 + r, c]] *
+    asv[s*128 + r, c]`` (lane 127 zero), and ``mid[k, s, c2] =
+    slab[r2[rt, c1], c1]`` with ``c1 = r3[rt, c2]``, ``rt = s*B2 + k``.
+    ``gidx``/``asv`` (J1*128, 128) uint8/f32, ``r2``/``r3`` (J1*B2, 128)
+    uint8; returns mid (B2, J1, 128) f32."""
+    _check_x("xpose_s1", x)
+    J1 = win.numel()
+    if B2 <= 0 or nw0 * BC * BC < x.numel():
+        raise ValueError(f"xpose_s1: B2={B2}, nw0={nw0} do not cover x "
+                         f"({x.numel()} elements)")
+    _check("xpose_s1", {
+        "xm": (xm, torch.float32, (xm.shape[0] // BC * BC, BC)),
+        "win": (win, torch.int32, (J1,)),
+        "gidx": (gidx, torch.uint8, (J1 * BC, BC)),
+        "asv": (asv, torch.float32, (J1 * BC, BC)),
+        "r2": (r2, torch.uint8, (J1 * B2, BC)),
+        "r3": (r3, torch.uint8, (J1 * B2, BC))}, x.device)
+    if x.device.type == "cpu":
+        return xpose_s1_plain(x, xm, win, gidx, asv, r2, r3, nw0, B2)
+    mid = torch.empty((B2, J1, BC), dtype=torch.float32, device=x.device)
+    return _launch("xpose_s1", mid, x.data_ptr(), x.numel(), xm.data_ptr(),
+                   xm.shape[0] // BC, nw0, win.data_ptr(), gidx.data_ptr(),
+                   asv.data_ptr(), r2.data_ptr(), r3.data_ptr(),
+                   mid.data_ptr(), J1, B2)
+
+
+def xpose_s1_plain(x, xm, win, gidx, asv, r2, r3, nw0: int,
+                   B2: int) -> torch.Tensor:
+    dev = x.device
+    J1 = win.numel()
+    xe = torch.cat([_x_rows(x, nw0 * BC), xm]).view(-1)
+    nwt = xe.numel() // (BC * BC)
+    w = win.to(torch.int64).view(J1, 1, 1)
+    g = gidx.to(torch.int64).view(J1, BC, BC)
+    idx = (w * BC + torch.arange(BC, device=dev).view(1, BC, 1)) * BC + g
+    ok = (w >= 0) & (w < nwt) & (g < BC)
+    xz = torch.cat([xe, xe.new_zeros(1)])
+    slab = xz[torch.where(ok, idx, xe.numel())] * asv.view(J1, BC, BC)
+    slab[:, :, CCAP] = 0.0
+    c1 = r3.to(torch.int64).view(J1, B2, BC)
+    c1c = c1.clamp(max=BC - 1)
+    r = r2.to(torch.int64).view(J1, B2, BC).gather(2, c1c)
+    ok = (c1 < BC) & (r < BC)
+    flat = torch.where(ok, r * BC + c1c, BC * BC).view(J1, -1)
+    slabz = torch.cat([slab.view(J1, -1), slab.new_zeros(J1, 1)], 1)
+    return slabz.gather(1, flat).view(J1, B2, BC).transpose(0, 1) \
+        .contiguous()
+
+
+def xpose_s3(mid, planes, m2: int) -> torch.Tensor:
+    """Stage S3 (replaces ``_s3_kernel`` and the strided un-blocking):
+    per out-block ``b``, ``fin[f, l] = mid[b, sub[f, c], c]`` with ``c =
+    r3b[f, l]``; ``psg`` = each row's inclusive prefix plus the exclusive
+    prefix of the row totals; two passes ``st[q, lq] = psg[ys[q, r],
+    rpre[ys[q, r], r]]`` with ``r = r3y[q, lq]`` (0 where r >= 128); and
+    ``y_all[b + (q*128 + lq)*B2] = st1 - st2`` for q < 64 and rows below
+    ``m2``. ``mid`` (B2, J1, 128) f32; ``planes`` (8, B2*128, 128) uint8
+    in the order sub, r3b, rpre1, ys1, r3y1, rpre2, ys2, r3y2; returns
+    (m2,) f32."""
+    if mid.dtype != torch.float32 or mid.dim() != 3 or mid.shape[2] != BC:
+        raise ValueError(f"xpose_s3: mid is {mid.dtype} "
+                         f"{tuple(mid.shape)}, expected float32 (B2, J1, "
+                         f"{BC})")
+    B2, J1 = mid.shape[:2]
+    if not 0 <= m2 <= B2 * STAGE_ROWS * BC:
+        raise ValueError(f"xpose_s3: m2={m2} rows do not fit {B2} blocks "
+                         f"of {STAGE_ROWS * BC}")
+    _check("xpose_s3", {"mid": (mid, torch.float32, (B2, J1, BC)),
+                        "planes": (planes, torch.uint8,
+                                   (N_S3_PLANES, B2 * BC, BC))}, mid.device)
+    if mid.device.type == "cpu":
+        return xpose_s3_plain(mid, planes, m2)
+    y = torch.empty(m2, dtype=torch.float32, device=mid.device)
+    return _launch("xpose_s3", y, mid.data_ptr(), planes.data_ptr(),
+                   y.data_ptr(), J1, B2, m2)
+
+
+def _scan(p):
+    """Inclusive prefix along the last axis of 128, as the kernel's
+    Hillis-Steele steps: ``p[l] + p[l - d]`` for d = 1, 2, ..., 64."""
+    d = 1
+    while d < p.shape[-1]:
+        p = torch.cat([p[..., :d], p[..., d:] + p[..., :-d]], -1)
+        d *= 2
+    return p
+
+
+def xpose_s3_plain(mid, planes, m2: int) -> torch.Tensor:
+    B2, J1 = mid.shape[:2]
+    dev = mid.device
+    sub, r3b, rp1, ys1, ry1, rp2, ys2, ry2 = planes.to(torch.int64).view(
+        N_S3_PLANES, B2, BC, BC)
+    blk = torch.arange(B2, device=dev).view(B2, 1, 1)
+    cc = r3b.clamp(max=BC - 1)
+    s = sub.gather(2, cc)
+    ok = (r3b < BC) & (s < J1)
+    midz = torch.cat([mid.view(-1), mid.new_zeros(1)])
+    fin = midz[torch.where(ok, (blk * J1 + s) * BC + cc, mid.numel())]
+    psum = _scan(fin)
+    cinc = _scan(psum[..., BC - 1])
+    cpre = torch.cat([cinc.new_zeros(B2, 1), cinc[:, :-1]], 1)
+    psg = torch.cat([(psum + cpre[..., None]).view(-1), mid.new_zeros(1)])
+
+    def extract(rpre, ys, r3y):
+        r = r3y[:, :STAGE_ROWS]
+        rc = r.clamp(max=BC - 1)
+        f = ys[:, :STAGE_ROWS].gather(2, rc)
+        fc = f.clamp(max=BC - 1)
+        c = rpre.view(-1)[(blk * BC + fc) * BC + rc]
+        ok = (r < BC) & (f < BC) & (c < BC)
+        return psg[torch.where(ok, (blk * BC + fc) * BC + c, B2 * BC * BC)]
+
+    st = extract(rp1, ys1, ry1) - extract(rp2, ys2, ry2)
+    return st.reshape(B2, STAGE_ROWS * BC).t().reshape(-1)[:m2]
+
+
+class XposeKernels(NamedTuple):
+    """The functions an XPOSE call runs, by name."""
+
+    xpose_mirror: Callable
+    xpose_s1: Callable
+    xpose_s3: Callable
+
+
+KERNELS = XposeKernels(xpose_mirror, xpose_s1, xpose_s3)
+PLAIN = XposeKernels(xpose_mirror_plain, xpose_s1_plain, xpose_s3_plain)
+
+
+# ---------------------------------------------------------------------------
+# The strategy
+# ---------------------------------------------------------------------------
+
+def plan_or_raise(A: CSR) -> XposePlan:
+    """``plan_xpose(A)``, or the reference's ``ValueError`` (with the
+    planner's reason) when the matrix is outside the envelope, so that
+    ``spmv``'s auto route falls back."""
+    plan = xpose_plan.plan_xpose(A)
+    if plan is None:
+        raise ValueError(
+            "cuda-xpose: matrix outside the v1 planning envelope "
+            "(concentrated (window, block) cells, >4M entries, or a "
+            ">16k-entry row); use cuda-hybrid/cuda-pell (planner: "
+            f"{xpose_plan.REJECT_REASON})")
+    return plan
+
+
+def s3_planes(plan: XposePlan) -> np.ndarray:
+    """S3's eight routing planes stacked (8, B2*128, 128) uint8."""
+    return np.stack([plan.sub, plan.r3b, plan.rpre1, plan.ys1, plan.r3y1,
+                     plan.rpre2, plan.ys2, plan.r3y2])
+
+
+def compact_routes(plan: XposePlan, a: np.ndarray) -> np.ndarray:
+    """S1's r2 or r3 with the rows of out-blocks past B2 dropped: row
+    ``s*B2 + k`` for step s and out-block k (the plan's row is ``(s*W1 +
+    k // 128)*128 + k % 128``)."""
+    return a.reshape(plan.J1, plan.W1 * BC, BC)[:, :plan.B2].reshape(-1, BC)
+
+
+def hbm_bytes(plan: XposePlan) -> int:
+    """Bytes one call moves on the card, the port's own layout: S1's
+    planes (gidx, asv, the used rows of r2/r3), the mirror's planes and
+    table (written, then read), the product array (written by S1, read
+    by S3), S3's eight planes, x and y (with the virtual rows)."""
+    J1, B2, NWm = plan.J1, plan.B2, plan.NWm
+    return (J1 * BC * BC * 5 + 2 * J1 * B2 * BC
+            + NWm * (4 * 4 + 2 * BC) + 2 * NWm * BC * BC * 4
+            + 2 * B2 * J1 * BC * 4 + N_S3_PLANES * B2 * BC * BC
+            + plan.n * 4 + plan.m2 * 4)
+
+
+def plan_meta(plan: XposePlan, nnz: int) -> dict:
+    """The reference's meta keys (``x_bytes``: the port's x table, x and
+    the mirror windows), the count of virtual (split) rows, and the
+    TPU-only geometry under ``tpu_knobs``."""
+    nwmp = -(-plan.NWm // G_SUB) * G_SUB if plan.NWm else 0
+    x_vmem = (plan.NR // BC + nwmp) * BC * BC * 4
+    return {"J1": plan.J1, "B2": plan.B2, "W1": plan.W1, "W3": plan.W3,
+            "NWm": plan.NWm, "x_bytes": plan.n * 4 + plan.NWm * BC * BC * 4,
+            "virtual_rows": plan.m2 - plan.m,
+            "fill": nnz / max(plan.J1 * CCAP * BC, 1),
+            "tpu_knobs": {"G_SUB": G_SUB, "X_VMEM_CAP": X_VMEM_CAP,
+                          "K1p": plan.K1p, "x_vmem_bytes": x_vmem,
+                          "vmem_limit_bytes": {
+                              "mirror": min(plan.NR * BC * 4 + (16 << 20),
+                                            120 << 20),
+                              "s1": min(x_vmem + (24 << 20), 126 << 20),
+                              "s3": 64 << 20}}}
+
+
+def bind_plan(plan: XposePlan, dev) -> Callable:
+    """The plan's planes on ``dev``, and ``run(xf, ops) -> y (m,)`` for x
+    (f32 on ``dev``) through the kernels in ``ops`` (any object with
+    :class:`XposeKernels`' fields)."""
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+
+    u8 = torch.uint8
+    NWm, B2, m, m2 = plan.NWm, plan.B2, plan.m, plan.m2
+    nw0 = plan.NR // BC
+    msw = put(plan.msw[:NWm * 4], torch.int32)
+    mir_sel = put(plan.mir_sel[:NWm], u8)
+    mir_sub = put(plan.mir_sub[:NWm], u8)
+    no_mirror = torch.zeros((0, BC), dtype=torch.float32, device=dev)
+    win = put(plan.win_of_step, torch.int32)
+    gidx, asv = put(plan.gidx, u8), put(plan.asv, torch.float32)
+    r2 = put(compact_routes(plan, plan.r2), u8)
+    r3 = put(compact_routes(plan, plan.r3), u8)
+    planes = put(s3_planes(plan), u8)
+    v_row = put(plan.v_row, torch.int64)
+
+    def run(xf, ops):
+        xm = (ops.xpose_mirror(xf, msw, mir_sel, mir_sub) if NWm
+              else no_mirror)
+        mid = ops.xpose_s1(xf, xm, win, gidx, asv, r2, r3, nw0, B2)
+        y_all = ops.xpose_s3(mid, planes, m2)
+        y = y_all[:m]
+        if m2 > m:
+            y.index_add_(0, v_row, y_all[m:])
+        return y
+
+    return run
+
+
+def prepare_xpose(A: CSR, device="cuda", **_) -> Prepared:
+    """``cuda-xpose``: plan ``A`` (:func:`plan_or_raise`) and bind ``fn(x)
+    -> y`` on ``device`` (the card by default; ``"cpu"`` runs the plain
+    versions)."""
+    dev = resolve_device(device)
+    plan = plan_or_raise(A)
+    run = bind_plan(plan, dev)
+    n = A.n
+
+    def call(x, ops):
+        xf = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        if xf.shape != (n,):
+            raise ValueError(f"cuda-xpose: x has shape {tuple(xf.shape)}, "
+                             f"expected ({n},)")
+        return run(xf, ops)
+
+    return Prepared("cuda-xpose", A.name, lambda x: call(x, KERNELS),
+                    device=dev, nnz=A.nnz, ref="pallas-xpose",
+                    hbm_bytes=hbm_bytes(plan), meta=plan_meta(plan, A.nnz),
+                    plain=lambda x: call(x, PLAIN),
+                    kernel_calls=lambda xf: record_calls(
+                        lambda ops: call(xf, ops), PLAIN))

@@ -268,3 +268,36 @@ def test_chip_smoke_pell_yardsticks_compute_the_kernels_function(name):
             assert torch.equal(got, out)
         else:
             torch.testing.assert_close(got, out, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["webbase30k", "amazon8k"])
+def test_chip_smoke_xpose_yardsticks_compute_the_kernels_function(name):
+    """Each XPOSE kernel's library yardstick computes what the kernel
+    does (run here on the plain versions): the mirror's flat indexing
+    and S1's one-entry-per-row CSR product to f32 rounding, S3's gather
+    and index_add_ up to the order of the sums (the kernel differences
+    f32 block prefix sums); every bound is set by bytes and counts only
+    the elements the data reads."""
+    cs = _chip_smoke()
+    from spmv_scpa_tpu_torch.bench import cases
+    from spmv_scpa_tpu_torch.ops import xpose
+    from spmv_scpa_tpu_torch.utils.vector import make_x
+    A = cases.make(cases.XPOSE_CASES[name])
+    prep = get_strategy("cuda-xpose").prepare(A, device="cpu")
+    xd = torch.as_tensor(make_x(A.n), dtype=torch.float32)
+    calls = prep.kernel_calls(xd)
+    assert [k for k, _ in calls] == list(cs.XPOSE_KERNELS)
+    for kname, args in calls:
+        out = getattr(xpose.PLAIN, kname)(*args)
+        ms, by = cs.bound(kname, args, out)
+        assert by == "bytes"
+        assert 0 < ms <= (cs.tensor_bytes(args) + out.numel() * 4) \
+            / cs.HBM_BYTES_PER_S * 1e3
+        got = cs.library(kname, args, None, xd)().reshape(out.shape)
+        if kname == "xpose_s3":
+            assert float((got - out).norm()) <= 1e-5 * float(out.norm())
+        else:
+            torch.testing.assert_close(got, out, rtol=1e-6, atol=0)
+    _, col, _ = cs.s1_slots(calls[1][1])
+    src, dest = cs.s3_slots(calls[2][1])
+    assert col.numel() == src.numel() == dest.numel() == A.nnz

@@ -1,19 +1,21 @@
 """The hybrid's PELL delegations (spmv_scpa_tpu_torch/ops/lane_ell.py):
 the no-locality escape to ``cuda-pell``, and the big-tail branch as
-compact PELL or as a second hybrid, against the JAX package's
+compact PELL, compact XPOSE or as a second hybrid, against the JAX package's
 ``prepare_lane_ell_hybrid`` run in interpret mode on the CPU; and the
 webbase-1M stand-in at 200k rows through the port alone.
 
 Tolerances: meta (with the port's names for the tail routes, below) and
 bytes, exact; the port's y (plain versions) against JAX, rel-L2 <= 1e-4
-(the TPU's PELL kernels reduce in bf16 split passes), and against
-``spmv_oracle``, rel-L2 <= 1e-6 and ``validate_result``.
+(the TPU's PELL kernels reduce in bf16 split passes; 1e-5 for the XPOSE
+tail, f32 on both sides), and against ``spmv_oracle``, rel-L2 <= 1e-6
+and ``validate_result``.
 """
 
 import functools
 
 import numpy as np
 import pytest
+import torch
 
 from spmv_scpa_tpu import testing as jax_synth
 from spmv_scpa_tpu.ops import chips_tail as jax_ct
@@ -21,13 +23,15 @@ from spmv_scpa_tpu.ops import lane_ell as jax_lane_ell
 from spmv_scpa_tpu.ops.lane_ell import prepare_lane_ell_hybrid as jax_prepare
 
 from spmv_scpa_tpu_torch import testing as synth
-from spmv_scpa_tpu_torch.ops import chips_tail, lane_ell
+from spmv_scpa_tpu_torch.bench import cases
+from spmv_scpa_tpu_torch.ops import chips_tail, lane_ell, xpose_plan
 from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import to_numpy
 from spmv_scpa_tpu_torch.utils.validation import validate_result
 from spmv_scpa_tpu_torch.utils.vector import make_x
 
 VS_JAX_REL_L2 = 1e-4
+VS_JAX_XPOSE_REL_L2 = 1e-5
 VS_ORACLE_REL_L2 = 1e-6
 
 # the reference's names of the tail routes and strategies -> the port's
@@ -131,6 +135,53 @@ def test_webbase200k_big_tail_runs_compact_pell():
     gold = spmv_oracle(A, x)
     assert _rel_l2(y, gold) <= VS_ORACLE_REL_L2
     validate_result(gold, y, what="port hybrid (plain) on webbase200k")
+
+
+@functools.cache
+def _xpose_tail():
+    spec, kw = cases.XPOSE_TAIL
+    A = cases.make(spec)
+    x = make_x(A.n)
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", **kw)
+    jprep = jax_prepare(cases.make(spec, jax_synth), interpret=True, **kw)
+    return A, x, prep, jprep
+
+
+def test_xpose_tail_matches_jax():
+    """``tail_strategy="pallas-xpose"``: the 3,091-entry tail runs as
+    ``cuda-xpose`` over its rows compacted and lands through the merge,
+    as the reference's ``compact-pallas-xpose`` does. The hybrid's meta
+    equals the reference's but for the tail's own (the port's XPOSE meta
+    and bytes count its layout) and the route's name; y within the XPOSE
+    bound of tests/test_torch_xpose.py (both tails are f32)."""
+    A, x, prep, jprep = _xpose_tail()
+    m, jm = dict(prep.meta), dict(jprep.meta)
+    assert (m.pop("tail_kind"), jm.pop("tail_kind")) == (
+        "compact-cuda-xpose", "compact-pallas-xpose")
+    tail, jtail = m.pop("tail_meta"), jm.pop("tail_meta")
+    assert m == jm
+    for k in ("J1", "B2", "W1", "W3", "NWm", "fill"):
+        assert tail[k] == jtail[k], k
+    y = to_numpy(prep.fn(x))
+    y_jax = np.asarray(jprep.fn(x), dtype=np.float64)
+    gold = spmv_oracle(A, x)
+    assert _rel_l2(y, y_jax) <= VS_JAX_XPOSE_REL_L2
+    assert _rel_l2(y, gold) <= VS_ORACLE_REL_L2
+    validate_result(gold, y, what="port hybrid (plain), XPOSE tail")
+    assert [k for k, _ in prep.kernel_calls(
+        torch.as_tensor(x, dtype=torch.float32))] == [
+            "lane_ell_spmv", "xpose_mirror", "xpose_s1", "xpose_s3",
+            "window_gather"]
+
+
+def test_xpose_tail_refusal_is_a_value_error(monkeypatch):
+    """A tail the XPOSE planner refuses surfaces its ValueError, as the
+    reference's prepare does, so "auto" can fall back."""
+    monkeypatch.setattr(xpose_plan, "J1_MAX", 0)
+    spec, kw = cases.XPOSE_TAIL
+    with pytest.raises(ValueError, match="planning envelope"):
+        lane_ell.prepare_lane_ell_hybrid(cases.make(spec), device="cpu",
+                                         **kw)
 
 
 def test_big_tail_constant_matches_jax():

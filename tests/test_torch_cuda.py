@@ -18,8 +18,11 @@ the tile kernel rounds as its plain version does and the un-permute
 moves values, so both are bit-equal to their plain versions on the
 card; the fused kernel and the span segment-sum add in the fixed order
 of their plain versions on the CPU (bit-equal) and are within rel-L2
-1e-6 of those on the card. Against ``spmv_oracle``: ``validate_result``
-defaults.
+1e-6 of those on the card. XPOSE's three kernels move values, take one
+f32 product per slot and scan in the plain versions' order: bit-equal on
+the card and against the CPU; a whole XPOSE call (virtual rows added by
+``index_add_``) within rel-L2 1e-6 of its plain call. Against
+``spmv_oracle``: ``validate_result`` defaults.
 """
 
 import numpy as np
@@ -28,10 +31,11 @@ import torch
 
 from spmv_scpa_tpu_torch import get_strategy
 from spmv_scpa_tpu_torch.bench import roofline, timing
+from spmv_scpa_tpu_torch.bench import cases
 from spmv_scpa_tpu_torch.bench.cases import PELL_CASES, SMALL_CASES
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.ops import (ext_gather, lane_ell, pell,
-                                     segsum_kernel)
+                                     segsum_kernel, xpose)
 from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import to_numpy
 from spmv_scpa_tpu_torch.utils.validation import validate_result
@@ -324,3 +328,97 @@ def test_time_device_leaves_out_the_host(card):
     call = timing.time_cuda(slow_host)
     assert len(dev) == 20 and min(dev) > 0
     assert np.median(dev) < 0.5 < np.median(call)
+
+
+def _check_prepared(prep, A, card, what):
+    """A whole call on the card against its plain call and the oracle,
+    the launches against the recorded kernel calls, and each kernel call
+    replayed against its plain version."""
+    x = make_x(A.n)
+    xd = torch.as_tensor(x, dtype=torch.float32, device=card)
+    before = dict(xpose.LAUNCHES)
+    yk = to_numpy(prep.fn(xd))
+    calls = prep.kernel_calls(xd)
+    launched = {k: xpose.LAUNCHES[k] - before[k] for k in xpose.LAUNCHES}
+    assert {k for k, v in launched.items() if v} == \
+        {k for k, _ in calls if k in xpose.LAUNCHES}
+    yt = to_numpy(prep.plain(xd))
+    assert np.linalg.norm(yk - yt) <= \
+        KERNEL_VS_PLAIN_REL_L2 * max(np.linalg.norm(yt), 1e-30)
+    validate_result(spmv_oracle(A, x), yk, what=what)
+    for kname, args in calls:
+        _replay(kname, args)
+    return calls
+
+
+@pytest.mark.parametrize("name", sorted(cases.XPOSE_CASES))
+def test_xpose_case_kernels_match_plain(card, name):
+    A = cases.make(cases.XPOSE_CASES[name])
+    prep = get_strategy("cuda-xpose").prepare(A, device=card)
+    calls = _check_prepared(prep, A, card, f"cuda-xpose on {name}")
+    assert [k for k, _ in calls] == ["xpose_mirror", "xpose_s1", "xpose_s3"]
+    for kname, args in calls:       # bit-equal to the CPU's plain version
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        assert torch.equal(getattr(xpose.KERNELS, kname)(*args).cpu(),
+                           getattr(xpose.PLAIN, kname)(*cpu))
+
+
+def test_xpose_big_tail_and_nearfar_on_the_card(card):
+    spec, kw = cases.XPOSE_TAIL
+    A = cases.make(spec)
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device=card, **kw)
+    assert prep.meta["tail_kind"] == "compact-cuda-xpose"
+    _check_prepared(prep, A, card, "cuda-hybrid with an XPOSE tail")
+    A = cases.make(("amazon_csr", dict(m=24000, seed=6)))
+    prep = get_strategy("cuda-nearfar").prepare(A, device=card)
+    assert "W" in prep.meta
+    calls = _check_prepared(prep, A, card, "cuda-nearfar")
+    assert {"lane_ell_spmv", "xpose_s1", "xpose_s3"} <= {k for k, _ in calls}
+
+
+def test_xpose_kernels_read_zero_out_of_range(card):
+    """Planes of random bytes (0..255: lanes, rows and steps past their
+    ranges) and windows past x: each kernel equals its plain version,
+    whose rule is that such an index reads 0.0."""
+    rng = np.random.default_rng(7)
+    n, nwm, nw0, J1, B2 = 5000, 3, 1, 9, 5
+
+    def u8(*shape):
+        return torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8),
+                               device=card)
+
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                        device=card)
+    msw = torch.as_tensor(rng.integers(-1, 3, nwm * 4), dtype=torch.int32,
+                          device=card)
+    sel = torch.as_tensor(rng.integers(0, 6, (nwm, BC)), dtype=torch.uint8,
+                          device=card)
+    mir = (x, msw, sel, u8(nwm, BC))
+    xm = xpose.xpose_mirror(*mir)
+    assert torch.equal(xm, xpose.xpose_mirror_plain(*mir))
+    win = torch.as_tensor(rng.integers(-1, nw0 + nwm + 2, J1),
+                          dtype=torch.int32, device=card)
+    asv = torch.as_tensor(rng.standard_normal((J1 * BC, BC)),
+                          dtype=torch.float32, device=card)
+    s1 = (x, xm, win, u8(J1 * BC, BC), asv, u8(J1 * B2, BC),
+          u8(J1 * B2, BC), nw0, B2)
+    mid = xpose.xpose_s1(*s1)
+    assert torch.equal(mid, xpose.xpose_s1_plain(*s1))
+    planes = u8(8, B2 * BC, BC)
+    y = xpose.xpose_s3(mid, planes, B2 * 64 * BC - 3)
+    assert torch.equal(y, xpose.xpose_s3_plain(mid, planes,
+                                               B2 * 64 * BC - 3))
+    assert bool(torch.isfinite(y).all())
+
+
+def test_xpose_wrappers_refuse_mixed_devices(card):
+    A = cases.make(cases.XPOSE_CASES["rand-1k"])
+    plan = xpose.plan_or_raise(A)
+    xd = torch.zeros(A.n, device=card)
+    msw = torch.as_tensor(plan.msw[:plan.NWm * 4])
+    sel = torch.as_tensor(plan.mir_sel[:plan.NWm])
+    with pytest.raises(ValueError, match="msw is on cpu"):
+        xpose.xpose_mirror(xd, msw, sel.to(card), sel.to(card))
+    mid = torch.zeros((plan.B2, plan.J1, BC), device=card)
+    with pytest.raises(ValueError, match="planes is on cpu"):
+        xpose.xpose_s3(mid, torch.as_tensor(xpose.s3_planes(plan)), plan.m2)

@@ -37,7 +37,7 @@ from spmv_scpa_tpu_torch import errors, load_csr, testing as synth
 from spmv_scpa_tpu_torch.bench import timing
 from spmv_scpa_tpu_torch.formats import bcsr, panel_ell
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import registry
+from spmv_scpa_tpu_torch.ops import registry, xpose_plan
 from spmv_scpa_tpu_torch.io import mmio
 from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
 from spmv_scpa_tpu_torch.utils import validation
@@ -73,6 +73,9 @@ def test_port_and_chip_smoke_load_no_jax_package():
     mods = _port_modules()
     assert {"spmv_scpa_tpu_torch.ops.chips_tail",
             "spmv_scpa_tpu_torch.ops.pell",
+            "spmv_scpa_tpu_torch.ops.xpose",
+            "spmv_scpa_tpu_torch.ops.xpose_plan",
+            "spmv_scpa_tpu_torch.ops.nearfar",
             "spmv_scpa_tpu_torch.formats.panel_ell",
             "spmv_scpa_tpu_torch.formats.bcsr"} <= set(mods)
     code = (
@@ -322,7 +325,9 @@ def test_quick_envelope_ok_matches_the_original(name):
     big_row = CSR.from_coo("r", 10, 20000, np.zeros(16385, np.int64),
                            np.arange(16385), np.ones(16385))
     assert registry.quick_envelope_ok(big_row) is False
-    assert (registry._XPOSE_J1_MAX, registry._XPOSE_CCAP,
-            registry._XPOSE_B2_MAX, registry._XPOSE_ROWS_PER_BLK) == (
+    # one envelope: the registry's is the planner's copy
+    assert registry.quick_envelope_ok is xpose_plan.quick_envelope_ok
+    assert (xpose_plan.J1_MAX, xpose_plan.CCAP, xpose_plan.B2_MAX,
+            xpose_plan.ROWS_PER_BLK) == (
         jax_xpose_plan.J1_MAX, jax_xpose_plan.CCAP, jax_xpose_plan.B2_MAX,
         jax_xpose_plan.ROWS_PER_BLK)

@@ -337,10 +337,10 @@ def heavy_scatter_csr(m=150_000, heavy=16, per=8000, seed=12):
     (lambda: synth.random_csr(2000, 3_200_000, density=1e-6, seed=4), {},
      "PELL column stripes"),
     (heavy_scatter_csr, {}, "split chips"),
-    # a big tail through a strategy outside the PELL family
+    # a big tail through a strategy the port lacks (PELL's fp64 grade)
     (lambda: synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4),
      {"ext": False, "diag": "nochips", "tail_xla_max": 1000,
-      "tail_strategy": "pallas-xpose"}, "big tails"),
+      "tail_strategy": "pallas-pell-df64"}, "big tails"),
     (lambda: synth.banded_csr(512, row_nnz=12, bandwidth=96, seed=7),
      {"core_only": True}, "distributed"),
     (lambda: synth.banded_csr(512, row_nnz=12, bandwidth=96, seed=7),

@@ -23,9 +23,10 @@ import spmv_scpa_tpu_torch
 from spmv_scpa_tpu_torch import get_strategy, list_strategies, spmv
 from spmv_scpa_tpu_torch import testing as synth
 from spmv_scpa_tpu_torch.formats.csr import CSR
-from spmv_scpa_tpu_torch.ops import lane_ell
+from spmv_scpa_tpu_torch.bench import cases
+from spmv_scpa_tpu_torch.ops import lane_ell, registry, xpose_plan
 from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
-from spmv_scpa_tpu_torch.ops.registry import AUTO_STAND_INS, pick_auto
+from spmv_scpa_tpu_torch.ops.registry import pick_auto
 from spmv_scpa_tpu_torch.utils.validation import validate_result
 from spmv_scpa_tpu_torch.utils.vector import make_x
 
@@ -34,7 +35,7 @@ PKG = ROOT / "spmv_scpa_tpu_torch"
 
 # The port's strategy for each strategy the JAX pick_auto can return.
 PORT_OF = {"pallas-hybrid": "cuda-hybrid", "xla-dense": "torch-dense",
-           "pallas-pell": "cuda-pell", **AUTO_STAND_INS}
+           "pallas-pell": "cuda-pell", "pallas-xpose": "cuda-xpose"}
 
 BASELINES = ("torch-csr-segsum", "torch-dense", "oracle-csr")
 ZOO_SIZE = 7        # tests/conftest.py: matrices()
@@ -61,6 +62,9 @@ AUTO_MATRICES = {
     "webbase20k": ("webbase_csr", dict(m=20000, seed=5)),
     "powerlaw20k": ("powerlaw_csr", dict(m=20000, seed=4)),
     "random3k": ("random_csr", dict(m=3000, density=0.002, seed=3)),
+    # the scattered short-row regime of the JAX package's XPOSE branch
+    "random30k": ("random_csr", dict(m=30000, density=0.0005, seed=3)),
+    "webbase30k": ("webbase_csr", dict(m=30000, seed=7)),
     # n past the hybrid's resident-x bound
     "wide": ("banded_csr", dict(m=1000, n=3_000_000, row_nnz=4,
                                 bandwidth=8, seed=3)),
@@ -78,8 +82,8 @@ def test_pick_auto_maps_the_jax_tpu_choice(monkeypatch, name):
 def test_strategies_and_refs():
     names = list_strategies()
     assert names == sorted(["cuda-bcsr", "cuda-hybrid", "cuda-pell",
-                            "oracle-csr", "torch-csr-segsum",
-                            "torch-dense"])
+                            "cuda-xpose", "cuda-nearfar", "oracle-csr",
+                            "torch-csr-segsum", "torch-dense"])
     jax_names = set(jax_registry.list_strategies())
     for name in names:
         spec = get_strategy(name)
@@ -87,8 +91,12 @@ def test_strategies_and_refs():
     assert get_strategy("cuda-hybrid").ref == "pallas-hybrid"
     assert get_strategy("cuda-pell").ref == "pallas-pell"
     assert get_strategy("cuda-bcsr").ref == "pallas-bcsr"
-    assert list_strategies(backend="cuda") == ["cuda-bcsr", "cuda-hybrid",
-                                               "cuda-pell"]
+    assert get_strategy("cuda-xpose").ref == "pallas-xpose"
+    assert get_strategy("cuda-nearfar").ref == "pallas-nearfar"
+    assert list_strategies(backend="cuda") == [
+        "cuda-bcsr", "cuda-hybrid", "cuda-nearfar", "cuda-pell",
+        "cuda-xpose"]
+    assert list_strategies(fmt="XPOSE") == ["cuda-nearfar", "cuda-xpose"]
     with pytest.raises(KeyError, match="unknown strategy"):
         get_strategy("pallas-pell")
 
@@ -113,6 +121,38 @@ def test_spmv_auto_takes_the_ext_route_and_chips_tail():
     validate_result(spmv_oracle(A, x), y, what="auto on amazon60k")
     np.testing.assert_array_equal(y, spmv(A, x, "cuda-hybrid",
                                           device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["random30k", "webbase30k"])
+def test_pick_auto_sends_the_scattered_regime_to_cuda_xpose(monkeypatch,
+                                                            name):
+    """Where the JAX package's TPU branch picks ``pallas-xpose``, the
+    port picks ``cuda-xpose``, and ``spmv``'s auto route runs it."""
+    fn, kw = AUTO_MATRICES[name]
+    monkeypatch.setattr(jax_platform, "is_tpu", lambda: True)
+    assert jax_registry.pick_auto(getattr(jax_synth, fn)(**kw)) \
+        == "pallas-xpose"
+    A = getattr(synth, fn)(**kw)
+    assert pick_auto(A) == "cuda-xpose"
+    x = make_x(A.n)
+    y = spmv(A, x, device="cpu")
+    np.testing.assert_array_equal(y, spmv(A, x, "cuda-xpose", device="cpu"))
+    validate_result(spmv_oracle(A, x), y, what=f"auto on {name}")
+
+
+def test_auto_falls_back_when_xpose_refuses_mid_plan(monkeypatch):
+    """quick_envelope_ok passes but the planner refuses (its step cap
+    lowered to 30, which still admits the 449,892 entries): ``cuda-xpose``
+    raises ValueError and "auto" falls back to the hybrid (here its
+    no-locality escape to PELL)."""
+    monkeypatch.setattr(xpose_plan, "J1_MAX", 30)
+    A = cases.random30k()
+    assert pick_auto(A) == "cuda-xpose"
+    x = make_x(A.n)
+    with pytest.raises(ValueError, match="J1=.*>30"):
+        spmv(A, x, "cuda-xpose", device="cpu")
+    validate_result(spmv_oracle(A, x), spmv(A, x, device="cpu"),
+                    what="auto fallback from cuda-xpose")
 
 
 def test_auto_falls_back_on_a_refusal(monkeypatch):
@@ -143,10 +183,11 @@ def test_pell_family_matches_oracle_on_zoo(matrices, strategy, index):
 def test_pick_auto_sends_scattered_matrices_to_cuda_pell(monkeypatch):
     """``pallas-pell`` is ported: where the JAX package on a TPU picks
     it (here a scattered matrix with a row past XPOSE's envelope),
-    pick_auto picks ``cuda-pell``, and only ``pallas-xpose`` keeps a
-    stand-in."""
+    pick_auto picks ``cuda-pell``. No strategy of the JAX pick_auto has a
+    stand-in any more: ``pallas-xpose`` maps to ``cuda-xpose``."""
     from spmv_scpa_tpu.formats.csr import CSR as JaxCSR
-    assert AUTO_STAND_INS == {"pallas-xpose": "torch-csr-segsum"}
+    assert not hasattr(registry, "AUTO_STAND_INS")
+    assert set(PORT_OF.values()) <= set(list_strategies())
     rng = np.random.default_rng(8)
     m, n = 3000, 40000
     rows = np.concatenate([rng.integers(0, m, 30000),
@@ -166,7 +207,8 @@ def test_pick_auto_sends_scattered_matrices_to_cuda_pell(monkeypatch):
 
 @pytest.mark.parametrize("strategy", ["cuda-hybrid", "torch-csr-segsum",
                                       "torch-dense", "cuda-pell",
-                                      "cuda-bcsr"])
+                                      "cuda-bcsr", "cuda-xpose",
+                                      "cuda-nearfar"])
 def test_prepare_refuses_cuda_without_a_card(strategy):
     if torch.cuda.is_available():
         pytest.skip("a card is present; this pins the CPU-only refusal")
