@@ -55,12 +55,28 @@ the script exits non-zero:
 15. main path 7, ``random30k`` (uniform scatter) the same way;
 16. main path 8, ``amazon262k`` through ``cuda-nearfar``: the band
    through the hybrid, the scattered rest through XPOSE; the core and
-   the three XPOSE kernels must launch.
+   the three XPOSE kernels must launch;
+17. small fp64 and SpMM cases: ``bench/cases.py``'s ``FP64_CASES``
+   (``cuda-hybrid-fp64``, ``cuda-pell-fp64``) and ``SPMM_CASES``
+   (``cuda-bcsr-spmm`` at 1, 8 and 64 columns), checked as the small
+   hybrid cases are; between them they must launch ``lane_ell_fp64``,
+   ``pell_fused_fp64`` and ``bcsr_spmm``;
+18. main path 9, ``flagship-fp64``: the flagship through
+   ``cuda-hybrid-fp64`` (x and y float64); ``lane_ell_fp64`` must
+   launch; beside it the ``torch-ell-fp64`` baseline and cuSPARSE's fp64
+   CSR product of the same matrix;
+19. main path 10, ``powerlaw100k-fp64``: ``powerlaw100k`` through
+   ``cuda-pell-fp64``; ``pell_fused_fp64`` must launch;
+20. main path 11, ``flagship-spmm8``: the flagship through
+   ``cuda-bcsr-spmm`` with X of 8 columns; ``bcsr_spmm`` must launch;
+21. main path 12, ``stencil48k-spmm64``: ``cases.stencil48k()`` (the
+   flagship's stencil at 48,000 rows, whose X of 64 columns fits the
+   reference's X budget) through ``cuda-bcsr-spmm`` at 64 columns.
 
 Each path sets the launch counts to 0 just before it and reads them
 just after; replays that hold a kernel against its plain version come
 after the read. Each prints its packing time. Then one JSON line of the
-thirteen kernels' numbers, the card line, and the contract line ``{"ok":
+sixteen kernels' numbers, the card line, and the contract line ``{"ok":
 true, "device": {...}}`` last. Without a card it prints no result and
 exits 2.
 
@@ -74,30 +90,43 @@ un-permute and XPOSE's mirror, S1 and S3 bit-equal to their plain
 versions; the segment-sums and
 the fused kernel bit-equal to their plain versions run on the CPU (the
 same fixed order) and within rel-L2 1e-6 of the plain versions on the
-card. Against ``spmv_oracle``: ``validate_result`` (rel 1e-4).
+card. Against ``spmv_oracle``: ``validate_result`` (rel 1e-4). The fp64
+paths (x and y float64): against the oracle at relative L2 <= 1e-9 with
+the absolute gate off (``abs_l2=0``: the reference's 0.1 at ||y|| >= 1
+would pass an f32-grade y); ``lane_ell_fp64`` bit-equal to its plain
+version; ``pell_fused_fp64`` bit-equal to its plain version run on the
+CPU; a whole fp64 call within rel-L2 1e-12 of its plain call (the plain
+fused kernel adds windows with atomics on the card). SpMM:
+``bcsr_spmm`` bit-equal to its plain version (both add each row's tiles
+and lanes in order, f32 products and sums rounded separately, no TF32);
+Y against ``spmm_oracle`` by ``validate_result``.
 
 ``bound_ms`` is the least time for the same work on an H100 SXM: the
-bytes of every input read once and every output written once over
-3.35 TB/s, or the f32 operations over 67 TFLOP/s, whichever is larger
-(all thirteen kernels are bound by bytes). Where the data decides what
-is read, only that counts: a gather's distinct in-range source elements,
-the segment-sums' partials that land in y, the distinct x elements the
-tile and fused kernels read, the mirror's distinct source rows, S1's
-distinct x elements (of its entries) and S3's distinct product
-elements. Kernel and library times are
-device times (``bench.timing.time_device``: the host's enqueue does not
-enter them); a plain version and a whole call are timed as their caller
-sees them (event pairs, ``time_cuda``/``time_prepared``). ``library_ms``
-times one PyTorch
-call computing the same function: a cuSPARSE CSR product for the core
-(of the whole matrix), for the fused kernel (of the matrix its tiles
-hold) and for the tile kernel (of a matrix with one row per tile row
-and quantum, whose product is the partials; for S1, of a matrix with
-one row per product slot holding its one entry, whose product is S1's
-product array), ``sum`` for the probe, flat indexing for a gather, the
-un-permute and the mirror, ``index_add_`` for the segment-sums and, after
-a flat gather of the routed products, for S3. The port never calls these
-yardsticks.
+bytes of every input read once and every output written once over 3.35
+TB/s, or the f32 operations over 67 TFLOP/s (f64 over 34 TFLOP/s),
+whichever is larger (bytes bound every kernel here). The SpMM counts
+the multiply-adds of its tiles' nonzero values only, not those of the
+stored zeros. Where the
+data decides what is read, only that counts: a gather's distinct in-
+range source elements, the segment-sums' partials that land in y, the
+distinct x elements the tile and fused kernels read, the mirror's
+distinct source rows, S1's distinct x elements (of its entries), S3's
+distinct product elements and the SpMM's distinct rows of X. Kernel and
+library times are device times (``bench.timing.time_device``: the host's
+enqueue does not enter them); a plain version and a whole call are timed
+as their caller sees them (event pairs,
+``time_cuda``/``time_prepared``). ``library_ms`` times one PyTorch call
+computing the same function: a cuSPARSE CSR product for the core (of the
+whole matrix), for the fused kernel (of the matrix its tiles hold) and
+for the tile kernel (of a matrix with one row per tile row and quantum,
+whose product is the partials; for S1, of a matrix with one row per
+product slot holding its one entry, whose product is S1's product
+array), ``sum`` for the probe, flat indexing for a gather, the un-
+permute and the mirror, ``index_add_`` for the segment-sums and, after a
+flat gather of the routed products, for S3; cuSPARSE's fp64 CSR product
+for the fp64 core (of the whole matrix) and the fp64 fused kernel (of
+the matrix its tiles hold), and its f32 CSR SpMM ``A @ X`` for the SpMM
+kernel. The port never calls these yardsticks.
 """
 
 import json
@@ -113,27 +142,36 @@ from spmv_scpa_tpu_torch.bench import cases, roofline as roof
 from spmv_scpa_tpu_torch.bench.timing import (time_cuda, time_device,
                                               time_prepared)
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import (ext_gather, lane_ell, pell,
-                                     segsum_kernel, xpose, xpose_plan)
-from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
-from spmv_scpa_tpu_torch.ops.registry import pick_auto, to_numpy
+from spmv_scpa_tpu_torch.ops import (ext_gather, lane_ell, lane_ell_fp64,
+                                     pell, segsum_kernel, spmm, xpose,
+                                     xpose_plan)
+from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
+from spmv_scpa_tpu_torch.ops.registry import FP64_RTOL, pick_auto, to_numpy
 from spmv_scpa_tpu_torch.utils.platform import card_label, cuda_device
 from spmv_scpa_tpu_torch.utils.validation import validate_result
 from spmv_scpa_tpu_torch.utils.vector import make_x
 
 TWIN_REL_L2 = 1e-6
 TWIN_ROW_REL = 1e-5
+FP64_TWIN = 1e-12                  # an fp64 call against its plain call
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
+F64_OPS_PER_S = 34e12              # f64 outside the tensor cores
 
 HYBRID_KERNELS = ("lane_ell_spmv", "sorted_gather", "ranked_gather",
                   "window_gather", "window_segsum")
 PELL_KERNELS = ("pell_fused", "pell_tiles", "span_segsum", "window_segsum",
                 "unpermute")
 XPOSE_KERNELS = ("xpose_mirror", "xpose_s1", "xpose_s3")
+FP64_SPMM_KERNELS = ("lane_ell_fp64", "pell_fused_fp64", "bcsr_spmm")
 # kernels whose plain versions add with index_add_ (atomics on the card):
 # held bit-equal to the plain version run on the CPU
-ORDERED = ("window_segsum", "span_segsum", "pell_fused")
+ORDERED = ("window_segsum", "span_segsum", "pell_fused", "pell_fused_fp64")
+# every kernel and its plain version, by name
+KERNELS = {**lane_ell.KERNELS._asdict(), **lane_ell_fp64.KERNELS._asdict(),
+           **pell.FP64_KERNELS._asdict(), **spmm.KERNELS._asdict()}
+PLAIN = {**lane_ell.PLAIN._asdict(), **lane_ell_fp64.PLAIN._asdict(),
+         **pell.FP64_PLAIN._asdict(), **spmm.PLAIN._asdict()}
 SOURCES = {
     "lane_ell_spmv": ("spmv_scpa_tpu_torch/csrc/lane_ell.cu",
                       "spmv_scpa_tpu/ops/lane_ell.py:188"),
@@ -161,11 +199,18 @@ SOURCES = {
                  "spmv_scpa_tpu/ops/xpose.py:62"),
     "xpose_s3": ("spmv_scpa_tpu_torch/csrc/xpose.cu",
                  "spmv_scpa_tpu/ops/xpose.py:87"),
+    "lane_ell_fp64": ("spmv_scpa_tpu_torch/csrc/lane_ell.cu",
+                      "spmv_scpa_tpu/ops/lane_ell.py:282"),
+    "pell_fused_fp64": ("spmv_scpa_tpu_torch/csrc/pell.cu",
+                        "spmv_scpa_tpu/ops/pallas_kernels.py:761"),
+    "bcsr_spmm": ("spmv_scpa_tpu_torch/csrc/spmm.cu",
+                  "spmv_scpa_tpu/ops/pallas_kernels.py:1076"),
 }
 LINE_ORDER = ("lane_ell_spmv", "stream_reduce", "sorted_gather",
               "ranked_gather", "window_gather", "window_segsum",
               "pell_fused", "pell_tiles", "span_segsum", "unpermute",
-              "xpose_mirror", "xpose_s1", "xpose_s3")
+              "xpose_mirror", "xpose_s1", "xpose_s3", "lane_ell_fp64",
+              "pell_fused_fp64", "bcsr_spmm")
 
 
 # ---- launch counts -----------------------------------------------------------
@@ -177,11 +222,15 @@ def counts() -> dict:
             "window_segsum": segsum_kernel.KERNEL_LAUNCHES,
             **pell.LAUNCHES,
             "span_segsum": segsum_kernel.SPAN_LAUNCHES,
-            **xpose.LAUNCHES}
+            **xpose.LAUNCHES,
+            "lane_ell_fp64": lane_ell_fp64.KERNEL_LAUNCHES,
+            "bcsr_spmm": spmm.KERNEL_LAUNCHES}
 
 
 def reset_counts() -> None:
     lane_ell.KERNEL_LAUNCHES = 0
+    lane_ell_fp64.KERNEL_LAUNCHES = 0
+    spmm.KERNEL_LAUNCHES = 0
     roof.KERNEL_LAUNCHES = 0
     segsum_kernel.KERNEL_LAUNCHES = 0
     segsum_kernel.SPAN_LAUNCHES = 0
@@ -199,20 +248,40 @@ def require(launched: dict, names, what: str) -> None:
 
 # ---- checks and timing ---------------------------------------------------------
 
-def twin_check(A, x, yk, yt, what):
-    """Kernel y against plain y within the stated tolerances."""
+def twin_check(A, x, yk, yt, what, rel_tol=TWIN_REL_L2,
+               row_tol=TWIN_ROW_REL):
+    """Kernel y (or Y) against plain y within the stated tolerances."""
     yk = yk.double().cpu().numpy()
     yt = yt.double().cpu().numpy()
     d = np.abs(yk - yt)
     rel_l2 = float(np.linalg.norm(d) / max(np.linalg.norm(yt), 1e-300))
     absA = CSR(A.name, A.m, A.n, A.irp, A.ja, np.abs(A.as_))
-    scale = spmv_oracle(absA, np.abs(x))
+    scale = spmm_oracle(absA, np.abs(x))
     row_rel = float(np.max(d / np.maximum(scale, 1e-300), initial=0.0))
-    if not (rel_l2 <= TWIN_REL_L2 and row_rel <= TWIN_ROW_REL):
+    if not (rel_l2 <= rel_tol and row_rel <= row_tol):
         raise AssertionError(
             f"{what}: kernel vs plain rel-L2 {rel_l2:.3e} (<= "
-            f"{TWIN_REL_L2:g}), row rel {row_rel:.3e} (<= {TWIN_ROW_REL:g})")
+            f"{rel_tol:g}), row rel {row_rel:.3e} (<= {row_tol:g})")
     return rel_l2, row_rel, float(d.max(initial=0.0))
+
+
+def path_input(A, strategy, knobs, dev):
+    """What a path feeds a strategy and holds it to: (x as numpy, x on
+    the card, the oracle's y, ``validate_result``'s keywords,
+    ``twin_check``'s). The fp64 grade takes and returns float64, gated at
+    rel 1e-9 with the absolute gate off; an SpMM-only strategy takes X
+    (n, cols) with ``spmm_oracle`` as its oracle."""
+    if get_strategy(strategy).spmm_only:
+        x = make_x(A.n, cols=knobs.get("cols", 8))
+        return (x, torch.as_tensor(x, dtype=torch.float32, device=dev),
+                spmm_oracle(A, x), {}, {})
+    x = make_x(A.n)
+    if strategy.endswith("-fp64"):
+        return (x, torch.as_tensor(x, dtype=torch.float64, device=dev),
+                spmv_oracle(A, x), {"rtol": FP64_RTOL, "abs_l2": 0.0},
+                {"rel_tol": FP64_TWIN, "row_tol": FP64_TWIN})
+    return (x, torch.as_tensor(x, dtype=torch.float32, device=dev),
+            spmv_oracle(A, x), {}, {})
 
 
 def median_ms(fn, *args):
@@ -237,13 +306,12 @@ def to_cpu(args):
 def check_call(name, args, what):
     """Replay one kernel call of the path: the kernel against its plain
     version on the same inputs. Returns max |kernel - plain|."""
-    out = getattr(lane_ell.KERNELS, name)(*args)
-    plain = getattr(lane_ell.PLAIN, name)(*args)
+    out = KERNELS[name](*args)
+    plain = PLAIN[name](*args)
     torch.cuda.synchronize()
     err = float((out - plain).abs().max()) if out.numel() else 0.0
     if name in ORDERED:
-        exact = torch.equal(out.cpu(),
-                            getattr(lane_ell.PLAIN, name)(*to_cpu(args)))
+        exact = torch.equal(out.cpu(), PLAIN[name](*to_cpu(args)))
         rel = float((out - plain).norm() / max(float(plain.norm()), 1e-30))
         ok = exact and rel <= TWIN_REL_L2
     else:
@@ -281,7 +349,7 @@ def slot_cols(name, args):
     """Each slot's x column in a tile or fused kernel call (vals, idx,
     pan, x, ...), and whether it lies in x."""
     vals, idx, pan, x = args[:4]
-    pw = args[6].panel_w if name == "pell_fused" else args[5]
+    pw = args[6].panel_w if name.startswith("pell_fused") else args[5]
     rows = vals.shape[0]
     col = (pan[:rows // 8].long().repeat_interleave(8)[:, None] * (pw * BC)
            + (torch.arange(BC, device=vals.device) if idx is None
@@ -320,15 +388,30 @@ def bound(name, args, out) -> tuple:
     blocks and step table)."""
     nbytes = tensor_bytes(args) + out.numel() * out.element_size()
     ops = 0
-    if name in ("pell_tiles", "pell_fused"):
-        vals, idx = args[:2]
+    ops_per_s = (F64_OPS_PER_S if out.dtype == torch.float64
+                 else F32_OPS_PER_S)
+    if name in ("pell_tiles", "pell_fused", "pell_fused_fp64"):
+        vals, idx, _, x = args[:4]
         col, ok = slot_cols(name, args)
         nbytes = (tensor_bytes((vals, idx)) + vals.shape[0] // 8 * 4
-                  + torch.unique(col[ok]).numel() * 4
+                  + torch.unique(col[ok]).numel() * x.element_size()
                   + out.numel() * out.element_size())
-        if name == "pell_fused":
+        if name != "pell_tiles":
             nbytes += tensor_bytes(args[4:6])
         ops = 2 * vals.numel()
+    elif name == "lane_ell_fp64":
+        ops = 2 * args[1].numel()
+    elif name == "bcsr_spmm":
+        vals, pan, rowptr, X = args[:4]
+        T = vals.shape[0] // 8
+        rows = (pan[:T].long()[:, None] * BC
+                + torch.arange(BC, device=X.device))
+        nbytes = (tensor_bytes((vals, pan[:T], rowptr))
+                  + torch.unique(rows[rows < X.shape[0]]).numel()
+                  * X.shape[1] * X.element_size()
+                  + out.numel() * out.element_size())
+        # the product needs the stored nonzeros' MACs, not the tiles' zeros
+        ops = 2 * int((vals != 0).sum()) * X.shape[1]
     elif name == "span_segsum":
         _, dest = segsum_rows(name, args)
         live = int((dest >= 0).sum())
@@ -364,7 +447,7 @@ def bound(name, args, out) -> tuple:
         ops = args[1].shape[1] * BC
         nbytes += torch.unique(src).numel() * 4 - tensor_bytes(args[:1])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -399,7 +482,8 @@ def unpermute_library(args):
 
 def fused_library(args):
     """A cuSPARSE CSR product of the matrix the fused kernel's tiles hold
-    (in its row order: row block rbl, row r of the tile)."""
+    (in its row order: row block rbl, row r of the tile), in the kernel's
+    dtype."""
     vals, idx, pan, x, rbl, base, cfg, _ = args
     col, _ = slot_cols("pell_fused", args)
     T = vals.shape[0] // 8
@@ -512,14 +596,15 @@ def s1_library(args):
 
 
 def matrix_library(A, xd):
-    """A cuSPARSE CSR product of the whole matrix."""
+    """A cuSPARSE CSR product of the whole matrix with x (or with X, an
+    SpMM), in the dtype of x."""
     dev = xd.device
     Acsr = torch.sparse_csr_tensor(
         torch.as_tensor(A.irp, dtype=torch.int64, device=dev),
         torch.as_tensor(A.ja, dtype=torch.int64, device=dev),
-        torch.as_tensor(A.as_, dtype=torch.float32, device=dev),
+        torch.as_tensor(A.as_, dtype=xd.dtype, device=dev),
         size=(A.m, A.n))
-    x2 = xd.view(-1, 1)
+    x2 = xd if xd.dim() == 2 else xd.view(-1, 1)
     return lambda: Acsr.matmul(x2)
 
 
@@ -531,7 +616,7 @@ def library(name, args, A, xd):
         return gather_library(name, args)
     if name == "unpermute":
         return unpermute_library(args)
-    if name == "pell_fused":
+    if name in ("pell_fused", "pell_fused_fp64"):
         return fused_library(args)
     if name == "pell_tiles":
         return tiles_library(args)
@@ -546,7 +631,8 @@ def library(name, args, A, xd):
         midf, m2 = args[0].view(-1), args[2]
         return lambda: torch.zeros(m2, device=midf.device) \
             .index_add_(0, dest, midf[src])
-    if name == "lane_ell_spmv" and A is not None:
+    if name in ("lane_ell_spmv", "lane_ell_fp64", "bcsr_spmm") \
+            and A is not None:
         return matrix_library(A, xd)
     return None          # the core without its whole matrix
 
@@ -559,8 +645,8 @@ def kernel_table(prep, xd, what, A=None):
     rows = {}
     for name, args in prep.kernel_calls(xd):
         err = check_call(name, args, what)
-        fn = getattr(lane_ell.KERNELS, name)
-        plainfn = getattr(lane_ell.PLAIN, name)
+        fn = KERNELS[name]
+        plainfn = PLAIN[name]
         out = fn(*args)
         b_ms, b_by = bound(name, args, out)
         lib = library(name, args, A, xd)
@@ -659,24 +745,25 @@ def full_path(name, A, strategy, knobs, dev, card, kernels, branch,
     call and each kernel replayed alone. ``timing`` adds host enqueue
     against device time over 200 calls, ``profile`` a profiler window;
     ``describe(prep)`` says what the line prints of the plan. Returns
-    (the kernel table, the counts)."""
-    x = make_x(A.n)
-    gold = spmv_oracle(A, x)
+    (the kernel table, the counts). The input and tolerances follow the
+    strategy (``path_input``)."""
+    x, xd, gold, vkw, tkw = path_input(A, strategy, knobs, dev)
     reset_counts()
     t0 = time.perf_counter()
     prep = get_strategy(strategy).prepare(A, device=dev, **knobs)
     pack_s = time.perf_counter() - t0
     rel_o = validate_result(gold, to_numpy(prep.fn(x)),
-                            what=f"{strategy} on {name}")
-    r = time_prepared(prep, x)
-    validate_result(gold, r.data, what=f"{strategy} timed run, {name}")
+                            what=f"{strategy} on {name}", **vkw)
+    r = time_prepared(prep, x, dtype=xd.dtype)
+    validate_result(gold, r.data, what=f"{strategy} timed run, {name}",
+                    **vkw)
     launched = counts()
     if not branch(prep.meta):
         raise AssertionError(f"{name}: {prep.strategy} did not take "
                              f"{branch_what} (meta {prep.meta})")
     require(launched, kernels, name)
-    xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
-    rel_l2, row_rel, _ = twin_check(A, x, prep.fn(xd), prep.plain(xd), name)
+    rel_l2, row_rel, _ = twin_check(A, x, prep.fn(xd), prep.plain(xd), name,
+                                    **tkw)
     table = kernel_table(prep, xd, name, A=A)
     print(f"[{name}] nnz {A.nnz} pack {pack_s:.2f} s | {describe(prep)} | "
           f"hbm_bytes {prep.hbm_bytes} | vs oracle rel {rel_o:.3e} | vs "
@@ -775,17 +862,17 @@ def small_phase(tag, items, kernels, describe, dev, what):
     launches = dict.fromkeys(kernels, 0)
     for name, A, strategy, kw in items:
         prep = get_strategy(strategy).prepare(A, device=dev, **kw)
-        x = make_x(A.n)
-        xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        x, xd, gold, vkw, tkw = path_input(A, strategy, kw, dev)
         before = counts()
         yk = prep.fn(xd)
         torch.cuda.synchronize()
         after = counts()
         for k in kernels:
             launches[k] += after[k] - before[k]
-        rel_l2, row_rel, dmax = twin_check(A, x, yk, prep.plain(xd), name)
-        rel_o = validate_result(spmv_oracle(A, x), to_numpy(yk),
-                                what=f"{strategy} on {name}")
+        rel_l2, row_rel, dmax = twin_check(A, x, yk, prep.plain(xd), name,
+                                           **tkw)
+        rel_o = validate_result(gold, to_numpy(yk),
+                                what=f"{strategy} on {name}", **vkw)
         calls = prep.kernel_calls(xd)
         errs = [check_call(k, a, name) for k, a in calls]
         print(f"[{tag}] {name}: {describe(prep, A)} | vs plain rel-L2 "
@@ -853,6 +940,73 @@ def xpose_phases(dev, card):
             f"tail {p.meta['near']['tail_kind']} ext {p.meta['near']['ext']}"
             f" | far: {xpose_meta(p.meta['far'])}"), profile=True)
     return wx, wx_counts
+
+
+def fp64_spmm_meta(prep):
+    """What a line says of an fp64 or SpMM plan."""
+    m = prep.meta
+    if prep.strategy == "cuda-bcsr-spmm":
+        return (f"{prep.strategy} nnz {prep.nnz} cols {m['cols']} tiles "
+                f"{m['num_blocks']} fill {m['fill']:.4f}")
+    if prep.strategy == "cuda-hybrid-fp64":
+        return (f"{prep.strategy} nnz {prep.nnz} loc_w {m['loc_w']} Q "
+                f"{m['slots']} chunk {m['chunk']} steps {m['steps']} fill "
+                f"{m['fill']:.4f}")
+    return (f"{prep.strategy} nnz {prep.nnz} quantum {m['quantum']} "
+            f"window_h {m['window_h']} chunk {m['chunk']} tiles "
+            f"{m['num_blocks']} fill {m['fill']:.4f}")
+
+
+def fp64_spmm_phases(dev, card, flagship_A):
+    """Phases 17-21: the small fp64 and SpMM cases, then the fp64 grade
+    on the flagship (lane-ELL) and on powerlaw100k (fused PELL), and the
+    SpMM at 8 columns on the flagship and 64 on stencil48k. Returns the
+    kernel tables and counts of the flagship-fp64, powerlaw100k-fp64 and
+    flagship-spmm8 paths, which the kernels line reports."""
+    # 17. the small cases
+    small = [(name, make(), strategy, kw) for name, (make, strategy, kw)
+             in cases.FP64_CASES.items()]
+    small += [(name, make(), "cuda-bcsr-spmm", kw)
+              for name, (make, kw) in cases.SPMM_CASES.items()]
+    small_phase("small-fp64-spmm", small, FP64_SPMM_KERNELS,
+                lambda p, _: fp64_spmm_meta(p), dev,
+                "small fp64 and SpMM cases")
+
+    # 18. main path 9: the flagship at fp64 grade through the lane-ELL
+    # kernel, beside the torch-ell-fp64 baseline
+    A = flagship_A
+    fl, fl_counts = full_path(
+        "flagship-fp64", A, "cuda-hybrid-fp64", {}, dev, card,
+        ("lane_ell_fp64",), lambda m: m["rtol"] == FP64_RTOL,
+        "the fp64 grade", describe=fp64_spmm_meta)
+    x, xd, gold, vkw, _ = path_input(A, "torch-ell-fp64", {}, dev)
+    t0 = time.perf_counter()
+    base = get_strategy("torch-ell-fp64").prepare(A, device=dev)
+    pack_s = time.perf_counter() - t0
+    rel_b = validate_result(gold, to_numpy(base.fn(xd)),
+                            what="torch-ell-fp64 on the flagship", **vkw)
+    print(f"[flagship-fp64] baselines: torch-ell-fp64 call "
+          f"{call_ms(base.fn, xd):.4f} ms (pack {pack_s:.2f} s, vs oracle "
+          f"rel {rel_b:.3e}) | cuSPARSE fp64 CSR "
+          f"{median_ms(matrix_library(A, xd)):.4f} ms | {card}", flush=True)
+    del base
+
+    # 19. main path 10: powerlaw100k at fp64 grade through fused PELL
+    pw, pw_counts = full_path(
+        "powerlaw100k-fp64", cases.powerlaw100k(), "cuda-pell-fp64", {}, dev,
+        card, ("pell_fused_fp64",), lambda m: m["rtol"] == FP64_RTOL,
+        "the fp64 grade", describe=fp64_spmm_meta)
+
+    # 20-21. main paths 11 and 12: the SpMM at 8 and 64 columns
+    sp, sp_counts = full_path(
+        "flagship-spmm8", A, "cuda-bcsr-spmm", {"cols": 8}, dev, card,
+        ("bcsr_spmm",), lambda m: m["cols"] == 8, "8 columns",
+        describe=fp64_spmm_meta)
+    full_path("stencil48k-spmm64", cases.stencil48k(), "cuda-bcsr-spmm",
+              {"cols": 64}, dev, card, ("bcsr_spmm",),
+              lambda m: m["cols"] == 64, "64 columns",
+              describe=fp64_spmm_meta)
+    return fl, fl_counts, pw, pw_counts, sp, sp_counts
 
 
 def main() -> int:
@@ -1056,6 +1210,8 @@ def main() -> int:
         timing=False)
 
     wx, wx_counts = xpose_phases(dev, card)
+    fl64, fl64_counts, pw64, pw64_counts, sp8, sp8_counts = \
+        fp64_spmm_phases(dev, card, flagship_A)
 
     # the kernels line: each kernel timed on the path that runs it
     measured = {"lane_ell_spmv": (flag, flag_counts),
@@ -1068,7 +1224,10 @@ def main() -> int:
                 "unpermute": (pw["unpermute"], pw_counts),
                 "pell_tiles": (sp["pell_tiles"], sp_counts),
                 "span_segsum": (sp["span_segsum"], sp_counts),
-                **{k: (wx[k], wx_counts) for k in XPOSE_KERNELS}}
+                **{k: (wx[k], wx_counts) for k in XPOSE_KERNELS},
+                "lane_ell_fp64": (fl64["lane_ell_fp64"], fl64_counts),
+                "pell_fused_fp64": (pw64["pell_fused_fp64"], pw64_counts),
+                "bcsr_spmm": (sp8["bcsr_spmm"], sp8_counts)}
     line = []
     for name in LINE_ORDER:
         row, launched = measured[name]

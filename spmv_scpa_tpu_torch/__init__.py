@@ -11,7 +11,10 @@ version beside it.
 ``spmv(A, x)`` on a matrix with diagonal locality runs the lane-ELL
 hybrid (``cuda-hybrid``): its core, the ext gather route for
 out-of-window entries and the chips tail for spilled rows. Beside it
-sit the baselines, CUDA-event timing and the stream-probe roofline.
+sit PELL, BCSR and XPOSE, the fp64 grade (``cuda-hybrid-fp64``,
+``cuda-pell-fp64``: x and y float64), the BCSR SpMM
+(``cuda-bcsr-spmm``), the baselines, CUDA-event timing and the
+stream-probe roofline.
 The port imports nothing of the JAX package: the host modules it needs
 (CSR, loader, synthetic matrices, oracle, validation) are its own
 copies, held equal to the originals by the tests.

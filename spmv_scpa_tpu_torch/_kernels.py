@@ -37,7 +37,8 @@ I64 = ctypes.c_int64
 # C entry points of each source: name -> argtypes (restype is int).
 SIGNATURES = {
     "lane_ell": {"lane_ell_spmv": (P, P, P, P, P, P, P, P,
-                                   I, I, I, I, I, I, I, I, I, P)},
+                                   I, I, I, I, I, I, I, I, I, P),
+                 "lane_ell_fp64": (P, P, P, P, I, I, I, P)},
     "stream_probe": {"stream_reduce": (P, I64, I, P, P)},
     "ext_gather": {"sorted_gather": (P, P, P, P, P, I, I, I64, P),
                    "ranked_gather": (P, P, P, P, I, I, P),
@@ -46,10 +47,13 @@ SIGNATURES = {
     "pell": {"pell_tiles": (P, P, P, P, P, I64, I, I, I, I, I, P),
              "pell_fused": (P, P, P, P, P, P, P, P, P,
                             I, I, I, I, I, I, I, I, I, I, P),
+             "pell_fused_fp64": (P, P, P, P, P, P, P, P, P,
+                                 I, I, I, I, I, I, I, I, I, I, P),
              "pell_unpermute": (P, P, P, I64, I, P)},
     "xpose": {"xpose_mirror": (P, I64, P, P, P, P, I, P),
               "xpose_s1": (P, I64, P, I, I, P, P, P, P, P, P, I, I, P),
               "xpose_s3": (P, P, P, I, I, I64, P)},
+    "spmm": {"bcsr_spmm": (P, P, P, P, P, I, I, I, P)},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

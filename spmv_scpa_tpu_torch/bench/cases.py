@@ -22,7 +22,11 @@ mirror windows and virtual rows, and ``webbase200k``, whose plan routes
 S1 through two output windows (W1 = 2). ``random30k``
 (``random_csr(30000, density=0.0005, seed=3)``, the mac_econ-like
 uniform scatter) and ``webbase1m`` are what ``pick_auto`` sends to
-``cuda-xpose`` at full size.
+``cuda-xpose`` at full size. ``FP64_CASES`` and ``SPMM_CASES`` are the
+small cases of the fp64 grade (``cuda-hybrid-fp64``, ``cuda-pell-fp64``)
+and of ``cuda-bcsr-spmm``; ``stencil48k`` is the 64-column SpMM input
+(the flagship's X at 64 columns, 96.5 MB, is past the reference's X
+budget).
 """
 
 from __future__ import annotations
@@ -174,3 +178,44 @@ XPOSE_CASES = {
 XPOSE_TAIL = (("amazon_csr", dict(m=20000, avg_nnz=4.7, seed=4)),
               {"ext": False, "diag": "nochips", "tail_xla_max": 1000,
                "tail_strategy": "pallas-xpose"})
+
+
+def wide_exponents() -> CSR:
+    """The banded matrix of tests/test_lane_ell.py:315-332 with values
+    spanning 12 decades, where f32 misses the fp64 gate."""
+    A = synth.banded_csr(3000, row_nnz=24, bandwidth=256, seed=5)
+    rng = np.random.default_rng(5)
+    return CSR(A.name + "_wide", A.m, A.n, A.irp, A.ja,
+               A.as_ * 10.0 ** rng.uniform(-6, 6, A.nnz))
+
+
+# name -> (matrix factory, strategy, prepare knobs): the fp64 grade's two
+# kernels on the banded, stencil and scattered archetypes
+FP64_CASES = {
+    "fp64-hybrid-stencil2k": (
+        lambda: synth.stencil_csr(2000, points=6, run_len=8, bandwidth=300,
+                                  seed=6), "cuda-hybrid-fp64", {}),
+    "fp64-hybrid-wide": (wide_exponents, "cuda-hybrid-fp64", {}),
+    "fp64-pell-banded512": (
+        lambda: synth.banded_csr(512, row_nnz=9, bandwidth=64, seed=3),
+        "cuda-pell-fp64", {}),
+    "fp64-pell-powerlaw4k": (lambda: synth.powerlaw_csr(4000, 4000, seed=5),
+                             "cuda-pell-fp64", {}),
+}
+
+# name -> (matrix factory, prepare knobs) of cuda-bcsr-spmm
+SPMM_CASES = {
+    # tests/test_kernels.py:223-229
+    "spmm-banded200x300": (
+        lambda: synth.banded_csr(200, 300, row_nnz=11, bandwidth=48, runs=3,
+                                 seed=5), {"cols": 8, "chunk": 4}),
+    "spmm-stencil4k-c1": (_stencil4k, {"cols": 1}),
+    "spmm-stencil4k-c64": (_stencil4k, {"cols": 64}),
+}
+
+
+def stencil48k() -> CSR:
+    """The flagship's stencil at 48,000 rows: the 64-column SpMM input
+    (2,866,208 nnz, X 12.3 MB)."""
+    return synth.stencil_csr(48_000, points=6, run_len=12, bandwidth=500,
+                             seed=3, name="stencil48k")

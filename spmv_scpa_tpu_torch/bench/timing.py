@@ -109,17 +109,20 @@ def time_device(fn, *args, reps: int = 20, warmup: int = 3) -> list[float]:
         cycles *= 2
 
 
-def time_prepared(prep, x, *, reps: int = 20,
-                  warmup: int = 3) -> BenchResult:
+def time_prepared(prep, x, *, reps: int = 20, warmup: int = 3,
+                  dtype=torch.float32) -> BenchResult:
     """Median device time of ``prep.fn(x)`` with x already on the card
-    (the whole call: x staging, kernels and tail)."""
+    (the whole call: x staging, kernels and tail); x in ``dtype``
+    (float64 for the fp64 grade). A 2-D x (an SpMM's X) counts its
+    columns in the GFLOP/s."""
     if prep.device.type != "cuda":
         raise RuntimeError(
             f"time_prepared: {prep.strategy} runs on {prep.device}; device "
             "timing needs a strategy prepared on the card")
-    xd = torch.as_tensor(x, dtype=torch.float32, device=prep.device)
+    xd = torch.as_tensor(x, dtype=dtype, device=prep.device)
     times = time_cuda(prep.fn, xd, reps=reps, warmup=warmup)
     ms = float(np.median(times))
-    return BenchResult(ms, compute_gflops(prep.nnz, ms),
+    ncols = xd.shape[1] if xd.dim() == 2 else 1
+    return BenchResult(ms, compute_gflops(prep.nnz, ms, ncols),
                        data=to_numpy(prep.fn(xd)), reps=reps,
                        all_ms=times)

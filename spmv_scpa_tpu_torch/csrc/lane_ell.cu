@@ -1,7 +1,9 @@
-// Lane-ELL core SpMV for Hopper (sm_90a).
+// Lane-ELL core SpMV for Hopper (sm_90a), in f32 and at fp64 grade.
 //
 // Replaces: spmv_scpa_tpu/ops/lane_ell.py, `_lane_ell_kernel` (launched by
-// the pallas_call in `prepare_lane_ell_hybrid`).
+// the pallas_call in `prepare_lane_ell_hybrid`) with lane_ell_spmv, and
+// `_lane_ell_kernel_df64` (launched at :484 by `prepare_lane_ell_df64`)
+// with lane_ell_fp64, below the f32 kernel.
 //
 // What bounds it on this card: bytes. Every call streams the slot planes
 // once (4 B of f32 value plus 1 B (int8) or 2 B (int16) of index per slot:
@@ -94,7 +96,54 @@ lane_ell_kernel(const float* __restrict__ xpad,
   y[static_cast<int64_t>(g) * kLanes + lane] = acc;
 }
 
+// fp64 grade. The TPU has no fp64: its kernel splits each value and x into
+// f32 hi/lo pairs, forms Dekker products and accumulates them as 8 planes of
+// signed 7-bit digits on a power-of-two scale, which the host adds up in
+// float64. Hopper computes in double, so this kernel computes the same y
+// directly: one thread per row, the slots in plane order, each product and
+// sum rounded separately (__dmul_rn / __dadd_rn: nvcc cannot contract them
+// into an FMA that would round otherwise than the plain PyTorch version).
+// There is no strip select: the fp64 plan keeps every entry inside the
+// group's window, so the int16 code is the offset into the window, and the
+// slot reads xpad[g * 128 + code]. What bounds it: bytes, 10 per slot (f64
+// value, int16 offset), the padded x pair of the TPU becomes one f64 x read
+// through L2.
+//   vals (steps*Q*chunk, 128) f64, idx the same in int16; group g = step *
+//   chunk + c, plane q at row (step*Q + q)*chunk + c; xpad (P_pad*128,) f64;
+//   y (G_pad*128,) f64. Padding slots hold value 0 and offset 0.
+__global__ void __launch_bounds__(kLanes)
+lane_ell_fp64_kernel(const double* __restrict__ xpad,
+                     const double* __restrict__ vals,
+                     const int16_t* __restrict__ idx,
+                     double* __restrict__ y, int Q, int chunk) {
+  const int g = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int step = g / chunk;
+  const int c = g - step * chunk;
+  const double* xw = xpad + static_cast<int64_t>(g) * kLanes;
+  double acc = 0.0;
+  for (int q = 0; q < Q; ++q) {
+    const int64_t r = (static_cast<int64_t>(step) * Q + q) * chunk + c;
+    const double v = __ldg(vals + r * kLanes + lane);
+    const int code = __ldg(idx + r * kLanes + lane);
+    acc = __dadd_rn(acc, __dmul_rn(v, __ldg(xw + code)));
+  }
+  y[static_cast<int64_t>(g) * kLanes + lane] = acc;
+}
+
 }  // namespace
+
+extern "C" int lane_ell_fp64(const void* xpad, const void* vals,
+                             const void* idx, void* y, int G_pad, int Q,
+                             int chunk, void* stream) {
+  if (G_pad > 0) {
+    lane_ell_fp64_kernel<<<G_pad, kLanes, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const double*>(xpad), static_cast<const double*>(vals),
+        static_cast<const int16_t*>(idx), static_cast<double*>(y), Q, chunk);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int lane_ell_spmv(const void* xpad, const void* vals,
                              const void* idx8, const void* idx16,

@@ -22,7 +22,9 @@
 // Every sum has a fixed order, so the result is deterministic and equals
 // the plain PyTorch version (the same lanes and tree over a cell's quanta,
 // then index_add_ over steps, run on the CPU) bit for bit. Every element
-// of y is written, so a window no step visits is 0.
+// of y is written, so a window no step visits is 0. Both passes are
+// templates on the value type: float for the f32 paths, double for the
+// fp64 fused PELL kernel (pell.cu), with the same order.
 
 #pragma once
 
@@ -36,38 +38,42 @@ constexpr int kPassThreads = 256;
 constexpr int kCellLanes = 32;
 constexpr int kCellUnroll = 4;
 
+// A sum rounded on its own (no contraction into an FMA).
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
 // Pass 1 for one cell, by one warp: acc[r] = the cell's sum of row r
 // (every lane ends with it). load(q, v) reads quantum q's 8 rows into v.
-template <class Load>
+template <class T, class Load>
 __device__ __forceinline__ void warp_cell_sum(const int* __restrict__ order,
                                               int lo, int hi, Load load,
-                                              float (&acc)[kRows]) {
+                                              T (&acc)[kRows]) {
   const int lane = threadIdx.x & (kCellLanes - 1);
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = 0.0f;
+  for (int r = 0; r < kRows; ++r) acc[r] = T(0);
   int i = lo + lane;
   // kCellUnroll quanta a lane at once, so that their loads are in flight
   // together; the adds stay in list order
   for (; i + (kCellUnroll - 1) * kCellLanes < hi; i += kCellUnroll * kCellLanes) {
-    float v[kCellUnroll][kRows];
+    T v[kCellUnroll][kRows];
 #pragma unroll
     for (int u = 0; u < kCellUnroll; ++u) load(__ldg(order + i + u * kCellLanes), v[u]);
 #pragma unroll
     for (int u = 0; u < kCellUnroll; ++u)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = __fadd_rn(acc[r], v[u][r]);
+      for (int r = 0; r < kRows; ++r) acc[r] = add_rn(acc[r], v[u][r]);
   }
   for (; i < hi; i += kCellLanes) {
-    float v[kRows];
+    T v[kRows];
     load(__ldg(order + i), v);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = __fadd_rn(acc[r], v[r]);
+    for (int r = 0; r < kRows; ++r) acc[r] = add_rn(acc[r], v[r]);
   }
 #pragma unroll
   for (int off = kCellLanes / 2; off > 0; off >>= 1)
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
-      acc[r] = __fadd_rn(acc[r], __shfl_xor_sync(0xffffffffu, acc[r], off));
+      acc[r] = add_rn(acc[r], __shfl_xor_sync(0xffffffffu, acc[r], off));
 }
 
 // First step s in [0, steps) with base[s] >= w (base non-decreasing).
@@ -81,9 +87,10 @@ __device__ __forceinline__ int first_step_at_least(const int* __restrict__ base,
   return lo;
 }
 
+template <class T>
 __global__ void __launch_bounds__(kPassThreads)
-window_pass(const float* __restrict__ tiles, const int* __restrict__ base,
-            float* __restrict__ y, int steps, int h, int W, int64_t n_y) {
+window_pass(const T* __restrict__ tiles, const int* __restrict__ base,
+            T* __restrict__ y, int steps, int h, int W, int64_t n_y) {
   int unsorted = 0;
   for (int s = threadIdx.x; s + 1 < steps; s += kPassThreads)
     unsorted |= __ldg(base + s) > __ldg(base + s + 1);
@@ -93,7 +100,7 @@ window_pass(const float* __restrict__ tiles, const int* __restrict__ base,
   const int64_t per_win = static_cast<int64_t>(h) * kRows;
   const int w = static_cast<int>(e / per_win);
   const int64_t cell = e - w * per_win;
-  float acc = 0.0f;
+  T acc = T(0);
   int lo = 0, hi = steps;
   if (!unsorted) {
     lo = first_step_at_least(base, steps, w - W + 1);
@@ -102,20 +109,21 @@ window_pass(const float* __restrict__ tiles, const int* __restrict__ base,
   for (int s = lo; s < hi; ++s) {
     const int d = w - __ldg(base + s);
     if (d >= 0 && d < W)
-      acc = __fadd_rn(acc, tiles[(static_cast<int64_t>(s) * W + d) * per_win + cell]);
+      acc = add_rn(acc, tiles[(static_cast<int64_t>(s) * W + d) * per_win + cell]);
   }
   y[e] = acc;
 }
 
-// Launches pass 2 over y (num_windows * h * 8 floats); returns the launch's
+// Launches pass 2 over y (num_windows * h * 8 values); returns the launch's
 // cudaGetLastError().
-inline int launch_window_pass(const float* tiles, const int* base, float* y,
+template <class T>
+inline int launch_window_pass(const T* tiles, const int* base, T* y,
                               int steps, int h, int W, int num_windows,
                               cudaStream_t st) {
   const int64_t n_y = static_cast<int64_t>(num_windows) * h * kRows;
   if (n_y > 0) {
     const int64_t blocks = (n_y + kPassThreads - 1) / kPassThreads;
-    window_pass<<<static_cast<unsigned>(blocks), kPassThreads, 0, st>>>(
+    window_pass<T><<<static_cast<unsigned>(blocks), kPassThreads, 0, st>>>(
         tiles, base, y, steps, h, W, n_y);
   }
   return static_cast<int>(cudaGetLastError());

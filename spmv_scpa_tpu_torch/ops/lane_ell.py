@@ -31,7 +31,9 @@ Branches of the reference that this port does not have yet raise
 (a tail of 2048 to ``BIG_TAIL`` entries whose single plan does not fit,
 or ``diag="forcechips"``), big tails through a ``tail_strategy`` other
 than PELL, XPOSE or ``"auto"``, and the distributed ``core_only`` /
-``x_off`` mode.
+``x_off`` mode. A big tail through an fp64-grade ``tail_strategy`` is
+refused with ``ValueError`` at prepare time (the reference fails at its
+first call).
 """
 
 from __future__ import annotations
@@ -68,6 +70,9 @@ _Q_CHOICES = (1, 2, 4, 8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88,
 # a split chips plan past this many tail entries goes to the big-tail
 # branch (the reference's TPU-measured cut, kept for parity)
 BIG_TAIL = 131072
+
+# The reference's fp64-grade strategies: none can take a big tail.
+FP64_GRADES = ("pallas-pell-df64", "pallas-hybrid-df64", "xla-ell-df64")
 
 # Roadmap items named by the NotImplementedError of each missing branch.
 _TODO_BIG_TAIL = ("ROADMAP queue 1 #8d (big tails through strategies "
@@ -807,6 +812,15 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
             local = float(np.mean(d <= 4096))
             big = ("pallas-hybrid" if depth < max_depth and local >= 0.4
                    else "pallas-pell")
+        if big in FP64_GRADES:
+            raise ValueError(
+                f"lane-ELL hybrid: tail_strategy {big!r} computes at fp64 "
+                f"grade, and a {tail_nnz}-entry fp64 tail cannot land in "
+                "the f32 core's y (the reference accepts it at prepare "
+                "time and fails at its first call, lane_ell.py:1569-1581: "
+                "its compact branch feeds the f32 x to a strategy that "
+                "takes the hi/lo x pair); use an f32 tail_strategy, or "
+                "cuda-hybrid-fp64 / cuda-pell-fp64 for the whole matrix")
         if big not in ("pallas-hybrid", "pallas-pell", "pallas-xpose"):
             raise NotImplementedError(
                 f"lane-ELL hybrid: a {tail_nnz}-entry tail exceeds "

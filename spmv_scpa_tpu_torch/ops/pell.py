@@ -21,7 +21,9 @@ Three schemes, as in the reference:
 1024-row window, lane by lane, so that rows of similar length share an
 8-row block; :func:`unpermute` undoes it on y. ``cuda-bcsr`` runs the
 tile kernel on dense (8, 128) tiles (no lane index) with the window
-segment-sum.
+segment-sum. ``cuda-pell-fp64`` (the reference's ``prepare_pell_df64``)
+packs one panel per tile without the row sort (:func:`plan_pell_fp64`)
+and runs :func:`pell_fused_fp64`, the fused kernel in float64.
 
 The host parts are JAX-free copies of the reference's and keep its
 TPU-tuned choices (quantum, window, chunk, superpanel width and the
@@ -53,7 +55,8 @@ from spmv_scpa_tpu_torch.formats.panel_ell import (BR, DEFAULT_QUANTUM,
                                                    DEFAULT_WINDOW_H,
                                                    csr_to_pell)
 from spmv_scpa_tpu_torch.ops import segsum_kernel
-from spmv_scpa_tpu_torch.ops.registry import Prepared, record_calls
+from spmv_scpa_tpu_torch.ops.registry import (FP64_RTOL, Prepared,
+                                              record_calls)
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
 
 DEFAULT_CHUNK = 64           # tiles per grid step
@@ -72,7 +75,8 @@ _TODO_HOT = "ROADMAP queue 1 #8b (PELL hot-column remap: hot_cols)"
 _TODO_SHIFT = "ROADMAP queue 1 #8c (PELL dual panel grid: split_shift)"
 
 # Launches of each CUDA kernel by its wrapper in this process.
-LAUNCHES = {"pell_fused": 0, "pell_tiles": 0, "unpermute": 0}
+LAUNCHES = {"pell_fused": 0, "pell_tiles": 0, "unpermute": 0,
+            "pell_fused_fp64": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +241,9 @@ class PellPlan:
     the reference ships: (steps_pad, chunk*nq) global row blocks for the
     fused kernel, flat per-quantum global (span) or window-local (window)
     row blocks for the tiles; ``base`` the fused or span steps' first
-    windows, or the window segment-sum's window per step."""
+    windows, or the window segment-sum's window per step. ``dtype`` is
+    the grade: float64 for :func:`plan_pell_fp64`'s plans, which run
+    :func:`pell_fused_fp64`."""
 
     kind: str
     m: int                   # rows of the packed matrix (row-sorted: padded)
@@ -246,7 +252,7 @@ class PellPlan:
     quantum: int
     panel_w: int
     chunk: int
-    vals: np.ndarray         # (T*8, 128) f32
+    vals: np.ndarray         # (T*8, 128) f32 (f64 at the fp64 grade)
     idx: np.ndarray | None   # (T*8, 128) int8 / int16, None for BCSR
     pan2: np.ndarray         # (steps_pad, chunk) int32
     rbl: np.ndarray
@@ -259,6 +265,7 @@ class PellPlan:
     bsrc: np.ndarray | None  # (mb_pad, 8) int32 when row-sorted
     meta: dict
     hbm_bytes: int
+    dtype: torch.dtype = torch.float32
 
     @property
     def steps(self) -> int:
@@ -486,6 +493,65 @@ def plan_pell(A: CSR, chunk: int | str = "auto",
         hbm_bytes=P.num_tiles * BR * BC * (4 + idx_bytes))
 
 
+def plan_pell_fp64(A: CSR, chunk: int = DEFAULT_CHUNK,
+                   quantum: int | str = "auto",
+                   window_h: int | str = "auto", span_max: int = 8,
+                   **_) -> PellPlan:
+    """Pack ``A`` as the reference's ``prepare_pell_df64`` does
+    (pallas_kernels.py:1025-1059, with the table part of
+    ``_make_fused_spmv_df64``, :882-933): the tuning axes at one panel
+    and no row sort, the fused scheme with the ``window_h`` escalation,
+    the values kept in float64. The TPU's refusals stay for parity, each
+    a ``ValueError``: a row too long for its digit planes' 2^24 integer
+    budget, and an x pair past ``X_VMEM_BUDGET``. A chunk whose float64
+    partials would not fit a block's shared memory is refused too, before
+    any packing."""
+    auto = auto_pell_params(A, quantum=quantum, window_h=window_h,
+                            panel_w=1, row_sort=False, chunk=chunk)
+    quantum, wh0, chunk = auto["quantum"], auto["window_h"], auto["chunk"]
+    smem = fused_smem(chunk, BC // quantum, 8)
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"cuda-pell-fp64: a step's partials ({smem} B at chunk {chunk}, "
+            f"quantum {quantum}) exceed the shared memory of a block "
+            f"({SMEM_MAX} B); use a smaller chunk")
+    # the reference's digit sums per output row must stay < 2^24 (f32
+    # integer exactness); native fp64 has no such limit, kept for parity
+    max_row = int(np.diff(A.irp).max(initial=0))
+    if (max_row + quantum) * 130 * 2 >= 1 << 24:
+        raise ValueError(
+            f"cuda-pell-fp64: max row length {max_row} overflows the 2^24 "
+            "exact-integer budget of the reference's digit planes; use "
+            "torch-ell-fp64")
+    x_bytes = 2 * max(1, -(-A.n // BC)) * BC * 4
+    if x_bytes > X_VMEM_BUDGET:
+        # the reference's hi/lo x pair resident in VMEM, kept for parity
+        # (checked before packing: it depends on n alone)
+        raise ValueError(
+            f"cuda-pell-fp64: x pair ({x_bytes} B) exceeds the budget "
+            f"{X_VMEM_BUDGET} B; use torch-ell-fp64 for this matrix")
+    P = None
+    for wh_try in (wh0, 2 * wh0, 4 * wh0):
+        P = csr_to_pell(A, quantum=quantum, window_h=wh_try,
+                        chunk_align=1, min_chunk_align=1)
+        if _span_of(P.window, chunk) <= span_max:
+            break
+    wh_used = P.window_h
+    t = fused_tables(m=A.m, n=A.n, vals=np.asarray(P.vals, np.float64),
+                     lcol=P.lcol, panel=P.panel, rbl=P.rbl, window=P.window,
+                     window_h=wh_used, chunk=chunk)
+    T = t["vals"].shape[0]
+    return PellPlan(
+        kind="fused", m=A.m, n=A.n, m_orig=A.m, quantum=quantum, panel_w=1,
+        chunk=chunk, vals=t["vals"].reshape(T * BR, BC),
+        idx=_idx_plane(t["lcol"], T, 1), pan2=t["pan2"], rbl=t["rbl2"],
+        base=t["base"], span=t["W"], seg="span", rows_per_step=chunk * BR,
+        h=wh_used, num_win=t["num_win"], bsrc=None,
+        meta={"num_blocks": P.num_tiles, "fill": P.fill, "chunk": chunk,
+              "quantum": quantum, "window_h": wh_used, "rtol": FP64_RTOL},
+        hbm_bytes=P.num_tiles * BR * BC * 9, dtype=torch.float64)
+
+
 def plan_bcsr(A: CSR, chunk: int = DEFAULT_CHUNK,
               window_h: int = DEFAULT_WINDOW_H,
               max_padded_bytes: int = 2 << 30, **_) -> PellPlan:
@@ -545,13 +611,14 @@ class FusedCfg:
         return BC // self.quantum
 
 
-def _check_tiles(what, vals, idx, pan, x, quantum: int, panel_w: int):
+def _check_tiles(what, vals, idx, pan, x, quantum: int, panel_w: int,
+                 dtype=torch.float32):
     if quantum <= 0 or BC % quantum:
         raise ValueError(f"{what}: quantum {quantum} does not divide {BC}")
-    if vals.dtype != torch.float32 or vals.dim() != 2 \
+    if vals.dtype != dtype or vals.dim() != 2 \
             or vals.shape[1] != BC or vals.shape[0] % BR:
         raise ValueError(f"{what}: vals are {vals.dtype} "
-                         f"{tuple(vals.shape)}, expected float32 (T*8, 128)")
+                         f"{tuple(vals.shape)}, expected {dtype} (T*8, 128)")
     T = vals.shape[0] // BR
     if idx is not None:
         want = torch.int8 if panel_w == 1 else torch.int16
@@ -564,9 +631,9 @@ def _check_tiles(what, vals, idx, pan, x, quantum: int, panel_w: int):
     if pan.dtype != torch.int32 or pan.dim() != 1 or pan.numel() < T:
         raise ValueError(f"{what}: pan is {pan.dtype} {tuple(pan.shape)}, "
                          f"expected int32 with >= {T} entries")
-    if x.dtype != torch.float32 or x.dim() != 1:
+    if x.dtype != dtype or x.dim() != 1:
         raise ValueError(f"{what}: x is {x.dtype} {tuple(x.shape)}, "
-                         "expected float32 (n,)")
+                         f"expected {dtype} (n,)")
     for name, t in (("vals", vals), ("idx", idx), ("pan", pan), ("x", x)):
         if t is None:
             continue
@@ -630,6 +697,51 @@ def pell_tiles_plain(vals, idx, pan, x, quantum: int,
     return p.reshape(R, BC // quantum).contiguous()
 
 
+def fused_smem(chunk: int, nq: int, itemsize: int) -> int:
+    """Bytes of shared memory the fused kernel's block takes: one
+    step's per-quantum partials."""
+    return chunk * nq * BR * itemsize
+
+
+def _fused(what, dtype, vals, idx, pan, x, rbl, base, cfg: FusedCfg,
+           lists) -> torch.Tensor:
+    """Check a fused call's arguments, then run the plain version on CPU
+    tensors or launch the fused kernel of ``dtype`` (entry point
+    ``what`` of ``csrc/pell.cu``) on CUDA tensors."""
+    T = _check_tiles(what, vals, idx, pan, x, cfg.quantum, cfg.panel_w,
+                     dtype)
+    if T % cfg.chunk:
+        raise ValueError(f"{what}: {T} tiles are not a multiple of the "
+                         f"chunk {cfg.chunk}")
+    if min(cfg.h, cfg.span, cfg.num_windows, cfg.chunk) <= 0:
+        raise ValueError(f"{what}: {cfg} has a size that is not positive")
+    steps = T // cfg.chunk
+    segsum_kernel.check_tables(what, vals.device, steps, cfg.chunk * cfg.nq,
+                               rbl, base, cfg.span, cfg.h, lists)
+    if vals.device.type == "cpu":
+        return pell_fused_plain(vals, idx, pan, x, rbl, base, cfg, lists)
+    smem = fused_smem(cfg.chunk, cfg.nq, vals.element_size())
+    if smem > SMEM_MAX:
+        raise ValueError(f"{what}: a step's partials ({smem} B) exceed the "
+                         f"shared memory of a block ({SMEM_MAX} B); use a "
+                         "smaller chunk")
+    order, ptr = lists
+    lib = _kernels.load("pell")
+    tiles = torch.empty(steps * cfg.span * cfg.h * BR, dtype=dtype,
+                        device=vals.device)
+    y = torch.empty((cfg.num_windows * cfg.h, BR), dtype=dtype,
+                    device=vals.device)
+    err = getattr(lib, what)(
+        vals.data_ptr(), 0 if idx is None else idx.data_ptr(),
+        pan.data_ptr(), x.data_ptr(), order.data_ptr(), ptr.data_ptr(),
+        base.data_ptr(), tiles.data_ptr(), y.data_ptr(), steps, cfg.chunk,
+        _kind(idx), cfg.panel_w, x.numel(), cfg.quantum, cfg.nq, cfg.h,
+        cfg.span, cfg.num_windows, _kernels.stream_handle(vals.device))
+    _kernels.check(lib, err, what)
+    LAUNCHES[what] += 1
+    return y
+
+
 def pell_fused(vals, idx, pan, x, rbl, base, cfg: FusedCfg,
                lists) -> torch.Tensor:
     """y (num_windows*h, 8) f32 of the tile stream in one pass: each
@@ -639,47 +751,25 @@ def pell_fused(vals, idx, pan, x, rbl, base, cfg: FusedCfg,
     :func:`segsum_kernel.span_segsum` adds them. ``lists``: the
     segment-sum's index of ``rbl``. CUDA tensors launch
     ``csrc/pell.cu``; CPU tensors run :func:`pell_fused_plain`."""
-    T = _check_tiles("pell_fused", vals, idx, pan, x, cfg.quantum,
-                     cfg.panel_w)
-    if T % cfg.chunk:
-        raise ValueError(f"pell_fused: {T} tiles are not a multiple of the "
-                         f"chunk {cfg.chunk}")
-    if min(cfg.h, cfg.span, cfg.num_windows, cfg.chunk) <= 0:
-        raise ValueError(f"pell_fused: {cfg} has a size that is not "
-                         "positive")
-    steps = T // cfg.chunk
-    segsum_kernel.check_tables("pell_fused", vals.device, steps,
-                               cfg.chunk * cfg.nq, rbl, base, cfg.span,
-                               cfg.h, lists)
-    if vals.device.type == "cpu":
-        return pell_fused_plain(vals, idx, pan, x, rbl, base, cfg, lists)
-    smem = cfg.chunk * cfg.nq * BR * 4
-    if smem > SMEM_MAX:
-        raise ValueError(f"pell_fused: a step's partials ({smem} B) exceed "
-                         f"the shared memory of a block ({SMEM_MAX} B)")
-    order, ptr = lists
-    lib = _kernels.load("pell")
-    tiles = torch.empty(steps * cfg.span * cfg.h * BR, dtype=torch.float32,
-                        device=vals.device)
-    y = torch.empty((cfg.num_windows * cfg.h, BR), dtype=torch.float32,
-                    device=vals.device)
-    err = lib.pell_fused(vals.data_ptr(),
-                         0 if idx is None else idx.data_ptr(),
-                         pan.data_ptr(), x.data_ptr(), order.data_ptr(),
-                         ptr.data_ptr(), base.data_ptr(), tiles.data_ptr(),
-                         y.data_ptr(), steps, cfg.chunk, _kind(idx),
-                         cfg.panel_w, x.numel(), cfg.quantum, cfg.nq, cfg.h,
-                         cfg.span, cfg.num_windows,
-                         _kernels.stream_handle(vals.device))
-    _kernels.check(lib, err, "pell_fused")
-    LAUNCHES["pell_fused"] += 1
-    return y
+    return _fused("pell_fused", torch.float32, vals, idx, pan, x, rbl, base,
+                  cfg, lists)
+
+
+def pell_fused_fp64(vals, idx, pan, x, rbl, base, cfg: FusedCfg,
+                    lists) -> torch.Tensor:
+    """:func:`pell_fused` in float64: vals and x float64, y (num_windows*h,
+    8) float64, the same slot tree and cell and window orders. A chunk
+    whose partials (chunk*nq*8 doubles) exceed a block's shared memory
+    raises ``ValueError``. CPU tensors run :func:`pell_fused_plain`."""
+    return _fused("pell_fused_fp64", torch.float64, vals, idx, pan, x, rbl,
+                  base, cfg, lists)
 
 
 def pell_fused_plain(vals, idx, pan, x, rbl, base, cfg: FusedCfg,
                      lists=None) -> torch.Tensor:
-    """:func:`pell_fused` in PyTorch ops: the tile kernel's partials,
-    then the span segment-sum's sums, in their orders."""
+    """:func:`pell_fused` and :func:`pell_fused_fp64` in PyTorch ops: the
+    tile kernel's partials, then the span segment-sum's sums, in their
+    orders, in the dtype of ``vals``."""
     part = pell_tiles_plain(vals, idx, pan, x, cfg.quantum, cfg.panel_w)
     return segsum_kernel.span_segsum_plain(part, rbl, base, cfg.num_windows,
                                            cfg.h, cfg.span, cfg.chunk * BR)
@@ -744,19 +834,30 @@ PLAIN = PellKernels(pell_fused_plain, pell_tiles_plain,
                     segsum_kernel.window_segsum_plain, unpermute_plain)
 
 
+class PellFp64Kernels(NamedTuple):
+    """The functions a ``cuda-pell-fp64`` call runs, by name."""
+
+    pell_fused_fp64: Callable
+
+
+FP64_KERNELS = PellFp64Kernels(pell_fused_fp64)
+FP64_PLAIN = PellFp64Kernels(pell_fused_plain)
+
+
 # ---------------------------------------------------------------------------
 # The strategies
 # ---------------------------------------------------------------------------
 
 def bind_plan(plan: PellPlan, dev) -> Callable:
     """The plan's arrays on ``dev``, and ``run(xf, ops) -> y (m_orig,)``
-    for x (f32 on ``dev``) through the kernels in ``ops`` (any object
-    with :class:`PellKernels`' fields)."""
+    for x (on ``dev``, in ``plan.dtype``) through the kernels in ``ops``:
+    :class:`PellKernels`' fields, or :class:`PellFp64Kernels`' for a
+    float64 plan."""
     def put(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=dev)
 
-    vals = put(plan.vals, torch.float32)
+    vals = put(plan.vals, plan.dtype)
     idx = None if plan.idx is None else torch.as_tensor(
         np.ascontiguousarray(plan.idx), device=dev)
     pan = put(plan.pan2.reshape(-1), torch.int32)
@@ -775,7 +876,9 @@ def bind_plan(plan: PellPlan, dev) -> Callable:
 
     def run(xf, ops):
         if plan.kind == "fused":
-            y = ops.pell_fused(vals, idx, pan, xf, rbl, base, cfg, lists)
+            fused = (ops.pell_fused_fp64 if plan.dtype == torch.float64
+                     else ops.pell_fused)
+            y = fused(vals, idx, pan, xf, rbl, base, cfg, lists)
         else:
             part = ops.pell_tiles(vals, idx, pan, xf, plan.quantum,
                                   plan.panel_w)
@@ -793,22 +896,23 @@ def bind_plan(plan: PellPlan, dev) -> Callable:
     return run
 
 
-def _prepared(name: str, ref: str, A: CSR, plan: PellPlan, dev):
+def _prepared(name: str, ref: str, A: CSR, plan: PellPlan, dev,
+              kernels=KERNELS, plain=PLAIN):
     run = bind_plan(plan, dev)
     n = A.n
 
     def call(x, ops):
-        xf = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        xf = torch.as_tensor(x, dtype=plan.dtype, device=dev)
         if xf.shape != (n,):
             raise ValueError(f"{name}: x has shape {tuple(xf.shape)}, "
                              f"expected ({n},)")
         return run(xf, ops)
 
-    return Prepared(name, A.name, lambda x: call(x, KERNELS), device=dev,
+    return Prepared(name, A.name, lambda x: call(x, kernels), device=dev,
                     nnz=A.nnz, ref=ref, hbm_bytes=int(plan.hbm_bytes),
-                    meta=plan.meta, plain=lambda x: call(x, PLAIN),
+                    meta=plan.meta, plain=lambda x: call(x, plain),
                     kernel_calls=lambda xf: record_calls(
-                        lambda ops: call(xf, ops), PLAIN))
+                        lambda ops: call(xf, ops), plain))
 
 
 def prepare_pell(A: CSR, device="cuda", **knobs) -> Prepared:
@@ -818,6 +922,15 @@ def prepare_pell(A: CSR, device="cuda", **knobs) -> Prepared:
     dev = resolve_device(device)
     return _prepared("cuda-pell", "pallas-pell", A, plan_pell(A, **knobs),
                      dev)
+
+
+def prepare_pell_fp64(A: CSR, device="cuda", **knobs) -> Prepared:
+    """``cuda-pell-fp64``: pack ``A`` (:func:`plan_pell_fp64`) and bind
+    ``fn(x) -> y`` (float64 in, float64 out) on ``device``."""
+    dev = resolve_device(device)
+    return _prepared("cuda-pell-fp64", "pallas-pell-df64", A,
+                     plan_pell_fp64(A, **knobs), dev, FP64_KERNELS,
+                     FP64_PLAIN)
 
 
 def prepare_bcsr(A: CSR, device="cuda", **knobs) -> Prepared:

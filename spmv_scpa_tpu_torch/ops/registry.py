@@ -5,20 +5,37 @@ Each strategy has a ``prepare(A, device=..., **params) -> Prepared``
 whose ``fn(x)`` runs on ``device``, and names in ``ref`` the strategy
 of the JAX package it is held against:
 
-=================  ===================  ==================================
- name               ref                  what
-=================  ===================  ==================================
- cuda-hybrid        pallas-hybrid        lane-ELL hybrid, CUDA core kernel
- cuda-pell          pallas-pell          PELL, fused / span / pure schemes
- cuda-bcsr          pallas-bcsr          dense (8, 128) tiles, tile kernel
- cuda-xpose         pallas-xpose         static-routed transpose (mirror,
-                                         S1 and S3 kernels)
- cuda-nearfar       pallas-nearfar       cuda-hybrid on the diagonal band +
-                                         cuda-xpose on the scattered rest
- torch-csr-segsum   xla-csr-segsum       gather + ``index_add_`` baseline
- torch-dense        xla-dense            dense matvec (tiny matrices)
- oracle-csr         oracle-csr           fp64 host oracle
-=================  ===================  ==================================
+=====================  ===================  ==============================
+ name                   ref                  what
+=====================  ===================  ==============================
+ cuda-hybrid            pallas-hybrid        lane-ELL hybrid, CUDA core
+                                             kernel
+ cuda-pell              pallas-pell          PELL, fused / span / pure
+                                             schemes
+ cuda-bcsr              pallas-bcsr          dense (8, 128) tiles, tile
+                                             kernel
+ cuda-xpose             pallas-xpose         static-routed transpose
+                                             (mirror, S1 and S3 kernels)
+ cuda-nearfar           pallas-nearfar       cuda-hybrid on the diagonal
+                                             band + cuda-xpose on the rest
+ cuda-hybrid-fp64       pallas-hybrid-df64   lane-ELL core in float64
+ cuda-pell-fp64         pallas-pell-df64     fused PELL in float64
+ cuda-bcsr-spmm         pallas-bcsr-spmm     SpMM over dense tiles (X is
+                                             (n, cols), spmm_only)
+ torch-csr-segsum       xla-csr-segsum       gather + ``index_add_`` (spmm)
+ torch-csr-segsum-spmm  xla-csr-segsum-spmm  its SpMM form (spmm_only)
+ torch-ell-rm / -cm     xla-ell-rm / -cm     uniform ELL, row-/col-major
+                                             (spmm)
+ torch-ell-fp64         xla-ell-df64         uniform ELL in float64
+ torch-dense            xla-dense            dense matvec (tiny matrices)
+ oracle-csr             oracle-csr           fp64 host oracle
+ oracle-ell             oracle-ell           fp64 host HLL oracle
+=====================  ===================  ==============================
+
+The fp64 strategies take x as float64 and return y float64 on the
+device; their ``meta["rtol"]`` is the reference's 1e-9 gate. Those
+marked ``spmm`` also take X (n, cols) to Y (m, cols); ``spmm_only``
+ones take only that, and ``spmv`` drives them with a 1-D x in column 0.
 """
 
 from __future__ import annotations
@@ -33,6 +50,9 @@ from spmv_scpa_tpu_torch.formats.csr import CSR
 from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
 from spmv_scpa_tpu_torch.ops.xpose_plan import quick_envelope_ok
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
+
+# The reference's gate for its fp64 grades, against the fp64 oracle.
+FP64_RTOL = 1e-9
 
 
 @dataclass
@@ -86,6 +106,8 @@ class StrategySpec:
     backend: str                      # host | torch | cuda
     ref: str
     prepare: Callable[..., Prepared] = None
+    spmm: bool = False                # takes a 2-D (n, cols) x too
+    spmm_only: bool = False           # requires a 2-D (n, cols) x
 
 
 _REGISTRY: dict[str, StrategySpec] = {}
@@ -127,12 +149,29 @@ def to_numpy(y) -> np.ndarray:
 def spmv(A: CSR, x, strategy: str = "auto", device="cuda",
          **params) -> np.ndarray:
     """One-shot convenience: prepare + run a strategy on (A, x); y comes
-    back as a float64 numpy array."""
+    back as a float64 numpy array. An SpMM-only strategy takes a 1-D x
+    too: it rides column 0 of an (n, ``cols``) block and y is that column
+    of Y (the reference's registry.py:120-159). A 2-D x passes through to
+    a strategy that takes one (``spmm``); any other refuses it."""
     auto = strategy == "auto"
     if auto:
         strategy = pick_auto(A)
+    spec = get_strategy(strategy)
+    if np.ndim(x) == 2 and not spec.spmm:
+        raise ValueError(f"{strategy} takes a 1-D x; X of shape "
+                         f"{tuple(np.shape(x))} needs an SpMM strategy")
+    squeeze = spec.spmm_only and np.ndim(x) == 1
+    if squeeze:
+        cols = params.get("cols", 8)
+        if isinstance(x, torch.Tensor):
+            X = x.new_zeros((x.shape[0], cols))
+        else:
+            x = np.asarray(x)
+            X = np.zeros((x.shape[0], cols), x.dtype)
+        X[:, 0] = x
+        x = X
     try:
-        prep = get_strategy(strategy).prepare(A, device=device, **params)
+        prep = spec.prepare(A, device=device, **params)
     except ValueError:
         if not auto:
             raise
@@ -148,7 +187,8 @@ def spmv(A: CSR, x, strategy: str = "auto", device="cuda",
                 continue
         else:
             raise
-    return to_numpy(prep.fn(x))
+    y = to_numpy(prep.fn(x))
+    return y[:, 0] if squeeze else y
 
 
 def pick_auto(A: CSR) -> str:
@@ -190,10 +230,14 @@ def _ensure_builtin():
         return
     _BUILTIN_DONE = True
 
+    from spmv_scpa_tpu_torch.formats.ell import csr_to_ell
     from spmv_scpa_tpu_torch.ops import torch_ops
     from spmv_scpa_tpu_torch.ops.lane_ell import prepare_lane_ell_hybrid
+    from spmv_scpa_tpu_torch.ops.lane_ell_fp64 import prepare_lane_ell_fp64
     from spmv_scpa_tpu_torch.ops.nearfar import prepare_nearfar
-    from spmv_scpa_tpu_torch.ops.pell import prepare_bcsr, prepare_pell
+    from spmv_scpa_tpu_torch.ops.pell import (prepare_bcsr, prepare_pell,
+                                              prepare_pell_fp64)
+    from spmv_scpa_tpu_torch.ops.spmm import prepare_bcsr_spmm
     from spmv_scpa_tpu_torch.ops.xpose import prepare_xpose
 
     def _prep_oracle_csr(A: CSR, **_):
@@ -209,6 +253,61 @@ def _ensure_builtin():
                         nnz=A.nnz, ref="xla-csr-segsum",
                         hbm_bytes=A.nnz * 12)  # val4 + ja4 + rowid4
 
+    def _prep_oracle_ell(A: CSR, slice_h: int = 32, **_):
+        E = csr_to_ell(A, slice_h=slice_h, col_major=False, pad_mode="neg1")
+        return Prepared("oracle-ell", A.name,
+                        lambda x: torch_ops.serial_ell(E, x),
+                        device=torch.device("cpu"), nnz=A.nnz,
+                        ref="oracle-ell", hbm_bytes=E.padded_nnz * 12,
+                        meta={"num_blocks": E.num_slices})
+
+    def _prep_segsum_spmm(A: CSR, device="cuda", **_):
+        dev = resolve_device(device)
+        return Prepared("torch-csr-segsum-spmm", A.name,
+                        torch_ops.make_csr_segsum_spmm(A, dev), device=dev,
+                        nnz=A.nnz, ref="xla-csr-segsum-spmm",
+                        hbm_bytes=A.nnz * 12)
+
+    def _uniform_ell(A: CSR, slice_h: int, max_padded: int, col_major: bool,
+                     refusal: str):
+        """The uniform ELL view, refused (the reference's words) when
+        padding every row to the longest explodes (power-law matrices;
+        the reference HLL study shows the same failure, SURVEY.md
+        section 6)."""
+        max_len = int(np.diff(A.irp).max(initial=1))
+        if -(-A.m // slice_h) * slice_h * max(max_len, 1) > max_padded:
+            raise ValueError(
+                f"uniform ELL padding too large (max row {max_len}); "
+                + refusal)
+        E = csr_to_ell(A, slice_h=slice_h, col_major=col_major,
+                       pad_mode="last")
+        return E, E.to_uniform()
+
+    def _prep_ell(A: CSR, col_major: bool, device="cuda", slice_h: int = 32,
+                  max_padded: int = 1 << 28, **_):
+        E, U = _uniform_ell(A, slice_h, max_padded, col_major,
+                            "use CSR/PELL strategies for this matrix")
+        dev = resolve_device(device)
+        name = "torch-ell-cm" if col_major else "torch-ell-rm"
+        return Prepared(name, A.name, torch_ops.make_ell_uniform(U, dev),
+                        device=dev, nnz=A.nnz,
+                        ref="xla-ell-cm" if col_major else "xla-ell-rm",
+                        hbm_bytes=U.ja.size * 8,
+                        meta={"num_blocks": E.num_slices,
+                              "fill": A.nnz / max(U.ja.size, 1)})
+
+    def _prep_ell_fp64(A: CSR, device="cuda", slice_h: int = 32,
+                       max_padded: int = 1 << 28, **_):
+        E, U = _uniform_ell(A, slice_h, max_padded, True,
+                            "df64 path unavailable for this matrix")
+        dev = resolve_device(device)
+        return Prepared("torch-ell-fp64", A.name,
+                        torch_ops.make_ell_fp64(U, dev), device=dev,
+                        nnz=A.nnz, ref="xla-ell-df64",
+                        hbm_bytes=U.ja.size * 12,
+                        meta={"num_blocks": E.num_slices, "rtol": FP64_RTOL,
+                              "fill": A.nnz / max(U.ja.size, 1)})
+
     def _prep_dense(A: CSR, device="cuda", max_bytes: int = 512 << 20,
                     **_):
         if A.m * A.n * 4 > max_bytes:
@@ -223,7 +322,8 @@ def _ensure_builtin():
     register(StrategySpec("oracle-csr", "CSR", "host", "oracle-csr",
                           prepare=_prep_oracle_csr))
     register(StrategySpec("torch-csr-segsum", "CSR", "torch",
-                          "xla-csr-segsum", prepare=_prep_segsum))
+                          "xla-csr-segsum", prepare=_prep_segsum,
+                          spmm=True))
     register(StrategySpec("torch-dense", "DENSE", "torch", "xla-dense",
                           prepare=_prep_dense))
     register(StrategySpec("cuda-hybrid", "HLL", "cuda", "pallas-hybrid",
@@ -236,3 +336,24 @@ def _ensure_builtin():
                           prepare=prepare_xpose))
     register(StrategySpec("cuda-nearfar", "XPOSE", "cuda", "pallas-nearfar",
                           prepare=prepare_nearfar))
+    register(StrategySpec("oracle-ell", "HLL", "host", "oracle-ell",
+                          prepare=_prep_oracle_ell))
+    register(StrategySpec("torch-csr-segsum-spmm", "CSR", "torch",
+                          "xla-csr-segsum-spmm", prepare=_prep_segsum_spmm,
+                          spmm=True, spmm_only=True))
+    register(StrategySpec("torch-ell-rm", "HLL", "torch", "xla-ell-rm",
+                          prepare=lambda A, **kw: _prep_ell(A, False, **kw),
+                          spmm=True))
+    register(StrategySpec("torch-ell-cm", "HLL", "torch", "xla-ell-cm",
+                          prepare=lambda A, **kw: _prep_ell(A, True, **kw),
+                          spmm=True))
+    register(StrategySpec("torch-ell-fp64", "HLL", "torch", "xla-ell-df64",
+                          prepare=_prep_ell_fp64))
+    register(StrategySpec("cuda-hybrid-fp64", "HLL", "cuda",
+                          "pallas-hybrid-df64",
+                          prepare=prepare_lane_ell_fp64))
+    register(StrategySpec("cuda-pell-fp64", "PELL", "cuda", "pallas-pell-df64",
+                          prepare=prepare_pell_fp64))
+    register(StrategySpec("cuda-bcsr-spmm", "BCSR", "cuda",
+                          "pallas-bcsr-spmm", prepare=prepare_bcsr_spmm,
+                          spmm=True, spmm_only=True))

@@ -46,6 +46,22 @@ KERNEL_LAUNCHES = 0
 SPAN_LAUNCHES = 0
 
 
+def make_visit_masks(base_of_step, num_windows: int, span: int,
+                     rep: int) -> np.ndarray:
+    """The reference's visit masks (``make_visit_masks``, copied):
+    ``masks[k]`` is True, repeated ``rep`` times per window, where some
+    grid step writes window ``base + k``; bool (span, num_windows*rep).
+    The TPU sums its staggered outputs through them. The port's kernels
+    write every window and need none: they are kept for the parity tests
+    of the plans that ship them."""
+    vis = np.unique(base_of_step)
+    masks = np.zeros((span, num_windows), dtype=bool)
+    for k in range(span):
+        vk = vis + k
+        masks[k, vk[vk < num_windows]] = True
+    return np.repeat(masks, rep, axis=1)
+
+
 def segment_lists(rel: np.ndarray, nrel: int):
     """The kernel's index of the quanta by (step, cell): ``rel`` (steps,
     g) is each quantum's cell in its step's ``nrel`` cells (a value
@@ -202,7 +218,7 @@ def cell_sums(qv, cell, n_cells: int) -> torch.Tensor:
     lane, rnd = pos % LANES, pos // LANES
     by_rnd = torch.argsort(rnd, stable=True)
     per_rnd = torch.bincount(rnd, minlength=1).tolist()
-    acc = torch.zeros((n_cells, LANES, BR), dtype=torch.float32, device=dev)
+    acc = torch.zeros((n_cells, LANES, BR), dtype=qv.dtype, device=dev)
     lo = 0
     for k in per_rnd:                  # one lane slot per cell per round
         i = by_rnd[lo:lo + k]
@@ -218,7 +234,8 @@ def cell_sums(qv, cell, n_cells: int) -> torch.Tensor:
 def _plain(part, rel, base, num_windows, h, span, rows_per_step):
     """Both segment-sums in PyTorch ops: per step an (span*h, 8) tile of
     its cells' sums (:func:`cell_sums`), then per window the sum of the
-    tiles of the steps that cover it, in step order."""
+    tiles of the steps that cover it, in step order. The partials' dtype
+    is kept (float64 for the fp64 fused PELL kernel's plain version)."""
     dev = part.device
     nq = part.shape[1]
     steps = part.shape[0] // rows_per_step
@@ -234,7 +251,7 @@ def _plain(part, rel, base, num_windows, h, span, rows_per_step):
                       steps * nrel)
     dest = (base.to(torch.int64)[:, None]
             + torch.arange(span, device=dev)).reshape(-1)
-    y = torch.zeros((num_windows + span - 1, h * BR), dtype=torch.float32,
+    y = torch.zeros((num_windows + span - 1, h * BR), dtype=part.dtype,
                     device=dev)
     y.index_add_(0, dest, tiles.view(steps * span, h * BR))
     return y[:num_windows].reshape(num_windows * h, BR)

@@ -301,3 +301,56 @@ def test_chip_smoke_xpose_yardsticks_compute_the_kernels_function(name):
     _, col, _ = cs.s1_slots(calls[1][1])
     src, dest = cs.s3_slots(calls[2][1])
     assert col.numel() == src.numel() == dest.numel() == A.nnz
+
+
+@pytest.mark.parametrize("name", ["fp64-hybrid-stencil2k",
+                                  "fp64-pell-powerlaw4k",
+                                  "spmm-banded200x300",
+                                  "spmm-stencil4k-c64"])
+def test_chip_smoke_fp64_and_spmm_yardsticks(name):
+    """The fp64 kernels' and the SpMM's yardsticks compute what the
+    kernels do (run here on the plain versions): cuSPARSE's fp64 CSR
+    product of the whole matrix and of the fused kernel's tiles, and its
+    f32 CSR SpMM. Each bound counts f64 operands at 8 bytes and, for the
+    SpMM, only the rows of X its tiles read, and its operations only the
+    MACs of the tiles' nonzero values: bytes bound it at 64 columns too
+    (counting the stored zeros' MACs, as dense tiles do, would flip it
+    to operations there)."""
+    cs = _chip_smoke()
+    from spmv_scpa_tpu_torch.bench import cases
+    if name in cases.FP64_CASES:
+        make, strategy, kw = cases.FP64_CASES[name]
+    else:
+        (make, kw), strategy = cases.SPMM_CASES[name], "cuda-bcsr-spmm"
+    A = make()
+    x, xd, gold, vkw, _ = cs.path_input(A, strategy, kw,
+                                        torch.device("cpu"))
+    assert xd.dtype == (torch.float32 if strategy == "cuda-bcsr-spmm"
+                        else torch.float64)
+    prep = get_strategy(strategy).prepare(A, device="cpu", **kw)
+    (kname, args), = prep.kernel_calls(xd)
+    out = cs.PLAIN[kname](*args)
+    ms, by = cs.bound(kname, args, out)
+    assert by == "bytes"
+    assert ms > 0
+    got = cs.library(kname, args, A, xd)()
+    got = (got.to_dense() if got.is_sparse else got).reshape(-1)
+    want = out.reshape(-1)[:got.numel()]
+    assert got.dtype == out.dtype
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if kname == "bcsr_spmm":
+        vals, pan = args[:2]
+        T = vals.shape[0] // 8
+        rows = torch.unique((pan[:T].long()[:, None] * 128
+                             + torch.arange(128)).clamp(max=A.n - 1))
+        nbytes = (vals.numel() * 4 + T * 4 + args[2].numel() * 4
+                  + rows.numel() * xd.shape[1] * 4 + out.numel() * 4)
+        ops = 2 * A.nnz * xd.shape[1]
+        assert ms * 1e-3 == pytest.approx(max(
+            nbytes / cs.HBM_BYTES_PER_S, ops / cs.F32_OPS_PER_S), rel=1e-12)
+        dense_ops = 2 * vals.numel() * xd.shape[1]
+        assert (dense_ops / cs.F32_OPS_PER_S > nbytes / cs.HBM_BYTES_PER_S) \
+            == name.endswith("c64")
+    from spmv_scpa_tpu_torch.utils.validation import validate_result
+    y = out if kname == "bcsr_spmm" else out.reshape(-1)[:A.m]
+    validate_result(gold, cs.to_numpy(y), **vkw, what=name)

@@ -22,7 +22,14 @@ of their plain versions on the CPU (bit-equal) and are within rel-L2
 f32 product per slot and scan in the plain versions' order: bit-equal on
 the card and against the CPU; a whole XPOSE call (virtual rows added by
 ``index_add_``) within rel-L2 1e-6 of its plain call. Against
-``spmv_oracle``: ``validate_result`` defaults.
+``spmv_oracle``: ``validate_result`` defaults. The fp64 grade: the
+lane-ELL fp64 kernel rounds each product and sum as its plain version
+does (bit-equal); the fp64 fused PELL kernel is bit-equal to its plain
+version run on the CPU; a whole fp64 call within rel-L2 1e-12 of its
+plain call, and within rel-L2 1e-9 of the oracle with the absolute gate
+off. The SpMM kernel adds each row's tiles and lanes in order in f32, as
+its plain version does: bit-equal; Y against ``spmm_oracle`` by
+``validate_result``.
 """
 
 import numpy as np
@@ -34,15 +41,17 @@ from spmv_scpa_tpu_torch.bench import roofline, timing
 from spmv_scpa_tpu_torch.bench import cases
 from spmv_scpa_tpu_torch.bench.cases import PELL_CASES, SMALL_CASES
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import (ext_gather, lane_ell, pell,
-                                     segsum_kernel, xpose)
-from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
+from spmv_scpa_tpu_torch.ops import (ext_gather, lane_ell, lane_ell_fp64,
+                                     pell, segsum_kernel, spmm, xpose)
+from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import to_numpy
 from spmv_scpa_tpu_torch.utils.validation import validate_result
 from spmv_scpa_tpu_torch.utils.vector import make_x
 
 KERNEL_VS_PLAIN_REL_L2 = 1e-6
 KERNEL_VS_PLAIN_ROW = 1e-5
+FP64_VS_PLAIN_REL_L2 = 1e-12
+FP64_VS_ORACLE_REL_L2 = 1e-9
 
 pytestmark = pytest.mark.cuda
 
@@ -190,19 +199,24 @@ def test_window_segsum_matches_plain(card):
 
 # the kernels that add in a fixed order whose plain versions use
 # index_add_ (atomics on the card)
-ORDERED = ("pell_fused", "span_segsum", "window_segsum")
+ORDERED = ("pell_fused", "span_segsum", "window_segsum", "pell_fused_fp64")
+# every kernel and its plain version, by name
+KERNELS = {**lane_ell.KERNELS._asdict(), **lane_ell_fp64.KERNELS._asdict(),
+           **pell.FP64_KERNELS._asdict(), **spmm.KERNELS._asdict()}
+PLAIN = {**lane_ell.PLAIN._asdict(), **lane_ell_fp64.PLAIN._asdict(),
+         **pell.FP64_PLAIN._asdict(), **spmm.PLAIN._asdict()}
 
 
 def _replay(name, args):
     """One recorded kernel call against its plain versions."""
-    out = getattr(lane_ell.KERNELS, name)(*args)
+    out = KERNELS[name](*args)
     torch.cuda.synchronize()
-    plain = getattr(lane_ell.PLAIN, name)(*args)
+    plain = PLAIN[name](*args)
     if name in ORDERED:
         cpu = [a.cpu() if isinstance(a, torch.Tensor) else
                tuple(t.cpu() for t in a) if isinstance(a, tuple) else a
                for a in args]
-        assert torch.equal(out.cpu(), getattr(lane_ell.PLAIN, name)(*cpu))
+        assert torch.equal(out.cpu(), PLAIN[name](*cpu))
         assert float((out - plain).norm()) <= \
             KERNEL_VS_PLAIN_REL_L2 * float(plain.norm())
     else:
@@ -422,3 +436,101 @@ def test_xpose_wrappers_refuse_mixed_devices(card):
     mid = torch.zeros((plan.B2, plan.J1, BC), device=card)
     with pytest.raises(ValueError, match="planes is on cpu"):
         xpose.xpose_s3(mid, torch.as_tensor(xpose.s3_planes(plan)), plan.m2)
+
+
+# ---- the fp64 grade and the SpMM ------------------------------------------
+
+FP64_LAUNCHES = {"cuda-hybrid-fp64": lambda: lane_ell_fp64.KERNEL_LAUNCHES,
+                 "cuda-pell-fp64": lambda: pell.LAUNCHES["pell_fused_fp64"]}
+
+
+@pytest.mark.parametrize("name", sorted(cases.FP64_CASES))
+def test_fp64_case_kernels_match_plain(card, name):
+    make, strategy, kw = cases.FP64_CASES[name]
+    A = make()
+    x = make_x(A.n)
+    prep = get_strategy(strategy).prepare(A, device=card, **kw)
+    xd = torch.as_tensor(x, dtype=torch.float64, device=card)
+    before = FP64_LAUNCHES[strategy]()
+    y = prep.fn(xd)
+    assert FP64_LAUNCHES[strategy]() == before + 1
+    assert y.dtype == torch.float64 and y.device.type == "cuda"
+    yk, yt = to_numpy(y), to_numpy(prep.plain(xd))
+    assert np.linalg.norm(yk - yt) <= \
+        FP64_VS_PLAIN_REL_L2 * np.linalg.norm(yt)
+    validate_result(spmv_oracle(A, x), yk, rtol=FP64_VS_ORACLE_REL_L2,
+                    abs_l2=0.0, what=f"{strategy} on {name}")
+    for kname, args in prep.kernel_calls(xd):
+        _replay(kname, args)
+
+
+@pytest.mark.parametrize("name", sorted(cases.SPMM_CASES))
+def test_spmm_case_kernel_matches_plain(card, name):
+    make, kw = cases.SPMM_CASES[name]
+    A = make()
+    X = make_x(A.n, cols=kw["cols"]).reshape(A.n, kw["cols"])
+    prep = spmm.prepare_bcsr_spmm(A, device=card, **kw)
+    Xd = torch.as_tensor(X, dtype=torch.float32, device=card)
+    before = spmm.KERNEL_LAUNCHES
+    Y = prep.fn(Xd)
+    assert spmm.KERNEL_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    assert Y.shape == (A.m, kw["cols"]) and Y.dtype == torch.float32
+    assert torch.equal(Y, prep.plain(Xd))
+    validate_result(spmm_oracle(A, X), to_numpy(Y), what=f"SpMM on {name}")
+    (kname, args), = prep.kernel_calls(Xd)
+    _replay(kname, args)
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    assert torch.equal(spmm.bcsr_spmm(*args).cpu(),
+                       spmm.bcsr_spmm_plain(*cpu))
+
+
+def test_new_wrappers_refuse_mixed_devices_and_dtypes(card):
+    A = cases.FP64_CASES["fp64-hybrid-stencil2k"][0]()
+    prep = get_strategy("cuda-hybrid-fp64").prepare(A, device=card)
+    (_, (xpad, vals, idx, cfg)), = prep.kernel_calls(
+        torch.zeros(A.n, dtype=torch.float64, device=card))
+    with pytest.raises(ValueError, match="vals is on cpu"):
+        lane_ell_fp64.lane_ell_fp64(xpad, vals.cpu(), idx, cfg)
+    with pytest.raises(ValueError, match="xpad is torch.float32"):
+        lane_ell_fp64.lane_ell_fp64(xpad.float(), vals, idx, cfg)
+    B = cases.FP64_CASES["fp64-pell-banded512"][0]()
+    prep = get_strategy("cuda-pell-fp64").prepare(B, device=card)
+    (_, fused), = prep.kernel_calls(
+        torch.zeros(B.n, dtype=torch.float64, device=card))
+    vals, idx, pan, x, rbl, base, cfg, lists = fused
+    with pytest.raises(ValueError, match="vals"):
+        pell.pell_fused_fp64(vals.float(), idx, pan, x, rbl, base, cfg,
+                             lists)
+    with pytest.raises(ValueError, match="x is on cpu"):
+        pell.pell_fused_fp64(vals, idx, pan, x.cpu(), rbl, base, cfg, lists)
+    S = cases.SPMM_CASES["spmm-banded200x300"]
+    prep = spmm.prepare_bcsr_spmm(S[0](), device=card, **S[1])
+    (_, (v, p, rp, X, m)), = prep.kernel_calls(
+        torch.zeros((300, 8), device=card))
+    with pytest.raises(ValueError, match="X is on cpu"):
+        spmm.bcsr_spmm(v, p, rp, X.cpu(), m)
+    with pytest.raises(ValueError, match="X is torch.float64"):
+        spmm.bcsr_spmm(v, p, rp, X.double(), m)
+
+
+def test_pell_fused_fp64_refuses_a_step_past_shared_memory(card):
+    """chunk 256 at quantum 8: a step's float64 partials take 256 KB,
+    past the 227 KB of a block. The plan refuses it, and the wrapper,
+    given the f32 kernel's step of 128 KB in float64, raises and
+    launches nothing."""
+    from spmv_scpa_tpu_torch import testing as synth
+    A = synth.webbase_csr(6000, seed=7)
+    with pytest.raises(ValueError, match="shared memory"):
+        pell.prepare_pell_fp64(A, device=card, chunk=256, quantum=8)
+    prep = pell.prepare_pell(A, device=card, chunk=256, quantum=8,
+                             scheme="fused", row_sort=False, panel_w=1)
+    (name, args), = prep.kernel_calls(
+        torch.as_tensor(make_x(A.n), dtype=torch.float32, device=card))
+    assert name == "pell_fused" and args[6].chunk == 256
+    vals, idx, pan, x, rbl, base, cfg, lists = args
+    before = pell.LAUNCHES["pell_fused_fp64"]
+    with pytest.raises(ValueError, match="shared memory"):
+        pell.pell_fused_fp64(vals.double(), idx, pan, x.double(), rbl, base,
+                             cfg, lists)
+    assert pell.LAUNCHES["pell_fused_fp64"] == before

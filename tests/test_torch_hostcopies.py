@@ -1,7 +1,7 @@
 """The port's own copies of the JAX package's host modules
-(spmv_scpa_tpu_torch/{formats/csr,errors,io,ops/oracle,utils/validation,
-utils/vector,testing}.py, bench/timing.py's BenchResult and
-compute_gflops), and the import boundary that makes them necessary: the
+(spmv_scpa_tpu_torch/{formats/csr,formats/ell,errors,io,ops/oracle,
+utils/validation,utils/vector,testing}.py, bench/timing.py's BenchResult
+and compute_gflops), and the import boundary that makes them necessary: the
 port and ``chip_smoke.py`` import neither ``jax`` nor any module of
 ``spmv_scpa_tpu``.
 
@@ -24,22 +24,27 @@ from spmv_scpa_tpu import errors as jax_errors
 from spmv_scpa_tpu import testing as jax_synth
 from spmv_scpa_tpu.bench import timing as jax_timing
 from spmv_scpa_tpu.formats import bcsr as jax_bcsr
+from spmv_scpa_tpu.formats import ell as jax_ell
 from spmv_scpa_tpu.formats import panel_ell as jax_panel_ell
 from spmv_scpa_tpu.formats.csr import CSR as JaxCSR
 from spmv_scpa_tpu.io import loader as jax_loader
 from spmv_scpa_tpu.io import mmio as jax_mmio
+from spmv_scpa_tpu.ops import segsum_kernel as jax_segsum
+from spmv_scpa_tpu.ops import xla as jax_xla
 from spmv_scpa_tpu.ops import xpose_plan as jax_xpose_plan
+from spmv_scpa_tpu.ops.oracle import spmm_oracle as jax_spmm_oracle
 from spmv_scpa_tpu.ops.oracle import spmv_oracle as jax_oracle
 from spmv_scpa_tpu.utils import validation as jax_validation
 from spmv_scpa_tpu.utils.vector import make_x as jax_make_x
 
 from spmv_scpa_tpu_torch import errors, load_csr, testing as synth
 from spmv_scpa_tpu_torch.bench import timing
-from spmv_scpa_tpu_torch.formats import bcsr, panel_ell
+from spmv_scpa_tpu_torch.formats import bcsr, ell, panel_ell
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import registry, xpose_plan
+from spmv_scpa_tpu_torch.ops import (registry, segsum_kernel, torch_ops,
+                                     xpose_plan)
 from spmv_scpa_tpu_torch.io import mmio
-from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
+from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.utils import validation
 from spmv_scpa_tpu_torch.utils.vector import make_x
 
@@ -77,7 +82,10 @@ def test_port_and_chip_smoke_load_no_jax_package():
             "spmv_scpa_tpu_torch.ops.xpose_plan",
             "spmv_scpa_tpu_torch.ops.nearfar",
             "spmv_scpa_tpu_torch.formats.panel_ell",
-            "spmv_scpa_tpu_torch.formats.bcsr"} <= set(mods)
+            "spmv_scpa_tpu_torch.formats.bcsr",
+            "spmv_scpa_tpu_torch.formats.ell",
+            "spmv_scpa_tpu_torch.ops.lane_ell_fp64",
+            "spmv_scpa_tpu_torch.ops.spmm"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -331,3 +339,60 @@ def test_quick_envelope_ok_matches_the_original(name):
             xpose_plan.ROWS_PER_BLK) == (
         jax_xpose_plan.J1_MAX, jax_xpose_plan.CCAP, jax_xpose_plan.B2_MAX,
         jax_xpose_plan.ROWS_PER_BLK)
+
+
+# ---- the ELL format and the SpMM oracle -------------------------------------
+
+ELL_KNOBS = [dict(), dict(slice_h=8, col_major=False),
+             dict(slice_h=16, pad_mode="neg1"),
+             dict(col_major=False, pad_mode="neg1")]
+
+
+@pytest.mark.parametrize("name", ["banded", "banded-rect", "powerlaw",
+                                  "random", "diag", "tiny"])
+def test_csr_to_ell_matches_the_original(name):
+    fn, kw = GENERATORS[name]
+    a, b = getattr(synth, fn)(**kw), getattr(jax_synth, fn)(**kw)
+    x = make_x(a.n)
+    for knobs in ELL_KNOBS:
+        mine, want = ell.csr_to_ell(a, **knobs), jax_ell.csr_to_ell(b,
+                                                                    **knobs)
+        _same_fields(mine, want, ("name", "m", "n", "nnz", "slice_h",
+                                  "col_major", "pad_mode", "max_nz", "offs",
+                                  "ja_flat", "as_flat"))
+        assert (mine.num_slices, mine.padded_nnz, mine.fill) == (
+            want.num_slices, want.padded_nnz, want.fill)
+        for s in (0, mine.num_slices - 1):
+            for u, v in zip(mine.block(s), want.block(s)):
+                np.testing.assert_array_equal(u, v)
+        np.testing.assert_array_equal(mine.to_dense(), want.to_dense())
+        for lane_pad in (1, 8):
+            _same_fields(mine.to_uniform(lane_pad),
+                         want.to_uniform(lane_pad),
+                         ("name", "m", "n", "nnz", "slice_h", "k",
+                          "col_major", "ja", "as_"))
+        # the serial HLL oracle is a copy too
+        np.testing.assert_array_equal(torch_ops.serial_ell(mine, x),
+                                      jax_xla.serial_ell(want, x))
+    assert ell.HACK_SIZE == jax_ell.HACK_SIZE
+    with pytest.raises(ValueError, match="pad_mode"):
+        ell.csr_to_ell(a, pad_mode="zero")
+
+
+def test_spmm_oracle_and_visit_masks_match():
+    for name in ("amazon", "random", "diag"):
+        fn, kw = GENERATORS[name]
+        a, b = getattr(synth, fn)(**kw), getattr(jax_synth, fn)(**kw)
+        for cols in (None, 1, 8):
+            X = make_x(a.n, cols=cols)
+            np.testing.assert_array_equal(spmm_oracle(a, X),
+                                          jax_spmm_oracle(b, X))
+        with pytest.raises(ValueError, match="rows"):
+            spmm_oracle(a, np.ones((a.n + 1, 2)))
+    rng = np.random.default_rng(4)
+    for base, nw, span, rep in ((rng.integers(0, 9, 40), 9, 3, 4),
+                                (np.zeros(0, np.int64), 2, 1, 8),
+                                (np.array([0, 0, 5]), 6, 2, 1)):
+        np.testing.assert_array_equal(
+            segsum_kernel.make_visit_masks(base, nw, span, rep),
+            jax_segsum.make_visit_masks(base, nw, span, rep))

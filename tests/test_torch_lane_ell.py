@@ -337,10 +337,10 @@ def heavy_scatter_csr(m=150_000, heavy=16, per=8000, seed=12):
     (lambda: synth.random_csr(2000, 3_200_000, density=1e-6, seed=4), {},
      "PELL column stripes"),
     (heavy_scatter_csr, {}, "split chips"),
-    # a big tail through a strategy the port lacks (PELL's fp64 grade)
+    # a big tail through a strategy the port lacks for big tails (BCSR)
     (lambda: synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4),
      {"ext": False, "diag": "nochips", "tail_xla_max": 1000,
-      "tail_strategy": "pallas-pell-df64"}, "big tails"),
+      "tail_strategy": "pallas-bcsr"}, "big tails"),
     (lambda: synth.banded_csr(512, row_nnz=12, bandwidth=96, seed=7),
      {"core_only": True}, "distributed"),
     (lambda: synth.banded_csr(512, row_nnz=12, bandwidth=96, seed=7),
@@ -350,6 +350,22 @@ def test_missing_branches_raise_not_implemented(A_make, kw, what):
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         lane_ell.prepare_lane_ell_hybrid(A_make(), device="cpu", **kw)
     assert what in str(err.value)
+
+
+@pytest.mark.parametrize("tail", ["pallas-pell-df64", "pallas-hybrid-df64",
+                                  "xla-ell-df64"])
+def test_fp64_big_tail_is_refused_at_prepare(tail):
+    """An fp64-grade big tail cannot land in the f32 core's y: a
+    ValueError at prepare time (the reference prepares it and fails at
+    its first call with a TypeError, lane_ell.py:1569-1581). A tail
+    under ``tail_xla_max`` never reaches the big-tail branch."""
+    A = synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4)
+    kw = {"ext": False, "diag": "nochips", "tail_strategy": tail}
+    with pytest.raises(ValueError, match="fp64 tail cannot land"):
+        lane_ell.prepare_lane_ell_hybrid(A, device="cpu", tail_xla_max=1000,
+                                         **kw)
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", **kw)
+    assert prep.meta["tail_kind"] == "torch-compact"
 
 
 def test_auto_does_not_swallow_not_implemented():

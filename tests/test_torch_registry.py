@@ -37,7 +37,8 @@ PKG = ROOT / "spmv_scpa_tpu_torch"
 PORT_OF = {"pallas-hybrid": "cuda-hybrid", "xla-dense": "torch-dense",
            "pallas-pell": "cuda-pell", "pallas-xpose": "cuda-xpose"}
 
-BASELINES = ("torch-csr-segsum", "torch-dense", "oracle-csr")
+BASELINES = ("torch-csr-segsum", "torch-dense", "oracle-csr",
+             "torch-ell-rm", "torch-ell-cm", "oracle-ell")
 ZOO_SIZE = 7        # tests/conftest.py: matrices()
 
 
@@ -83,19 +84,35 @@ def test_strategies_and_refs():
     names = list_strategies()
     assert names == sorted(["cuda-bcsr", "cuda-hybrid", "cuda-pell",
                             "cuda-xpose", "cuda-nearfar", "oracle-csr",
-                            "torch-csr-segsum", "torch-dense"])
+                            "torch-csr-segsum", "torch-dense",
+                            "cuda-hybrid-fp64", "cuda-pell-fp64",
+                            "cuda-bcsr-spmm", "torch-csr-segsum-spmm",
+                            "torch-ell-rm", "torch-ell-cm",
+                            "torch-ell-fp64", "oracle-ell"])
     jax_names = set(jax_registry.list_strategies())
     for name in names:
         spec = get_strategy(name)
         assert spec.ref in jax_names
+        # SpMM support as the reference's strategy declares it
+        jspec = jax_registry.get_strategy(spec.ref)
+        assert spec.spmm_only == jspec.spmm_only
+        if spec.spmm_only:
+            assert spec.spmm and jspec.spmm
+        # a 2-D x wherever the reference's strategy declares one (the
+        # port's uniform ELL takes it too)
+        assert spec.spmm >= jspec.spmm
     assert get_strategy("cuda-hybrid").ref == "pallas-hybrid"
     assert get_strategy("cuda-pell").ref == "pallas-pell"
     assert get_strategy("cuda-bcsr").ref == "pallas-bcsr"
     assert get_strategy("cuda-xpose").ref == "pallas-xpose"
     assert get_strategy("cuda-nearfar").ref == "pallas-nearfar"
+    assert get_strategy("cuda-hybrid-fp64").ref == "pallas-hybrid-df64"
+    assert get_strategy("cuda-pell-fp64").ref == "pallas-pell-df64"
+    assert get_strategy("cuda-bcsr-spmm").ref == "pallas-bcsr-spmm"
+    assert get_strategy("torch-ell-fp64").ref == "xla-ell-df64"
     assert list_strategies(backend="cuda") == [
-        "cuda-bcsr", "cuda-hybrid", "cuda-nearfar", "cuda-pell",
-        "cuda-xpose"]
+        "cuda-bcsr", "cuda-bcsr-spmm", "cuda-hybrid", "cuda-hybrid-fp64",
+        "cuda-nearfar", "cuda-pell", "cuda-pell-fp64", "cuda-xpose"]
     assert list_strategies(fmt="XPOSE") == ["cuda-nearfar", "cuda-xpose"]
     with pytest.raises(KeyError, match="unknown strategy"):
         get_strategy("pallas-pell")
@@ -208,7 +225,11 @@ def test_pick_auto_sends_scattered_matrices_to_cuda_pell(monkeypatch):
 @pytest.mark.parametrize("strategy", ["cuda-hybrid", "torch-csr-segsum",
                                       "torch-dense", "cuda-pell",
                                       "cuda-bcsr", "cuda-xpose",
-                                      "cuda-nearfar"])
+                                      "cuda-nearfar", "cuda-hybrid-fp64",
+                                      "cuda-pell-fp64", "cuda-bcsr-spmm",
+                                      "torch-csr-segsum-spmm",
+                                      "torch-ell-rm", "torch-ell-cm",
+                                      "torch-ell-fp64"])
 def test_prepare_refuses_cuda_without_a_card(strategy):
     if torch.cuda.is_available():
         pytest.skip("a card is present; this pins the CPU-only refusal")
@@ -274,3 +295,12 @@ def test_port_imports_only_allowed_modules():
 def test_public_api():
     assert set(spmv_scpa_tpu_torch.__all__) == {
         "load_csr", "spmv", "get_strategy", "list_strategies"}
+
+
+def test_pick_auto_never_picks_the_new_strategies():
+    """The reference's auto route never picks its fp64 grades, ELL
+    baselines or SpMM; neither does the port's."""
+    picked = {pick_auto(getattr(synth, fn)(**kw))
+              for fn, kw in AUTO_MATRICES.values()}
+    assert picked <= {"cuda-hybrid", "cuda-xpose", "cuda-pell",
+                      "torch-dense"}
