@@ -71,12 +71,38 @@ the script exits non-zero:
    ``cuda-bcsr-spmm`` with X of 8 columns; ``bcsr_spmm`` must launch;
 21. main path 12, ``stencil48k-spmm64``: ``cases.stencil48k()`` (the
    flagship's stencil at 48,000 rows, whose X of 64 columns fits the
-   reference's X budget) through ``cuda-bcsr-spmm`` at 64 columns.
+   reference's X budget) through ``cuda-bcsr-spmm`` at 64 columns;
+22. small row-sharded cases: ``bench/cases.py``'s ``DIST_CASES`` (the six
+   routes of ``__graft_entry__.dryrun_multichip``) at 2 and 4 shards on
+   one card (at 2 shards without the two chips routes, which both
+   packages refuse there: those shards have no tail), ``amazon40k``
+   with ext panels and ``powerlaw1200`` through the row-sorted PELL at 4
+   shards, each call against its plain call and the oracle and each
+   kernel call replayed; between them they must launch
+   ``lane_ell_sharded``, the three gathers, ``window_segsum``,
+   ``pell_fused`` and ``pell_unpermute``; then ``cuda-chips`` on its
+   small cases and ``heavy_scatter`` through ``cuda-hybrid`` (the split
+   chips plan), which must launch the gathers and the segment-sum;
+23. main path 13, ``dist-flagship``: the flagship through
+   ``prepare_row_sharded_hybrid`` on the mesh ``[cuda:0]`` (``loc_w``
+   256, chunk 24), beside ``cuda-hybrid`` with the same knobs: the gap
+   between the two calls is what the distributed wrapper costs;
+24. main path 14, ``dist-flagship-4x1``: the same on ``["cuda:0"] * 4``,
+   one ``lane_ell_sharded`` launch per call;
+25. main path 15, ``dist-webbase1m``: ``webbase1m`` at mesh 1, whose tail
+   must take the ``chips-split`` route (the split streams' gathers and
+   segment-sum);
+26. main path 16, ``dist-amazon262k-4x1``: ``amazon262k`` on four shards
+   of one card with ``idx8``: the ext panels, the per-shard chips tails
+   and the panel merge;
+27. main path 17, ``dist-powerlaw100k-pell``: ``powerlaw100k`` through
+   ``prepare_row_sharded_pell`` at mesh 1: the fused kernel and the
+   un-permute.
 
 Each path sets the launch counts to 0 just before it and reads them
 just after; replays that hold a kernel against its plain version come
 after the read. Each prints its packing time. Then one JSON line of the
-sixteen kernels' numbers, the card line, and the contract line ``{"ok":
+seventeen kernels' numbers, the card line, and the contract line ``{"ok":
 true, "device": {...}}`` last. Without a card it prints no result and
 exits 2.
 
@@ -87,8 +113,8 @@ the plain segment-sums, the plain fused kernel and the compact tail's
 ``index_add_`` add with atomics in a varying order on the card. Each
 kernel call replayed alone: the core, the gathers, the tile kernel, the
 un-permute and XPOSE's mirror, S1 and S3 bit-equal to their plain
-versions; the segment-sums and
-the fused kernel bit-equal to their plain versions run on the CPU (the
+versions, and so is the row-shard core ``lane_ell_sharded``; the
+segment-sums and the fused kernel bit-equal to their plain versions run on the CPU (the
 same fixed order) and within rel-L2 1e-6 of the plain versions on the
 card. Against ``spmv_oracle``: ``validate_result`` (rel 1e-4). The fp64
 paths (x and y float64): against the oracle at relative L2 <= 1e-9 with
@@ -137,7 +163,8 @@ import time
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels, get_strategy, spmv
+from spmv_scpa_tpu_torch import _kernels, get_strategy, list_strategies, spmv
+from spmv_scpa_tpu_torch import testing as synth
 from spmv_scpa_tpu_torch.bench import cases, roofline as roof
 from spmv_scpa_tpu_torch.bench.timing import (time_cuda, time_device,
                                               time_prepared)
@@ -147,6 +174,7 @@ from spmv_scpa_tpu_torch.ops import (ext_gather, lane_ell, lane_ell_fp64,
                                      xpose_plan)
 from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import FP64_RTOL, pick_auto, to_numpy
+from spmv_scpa_tpu_torch.parallel import distributed
 from spmv_scpa_tpu_torch.utils.platform import card_label, cuda_device
 from spmv_scpa_tpu_torch.utils.validation import validate_result
 from spmv_scpa_tpu_torch.utils.vector import make_x
@@ -164,17 +192,25 @@ PELL_KERNELS = ("pell_fused", "pell_tiles", "span_segsum", "window_segsum",
                 "unpermute")
 XPOSE_KERNELS = ("xpose_mirror", "xpose_s1", "xpose_s3")
 FP64_SPMM_KERNELS = ("lane_ell_fp64", "pell_fused_fp64", "bcsr_spmm")
+DIST_KERNELS = ("lane_ell_sharded", "sorted_gather", "ranked_gather",
+                "window_gather", "window_segsum", "pell_fused", "unpermute")
+CHIPS_KERNELS = ("sorted_gather", "ranked_gather", "window_gather",
+                 "window_segsum")
 # kernels whose plain versions add with index_add_ (atomics on the card):
 # held bit-equal to the plain version run on the CPU
 ORDERED = ("window_segsum", "span_segsum", "pell_fused", "pell_fused_fp64")
 # every kernel and its plain version, by name
 KERNELS = {**lane_ell.KERNELS._asdict(), **lane_ell_fp64.KERNELS._asdict(),
-           **pell.FP64_KERNELS._asdict(), **spmm.KERNELS._asdict()}
+           **pell.FP64_KERNELS._asdict(), **spmm.KERNELS._asdict(),
+           **distributed.KERNELS._asdict()}
 PLAIN = {**lane_ell.PLAIN._asdict(), **lane_ell_fp64.PLAIN._asdict(),
-         **pell.FP64_PLAIN._asdict(), **spmm.PLAIN._asdict()}
+         **pell.FP64_PLAIN._asdict(), **spmm.PLAIN._asdict(),
+         **distributed.PLAIN._asdict()}
 SOURCES = {
     "lane_ell_spmv": ("spmv_scpa_tpu_torch/csrc/lane_ell.cu",
                       "spmv_scpa_tpu/ops/lane_ell.py:188"),
+    "lane_ell_sharded": ("spmv_scpa_tpu_torch/csrc/lane_ell.cu",
+                         "spmv_scpa_tpu/parallel/distributed.py:480"),
     "stream_reduce": ("spmv_scpa_tpu_torch/csrc/stream_probe.cu",
                       "spmv_scpa_tpu/bench/roofline.py:60"),
     "sorted_gather": ("spmv_scpa_tpu_torch/csrc/ext_gather.cu",
@@ -206,7 +242,7 @@ SOURCES = {
     "bcsr_spmm": ("spmv_scpa_tpu_torch/csrc/spmm.cu",
                   "spmv_scpa_tpu/ops/pallas_kernels.py:1076"),
 }
-LINE_ORDER = ("lane_ell_spmv", "stream_reduce", "sorted_gather",
+LINE_ORDER = ("lane_ell_spmv", "lane_ell_sharded", "stream_reduce", "sorted_gather",
               "ranked_gather", "window_gather", "window_segsum",
               "pell_fused", "pell_tiles", "span_segsum", "unpermute",
               "xpose_mirror", "xpose_s1", "xpose_s3", "lane_ell_fp64",
@@ -217,6 +253,7 @@ LINE_ORDER = ("lane_ell_spmv", "stream_reduce", "sorted_gather",
 
 def counts() -> dict:
     return {"lane_ell_spmv": lane_ell.KERNEL_LAUNCHES,
+            "lane_ell_sharded": lane_ell.SHARDED_LAUNCHES,
             "stream_reduce": roof.KERNEL_LAUNCHES,
             **ext_gather.LAUNCHES,
             "window_segsum": segsum_kernel.KERNEL_LAUNCHES,
@@ -229,6 +266,7 @@ def counts() -> dict:
 
 def reset_counts() -> None:
     lane_ell.KERNEL_LAUNCHES = 0
+    lane_ell.SHARDED_LAUNCHES = 0
     lane_ell_fp64.KERNEL_LAUNCHES = 0
     spmm.KERNEL_LAUNCHES = 0
     roof.KERNEL_LAUNCHES = 0
@@ -271,7 +309,7 @@ def path_input(A, strategy, knobs, dev):
     ``twin_check``'s). The fp64 grade takes and returns float64, gated at
     rel 1e-9 with the absolute gate off; an SpMM-only strategy takes X
     (n, cols) with ``spmm_oracle`` as its oracle."""
-    if get_strategy(strategy).spmm_only:
+    if strategy in list_strategies() and get_strategy(strategy).spmm_only:
         x = make_x(A.n, cols=knobs.get("cols", 8))
         return (x, torch.as_tensor(x, dtype=torch.float32, device=dev),
                 spmm_oracle(A, x), {}, {})
@@ -421,6 +459,8 @@ def bound(name, args, out) -> tuple:
     elif name == "lane_ell_spmv":
         cfg = args[-1]
         ops = 2 * cfg.steps * cfg.QT * cfg.chunk * BC
+    elif name == "lane_ell_sharded":
+        ops = 2 * args[2].numel()
     elif name == "window_segsum":
         part, rbl, h = args[0], args[1], args[4]
         live = int(((rbl >= 0) & (rbl < h)).sum())
@@ -631,8 +671,8 @@ def library(name, args, A, xd):
         midf, m2 = args[0].view(-1), args[2]
         return lambda: torch.zeros(m2, device=midf.device) \
             .index_add_(0, dest, midf[src])
-    if name in ("lane_ell_spmv", "lane_ell_fp64", "bcsr_spmm") \
-            and A is not None:
+    if name in ("lane_ell_spmv", "lane_ell_sharded", "lane_ell_fp64",
+                "bcsr_spmm") and A is not None:
         return matrix_library(A, xd)
     return None          # the core without its whole matrix
 
@@ -737,20 +777,26 @@ def xpose_meta(m):
 
 
 def full_path(name, A, strategy, knobs, dev, card, kernels, branch,
-              branch_what, timing=True, describe=pell_meta, profile=False):
+              branch_what, timing=True, describe=pell_meta, profile=False,
+              prepare=None):
     """One full-size path: the launch counts set to 0, ``A`` prepared
     (packing timed), the call validated against the oracle and timed, the
     counts read; then the branch ``branch(meta)`` and the ``kernels``
     that must have launched are checked, the call held against its plain
     call and each kernel replayed alone. ``timing`` adds host enqueue
     against device time over 200 calls, ``profile`` a profiler window;
-    ``describe(prep)`` says what the line prints of the plan. Returns
-    (the kernel table, the counts). The input and tolerances follow the
-    strategy (``path_input``)."""
+    ``describe(prep)`` says what the line prints of the plan. ``prepare``
+    (a row-sharded prepare function, its mesh in ``knobs``) replaces the
+    strategy's. Returns (the kernel table, the counts, the prepared call,
+    its timed result). The input and tolerances follow the strategy
+    (``path_input``)."""
     x, xd, gold, vkw, tkw = path_input(A, strategy, knobs, dev)
     reset_counts()
     t0 = time.perf_counter()
-    prep = get_strategy(strategy).prepare(A, device=dev, **knobs)
+    if prepare is None:
+        prep = get_strategy(strategy).prepare(A, device=dev, **knobs)
+    else:
+        prep = prepare(A, **knobs)
     pack_s = time.perf_counter() - t0
     rel_o = validate_result(gold, to_numpy(prep.fn(x)),
                             what=f"{strategy} on {name}", **vkw)
@@ -770,7 +816,7 @@ def full_path(name, A, strategy, knobs, dev, card, kernels, branch,
           f"plain rel-L2 {rel_l2:.3e} row {row_rel:.3e}", flush=True)
     report_times(name, prep, xd, r, launched, card, timing, profile)
     print(f"[{name}] kernels alone: {phase_line(table)}", flush=True)
-    return table, launched
+    return table, launched, prep, r
 
 
 def report_times(name, prep, xd, r, launched, card, timing, profile):
@@ -975,7 +1021,7 @@ def fp64_spmm_phases(dev, card, flagship_A):
     # 18. main path 9: the flagship at fp64 grade through the lane-ELL
     # kernel, beside the torch-ell-fp64 baseline
     A = flagship_A
-    fl, fl_counts = full_path(
+    fl, fl_counts, *_ = full_path(
         "flagship-fp64", A, "cuda-hybrid-fp64", {}, dev, card,
         ("lane_ell_fp64",), lambda m: m["rtol"] == FP64_RTOL,
         "the fp64 grade", describe=fp64_spmm_meta)
@@ -992,13 +1038,13 @@ def fp64_spmm_phases(dev, card, flagship_A):
     del base
 
     # 19. main path 10: powerlaw100k at fp64 grade through fused PELL
-    pw, pw_counts = full_path(
+    pw, pw_counts, *_ = full_path(
         "powerlaw100k-fp64", cases.powerlaw100k(), "cuda-pell-fp64", {}, dev,
         card, ("pell_fused_fp64",), lambda m: m["rtol"] == FP64_RTOL,
         "the fp64 grade", describe=fp64_spmm_meta)
 
     # 20-21. main paths 11 and 12: the SpMM at 8 and 64 columns
-    sp, sp_counts = full_path(
+    sp, sp_counts, *_ = full_path(
         "flagship-spmm8", A, "cuda-bcsr-spmm", {"cols": 8}, dev, card,
         ("bcsr_spmm",), lambda m: m["cols"] == 8, "8 columns",
         describe=fp64_spmm_meta)
@@ -1007,6 +1053,139 @@ def fp64_spmm_phases(dev, card, flagship_A):
               lambda m: m["cols"] == 64, "64 columns",
               describe=fp64_spmm_meta)
     return fl, fl_counts, pw, pw_counts, sp, sp_counts
+
+
+def dist_meta(prep):
+    """What a row-sharded path's line says of its plan."""
+    m = prep.meta
+    if prep.strategy == "row-sharded-pell":
+        return (f"{prep.strategy} shards {len(prep.mesh)} quantum "
+                f"{m['quantum']} panel_w {m['panel_w']} row_sort "
+                f"{m['row_sort']} chunk {m['chunk']} window_h {m['window_h']}"
+                f" span {m['span']} tiles {m['tiles']}")
+    if prep.strategy != "row-sharded-hybrid":
+        return f"{prep.strategy} shards {len(prep.mesh)}"
+    streams = ""
+    tail = m.get("tail_meta") or []
+    if tail and tail[0]["split"]:
+        streams = " | streams per shard (loc/far/cold entries, H_pad): " + \
+            ", ".join(f"{t['loc_entries']}/{t['far_entries']}/"
+                      f"{t['cold_entries']} {t['hot_h']}" for t in tail)
+    return (f"{prep.strategy} shards {len(prep.mesh)} bounds "
+            f"{prep.bounds.tolist()} loc_w {m['loc_w']} QT {m['slots']} "
+            f"strips {m['strips']} idx8 {m['idx8_planes']} chunk "
+            f"{m['chunk']} | ext {m['ext']} groups {m['ext_groups']} "
+            f"n_out {m['ext_n_out']} | demoted {m['demoted']} relocated "
+            f"{m['relocated']} | tail {m['tail_nnz']} {m['tail_kind']} "
+            f"panel_merge {m['panel_merge']}{streams}")
+
+
+def dist_phases(dev, card, flagship_A):
+    """Phases 22-27: the small row-sharded cases, cuda-chips and the split
+    chips plan, then the five row-sharded main paths. Returns
+    dist-flagship's kernel table and counts, which the kernels line
+    reports."""
+    # 22. the small row-sharded cases, all shards on one card
+    launches = dict.fromkeys(DIST_KERNELS, 0)
+    items = []
+    for k in (2, 4):
+        for name, (prep_fn, make, kw) in cases.DIST_CASES.items():
+            if k == 2 and name.startswith("hybrid-chips"):
+                continue        # both packages refuse: no tail on 2 shards
+            items.append((f"{name}-{k}", make(k), prep_fn, kw, k))
+    items += [("amazon40k-ext-4", synth.amazon_csr(40_000, seed=11),
+               "prepare_row_sharded_hybrid", {}, 4),
+              ("pell-rowsort1200-4", synth.powerlaw_csr(1200, 1200,
+                                                              seed=21),
+               "prepare_row_sharded_pell", {}, 4)]
+    for name, A, prep_fn, kw, k in items:
+        prep = getattr(distributed, prep_fn)(A, mesh=[dev] * k, **kw)
+        x = make_x(A.n)
+        xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        before = counts()
+        yk = prep.fn(xd)
+        torch.cuda.synchronize()
+        after = counts()
+        for kname in DIST_KERNELS:
+            launches[kname] += after[kname] - before[kname]
+        rel_l2, row_rel, dmax = twin_check(A, x, yk, prep.plain(xd), name)
+        rel_o = validate_result(spmv_oracle(A, x), to_numpy(yk),
+                                what=f"{prep_fn} on {name}")
+        calls = prep.kernel_calls(xd)
+        errs = [check_call(kn, a, name) for kn, a in calls]
+        print(f"[small-dist] {name}: nnz {A.nnz} | {dist_meta(prep)} | vs "
+              f"plain rel-L2 {rel_l2:.3e} row {row_rel:.3e} max|d| "
+              f"{dmax:.3e} | vs oracle rel {rel_o:.3e} | kernels "
+              f"{[kn for kn, _ in calls]} each vs plain max|d| "
+              f"{max(errs, default=0.0):.1e}", flush=True)
+    require(launches, DIST_KERNELS, "small row-sharded cases")
+    print(f"[small-dist] launches across the cases: {launches}", flush=True)
+    small = [(f"chips-{name}", make(), "cuda-chips", {})
+             for name, make in cases.CHIPS_CASES.items()]
+    small.append(("heavy-scatter", cases.heavy_scatter(), "cuda-hybrid", {}))
+    small_phase("small-chips", small, CHIPS_KERNELS,
+                lambda p, A: f"{p.strategy} nnz {A.nnz} chips "
+                f"{p.meta.get('tail_meta') or p.meta}", dev,
+                "cuda-chips and the split chips plan")
+
+    # 23-24. main paths 13 and 14: the flagship row-sharded on one card,
+    # one shard and four
+    knobs = {"loc_w": 256, "chunk": 24}
+    hybrid = distributed.prepare_row_sharded_hybrid
+    A = flagship_A
+    fl, fl_counts, _, r1 = full_path(
+        "dist-flagship", A, "row-sharded-hybrid", {**knobs, "mesh": [dev]},
+        dev, card, ("lane_ell_sharded",), lambda m: m["tail_kind"] == "xla",
+        "the segment-sum tail", describe=dist_meta, prepare=hybrid)
+    single = get_strategy("cuda-hybrid").prepare(A, device=dev, **knobs)
+    r0 = time_prepared(single, make_x(A.n))
+    print(f"[dist-flagship] cuda-hybrid, the same knobs, this run: call "
+          f"{r0.duration_ms:.4f} ms (QT {single.meta['slots']}+"
+          f"{single.meta['ov_slots']}) | the row-sharded call "
+          f"{r1.duration_ms:.4f} ms: the distributed wrapper costs "
+          f"{r1.duration_ms - r0.duration_ms:.4f} ms | {card}", flush=True)
+    del single
+    _, _, prep4, _ = full_path(
+        "dist-flagship-4x1", A, "row-sharded-hybrid",
+        {**knobs, "mesh": [dev] * 4}, dev, card, ("lane_ell_sharded",),
+        lambda m: m["tail_kind"] == "xla", "the segment-sum tail",
+        describe=dist_meta, prepare=hybrid)
+    reset_counts()
+    prep4.fn(torch.as_tensor(make_x(A.n), dtype=torch.float32, device=dev))
+    one = counts()["lane_ell_sharded"]
+    if one != 1:
+        raise AssertionError(f"dist-flagship-4x1: {one} lane_ell_sharded "
+                             "launches in one call, expected 1")
+    print(f"[dist-flagship-4x1] one call: {one} lane_ell_sharded launch "
+          "for the four shards", flush=True)
+    del prep4
+
+    # 25. main path 15: webbase1m at mesh 1, the split chips plan
+    A = cases.webbase1m()
+    full_path("dist-webbase1m", A, "row-sharded-hybrid", {"mesh": [dev]},
+              dev, card, ("lane_ell_sharded", "window_gather",
+                          "window_segsum"),
+              lambda m: m["tail_kind"] == "chips-split",
+              "the chips-split tail", describe=dist_meta, profile=True,
+              prepare=hybrid)
+
+    # 26. main path 16: amazon262k on four shards with idx8
+    full_path("dist-amazon262k-4x1", cases.amazon262k(),
+              "row-sharded-hybrid", {"idx8": True, "mesh": [dev] * 4}, dev,
+              card, ("lane_ell_sharded", "sorted_gather", "ranked_gather",
+                     "window_segsum"),
+              lambda m: (m["ext"] and m["tail_kind"] == "chips"
+                         and m["panel_merge"] and m["idx8_planes"] > 0),
+              "ext panels, chips tails, the panel merge and idx8",
+              describe=dist_meta, profile=True, prepare=hybrid)
+
+    # 27. main path 17: powerlaw100k through the row-sharded fused PELL
+    full_path("dist-powerlaw100k-pell", cases.powerlaw100k(),
+              "row-sharded-pell", {"mesh": [dev]}, dev, card,
+              ("pell_fused", "unpermute"), lambda m: m["row_sort"],
+              "the row-sorted fused PELL", describe=dist_meta,
+              prepare=distributed.prepare_row_sharded_pell)
+    return fl, fl_counts
 
 
 def main() -> int:
@@ -1188,23 +1367,23 @@ def main() -> int:
 
     # 9-12. the PELL family at full size: two main paths through the
     # hybrid, then the span scheme and BCSR
-    pw, pw_counts = full_path(
+    pw, pw_counts, *_ = full_path(
         "powerlaw100k", cases.powerlaw100k(), "cuda-hybrid", {}, dev, card,
         ("pell_fused", "unpermute"),
         lambda m: (m.get("delegated") == "cuda-pell"
                    and m["scheme"] == "fused" and m["row_sort"]),
         "the no-locality escape to cuda-pell (fused, row-sorted)")
-    wb, wb_counts = full_path(
+    wb, wb_counts, *_ = full_path(
         "webbase1m", cases.webbase1m(), "cuda-hybrid", {}, dev, card,
         ("lane_ell_spmv", "pell_fused", "unpermute"),
         lambda m: (m["tail_kind"] == "compact-cuda-pell"
                    and m["tail_nnz"] > lane_ell.BIG_TAIL),
         "a compact-PELL tail past BIG_TAIL")
-    sp, sp_counts = full_path(
+    sp, sp_counts, *_ = full_path(
         "powerlaw100k-span", cases.powerlaw100k(), "cuda-pell",
         {"scheme": "span"}, dev, card, ("pell_tiles", "span_segsum"),
         lambda m: m["scheme"] == "span", "the span scheme", timing=False)
-    bc, bc_counts = full_path(
+    bc, bc_counts, *_ = full_path(
         "flagship-bcsr", flagship_A, "cuda-bcsr", {}, dev, card,
         ("pell_tiles", "window_segsum"), lambda m: True, "dense tiles",
         timing=False)
@@ -1212,9 +1391,11 @@ def main() -> int:
     wx, wx_counts = xpose_phases(dev, card)
     fl64, fl64_counts, pw64, pw64_counts, sp8, sp8_counts = \
         fp64_spmm_phases(dev, card, flagship_A)
+    dfl, dfl_counts = dist_phases(dev, card, flagship_A)
 
     # the kernels line: each kernel timed on the path that runs it
     measured = {"lane_ell_spmv": (flag, flag_counts),
+                "lane_ell_sharded": (dfl["lane_ell_sharded"], dfl_counts),
                 "stream_reduce": (probe, flag_counts),
                 "sorted_gather": (amz["sorted_gather"], amz_counts),
                 "ranked_gather": (amz["ranked_gather"], amz_counts),

@@ -38,7 +38,9 @@ I64 = ctypes.c_int64
 SIGNATURES = {
     "lane_ell": {"lane_ell_spmv": (P, P, P, P, P, P, P, P,
                                    I, I, I, I, I, I, I, I, I, P),
-                 "lane_ell_fp64": (P, P, P, P, I, I, I, P)},
+                 "lane_ell_fp64": (P, P, P, P, I, I, I, P),
+                 "lane_ell_sharded": (P, P, P, P, P, P, P, P, I64,
+                                      I, I, I, I, I, I, I, I, P)},
     "stream_probe": {"stream_reduce": (P, I64, I, P, P)},
     "ext_gather": {"sorted_gather": (P, P, P, P, P, I, I, I64, P),
                    "ranked_gather": (P, P, P, P, I, I, P),

@@ -26,7 +26,11 @@ uniform scatter) and ``webbase1m`` are what ``pick_auto`` sends to
 small cases of the fp64 grade (``cuda-hybrid-fp64``, ``cuda-pell-fp64``)
 and of ``cuda-bcsr-spmm``; ``stencil48k`` is the 64-column SpMM input
 (the flagship's X at 64 columns, 96.5 MB, is past the reference's X
-budget).
+budget). ``heavy_scatter`` is a chips tail whose unique columns exceed
+the single plan's budgets (the split plan); ``CHIPS_CASES`` are the
+small ``cuda-chips`` cases; ``DIST_CASES`` are the six
+routes that ``__graft_entry__.dryrun_multichip`` drives through the
+row-sharded prepare functions, at its sizes for a given shard count.
 """
 
 from __future__ import annotations
@@ -219,3 +223,73 @@ def stencil48k() -> CSR:
     (2,866,208 nnz, X 12.3 MB)."""
     return synth.stencil_csr(48_000, points=6, run_len=12, bandwidth=500,
                              seed=3, name="stencil48k")
+
+
+def heavy_scatter(m=150_000, heavy=16, per=8000, seed=12) -> CSR:
+    """Four near-diagonal entries per row, plus ``heavy`` rows of ``per``
+    uniformly scattered columns: a 128,000-entry chips tail whose unique
+    columns exceed the single plan's budgets, so it takes the split plan
+    (integer and normal draws only)."""
+    rng = np.random.default_rng(seed)
+    r_loc = np.repeat(np.arange(m, dtype=np.int64), 4)
+    c_loc = (r_loc + rng.integers(-30, 30, r_loc.size)) % m
+    r_h = np.repeat(rng.choice(m, heavy, replace=False).astype(np.int64),
+                    per)
+    c_h = rng.integers(0, m, r_h.size)
+    rows = np.concatenate([r_loc, r_h])
+    cols = np.concatenate([c_loc, c_h])
+    return CSR.from_coo("heavy_scatter", m, m, rows, cols,
+                        rng.standard_normal(rows.size))
+
+
+def _dryrun_banded(k, module=synth):
+    return module.banded_csr(64 * k, row_nnz=6, bandwidth=24, runs=2,
+                             seed=11, name="dryrun_matrix")
+
+
+def _dryrun_scattered(k, module=synth):
+    return module.powerlaw_csr(96 * k, 96 * k, seed=13,
+                               name="dryrun_scattered")
+
+
+def _dryrun_ext(k, module=synth):
+    return module.amazon_csr(160 * k, seed=17, name="dryrun_ext")
+
+
+# name -> (prepare function of parallel/distributed.py, matrix of k
+# shards drawn by ``module``, knobs): __graft_entry__.py:72-129
+DIST_CASES = {
+    "hybrid": ("prepare_row_sharded_hybrid", _dryrun_banded, {}),
+    "hybrid-chips": ("prepare_row_sharded_hybrid", _dryrun_scattered,
+                     {"tail_kind": "chips"}),
+    "hybrid-chips-split": ("prepare_row_sharded_hybrid", _dryrun_scattered,
+                           {"tail_kind": "chips-split"}),
+    "hybrid-ext-idx8": ("prepare_row_sharded_hybrid", _dryrun_ext,
+                        {"idx8": True}),
+    "pell": ("prepare_row_sharded_pell", _dryrun_banded, {"window_h": 256}),
+    "segsum": ("prepare_row_sharded", _dryrun_banded, {}),
+}
+
+
+def _megarow(module=synth):
+    """One row of 600 scattered columns (tests/test_lane_ell.py): one
+    heavy block of many quanta."""
+    rng = np.random.default_rng(3)
+    n = 4000
+    cols = np.unique(rng.integers(0, n, 600))
+    return module.CSR.from_coo("megarow", 16, n, np.zeros(cols.size, np.int64),
+                               cols, rng.standard_normal(cols.size))
+
+
+# name -> matrix drawn by ``module``: the JAX package's pallas-chips test
+# matrices (tests/test_lane_ell.py), and a whole webbase stand-in that
+# takes the split plan
+CHIPS_CASES = {
+    "powerlaw3000": lambda module=synth: module.powerlaw_csr(
+        3000, avg_nnz=20, seed=7),
+    "banded500": lambda module=synth: module.banded_csr(
+        500, row_nnz=9, bandwidth=64, seed=8),
+    "amazon5000": lambda module=synth: module.amazon_csr(m=5000, seed=9),
+    "megarow": _megarow,
+    "webbase30k-split": lambda module=synth: module.webbase_csr(m=30000),
+}

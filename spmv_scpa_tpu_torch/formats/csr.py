@@ -96,3 +96,31 @@ class CSR:
         """Per-nonzero row index (the segment ids for segment-sum SpMV)."""
         return np.repeat(np.arange(self.m, dtype=self.ja.dtype),
                          np.diff(self.irp))
+
+    def slice_rows(self, r0: int, r1: int, name: str | None = None) -> "CSR":
+        """Extract the row block [r0, r1) as its own CSR (columns keep
+        global ids): the shard extraction step for distributed SpMV."""
+        lo, hi = int(self.irp[r0]), int(self.irp[r1])
+        irp = (self.irp[r0:r1 + 1] - lo).astype(self.irp.dtype)
+        return CSR(name=name or f"{self.name}[{r0}:{r1}]",
+                   m=r1 - r0, n=self.n,
+                   irp=irp, ja=self.ja[lo:hi], as_=self.as_[lo:hi].copy())
+
+
+def partition_rows_by_nnz(irp: np.ndarray, num_parts: int) -> np.ndarray:
+    """nnz-balanced contiguous row partition (the reference study's OpenMP
+    planner ``partition_csr_rows``, csr.c:218-276): ``num_parts``
+    contiguous spans of about ``nnz/num_parts`` nonzeros each. Where rows
+    run out, the trailing spans are empty, so the result always has
+    ``num_parts + 1`` boundaries: ``bounds[0] == 0``, ``bounds[-1] == m``,
+    non-decreasing."""
+    irp = np.asarray(irp, dtype=np.int64)
+    m = irp.shape[0] - 1
+    total = int(irp[-1])
+    if num_parts <= 0:
+        raise ValueError("num_parts must be positive")
+    # each target's first row whose cumulative nnz reaches it
+    targets = (np.arange(1, num_parts, dtype=np.float64) * total / num_parts)
+    cut = np.searchsorted(irp[1:], targets, side="left") + 1
+    bounds = np.concatenate([[0], cut, [m]]).astype(np.int64)
+    return np.maximum.accumulate(bounds)

@@ -1,4 +1,4 @@
-"""The chips tail on PyTorch and CUDA, single-plan route (counterpart of
+"""The chips tail on PyTorch and CUDA (counterpart of
 ``spmv_scpa_tpu/ops/chips_tail.py``).
 
 Entries the lane-ELL core cannot hold (rows longer than its Q slot
@@ -19,32 +19,52 @@ kernel, cuda_csr.cu:96-140):
    windowed or ranked panel merge through the gathers, or ``index_add_``
    on the unique heavy rows when the merge tables exceed their budget.
 
+**Split mode** (:func:`plan_chips_split`), when the tail's unique
+columns exceed the single plan's budgets: entries split by diagonal
+distance. *Local* entries ride a windowed stage 2
+(:func:`ext_gather.window_gather`) over x itself (``windowed-x``) or,
+past the windowed gather's cap, over a dedup'd hot region
+(``windowed``); *far* entries, and local ones past the window's reach,
+ride the resident stage 2, split by column popularity into a ``far`` and
+a ``cold`` stream when one resident stream would not fit. Every stream
+has its own segment-sum over one shared heavy-row space, and the
+streams' sums add before the landing.
+
+For the row-sharded hybrid (``parallel/distributed.py``),
+:func:`pad_resident_plan` and :func:`pad_split_plan` pad per-shard plans
+to shared shapes, every padded slot adding exactly zero.
+
 The device functions take ``ops``, the kernels to run by name
-(``lane_ell.KERNELS``, or ``lane_ell.PLAIN`` for the plain versions).
-The host planner is a JAX-free copy of the reference's. The split plan
-(``plan_chips_split``, used when the tail's unique columns exceed the
-resident budgets) is not ported yet: where the reference would plan one,
-:func:`plan_chips` returns None for a tail that the hybrid sends to its
-big-tail branch anyway (the reference drops a split plan past
-``BIG_TAIL`` entries), and raises ``NotImplementedError`` otherwise.
+(:data:`KERNELS`, ``lane_ell.KERNELS``, or a ``PLAIN`` for the plain
+versions). The host planners are JAX-free copies of the reference's.
+``cuda-chips`` (:func:`prepare_chips_strategy`) runs a whole matrix as
+chips.
 """
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch.formats.csr import BC
+from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.ops import ext_gather, segsum_kernel
+from spmv_scpa_tpu_torch.ops.registry import Prepared, record_calls
+from spmv_scpa_tpu_torch.utils.platform import resolve_device
 
 # resident stage-2 hot cap, in rows of 128 lanes (= ext_gather.H_MAX)
 H_CAP = ext_gather.H_MAX
 # stage-2 work budget of the reference's cost model (H * 128 * 3 ops
 # per chip row), kept for parity
 VPU_BUDGET = 2e8
+# the same budget per stream of a split plan
+SPLIT_VPU_BUDGET = 1.2e9
 # default stage-1 window reach (panels); adaptive per unique spacing
 R_PANELS = 512
-# hot cap of the windowed gather (the windowed merge's region)
+# windowed stage-2 reach (rows of the hot region), and the hot cap of
+# the windowed gather (the split plan's local stream, the windowed merge)
+R_HOT = 128
 H_WIN_CAP = 16384
 # local/far diagonal split distance of the split plan (its feasibility
 # proxy in the hybrid's packer uses it)
@@ -53,9 +73,6 @@ W_LOC = 4096
 # are contiguous per 128-row output group, so a group's slots span <= 2
 # rows, +8 for the 8-row base alignment
 MERGE_R_H = 16
-
-_TODO_SPLIT = ("ROADMAP queue 1 #7 (split chips plan: plan_chips_split, "
-               "_prepare_stream)")
 
 def _adaptive_r(uniq: np.ndarray, cap: int = R_PANELS) -> int:
     """Stage-1 window reach: smallest power-of-two panel count whose
@@ -109,6 +126,16 @@ def _heavy_index(rows: np.ndarray, by_len_only: bool):
     return hr[order], hpos_of_row, e_row_i, e_hpos, first, cnt, NH
 
 
+def _subset_ranks(sel: np.ndarray, e_row_i: np.ndarray, NH: int):
+    """Rank of each selected entry among its row's selected entries
+    (entries row-grouped in input order)."""
+    excl = np.cumsum(sel) - sel
+    start = np.full(NH, np.iinfo(np.int64).max, np.int64)
+    if sel.any():
+        np.minimum.at(start, e_row_i[sel], excl[sel])
+    return excl - start[e_row_i]
+
+
 class ChipsPlan:
     __slots__ = ("n_e", "H", "n_groups", "R", "n1p_blocks", "base",
                  "p1", "l1", "E8", "p2", "l2", "vals", "rbl",
@@ -120,16 +147,83 @@ class ChipsPlan:
             setattr(self, k, v)
 
 
+class _Stream:
+    """One gather + segment-sum stream of a split plan. ``kind``:
+    ``"windowed-x"`` (windowed stage 2 over x itself, no stage 1),
+    ``"windowed"`` (stage 1, then the windowed stage 2) or
+    ``"resident"`` (stage 1, then the resident stage 2)."""
+    __slots__ = ("kind", "base1", "p1", "l1", "n1p_blocks", "r1", "H",
+                 "E8", "p2", "l2", "vals", "rbl", "win_of_step",
+                 "base8", "H_pad", "r_hot", "n_entries")
+
+    def __init__(self, **kw):
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+
+class SplitChipsPlan:
+    __slots__ = ("n_e", "h", "rows_per_step", "num_windows",
+                 "heavy_ids", "NH", "loc", "far", "cold", "pop_k")
+
+    def __init__(self, **kw):
+        kw.setdefault("cold", None)
+        kw.setdefault("pop_k", None)
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+    @property
+    def streams(self):
+        return tuple(s for s in (self.loc, self.far, self.cold)
+                     if s is not None)
+
+
+def _placeholder_stream(kind_key: str, *, n: int, h: int,
+                        rows_per_step: int, num_windows: int,
+                        r_hot: int | None, r_far: int | None):
+    """A zero-entry stream of well-formed minimal shapes, for a shard
+    that lacks a stream the shards' shared set demands: every window gets
+    one step and every slot holds value 0. :func:`pad_split_plan` then
+    pads it to the shared shapes like any stream."""
+    qps = (rows_per_step // 8) * BC
+    blk_w = np.zeros(1, np.int64)
+    _, _, wos, n_q_pad = _window_pack(blk_w, num_windows, h, qps)
+    steps = n_q_pad // qps
+    E8 = steps * rows_per_step
+    vals_a = np.zeros((E8, BC), np.float32)
+    p2 = np.zeros((E8, BC), np.int32)
+    l2 = np.zeros((E8, BC), np.int32)
+    rbl = np.full(n_q_pad, h, np.int32)
+    if kind_key == "loc":
+        rh = r_hot if r_hot else 16
+        return _Stream(kind="windowed-x", base1=None, p1=None, l1=None,
+                       n1p_blocks=0, r1=0, H=-(-n // BC), E8=E8,
+                       p2=p2, l2=l2, vals=vals_a, rbl=rbl,
+                       win_of_step=wos,
+                       base8=np.zeros(E8, np.int32),
+                       H_pad=-(-n // BC) + rh, r_hot=rh, n_entries=0)
+    r1 = r_far if r_far else R_PANELS
+    n_panels = -(-n // BC)
+    return _Stream(kind="resident",
+                   base1=np.zeros(1, np.int32),
+                   p1=np.zeros((8, BC), np.int32),
+                   l1=np.zeros((8, BC), np.int32),
+                   n1p_blocks=max(-(-n_panels // r1), 1), r1=r1,
+                   H=8, E8=E8, p2=p2, l2=l2, vals=vals_a, rbl=rbl,
+                   win_of_step=wos, base8=None, H_pad=8, r_hot=0,
+                   n_entries=0)
+
+
 def plan_chips(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
                m: int, n: int, h: int = 256, rows_per_step: int = 8,
                big_tail: bool = False):
     """Plan the chips tail for ``(rows, cols, vals)`` entries (CSR
     order): the single resident pipeline when the dedup'd columns fit
-    the budgets. Where the reference would fall back to the split plan,
-    this returns None when ``big_tail`` (the caller drops a split plan
-    for its big-tail branch, as the reference does past ``BIG_TAIL``
-    entries, and a split planner that gives up leads there too) and
-    raises ``NotImplementedError`` otherwise. None for no entries."""
+    the budgets, else the split plan (:func:`plan_chips_split`). With
+    ``big_tail`` the split plan is not tried and None comes back instead:
+    the hybrid drops a split plan past ``BIG_TAIL`` entries for its
+    big-tail branch (reference lane_ell.py:1459-1471), so planning one
+    there would be wasted. None when neither plan fits, or for no
+    entries."""
     n_e = int(rows.size)
     if n_e == 0:
         return None
@@ -143,9 +237,7 @@ def plan_chips(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
             return p
     if big_tail:
         return None
-    raise NotImplementedError(
-        f"chips tail: {n_e} entries over {uniq.size} unique columns need "
-        f"the split plan: {_TODO_SPLIT}")
+    return plan_chips_split(rows, cols, vals, m, n, h, rows_per_step)
 
 
 def _plan_single(rows, cols, vals, m, n, h, rows_per_step,
@@ -199,16 +291,395 @@ def _plan_single(rows, cols, vals, m, n, h, rows_per_step,
         rows_per_step=rows_per_step, heavy_ids=hr_sorted, NH=NH)
 
 
+def pad_resident_plan(plan: ChipsPlan, *, n_groups: int,
+                      n1p_blocks: int, steps: int, num_windows: int,
+                      NH: int, heavy_pad_pool: np.ndarray) -> ChipsPlan:
+    """Pad a single plan to shapes shared by several row shards (all
+    planned with one ``R``, ``h`` and ``rows_per_step``); every padded
+    slot adds exactly zero:
+
+    * extra stage-1 groups gather into hot rows no ``p2`` names;
+    * extra chip rows hold value 0;
+    * extra steps first give every window this shard lacks one step
+      (the segment-sum writes every window it is given), then repeat the
+      last window, so ``win_of_step`` stays non-decreasing;
+    * extra heavy slots take ids from ``heavy_pad_pool`` (rows with no
+      tail entries on this shard: their sums are 0, and the landing adds
+      0 to them).
+    """
+    h, rps = plan.h, plan.rows_per_step
+    qps = (rps // 8) * BC
+    pad_g = n_groups - plan.n_groups
+    if not (pad_g >= 0 and steps * rps >= plan.E8 >= 0):
+        raise AssertionError((pad_g, steps, plan.E8))
+    base = np.concatenate([plan.base, np.zeros(pad_g, np.int32)])
+    p1 = np.concatenate(
+        [plan.p1, np.zeros((pad_g * 8, BC), np.int32)])
+    l1 = np.concatenate(
+        [plan.l1, np.zeros((pad_g * 8, BC), np.int32)])
+    wos = list(plan.win_of_step)
+    wos.extend(range(plan.num_windows, num_windows))
+    if len(wos) > steps:
+        raise AssertionError((len(wos), steps))
+    wos.extend([num_windows - 1] * (steps - len(wos)))
+    pad_e = steps * rps - plan.E8
+    vals = np.concatenate(
+        [plan.vals, np.zeros((pad_e, BC), np.float32)])
+    p2 = np.concatenate([plan.p2, np.zeros((pad_e, BC), np.int32)])
+    l2 = np.concatenate([plan.l2, np.zeros((pad_e, BC), np.int32)])
+    rbl = np.concatenate(
+        [plan.rbl,
+         np.full(steps * qps - plan.rbl.size, h, np.int32)])
+    pad_n = NH - plan.NH
+    if not (pad_n >= 0 and heavy_pad_pool.size >= pad_n):
+        raise AssertionError((pad_n, heavy_pad_pool.size))
+    heavy = np.concatenate(
+        [plan.heavy_ids,
+         heavy_pad_pool[:pad_n].astype(plan.heavy_ids.dtype)])
+    return ChipsPlan(
+        n_e=plan.n_e, H=n_groups * 8, n_groups=n_groups, R=plan.R,
+        n1p_blocks=n1p_blocks, base=base, p1=p1, l1=l1,
+        E8=steps * rps, p2=p2, l2=l2, vals=vals, rbl=rbl,
+        win_of_step=np.asarray(wos, np.int64),
+        num_windows=num_windows, h=h, rows_per_step=rps,
+        heavy_ids=heavy, NH=NH)
+
+
+def split_shape_template(plans: list) -> dict:
+    """The shapes shared by several shards' split plans, all planned with
+    the same forced decisions (``r_hot``, ``r_far``, ``r_cold``,
+    ``x_direct``, ``force_streams``): the padding targets of
+    :func:`pad_split_plan`."""
+    tpl = {"NH": max(p.NH for p in plans),
+           "num_windows": max(p.num_windows for p in plans)}
+    for k in ("loc", "far", "cold"):
+        ss = [getattr(p, k) for p in plans]
+        if any(s is None for s in ss):
+            if not all(s is None for s in ss):
+                raise AssertionError(f"stream '{k}' present on some shards "
+                                     "only")
+            continue
+        ent = {"steps": max(s.E8 // p.rows_per_step
+                            + (tpl["num_windows"] - p.num_windows)
+                            for s, p in zip(ss, plans)),
+               "H_pad": max(s.H_pad for s in ss)}
+        if len({s.kind for s in ss}) != 1:
+            raise AssertionError(f"mixed '{k}' kinds")
+        if ss[0].kind != "windowed-x":          # has stage-1 tables
+            ent["n_groups"] = max(s.p1.shape[0] // 8 for s in ss)
+            ent["n1p_blocks"] = max(s.n1p_blocks for s in ss)
+            if len({s.r1 for s in ss}) != 1:
+                raise AssertionError("unforced r1")
+        if ss[0].kind in ("windowed", "windowed-x") \
+                and len({s.r_hot for s in ss}) != 1:
+            raise AssertionError("unforced r_hot")
+        tpl[k] = ent
+    return tpl
+
+
+def pad_split_plan(plan: SplitChipsPlan, tpl: dict,
+                   heavy_pad_pool: np.ndarray) -> SplitChipsPlan:
+    """Pad one shard's split plan to the template's shapes
+    (:func:`pad_resident_plan`'s zero-adding padding, per stream)."""
+    h, rps = plan.h, plan.rows_per_step
+    qps = (rps // 8) * BC
+    nw = tpl["num_windows"]
+
+    def pad_stream(s: _Stream, ent: dict) -> _Stream:
+        steps = ent["steps"]
+        wos = list(s.win_of_step)
+        wos.extend(range(plan.num_windows, nw))
+        if len(wos) > steps:
+            raise AssertionError((len(wos), steps))
+        wos.extend([nw - 1] * (steps - len(wos)))
+        pad_e = steps * rps - s.E8
+        if pad_e < 0:
+            raise AssertionError(pad_e)
+        vals = np.concatenate(
+            [s.vals, np.zeros((pad_e, BC), np.float32)])
+        p2 = np.concatenate([s.p2, np.zeros((pad_e, BC), np.int32)])
+        l2 = np.concatenate([s.l2, np.zeros((pad_e, BC), np.int32)])
+        rbl = np.concatenate(
+            [s.rbl, np.full(steps * qps - s.rbl.size, h, np.int32)])
+        kw = dict(kind=s.kind, n1p_blocks=s.n1p_blocks, r1=s.r1,
+                  H=s.H, E8=steps * rps, p2=p2, l2=l2, vals=vals,
+                  rbl=rbl, win_of_step=np.asarray(wos, np.int64),
+                  H_pad=ent["H_pad"], r_hot=s.r_hot,
+                  n_entries=s.n_entries, base1=s.base1, p1=s.p1,
+                  l1=s.l1, base8=s.base8)
+        if s.base8 is not None:             # windowed / windowed-x
+            kw["base8"] = np.concatenate(
+                [s.base8, np.zeros(pad_e, np.int32)])
+        if s.kind != "windowed-x":          # has stage-1 tables
+            pad_g = ent["n_groups"] - s.p1.shape[0] // 8
+            if pad_g < 0:
+                raise AssertionError(pad_g)
+            kw["base1"] = np.concatenate(
+                [s.base1, np.zeros(pad_g, np.int32)])
+            kw["p1"] = np.concatenate(
+                [s.p1, np.zeros((pad_g * 8, BC), np.int32)])
+            kw["l1"] = np.concatenate(
+                [s.l1, np.zeros((pad_g * 8, BC), np.int32)])
+            kw["n1p_blocks"] = ent["n1p_blocks"]
+            kw["H"] = ent["n_groups"] * 8
+            if s.kind == "resident":
+                kw["H_pad"] = ent["n_groups"] * 8
+        return _Stream(**kw)
+
+    pad_n = tpl["NH"] - plan.NH
+    if not (pad_n >= 0 and heavy_pad_pool.size >= pad_n):
+        raise AssertionError((pad_n, heavy_pad_pool.size))
+    heavy = np.concatenate(
+        [plan.heavy_ids,
+         heavy_pad_pool[:pad_n].astype(plan.heavy_ids.dtype)])
+    out = {k: (pad_stream(getattr(plan, k), tpl[k])
+               if getattr(plan, k) is not None else None)
+           for k in ("loc", "far", "cold")}
+    return SplitChipsPlan(n_e=plan.n_e, h=h, rows_per_step=rps,
+                          num_windows=nw, heavy_ids=heavy,
+                          NH=tpl["NH"], **out)
+
+
+def plan_chips_split(rows, cols, vals, m, n, h: int = 256,
+                     rows_per_step: int = 8, w_loc: int = W_LOC,
+                     r_hot: int | None = None,
+                     x_direct: bool | None = None,
+                     r_far: int | None = None,
+                     r_cold: int | None = None,
+                     pop_k: int | None = None,
+                     force_streams: tuple | None = None):
+    """The local/far split plan (module docstring). Returns None when the
+    far side exceeds the resident budgets. ``x_direct`` overrides the
+    choice between the direct-x and the dedup'd local stream.
+
+    The other keywords force decisions to values shared by several row
+    shards: ``r_far``/``r_cold`` pin the far and cold stage-1 reach,
+    ``pop_k`` the popularity cutoff (0: no split), and ``force_streams``
+    (a subset of {"loc", "far", "cold"}) the set of streams: a shard
+    lacking one gets a zero-entry placeholder, and one needing a stream
+    outside the set gets None."""
+    n_e = int(rows.size)
+    if n_e == 0:
+        return None
+    hr_sorted, hpos_of_row, e_row_i, e_hpos, first, cnt, NH = \
+        _heavy_index(rows, by_len_only=False)
+    blk = e_hpos // 8
+    sub = e_hpos % 8
+    nblocks = -(-NH // 8)
+    num_windows = max(1, -(-nblocks // h))
+    qps = (rows_per_step // 8) * BC
+
+    loc = np.abs(cols - rows) <= w_loc
+
+    def _cnt_per_hpos(sel):
+        c = np.zeros(NH, np.int64)
+        if sel.any():
+            np.add.at(c, e_hpos[sel], 1)
+        return c
+
+    def _blk_w(cnt_h):
+        bw = np.zeros(nblocks, np.int64)
+        np.maximum.at(bw, np.arange(NH) // 8, cnt_h)
+        return bw
+
+    # ---- the local stream (windowed stage 2) ---------------------------
+    # Its gather source: x itself (windowed-x: no stage 1, no dedup) while
+    # x fits the windowed gather's cap, else the dedup'd hot region.
+    stream_l = None
+    migrate = np.zeros(n_e, bool)
+    if x_direct is None:
+        x_direct = -(-n // BC) + (r_hot or 512) <= H_WIN_CAP
+    if loc.any():
+        if x_direct:
+            base1 = p1 = l1 = None
+            ngl, n1pb, r1l, Hl = 0, 0, 0, -(-n // BC)
+        else:
+            uniq_l = np.unique(cols[loc])
+            r1l = _adaptive_r(uniq_l)
+            base1, p1, l1, posu, Hl, ngl, n1pb = \
+                ext_gather.pack_sorted_uniques(uniq_l, n, r1l)
+            if Hl + (r_hot or 512) > H_WIN_CAP:
+                return None
+        blk_wl = _blk_w(_cnt_per_hpos(loc))
+        # dedup'd positions: every block's quanta rounded up to whole
+        # tiles (a tile stays in one block); direct-x: no rounding (the
+        # heavy rows' (length, id) order keeps a tile's rows near)
+        if not x_direct:
+            blk_wl = np.where(blk_wl > 0, -(-blk_wl // BC) * BC, 0)
+        new_q, rbl_src, wos, n_q_pad = _window_pack(
+            blk_wl, num_windows, h, qps)
+        blk_q0 = np.concatenate([[0], np.cumsum(blk_wl)])
+        rank_l = _subset_ranks(loc, e_row_i, NH)
+        li = np.flatnonzero(loc)
+        q_of_e = new_q[blk_q0[blk[li]] + rank_l[li]]
+        steps = n_q_pad // qps
+        E8 = steps * rows_per_step
+        tile = q_of_e // BC
+        lane = q_of_e % BC
+        erow = tile * 8 + sub[li]
+        if x_direct:
+            pos_e = cols[li]              # x positions directly
+        else:
+            pos_e = posu[np.searchsorted(uniq_l, cols[li])]
+        psub = pos_e // BC
+        # per table row window base (8-row units); entries past the
+        # reach migrate to the far stream, their slots left as padding
+        tmin = np.full(E8, np.iinfo(np.int64).max, np.int64)
+        np.minimum.at(tmin, erow, psub)
+        base8 = np.where(tmin == np.iinfo(np.int64).max, 0,
+                         tmin // 8).astype(np.int32)
+        off = psub - base8[erow].astype(np.int64) * 8
+        if r_hot is None:
+            # reach covering ~97% of the entries, a multiple of 8
+            tgt = int(np.percentile(off, 97)) + 1 if off.size else 1
+            r_hot = int(min(max(-(-tgt // 8) * 8, 16), 512))
+        if E8 * r_hot * BC * 3 > SPLIT_VPU_BUDGET:
+            return None
+        fits = off < r_hot
+        migrate[li[~fits]] = True
+        ef, lf, oi = erow[fits], lane[fits], li[fits]
+        vals_a = np.zeros((E8, BC), np.float32)
+        p2 = np.zeros((E8, BC), np.int32)
+        l2 = np.zeros((E8, BC), np.int32)
+        vals_a[ef, lf] = vals[oi]
+        p2[ef, lf] = off[fits].astype(np.int32)
+        l2[ef, lf] = (pos_e[fits] % BC).astype(np.int32)
+        rbl = np.full(n_q_pad, h, np.int32)
+        rbl[new_q] = rbl_src
+        H_pad = int(base8.max(initial=0)) * 8 + r_hot
+        stream_l = _Stream(kind="windowed-x" if x_direct else
+                           "windowed", base1=base1, p1=p1, l1=l1,
+                           n1p_blocks=n1pb, r1=r1l, H=Hl, E8=E8,
+                           p2=p2, l2=l2, vals=vals_a, rbl=rbl,
+                           win_of_step=wos, base8=base8, H_pad=H_pad,
+                           r_hot=r_hot, n_entries=int(fits.sum()))
+
+    # ---- the far stream(s) (resident stage 2) --------------------------
+    def _resident_stream(sel, r_cap=None):
+        """One resident stream for the entries in ``sel``; None when
+        their dedup'd columns exceed the budgets."""
+        uniq_f = np.unique(cols[sel])
+        if -(-uniq_f.size // BC) > H_CAP:
+            return None
+        r1f = r_cap if r_cap is not None else _adaptive_r(uniq_f)
+        base1, p1, l1, posu, Hf, ngf, n1pb = ext_gather.pack_sorted_uniques(
+            uniq_f, n, r1f)
+        if Hf > H_CAP:
+            return None
+        blk_wf = _blk_w(_cnt_per_hpos(sel))
+        new_q, rbl_src, wos, n_q_pad = _window_pack(
+            blk_wf, num_windows, h, qps)
+        blk_q0 = np.concatenate([[0], np.cumsum(blk_wf)])
+        rank_f = _subset_ranks(sel, e_row_i, NH)
+        fi = np.flatnonzero(sel)
+        q_of_e = new_q[blk_q0[blk[fi]] + rank_f[fi]]
+        steps = n_q_pad // qps
+        E8 = steps * rows_per_step
+        if E8 * Hf * BC * 3 > SPLIT_VPU_BUDGET:
+            return None
+        tile = q_of_e // BC
+        lane = q_of_e % BC
+        erow = tile * 8 + sub[fi]
+        pos_e = posu[np.searchsorted(uniq_f, cols[fi])]
+        vals_a = np.zeros((E8, BC), np.float32)
+        p2 = np.zeros((E8, BC), np.int32)
+        l2 = np.zeros((E8, BC), np.int32)
+        vals_a[erow, lane] = vals[fi]
+        p2[erow, lane] = (pos_e // BC).astype(np.int32)
+        l2[erow, lane] = (pos_e % BC).astype(np.int32)
+        rbl = np.full(n_q_pad, h, np.int32)
+        rbl[new_q] = rbl_src
+        return _Stream(kind="resident", base1=base1, p1=p1, l1=l1,
+                       n1p_blocks=n1pb, r1=r1f, H=Hf, E8=E8,
+                       p2=p2, l2=l2, vals=vals_a, rbl=rbl,
+                       win_of_step=wos, base8=None, H_pad=Hf,
+                       r_hot=0, n_entries=int(sel.sum()))
+
+    far = (~loc) | migrate
+    stream_f = stream_c = None
+    used_k = 0 if pop_k is None else pop_k
+    if far.any():
+        erank = None
+        if pop_k is None or pop_k > 0:
+            # popularity ranks: a few popular columns carry most far
+            # entries, while the once-referenced ones set the dedup'd
+            # height; a hot stream of the popular columns and a cold
+            # one of the rest can each fit where one stream does not
+            uf, inv_f = np.unique(cols[far], return_inverse=True)
+            cnt_f = np.bincount(inv_f)
+            pop = np.argsort(-cnt_f, kind="stable")   # unique ids
+            rank_of_u = np.empty(uf.size, np.int64)
+            rank_of_u[pop] = np.arange(uf.size)
+            erank = np.zeros(n_e, np.int64)
+            erank[far] = rank_of_u[inv_f]             # popularity rank
+        if pop_k is not None:                # forced decision (shards)
+            if pop_k == 0:
+                stream_f = _resident_stream(far, r_far)
+                if stream_f is None:
+                    return None
+            else:
+                hot_sel = far & (erank < pop_k)
+                cold_sel = far & (erank >= pop_k)
+                if hot_sel.any():
+                    stream_f = _resident_stream(hot_sel, r_far)
+                    if stream_f is None:
+                        return None
+                if cold_sel.any():
+                    stream_c = _resident_stream(cold_sel, r_cold)
+                    if stream_c is None:
+                        return None
+        else:
+            stream_f = _resident_stream(far, r_far)
+            if stream_f is None:
+                # the smallest hot set that fits wins
+                for K in (256, 1024, 4096, 16384, 65536, H_CAP * BC):
+                    if K >= uf.size:
+                        break            # no split left to try
+                    hot_sel = far & (erank < K)
+                    cold_sel = far & (erank >= K)
+                    s_h = (_resident_stream(hot_sel, r_far)
+                           if hot_sel.any() else None)
+                    s_c = _resident_stream(cold_sel, r_cold)
+                    if s_h is not None and s_c is not None:
+                        stream_f, stream_c, used_k = s_h, s_c, K
+                        break
+                if stream_f is None:
+                    return None
+
+    if stream_l is None and stream_f is None and stream_c is None:
+        return None
+    plan = SplitChipsPlan(n_e=n_e, h=h, rows_per_step=rows_per_step,
+                          num_windows=num_windows,
+                          heavy_ids=hr_sorted, NH=NH,
+                          loc=stream_l, far=stream_f, cold=stream_c,
+                          pop_k=used_k)
+    if force_streams is not None:
+        have = {k for k, s in (("loc", stream_l), ("far", stream_f),
+                               ("cold", stream_c)) if s is not None}
+        want = set(force_streams)
+        if have - want:
+            return None          # a stream the shared set lacks
+        for k in want - have:
+            s = _placeholder_stream(
+                k, n=n, h=h, rows_per_step=rows_per_step,
+                num_windows=num_windows, r_hot=r_hot,
+                r_far=r_far if k == "far" else r_cold)
+            setattr(plan, k, s)
+    return plan
+
+
 def _put(a, dtype, device):
     return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                            device=device)
 
 
-def prepare_chips(plan: ChipsPlan, n: int, device):
-    """Device pipeline of a single plan: returns ``(contrib, hbm)``,
-    where ``contrib(xf, ops) -> ys`` (NH,) f32 gives the
+def prepare_chips(plan, n: int, device):
+    """Device pipeline of a plan, single or split: returns ``(contrib,
+    hbm)``, where ``contrib(xf, ops) -> ys`` (NH,) f32 gives the
     per-heavy-row sums in ``plan.heavy_ids`` order for x (f32, on
     ``device``)."""
+    if isinstance(plan, SplitChipsPlan):
+        return prepare_chips_split(plan, n, device)
     base = _put(plan.base, torch.int32, device)
     p1 = _put(plan.p1, torch.int32, device)
     l1 = _put(plan.l1, torch.int32, device)
@@ -235,6 +706,109 @@ def prepare_chips(plan: ChipsPlan, n: int, device):
            + plan.n_groups * plan.R * BC * 4    # stage-1 windows
            + plan.NH * 4)
     return contrib, int(hbm)
+
+
+def _prepare_stream(s: _Stream, n: int, h: int, rows_per_step: int,
+                    num_windows: int, device):
+    """Device pipeline of one split-plan stream: ``fn(xf, ops) -> ys``
+    (num_windows*h, 8), its segment-sum's per-row sums."""
+    windowed = s.kind in ("windowed", "windowed-x")
+    t = {k: _put(getattr(s, k), torch.int32, device)
+         for k in ("p2", "l2", "rbl", "win_of_step")
+         + (("base8",) if windowed else ())
+         + (("base1", "p1", "l1") if s.kind != "windowed-x" else ())}
+    vals = _put(s.vals, torch.float32, device)
+    lists = segsum_kernel.device_lists(segsum_kernel.window_rel(
+        s.rbl, s.win_of_step.size), h, device)
+
+    def segsum(xg, ops):
+        return ops.window_segsum(vals * xg, t["rbl"], t["win_of_step"],
+                                 num_windows, h, rows_per_step, lists)
+
+    if s.kind == "windowed-x":
+        # the windowed gather over x itself, zero-padded to its reach
+        nx = min(n, s.H_pad * BC)
+
+        def fn(xf, ops):
+            xp = torch.zeros(s.H_pad * BC, dtype=torch.float32,
+                             device=xf.device)
+            xp[:nx] = xf[:nx]
+            return segsum(ops.window_gather(t["base8"], xp.view(-1, BC),
+                                            t["p2"], t["l2"], s.r_hot), ops)
+        return fn
+
+    n1 = s.n1p_blocks * s.r1 * BC
+
+    def fn(xf, ops):
+        x1 = torch.zeros(n1, dtype=torch.float32, device=xf.device)
+        x1[:n] = xf
+        hot = ops.sorted_gather(t["base1"], x1.view(-1, BC), t["p1"],
+                                t["l1"], s.r1)
+        if s.kind == "resident":
+            return segsum(ops.ranked_gather(hot, t["p2"], t["l2"]), ops)
+        if hot.shape[0] != s.H_pad:          # pad or cut to the reach
+            hot = torch.cat([hot, hot.new_zeros(
+                (max(s.H_pad - hot.shape[0], 0), BC))])[:s.H_pad]
+        return segsum(ops.window_gather(t["base8"], hot, t["p2"], t["l2"],
+                                        s.r_hot), ops)
+    return fn
+
+
+def prepare_chips_split(plan: SplitChipsPlan, n: int, device):
+    """Device pipeline of a split plan: ``(contrib, hbm)`` as
+    :func:`prepare_chips`; the streams' sums add in stream order."""
+    parts = [_prepare_stream(s, n, plan.h, plan.rows_per_step,
+                             plan.num_windows, device)
+             for s in plan.streams]
+    NH = plan.NH
+
+    def contrib(xf, ops):
+        ys = None
+        for fn in parts:
+            t = fn(xf, ops)
+            ys = t if ys is None else ys + t
+        return ys.view(-1)[:NH]
+
+    hbm = sum(s.E8 * BC * 16 + s.H_pad * BC * 4
+              for s in plan.streams) + plan.NH * 4
+    return contrib, int(hbm)
+
+
+def split_plan_host_args(plan: SplitChipsPlan) -> list:
+    """The split plan's arrays in the order the reference device-puts
+    them (its ``split_plan_host_args``): the heavy ids, then per stream
+    its stage-1 tables (not for ``windowed-x``), p2, l2, vals, rbl, the
+    window bases (windowed kinds) and the step windows. The parity tests
+    compare them with the reference's, shard by shard."""
+    out = [np.asarray(plan.heavy_ids, np.int32)]
+    for s in plan.streams:
+        if s.kind != "windowed-x":
+            out += [np.asarray(s.base1, np.int32),
+                    np.asarray(s.p1, np.int32),
+                    np.asarray(s.l1, np.int32)]
+        out += [np.asarray(s.p2, np.int32),
+                np.asarray(s.l2, np.int32),
+                np.asarray(s.vals, np.float32),
+                np.asarray(s.rbl, np.int32)]
+        if s.kind in ("windowed", "windowed-x"):
+            out.append(np.asarray(s.base8, np.int32))
+        out.append(np.asarray(s.win_of_step, np.int32))
+    return out
+
+
+def chips_meta(plan, use_merge: bool) -> dict:
+    """What the hybrid's and ``cuda-chips``' meta say of a chips plan
+    (the reference's keys)."""
+    if isinstance(plan, SplitChipsPlan):
+        return {"heavy_rows": plan.NH, "split": True,
+                "panel_merge": use_merge, "windows": plan.num_windows,
+                "loc_entries": plan.loc.n_entries if plan.loc else 0,
+                "far_entries": plan.far.n_entries if plan.far else 0,
+                "cold_entries": plan.cold.n_entries if plan.cold else 0,
+                "hot_h": tuple(s.H_pad for s in plan.streams)}
+    return {"heavy_rows": plan.NH, "hot_h": plan.H, "split": False,
+            "panel_merge": use_merge, "gather_groups": plan.n_groups,
+            "tile_rows": plan.E8, "windows": plan.num_windows}
 
 
 # ---------------------------------------------------------------------------
@@ -385,3 +959,60 @@ def make_landing(heavy_ids: np.ndarray, m: int, G_pad: int, device,
         return apply(y, ys, *tabs, ops=ops)
 
     return land, use_merge, extra
+
+
+# ---------------------------------------------------------------------------
+# The strategy
+# ---------------------------------------------------------------------------
+
+class ChipsKernels(NamedTuple):
+    """The functions a chips call runs, by name."""
+
+    sorted_gather: Callable
+    ranked_gather: Callable
+    window_gather: Callable
+    window_segsum: Callable
+
+
+KERNELS = ChipsKernels(ext_gather.sorted_gather, ext_gather.ranked_gather,
+                       ext_gather.window_gather, segsum_kernel.window_segsum)
+PLAIN = ChipsKernels(ext_gather.sorted_gather_plain,
+                     ext_gather.ranked_gather_plain,
+                     ext_gather.window_gather_plain,
+                     segsum_kernel.window_segsum_plain)
+
+
+def prepare_chips_strategy(A: CSR, device="cuda", **_) -> Prepared:
+    """``cuda-chips`` (the reference's ``pallas-chips``,
+    ``prepare_chips_strategy``): the whole matrix as chips, every row
+    reduced cooperatively (the reference study's block-per-row CSR
+    kernel), through the single plan or the split plan, landed into a
+    zero y. Refuses (ValueError) a matrix neither plan fits."""
+    dev = resolve_device(device)
+    rows = A.row_ids().astype(np.int64)
+    cols = A.ja.astype(np.int64)
+    plan = plan_chips(rows, cols, A.as_.astype(np.float32), A.m, A.n)
+    if plan is None:
+        raise ValueError(
+            "cuda-chips: matrix exceeds the resident-hot/VPU budget "
+            f"(uniq cols or {A.nnz} entries too large)")
+    contrib, hbm = prepare_chips(plan, A.n, dev)
+    m, n = A.m, A.n
+    land, use_merge, extra = make_landing(plan.heavy_ids, m, -(-m // BC),
+                                          dev)
+
+    def call(x, ops):
+        xf = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        if xf.shape != (n,):
+            raise ValueError(f"cuda-chips: x has shape {tuple(xf.shape)}, "
+                             f"expected ({n},)")
+        return land(torch.zeros(m, dtype=torch.float32, device=dev),
+                    contrib(xf, ops), ops)
+
+    meta = {"chunk": plan.rows_per_step, **chips_meta(plan, use_merge)}
+    return Prepared("cuda-chips", A.name, lambda x: call(x, KERNELS),
+                    device=dev, nnz=A.nnz, ref="pallas-chips",
+                    hbm_bytes=hbm + extra, meta=meta,
+                    plain=lambda x: call(x, PLAIN),
+                    kernel_calls=lambda xf: record_calls(
+                        lambda ops: call(xf, ops), PLAIN))

@@ -26,14 +26,19 @@ Counterpart of ``spmv_scpa_tpu/ops/lane_ell.py:prepare_lane_ell_hybrid``
   window covers under 40% of its entries goes to ``cuda-pell`` whole
   (the no-locality escape).
 
-Branches of the reference that this port does not have yet raise
-``NotImplementedError`` naming their ROADMAP item: the split chips plan
-(a tail of 2048 to ``BIG_TAIL`` entries whose single plan does not fit,
-or ``diag="forcechips"``), big tails through a ``tail_strategy`` other
-than PELL, XPOSE or ``"auto"``, and the distributed ``core_only`` /
-``x_off`` mode. A big tail through an fp64-grade ``tail_strategy`` is
-refused with ``ValueError`` at prepare time (the reference fails at its
-first call).
+``pack_lane_ell(..., x_off=r0, core_only=True)`` packs one row shard
+for ``parallel/distributed.py``: the window frame shifts by the shard's
+first global row, and the packer stops at the host arrays that the
+row-sharded hybrid stacks across shards (:class:`CoreBuild`).
+:func:`lane_ell_sharded` is the core kernel in that form: the shards'
+stacked planes in one launch, each shard reading x from its own offset
+into one shared padded x.
+
+Big tails through a ``tail_strategy`` other than PELL, XPOSE or
+``"auto"`` are not ported yet and raise ``NotImplementedError`` naming
+their ROADMAP item. A big tail through an fp64-grade ``tail_strategy``
+is refused with ``ValueError`` at prepare time (the reference fails at
+its first call).
 """
 
 from __future__ import annotations
@@ -77,10 +82,11 @@ FP64_GRADES = ("pallas-pell-df64", "pallas-hybrid-df64", "xla-ell-df64")
 # Roadmap items named by the NotImplementedError of each missing branch.
 _TODO_BIG_TAIL = ("ROADMAP queue 1 #8d (big tails through strategies "
                   "other than PELL and XPOSE)")
-_TODO_DIST = "ROADMAP queue 1 #13 (distributed row shards)"
 
-# Launches of the CUDA kernel by ``lane_ell_spmv`` in this process.
+# Launches of the CUDA kernels by ``lane_ell_spmv`` and by
+# ``lane_ell_sharded`` in this process.
 KERNEL_LAUNCHES = 0
+SHARDED_LAUNCHES = 0
 
 
 def idx8_partition(sets: list, chunk: int):
@@ -216,17 +222,60 @@ class LanePlan:
         return 4 * self.QT + self.n8 + 2 * (self.QT - self.n8)
 
     def plane_tabs(self) -> np.ndarray:
-        """(QT, 2) int32 decode table of the kernel: for an int8 plane
-        the strips that bit 7 = 0 / 1 select; for an int16 plane its
-        first dynamic slot in a step (0 when it has none)."""
-        tabs = np.zeros((self.QT, 2), np.int32)
-        for q, u in enumerate(self.used):
-            if q < self.n8:
-                if u:
-                    tabs[q] = (u[0], u[-1])
-            else:
-                tabs[q, 0] = self.dyn_off.get(q, 0)
-        return tabs
+        return plane_tabs(self.used, self.n8, self.dyn_off)
+
+
+def plane_tabs(used, n8: int, dyn_off=None) -> np.ndarray:
+    """(QT, 2) int32 decode table of the kernels: for an int8 plane the
+    strips that bit 7 = 0 / 1 select; for an int16 plane its first
+    dynamic slot in a step (0 when it has none)."""
+    tabs = np.zeros((len(used), 2), np.int32)
+    for q, u in enumerate(used):
+        if q < n8:
+            if u:
+                tabs[q] = (u[0], u[-1])
+        elif dyn_off:
+            tabs[q, 0] = dyn_off.get(q, 0)
+    return tabs
+
+
+@dataclass
+class CoreBuild:
+    """One row shard's core, packed (``pack_lane_ell(...,
+    core_only=True)``; the reference's ``_CoreBuild``): what the
+    row-sharded hybrid pads and stacks across shards. Static strip sets
+    only, no hot strips, absolute int16 indices; the ext tables (stage 1
+    and the resident stage 2's ``p2``/``l2`` over ``G_pad`` groups) when
+    the shard has ext panels (``ext_ng > 0``)."""
+
+    vals_a: np.ndarray      # (steps*QT*chunk, BC) f32
+    idx_a: np.ndarray       # (steps*QT*chunk, BC) int16, strip<<7|lane
+    used: tuple             # per-plane static strip sets
+    Q: int
+    Qo: int
+    QT: int
+    S: int
+    chunk: int
+    steps: int
+    G_pad: int
+    P_pad: int
+    loc_w: int
+    n_local: int
+    m: int
+    trows: np.ndarray       # tail triplets (shard-local row, column, value)
+    tcols: np.ndarray
+    tvals: np.ndarray
+    n_demoted: int
+    n_reloc: int
+    ext_ng: int = 0         # stage-1 groups, 0: no ext panels
+    ext_n1p: int = 0
+    ext_base: np.ndarray | None = None
+    ext_p1: np.ndarray | None = None
+    ext_l1: np.ndarray | None = None
+    ext_p2: np.ndarray | None = None
+    ext_l2: np.ndarray | None = None
+    ext_cov: float = 0.0
+    ext_n_out: int = 0
 
 
 def pack_lane_ell(A: CSR, chunk: int | None = None,
@@ -247,28 +296,34 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
                   tail_xla_max: int = 32768,
                   depth: int = 0, max_depth: int = 2,
                   diag: str = "", x_off: int = 0,
-                  core_only: bool = False, **_) -> LanePlan:
+                  core_only: bool = False, **_) -> LanePlan | CoreBuild:
     """Pack ``A`` into lane-ELL slot planes (reference:
     ``spmv_scpa_tpu/ops/lane_ell.py:prepare_lane_ell_hybrid``, its host
-    part). The knobs and their defaults are the reference's."""
-    if core_only or x_off:
-        raise NotImplementedError(
-            f"lane-ELL core_only / x_off: {_TODO_DIST}")
+    part). The knobs and their defaults are the reference's.
 
+    ``x_off`` shifts the diagonal window by a global column offset: row
+    ``i`` of a row shard is global row ``x_off + i``, so its window sits
+    around column ``x_off + i``. ``core_only`` packs a shard for
+    ``parallel/distributed.py``: no dynamic strips, no idx8 split (the
+    row-sharded hybrid encodes int8 over the shards' union strip sets),
+    and the packer returns a :class:`CoreBuild` before any tail is planned. It
+    requires ``hot_k=0`` and a non-windowed ext, as the reference
+    asserts."""
     m, n = A.m, A.n
     rows = A.row_ids().astype(np.int64)
     cols = A.ja.astype(np.int64)
     nnz = A.nnz
 
+    cols_w = cols - x_off        # window-relative column frame
     if loc_w == "auto":
-        loc_w = _auto_loc_w(rows, cols) if nnz else 128
+        loc_w = _auto_loc_w(rows, cols_w) if nnz else 128
     if loc_w % BC:
         raise ValueError("loc_w must be a multiple of 128")
     PL = loc_w // BC
     S = 1 + 2 * PL               # local strips per group window
 
     grp = rows // BC
-    off = cols - grp * BC + loc_w          # window-relative position
+    off = cols_w - grp * BC + loc_w        # window-relative position
     is_local = (off >= 0) & (off < S * BC)
 
     out_cols = cols[~is_local]
@@ -334,7 +389,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
                     <= chips_tail.VPU_BUDGET):
                 cheap_tail = True
             else:
-                pf0 = probe0 & (np.abs(cols - rows) > chips_tail.W_LOC)
+                pf0 = probe0 & (np.abs(cols_w - rows) > chips_tail.W_LOC)
                 fu0 = np.unique(cols[pf0]).size if pf0.any() else 0
                 cheap_tail = -(-fu0 // BC) <= chips_tail.H_CAP
     if slots == "auto":
@@ -385,7 +440,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     dyn_keep: dict[int, np.ndarray] = {}  # plane -> (steps, S) kept
     dyn_pos: dict[int, np.ndarray] = {}   # plane -> (steps, S) slot j
     dyn_tab: dict[int, np.ndarray] = {}   # plane -> (steps, K) strips
-    dyn_on = dyn_strips if dyn_strips != "auto" else True
+    dyn_on = dyn_strips if dyn_strips != "auto" else not core_only
     if nnz and strip_cov is not None and Q > 0:
         pair, cnt = np.unique(sl[take0] * nw + strip_all[take0],
                               return_counts=True)
@@ -611,7 +666,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     # Catch-all planes get per-step DYNAMIC local strips instead of the
     # full strip decode; the per-step top-dyn_k keeps most entries and
     # the rest join the tail.
-    if next_q > catch0 and nnz:
+    if next_q > catch0 and not core_only and nnz:
         step_all2 = grp // chunk
         for qc in range(catch0, next_q):
             ei = np.flatnonzero(plane == qc)
@@ -703,7 +758,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
         sets = [tuple(sorted(u)) for u in acc_sets]
     n8 = 0
     second8 = np.zeros(0, np.int64)
-    if idx8 and nnz:
+    if idx8 and not core_only and nnz:
         order, sets, n8, second8 = idx8_partition(sets, chunk)
         remap = np.zeros(QT, np.int64)
         for newq, oldq in enumerate(order):
@@ -757,7 +812,33 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
         raise ValueError(
             f"lane-ELL hybrid: resident x ({x_bytes} B) exceeds the "
             f"budget {X_VMEM_BUDGET} B")
-    n_local = min(n, P_pad * BC - loc_w)
+    n_local = min(n - x_off, P_pad * BC - loc_w)
+
+    if core_only:
+        # the shard's host arrays; its ext tables index its own groups
+        # and shapes pad to the shards' shared ones in the row-sharded
+        # hybrid
+        if Hs:
+            raise AssertionError("core_only requires hot_k=0")
+        if use_ext and ext_windowed:
+            raise AssertionError("core_only ext requires ext_windowed=False")
+        if dyn_k_of:
+            raise AssertionError(
+                "core_only (distributed) runs static strip sets only")
+        tm = ~take if nnz else np.zeros(0, bool)
+        extb = {}
+        if use_ext:
+            p2_a, l2_a = ext_gather.build_group_tables(eplan, G_pad)
+            extb = dict(ext_ng=eplan.n_groups, ext_n1p=eplan.n1p_blocks,
+                        ext_base=eplan.base, ext_p1=eplan.p1,
+                        ext_l1=eplan.l1, ext_p2=p2_a, ext_l2=l2_a,
+                        ext_cov=eplan.covered, ext_n_out=eplan.n_out)
+        return CoreBuild(
+            vals_a=vals_a, idx_a=idx_a, used=used_t, Q=Q, Qo=Qo, QT=QT,
+            S=S, chunk=chunk, steps=steps, G_pad=G_pad, P_pad=P_pad,
+            loc_w=loc_w, n_local=n_local, m=m, trows=rows[tm],
+            tcols=cols[tm], tvals=A.as_[tm], n_demoted=n_demoted,
+            n_reloc=n_reloc, **extb)
 
     # per-step dynamic strip table, flattened
     dyn_off: dict[int, int] = {}
@@ -788,20 +869,14 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     tm = ~take if tail_nnz else np.zeros(nnz, bool)
     cplan = landing = chips_meta = big = None
     if tail_nnz >= 2048 and "nochips" not in diag:
-        # a tail whose single plan does not fit: past BIG_TAIL entries
-        # the reference drops the split plan for the big-tail branch;
-        # below it, or with "forcechips", plan_chips raises
+        # past BIG_TAIL entries the reference drops a split plan for the
+        # big-tail branch ("forcechips" keeps it), so none is planned
         cplan = chips_tail.plan_chips(
             rows[tm], cols[tm], A.as_[tm], m, n,
             big_tail=tail_nnz > BIG_TAIL and "forcechips" not in diag)
     if cplan is not None:
         landing = chips_tail.landing_tables(cplan.heavy_ids, m, G_pad)
-        chips_meta = {"heavy_rows": cplan.NH, "hot_h": cplan.H,
-                      "split": False,
-                      "panel_merge": landing[0] != "scatter",
-                      "gather_groups": cplan.n_groups,
-                      "tile_rows": cplan.E8,
-                      "windows": cplan.num_windows}
+        chips_meta = chips_tail.chips_meta(cplan, landing[0] != "scatter")
     elif tail_nnz > tail_xla_max:
         # big tails: a second hybrid when the tail keeps diagonal or hub
         # locality ("auto"), else PELL (or XPOSE when asked for) over
@@ -867,9 +942,24 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
 # The core kernel and its plain version
 # ---------------------------------------------------------------------------
 
+def _check_tensors(what: str, device, want: dict) -> None:
+    """Raise ValueError unless each ``name: (tensor, dtype, shape)`` of
+    ``want`` is a contiguous tensor of that dtype and shape on
+    ``device`` (the device of xpad)."""
+    for name, (t, dtype, shape) in want.items():
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, xpad on "
+                             f"{device}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} is {t.dtype} "
+                             f"{tuple(t.shape)}, expected {dtype} {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} is not contiguous")
+
+
 def _check_args(xpad, vals, idx8, idx16, plane_tabs, dynw, ext,
                 cfg: LaneCfg):
-    want = {
+    _check_tensors("lane_ell_spmv", xpad.device, {
         "xpad": (xpad, torch.float32, ((cfg.P_pad + cfg.Hs) * BC,)),
         "vals": (vals, torch.float32, (cfg.steps * cfg.QT * cfg.chunk, BC)),
         "idx8": (idx8, torch.int8, (cfg.steps * cfg.n8 * cfg.chunk, BC)),
@@ -879,16 +969,7 @@ def _check_args(xpad, vals, idx8, idx16, plane_tabs, dynw, ext,
         "dynw": (dynw, torch.int32, (cfg.steps * cfg.TD,)),
         "ext": (ext, torch.float32,
                 (cfg.G_pad if cfg.ext_w >= 0 else 0, BC)),
-    }
-    for name, (t, dtype, shape) in want.items():
-        if t.device != xpad.device:
-            raise ValueError(f"lane_ell_spmv: {name} is on {t.device}, "
-                             f"xpad on {xpad.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"lane_ell_spmv: {name} is {t.dtype} "
-                             f"{tuple(t.shape)}, expected {dtype} {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"lane_ell_spmv: {name} is not contiguous")
+    })
 
 
 def lane_ell_spmv(xpad, vals, idx8, idx16, plane_tabs, dynw, ext,
@@ -959,6 +1040,80 @@ def lane_ell_spmv_plain(xpad, vals, idx8, idx16, plane_tabs, dynw, ext,
             xv = xpad[xrow * BC + lane]
         acc = acc + v4[:, q] * xv
     return acc.reshape(-1)
+
+
+def _check_sharded(xpad, r0, vals, idx8, idx16, plane_tabs, ext,
+                   cfg: LaneCfg) -> int:
+    if cfg.TD or cfg.Hs:
+        raise ValueError("lane_ell_sharded: a row shard's core has no "
+                         f"dynamic or hot strips (TD {cfg.TD}, Hs {cfg.Hs})")
+    if r0.dim() != 1 or r0.numel() < 1:
+        raise ValueError(f"lane_ell_sharded: r0 is {tuple(r0.shape)}, "
+                         "expected (n_sh,) with n_sh >= 1")
+    n_sh = r0.numel()
+    if xpad.dtype != torch.float32 or xpad.dim() != 1 \
+            or xpad.numel() < cfg.P_pad * BC:
+        raise ValueError(f"lane_ell_sharded: xpad is {xpad.dtype} "
+                         f"{tuple(xpad.shape)}, expected float32 with at "
+                         f"least {cfg.P_pad * BC} elements")
+    if not xpad.is_contiguous():
+        raise ValueError("lane_ell_sharded: xpad is not contiguous")
+    rows = cfg.steps * cfg.chunk
+    _check_tensors("lane_ell_sharded", xpad.device, {
+        "r0": (r0, torch.int32, (n_sh,)),
+        "vals": (vals, torch.float32, (n_sh, rows * cfg.QT, BC)),
+        "idx8": (idx8, torch.int8, (n_sh, rows * cfg.n8, BC)),
+        "idx16": (idx16, torch.int16, (n_sh, rows * (cfg.QT - cfg.n8), BC)),
+        "plane_tabs": (plane_tabs, torch.int32, (cfg.QT, 2)),
+        "ext": (ext, torch.float32,
+                (n_sh, cfg.G_pad if cfg.ext_w >= 0 else 0, BC)),
+    })
+    if xpad.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lane_ell_sharded: unsupported device "
+                         f"{xpad.device}")
+    return n_sh
+
+
+def lane_ell_sharded(xpad, r0, vals, idx8, idx16, plane_tabs, ext,
+                     cfg: LaneCfg) -> torch.Tensor:
+    """The core of ``n_sh`` row shards in one launch: ``y`` (n_sh,
+    G_pad*128) f32, row ``g*128 + l`` of shard d. Shard d's planes are
+    ``vals[d]``, ``idx8[d]``, ``idx16[d]`` (stacked, padded to the shared
+    ``cfg.QT``; int8 codes positional over the union strip sets of
+    ``plane_tabs``), its ext panels ``ext[d]`` (no rows without ext), and
+    its x window the ``P_pad*128`` elements of ``xpad`` from ``r0[d]``,
+    clamped to lie in ``xpad`` as ``dynamic_slice`` clamps. CUDA tensors
+    launch ``csrc/lane_ell.cu``; CPU tensors run
+    :func:`lane_ell_sharded_plain`."""
+    global SHARDED_LAUNCHES
+    n_sh = _check_sharded(xpad, r0, vals, idx8, idx16, plane_tabs, ext, cfg)
+    if xpad.device.type == "cpu":
+        return lane_ell_sharded_plain(xpad, r0, vals, idx8, idx16,
+                                      plane_tabs, ext, cfg)
+    lib = _kernels.load("lane_ell")
+    y = torch.empty((n_sh, cfg.G_pad * BC), dtype=torch.float32,
+                    device=xpad.device)
+    err = lib.lane_ell_sharded(
+        xpad.data_ptr(), r0.data_ptr(), vals.data_ptr(), idx8.data_ptr(),
+        idx16.data_ptr(), plane_tabs.data_ptr(), ext.data_ptr(), y.data_ptr(),
+        xpad.numel(), n_sh, cfg.G_pad, cfg.QT, cfg.n8, cfg.chunk, cfg.S,
+        cfg.P_pad, cfg.ext_w, _kernels.stream_handle(xpad.device))
+    _kernels.check(lib, err, "lane_ell_sharded")
+    SHARDED_LAUNCHES += 1
+    return y
+
+
+def lane_ell_sharded_plain(xpad, r0, vals, idx8, idx16, plane_tabs, ext,
+                           cfg: LaneCfg) -> torch.Tensor:
+    """:func:`lane_ell_sharded` in PyTorch ops: each shard's window of
+    ``xpad`` through :func:`lane_ell_spmv_plain`."""
+    xw = cfg.P_pad * BC
+    base = r0.to(torch.int64).clamp(0, xpad.numel() - xw).tolist()
+    dynw = torch.zeros(0, dtype=torch.int32, device=xpad.device)
+    return torch.stack([
+        lane_ell_spmv_plain(xpad[b:b + xw], vals[d], idx8[d], idx16[d],
+                            plane_tabs, dynw, ext[d], cfg)
+        for d, b in enumerate(base)])
 
 
 # The functions one hybrid call runs: the core, the three gathers of the

@@ -273,12 +273,17 @@ class PellPlan:
 
 
 def fused_tables(*, m: int, n: int, vals, lcol, panel, rbl, window,
-                 window_h: int, chunk: int, panel_w: int = 1) -> dict:
+                 window_h: int, chunk: int, panel_w: int = 1,
+                 force_span: int | None = None,
+                 force_tiles: int | None = None) -> dict:
     """The host part of the reference's ``_make_fused_spmv`` (the
     chunk_align=1 packing: window non-decreasing, no per-window padding):
     tiles padded to a chunk multiple, each step's first window ``base``,
     the span ``W``, and ``pan2``/``rbl2`` padded to 8-step blocks. The
-    superpanel column stays one index (``lcol``, below 128*panel_w)."""
+    superpanel column stays one index (``lcol``, below 128*panel_w).
+    ``force_tiles`` and ``force_span`` pin the padded tile count and the
+    span to values shared by several row shards, so that their tables
+    have one shape (``parallel/distributed.py``)."""
     if rbl.ndim == 1:
         rbl = rbl[:, None]
     nq = rbl.shape[1]
@@ -287,6 +292,11 @@ def fused_tables(*, m: int, n: int, vals, lcol, panel, rbl, window,
                          "packing")
     T = vals.shape[0]
     t_pad = -(-T // chunk) * chunk
+    if force_tiles is not None:
+        if force_tiles < t_pad or force_tiles % chunk:
+            raise ValueError(f"pell: force_tiles {force_tiles} is below "
+                             f"{t_pad} tiles or not a multiple of {chunk}")
+        t_pad = force_tiles
     if t_pad != T:
         vals = _pad_tiles(vals, t_pad)
         if lcol is not None:
@@ -305,6 +315,11 @@ def fused_tables(*, m: int, n: int, vals, lcol, panel, rbl, window,
     g = chunk * nq
     base = window[::chunk].astype(np.int64)
     W = int((window.reshape(-1, chunk)[:, -1] - base).max(initial=0)) + 1
+    if force_span is not None:
+        if force_span < W:
+            raise ValueError(f"pell: force_span {force_span} is below the "
+                             f"span {W}")
+        W = force_span
     rbl_glob = window[:, None].astype(np.int64) * window_h + rbl
     rbl2 = np.zeros((steps_pad, g), np.int32)
     rbl2[:steps] = rbl_glob.reshape(steps, g)

@@ -22,6 +22,8 @@ of the JAX package it is held against:
  cuda-pell-fp64         pallas-pell-df64     fused PELL in float64
  cuda-bcsr-spmm         pallas-bcsr-spmm     SpMM over dense tiles (X is
                                              (n, cols), spmm_only)
+ cuda-chips             pallas-chips         the whole matrix as chips
+                                             (gathers + window segment-sum)
  torch-csr-segsum       xla-csr-segsum       gather + ``index_add_`` (spmm)
  torch-csr-segsum-spmm  xla-csr-segsum-spmm  its SpMM form (spmm_only)
  torch-ell-rm / -cm     xla-ell-rm / -cm     uniform ELL, row-/col-major
@@ -231,6 +233,7 @@ def _ensure_builtin():
     _BUILTIN_DONE = True
 
     from spmv_scpa_tpu_torch.formats.ell import csr_to_ell
+    from spmv_scpa_tpu_torch.ops.chips_tail import prepare_chips_strategy
     from spmv_scpa_tpu_torch.ops import torch_ops
     from spmv_scpa_tpu_torch.ops.lane_ell import prepare_lane_ell_hybrid
     from spmv_scpa_tpu_torch.ops.lane_ell_fp64 import prepare_lane_ell_fp64
@@ -357,3 +360,5 @@ def _ensure_builtin():
     register(StrategySpec("cuda-bcsr-spmm", "BCSR", "cuda",
                           "pallas-bcsr-spmm", prepare=prepare_bcsr_spmm,
                           spmm=True, spmm_only=True))
+    register(StrategySpec("cuda-chips", "CHIPS", "cuda", "pallas-chips",
+                          prepare=prepare_chips_strategy))

@@ -190,8 +190,8 @@ def test_big_tail_constant_matches_jax():
 
 def test_plan_chips_gives_up_only_for_big_tails():
     """Where the reference plans a split, plan_chips returns None when
-    the caller routes the tail to the big-tail branch, and raises
-    (naming the split plan's ROADMAP item) otherwise."""
+    the caller routes the tail to the big-tail branch, and plans the same
+    split otherwise."""
     rng = np.random.default_rng(12)
     m = n = 150_000
     rows = np.repeat(np.sort(rng.choice(m, 16, replace=False)), 8000)
@@ -199,15 +199,33 @@ def test_plan_chips_gives_up_only_for_big_tails():
     order = np.lexsort((cols, rows))
     rows, cols = rows[order].astype(np.int64), cols[order].astype(np.int64)
     vals = rng.standard_normal(rows.size)
-    assert isinstance(jax_ct.plan_chips(rows, cols, vals, m, n),
-                      jax_ct.SplitChipsPlan)
+    want = jax_ct.plan_chips(rows, cols, vals, m, n)
+    assert isinstance(want, jax_ct.SplitChipsPlan)
     assert chips_tail.plan_chips(rows, cols, vals, m, n,
                                  big_tail=True) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP.*split chips"):
-        chips_tail.plan_chips(rows, cols, vals, m, n)
+    got = chips_tail.plan_chips(rows, cols, vals, m, n)
+    assert isinstance(got, chips_tail.SplitChipsPlan)
+    np.testing.assert_array_equal(got.heavy_ids, want.heavy_ids)
+    for k in ("loc", "far", "cold"):
+        s, t = getattr(want, k), getattr(got, k)
+        assert (s is None) == (t is None), k
+        if s is not None:
+            for f in ("kind", "p2", "l2", "vals", "rbl", "H_pad", "E8"):
+                np.testing.assert_array_equal(getattr(s, f), getattr(t, f))
 
 
 def test_forcechips_keeps_raising():
+    """``diag="forcechips"`` keeps the split plan of webbase200k's
+    184,079-entry tail past ``BIG_TAIL``: the same meta as the reference,
+    y against the JAX hybrid's and the oracle."""
     A = synth.webbase_csr(m=200_000, seed=7)
-    with pytest.raises(NotImplementedError, match="split chips"):
-        lane_ell.prepare_lane_ell_hybrid(A, device="cpu", diag="forcechips")
+    jA = jax_synth.webbase_csr(m=200_000, seed=7)
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", diag="forcechips")
+    jprep = jax_prepare(jA, interpret=True, diag="forcechips")
+    assert prep.meta["tail_nnz"] > lane_ell.BIG_TAIL
+    assert prep.meta["tail_meta"]["split"]
+    assert _port_meta(jprep.meta) == prep.meta
+    x = make_x(A.n)
+    y = to_numpy(prep.fn(x))
+    assert _rel_l2(y, np.asarray(jprep.fn(x), np.float64)) <= 1e-6
+    validate_result(spmv_oracle(A, x), y, what="webbase200k forcechips")

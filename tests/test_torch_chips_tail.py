@@ -97,7 +97,8 @@ def test_per_row_sums_match_jax(tail):
 
 def test_split_plan_raises_not_implemented():
     """Heavy rows of scattered columns exceed the single plan's budgets:
-    the reference plans a split; the port names its ROADMAP item."""
+    the port plans the split the reference plans (its streams equal), and
+    no plan for no entries."""
     rng = np.random.default_rng(12)
     m = n = 150_000
     rows = np.repeat(np.sort(rng.choice(m, 16, replace=False)), 8000)
@@ -105,16 +106,21 @@ def test_split_plan_raises_not_implemented():
     order = np.lexsort((cols, rows))
     rows, cols = rows[order].astype(np.int64), cols[order].astype(np.int64)
     vals = rng.standard_normal(rows.size)
-    assert isinstance(jax_ct.plan_chips(rows, cols, vals, m, n),
-                      jax_ct.SplitChipsPlan)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*split chips"):
-        ct.plan_chips(rows, cols, vals, m, n)
+    want = jax_ct.plan_chips(rows, cols, vals, m, n)
+    got = ct.plan_chips(rows, cols, vals, m, n)
+    assert isinstance(want, jax_ct.SplitChipsPlan)
+    assert isinstance(got, ct.SplitChipsPlan)
+    np.testing.assert_array_equal(got.heavy_ids, want.heavy_ids)
+    assert [s.kind for s in got.streams] == [s.kind for s in want.streams]
+    for s, t in zip(want.streams, got.streams):
+        for f in ("p2", "l2", "vals", "rbl", "win_of_step"):
+            np.testing.assert_array_equal(getattr(s, f), getattr(t, f))
     assert ct.plan_chips(rows[:0], cols[:0], vals[:0], m, n) is None
 
 
 def test_constants_match_jax():
     for c in ("H_CAP", "VPU_BUDGET", "R_PANELS", "H_WIN_CAP", "W_LOC",
-              "MERGE_R_H"):
+              "MERGE_R_H", "SPLIT_VPU_BUDGET", "R_HOT"):
         assert getattr(ct, c) == getattr(jax_ct, c), c
 
 

@@ -29,7 +29,10 @@ version run on the CPU; a whole fp64 call within rel-L2 1e-12 of its
 plain call, and within rel-L2 1e-9 of the oracle with the absolute gate
 off. The SpMM kernel adds each row's tiles and lanes in order in f32, as
 its plain version does: bit-equal; Y against ``spmm_oracle`` by
-``validate_result``.
+``validate_result``. The row-shard core ``lane_ell_sharded`` rounds as
+its plain version does: bit-equal at 1, 2 and 4 shards on one card; a
+whole row-sharded call, and the chips tail's split streams, as the whole
+hybrid call (each kernel call replayed as above).
 """
 
 import numpy as np
@@ -37,12 +40,14 @@ import pytest
 import torch
 
 from spmv_scpa_tpu_torch import get_strategy
+from spmv_scpa_tpu_torch import testing as synth
 from spmv_scpa_tpu_torch.bench import roofline, timing
 from spmv_scpa_tpu_torch.bench import cases
 from spmv_scpa_tpu_torch.bench.cases import PELL_CASES, SMALL_CASES
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.ops import (ext_gather, lane_ell, lane_ell_fp64,
                                      pell, segsum_kernel, spmm, xpose)
+from spmv_scpa_tpu_torch.parallel import distributed
 from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import to_numpy
 from spmv_scpa_tpu_torch.utils.validation import validate_result
@@ -202,9 +207,11 @@ def test_window_segsum_matches_plain(card):
 ORDERED = ("pell_fused", "span_segsum", "window_segsum", "pell_fused_fp64")
 # every kernel and its plain version, by name
 KERNELS = {**lane_ell.KERNELS._asdict(), **lane_ell_fp64.KERNELS._asdict(),
-           **pell.FP64_KERNELS._asdict(), **spmm.KERNELS._asdict()}
+           **pell.FP64_KERNELS._asdict(), **spmm.KERNELS._asdict(),
+           **distributed.KERNELS._asdict()}
 PLAIN = {**lane_ell.PLAIN._asdict(), **lane_ell_fp64.PLAIN._asdict(),
-         **pell.FP64_PLAIN._asdict(), **spmm.PLAIN._asdict()}
+         **pell.FP64_PLAIN._asdict(), **spmm.PLAIN._asdict(),
+         **distributed.PLAIN._asdict()}
 
 
 def _replay(name, args):
@@ -519,7 +526,6 @@ def test_pell_fused_fp64_refuses_a_step_past_shared_memory(card):
     past the 227 KB of a block. The plan refuses it, and the wrapper,
     given the f32 kernel's step of 128 KB in float64, raises and
     launches nothing."""
-    from spmv_scpa_tpu_torch import testing as synth
     A = synth.webbase_csr(6000, seed=7)
     with pytest.raises(ValueError, match="shared memory"):
         pell.prepare_pell_fp64(A, device=card, chunk=256, quantum=8)
@@ -534,3 +540,112 @@ def test_pell_fused_fp64_refuses_a_step_past_shared_memory(card):
         pell.pell_fused_fp64(vals.double(), idx, pan, x.double(), rbl, base,
                              cfg, lists)
     assert pell.LAUNCHES["pell_fused_fp64"] == before
+
+
+# ---- row shards and the split chips plan ------------------------------------
+
+def _dist_check(prep, A, card):
+    """A row-sharded call against its plain call and the oracle, one
+    ``lane_ell_sharded`` launch per call, each kernel call replayed."""
+    x = make_x(A.n)
+    xd = torch.as_tensor(x, dtype=torch.float32, device=card)
+    before = lane_ell.SHARDED_LAUNCHES
+    yk = to_numpy(prep.fn(xd))
+    calls = prep.kernel_calls(xd)
+    n_core = sum(k == "lane_ell_sharded" for k, _ in calls)
+    assert lane_ell.SHARDED_LAUNCHES - before == n_core
+    yt = to_numpy(prep.plain(xd))
+    assert np.linalg.norm(yk - yt) <= \
+        KERNEL_VS_PLAIN_REL_L2 * max(np.linalg.norm(yt), 1e-30)
+    validate_result(spmv_oracle(A, x), yk, what=f"row shards, {A.name}")
+    for kname, args in calls:
+        _replay(kname, args)
+    return calls
+
+
+# matrix, knobs: the sharded core with ext panels on and off and idx8 on
+# and off (tests/test_distributed.py's matrices)
+SHARD_CORE_CASES = {
+    "banded1200": (lambda: synth.banded_csr(1200, row_nnz=11,
+                                                  bandwidth=90, seed=21), {}),
+    "banded6000-idx8": (lambda: synth.banded_csr(
+        6000, row_nnz=12, bandwidth=100, seed=2), {"idx8": True}),
+    "amazon40k-ext": (lambda: synth.amazon_csr(40_000, seed=11), {}),
+    "amazon40k-ext-idx8": (lambda: synth.amazon_csr(40_000, seed=11),
+                           {"idx8": True}),
+}
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("name", sorted(SHARD_CORE_CASES))
+def test_lane_ell_sharded_matches_plain(card, name, k):
+    make, kw = SHARD_CORE_CASES[name]
+    A = make()
+    prep = distributed.prepare_row_sharded_hybrid(
+        A, mesh=[card] * k, **kw)
+    assert prep.meta["ext"] == ("ext" in name)
+    assert (prep.meta["idx8_planes"] > 0) == ("idx8" in name)
+    calls = _dist_check(prep, A, card)
+    core = [a for n, a in calls if n == "lane_ell_sharded"]
+    assert len(core) == 1 and core[0][2].shape[0] == k
+
+
+@pytest.mark.parametrize("name", sorted(cases.DIST_CASES))
+def test_dryrun_routes_on_one_card(card, name):
+    prep_fn, make, kw = cases.DIST_CASES[name]
+    A = make(4)
+    prep = getattr(distributed, prep_fn)(A, mesh=[card] * 4, **kw)
+    _dist_check(prep, A, card)
+
+
+def test_sharded_pell_row_sort_on_one_card(card):
+    A = synth.powerlaw_csr(1200, 1200, seed=21)
+    prep = distributed.prepare_row_sharded_pell(A, mesh=[card] * 4)
+    assert prep.meta["row_sort"]
+    calls = _dist_check(prep, A, card)
+    assert {k for k, _ in calls} == {"pell_fused", "unpermute"}
+
+
+def test_lane_ell_sharded_refuses_bad_arguments(card):
+    A = synth.amazon_csr(40_000, seed=11)
+    prep = distributed.prepare_row_sharded_hybrid(A, mesh=[card] * 2)
+    calls = prep.kernel_calls(torch.zeros(A.n, device=card))
+    (xpad, r0, vals, idx8, idx16, tabs, ext, cfg), = [
+        a for n, a in calls if n == "lane_ell_sharded"]
+    fn = lane_ell.lane_ell_sharded
+    before = lane_ell.SHARDED_LAUNCHES
+    with pytest.raises(ValueError, match="r0 is on cpu"):
+        fn(xpad, r0.cpu(), vals, idx8, idx16, tabs, ext, cfg)
+    with pytest.raises(ValueError, match="r0 is torch.int64"):
+        fn(xpad, r0.long(), vals, idx8, idx16, tabs, ext, cfg)
+    with pytest.raises(ValueError, match="vals is torch.float64"):
+        fn(xpad, r0, vals.double(), idx8, idx16, tabs, ext, cfg)
+    with pytest.raises(ValueError, match="ext is torch.float32"):
+        fn(xpad, r0, vals, idx8, idx16, tabs, ext[:, :-1].contiguous(), cfg)
+    with pytest.raises(ValueError, match="xpad"):
+        fn(xpad[:8], r0, vals, idx8, idx16, tabs, ext, cfg)
+    assert lane_ell.SHARDED_LAUNCHES == before
+
+
+def test_split_streams_match_plain(card):
+    """The split plan's streams on the card: heavy_scatter through
+    cuda-hybrid (direct-x local stream and a far resident one), and a
+    whole webbase stand-in through cuda-chips (split)."""
+    A = cases.heavy_scatter()
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device=card)
+    assert prep.meta["tail_meta"]["split"]
+    B = synth.webbase_csr(m=30000)
+    chips = get_strategy("cuda-chips").prepare(B, device=card)
+    assert chips.meta["split"]
+    for M, p in ((A, prep), (B, chips)):
+        x = make_x(M.n)
+        xd = torch.as_tensor(x, dtype=torch.float32, device=card)
+        yk = to_numpy(p.fn(xd))
+        yt = to_numpy(p.plain(xd))
+        assert np.linalg.norm(yk - yt) <= \
+            KERNEL_VS_PLAIN_REL_L2 * np.linalg.norm(yt)
+        validate_result(spmv_oracle(M, x), yk, what=f"split on {M.name}")
+        calls = p.kernel_calls(xd)
+        assert {"window_gather", "window_segsum"} <= {k for k, _ in calls}
+        for kname, args in calls:
+            _replay(kname, args)

@@ -27,6 +27,8 @@ from spmv_scpa_tpu.formats import bcsr as jax_bcsr
 from spmv_scpa_tpu.formats import ell as jax_ell
 from spmv_scpa_tpu.formats import panel_ell as jax_panel_ell
 from spmv_scpa_tpu.formats.csr import CSR as JaxCSR
+from spmv_scpa_tpu.formats.csr import \
+    partition_rows_by_nnz as jax_partition_rows_by_nnz
 from spmv_scpa_tpu.io import loader as jax_loader
 from spmv_scpa_tpu.io import mmio as jax_mmio
 from spmv_scpa_tpu.ops import segsum_kernel as jax_segsum
@@ -40,7 +42,7 @@ from spmv_scpa_tpu.utils.vector import make_x as jax_make_x
 from spmv_scpa_tpu_torch import errors, load_csr, testing as synth
 from spmv_scpa_tpu_torch.bench import timing
 from spmv_scpa_tpu_torch.formats import bcsr, ell, panel_ell
-from spmv_scpa_tpu_torch.formats.csr import BC, CSR
+from spmv_scpa_tpu_torch.formats.csr import BC, CSR, partition_rows_by_nnz
 from spmv_scpa_tpu_torch.ops import (registry, segsum_kernel, torch_ops,
                                      xpose_plan)
 from spmv_scpa_tpu_torch.io import mmio
@@ -85,7 +87,9 @@ def test_port_and_chip_smoke_load_no_jax_package():
             "spmv_scpa_tpu_torch.formats.bcsr",
             "spmv_scpa_tpu_torch.formats.ell",
             "spmv_scpa_tpu_torch.ops.lane_ell_fp64",
-            "spmv_scpa_tpu_torch.ops.spmm"} <= set(mods)
+            "spmv_scpa_tpu_torch.ops.spmm",
+            "spmv_scpa_tpu_torch.parallel",
+            "spmv_scpa_tpu_torch.parallel.distributed"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -167,6 +171,28 @@ def test_csr_from_coo_and_views_match():
     d = rng.standard_normal((9, 7)) * (rng.random((9, 7)) < 0.3)
     _same_csr(CSR.from_dense("d", d), JaxCSR.from_dense("d", d))
     assert BC == jax_panel_ell.BC
+
+
+@pytest.mark.parametrize("name", ["powerlaw", "webbase", "diag", "tiny",
+                                  "banded-rect"])
+def test_row_slices_and_the_shard_planner_match(name):
+    """``CSR.slice_rows`` and ``partition_rows_by_nnz``: the same bounds
+    (more parts than rows too: empty trailing spans) and the same sliced
+    arrays."""
+    fn, kw = GENERATORS[name]
+    a, b = getattr(synth, fn)(**kw), getattr(jax_synth, fn)(**kw)
+    for parts in (1, 3, 8, a.m + 2):
+        bounds = partition_rows_by_nnz(a.irp, parts)
+        np.testing.assert_array_equal(
+            bounds, jax_partition_rows_by_nnz(b.irp, parts))
+        assert bounds.dtype == np.int64 and bounds.shape == (parts + 1,)
+        for r0, r1 in zip(bounds[:-1], bounds[1:]):
+            _same_csr(a.slice_rows(r0, r1), b.slice_rows(r0, r1))
+    _same_csr(a.slice_rows(0, a.m, name="all"),
+              b.slice_rows(0, b.m, name="all"))
+    for bad in (0, -1):
+        with pytest.raises(ValueError, match="positive"):
+            partition_rows_by_nnz(a.irp, bad)
 
 
 def _write_mtx(path, kind, rng):

@@ -313,22 +313,9 @@ def test_wrapper_rejects_wrong_dtype_and_shape():
         prep.fn(np.ones(A.n + 1))
 
 
-@functools.cache
-def heavy_scatter_csr(m=150_000, heavy=16, per=8000, seed=12):
-    """Four near-diagonal entries per row, plus ``heavy`` rows of
-    ``per`` uniformly scattered columns: a chips tail whose unique
-    columns exceed the single plan's budgets (integer and normal draws
-    only)."""
-    rng = np.random.default_rng(seed)
-    r_loc = np.repeat(np.arange(m, dtype=np.int64), 4)
-    c_loc = (r_loc + rng.integers(-30, 30, r_loc.size)) % m
-    r_h = np.repeat(rng.choice(m, heavy, replace=False).astype(np.int64),
-                    per)
-    c_h = rng.integers(0, m, r_h.size)
-    rows = np.concatenate([r_loc, r_h])
-    cols = np.concatenate([c_loc, c_h])
-    return CSR.from_coo("heavy_scatter", m, m, rows, cols,
-                        rng.standard_normal(rows.size))
+# a big tail through a strategy the port lacks for big tails (BCSR)
+BIG_TAIL_BCSR = {"ext": False, "diag": "nochips", "tail_xla_max": 1000,
+                 "tail_strategy": "pallas-bcsr"}
 
 
 @pytest.mark.parametrize("A_make, kw, what", [
@@ -336,16 +323,9 @@ def heavy_scatter_csr(m=150_000, heavy=16, per=8000, seed=12):
     # path
     (lambda: synth.random_csr(2000, 3_200_000, density=1e-6, seed=4), {},
      "PELL column stripes"),
-    (heavy_scatter_csr, {}, "split chips"),
-    # a big tail through a strategy the port lacks for big tails (BCSR)
-    (lambda: synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4),
-     {"ext": False, "diag": "nochips", "tail_xla_max": 1000,
-      "tail_strategy": "pallas-bcsr"}, "big tails"),
-    (lambda: synth.banded_csr(512, row_nnz=12, bandwidth=96, seed=7),
-     {"core_only": True}, "distributed"),
-    (lambda: synth.banded_csr(512, row_nnz=12, bandwidth=96, seed=7),
-     {"x_off": 128}, "distributed"),
-], ids=["no-locality", "split-chips", "big-tail", "core-only", "x-off"])
+    (lambda: synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4), BIG_TAIL_BCSR,
+     "big tails"),
+], ids=["no-locality", "big-tail"])
 def test_missing_branches_raise_not_implemented(A_make, kw, what):
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         lane_ell.prepare_lane_ell_hybrid(A_make(), device="cpu", **kw)
@@ -369,10 +349,10 @@ def test_fp64_big_tail_is_refused_at_prepare(tail):
 
 
 def test_auto_does_not_swallow_not_implemented():
-    A = heavy_scatter_csr()
+    A = synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4)
     assert pick_auto(A) == "cuda-hybrid"
     with pytest.raises(NotImplementedError):
-        spmv(A, make_x(A.n), "auto", device="cpu")
+        spmv(A, make_x(A.n), "auto", device="cpu", **BIG_TAIL_BCSR)
 
 
 def test_resident_x_refusal_stays_a_value_error(monkeypatch):

@@ -88,7 +88,7 @@ def test_strategies_and_refs():
                             "cuda-hybrid-fp64", "cuda-pell-fp64",
                             "cuda-bcsr-spmm", "torch-csr-segsum-spmm",
                             "torch-ell-rm", "torch-ell-cm",
-                            "torch-ell-fp64", "oracle-ell"])
+                            "torch-ell-fp64", "oracle-ell", "cuda-chips"])
     jax_names = set(jax_registry.list_strategies())
     for name in names:
         spec = get_strategy(name)
@@ -110,9 +110,11 @@ def test_strategies_and_refs():
     assert get_strategy("cuda-pell-fp64").ref == "pallas-pell-df64"
     assert get_strategy("cuda-bcsr-spmm").ref == "pallas-bcsr-spmm"
     assert get_strategy("torch-ell-fp64").ref == "xla-ell-df64"
+    assert get_strategy("cuda-chips").ref == "pallas-chips"
     assert list_strategies(backend="cuda") == [
-        "cuda-bcsr", "cuda-bcsr-spmm", "cuda-hybrid", "cuda-hybrid-fp64",
-        "cuda-nearfar", "cuda-pell", "cuda-pell-fp64", "cuda-xpose"]
+        "cuda-bcsr", "cuda-bcsr-spmm", "cuda-chips", "cuda-hybrid",
+        "cuda-hybrid-fp64", "cuda-nearfar", "cuda-pell", "cuda-pell-fp64",
+        "cuda-xpose"]
     assert list_strategies(fmt="XPOSE") == ["cuda-nearfar", "cuda-xpose"]
     with pytest.raises(KeyError, match="unknown strategy"):
         get_strategy("pallas-pell")
