@@ -26,18 +26,23 @@ the script exits non-zero:
 7. main path 3, ``ext_windowed1m`` (1M rows, 5M nnz), default knobs:
    the windowed stage 2; the windowed gather must launch;
 8. small PELL cases: every matrix of ``bench/cases.py``'s
-   ``PELL_CASES`` through ``cuda-pell`` or ``cuda-bcsr``, checked as the
-   small hybrid cases are; between them they must launch the fused
-   kernel, the tile kernel, both segment-sums and the un-permute;
+   ``PELL_CASES`` through ``cuda-pell`` or ``cuda-bcsr`` at its default
+   layout, and the fused ones again on ``layout="tiles"``, checked as
+   the small hybrid cases are; between them they must launch the row
+   kernel, the fused kernel, the tile kernel, both segment-sums and the
+   un-permute;
 9. main path 4, ``powerlaw100k`` (100k rows, about 11M nnz) through
    ``cuda-hybrid`` at default knobs: the no-locality escape to
-   ``cuda-pell`` (fused, row-sorted); validated, timed, each kernel
-   alone, host against device over 200 calls; the fused kernel and the
-   un-permute must launch;
+   ``cuda-pell`` on the row layout; validated, timed, each kernel
+   alone, host against device over 200 calls; ``pell_rows`` must
+   launch; then the A/B: the tile layout's fused kernel (``cuda-pell``,
+   ``layout="tiles"``) against ``pell_rows`` in turns (old, new, new,
+   old), and the two whole calls so, beside cuSPARSE and the bounds;
 10. main path 5, ``webbase1m`` (the webbase-1M stand-in) through
    ``cuda-hybrid`` at default knobs: the core and a tail past
-   ``BIG_TAIL`` run as compact PELL; the same measurements; the core,
-   the fused kernel and the un-permute must launch;
+   ``BIG_TAIL`` run as compact PELL on the row layout; the same
+   measurements; the core and ``pell_rows`` must launch; then the A/B
+   of the tail's two kernels (the hybrid with ``pell_layout="tiles"``);
 11. ``powerlaw100k`` through ``cuda-pell`` with ``scheme="span"``: the
    tile kernel and the span segment-sum at full size;
 12. the flagship through ``cuda-bcsr``: the tile kernel on dense tiles
@@ -57,16 +62,19 @@ the script exits non-zero:
    through the hybrid, the scattered rest through XPOSE; the core and
    the three XPOSE kernels must launch;
 17. small fp64 and SpMM cases: ``bench/cases.py``'s ``FP64_CASES``
-   (``cuda-hybrid-fp64``, ``cuda-pell-fp64``) and ``SPMM_CASES``
-   (``cuda-bcsr-spmm`` at 1, 8 and 64 columns), checked as the small
-   hybrid cases are; between them they must launch ``lane_ell_fp64``,
-   ``pell_fused_fp64`` and ``bcsr_spmm``;
+   (``cuda-hybrid-fp64``, ``cuda-pell-fp64`` on both layouts) and
+   ``SPMM_CASES`` (``cuda-bcsr-spmm`` at 1, 8 and 64 columns), checked
+   as the small hybrid cases are; between them they must launch
+   ``lane_ell_fp64``, ``pell_rows_fp64``, ``pell_fused_fp64`` and
+   ``bcsr_spmm``;
 18. main path 9, ``flagship-fp64``: the flagship through
    ``cuda-hybrid-fp64`` (x and y float64); ``lane_ell_fp64`` must
    launch; beside it the ``torch-ell-fp64`` baseline and cuSPARSE's fp64
    CSR product of the same matrix;
 19. main path 10, ``powerlaw100k-fp64``: ``powerlaw100k`` through
-   ``cuda-pell-fp64``; ``pell_fused_fp64`` must launch;
+   ``cuda-pell-fp64`` (the row layout); ``pell_rows_fp64`` must launch;
+   then ``powerlaw100k-fp64-tiles`` (``layout="tiles"``), which must
+   launch ``pell_fused_fp64``, and the A/B of the two kernels in turns;
 20. main path 11, ``flagship-spmm8``: the flagship through
    ``cuda-bcsr-spmm`` with X of 8 columns; ``bcsr_spmm`` must launch;
 21. main path 12, ``stencil48k-spmm64``: ``cases.stencil48k()`` (the
@@ -96,13 +104,13 @@ the script exits non-zero:
    of one card with ``idx8``: the ext panels, the per-shard chips tails
    and the panel merge;
 27. main path 17, ``dist-powerlaw100k-pell``: ``powerlaw100k`` through
-   ``prepare_row_sharded_pell`` at mesh 1: the fused kernel and the
-   un-permute.
+   ``prepare_row_sharded_pell`` at mesh 1 (the tile layout): the fused
+   kernel and the un-permute.
 
 Each path sets the launch counts to 0 just before it and reads them
 just after; replays that hold a kernel against its plain version come
 after the read. Each prints its packing time. Then one JSON line of the
-seventeen kernels' numbers, the card line, and the contract line ``{"ok":
+nineteen kernels' numbers, the card line, and the contract line ``{"ok":
 true, "device": {...}}`` last. Without a card it prints no result and
 exits 2.
 
@@ -114,14 +122,14 @@ the plain segment-sums, the plain fused kernel and the compact tail's
 kernel call replayed alone: the core, the gathers, the tile kernel, the
 un-permute and XPOSE's mirror, S1 and S3 bit-equal to their plain
 versions, and so is the row-shard core ``lane_ell_sharded``; the
-segment-sums and the fused kernel bit-equal to their plain versions run on the CPU (the
+segment-sums, the fused kernel and the row kernel bit-equal to their plain versions run on the CPU (the
 same fixed order) and within rel-L2 1e-6 of the plain versions on the
-card. Against ``spmv_oracle``: ``validate_result`` (rel 1e-4). The fp64
+card (1e-12 at fp64). Against ``spmv_oracle``: ``validate_result`` (rel 1e-4). The fp64
 paths (x and y float64): against the oracle at relative L2 <= 1e-9 with
 the absolute gate off (``abs_l2=0``: the reference's 0.1 at ||y|| >= 1
 would pass an f32-grade y); ``lane_ell_fp64`` bit-equal to its plain
-version; ``pell_fused_fp64`` bit-equal to its plain version run on the
-CPU; a whole fp64 call within rel-L2 1e-12 of its plain call (the plain
+version; ``pell_fused_fp64`` and ``pell_rows_fp64`` bit-equal to their
+plain versions run on the CPU; a whole fp64 call within rel-L2 1e-12 of its plain call (the plain
 fused kernel adds windows with atomics on the card). SpMM:
 ``bcsr_spmm`` bit-equal to its plain version (both add each row's tiles
 and lanes in order, f32 products and sums rounded separately, no TF32);
@@ -135,15 +143,19 @@ the multiply-adds of its tiles' nonzero values only, not those of the
 stored zeros. Where the
 data decides what is read, only that counts: a gather's distinct in-
 range source elements, the segment-sums' partials that land in y, the
-distinct x elements the tile and fused kernels read, the mirror's
+distinct x elements the tile, fused and row kernels read, the mirror's
 distinct source rows, S1's distinct x elements (of its entries), S3's
-distinct product elements and the SpMM's distinct rows of X. Kernel and
+distinct product elements and the SpMM's distinct rows of X. Beside a
+row kernel's bound (its layout's bytes) the lines print its format-free
+bound: its entries at one value and one 4-byte column each, x and y,
+over 3.35 TB/s. Kernel and
 library times are device times (``bench.timing.time_device``: the host's
 enqueue does not enter them); a plain version and a whole call are timed
 as their caller sees them (event pairs,
 ``time_cuda``/``time_prepared``). ``library_ms`` times one PyTorch call
 computing the same function: a cuSPARSE CSR product for the core (of the
-whole matrix), for the fused kernel (of the matrix its tiles hold) and
+whole matrix), for the fused kernel (of the matrix its tiles hold), the row kernels
+(of the matrix their slots hold, in their dtype) and
 for the tile kernel (of a matrix with one row per tile row and quantum,
 whose product is the partials; for S1, of a matrix with one row per
 product slot holding its one entry, whose product is S1's product
@@ -170,8 +182,8 @@ from spmv_scpa_tpu_torch.bench.timing import (time_cuda, time_device,
                                               time_prepared)
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.ops import (ext_gather, lane_ell, lane_ell_fp64,
-                                     pell, segsum_kernel, spmm, xpose,
-                                     xpose_plan)
+                                     pell, pell_rows, segsum_kernel, spmm,
+                                     xpose, xpose_plan)
 from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import FP64_RTOL, pick_auto, to_numpy
 from spmv_scpa_tpu_torch.parallel import distributed
@@ -189,16 +201,18 @@ F64_OPS_PER_S = 34e12              # f64 outside the tensor cores
 HYBRID_KERNELS = ("lane_ell_spmv", "sorted_gather", "ranked_gather",
                   "window_gather", "window_segsum")
 PELL_KERNELS = ("pell_fused", "pell_tiles", "span_segsum", "window_segsum",
-                "unpermute")
+                "unpermute", "pell_rows")
 XPOSE_KERNELS = ("xpose_mirror", "xpose_s1", "xpose_s3")
-FP64_SPMM_KERNELS = ("lane_ell_fp64", "pell_fused_fp64", "bcsr_spmm")
+FP64_SPMM_KERNELS = ("lane_ell_fp64", "pell_fused_fp64", "bcsr_spmm",
+                     "pell_rows_fp64")
 DIST_KERNELS = ("lane_ell_sharded", "sorted_gather", "ranked_gather",
                 "window_gather", "window_segsum", "pell_fused", "unpermute")
 CHIPS_KERNELS = ("sorted_gather", "ranked_gather", "window_gather",
                  "window_segsum")
 # kernels whose plain versions add with index_add_ (atomics on the card):
 # held bit-equal to the plain version run on the CPU
-ORDERED = ("window_segsum", "span_segsum", "pell_fused", "pell_fused_fp64")
+ORDERED = ("window_segsum", "span_segsum", "pell_fused", "pell_fused_fp64",
+           "pell_rows", "pell_rows_fp64")
 # every kernel and its plain version, by name
 KERNELS = {**lane_ell.KERNELS._asdict(), **lane_ell_fp64.KERNELS._asdict(),
            **pell.FP64_KERNELS._asdict(), **spmm.KERNELS._asdict(),
@@ -241,12 +255,16 @@ SOURCES = {
                         "spmv_scpa_tpu/ops/pallas_kernels.py:761"),
     "bcsr_spmm": ("spmv_scpa_tpu_torch/csrc/spmm.cu",
                   "spmv_scpa_tpu/ops/pallas_kernels.py:1076"),
+    "pell_rows": ("spmv_scpa_tpu_torch/csrc/pell_rows.cu",
+                  "spmv_scpa_tpu/ops/pallas_kernels.py:419"),
+    "pell_rows_fp64": ("spmv_scpa_tpu_torch/csrc/pell_rows.cu",
+                       "spmv_scpa_tpu/ops/pallas_kernels.py:761"),
 }
 LINE_ORDER = ("lane_ell_spmv", "lane_ell_sharded", "stream_reduce", "sorted_gather",
               "ranked_gather", "window_gather", "window_segsum",
               "pell_fused", "pell_tiles", "span_segsum", "unpermute",
               "xpose_mirror", "xpose_s1", "xpose_s3", "lane_ell_fp64",
-              "pell_fused_fp64", "bcsr_spmm")
+              "pell_fused_fp64", "bcsr_spmm", "pell_rows", "pell_rows_fp64")
 
 
 # ---- launch counts -----------------------------------------------------------
@@ -258,6 +276,7 @@ def counts() -> dict:
             **ext_gather.LAUNCHES,
             "window_segsum": segsum_kernel.KERNEL_LAUNCHES,
             **pell.LAUNCHES,
+            **pell_rows.LAUNCHES,
             "span_segsum": segsum_kernel.SPAN_LAUNCHES,
             **xpose.LAUNCHES,
             "lane_ell_fp64": lane_ell_fp64.KERNEL_LAUNCHES,
@@ -272,7 +291,8 @@ def reset_counts() -> None:
     roof.KERNEL_LAUNCHES = 0
     segsum_kernel.KERNEL_LAUNCHES = 0
     segsum_kernel.SPAN_LAUNCHES = 0
-    for table in (ext_gather.LAUNCHES, pell.LAUNCHES, xpose.LAUNCHES):
+    for table in (ext_gather.LAUNCHES, pell.LAUNCHES, pell_rows.LAUNCHES,
+                  xpose.LAUNCHES):
         for k in table:
             table[k] = 0
 
@@ -351,7 +371,8 @@ def check_call(name, args, what):
     if name in ORDERED:
         exact = torch.equal(out.cpu(), PLAIN[name](*to_cpu(args)))
         rel = float((out - plain).norm() / max(float(plain.norm()), 1e-30))
-        ok = exact and rel <= TWIN_REL_L2
+        ok = exact and rel <= (FP64_TWIN if out.dtype == torch.float64
+                               else TWIN_REL_L2)
     else:
         ok = torch.equal(out, plain)
     if not ok:
@@ -428,7 +449,14 @@ def bound(name, args, out) -> tuple:
     ops = 0
     ops_per_s = (F64_OPS_PER_S if out.dtype == torch.float64
                  else F32_OPS_PER_S)
-    if name in ("pell_tiles", "pell_fused", "pell_fused_fp64"):
+    if name in ("pell_rows", "pell_rows_fp64"):
+        vals, cols, qptr, blk_lo, x = args
+        ok = (cols >= 0) & (cols < x.numel())
+        nbytes = (tensor_bytes(args[:4])
+                  + torch.unique(cols[ok]).numel() * x.element_size()
+                  + out.numel() * out.element_size())
+        ops = 2 * vals.numel()
+    elif name in ("pell_tiles", "pell_fused", "pell_fused_fp64"):
         vals, idx, _, x = args[:4]
         col, ok = slot_cols(name, args)
         nbytes = (tensor_bytes((vals, idx)) + vals.shape[0] // 8 * 4
@@ -491,6 +519,17 @@ def bound(name, args, out) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def free_bound_ms(args, out) -> float:
+    """The format-free bound of a row-layout call: its entries (the slots
+    with a nonzero value) at one value and one 4-byte column each, x and
+    y, over the card's memory rate."""
+    vals, x = args[0], args[4]
+    nnz = int((vals != 0).sum())
+    nbytes = (nnz * (vals.element_size() + 4) + x.numel() * x.element_size()
+              + out.numel() * out.element_size())
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def gather_library(name, args):
     """One flat-index read for the same gather: ``src[flat]`` over the
     source with one 0.0 appended, out-of-range elements pointed at it."""
@@ -534,6 +573,22 @@ def fused_library(args):
     A = torch.sparse_coo_tensor(
         torch.stack([row[nz], col[nz]]), vals[nz],
         (cfg.num_windows * cfg.h * 8, x.numel())).coalesce().to_sparse_csr()
+    x2 = x.view(-1, 1)
+    return lambda: A.matmul(x2)
+
+
+def rows_library(args):
+    """A cuSPARSE CSR product of the matrix a row-layout call holds (its
+    slots with a nonzero value), in the kernel's dtype."""
+    vals, cols, qptr, _, x = args
+    Q = vals.shape[1]
+    m = qptr.numel() - 1
+    row = torch.repeat_interleave(torch.arange(m, device=vals.device),
+                                  (qptr[1:] - qptr[:-1]).long() * Q)
+    nz = vals.reshape(-1) != 0
+    A = torch.sparse_coo_tensor(
+        torch.stack([row[nz], cols.reshape(-1)[nz].long()]),
+        vals.reshape(-1)[nz], (m, x.numel())).coalesce().to_sparse_csr()
     x2 = x.view(-1, 1)
     return lambda: A.matmul(x2)
 
@@ -658,6 +713,8 @@ def library(name, args, A, xd):
         return unpermute_library(args)
     if name in ("pell_fused", "pell_fused_fp64"):
         return fused_library(args)
+    if name in ("pell_rows", "pell_rows_fp64"):
+        return rows_library(args)
     if name == "pell_tiles":
         return tiles_library(args)
     if name == "xpose_mirror":
@@ -699,6 +756,8 @@ def kernel_table(prep, xd, what, A=None):
         if lib is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + median_ms(lib)
         r["bound_ms"] += b_ms
+        if name in ("pell_rows", "pell_rows_fp64"):
+            r["free_ms"] = r.get("free_ms", 0.0) + free_bound_ms(args, out)
         r["max_abs_err"] = max(r["max_abs_err"], err)
     return rows
 
@@ -749,10 +808,26 @@ def phase_line(rows):
     out = []
     for k, r in rows.items():
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        free = (f", format-free bound {r['free_ms']:.4f}" if "free_ms" in r
+                else "")
         out.append(f"{k} x{r['calls']} {r['ms']:.4f} ms (plain "
                    f"{r['plain_ms']:.4f}, library {lib}, bound "
-                   f"{r['bound_ms']:.4f}, max|d| {r['max_abs_err']:.1e})")
+                   f"{r['bound_ms']:.4f}{free}, max|d| "
+                   f"{r['max_abs_err']:.1e})")
     return " | ".join(out)
+
+
+def layout_meta(pm):
+    """What a line says of a PELL plan's meta (either layout)."""
+    if pm.get("layout") == "rows":
+        return (f"PELL rows quantum {pm['quantum']} quanta {pm['quanta']} "
+                f"blocks {pm['blocks']} fill {pm['fill']:.4f}")
+    scheme = pm.get("scheme", "fused" if "quantum" in pm else "bcsr")
+    return (f"PELL scheme {scheme} quantum "
+            f"{pm.get('quantum', BC)} panel_w {pm.get('panel_w', 1)} "
+            f"row_sort {pm.get('row_sort', False)} chunk {pm.get('chunk')} "
+            f"window_h {pm.get('window_h')} tiles {pm.get('num_blocks')} "
+            f"fill {pm.get('fill', 0.0):.4f}")
 
 
 def pell_meta(prep):
@@ -760,14 +835,10 @@ def pell_meta(prep):
     m = prep.meta
     tail = m.get("tail_meta") if isinstance(m.get("tail_meta"), dict) \
         else {}
-    pm = tail if "scheme" in tail else m
+    pm = tail if "scheme" in tail or "layout" in tail else m
     return (f"{prep.strategy} delegated {m.get('delegated')} d_cov "
             f"{m.get('d_cov')} | tail_nnz {m.get('tail_nnz')} tail_kind "
-            f"{m.get('tail_kind')} | PELL scheme {pm.get('scheme', 'bcsr')} "
-            f"quantum {pm.get('quantum', BC)} panel_w {pm.get('panel_w', 1)} "
-            f"row_sort {pm.get('row_sort', False)} chunk {pm.get('chunk')} "
-            f"window_h {pm.get('window_h')} tiles {pm.get('num_blocks')} "
-            f"fill {pm.get('fill', 0.0):.4f}")
+            f"{m.get('tail_kind')} | {layout_meta(pm)}")
 
 
 def xpose_meta(m):
@@ -839,6 +910,41 @@ def report_times(name, prep, xd, r, launched, card, timing, profile):
         print(f"[{name}] device ms/call by name: " + ", ".join(
             f"{k[:60]} {v:.4f}" for k, v in sorted(
                 by_name.items(), key=lambda kv: -kv[1])[:12]), flush=True)
+
+
+def layout_ab(name, old, new, xd, card):
+    """The tile layout's fused kernel (``old``'s call) against the row
+    layout's (``new``'s) on one matrix, in turns (old, new, new, old) in
+    this run, and the two whole calls the same way; beside them cuSPARSE's
+    CSR product of the matrix the row layout holds, the two formats'
+    bounds and bytes, and the format-free bound."""
+    (ko, ao), = [c for c in old.kernel_calls(xd)
+                 if c[0].startswith("pell_fused")]
+    (kn, an), = [c for c in new.kernel_calls(xd)
+                 if c[0].startswith("pell_rows")]
+    kern = {"old": [], "new": []}
+    call = {"old": [], "new": []}
+    for side in ("old", "new", "new", "old"):
+        k, a = (ko, ao) if side == "old" else (kn, an)
+        kern[side].append(median_ms(KERNELS[k], *a))
+    for side in ("old", "new", "new", "old"):
+        call[side].append(call_ms((old if side == "old" else new).fn, xd))
+    out_o, out_n = KERNELS[ko](*ao), KERNELS[kn](*an)
+    nnz = int((an[0] != 0).sum())
+    b_old, b_new = bound(ko, ao, out_o)[0], bound(kn, an, out_n)[0]
+    rows_b, tiles_b = tensor_bytes(an[:4]), tensor_bytes(ao[:3])
+
+    def ms(v):
+        return ", ".join(f"{t:.4f}" for t in v)
+
+    print(f"[{name}] A/B in turns (old, new, new, old): {ko} {ms(kern['old'])}"
+          f" ms, {kn} {ms(kern['new'])} ms | whole call, tiles "
+          f"{ms(call['old'])} ms, rows {ms(call['new'])} ms | cuSPARSE CSR "
+          f"{median_ms(rows_library(an)):.4f} ms | bound: rows {b_new:.4f}, "
+          f"tiles {b_old:.4f}, format-free {free_bound_ms(an, out_n):.4f} ms"
+          f" | format bytes for {nnz} entries: rows {rows_b} "
+          f"({rows_b / max(nnz, 1):.2f} B/nnz), tiles {tiles_b} "
+          f"({tiles_b / max(nnz, 1):.2f} B/nnz) | {card}", flush=True)
 
 
 def auto_xpose_path(name, A, dev, card, profile):
@@ -938,11 +1044,7 @@ def hybrid_small_meta(prep, A):
 
 
 def pell_small_meta(prep, A):
-    m = prep.meta
-    return (f"{prep.strategy} nnz {A.nnz} scheme {m.get('scheme', 'bcsr')} "
-            f"quantum {m.get('quantum', BC)} panel_w {m.get('panel_w', 1)} "
-            f"row_sort {m.get('row_sort', False)} tiles {m['num_blocks']} "
-            f"fill {m['fill']:.3f}")
+    return f"{prep.strategy} nnz {A.nnz} {layout_meta(prep.meta)}"
 
 
 def xpose_small_meta(prep, A):
@@ -998,20 +1100,23 @@ def fp64_spmm_meta(prep):
         return (f"{prep.strategy} nnz {prep.nnz} loc_w {m['loc_w']} Q "
                 f"{m['slots']} chunk {m['chunk']} steps {m['steps']} fill "
                 f"{m['fill']:.4f}")
-    return (f"{prep.strategy} nnz {prep.nnz} quantum {m['quantum']} "
-            f"window_h {m['window_h']} chunk {m['chunk']} tiles "
-            f"{m['num_blocks']} fill {m['fill']:.4f}")
+    return f"{prep.strategy} nnz {prep.nnz} {layout_meta(m)}"
 
 
-def fp64_spmm_phases(dev, card, flagship_A):
+def fp64_spmm_phases(dev, card, flagship_A, PL):
     """Phases 17-21: the small fp64 and SpMM cases, then the fp64 grade
-    on the flagship (lane-ELL) and on powerlaw100k (fused PELL), and the
-    SpMM at 8 columns on the flagship and 64 on stencil48k. Returns the
-    kernel tables and counts of the flagship-fp64, powerlaw100k-fp64 and
-    flagship-spmm8 paths, which the kernels line reports."""
-    # 17. the small cases
+    on the flagship (lane-ELL) and on powerlaw100k (``PL``: PELL on the
+    row layout, then on the tile layout, then the two kernels in turns),
+    and the SpMM at 8 columns on the flagship and 64 on stencil48k.
+    Returns the kernel tables and counts of the flagship-fp64, both
+    powerlaw100k-fp64 and flagship-spmm8 paths, which the kernels line
+    reports."""
+    # 17. the small cases, the fp64 PELL ones on both layouts
     small = [(name, make(), strategy, kw) for name, (make, strategy, kw)
              in cases.FP64_CASES.items()]
+    small += [(f"{name}-tiles", A, strategy, {**kw, "layout": "tiles"})
+              for name, A, strategy, kw in small
+              if strategy == "cuda-pell-fp64"]
     small += [(name, make(), "cuda-bcsr-spmm", kw)
               for name, (make, kw) in cases.SPMM_CASES.items()]
     small_phase("small-fp64-spmm", small, FP64_SPMM_KERNELS,
@@ -1037,11 +1142,23 @@ def fp64_spmm_phases(dev, card, flagship_A):
           f"{median_ms(matrix_library(A, xd)):.4f} ms | {card}", flush=True)
     del base
 
-    # 19. main path 10: powerlaw100k at fp64 grade through fused PELL
-    pw, pw_counts, *_ = full_path(
-        "powerlaw100k-fp64", cases.powerlaw100k(), "cuda-pell-fp64", {}, dev,
-        card, ("pell_fused_fp64",), lambda m: m["rtol"] == FP64_RTOL,
-        "the fp64 grade", describe=fp64_spmm_meta)
+    # 19. main path 10: powerlaw100k at fp64 grade through PELL on the row
+    # layout, then on the tile layout, then the two kernels in turns
+    pw, pw_counts, pw_prep, _ = full_path(
+        "powerlaw100k-fp64", PL, "cuda-pell-fp64", {}, dev, card,
+        ("pell_rows_fp64",),
+        lambda m: m["rtol"] == FP64_RTOL and m["layout"] == "rows",
+        "the fp64 grade on the row layout", describe=fp64_spmm_meta)
+    pt, pt_counts, pt_prep, _ = full_path(
+        "powerlaw100k-fp64-tiles", PL, "cuda-pell-fp64", {"layout": "tiles"},
+        dev, card, ("pell_fused_fp64",),
+        lambda m: m["rtol"] == FP64_RTOL and "layout" not in m,
+        "the fp64 grade on the tile layout", describe=fp64_spmm_meta,
+        timing=False)
+    layout_ab("powerlaw100k-fp64", pt_prep, pw_prep,
+              torch.as_tensor(make_x(PL.n), dtype=torch.float64, device=dev),
+              card)
+    del pw_prep, pt_prep
 
     # 20-21. main paths 11 and 12: the SpMM at 8 and 64 columns
     sp, sp_counts, *_ = full_path(
@@ -1052,7 +1169,7 @@ def fp64_spmm_phases(dev, card, flagship_A):
               {"cols": 64}, dev, card, ("bcsr_spmm",),
               lambda m: m["cols"] == 64, "64 columns",
               describe=fp64_spmm_meta)
-    return fl, fl_counts, pw, pw_counts, sp, sp_counts
+    return fl, fl_counts, pw, pw_counts, pt, pt_counts, sp, sp_counts
 
 
 def dist_meta(prep):
@@ -1080,10 +1197,11 @@ def dist_meta(prep):
             f"panel_merge {m['panel_merge']}{streams}")
 
 
-def dist_phases(dev, card, flagship_A):
+def dist_phases(dev, card, flagship_A, PL):
     """Phases 22-27: the small row-sharded cases, cuda-chips and the split
-    chips plan, then the five row-sharded main paths. Returns
-    dist-flagship's kernel table and counts, which the kernels line
+    chips plan, then the five row-sharded main paths (the last on
+    powerlaw100k, ``PL``). Returns the kernel tables and counts of
+    dist-flagship and dist-powerlaw100k-pell, which the kernels line
     reports."""
     # 22. the small row-sharded cases, all shards on one card
     launches = dict.fromkeys(DIST_KERNELS, 0)
@@ -1180,12 +1298,13 @@ def dist_phases(dev, card, flagship_A):
               describe=dist_meta, profile=True, prepare=hybrid)
 
     # 27. main path 17: powerlaw100k through the row-sharded fused PELL
-    full_path("dist-powerlaw100k-pell", cases.powerlaw100k(),
-              "row-sharded-pell", {"mesh": [dev]}, dev, card,
-              ("pell_fused", "unpermute"), lambda m: m["row_sort"],
-              "the row-sorted fused PELL", describe=dist_meta,
-              prepare=distributed.prepare_row_sharded_pell)
-    return fl, fl_counts
+    # (the tile layout)
+    dpl, dpl_counts, *_ = full_path(
+        "dist-powerlaw100k-pell", PL, "row-sharded-pell", {"mesh": [dev]},
+        dev, card, ("pell_fused", "unpermute"), lambda m: m["row_sort"],
+        "the row-sorted fused PELL", describe=dist_meta,
+        prepare=distributed.prepare_row_sharded_pell)
+    return fl, fl_counts, dpl, dpl_counts
 
 
 def main() -> int:
@@ -1360,27 +1479,43 @@ def main() -> int:
     print(f"[ext_windowed1m] kernels alone: {phase_line(win)}", flush=True)
     del prep, xd
 
-    # 8. the small PELL cases
-    small_phase("small-pell", [(name, make(), strategy, kw) for name, (
-        make, strategy, kw) in cases.PELL_CASES.items()], PELL_KERNELS,
-        pell_small_meta, dev, "small PELL cases")
+    # 8. the small PELL cases: each at its default layout, and the fused
+    # ones on the tile layout too
+    small = [(name, make(), strategy, kw) for name, (make, strategy, kw)
+             in cases.PELL_CASES.items()]
+    small += [(f"{name}-tiles", A, strategy, {**kw, "layout": "tiles"})
+              for name, A, strategy, kw in small
+              if strategy == "cuda-pell"
+              and kw.get("scheme") not in ("span", "pure")]
+    small_phase("small-pell", small, PELL_KERNELS, pell_small_meta, dev,
+                "small PELL cases")
 
     # 9-12. the PELL family at full size: two main paths through the
-    # hybrid, then the span scheme and BCSR
-    pw, pw_counts, *_ = full_path(
-        "powerlaw100k", cases.powerlaw100k(), "cuda-hybrid", {}, dev, card,
-        ("pell_fused", "unpermute"),
+    # hybrid (each beside its tile layout, in turns), then the span scheme
+    # and BCSR
+    PL = cases.powerlaw100k()
+    pw, pw_counts, pw_prep, _ = full_path(
+        "powerlaw100k", PL, "cuda-hybrid", {}, dev, card, ("pell_rows",),
         lambda m: (m.get("delegated") == "cuda-pell"
-                   and m["scheme"] == "fused" and m["row_sort"]),
-        "the no-locality escape to cuda-pell (fused, row-sorted)")
-    wb, wb_counts, *_ = full_path(
-        "webbase1m", cases.webbase1m(), "cuda-hybrid", {}, dev, card,
-        ("lane_ell_spmv", "pell_fused", "unpermute"),
-        lambda m: (m["tail_kind"] == "compact-cuda-pell"
+                   and m["layout"] == "rows"),
+        "the no-locality escape to cuda-pell (row layout)")
+    xd = torch.as_tensor(make_x(PL.n), dtype=torch.float32, device=dev)
+    old = get_strategy("cuda-pell").prepare(PL, device=dev, layout="tiles")
+    layout_ab("powerlaw100k", old, pw_prep, xd, card)
+    del old, pw_prep
+    WB = cases.webbase1m()
+    wb, wb_counts, wb_prep, _ = full_path(
+        "webbase1m", WB, "cuda-hybrid", {}, dev, card,
+        ("lane_ell_spmv", "pell_rows"),
+        lambda m: (m["tail_kind"] == "compact-cuda-pell-rows"
                    and m["tail_nnz"] > lane_ell.BIG_TAIL),
-        "a compact-PELL tail past BIG_TAIL")
+        "a compact-PELL tail (row layout) past BIG_TAIL")
+    xd = torch.as_tensor(make_x(WB.n), dtype=torch.float32, device=dev)
+    old = hybrid.prepare(WB, device=dev, pell_layout="tiles")
+    layout_ab("webbase1m-tail", old, wb_prep, xd, card)
+    del old, wb_prep, xd, WB
     sp, sp_counts, *_ = full_path(
-        "powerlaw100k-span", cases.powerlaw100k(), "cuda-pell",
+        "powerlaw100k-span", PL, "cuda-pell",
         {"scheme": "span"}, dev, card, ("pell_tiles", "span_segsum"),
         lambda m: m["scheme"] == "span", "the span scheme", timing=False)
     bc, bc_counts, *_ = full_path(
@@ -1389,9 +1524,9 @@ def main() -> int:
         timing=False)
 
     wx, wx_counts = xpose_phases(dev, card)
-    fl64, fl64_counts, pw64, pw64_counts, sp8, sp8_counts = \
-        fp64_spmm_phases(dev, card, flagship_A)
-    dfl, dfl_counts = dist_phases(dev, card, flagship_A)
+    (fl64, fl64_counts, pw64, pw64_counts, pt64, pt64_counts, sp8,
+     sp8_counts) = fp64_spmm_phases(dev, card, flagship_A, PL)
+    dfl, dfl_counts, dpl, dpl_counts = dist_phases(dev, card, flagship_A, PL)
 
     # the kernels line: each kernel timed on the path that runs it
     measured = {"lane_ell_spmv": (flag, flag_counts),
@@ -1401,13 +1536,15 @@ def main() -> int:
                 "ranked_gather": (amz["ranked_gather"], amz_counts),
                 "window_segsum": (amz["window_segsum"], amz_counts),
                 "window_gather": (win["window_gather"], win_counts),
-                "pell_fused": (pw["pell_fused"], pw_counts),
-                "unpermute": (pw["unpermute"], pw_counts),
+                "pell_fused": (dpl["pell_fused"], dpl_counts),
+                "unpermute": (dpl["unpermute"], dpl_counts),
+                "pell_rows": (pw["pell_rows"], pw_counts),
+                "pell_rows_fp64": (pw64["pell_rows_fp64"], pw64_counts),
                 "pell_tiles": (sp["pell_tiles"], sp_counts),
                 "span_segsum": (sp["span_segsum"], sp_counts),
                 **{k: (wx[k], wx_counts) for k in XPOSE_KERNELS},
                 "lane_ell_fp64": (fl64["lane_ell_fp64"], fl64_counts),
-                "pell_fused_fp64": (pw64["pell_fused_fp64"], pw64_counts),
+                "pell_fused_fp64": (pt64["pell_fused_fp64"], pt64_counts),
                 "bcsr_spmm": (sp8["bcsr_spmm"], sp8_counts)}
     line = []
     for name in LINE_ORDER:

@@ -52,6 +52,9 @@ SIGNATURES = {
              "pell_fused_fp64": (P, P, P, P, P, P, P, P, P,
                                  I, I, I, I, I, I, I, I, I, I, P),
              "pell_unpermute": (P, P, P, I64, I, P)},
+    "pell_rows": {"pell_rows": (P, P, P, P, P, P, P, I, I64, I, I, I, P),
+                  "pell_rows_fp64": (P, P, P, P, P, P, P, I, I64, I, I, I,
+                                     P)},
     "xpose": {"xpose_mirror": (P, I64, P, P, P, P, I, P),
               "xpose_s1": (P, I64, P, I, I, P, P, P, P, P, P, I, I, P),
               "xpose_s3": (P, P, P, I, I, I64, P)},

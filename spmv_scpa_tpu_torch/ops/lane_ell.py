@@ -24,7 +24,9 @@ Counterpart of ``spmv_scpa_tpu/ops/lane_ell.py:prepare_lane_ell_hybrid``
   ``tail_strategy="auto"`` a second hybrid over the tail when it has
   locality, y summed on the device. A matrix whose widest diagonal
   window covers under 40% of its entries goes to ``cuda-pell`` whole
-  (the no-locality escape).
+  (the no-locality escape). ``pell_layout`` is the PELL layout of the
+  escape and of a compact PELL tail (``ops/pell.py``): ``"auto"``, the
+  row quanta of ``ops/pell_rows.py``, or ``"tiles"``, the reference's.
 
 ``pack_lane_ell(..., x_off=r0, core_only=True)`` packs one row shard
 for ``parallel/distributed.py``: the window frame shifts by the shard's
@@ -53,7 +55,7 @@ import torch
 from spmv_scpa_tpu_torch import _kernels
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.ops import (chips_tail, ext_gather, pell,
-                                     segsum_kernel, xpose)
+                                     pell_rows, segsum_kernel, xpose)
 from spmv_scpa_tpu_torch.ops.registry import Prepared, record_calls
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
 
@@ -1155,23 +1157,27 @@ def no_locality(A: CSR, loc_w="auto", ext="auto",
     return d_cov if d_cov < 0.4 else None
 
 
-def prepare_lane_ell_hybrid(A: CSR, device="cuda", **knobs):
+def prepare_lane_ell_hybrid(A: CSR, device="cuda", pell_layout="auto",
+                            **knobs):
     """Pack ``A`` (:func:`pack_lane_ell`, same knobs as the reference)
     and bind ``fn(x) -> y`` on ``device``: stage x (with the ext panels
     when the plan has them), run the core, add the tail (chips tail and
     landing, the compact ``index_add_``, or the big-tail branch). A
     matrix without diagonal locality returns ``cuda-pell``'s Prepared
-    instead, its meta marked ``delegated``. ``device`` defaults to the
-    card and raises without one; ``"cpu"`` runs the plain versions."""
+    instead, its meta marked ``delegated``. ``pell_layout``: the layout
+    of that escape and of a compact PELL tail. ``device`` defaults to
+    the card and raises without one; ``"cpu"`` runs the plain
+    versions."""
     dev = resolve_device(device)
+    pell.use_layout(pell_layout)
     d_cov = no_locality(A, **knobs)
     if d_cov is not None:
-        prep = pell.prepare_pell(A, device=dev)
+        prep = pell.prepare_pell(A, device=dev, layout=pell_layout)
         prep.meta.setdefault("tail_kind", "cuda-pell")
         prep.meta["delegated"] = "cuda-pell"
         prep.meta["d_cov"] = round(d_cov, 4)
         return prep
-    plan, run, stage, hbm = _bind(A, dev, **knobs)
+    plan, run, stage, hbm = _bind(A, dev, pell_layout, **knobs)
     return Prepared(
         "cuda-hybrid", A.name, lambda x: run(x, KERNELS),
         device=dev, nnz=A.nnz, ref="pallas-hybrid", hbm_bytes=int(hbm),
@@ -1181,7 +1187,17 @@ def prepare_lane_ell_hybrid(A: CSR, device="cuda", **knobs):
                                              PLAIN))
 
 
-def _bind(A: CSR, dev, **knobs):
+def compact_tail(A: CSR, plan: LanePlan):
+    """The big tail of ``plan`` as its own matrix over the tail's rows
+    renumbered 0..NH-1: (that CSR, the tail's row ids in ``A``)."""
+    R = np.unique(plan.trows)
+    tail = CSR.from_coo(A.name + "_tail", int(R.size), A.n,
+                        np.searchsorted(R, plan.trows), plan.tcols,
+                        plan.tvals)
+    return tail, R
+
+
+def _bind(A: CSR, dev, pell_layout="auto", **knobs):
     """Pack ``A`` and bind it on ``dev``: returns (plan, run, stage,
     hbm_bytes) with ``run(x, ops) -> y`` (m,) and ``stage(xf)`` the
     core's arguments. Fills the plan's meta for a big tail."""
@@ -1248,7 +1264,7 @@ def _bind(A: CSR, dev, **knobs):
         tail = CSR.from_coo(A.name + "_tail", m, n, plan.trows,
                             plan.tcols, plan.tvals)
         sub, sub_run, _, sub_hbm = _bind(
-            tail, dev, depth=knobs.get("depth", 0) + 1,
+            tail, dev, pell_layout, depth=knobs.get("depth", 0) + 1,
             max_depth=knobs.get("max_depth", 2),
             tail_xla_max=knobs.get("tail_xla_max", 32768))
         plan.meta["tail_meta"] = sub.meta
@@ -1256,15 +1272,17 @@ def _bind(A: CSR, dev, **knobs):
     elif plan.big_tail is not None:
         # PELL or XPOSE over the tail's NH rows renumbered 0..NH-1,
         # landed like the chips tail's per-row sums
-        R = np.unique(plan.trows)
-        tail = CSR.from_coo(A.name + "_tail", int(R.size), n,
-                            np.searchsorted(R, plan.trows), plan.tcols,
-                            plan.tvals)
+        tail, R = compact_tail(A, plan)
         if plan.big_tail == "pallas-xpose":
             tplan = xpose.plan_or_raise(tail)
             sub_run = xpose.bind_plan(tplan, dev)
             t_meta, t_hbm = (xpose.plan_meta(tplan, tail.nnz),
                              xpose.hbm_bytes(tplan))
+        elif pell.use_layout(pell_layout) == "rows":
+            tplan = pell.plan_rows(tail)
+            sub_run = pell_rows.bind_plan(tplan, dev)
+            t_meta, t_hbm = tplan.meta, tplan.hbm_bytes
+            plan.meta["tail_kind"] = "compact-cuda-pell-rows"
         else:
             tplan = pell.plan_pell(tail)
             sub_run = pell.bind_plan(tplan, dev)

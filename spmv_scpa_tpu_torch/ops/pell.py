@@ -25,6 +25,16 @@ segment-sum. ``cuda-pell-fp64`` (the reference's ``prepare_pell_df64``)
 packs one panel per tile without the row sort (:func:`plan_pell_fp64`)
 and runs :func:`pell_fused_fp64`, the fused kernel in float64.
 
+Layouts. ``prepare_pell`` and ``prepare_pell_fp64`` take ``layout``:
+``"tiles"`` is all of the above, the reference's arrays; ``"auto"``
+(the default) packs row quanta without panels (``ops/pell_rows.py``,
+the kernels ``pell_rows`` and ``pell_rows_fp64``), which Hopper streams
+at a fraction of the tiles' bytes, for the fused scheme and the fp64
+grade, and the tiles for ``scheme="span"`` and ``"pure"``. The row layout keeps the reference's refusals (#8a-c
+below, the fp64 grade's 2^24 row and x-pair budgets), records the tile
+geometry knobs it has no use for in ``meta["tile_knobs"]``, and reads
+``quantum`` as its row quantum (2, 4, 8 or 16).
+
 The host parts are JAX-free copies of the reference's and keep its
 TPU-tuned choices (quantum, window, chunk, superpanel width and the
 span bound), so the packed arrays and tables equal the reference's; the
@@ -54,6 +64,7 @@ from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.formats.panel_ell import (BR, DEFAULT_QUANTUM,
                                                    DEFAULT_WINDOW_H,
                                                    csr_to_pell)
+from spmv_scpa_tpu_torch.ops import pell_rows as prows
 from spmv_scpa_tpu_torch.ops import segsum_kernel
 from spmv_scpa_tpu_torch.ops.registry import (FP64_RTOL, Prepared,
                                               record_calls)
@@ -68,6 +79,10 @@ SMEM_MAX = 232_448           # shared memory a block may take on an H100
 TPU_KNOBS = {"precision_passes": 2, "epilogue_passes": 2,
              "epilogue_ncat": False, "idx_dtype": None, "dedup_max": 0,
              "wide": None, "diag": ""}
+# The tile layout's geometry knobs, which the row layout has no use for.
+TILE_KNOBS = ("chunk", "window_h", "epilogue_sub", "span_max", "row_sort",
+              "panel_w", "g_max")
+LAYOUTS = ("auto", "tiles")
 
 _TODO_STRIPES = ("ROADMAP queue 1 #8a (PELL column stripes: "
                  "_prepare_pell_striped)")
@@ -508,6 +523,28 @@ def plan_pell(A: CSR, chunk: int | str = "auto",
         hbm_bytes=P.num_tiles * BR * BC * (4 + idx_bytes))
 
 
+def fp64_refusals(A: CSR, quantum: int) -> None:
+    """The reference's refusals of the fp64 grade, kept for parity, each
+    a ``ValueError``: a row too long for its digit planes' 2^24 integer
+    budget at the reference's ``quantum``, and an x pair past
+    ``X_VMEM_BUDGET``. Native fp64 has neither limit."""
+    # the reference's digit sums per output row must stay < 2^24 (f32
+    # integer exactness)
+    max_row = int(np.diff(A.irp).max(initial=0))
+    if (max_row + quantum) * 130 * 2 >= 1 << 24:
+        raise ValueError(
+            f"cuda-pell-fp64: max row length {max_row} overflows the 2^24 "
+            "exact-integer budget of the reference's digit planes; use "
+            "torch-ell-fp64")
+    x_bytes = 2 * max(1, -(-A.n // BC)) * BC * 4
+    if x_bytes > X_VMEM_BUDGET:
+        # the reference's hi/lo x pair resident in VMEM (checked before
+        # packing: it depends on n alone)
+        raise ValueError(
+            f"cuda-pell-fp64: x pair ({x_bytes} B) exceeds the budget "
+            f"{X_VMEM_BUDGET} B; use torch-ell-fp64 for this matrix")
+
+
 def plan_pell_fp64(A: CSR, chunk: int = DEFAULT_CHUNK,
                    quantum: int | str = "auto",
                    window_h: int | str = "auto", span_max: int = 8,
@@ -517,8 +554,7 @@ def plan_pell_fp64(A: CSR, chunk: int = DEFAULT_CHUNK,
     ``_make_fused_spmv_df64``, :882-933): the tuning axes at one panel
     and no row sort, the fused scheme with the ``window_h`` escalation,
     the values kept in float64. The TPU's refusals stay for parity, each
-    a ``ValueError``: a row too long for its digit planes' 2^24 integer
-    budget, and an x pair past ``X_VMEM_BUDGET``. A chunk whose float64
+    a ``ValueError`` (:func:`fp64_refusals`). A chunk whose float64
     partials would not fit a block's shared memory is refused too, before
     any packing."""
     auto = auto_pell_params(A, quantum=quantum, window_h=window_h,
@@ -530,21 +566,7 @@ def plan_pell_fp64(A: CSR, chunk: int = DEFAULT_CHUNK,
             f"cuda-pell-fp64: a step's partials ({smem} B at chunk {chunk}, "
             f"quantum {quantum}) exceed the shared memory of a block "
             f"({SMEM_MAX} B); use a smaller chunk")
-    # the reference's digit sums per output row must stay < 2^24 (f32
-    # integer exactness); native fp64 has no such limit, kept for parity
-    max_row = int(np.diff(A.irp).max(initial=0))
-    if (max_row + quantum) * 130 * 2 >= 1 << 24:
-        raise ValueError(
-            f"cuda-pell-fp64: max row length {max_row} overflows the 2^24 "
-            "exact-integer budget of the reference's digit planes; use "
-            "torch-ell-fp64")
-    x_bytes = 2 * max(1, -(-A.n // BC)) * BC * 4
-    if x_bytes > X_VMEM_BUDGET:
-        # the reference's hi/lo x pair resident in VMEM, kept for parity
-        # (checked before packing: it depends on n alone)
-        raise ValueError(
-            f"cuda-pell-fp64: x pair ({x_bytes} B) exceeds the budget "
-            f"{X_VMEM_BUDGET} B; use torch-ell-fp64 for this matrix")
+    fp64_refusals(A, quantum)
     P = None
     for wh_try in (wh0, 2 * wh0, 4 * wh0):
         P = csr_to_pell(A, quantum=quantum, window_h=wh_try,
@@ -565,6 +587,43 @@ def plan_pell_fp64(A: CSR, chunk: int = DEFAULT_CHUNK,
         meta={"num_blocks": P.num_tiles, "fill": P.fill, "chunk": chunk,
               "quantum": quantum, "window_h": wh_used, "rtol": FP64_RTOL},
         hbm_bytes=P.num_tiles * BR * BC * 9, dtype=torch.float64)
+
+
+def plan_rows(A: CSR, dtype=torch.float32, quantum: int | str = "auto",
+              scheme: str = "auto", x_vmem_budget: int = X_VMEM_BUDGET,
+              hot_cols: int = 0, split_shift: bool = False,
+              **knobs) -> prows.RowsPlan:
+    """Pack ``A`` in the row layout (:func:`pell_rows.plan_pell_rows`)
+    for ``cuda-pell`` (float32) or ``cuda-pell-fp64`` (float64), with the
+    reference's refusals of each and its knobs recorded in meta."""
+    if scheme not in ("auto", "fused"):
+        raise ValueError(f"pell: scheme {scheme!r} runs on the tile layout; "
+                         "use layout='tiles'")
+    if dtype == torch.float64:
+        fp64_refusals(A, auto_pell_params(A, quantum=quantum)["quantum"])
+    else:
+        p_rows_pad = -(-(-(-A.n // BC)) // 8) * 8
+        if p_rows_pad * BC * 4 > x_vmem_budget:
+            raise NotImplementedError(
+                f"cuda-pell: x ({p_rows_pad * BC * 4} B) exceeds "
+                f"x_vmem_budget={x_vmem_budget}: {_TODO_STRIPES}")
+        if hot_cols:
+            raise NotImplementedError(f"cuda-pell hot_cols: {_TODO_HOT}")
+        if split_shift:
+            raise NotImplementedError(
+                f"cuda-pell split_shift: {_TODO_SHIFT}")
+    plan = prows.plan_pell_rows(A, dtype,
+                                None if quantum == "auto" else quantum)
+    tile = {k: knobs[k] for k in TILE_KNOBS if k in knobs}
+    tpu = {k: knobs[k] for k in TPU_KNOBS
+           if k in knobs and knobs[k] != TPU_KNOBS[k]}
+    if tile:
+        plan.meta["tile_knobs"] = tile
+    if tpu:
+        plan.meta["tpu_knobs"] = tpu
+    if dtype == torch.float64:
+        plan.meta["rtol"] = FP64_RTOL
+    return plan
 
 
 def plan_bcsr(A: CSR, chunk: int = DEFAULT_CHUNK,
@@ -840,23 +899,26 @@ class PellKernels(NamedTuple):
     span_segsum: Callable
     window_segsum: Callable
     unpermute: Callable
+    pell_rows: Callable
 
 
 KERNELS = PellKernels(pell_fused, pell_tiles, segsum_kernel.span_segsum,
-                      segsum_kernel.window_segsum, unpermute)
+                      segsum_kernel.window_segsum, unpermute, prows.pell_rows)
 PLAIN = PellKernels(pell_fused_plain, pell_tiles_plain,
                     segsum_kernel.span_segsum_plain,
-                    segsum_kernel.window_segsum_plain, unpermute_plain)
+                    segsum_kernel.window_segsum_plain, unpermute_plain,
+                    prows.pell_rows_plain)
 
 
 class PellFp64Kernels(NamedTuple):
     """The functions a ``cuda-pell-fp64`` call runs, by name."""
 
     pell_fused_fp64: Callable
+    pell_rows_fp64: Callable
 
 
-FP64_KERNELS = PellFp64Kernels(pell_fused_fp64)
-FP64_PLAIN = PellFp64Kernels(pell_fused_plain)
+FP64_KERNELS = PellFp64Kernels(pell_fused_fp64, prows.pell_rows_fp64)
+FP64_PLAIN = PellFp64Kernels(pell_fused_plain, prows.pell_rows_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -911,9 +973,12 @@ def bind_plan(plan: PellPlan, dev) -> Callable:
     return run
 
 
-def _prepared(name: str, ref: str, A: CSR, plan: PellPlan, dev,
-              kernels=KERNELS, plain=PLAIN):
-    run = bind_plan(plan, dev)
+def _prepared(name: str, ref: str, A: CSR, plan, dev, kernels=KERNELS,
+              plain=PLAIN):
+    """Bind ``plan`` (a :class:`PellPlan` or a row-layout
+    :class:`pell_rows.RowsPlan`) on ``dev`` as strategy ``name``."""
+    bind = prows.bind_plan if isinstance(plan, prows.RowsPlan) else bind_plan
+    run = bind(plan, dev)
     n = A.n
 
     def call(x, ops):
@@ -930,22 +995,42 @@ def _prepared(name: str, ref: str, A: CSR, plan: PellPlan, dev,
                         lambda ops: call(xf, ops), plain))
 
 
-def prepare_pell(A: CSR, device="cuda", **knobs) -> Prepared:
-    """``cuda-pell``: pack ``A`` (:func:`plan_pell`, the reference's
-    knobs) and bind ``fn(x) -> y`` on ``device`` (the card by default;
-    ``"cpu"`` runs the plain versions)."""
-    dev = resolve_device(device)
-    return _prepared("cuda-pell", "pallas-pell", A, plan_pell(A, **knobs),
-                     dev)
+def use_layout(layout: str, scheme: str = "auto") -> str:
+    """``"rows"`` or ``"tiles"``: what a ``layout`` knob (module
+    docstring) packs for PELL ``scheme``."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"pell: unknown layout {layout!r}; one of "
+                         f"{LAYOUTS}")
+    return ("tiles" if layout == "tiles" or scheme in ("span", "pure")
+            else "rows")
 
 
-def prepare_pell_fp64(A: CSR, device="cuda", **knobs) -> Prepared:
-    """``cuda-pell-fp64``: pack ``A`` (:func:`plan_pell_fp64`) and bind
-    ``fn(x) -> y`` (float64 in, float64 out) on ``device``."""
+def prepare_pell(A: CSR, device="cuda", layout: str = "auto",
+                 **knobs) -> Prepared:
+    """``cuda-pell``: pack ``A`` in ``layout`` (:func:`plan_rows`, or
+    :func:`plan_pell` with the reference's knobs) and bind ``fn(x) -> y``
+    on ``device`` (the card by default; ``"cpu"`` runs the plain
+    versions)."""
     dev = resolve_device(device)
-    return _prepared("cuda-pell-fp64", "pallas-pell-df64", A,
-                     plan_pell_fp64(A, **knobs), dev, FP64_KERNELS,
-                     FP64_PLAIN)
+    if use_layout(layout, knobs.get("scheme", "auto")) == "rows":
+        plan = plan_rows(A, torch.float32, **knobs)
+    else:
+        plan = plan_pell(A, **knobs)
+    return _prepared("cuda-pell", "pallas-pell", A, plan, dev)
+
+
+def prepare_pell_fp64(A: CSR, device="cuda", layout: str = "auto",
+                      **knobs) -> Prepared:
+    """``cuda-pell-fp64``: pack ``A`` in ``layout`` (:func:`plan_rows`,
+    or :func:`plan_pell_fp64`) and bind ``fn(x) -> y`` (float64 in,
+    float64 out) on ``device``."""
+    dev = resolve_device(device)
+    if use_layout(layout) == "rows":
+        plan = plan_rows(A, torch.float64, **knobs)
+    else:
+        plan = plan_pell_fp64(A, **knobs)
+    return _prepared("cuda-pell-fp64", "pallas-pell-df64", A, plan, dev,
+                     FP64_KERNELS, FP64_PLAIN)
 
 
 def prepare_bcsr(A: CSR, device="cuda", **knobs) -> Prepared:

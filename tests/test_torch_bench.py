@@ -270,6 +270,32 @@ def test_chip_smoke_pell_yardsticks_compute_the_kernels_function(name):
             torch.testing.assert_close(got, out, rtol=1e-5, atol=1e-5)
 
 
+def test_chip_smoke_fused_yardstick_on_the_tile_layout():
+    """The fused kernel's yardstick (``pell-pl3000`` on the tile layout,
+    the row-sorted fused scheme) computes what the kernel does, and its
+    bound is set by bytes; the row layout's format-free bound of the same
+    matrix is below its format bound."""
+    cs = _chip_smoke()
+    from spmv_scpa_tpu_torch.bench.cases import PELL_CASES
+    from spmv_scpa_tpu_torch.ops import pell
+    from spmv_scpa_tpu_torch.utils.vector import make_x
+    make, strategy, kw = PELL_CASES["pell-pl3000"]
+    A = make()
+    xd = torch.as_tensor(make_x(A.n), dtype=torch.float32)
+    tiles = pell.prepare_pell(A, device="cpu", layout="tiles", **kw)
+    (kname, args), _ = tiles.kernel_calls(xd)
+    assert kname == "pell_fused"
+    out = pell.pell_fused_plain(*args)
+    ms, by = cs.bound(kname, args, out)
+    assert by == "bytes" and ms > 0
+    got = cs.library(kname, args, None, xd)()
+    torch.testing.assert_close(got.reshape(-1)[:out.numel()].view_as(out),
+                               out, rtol=1e-5, atol=1e-5)
+    (kname, args), = pell.prepare_pell(A, device="cpu").kernel_calls(xd)
+    out = cs.PLAIN[kname](*args)
+    assert cs.free_bound_ms(args, out) <= cs.bound(kname, args, out)[0]
+
+
 @pytest.mark.parametrize("name", ["webbase30k", "amazon8k"])
 def test_chip_smoke_xpose_yardsticks_compute_the_kernels_function(name):
     """Each XPOSE kernel's library yardstick computes what the kernel

@@ -78,10 +78,13 @@ ROUTES = {
 
 @functools.cache
 def _route(name):
+    """The port on the tile layout, whose PELL meta and bytes are the
+    reference's (the row layout: tests/test_torch_pell_rows.py)."""
     make, kw = ROUTES[name]
     A = make(synth)
     x = make_x(A.n)
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", **kw)
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu",
+                                            pell_layout="tiles", **kw)
     jprep = jax_prepare(make(jax_synth), interpret=True, **kw)
     return A, x, prep, jprep, to_numpy(prep.fn(x)), \
         np.asarray(jprep.fn(x), dtype=np.float64)
@@ -124,12 +127,12 @@ def test_webbase200k_big_tail_runs_compact_pell():
     """The webbase-1M stand-in at 200k rows (the reference pins this
     route, tests/test_round3_mechanisms.py:56-63): its tail passes
     BIG_TAIL, the single chips plan does not fit, so the tail runs as
-    compact PELL."""
+    compact PELL, on the row layout by default."""
     A = synth.webbase_csr(m=200_000, seed=7)
     x = make_x(A.n)
     prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu")
     m = prep.meta
-    assert m["tail_kind"] == "compact-cuda-pell", m["tail_kind"]
+    assert m["tail_kind"] == "compact-cuda-pell-rows", m["tail_kind"]
     assert m["tail_nnz"] > lane_ell.BIG_TAIL
     y = to_numpy(prep.fn(x))
     gold = spmv_oracle(A, x)

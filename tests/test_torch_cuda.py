@@ -18,7 +18,9 @@ the tile kernel rounds as its plain version does and the un-permute
 moves values, so both are bit-equal to their plain versions on the
 card; the fused kernel and the span segment-sum add in the fixed order
 of their plain versions on the CPU (bit-equal) and are within rel-L2
-1e-6 of those on the card. XPOSE's three kernels move values, take one
+1e-6 of those on the card. The row-layout kernels ``pell_rows`` and
+``pell_rows_fp64`` add in their plain version's fixed order: bit-equal
+to it run on the CPU, at both grades. XPOSE's three kernels move values, take one
 f32 product per slot and scan in the plain versions' order: bit-equal on
 the card and against the CPU; a whole XPOSE call (virtual rows added by
 ``index_add_``) within rel-L2 1e-6 of its plain call. Against
@@ -46,7 +48,8 @@ from spmv_scpa_tpu_torch.bench import cases
 from spmv_scpa_tpu_torch.bench.cases import PELL_CASES, SMALL_CASES
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.ops import (ext_gather, lane_ell, lane_ell_fp64,
-                                     pell, segsum_kernel, spmm, xpose)
+                                     pell, pell_rows, segsum_kernel, spmm,
+                                     xpose)
 from spmv_scpa_tpu_torch.parallel import distributed
 from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import to_numpy
@@ -204,7 +207,8 @@ def test_window_segsum_matches_plain(card):
 
 # the kernels that add in a fixed order whose plain versions use
 # index_add_ (atomics on the card)
-ORDERED = ("pell_fused", "span_segsum", "window_segsum", "pell_fused_fp64")
+ORDERED = ("pell_fused", "span_segsum", "window_segsum", "pell_fused_fp64",
+           "pell_rows", "pell_rows_fp64")
 # every kernel and its plain version, by name
 KERNELS = {**lane_ell.KERNELS._asdict(), **lane_ell_fp64.KERNELS._asdict(),
            **pell.FP64_KERNELS._asdict(), **spmm.KERNELS._asdict(),
@@ -238,12 +242,13 @@ def test_pell_case_kernels_match_plain(card, name):
     prep = get_strategy(strategy).prepare(A, device=card, **kw)
     xd = torch.as_tensor(x, dtype=torch.float32, device=card)
     before = (dict(pell.LAUNCHES), segsum_kernel.SPAN_LAUNCHES,
-              segsum_kernel.KERNEL_LAUNCHES)
+              segsum_kernel.KERNEL_LAUNCHES, pell_rows.LAUNCHES["pell_rows"])
     yk = to_numpy(prep.fn(xd))
     calls = prep.kernel_calls(xd)
     launched = {**{k: pell.LAUNCHES[k] - before[0][k] for k in pell.LAUNCHES},
                 "span_segsum": segsum_kernel.SPAN_LAUNCHES - before[1],
-                "window_segsum": segsum_kernel.KERNEL_LAUNCHES - before[2]}
+                "window_segsum": segsum_kernel.KERNEL_LAUNCHES - before[2],
+                "pell_rows": pell_rows.LAUNCHES["pell_rows"] - before[3]}
     assert {k for k, v in launched.items() if v} == {k for k, _ in calls}
     yt = to_numpy(prep.plain(xd))
     assert np.linalg.norm(yk - yt) <= \
@@ -285,7 +290,7 @@ def test_pell_fused_takes_a_large_step(card):
     from spmv_scpa_tpu_torch import testing as synth
     A = synth.powerlaw_csr(4000, 4000, seed=5)
     prep = pell.prepare_pell(A, device=card, chunk=256, quantum=8,
-                             g_max=4096)
+                             g_max=4096, layout="tiles")
     assert prep.meta["scheme"] == "fused" and prep.meta["chunk"] == 256
     x = make_x(A.n)
     validate_result(spmv_oracle(A, x), to_numpy(prep.fn(x)),
@@ -448,7 +453,8 @@ def test_xpose_wrappers_refuse_mixed_devices(card):
 # ---- the fp64 grade and the SpMM ------------------------------------------
 
 FP64_LAUNCHES = {"cuda-hybrid-fp64": lambda: lane_ell_fp64.KERNEL_LAUNCHES,
-                 "cuda-pell-fp64": lambda: pell.LAUNCHES["pell_fused_fp64"]}
+                 "cuda-pell-fp64":
+                 lambda: pell_rows.LAUNCHES["pell_rows_fp64"]}
 
 
 @pytest.mark.parametrize("name", sorted(cases.FP64_CASES))
@@ -502,7 +508,8 @@ def test_new_wrappers_refuse_mixed_devices_and_dtypes(card):
     with pytest.raises(ValueError, match="xpad is torch.float32"):
         lane_ell_fp64.lane_ell_fp64(xpad.float(), vals, idx, cfg)
     B = cases.FP64_CASES["fp64-pell-banded512"][0]()
-    prep = get_strategy("cuda-pell-fp64").prepare(B, device=card)
+    prep = get_strategy("cuda-pell-fp64").prepare(B, device=card,
+                                                  layout="tiles")
     (_, fused), = prep.kernel_calls(
         torch.zeros(B.n, dtype=torch.float64, device=card))
     vals, idx, pan, x, rbl, base, cfg, lists = fused
@@ -528,9 +535,11 @@ def test_pell_fused_fp64_refuses_a_step_past_shared_memory(card):
     launches nothing."""
     A = synth.webbase_csr(6000, seed=7)
     with pytest.raises(ValueError, match="shared memory"):
-        pell.prepare_pell_fp64(A, device=card, chunk=256, quantum=8)
+        pell.prepare_pell_fp64(A, device=card, chunk=256, quantum=8,
+                               layout="tiles")
     prep = pell.prepare_pell(A, device=card, chunk=256, quantum=8,
-                             scheme="fused", row_sort=False, panel_w=1)
+                             scheme="fused", row_sort=False, panel_w=1,
+                             layout="tiles")
     (name, args), = prep.kernel_calls(
         torch.as_tensor(make_x(A.n), dtype=torch.float32, device=card))
     assert name == "pell_fused" and args[6].chunk == 256
@@ -540,6 +549,71 @@ def test_pell_fused_fp64_refuses_a_step_past_shared_memory(card):
         pell.pell_fused_fp64(vals.double(), idx, pan, x.double(), rbl, base,
                              cfg, lists)
     assert pell.LAUNCHES["pell_fused_fp64"] == before
+
+
+# ---- PELL over row quanta ----------------------------------------------------
+
+def _carry_matrix():
+    """Rows that cross 2048-slot blocks: a row over four blocks at Q=2,
+    empty first, middle and last rows, a run of one-entry rows across a
+    boundary."""
+    rng = np.random.default_rng(17)
+    lens = np.array([0, 3, 7000, 0, 1, 1, 1, 2500, 0, 0, 40, 1, 0] * 3
+                    + [900, 0])
+    rows = np.repeat(np.arange(lens.size), lens)
+    cols = rng.integers(0, 5000, rows.size)
+    return CSR.from_coo("carry", lens.size, 5000, rows, cols,
+                        rng.standard_normal(rows.size))
+
+
+ROWS_MATRICES = {
+    "powerlaw4000": lambda: synth.powerlaw_csr(4000, 4000, seed=5),
+    "webbase20k": lambda: synth.webbase_csr(20000, seed=5),
+    "carry": _carry_matrix,
+    "empty": lambda: CSR.from_coo("empty", 7, 9, [], [], []),
+}
+
+
+@pytest.mark.parametrize("quantum", [None, 2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(ROWS_MATRICES))
+def test_pell_rows_matches_plain_on_the_cpu(card, name, dtype, quantum):
+    """Both grades, every quantum (None: the host rule): the kernel
+    equals its plain version run on the CPU bit for bit, launching once
+    a call."""
+    A = ROWS_MATRICES[name]()
+    plan = pell_rows.plan_pell_rows(A, dtype, quantum)
+    args = [torch.as_tensor(a) for a in (plan.vals, plan.cols, plan.qptr,
+                                          plan.blk_lo)]
+    args.append(torch.as_tensor(make_x(A.n), dtype=dtype))
+    what = "pell_rows" if dtype == torch.float32 else "pell_rows_fp64"
+    before = pell_rows.LAUNCHES[what]
+    y = getattr(pell_rows, what)(*[a.to(card) for a in args])
+    torch.cuda.synchronize()
+    assert pell_rows.LAUNCHES[what] == before + 1
+    assert y.shape == (A.m,) and y.dtype == dtype
+    assert torch.equal(y.cpu(), pell_rows.pell_rows_plain(*args))
+
+
+def test_pell_rows_wrappers_refuse_bad_arguments(card):
+    A = synth.powerlaw_csr(2000, 2000, seed=3)
+    plan = pell_rows.plan_pell_rows(A)
+    vals, cols, qptr, blk_lo = (torch.as_tensor(a, device=card) for a in (
+        plan.vals, plan.cols, plan.qptr, plan.blk_lo))
+    x = torch.zeros(A.n, device=card)
+    fn = pell_rows.pell_rows
+    before = dict(pell_rows.LAUNCHES)
+    for bad, what in (((vals.double(), cols, qptr, blk_lo, x), "vals"),
+                      ((vals, cols.long(), qptr, blk_lo, x), "cols"),
+                      ((vals, cols, qptr, blk_lo[:-1], x), "blk_lo"),
+                      ((vals, cols, qptr, blk_lo, x.cpu()), "x is on cpu"),
+                      ((vals, cols, qptr.cpu(), blk_lo, x), "qptr is on cpu"),
+                      ((vals, cols, qptr, blk_lo, x.double()), "x is torch")):
+        with pytest.raises(ValueError, match=what):
+            fn(*bad)
+    with pytest.raises(ValueError, match="vals"):
+        pell_rows.pell_rows_fp64(vals, cols, qptr, blk_lo, x.double())
+    assert pell_rows.LAUNCHES == before
 
 
 # ---- row shards and the split chips plan ------------------------------------

@@ -288,7 +288,7 @@ def test_pell_plan_matches_jax(name):
     np.testing.assert_array_equal(plan.idx.astype(np.int32), lcol)
     assert plan.idx.dtype == np.int8 and plan.kind == "fused"
     want = {k: v for k, v in jprep.meta.items() if k != "planes"}
-    prep = pell.prepare_pell_fp64(A, device="cpu")
+    prep = pell.prepare_pell_fp64(A, device="cpu", layout="tiles")
     assert prep.meta == want
     assert prep.hbm_bytes == jprep.hbm_bytes
     assert prep.ref == "pallas-pell-df64" == jprep.strategy
@@ -304,14 +304,15 @@ def test_pell_refusals_match_jax():
                 np.ones(69_000))
     with pytest.raises(ValueError, match="2\\^24"):
         pell.prepare_pell_fp64(CSR.from_coo("long", *long_row),
-                               device="cpu")
+                               device="cpu", layout="tiles")
     with pytest.raises(ValueError, match="2\\^24"):
         jprep(JaxCSR.from_coo("long", *long_row))
     # 1.6M columns: the hi/lo x pair takes 12.8 MB > X_VMEM_BUDGET
     wide = (64, 1_600_000, np.arange(64), np.arange(64) * 25_000,
             np.ones(64))
     with pytest.raises(ValueError, match="x pair"):
-        pell.prepare_pell_fp64(CSR.from_coo("w", *wide), device="cpu")
+        pell.prepare_pell_fp64(CSR.from_coo("w", *wide), device="cpu",
+                               layout="tiles")
     with pytest.raises(ValueError, match="x pair"):
         jprep(JaxCSR.from_coo("w", *wide))
 
@@ -349,7 +350,7 @@ def test_pell_y_matches_jax_and_oracle(name):
 
 def test_pell_fp64_wrapper_on_cpu_tensors():
     A = MATRICES["powerlaw400"](synth)
-    prep = pell.prepare_pell_fp64(A, device="cpu")
+    prep = pell.prepare_pell_fp64(A, device="cpu", layout="tiles")
     xd = torch.as_tensor(make_x(A.n), dtype=torch.float64)
     (name, args), = prep.kernel_calls(xd)
     assert name == "pell_fused_fp64"

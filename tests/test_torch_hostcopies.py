@@ -80,6 +80,8 @@ def test_port_and_chip_smoke_load_no_jax_package():
     mods = _port_modules()
     assert {"spmv_scpa_tpu_torch.ops.chips_tail",
             "spmv_scpa_tpu_torch.ops.pell",
+            "spmv_scpa_tpu_torch.ops.pell_rows",
+            "spmv_scpa_tpu_torch.bench.rows_study",
             "spmv_scpa_tpu_torch.ops.xpose",
             "spmv_scpa_tpu_torch.ops.xpose_plan",
             "spmv_scpa_tpu_torch.ops.nearfar",

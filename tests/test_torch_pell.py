@@ -5,6 +5,10 @@ as tests/test_kernels.py runs them. Each side builds its matrix with its
 own generator from the same seed. The CUDA kernels themselves are held
 against their plain versions in tests/test_torch_cuda.py.
 
+``cuda-pell`` runs here on ``layout="tiles"``, the layout whose arrays
+are the reference's; its default row layout is held against the same
+JAX strategies in tests/test_torch_pell_rows.py.
+
 Tolerances:
 * host parts (tuning axes, the row sort, packed arrays, the fused and
   tile paths' tables, meta and bytes) against JAX: exact;
@@ -103,7 +107,9 @@ def _run(name):
     np.testing.assert_array_equal(A.as_, A_jax.as_)
     planner = pell.plan_pell if strategy == "cuda-pell" else pell.plan_bcsr
     plan = planner(A, **kw)
-    prep = get_strategy(strategy).prepare(A, device="cpu", **kw)
+    # the reference's arrays: cuda-pell on the tile layout
+    tiles = {"layout": "tiles"} if strategy == "cuda-pell" else {}
+    prep = get_strategy(strategy).prepare(A, device="cpu", **kw, **tiles)
     jprep = jax_strategy(REF[strategy]).prepare(A_jax, interpret=True, **kw)
     x = make_x(A.n)
     return (A, plan, prep, jprep, x, to_numpy(prep.fn(x)),
