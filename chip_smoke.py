@@ -116,15 +116,17 @@ exits 2.
 
 Tolerances: the whole call against its plain call, rel-L2 <= 1e-6 and
 per row |dy| <= 1e-5 * (|A||x|)_row: the core, the gathers, the tile
-kernel and the un-permute are bit-equal to their plain versions, while
-the plain segment-sums, the plain fused kernel and the compact tail's
+kernel, the segment-sums and the un-permute are bit-equal to their plain
+versions, while the plain fused kernel and the compact tail's
 ``index_add_`` add with atomics in a varying order on the card. Each
 kernel call replayed alone: the core, the gathers, the tile kernel, the
 un-permute and XPOSE's mirror, S1 and S3 bit-equal to their plain
 versions, and so is the row-shard core ``lane_ell_sharded``; the
-segment-sums, the fused kernel and the row kernel bit-equal to their plain versions run on the CPU (the
-same fixed order) and within rel-L2 1e-6 of the plain versions on the
-card (1e-12 at fp64). Against ``spmv_oracle``: ``validate_result`` (rel 1e-4). The fp64
+segment-sums, the fused kernel and the row kernel bit-equal to their
+plain versions run on the CPU (the same fixed order) and within rel-L2
+1e-6 of the plain versions on the card (1e-12 at fp64; the segment-sums'
+plain versions add in the kernel's order there too, so their max|d| is
+0). Against ``spmv_oracle``: ``validate_result`` (rel 1e-4). The fp64
 paths (x and y float64): against the oracle at relative L2 <= 1e-9 with
 the absolute gate off (``abs_l2=0``: the reference's 0.1 at ||y|| >= 1
 would pass an f32-grade y); ``lane_ell_fp64`` bit-equal to its plain
@@ -209,8 +211,9 @@ DIST_KERNELS = ("lane_ell_sharded", "sorted_gather", "ranked_gather",
                 "window_gather", "window_segsum", "pell_fused", "unpermute")
 CHIPS_KERNELS = ("sorted_gather", "ranked_gather", "window_gather",
                  "window_segsum")
-# kernels whose plain versions add with index_add_ (atomics on the card):
-# held bit-equal to the plain version run on the CPU
+# kernels held bit-equal to their plain versions run on the CPU (the same
+# fixed order); on the card the fused and row kernels' plain versions add
+# with index_add_ (atomics), the segment-sums' in the kernel's order
 ORDERED = ("window_segsum", "span_segsum", "pell_fused", "pell_fused_fp64",
            "pell_rows", "pell_rows_fp64")
 # every kernel and its plain version, by name

@@ -45,7 +45,7 @@ SIGNATURES = {
     "ext_gather": {"sorted_gather": (P, P, P, P, P, I, I, I64, P),
                    "ranked_gather": (P, P, P, P, I, I, P),
                    "window_gather": (P, P, P, P, P, I, I, I64, P)},
-    "segsum": {"span_segsum": (P, P, P, P, P, P, I, I, I, I, I, P)},
+    "segsum": {"dest_segsum": (P, P, P, P, P, P, P, P, I, I, I, P)},
     "pell": {"pell_tiles": (P, P, P, P, P, I64, I, I, I, I, I, P),
              "pell_fused": (P, P, P, P, P, P, P, P, P,
                             I, I, I, I, I, I, I, I, I, I, P),

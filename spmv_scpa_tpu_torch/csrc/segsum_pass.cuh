@@ -1,6 +1,7 @@
-// The two passes that turn per-quantum 8-row partials into y without
-// atomics, shared by segsum.cu (partials in device memory) and pell.cu
-// (the fused kernel, partials in shared memory).
+// The two passes of the fused PELL kernels (pell.cu, partials in shared
+// memory), which turn per-quantum 8-row partials into y without atomics.
+// segsum.cu (partials in device memory, indexed by destination) reuses
+// pass 1's lane tree, warp_tree, for its chunks.
 //
 // Rows of y are grouped into windows of h 8-row blocks. Step s adds into
 // the W windows base[s] .. base[s] + W - 1, that is into nrel = W * h cells
@@ -20,11 +21,12 @@
 //           r). When base is non-decreasing a thread finds those steps by
 //           binary search; any other order scans every step.
 // Every sum has a fixed order, so the result is deterministic and equals
-// the plain PyTorch version (the same lanes and tree over a cell's quanta,
-// then index_add_ over steps, run on the CPU) bit for bit. Every element
-// of y is written, so a window no step visits is 0. Both passes are
-// templates on the value type: float for the f32 paths, double for the
-// fp64 fused PELL kernel (pell.cu), with the same order.
+// the plain PyTorch version (segsum_kernel.step_tree_plain: the same lanes
+// and tree over a cell's quanta, then index_add_ over steps, run on the
+// CPU) bit for bit. Every element of y is written, so a window no step
+// visits is 0. Both passes are templates on the value type: float for the
+// f32 paths, double for the fp64 fused PELL kernel (pell.cu), with the
+// same order.
 
 #pragma once
 
@@ -41,6 +43,17 @@ constexpr int kCellUnroll = 4;
 // A sum rounded on its own (no contraction into an FMA).
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+// The lanes' sums combined: lane l with l ^ 16, then l ^ 8, ..., l ^ 1;
+// every lane ends with the sum of all 32.
+template <class T>
+__device__ __forceinline__ void warp_tree(T (&acc)[kRows]) {
+#pragma unroll
+  for (int off = kCellLanes / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      acc[r] = add_rn(acc[r], __shfl_xor_sync(0xffffffffu, acc[r], off));
+}
 
 // Pass 1 for one cell, by one warp: acc[r] = the cell's sum of row r
 // (every lane ends with it). load(q, v) reads quantum q's 8 rows into v.
@@ -69,11 +82,7 @@ __device__ __forceinline__ void warp_cell_sum(const int* __restrict__ order,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) acc[r] = add_rn(acc[r], v[r]);
   }
-#pragma unroll
-  for (int off = kCellLanes / 2; off > 0; off >>= 1)
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      acc[r] = add_rn(acc[r], __shfl_xor_sync(0xffffffffu, acc[r], off));
+  warp_tree(acc);
 }
 
 // First step s in [0, steps) with base[s] >= w (base non-decreasing).

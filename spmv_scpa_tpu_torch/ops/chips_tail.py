@@ -688,8 +688,8 @@ def prepare_chips(plan, n: int, device):
     vals = _put(plan.vals, torch.float32, device)
     rbl = _put(plan.rbl, torch.int32, device)
     win = _put(plan.win_of_step, torch.int32, device)
-    lists = segsum_kernel.device_lists(segsum_kernel.window_rel(
-        plan.rbl, plan.win_of_step.size), plan.h, device)
+    tables = segsum_kernel.window_tables(plan.rbl, plan.win_of_step,
+                                         plan.num_windows, plan.h, device)
     n1 = plan.n1p_blocks * plan.R * BC
     NH = plan.NH
 
@@ -699,7 +699,7 @@ def prepare_chips(plan, n: int, device):
         hot = ops.sorted_gather(base, x1.view(-1, BC), p1, l1, plan.R)
         xg = ops.ranked_gather(hot, p2, l2)
         ys = ops.window_segsum(vals * xg, rbl, win, plan.num_windows,
-                               plan.h, plan.rows_per_step, lists)
+                               plan.h, plan.rows_per_step, tables)
         return ys.view(-1)[:NH]
 
     hbm = (plan.E8 * BC * (4 + 4 + 4 + 4)        # vals, p2, l2, xg
@@ -718,12 +718,12 @@ def _prepare_stream(s: _Stream, n: int, h: int, rows_per_step: int,
          + (("base8",) if windowed else ())
          + (("base1", "p1", "l1") if s.kind != "windowed-x" else ())}
     vals = _put(s.vals, torch.float32, device)
-    lists = segsum_kernel.device_lists(segsum_kernel.window_rel(
-        s.rbl, s.win_of_step.size), h, device)
+    tables = segsum_kernel.window_tables(s.rbl, s.win_of_step, num_windows,
+                                         h, device)
 
     def segsum(xg, ops):
         return ops.window_segsum(vals * xg, t["rbl"], t["win_of_step"],
-                                 num_windows, h, rows_per_step, lists)
+                                 num_windows, h, rows_per_step, tables)
 
     if s.kind == "windowed-x":
         # the windowed gather over x itself, zero-padded to its reach

@@ -822,9 +822,10 @@ def pell_fused(vals, idx, pan, x, rbl, base, cfg: FusedCfg,
     quantum's partial (as :func:`pell_tiles`) added into global row
     block ``rbl`` if that lies in the windows ``base[s] .. base[s] +
     span - 1`` of its step (``chunk`` tiles), as
-    :func:`segsum_kernel.span_segsum` adds them. ``lists``: the
-    segment-sum's index of ``rbl``. CUDA tensors launch
-    ``csrc/pell.cu``; CPU tensors run :func:`pell_fused_plain`."""
+    :func:`segsum_kernel.span_segsum` adds them (in its own order: the
+    fused kernels keep the two-pass tree, ``step_tree_plain``).
+    ``lists``: ``segsum_kernel.device_lists`` of ``rbl``. CUDA tensors
+    launch ``csrc/pell.cu``; CPU tensors run :func:`pell_fused_plain`."""
     return _fused("pell_fused", torch.float32, vals, idx, pan, x, rbl, base,
                   cfg, lists)
 
@@ -845,8 +846,8 @@ def pell_fused_plain(vals, idx, pan, x, rbl, base, cfg: FusedCfg,
     tile kernel's partials, then the span segment-sum's sums, in their
     orders, in the dtype of ``vals``."""
     part = pell_tiles_plain(vals, idx, pan, x, cfg.quantum, cfg.panel_w)
-    return segsum_kernel.span_segsum_plain(part, rbl, base, cfg.num_windows,
-                                           cfg.h, cfg.span, cfg.chunk * BR)
+    return segsum_kernel.step_tree_plain(part, rbl, base, cfg.num_windows,
+                                         cfg.h, cfg.span, cfg.chunk * BR)
 
 
 def _check_unpermute(yp, bsrc):
@@ -942,10 +943,18 @@ def bind_plan(plan: PellPlan, dev) -> Callable:
     h, span = plan.h, plan.span
     # the fused kernel's rbl2 is padded to 8-step blocks
     rbl_np = plan.rbl[:plan.steps] if plan.kind == "fused" else plan.rbl
-    rel = (segsum_kernel.span_rel(rbl_np, plan.base, h) if plan.seg == "span"
-           else segsum_kernel.window_rel(rbl_np, plan.base.size))
     rbl = put(rbl_np.reshape(-1), torch.int32)
-    lists = segsum_kernel.device_lists(rel, span * h, dev)
+    # the fused kernel's index by (step, cell); the segment-sum's by
+    # destination
+    if plan.kind == "fused":
+        index = segsum_kernel.device_lists(
+            segsum_kernel.span_rel(rbl_np, plan.base, h), span * h, dev)
+    elif plan.seg == "span":
+        index = segsum_kernel.span_tables(rbl_np, plan.base, plan.num_win, h,
+                                          span, dev)
+    else:
+        index = segsum_kernel.window_tables(rbl_np, plan.base, plan.num_win,
+                                            h, dev)
     cfg = FusedCfg(plan.quantum, plan.panel_w, plan.chunk, h, span,
                    plan.num_win)
     bsrc = None if plan.bsrc is None else put(plan.bsrc, torch.int32)
@@ -955,16 +964,16 @@ def bind_plan(plan: PellPlan, dev) -> Callable:
         if plan.kind == "fused":
             fused = (ops.pell_fused_fp64 if plan.dtype == torch.float64
                      else ops.pell_fused)
-            y = fused(vals, idx, pan, xf, rbl, base, cfg, lists)
+            y = fused(vals, idx, pan, xf, rbl, base, cfg, index)
         else:
             part = ops.pell_tiles(vals, idx, pan, xf, plan.quantum,
                                   plan.panel_w)
             if plan.seg == "span":
                 y = ops.span_segsum(part, rbl, base, plan.num_win, h, span,
-                                    plan.rows_per_step, lists)
+                                    plan.rows_per_step, index)
             else:
                 y = ops.window_segsum(part, rbl, base, plan.num_win, h,
-                                      plan.rows_per_step, lists)
+                                      plan.rows_per_step, index)
         y = y.view(-1)
         if bsrc is not None:
             y = ops.unpermute(y[:mbp8].view(-1, BR), bsrc).view(-1)

@@ -205,11 +205,10 @@ def test_window_segsum_matches_pallas(name):
     part = rng.standard_normal((steps * rps, BC)).astype(np.float32)
     rbl = rng.integers(0, h + 1, steps * g).astype(np.int32)  # h = padding
     rbl[::5] = h
-    lists = segsum_kernel.device_lists(
-        segsum_kernel.window_rel(rbl, steps), h, "cpu")
+    tables = segsum_kernel.window_tables(rbl, win, nw, h, "cpu")
     y = segsum_kernel.window_segsum(
         torch.as_tensor(part), torch.as_tensor(rbl),
-        torch.as_tensor(win.astype(np.int32)), nw, h, rps, lists).numpy()
+        torch.as_tensor(win.astype(np.int32)), nw, h, rps, tables).numpy()
     # the sums by hand, in float64
     want = np.zeros((nw * h, 8))
     q = np.arange(steps * g)
@@ -235,18 +234,19 @@ def test_window_segsum_rejects_bad_arguments():
     part = torch.zeros(16, BC)
     rbl = torch.zeros(2 * BC, dtype=torch.int32)
     win = torch.zeros(2, dtype=torch.int32)
-    lists = segsum_kernel.device_lists(
-        segsum_kernel.window_rel(rbl.numpy(), 2), 8, "cpu")
-    segsum_kernel.window_segsum(part, rbl, win, 1, 8, 8, lists)
+    tables = segsum_kernel.window_tables(rbl, win, 1, 8, "cpu")
+    segsum_kernel.window_segsum(part, rbl, win, 1, 8, 8, tables)
     with pytest.raises(ValueError, match="rows_per_step"):
-        segsum_kernel.window_segsum(part, rbl, win, 1, 8, 12, lists)
+        segsum_kernel.window_segsum(part, rbl, win, 1, 8, 12, tables)
     with pytest.raises(ValueError, match="rbl"):
-        segsum_kernel.window_segsum(part, rbl[:-1], win, 1, 8, 8, lists)
+        segsum_kernel.window_segsum(part, rbl[:-1], win, 1, 8, 8, tables)
     with pytest.raises(ValueError, match="partials"):
-        segsum_kernel.window_segsum(part.double(), rbl, win, 1, 8, 8, lists)
-    with pytest.raises(ValueError, match="ptr"):
+        segsum_kernel.window_segsum(part.double(), rbl, win, 1, 8, 8, tables)
+    with pytest.raises(ValueError, match="chunk"):
         segsum_kernel.window_segsum(part, rbl, win, 1, 8, 8,
-                                    (lists[0], lists[1][:-1]))
+                                    tables._replace(chunk=tables.chunk[:-1]))
+    with pytest.raises(ValueError, match="do not fit"):
+        segsum_kernel.window_segsum(part, rbl, win, 2, 8, 8, tables)
     before = segsum_kernel.KERNEL_LAUNCHES
-    segsum_kernel.window_segsum(part, rbl, win, 1, 8, 8, lists)
+    segsum_kernel.window_segsum(part, rbl, win, 1, 8, 8, tables)
     assert segsum_kernel.KERNEL_LAUNCHES == before      # CPU: plain

@@ -11,14 +11,14 @@ call (whose tails add with ``index_add_``, whose atomics add in a
 varying order on the card) is held to rel-L2 <= 1e-6 and, per row,
 |dy| <= 1e-5 * (|A||x|)_row. The gathers move values without
 arithmetic: bit-equal. The segment-sum adds in a fixed order, the order
-of its plain version on the CPU: bit-equal to that; against the plain
-version on the card (atomics) rel-L2 <= 1e-6. The stream probe sums
+of its plain version: bit-equal to it on the CPU and on the card. The
+stream probe sums
 ones, which is exact in f32 in any order: bit-equal. The PELL family:
 the tile kernel rounds as its plain version does and the un-permute
 moves values, so both are bit-equal to their plain versions on the
-card; the fused kernel and the span segment-sum add in the fixed order
-of their plain versions on the CPU (bit-equal) and are within rel-L2
-1e-6 of those on the card. The row-layout kernels ``pell_rows`` and
+card; the fused kernel adds in the fixed order of its plain version on
+the CPU (bit-equal) and is within rel-L2 1e-6 of that on the card, and
+the span segment-sum is bit-equal to its plain version on both. The row-layout kernels ``pell_rows`` and
 ``pell_rows_fp64`` add in their plain version's fixed order: bit-equal
 to it run on the CPU, at both grades. XPOSE's three kernels move values, take one
 f32 product per slot and scan in the plain versions' order: bit-equal on
@@ -175,38 +175,43 @@ def test_window_gather_matches_plain(card):
 
 def test_window_segsum_matches_plain(card):
     """Three windows, the middle one unvisited; padding and unsorted
-    rbl; steps in window order (each window reads its own steps) and
-    out of it (each window scans every step)."""
+    rbl; steps in window order and out of it; no row block of a second
+    chunk (one launch), then row block 7 of both windows a hub of
+    several chunks (the hub pass)."""
     rng = np.random.default_rng(3)
-    h, rows_per_step, steps = 64, 16, 5
+    h, rows_per_step, steps = 64, 64, 5
     g = rows_per_step // 8 * BC
     part = torch.as_tensor(rng.standard_normal((steps * rows_per_step, BC)),
                            dtype=torch.float32, device=card)
     rbl_np = rng.integers(0, h + 1, steps * g).astype(np.int32)  # h = pad
     rbl_np[:7] = (h, h, 3, 3, 0, h - 1, 3)
-    rbl = torch.as_tensor(rbl_np, device=card)
-    lists = segsum_kernel.device_lists(
-        segsum_kernel.window_rel(rbl_np, steps), h, card)
-    for order in ([0, 0, 2, 2, 2], [2, 0, 2, 0, 2]):
-        win = torch.as_tensor(order, dtype=torch.int32, device=card)
-        args = (part, rbl, win, 3, h, rows_per_step)
-        before = segsum_kernel.KERNEL_LAUNCHES
-        y = segsum_kernel.window_segsum(*args, lists)
-        assert segsum_kernel.KERNEL_LAUNCHES == before + 1
-        torch.cuda.synchronize()
-        assert y.shape == (3 * h, 8)
-        assert bool((y[h:2 * h] == 0).all())
-        cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
-        assert torch.equal(y.cpu(), segsum_kernel.window_segsum_plain(*cpu))
-        yt = segsum_kernel.window_segsum_plain(*args)
-        assert float((y - yt).norm()) <= \
-            KERNEL_VS_PLAIN_REL_L2 * float(yt.norm())
-    with pytest.raises(ValueError, match="lists"):
+    hub_np = rbl_np.copy()
+    hub_np[rng.permutation(steps * g)[:3 * segsum_kernel.CHUNK + 100]] = 7
+    for rbl_np, hubs in ((rbl_np, False), (hub_np, True)):
+        rbl = torch.as_tensor(rbl_np, device=card)
+        for order in ([0, 0, 2, 2, 2], [2, 0, 2, 0, 2]):
+            tables = segsum_kernel.window_tables(rbl_np, order, 3, h, card)
+            assert (tables.hub.shape[0] > 0) == hubs
+            win = torch.as_tensor(order, dtype=torch.int32, device=card)
+            args = (part, rbl, win, 3, h, rows_per_step)
+            before = segsum_kernel.KERNEL_LAUNCHES
+            y = segsum_kernel.window_segsum(*args, tables)
+            assert segsum_kernel.KERNEL_LAUNCHES == before + 1
+            torch.cuda.synchronize()
+            assert y.shape == (3 * h, 8)
+            assert bool((y[h:2 * h] == 0).all())
+            cpu = [a.cpu() if isinstance(a, torch.Tensor) else a
+                   for a in args]
+            assert torch.equal(y.cpu(),
+                               segsum_kernel.window_segsum_plain(*cpu))
+            assert torch.equal(y, segsum_kernel.window_segsum_plain(*args))
+    with pytest.raises(ValueError, match="tables"):
         segsum_kernel.window_segsum(*args, None)
 
 
-# the kernels that add in a fixed order whose plain versions use
-# index_add_ (atomics on the card)
+# the kernels held bit-equal to their plain versions run on the CPU; the
+# fused and row kernels' plain versions use index_add_ (atomics on the
+# card), the segment-sums' add in the kernel's order there too
 ORDERED = ("pell_fused", "span_segsum", "window_segsum", "pell_fused_fp64",
            "pell_rows", "pell_rows_fp64")
 # every kernel and its plain version, by name
@@ -301,27 +306,34 @@ def test_pell_fused_takes_a_large_step(card):
 
 
 def test_span_segsum_matches_plain(card):
-    """Steps straddling windows, in order and out of it."""
+    """Steps straddling windows, in order and out of it; no row block of
+    a second chunk, then a hub of several chunks (90% of two steps)."""
     rng = np.random.default_rng(5)
-    h, rps, nq, span, num_win = 32, 16, 16, 3, 6
+    h, rps, nq, span, num_win = 32, 512, 16, 3, 6
     g = rps // 8 * nq
     for base_np in ([0, 0, 1, 3, 3, 4], [3, 0, 1, 4, 0, 3]):
         base_np = np.asarray(base_np, np.int32)
         steps = base_np.size
         rbl_np = (base_np[:, None] * h + rng.integers(
             -4, span * h + 4, (steps, g))).astype(np.int32)
+        hub_np = rbl_np.copy()
+        hub_np[base_np == 3] = np.where(
+            rng.random((2, g)) < 0.9, 3 * h + 1, hub_np[base_np == 3])
         part = torch.as_tensor(rng.standard_normal((steps * rps, nq)),
                                dtype=torch.float32, device=card)
-        lists = segsum_kernel.device_lists(
-            segsum_kernel.span_rel(rbl_np, base_np, h), span * h, card)
-        args = (part, torch.as_tensor(rbl_np.reshape(-1), device=card),
-                torch.as_tensor(base_np, device=card), num_win, h, span,
-                rps, lists)
-        before = segsum_kernel.SPAN_LAUNCHES
-        y = segsum_kernel.span_segsum(*args)
-        assert segsum_kernel.SPAN_LAUNCHES == before + 1
-        assert y.shape == (num_win * h, 8)
-        _replay("span_segsum", args)
+        for rbl_np, hubs in ((rbl_np, False), (hub_np, True)):
+            tables = segsum_kernel.span_tables(rbl_np, base_np, num_win, h,
+                                               span, card)
+            assert (tables.hub.shape[0] > 0) == hubs
+            args = (part, torch.as_tensor(rbl_np.reshape(-1), device=card),
+                    torch.as_tensor(base_np, device=card), num_win, h, span,
+                    rps, tables)
+            before = segsum_kernel.SPAN_LAUNCHES
+            y = segsum_kernel.span_segsum(*args)
+            assert segsum_kernel.SPAN_LAUNCHES == before + 1
+            assert y.shape == (num_win * h, 8)
+            _replay("span_segsum", args)
+            assert torch.equal(y, segsum_kernel.span_segsum_plain(*args))
 
 
 def test_stream_probe_matches_plain_exactly(card):

@@ -61,11 +61,10 @@ def test_span_segsum_matches_pallas(nq, span):
         .astype(np.float32)
     part3[np.broadcast_to(pad.reshape(-1, 1, nq), part3.shape)] = 0.0
     part = part3.reshape(steps * rps, nq)
-    lists = segsum_kernel.device_lists(
-        segsum_kernel.span_rel(rbl, base, h), span * h, "cpu")
+    tables = segsum_kernel.span_tables(rbl, base, num_win, h, span, "cpu")
     y = segsum_kernel.span_segsum(
         torch.as_tensor(part), torch.as_tensor(rbl.reshape(-1)),
-        torch.as_tensor(base), num_win, h, span, rps, lists).numpy()
+        torch.as_tensor(base), num_win, h, span, rps, tables).numpy()
     fn, (base_d, mask_d) = make_span_segsum(
         base_of_step=base, num_windows=num_win, h=h, rows_per_step=rps,
         nq=nq, total_tile_rows=steps * rps, span=span, interpret=True)
