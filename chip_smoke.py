@@ -9,22 +9,30 @@ the script exits non-zero:
 2. build: nvcc builds every kernel from ``spmv_scpa_tpu_torch/csrc``,
    one process per source, all started together;
 3. small cases: every matrix of ``bench/cases.py``'s ``SMALL_CASES``
-   through ``cuda-hybrid`` on the card, the call against its plain
-   version and the oracle, and each kernel call of the path replayed
-   against its plain version; between them the cases must launch all
-   five kernels of the hybrid;
+   through ``cuda-hybrid`` on the card on both core layouts, the call
+   against its plain version and the oracle, and each kernel call of the
+   path replayed against its plain version; between them the cases must
+   launch all six kernels of the hybrid (``lane_rows``, and the lanes
+   core ``lane_ell_spmv`` with the ext route's gathers);
 4. stream probe against its plain version (exact: sums of ones);
 5. main path 1, the ML_Laplace stand-in (22.6M nnz), through
-   ``get_strategy("cuda-hybrid")``: validated, timed, given a roofline
-   figure; the core kernel and the probe must launch;
+   ``cuda-hybrid``'s prepare on both core layouts from one pack
+   (``lane_ell.prepare_hybrid_layouts``): the rows core (the default)
+   validated, timed, given a roofline figure, and ``lane_rows`` and the
+   probe must launch; then the lanes core's own run, which must launch
+   ``lane_ell_spmv``; then the A/B of the two cores in turns (old, new,
+   new, old), the core kernels alone and the whole calls, beside
+   cuSPARSE of the core's entries and of the whole matrix and each
+   layout's bound;
 6. main path 2, ``amazon262k`` (the amazon0302 stand-in, 1M nnz),
-   default knobs: the ext route with the resident stage 2 and the chips
-   tail; validated, timed, each kernel alone at this matrix's shapes,
-   host enqueue against device time over 200 back-to-back calls, a
-   profiler window; the core, both stage-1/2 gathers and the
-   segment-sum must launch;
+   default knobs: the chips tail (and the ext route on the lanes core);
+   the same two runs and A/B, each run validated, timed, each kernel
+   alone at this matrix's shapes; the rows run also host enqueue against
+   device time over 200 back-to-back calls and a profiler window; the
+   core, both gathers and the segment-sum must launch in each run;
 7. main path 3, ``ext_windowed1m`` (1M rows, 5M nnz), default knobs:
-   the windowed stage 2; the windowed gather must launch;
+   the same; the lanes run takes the windowed stage 2, and the windowed
+   gather must launch there;
 8. small PELL cases: every matrix of ``bench/cases.py``'s
    ``PELL_CASES`` through ``cuda-pell`` or ``cuda-bcsr`` at its default
    layout, and the fused ones again on ``layout="tiles"``, checked as
@@ -40,9 +48,10 @@ the script exits non-zero:
    old), and the two whole calls so, beside cuSPARSE and the bounds;
 10. main path 5, ``webbase1m`` (the webbase-1M stand-in) through
    ``cuda-hybrid`` at default knobs: the core and a tail past
-   ``BIG_TAIL`` run as compact PELL on the row layout; the same
-   measurements; the core and ``pell_rows`` must launch; then the A/B
-   of the tail's two kernels (the hybrid with ``pell_layout="tiles"``);
+   ``BIG_TAIL`` run as compact PELL on the row layout; the same two
+   core runs and A/B as path 2; the core and ``pell_rows`` must launch;
+   then the A/B of the tail's two kernels (the hybrid with
+   ``pell_layout="tiles"``);
 11. ``powerlaw100k`` through ``cuda-pell`` with ``scheme="span"``: the
    tile kernel and the span segment-sum at full size;
 12. the flagship through ``cuda-bcsr``: the tile kernel on dense tiles
@@ -82,35 +91,43 @@ the script exits non-zero:
    reference's X budget) through ``cuda-bcsr-spmm`` at 64 columns;
 22. small row-sharded cases: ``bench/cases.py``'s ``DIST_CASES`` (the six
    routes of ``__graft_entry__.dryrun_multichip``) at 2 and 4 shards on
-   one card (at 2 shards without the two chips routes, which both
-   packages refuse there: those shards have no tail), ``amazon40k``
-   with ext panels and ``powerlaw1200`` through the row-sorted PELL at 4
-   shards, each call against its plain call and the oracle and each
-   kernel call replayed; between them they must launch
-   ``lane_ell_sharded``, the three gathers, ``window_segsum``,
-   ``pell_fused`` and ``pell_unpermute``; then ``cuda-chips`` on its
-   small cases and ``heavy_scatter`` through ``cuda-hybrid`` (the split
-   chips plan), which must launch the gathers and the segment-sum;
-23. main path 13, ``dist-flagship``: the flagship through
-   ``prepare_row_sharded_hybrid`` on the mesh ``[cuda:0]`` (``loc_w``
-   256, chunk 24), beside ``cuda-hybrid`` with the same knobs: the gap
-   between the two calls is what the distributed wrapper costs;
-24. main path 14, ``dist-flagship-4x1``: the same on ``["cuda:0"] * 4``,
-   one ``lane_ell_sharded`` launch per call;
+   one card, the hybrid routes on both core layouts (at 2 shards without
+   the two chips routes, which both packages refuse there: those shards
+   have no tail), ``amazon40k`` with ext panels (lanes core) and
+   ``powerlaw1200`` through the row-sorted PELL at 4 shards, each call
+   against its plain call and the oracle and each kernel call replayed;
+   between them they must launch ``lane_ell_sharded``, ``lane_rows``,
+   the three gathers, ``window_segsum``, ``pell_fused`` and
+   ``pell_unpermute``; then ``cuda-chips`` on its small cases and
+   ``heavy_scatter`` through ``cuda-hybrid`` (the split chips plan),
+   which must launch the gathers and the segment-sum;
+23. main path 13, ``dist-flagship``: the flagship through the row-sharded
+   hybrid on the mesh ``[cuda:0]`` (``loc_w`` 256, chunk 24), both core
+   layouts from one pack (``row_sharded_hybrid_layouts``), the two runs
+   and the A/B as path 2 (``lane_rows`` and ``lane_ell_sharded`` must
+   launch), beside ``cuda-hybrid`` with the same knobs: the gap between
+   the two rows-core calls is what the distributed wrapper costs;
+24. main path 14, ``dist-flagship-4x1``: the rows core on ``["cuda:0"] *
+   4``, one ``lane_rows`` launch per call;
 25. main path 15, ``dist-webbase1m``: ``webbase1m`` at mesh 1, whose tail
    must take the ``chips-split`` route (the split streams' gathers and
-   segment-sum);
+   segment-sum), the two runs and the A/B;
 26. main path 16, ``dist-amazon262k-4x1``: ``amazon262k`` on four shards
-   of one card with ``idx8``: the ext panels, the per-shard chips tails
-   and the panel merge;
+   of one card with ``idx8``: the per-shard chips tails and the panel
+   merge (and the ext panels on the lanes core), the two runs and the
+   A/B;
 27. main path 17, ``dist-powerlaw100k-pell``: ``powerlaw100k`` through
    ``prepare_row_sharded_pell`` at mesh 1 (the tile layout): the fused
    kernel and the un-permute.
 
 Each path sets the launch counts to 0 just before it and reads them
 just after; replays that hold a kernel against its plain version come
-after the read. Each prints its packing time. Then one JSON line of the
-nineteen kernels' numbers, the card line, and the contract line ``{"ok":
+after the read; a path on both core layouts reads the lanes run apart
+(its counts set to 0 just before it). Each prints its packing time.
+Then one JSON line of the twenty kernels' numbers (``lane_ell_spmv``,
+``lane_ell_sharded`` and ``window_gather`` from the lanes runs of the
+flagship, ``dist-flagship`` and ``ext_windowed1m``), the card line, and
+the contract line ``{"ok":
 true, "device": {...}}`` last. Without a card it prints no result and
 exits 2.
 
@@ -122,9 +139,9 @@ versions, while the plain fused kernel and the compact tail's
 kernel call replayed alone: the core, the gathers, the tile kernel, the
 un-permute and XPOSE's mirror, S1 and S3 bit-equal to their plain
 versions, and so is the row-shard core ``lane_ell_sharded``; the
-segment-sums, the fused kernel and the row kernel bit-equal to their
-plain versions run on the CPU (the same fixed order) and within rel-L2
-1e-6 of the plain versions on the card (1e-12 at fp64; the segment-sums'
+segment-sums, the fused kernel, the row kernel and the rows core
+``lane_rows`` bit-equal to their plain versions run on the CPU (the same
+fixed order) and within rel-L2 1e-6 of the plain versions on the card (1e-12 at fp64; the segment-sums'
 plain versions add in the kernel's order there too, so their max|d| is
 0). Against ``spmv_oracle``: ``validate_result`` (rel 1e-4). The fp64
 paths (x and y float64): against the oracle at relative L2 <= 1e-9 with
@@ -145,7 +162,8 @@ the multiply-adds of its tiles' nonzero values only, not those of the
 stored zeros. Where the
 data decides what is read, only that counts: a gather's distinct in-
 range source elements, the segment-sums' partials that land in y, the
-distinct x elements the tile, fused and row kernels read, the mirror's
+distinct x elements the tile, fused and row kernels and ``lane_rows``
+read, the mirror's
 distinct source rows, S1's distinct x elements (of its entries), S3's
 distinct product elements and the SpMM's distinct rows of X. Beside a
 row kernel's bound (its layout's bytes) the lines print its format-free
@@ -155,8 +173,9 @@ library times are device times (``bench.timing.time_device``: the host's
 enqueue does not enter them); a plain version and a whole call are timed
 as their caller sees them (event pairs,
 ``time_cuda``/``time_prepared``). ``library_ms`` times one PyTorch call
-computing the same function: a cuSPARSE CSR product for the core (of the
-whole matrix), for the fused kernel (of the matrix its tiles hold), the row kernels
+computing the same function: a cuSPARSE CSR product for the lanes core
+(of the whole matrix), for ``lane_rows`` (of the core's own entries; the
+A/B lines print the whole matrix's beside it), for the fused kernel (of the matrix its tiles hold), the row kernels
 (of the matrix their slots hold, in their dtype) and
 for the tile kernel (of a matrix with one row per tile row and quantum,
 whose product is the partials; for S1, of a matrix with one row per
@@ -184,8 +203,8 @@ from spmv_scpa_tpu_torch.bench.timing import (time_cuda, time_device,
                                               time_prepared)
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.ops import (ext_gather, lane_ell, lane_ell_fp64,
-                                     pell, pell_rows, segsum_kernel, spmm,
-                                     xpose, xpose_plan)
+                                     lane_rows, pell, pell_rows,
+                                     segsum_kernel, spmm, xpose, xpose_plan)
 from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import FP64_RTOL, pick_auto, to_numpy
 from spmv_scpa_tpu_torch.parallel import distributed
@@ -200,22 +219,26 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
 F64_OPS_PER_S = 34e12              # f64 outside the tensor cores
 
-HYBRID_KERNELS = ("lane_ell_spmv", "sorted_gather", "ranked_gather",
-                  "window_gather", "window_segsum")
+HYBRID_KERNELS = ("lane_ell_spmv", "lane_rows", "sorted_gather",
+                  "ranked_gather", "window_gather", "window_segsum")
 PELL_KERNELS = ("pell_fused", "pell_tiles", "span_segsum", "window_segsum",
                 "unpermute", "pell_rows")
 XPOSE_KERNELS = ("xpose_mirror", "xpose_s1", "xpose_s3")
 FP64_SPMM_KERNELS = ("lane_ell_fp64", "pell_fused_fp64", "bcsr_spmm",
                      "pell_rows_fp64")
-DIST_KERNELS = ("lane_ell_sharded", "sorted_gather", "ranked_gather",
-                "window_gather", "window_segsum", "pell_fused", "unpermute")
+DIST_KERNELS = ("lane_ell_sharded", "lane_rows", "sorted_gather",
+                "ranked_gather", "window_gather", "window_segsum",
+                "pell_fused", "unpermute")
+# the core kernels of the two layouts: the lanes core's single-card and
+# row-shard kernels, and the rows core's one kernel
+CORE_KERNELS = ("lane_ell_spmv", "lane_ell_sharded", "lane_rows")
 CHIPS_KERNELS = ("sorted_gather", "ranked_gather", "window_gather",
                  "window_segsum")
 # kernels held bit-equal to their plain versions run on the CPU (the same
 # fixed order); on the card the fused and row kernels' plain versions add
 # with index_add_ (atomics), the segment-sums' in the kernel's order
 ORDERED = ("window_segsum", "span_segsum", "pell_fused", "pell_fused_fp64",
-           "pell_rows", "pell_rows_fp64")
+           "pell_rows", "pell_rows_fp64", "lane_rows")
 # every kernel and its plain version, by name
 KERNELS = {**lane_ell.KERNELS._asdict(), **lane_ell_fp64.KERNELS._asdict(),
            **pell.FP64_KERNELS._asdict(), **spmm.KERNELS._asdict(),
@@ -228,6 +251,9 @@ SOURCES = {
                       "spmv_scpa_tpu/ops/lane_ell.py:188"),
     "lane_ell_sharded": ("spmv_scpa_tpu_torch/csrc/lane_ell.cu",
                          "spmv_scpa_tpu/parallel/distributed.py:480"),
+    # the same body launched per row shard (distributed.py:480) too
+    "lane_rows": ("spmv_scpa_tpu_torch/csrc/lane_rows.cu",
+                  "spmv_scpa_tpu/ops/lane_ell.py:188"),
     "stream_reduce": ("spmv_scpa_tpu_torch/csrc/stream_probe.cu",
                       "spmv_scpa_tpu/bench/roofline.py:60"),
     "sorted_gather": ("spmv_scpa_tpu_torch/csrc/ext_gather.cu",
@@ -263,7 +289,8 @@ SOURCES = {
     "pell_rows_fp64": ("spmv_scpa_tpu_torch/csrc/pell_rows.cu",
                        "spmv_scpa_tpu/ops/pallas_kernels.py:761"),
 }
-LINE_ORDER = ("lane_ell_spmv", "lane_ell_sharded", "stream_reduce", "sorted_gather",
+LINE_ORDER = ("lane_ell_spmv", "lane_ell_sharded", "lane_rows",
+              "stream_reduce", "sorted_gather",
               "ranked_gather", "window_gather", "window_segsum",
               "pell_fused", "pell_tiles", "span_segsum", "unpermute",
               "xpose_mirror", "xpose_s1", "xpose_s3", "lane_ell_fp64",
@@ -280,6 +307,7 @@ def counts() -> dict:
             "window_segsum": segsum_kernel.KERNEL_LAUNCHES,
             **pell.LAUNCHES,
             **pell_rows.LAUNCHES,
+            **lane_rows.LAUNCHES,
             "span_segsum": segsum_kernel.SPAN_LAUNCHES,
             **xpose.LAUNCHES,
             "lane_ell_fp64": lane_ell_fp64.KERNEL_LAUNCHES,
@@ -295,7 +323,7 @@ def reset_counts() -> None:
     segsum_kernel.KERNEL_LAUNCHES = 0
     segsum_kernel.SPAN_LAUNCHES = 0
     for table in (ext_gather.LAUNCHES, pell.LAUNCHES, pell_rows.LAUNCHES,
-                  xpose.LAUNCHES):
+                  lane_rows.LAUNCHES, xpose.LAUNCHES):
         for k in table:
             table[k] = 0
 
@@ -438,6 +466,12 @@ def segsum_rows(name, args):
     return q, torch.where(ok, dest, -1)
 
 
+def core_cols(args):
+    """Each slot's column in a ``lane_rows`` call (vals, idx, ctab, qptr,
+    blk_lo, x), decoded from the compact index."""
+    return lane_rows.decode_cols(args[1], args[2], args[0].numel())
+
+
 def bound(name, args, out) -> tuple:
     """(bound_ms, bound_by) of one call: the bytes this call's data needs
     (inputs read once, the output written once) over the card's memory
@@ -452,10 +486,11 @@ def bound(name, args, out) -> tuple:
     ops = 0
     ops_per_s = (F64_OPS_PER_S if out.dtype == torch.float64
                  else F32_OPS_PER_S)
-    if name in ("pell_rows", "pell_rows_fp64"):
-        vals, cols, qptr, blk_lo, x = args
+    if name in ("pell_rows", "pell_rows_fp64", "lane_rows"):
+        vals, x = args[0], args[-1]
+        cols = core_cols(args) if name == "lane_rows" else args[1]
         ok = (cols >= 0) & (cols < x.numel())
-        nbytes = (tensor_bytes(args[:4])
+        nbytes = (tensor_bytes(args[:-1])
                   + torch.unique(cols[ok]).numel() * x.element_size()
                   + out.numel() * out.element_size())
         ops = 2 * vals.numel()
@@ -526,7 +561,7 @@ def free_bound_ms(args, out) -> float:
     """The format-free bound of a row-layout call: its entries (the slots
     with a nonzero value) at one value and one 4-byte column each, x and
     y, over the card's memory rate."""
-    vals, x = args[0], args[4]
+    vals, x = args[0], args[-1]
     nnz = int((vals != 0).sum())
     nbytes = (nnz * (vals.element_size() + 4) + x.numel() * x.element_size()
               + out.numel() * out.element_size())
@@ -582,8 +617,10 @@ def fused_library(args):
 
 def rows_library(args):
     """A cuSPARSE CSR product of the matrix a row-layout call holds (its
-    slots with a nonzero value), in the kernel's dtype."""
-    vals, cols, qptr, _, x = args
+    slots with a nonzero value), in the kernel's dtype: for ``lane_rows``
+    the core's own entries, the function the kernel computes."""
+    vals, qptr, x = args[0], args[-3], args[-1]
+    cols = core_cols(args) if len(args) == 6 else args[1]
     Q = vals.shape[1]
     m = qptr.numel() - 1
     row = torch.repeat_interleave(torch.arange(m, device=vals.device),
@@ -716,7 +753,7 @@ def library(name, args, A, xd):
         return unpermute_library(args)
     if name in ("pell_fused", "pell_fused_fp64"):
         return fused_library(args)
-    if name in ("pell_rows", "pell_rows_fp64"):
+    if name in ("pell_rows", "pell_rows_fp64", "lane_rows"):
         return rows_library(args)
     if name == "pell_tiles":
         return tiles_library(args)
@@ -759,7 +796,7 @@ def kernel_table(prep, xd, what, A=None):
         if lib is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + median_ms(lib)
         r["bound_ms"] += b_ms
-        if name in ("pell_rows", "pell_rows_fp64"):
+        if name in ("pell_rows", "pell_rows_fp64", "lane_rows"):
             r["free_ms"] = r.get("free_ms", 0.0) + free_bound_ms(args, out)
         r["max_abs_err"] = max(r["max_abs_err"], err)
     return rows
@@ -950,6 +987,84 @@ def layout_ab(name, old, new, xd, card):
           f"({tiles_b / max(nnz, 1):.2f} B/nnz) | {card}", flush=True)
 
 
+def core_call(prep, xd):
+    """(name, args) of the core kernel's call in one hybrid call."""
+    return [c for c in prep.kernel_calls(xd) if c[0] in CORE_KERNELS][0]
+
+
+def core_ab(name, new, old, xd, A, card):
+    """The lanes core (``old``'s call) against the rows core (``new``'s)
+    of one pack, in turns (old, new, new, old) in this run: each core
+    kernel alone, then the two whole calls the same way; beside them
+    cuSPARSE's CSR product of the core's own entries and of the whole
+    matrix, each layout's bound and bytes, the rows core's geometry and
+    the format-free bound."""
+    kn, an = core_call(new, xd)
+    ko, ao = core_call(old, xd)
+    kern = {"old": [], "new": []}
+    call = {"old": [], "new": []}
+    for side in ("old", "new", "new", "old"):
+        k, a = (ko, ao) if side == "old" else (kn, an)
+        kern[side].append(median_ms(KERNELS[k], *a))
+    for side in ("old", "new", "new", "old"):
+        call[side].append(call_ms((old if side == "old" else new).fn, xd))
+    out_o, out_n = KERNELS[ko](*ao), KERNELS[kn](*an)
+    b_old, b_new = bound(ko, ao, out_o)[0], bound(kn, an, out_n)[0]
+    vals, _, ctab = an[:3]
+    nnz = int((vals != 0).sum())
+    rows_b = tensor_bytes(an[:5])
+    lanes_b = tensor_bytes(ao[1:4] if ko == "lane_ell_spmv" else ao[2:5])
+
+    def ms(v):
+        return ", ".join(f"{t:.4f}" for t in v)
+
+    print(f"[{name}] core A/B in turns (old, new, new, old): {ko} "
+          f"{ms(kern['old'])} ms, {kn} {ms(kern['new'])} ms | whole call, "
+          f"lanes {ms(call['old'])} ms, rows {ms(call['new'])} ms | "
+          f"cuSPARSE CSR of the core's entries "
+          f"{median_ms(rows_library(an)):.4f} ms, of the whole matrix "
+          f"{median_ms(matrix_library(A, xd)):.4f} ms | bound: rows "
+          f"{b_new:.4f}, lanes {b_old:.4f}, format-free "
+          f"{free_bound_ms(an, out_n):.4f} ms | rows core: Q "
+          f"{vals.shape[1]} blocks {ctab.shape[0]} (32-bit "
+          f"{int((ctab[:, 0] < 0).sum())}) | bytes for {nnz} core "
+          f"entries: rows {rows_b} ({rows_b / max(nnz, 1):.2f} B/entry), "
+          f"lanes planes {lanes_b} ({lanes_b / max(nnz, 1):.2f} B/entry) "
+          f"| {card}", flush=True)
+
+
+def layouts_path(name, A, knobs, dev, card, kernels, lanes_kernels, branch,
+                 branch_what, describe, profile=False):
+    """A main path on both core layouts from one pack (the row-sharded
+    hybrid's when ``knobs`` name a mesh): the rows core, the default,
+    through ``full_path`` (its packing time covers both layouts), which
+    must launch ``kernels``; then the lanes core's own run, with the
+    counts set to 0 just before it, which must launch ``lanes_kernels``;
+    then the A/B of the two cores. Returns (the rows run's kernel table
+    and counts, the lanes run's, the rows Prepared)."""
+    held = {}
+    dist = "mesh" in knobs
+
+    def prepare(A, **kw):
+        held.update(distributed.row_sharded_hybrid_layouts(A, **kw) if dist
+                    else lane_ell.prepare_hybrid_layouts(A, device=dev,
+                                                         **kw))
+        return held["rows"]
+
+    strategy = "row-sharded-hybrid" if dist else "cuda-hybrid"
+    rt, rc, rows, _ = full_path(name, A, strategy, knobs, dev, card, kernels,
+                                branch, branch_what, describe=describe,
+                                profile=profile, prepare=prepare)
+    lt, lc, lanes, _ = full_path(
+        f"{name}-lanes", A, strategy, knobs, dev, card, lanes_kernels,
+        branch, branch_what, describe=lambda p: "packed with the rows core",
+        timing=False, prepare=lambda A, **kw: held["lanes"])
+    core_ab(name, rows, lanes, torch.as_tensor(make_x(A.n),
+                                               dtype=torch.float32,
+                                               device=dev), A, card)
+    return rt, rc, lt, lc, rows
+
+
 def auto_xpose_path(name, A, dev, card, profile):
     """A main path of the scattered regime: ``pick_auto`` must choose
     ``cuda-xpose``, whose plan must accept the matrix (a refusal fails
@@ -1083,7 +1198,7 @@ def xpose_phases(dev, card):
     # hybrid and the scattered rest on XPOSE
     full_path(
         "amazon262k-nearfar", cases.amazon262k(), "cuda-nearfar", {}, dev,
-        card, ("lane_ell_spmv",) + XPOSE_KERNELS, lambda m: "W" in m,
+        card, ("lane_rows",) + XPOSE_KERNELS, lambda m: "W" in m,
         "the split into band and scattered rest",
         describe=lambda p: (
             f"W {p.meta['W']} near_frac {p.meta['near_frac']} near_nnz "
@@ -1213,9 +1328,14 @@ def dist_phases(dev, card, flagship_A, PL):
         for name, (prep_fn, make, kw) in cases.DIST_CASES.items():
             if k == 2 and name.startswith("hybrid-chips"):
                 continue        # both packages refuse: no tail on 2 shards
-            items.append((f"{name}-{k}", make(k), prep_fn, kw, k))
-    items += [("amazon40k-ext-4", synth.amazon_csr(40_000, seed=11),
-               "prepare_row_sharded_hybrid", {}, 4),
+            if prep_fn != "prepare_row_sharded_hybrid":
+                items.append((f"{name}-{k}", make(k), prep_fn, kw, k))
+                continue
+            for layout in lane_ell.CORE_LAYOUTS:
+                items.append((f"{name}-{k}-{layout}", make(k), prep_fn,
+                              {**kw, "core_layout": layout}, k))
+    items += [("amazon40k-ext-4-lanes", synth.amazon_csr(40_000, seed=11),
+               "prepare_row_sharded_hybrid", {"core_layout": "lanes"}, 4),
               ("pell-rowsort1200-4", synth.powerlaw_csr(1200, 1200,
                                                               seed=21),
                "prepare_row_sharded_pell", {}, 4)]
@@ -1250,55 +1370,59 @@ def dist_phases(dev, card, flagship_A, PL):
                 "cuda-chips and the split chips plan")
 
     # 23-24. main paths 13 and 14: the flagship row-sharded on one card,
-    # one shard and four
+    # one shard on both core layouts (one pack) and four on the rows core
     knobs = {"loc_w": 256, "chunk": 24}
     hybrid = distributed.prepare_row_sharded_hybrid
     A = flagship_A
-    fl, fl_counts, _, r1 = full_path(
-        "dist-flagship", A, "row-sharded-hybrid", {**knobs, "mesh": [dev]},
-        dev, card, ("lane_ell_sharded",), lambda m: m["tail_kind"] == "xla",
-        "the segment-sum tail", describe=dist_meta, prepare=hybrid)
+    *_, fl, fl_counts, rows1 = layouts_path(
+        "dist-flagship", A, {**knobs, "mesh": [dev]}, dev, card,
+        ("lane_rows",), ("lane_ell_sharded",),
+        lambda m: m["tail_kind"] == "xla", "the segment-sum tail",
+        describe=dist_meta)
+    r1 = time_prepared(rows1, make_x(A.n))
+    del rows1
     single = get_strategy("cuda-hybrid").prepare(A, device=dev, **knobs)
     r0 = time_prepared(single, make_x(A.n))
     print(f"[dist-flagship] cuda-hybrid, the same knobs, this run: call "
           f"{r0.duration_ms:.4f} ms (QT {single.meta['slots']}+"
           f"{single.meta['ov_slots']}) | the row-sharded call "
           f"{r1.duration_ms:.4f} ms: the distributed wrapper costs "
-          f"{r1.duration_ms - r0.duration_ms:.4f} ms | {card}", flush=True)
+          f"{r1.duration_ms - r0.duration_ms:.4f} ms (both on the rows "
+          f"core) | {card}", flush=True)
     del single
     _, _, prep4, _ = full_path(
         "dist-flagship-4x1", A, "row-sharded-hybrid",
-        {**knobs, "mesh": [dev] * 4}, dev, card, ("lane_ell_sharded",),
+        {**knobs, "mesh": [dev] * 4}, dev, card, ("lane_rows",),
         lambda m: m["tail_kind"] == "xla", "the segment-sum tail",
         describe=dist_meta, prepare=hybrid)
     reset_counts()
     prep4.fn(torch.as_tensor(make_x(A.n), dtype=torch.float32, device=dev))
-    one = counts()["lane_ell_sharded"]
+    one = counts()["lane_rows"]
     if one != 1:
-        raise AssertionError(f"dist-flagship-4x1: {one} lane_ell_sharded "
+        raise AssertionError(f"dist-flagship-4x1: {one} lane_rows "
                              "launches in one call, expected 1")
-    print(f"[dist-flagship-4x1] one call: {one} lane_ell_sharded launch "
-          "for the four shards", flush=True)
+    print(f"[dist-flagship-4x1] one call: {one} lane_rows launch for the "
+          "four shards", flush=True)
     del prep4
 
     # 25. main path 15: webbase1m at mesh 1, the split chips plan
-    A = cases.webbase1m()
-    full_path("dist-webbase1m", A, "row-sharded-hybrid", {"mesh": [dev]},
-              dev, card, ("lane_ell_sharded", "window_gather",
-                          "window_segsum"),
-              lambda m: m["tail_kind"] == "chips-split",
-              "the chips-split tail", describe=dist_meta, profile=True,
-              prepare=hybrid)
+    layouts_path("dist-webbase1m", cases.webbase1m(), {"mesh": [dev]}, dev,
+                 card, ("lane_rows", "window_gather", "window_segsum"),
+                 ("lane_ell_sharded", "window_gather", "window_segsum"),
+                 lambda m: m["tail_kind"] == "chips-split",
+                 "the chips-split tail", describe=dist_meta, profile=True)
 
     # 26. main path 16: amazon262k on four shards with idx8
-    full_path("dist-amazon262k-4x1", cases.amazon262k(),
-              "row-sharded-hybrid", {"idx8": True, "mesh": [dev] * 4}, dev,
-              card, ("lane_ell_sharded", "sorted_gather", "ranked_gather",
-                     "window_segsum"),
-              lambda m: (m["ext"] and m["tail_kind"] == "chips"
-                         and m["panel_merge"] and m["idx8_planes"] > 0),
-              "ext panels, chips tails, the panel merge and idx8",
-              describe=dist_meta, profile=True, prepare=hybrid)
+    layouts_path("dist-amazon262k-4x1", cases.amazon262k(),
+                 {"idx8": True, "mesh": [dev] * 4}, dev, card,
+                 ("lane_rows", "sorted_gather", "ranked_gather",
+                  "window_segsum"),
+                 ("lane_ell_sharded", "sorted_gather", "ranked_gather",
+                  "window_segsum"),
+                 lambda m: (m["ext"] and m["tail_kind"] == "chips"
+                            and m["panel_merge"] and m["idx8_planes"] > 0),
+                 "ext panels, chips tails, the panel merge and idx8",
+                 describe=dist_meta, profile=True)
 
     # 27. main path 17: powerlaw100k through the row-sharded fused PELL
     # (the tile layout)
@@ -1335,10 +1459,13 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s: "
           f"{', '.join(p.name for p in libs)}", flush=True)
 
-    # 3. the small cases: call against plain call and oracle, each
-    # kernel call replayed against its plain version
-    small_phase("small", [(name, make(), "cuda-hybrid", kw) for name, (
-        make, kw) in cases.SMALL_CASES.items()], HYBRID_KERNELS,
+    # 3. the small cases on both core layouts: call against plain call
+    # and oracle, each kernel call replayed against its plain version
+    small_phase("small", [
+        (f"{name}-{layout}", make(), "cuda-hybrid",
+         {**kw, "core_layout": layout})
+        for name, (make, kw) in cases.SMALL_CASES.items()
+        for layout in lane_ell.CORE_LAYOUTS], HYBRID_KERNELS,
         hybrid_small_meta, dev, "small cases")
 
     # 4. stream probe against its plain version
@@ -1361,13 +1488,16 @@ def main() -> int:
           f"bound {probe['bound_ms']:.4f} ms | {card}", flush=True)
     del buf
 
-    # 5. main path 1: the flagship
+    # 5. main path 1: the flagship on the rows core, then the lanes core
+    # of the same pack, then the A/B of the two
     A = cases.flagship()
     x = make_x(A.n)
     gold = spmv_oracle(A, x)
     reset_counts()
     t0 = time.perf_counter()
-    prep = hybrid.prepare(A, device="cuda", **cases.FLAGSHIP_KNOBS)
+    preps = lane_ell.prepare_hybrid_layouts(A, device="cuda",
+                                            **cases.FLAGSHIP_KNOBS)
+    prep = preps["rows"]
     pack_s = time.perf_counter() - t0
     rel_o = validate_result(gold, to_numpy(prep.fn(x)),
                             what="cuda-hybrid on the flagship")
@@ -1376,111 +1506,81 @@ def main() -> int:
     rep = roof.roofline(prep, r.duration_ms, r.gflops, x_bytes=A.n * 4,
                         y_bytes=A.m * 4)
     flag_counts = counts()
-    require(flag_counts, ("lane_ell_spmv", "stream_reduce"), "flagship")
+    require(flag_counts, ("lane_rows", "stream_reduce"), "flagship")
 
     m = prep.meta
     xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
     rel_l2, row_rel, _ = twin_check(A, x, prep.fn(xd), prep.plain(xd),
                                     "flagship")
-    flag = kernel_table(prep, xd, "flagship", A=A)["lane_ell_spmv"]
-    print(f"[flagship] nnz {A.nnz} pack {pack_s:.1f} s | loc_w "
-          f"{m['loc_w']} Q {m['slots']}+{m['ov_slots']} idx8 "
+    flag = kernel_table(prep, xd, "flagship", A=A)["lane_rows"]
+    print(f"[flagship] nnz {A.nnz} pack {pack_s:.1f} s (both layouts) | "
+          f"loc_w {m['loc_w']} Q {m['slots']}+{m['ov_slots']} idx8 "
           f"{m['idx8_planes']} chunk {m['chunk']} steps {m['steps']} tail "
           f"{m['tail_nnz']} fill {m['fill']:.3f} hbm_bytes {prep.hbm_bytes}"
           f" | vs oracle rel {rel_o:.3e} | vs plain rel-L2 {rel_l2:.3e} "
           f"row {row_rel:.3e} core max|d| {flag['max_abs_err']:.3e}",
           flush=True)
     print(f"[flagship] call {r.duration_ms:.4f} ms = {r.gflops:.2f} "
-          f"GFLOP/s | kernel {flag['ms']:.4f} ms = "
+          f"GFLOP/s | kernel lane_rows {flag['ms']:.4f} ms = "
           f"{2 * A.nnz / flag['ms'] / 1e6:.2f} GFLOP/s | plain "
-          f"{flag['plain_ms']:.4f} ms | bound {flag['bound_ms']:.4f} ms | "
-          f"cuSPARSE CSR {flag['library_ms']:.4f} ms | stream "
+          f"{flag['plain_ms']:.4f} ms | bound {flag['bound_ms']:.4f} ms "
+          f"(format-free {flag['free_ms']:.4f}) | cuSPARSE CSR of the "
+          f"core's entries {flag['library_ms']:.4f} ms | stream "
           f"{rep.stream_bw_gbs:.1f} GB/s vs_roofline {rep.fraction:.4f} "
           f"vs_ideal_roofline {rep.fraction_ideal:.4f} | launches "
           f"{flag_counts} | {card}", flush=True)
-    del prep, xd
+    lanes = preps["lanes"]
+    reset_counts()
+    rel_lo = validate_result(gold, to_numpy(lanes.fn(x)),
+                             what="cuda-hybrid (lanes) on the flagship")
+    rl = time_prepared(lanes, x)
+    validate_result(gold, rl.data, what="cuda-hybrid (lanes) timed run")
+    flag_lanes_counts = counts()
+    require(flag_lanes_counts, ("lane_ell_spmv",), "flagship-lanes")
+    rel_l2, row_rel, _ = twin_check(A, x, lanes.fn(xd), lanes.plain(xd),
+                                    "flagship-lanes")
+    flag_lanes = kernel_table(lanes, xd, "flagship-lanes",
+                              A=A)["lane_ell_spmv"]
+    print(f"[flagship-lanes] call {rl.duration_ms:.4f} ms = "
+          f"{rl.gflops:.2f} GFLOP/s | kernel lane_ell_spmv "
+          f"{flag_lanes['ms']:.4f} ms | plain {flag_lanes['plain_ms']:.4f} "
+          f"ms | bound {flag_lanes['bound_ms']:.4f} ms | cuSPARSE CSR of "
+          f"the whole matrix {flag_lanes['library_ms']:.4f} ms | hbm_bytes "
+          f"{lanes.hbm_bytes} | vs oracle rel {rel_lo:.3e} | vs plain rel-L2"
+          f" {rel_l2:.3e} row {row_rel:.3e} | launches {flag_lanes_counts} "
+          f"| {card}", flush=True)
+    core_ab("flagship", prep, lanes, xd, A, card)
+    del preps, prep, lanes, xd
     flagship_A = A
 
-    # 6. main path 2: amazon262k, the ext route and the chips tail
-    A = cases.amazon262k()
-    x = make_x(A.n)
-    gold = spmv_oracle(A, x)
-    reset_counts()
-    t0 = time.perf_counter()
-    prep = hybrid.prepare(A)
-    pack_s = time.perf_counter() - t0
-    rel_o = validate_result(gold, to_numpy(prep.fn(x)),
-                            what="cuda-hybrid on amazon262k")
-    r = time_prepared(prep, x)
-    validate_result(gold, r.data, what="cuda-hybrid timed run, amazon262k")
-    amz_counts = counts()
-    m = prep.meta
-    if not (m["ext"] and m["tail_kind"] == "chips"):
-        raise AssertionError(f"amazon262k: ext {m['ext']}, tail "
-                             f"{m['tail_kind']}: the stand-in did not take "
-                             "the ext route and the chips tail")
-    require(amz_counts, ("lane_ell_spmv", "sorted_gather", "ranked_gather",
-                         "window_segsum"), "amazon262k")
-    xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
-    rel_l2, row_rel, _ = twin_check(A, x, prep.fn(xd), prep.plain(xd),
-                                    "amazon262k")
-    amz = kernel_table(prep, xd, "amazon262k", A=A)
-    host_ms, dev_ms = host_vs_device(prep.fn, xd)
-    by_name, busy_ms, idle = device_busy(prep.fn, xd)
-    print(f"[amazon262k] nnz {A.nnz} pack {pack_s:.2f} s | loc_w "
-          f"{m['loc_w']} Q {m['slots']}+{m['ov_slots']} chunk {m['chunk']} "
-          f"steps {m['steps']} | ext {m['ext']} ext_h {m['ext_h']} "
-          f"ext_windowed {m['ext_windowed']} ext_groups {m['ext_groups']} "
-          f"ext_cov {m['ext_cov']} | tail_nnz {m['tail_nnz']} tail_kind "
-          f"{m['tail_kind']} chips {m['tail_meta']} | hbm_bytes "
-          f"{prep.hbm_bytes} | vs oracle rel {rel_o:.3e} | vs plain rel-L2 "
-          f"{rel_l2:.3e} row {row_rel:.3e}", flush=True)
-    print(f"[amazon262k] call {r.duration_ms:.4f} ms = {r.gflops:.2f} "
-          f"GFLOP/s (median of {r.reps}) | 200 calls back to back: host "
-          f"enqueue {host_ms:.4f} ms/call, device {dev_ms:.4f} ms/call | "
-          f"profiler, 50 calls: device busy {busy_ms:.4f} ms/call, idle "
-          f"share {idle:.3f} | launches {amz_counts} | {card}", flush=True)
-    print(f"[amazon262k] kernels alone: {phase_line(amz)}",
-          flush=True)
-    print("[amazon262k] device ms/call by name: " + ", ".join(
-        f"{k[:60]} {v:.4f}" for k, v in sorted(
-            by_name.items(), key=lambda kv: -kv[1])[:12]), flush=True)
-    del prep, xd
+    # 6. main path 2: amazon262k, the ext route (lanes core) and the
+    # chips tail
+    amz, amz_counts, *_ = layouts_path(
+        "amazon262k", cases.amazon262k(), {}, dev, card,
+        ("lane_rows", "sorted_gather", "ranked_gather", "window_segsum"),
+        ("lane_ell_spmv", "sorted_gather", "ranked_gather",
+         "window_segsum"),
+        lambda m: m["ext"] and m["tail_kind"] == "chips",
+        "the ext route and the chips tail",
+        describe=lambda p: (
+            f"loc_w {p.meta['loc_w']} Q {p.meta['slots']}+"
+            f"{p.meta['ov_slots']} chunk {p.meta['chunk']} steps "
+            f"{p.meta['steps']} | ext {p.meta['ext']} ext_h "
+            f"{p.meta['ext_h']} ext_windowed {p.meta['ext_windowed']} "
+            f"ext_groups {p.meta['ext_groups']} ext_cov {p.meta['ext_cov']}"
+            f" | tail_nnz {p.meta['tail_nnz']} tail_kind "
+            f"{p.meta['tail_kind']} chips {p.meta['tail_meta']}"),
+        profile=True)
 
-    # 7. main path 3: the windowed stage 2 at full size
-    A = cases.ext_windowed1m()
-    x = make_x(A.n)
-    gold = spmv_oracle(A, x)
-    reset_counts()
-    t0 = time.perf_counter()
-    prep = hybrid.prepare(A)
-    pack_s = time.perf_counter() - t0
-    rel_o = validate_result(gold, to_numpy(prep.fn(x)),
-                            what="cuda-hybrid on ext_windowed1m")
-    r = time_prepared(prep, x)
-    validate_result(gold, r.data, what="cuda-hybrid timed run, windowed")
-    win_counts = counts()
-    m = prep.meta
-    if not m["ext_windowed"]:
-        raise AssertionError("ext_windowed1m: the windowed stage 2 was not "
-                             "taken")
-    require(win_counts, ("lane_ell_spmv", "sorted_gather", "window_gather"),
-            "ext_windowed1m")
-    xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
-    rel_l2, row_rel, _ = twin_check(A, x, prep.fn(xd), prep.plain(xd),
-                                    "ext_windowed1m")
-    win = kernel_table(prep, xd, "ext_windowed1m", A=A)
-    host_ms, dev_ms = host_vs_device(prep.fn, xd)
-    print(f"[ext_windowed1m] nnz {A.nnz} pack {pack_s:.2f} s | ext_h "
-          f"{m['ext_h']} r_hot {m['ext_r_hot']} ext_groups "
-          f"{m['ext_groups']} ext_cov {m['ext_cov']} tail {m['tail_nnz']} "
-          f"{m['tail_kind']} | hbm_bytes {prep.hbm_bytes} | vs oracle rel "
-          f"{rel_o:.3e} | vs plain rel-L2 {rel_l2:.3e} row {row_rel:.3e} | "
-          f"call {r.duration_ms:.4f} ms = {r.gflops:.2f} GFLOP/s | 200 "
-          f"calls: host {host_ms:.4f} ms/call, device {dev_ms:.4f} ms/call"
-          f" | launches {win_counts} | {card}", flush=True)
-    print(f"[ext_windowed1m] kernels alone: {phase_line(win)}", flush=True)
-    del prep, xd
+    # 7. main path 3: the windowed stage 2 (lanes core) at full size
+    *_, win, win_counts, _ = layouts_path(
+        "ext_windowed1m", cases.ext_windowed1m(), {}, dev, card,
+        ("lane_rows",), ("lane_ell_spmv", "sorted_gather", "window_gather"),
+        lambda m: m["ext_windowed"], "the windowed stage 2",
+        describe=lambda p: (
+            f"ext_h {p.meta['ext_h']} r_hot {p.meta['ext_r_hot']} "
+            f"ext_groups {p.meta['ext_groups']} ext_cov {p.meta['ext_cov']} "
+            f"tail {p.meta['tail_nnz']} {p.meta['tail_kind']}"))
 
     # 8. the small PELL cases: each at its default layout, and the fused
     # ones on the tile layout too
@@ -1507,12 +1607,12 @@ def main() -> int:
     layout_ab("powerlaw100k", old, pw_prep, xd, card)
     del old, pw_prep
     WB = cases.webbase1m()
-    wb, wb_counts, wb_prep, _ = full_path(
-        "webbase1m", WB, "cuda-hybrid", {}, dev, card,
+    *_, wb_prep = layouts_path(
+        "webbase1m", WB, {}, dev, card, ("lane_rows", "pell_rows"),
         ("lane_ell_spmv", "pell_rows"),
         lambda m: (m["tail_kind"] == "compact-cuda-pell-rows"
                    and m["tail_nnz"] > lane_ell.BIG_TAIL),
-        "a compact-PELL tail (row layout) past BIG_TAIL")
+        "a compact-PELL tail (row layout) past BIG_TAIL", describe=pell_meta)
     xd = torch.as_tensor(make_x(WB.n), dtype=torch.float32, device=dev)
     old = hybrid.prepare(WB, device=dev, pell_layout="tiles")
     layout_ab("webbase1m-tail", old, wb_prep, xd, card)
@@ -1532,8 +1632,9 @@ def main() -> int:
     dfl, dfl_counts, dpl, dpl_counts = dist_phases(dev, card, flagship_A, PL)
 
     # the kernels line: each kernel timed on the path that runs it
-    measured = {"lane_ell_spmv": (flag, flag_counts),
+    measured = {"lane_ell_spmv": (flag_lanes, flag_lanes_counts),
                 "lane_ell_sharded": (dfl["lane_ell_sharded"], dfl_counts),
+                "lane_rows": (flag, flag_counts),
                 "stream_reduce": (probe, flag_counts),
                 "sorted_gather": (amz["sorted_gather"], amz_counts),
                 "ranked_gather": (amz["ranked_gather"], amz_counts),

@@ -41,6 +41,8 @@ SIGNATURES = {
                  "lane_ell_fp64": (P, P, P, P, I, I, I, P),
                  "lane_ell_sharded": (P, P, P, P, P, P, P, P, I64,
                                       I, I, I, I, I, I, I, I, P)},
+    "lane_rows": {"lane_rows": (P, P, P, P, P, P, P, P, I, I64, I, I, I,
+                                P)},
     "stream_probe": {"stream_reduce": (P, I64, I, P, P)},
     "ext_gather": {"sorted_gather": (P, P, P, P, P, I, I, I64, P),
                    "ranked_gather": (P, P, P, P, I, I, P),

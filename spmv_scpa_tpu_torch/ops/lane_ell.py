@@ -1,5 +1,5 @@
-"""Lane-ELL hybrid on PyTorch and CUDA: rows in lanes, slot planes,
-one hand-written kernel.
+"""Lane-ELL hybrid on PyTorch and CUDA: the packer's slot planes, and
+the core on either of two layouts, each with a hand-written kernel.
 
 Counterpart of ``spmv_scpa_tpu/ops/lane_ell.py:prepare_lane_ell_hybrid``
 (read that module's docstring for the format). Three parts:
@@ -8,16 +8,21 @@ Counterpart of ``spmv_scpa_tpu/ops/lane_ell.py:prepare_lane_ell_hybrid``
   reference's (slot planes, strip demotion and relocation, overflow and
   dynamic catch-all planes, the idx8 split). It keeps the TPU-tuned
   cost models as they are, so it produces the same arrays; the parity
-  tests compare them exactly.
+  tests compare them exactly. It also records which of A's entries the
+  core keeps (``LanePlan.core``), for the rows core.
 * ``lane_ell_spmv`` — the wrapper of the CUDA kernel
   (``csrc/lane_ell.cu``), with ``lane_ell_spmv_plain`` beside it: the
   same function in PyTorch ops. A CPU tensor goes to the plain version,
   a CUDA tensor to the kernel.
-* ``prepare_lane_ell_hybrid`` — stages x (the ``loc_w`` left pad, the
-  hot columns, and the ext panels through the two gather stages of
-  ``ops/ext_gather.py``), runs the core, and adds the tail: the chips
-  tail (``ops/chips_tail.py``) for 2048 entries or more, else the
-  compact tail with ``index_add_``, or, past ``tail_xla_max`` entries,
+* ``prepare_lane_ell_hybrid`` — runs the core on its ``core_layout``:
+  ``"rows"`` (the default), the recorded entries in row quanta
+  (``ops/lane_rows.py``, kernel ``lane_rows``) reading x in place, or
+  ``"lanes"``, the planes through ``lane_ell_spmv`` with x staged (the
+  ``loc_w`` left pad, the hot columns, and the ext panels through the
+  two gather stages of ``ops/ext_gather.py``); then it adds the tail,
+  the same on both layouts: the chips tail (``ops/chips_tail.py``) for
+  2048 entries or more, else the compact tail with ``index_add_``, or,
+  past ``tail_xla_max`` entries,
   the big-tail branch: PELL (or, under ``tail_strategy="pallas-xpose"``,
   XPOSE, ``ops/xpose.py``) over the tail's rows renumbered 0..NH-1
   landed through ``chips_tail.make_landing``, or under
@@ -45,6 +50,7 @@ its first call).
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable, NamedTuple
@@ -54,8 +60,8 @@ import torch
 
 from spmv_scpa_tpu_torch import _kernels
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import (chips_tail, ext_gather, pell,
-                                     pell_rows, segsum_kernel, xpose)
+from spmv_scpa_tpu_torch.ops import (chips_tail, ext_gather, lane_rows,
+                                     pell, pell_rows, xpose)
 from spmv_scpa_tpu_torch.ops.registry import Prepared, record_calls
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
 
@@ -209,6 +215,8 @@ class LanePlan:
     landing: tuple | None = None            # chips_tail.landing_tables
     big_tail: str | None = None   # the big-tail route: "pallas-hybrid"
                                   # or "pallas-pell"
+    core: np.ndarray | None = None  # the core's entries: indices into A's,
+                                    # each row's in plane order
 
     @property
     def QT(self) -> int:
@@ -278,6 +286,8 @@ class CoreBuild:
     ext_l2: np.ndarray | None = None
     ext_cov: float = 0.0
     ext_n_out: int = 0
+    core: np.ndarray | None = None  # the core's entries (indices into the
+                                    # shard's), each row's in plane order
 
 
 def pack_lane_ell(A: CSR, chunk: int | None = None,
@@ -770,6 +780,11 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
         dyn_pos = {int(remap[q]): v for q, v in dyn_pos.items()}
         dyn_tab = {int(remap[q]): v for q, v in dyn_tab.items()}
     used_t = tuple(sets)
+    # the core's entries, recorded once: each row's in plane order (the
+    # rows core's layout, ops/lane_rows.py, takes them from here)
+    core = np.flatnonzero(take) if nnz else np.zeros(0, np.int64)
+    core = core[np.argsort(rows[core] * np.int64(QT) + plane[core],
+                           kind="stable")]
     n16 = QT - n8
 
     vals_a = np.zeros((steps * QT * chunk, BC), np.float32)
@@ -840,7 +855,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
             S=S, chunk=chunk, steps=steps, G_pad=G_pad, P_pad=P_pad,
             loc_w=loc_w, n_local=n_local, m=m, trows=rows[tm],
             tcols=cols[tm], tvals=A.as_[tm], n_demoted=n_demoted,
-            n_reloc=n_reloc, **extb)
+            n_reloc=n_reloc, core=core, **extb)
 
     # per-step dynamic strip table, flattened
     dyn_off: dict[int, int] = {}
@@ -937,7 +952,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
         Q=Q, Qo=Qo, loc_w=loc_w, n_local=n_local, m=m,
         trows=rows[tm], tcols=cols[tm], tvals=A.as_[tm], meta=meta,
         ext=eplan, ext_p2=ext_p2, ext_l2=ext_l2, ext_b8=ext_b8,
-        chips=cplan, landing=landing, big_tail=big)
+        chips=cplan, landing=landing, big_tail=big, core=core)
 
 
 # ---------------------------------------------------------------------------
@@ -1118,23 +1133,40 @@ def lane_ell_sharded_plain(xpad, r0, vals, idx8, idx16, plane_tabs, ext,
         for d, b in enumerate(base)])
 
 
-# The functions one hybrid call runs: the core, the three gathers of the
-# ext route and the chips tail, the PELL family's
+# The functions one hybrid call runs: the core (``lane_rows`` on the
+# rows layout, ``lane_ell_spmv`` on the lanes layout), the three gathers
+# of the ext route and the chips tail, the PELL family's
 # (:class:`pell.PellKernels`, the window segment-sum among them) for the
 # chips tail, the no-locality escape and the compact big tail, and
 # XPOSE's (:class:`xpose.XposeKernels`) for the compact XPOSE big tail.
 HybridKernels = NamedTuple("HybridKernels", [
-    (name, Callable) for name in ("lane_ell_spmv", "sorted_gather",
-                                  "ranked_gather", "window_gather")
+    (name, Callable) for name in ("lane_ell_spmv", "lane_rows",
+                                  "sorted_gather", "ranked_gather",
+                                  "window_gather")
     + pell.PellKernels._fields + xpose.XposeKernels._fields])
 
-KERNELS = HybridKernels(lane_ell_spmv, ext_gather.sorted_gather,
-                        ext_gather.ranked_gather, ext_gather.window_gather,
-                        *pell.KERNELS, *xpose.KERNELS)
-PLAIN = HybridKernels(lane_ell_spmv_plain, ext_gather.sorted_gather_plain,
+KERNELS = HybridKernels(lane_ell_spmv, lane_rows.lane_rows,
+                        ext_gather.sorted_gather, ext_gather.ranked_gather,
+                        ext_gather.window_gather, *pell.KERNELS,
+                        *xpose.KERNELS)
+PLAIN = HybridKernels(lane_ell_spmv_plain, lane_rows.lane_rows_plain,
+                      ext_gather.sorted_gather_plain,
                       ext_gather.ranked_gather_plain,
                       ext_gather.window_gather_plain, *pell.PLAIN,
                       *xpose.PLAIN)
+
+# The core's layouts: row quanta (ops/lane_rows.py, the default) and the
+# reference's slot planes.
+CORE_LAYOUTS = ("rows", "lanes")
+
+
+def check_layouts(layouts) -> None:
+    """Raise ValueError for a core layout that is not one of
+    ``CORE_LAYOUTS``."""
+    for layout in layouts:
+        if layout not in CORE_LAYOUTS:
+            raise ValueError(f"core_layout {layout!r} is not one of "
+                             f"{CORE_LAYOUTS}")
 
 
 # ---------------------------------------------------------------------------
@@ -1158,16 +1190,30 @@ def no_locality(A: CSR, loc_w="auto", ext="auto",
 
 
 def prepare_lane_ell_hybrid(A: CSR, device="cuda", pell_layout="auto",
-                            **knobs):
+                            core_layout="rows", **knobs):
     """Pack ``A`` (:func:`pack_lane_ell`, same knobs as the reference)
-    and bind ``fn(x) -> y`` on ``device``: stage x (with the ext panels
-    when the plan has them), run the core, add the tail (chips tail and
-    landing, the compact ``index_add_``, or the big-tail branch). A
-    matrix without diagonal locality returns ``cuda-pell``'s Prepared
-    instead, its meta marked ``delegated``. ``pell_layout``: the layout
-    of that escape and of a compact PELL tail. ``device`` defaults to
-    the card and raises without one; ``"cpu"`` runs the plain
-    versions."""
+    and bind ``fn(x) -> y`` on ``device``: run the core, add the tail
+    (chips tail and landing, the compact ``index_add_``, or the big-tail
+    branch). ``core_layout``: ``"rows"`` (the default: the core's
+    entries in row quanta read x in place, ``ops/lane_rows.py``, kernel
+    ``lane_rows``) or ``"lanes"`` (the reference's slot planes, kernel
+    ``lane_ell_spmv``, with x staged: the ``loc_w`` left pad, the hot
+    columns and the ext panels). The meta is the packer's, the same on
+    both; ``hbm_bytes`` counts the layout's own arrays. A matrix without
+    diagonal locality returns ``cuda-pell``'s Prepared instead, its meta
+    marked ``delegated``. ``pell_layout``: the layout of that escape and
+    of a compact PELL tail. ``device`` defaults to the card and raises
+    without one; ``"cpu"`` runs the plain versions."""
+    return prepare_hybrid_layouts(A, (core_layout,), device, pell_layout,
+                                  **knobs)[core_layout]
+
+
+def prepare_hybrid_layouts(A: CSR, layouts=CORE_LAYOUTS, device="cuda",
+                           pell_layout="auto", **knobs) -> dict:
+    """:func:`prepare_lane_ell_hybrid` on each core layout of
+    ``layouts`` from one pack: ``{layout: Prepared}``, the tail bound
+    once and shared."""
+    check_layouts(layouts)
     dev = resolve_device(device)
     pell.use_layout(pell_layout)
     d_cov = no_locality(A, **knobs)
@@ -1176,15 +1222,21 @@ def prepare_lane_ell_hybrid(A: CSR, device="cuda", pell_layout="auto",
         prep.meta.setdefault("tail_kind", "cuda-pell")
         prep.meta["delegated"] = "cuda-pell"
         prep.meta["d_cov"] = round(d_cov, 4)
-        return prep
-    plan, run, stage, hbm = _bind(A, dev, pell_layout, **knobs)
-    return Prepared(
-        "cuda-hybrid", A.name, lambda x: run(x, KERNELS),
-        device=dev, nnz=A.nnz, ref="pallas-hybrid", hbm_bytes=int(hbm),
-        meta=plan.meta, plain=lambda x: run(x, PLAIN),
-        kernel_inputs=stage,
-        kernel_calls=lambda xf: record_calls(lambda ops: run(xf, ops),
-                                             PLAIN))
+        return dict.fromkeys(layouts, prep)
+    plan, bound = _bind(A, dev, pell_layout, layouts, **knobs)
+    out = {}
+    for layout, (run, stage, hbm) in bound.items():
+        out[layout] = Prepared(
+            "cuda-hybrid", A.name, functools.partial(run, ops=KERNELS),
+            device=dev, nnz=A.nnz, ref="pallas-hybrid", hbm_bytes=int(hbm),
+            meta=plan.meta, plain=functools.partial(run, ops=PLAIN),
+            kernel_inputs=stage,
+            kernel_calls=functools.partial(_record, run))
+    return out
+
+
+def _record(run, xf):
+    return record_calls(lambda ops: run(xf, ops), PLAIN)
 
 
 def compact_tail(A: CSR, plan: LanePlan):
@@ -1197,32 +1249,52 @@ def compact_tail(A: CSR, plan: LanePlan):
     return tail, R
 
 
-def _bind(A: CSR, dev, pell_layout="auto", **knobs):
-    """Pack ``A`` and bind it on ``dev``: returns (plan, run, stage,
-    hbm_bytes) with ``run(x, ops) -> y`` (m,) and ``stage(xf)`` the
-    core's arguments. Fills the plan's meta for a big tail."""
-    plan = pack_lane_ell(A, **knobs)
+def rows_plan(A: CSR, plan: LanePlan | CoreBuild) -> lane_rows.CorePlan:
+    """The core that ``pack_lane_ell`` recorded, in row quanta."""
+    c = plan.core
+    return lane_rows.plan_core(plan.m, A.n, A.row_ids()[c], A.ja[c],
+                               A.as_[c].astype(np.float32))
+
+
+def _put(a, dtype, dev):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+
+def _rows_core(A: CSR, plan: LanePlan, dev):
+    """The rows core: (``core(xf, ops) -> y (m,)``, ``stage(xf)`` its
+    kernel's arguments, the layout's bytes)."""
+    cp = rows_plan(A, plan)
+    tabs = lane_rows.bind(cp, dev)
+
+    def stage(xf, ops=KERNELS):
+        return (*tabs, xf)
+
+    def core(xf, ops):
+        return ops.lane_rows(*tabs, xf)
+
+    return core, stage, cp.hbm_bytes
+
+
+def _lanes_core(A: CSR, plan: LanePlan, dev):
+    """The lanes core: (``core(xf, ops) -> y (m,)``, ``stage(xf, ops)``
+    its kernel's arguments with x staged, the planes' bytes)."""
     cfg = plan.cfg
-
-    def put(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                               device=dev)
-
-    vals = put(plan.vals_a, torch.float32)
-    idx8 = put(plan.idx8_a, torch.int8)
-    idx16 = put(plan.idx_a, torch.int16)
-    tabs = put(plan.plane_tabs(), torch.int32)
-    dynw = put(plan.dynw_a, torch.int32)
-    hot = put(plan.hot_idx, torch.int64)
+    vals = _put(plan.vals_a, torch.float32, dev)
+    idx8 = _put(plan.idx8_a, torch.int8, dev)
+    idx16 = _put(plan.idx_a, torch.int16, dev)
+    tabs = _put(plan.plane_tabs(), torch.int32, dev)
+    dynw = _put(plan.dynw_a, torch.int32, dev)
+    hot = _put(plan.hot_idx, torch.int64, dev)
     loc_w, n_local, m, n = plan.loc_w, plan.n_local, plan.m, A.n
     no_ext = torch.zeros((0, BC), dtype=torch.float32, device=dev)
     ep = plan.ext
     if ep is not None:
-        e_base = put(ep.base, torch.int32)
-        e_p1, e_l1 = put(ep.p1, torch.int32), put(ep.l1, torch.int32)
-        e_p2, e_l2 = put(plan.ext_p2, torch.int32), put(plan.ext_l2,
-                                                         torch.int32)
-        e_b8 = put(plan.ext_b8, torch.int32) if ep.windowed else None
+        e_base = _put(ep.base, torch.int32, dev)
+        e_p1, e_l1 = _put(ep.p1, torch.int32, dev), _put(ep.l1, torch.int32,
+                                                          dev)
+        e_p2, e_l2 = (_put(plan.ext_p2, torch.int32, dev),
+                      _put(plan.ext_l2, torch.int32, dev))
+        e_b8 = _put(plan.ext_b8, torch.int32, dev) if ep.windowed else None
         n1 = ep.n1p_blocks * ep.R * BC
 
     def ext_panels(xf, ops):
@@ -1251,25 +1323,37 @@ def _bind(A: CSR, dev, pell_layout="auto", **knobs):
         ext = no_ext if ep is None else ext_panels(xf, ops)
         return xpad, vals, idx8, idx16, tabs, dynw, ext, cfg
 
-    tail_hbm = 0
-    land = None
+    def core(xf, ops):
+        return ops.lane_ell_spmv(*stage(xf, ops))[:m]
+
+    return core, stage, cfg.steps * cfg.chunk * BC * plan.slot_bytes
+
+
+def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, knobs):
+    """The tail of ``plan``, bound once for every core layout: returns
+    (``add(y, xf, ops, layout) -> y'``, {layout: its bytes}). Fills the
+    plan's meta for a big tail."""
+    m, n, G_pad = plan.m, A.n, plan.cfg.G_pad
     if plan.chips is not None:
-        contrib, tail_hbm = chips_tail.prepare_chips(plan.chips, n, dev)
+        contrib, hbm = chips_tail.prepare_chips(plan.chips, n, dev)
         land, _, extra = chips_tail.make_landing(
-            plan.chips.heavy_ids, m, cfg.G_pad, dev, tables=plan.landing)
-        tail_hbm += extra
-    elif plan.big_tail == "pallas-hybrid":
+            plan.chips.heavy_ids, m, G_pad, dev, tables=plan.landing)
+        return ((lambda y, xf, ops, layout: land(y, contrib(xf, ops), ops)),
+                dict.fromkeys(layouts, hbm + extra))
+    if plan.big_tail == "pallas-hybrid":
         # the tail as a second hybrid over all m rows (the reference
-        # passes on only the depth and tail_xla_max)
-        tail = CSR.from_coo(A.name + "_tail", m, n, plan.trows,
-                            plan.tcols, plan.tvals)
-        sub, sub_run, _, sub_hbm = _bind(
-            tail, dev, pell_layout, depth=knobs.get("depth", 0) + 1,
+        # passes on only the depth and tail_xla_max), on the same layouts
+        tail = CSR.from_coo(A.name + "_tail", m, n, plan.trows, plan.tcols,
+                            plan.tvals)
+        sub, subs = _bind(
+            tail, dev, pell_layout, layouts,
+            depth=knobs.get("depth", 0) + 1,
             max_depth=knobs.get("max_depth", 2),
             tail_xla_max=knobs.get("tail_xla_max", 32768))
         plan.meta["tail_meta"] = sub.meta
-        tail_hbm = sub_hbm
-    elif plan.big_tail is not None:
+        return ((lambda y, xf, ops, layout: y + subs[layout][0](xf, ops)),
+                {layout: subs[layout][2] for layout in layouts})
+    if plan.big_tail is not None:
         # PELL or XPOSE over the tail's NH rows renumbered 0..NH-1,
         # landed like the chips tail's per-row sums
         tail, R = compact_tail(A, plan)
@@ -1287,30 +1371,40 @@ def _bind(A: CSR, dev, pell_layout="auto", **knobs):
             tplan = pell.plan_pell(tail)
             sub_run = pell.bind_plan(tplan, dev)
             t_meta, t_hbm = tplan.meta, tplan.hbm_bytes
-        land, _, extra = chips_tail.make_landing(R, m, cfg.G_pad, dev)
+        land, _, extra = chips_tail.make_landing(R, m, G_pad, dev)
         plan.meta["tail_meta"] = t_meta
-        tail_hbm = extra + t_hbm
-    elif plan.trows.size:
-        trows = put(plan.trows, torch.int64)
-        tcols = put(plan.tcols, torch.int64)
-        tvals = put(plan.tvals, torch.float32)
-        tail_hbm = plan.trows.size * 12
+        return ((lambda y, xf, ops, layout: land(y, sub_run(xf, ops), ops)),
+                dict.fromkeys(layouts, extra + t_hbm))
+    if plan.trows.size:
+        trows = _put(plan.trows, torch.int64, dev)
+        tcols = _put(plan.tcols, torch.int64, dev)
+        tvals = _put(plan.tvals, torch.float32, dev)
+        return ((lambda y, xf, ops, layout:
+                 y.index_add_(0, trows, tvals * xf[tcols])),
+                dict.fromkeys(layouts, plan.trows.size * 12))
+    return (lambda y, xf, ops, layout: y), dict.fromkeys(layouts, 0)
 
-    def run(x, ops):
-        xf = torch.as_tensor(x, dtype=torch.float32, device=dev)
-        if xf.shape != (n,):
-            raise ValueError(f"cuda-hybrid: x has shape {tuple(xf.shape)}, "
-                             f"expected ({n},)")
-        y = ops.lane_ell_spmv(*stage(xf, ops))[:m]
-        if plan.chips is not None:
-            y = land(y, contrib(xf, ops), ops)
-        elif land is not None:
-            y = land(y, sub_run(xf, ops), ops)
-        elif plan.big_tail is not None:
-            y = y + sub_run(xf, ops)
-        elif plan.trows.size:
-            y.index_add_(0, trows, tvals * xf[tcols])
-        return y
 
-    hbm = cfg.steps * cfg.chunk * BC * plan.slot_bytes + tail_hbm
-    return plan, run, stage, hbm
+def _bind(A: CSR, dev, pell_layout="auto", layouts=("rows",), **knobs):
+    """Pack ``A`` once and bind it on ``dev`` for each core layout of
+    ``layouts``: returns (plan, {layout: (run, stage, hbm_bytes)}) with
+    ``run(x, ops) -> y`` (m,) and ``stage(xf)`` the core kernel's
+    arguments. The tail is bound once for all layouts."""
+    plan = pack_lane_ell(A, **knobs)
+    n = A.n
+    add_tail, tail_hbm = _bind_tail(A, plan, dev, pell_layout, layouts,
+                                    knobs)
+    out = {}
+    for layout in layouts:
+        core, stage, core_hbm = (_rows_core if layout == "rows"
+                                 else _lanes_core)(A, plan, dev)
+
+        def run(x, ops, core=core, layout=layout):
+            xf = torch.as_tensor(x, dtype=torch.float32, device=dev)
+            if xf.shape != (n,):
+                raise ValueError(f"cuda-hybrid: x has shape "
+                                 f"{tuple(xf.shape)}, expected ({n},)")
+            return add_tail(core(xf, ops), xf, ops, layout)
+
+        out[layout] = (run, stage, core_hbm + tail_hbm[layout])
+    return plan, out

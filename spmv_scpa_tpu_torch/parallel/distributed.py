@@ -23,14 +23,18 @@ Four prepare functions, as in the reference:
 * :func:`prepare_row_sharded_hybrid`: the lane-ELL hybrid. Each shard
   packs its own core (``lane_ell.pack_lane_ell(..., x_off=r0,
   core_only=True)``: the diagonal window frame shifts by the shard's
-  first row); planes pad to the shards' largest QT and strip sets union
-  across shards, so one launch of :func:`lane_ell.lane_ell_sharded` runs
-  every shard of a device, each reading its window of one shared padded
-  x from ``r0``. Out-of-window entries ride per-shard ext panels; the
-  tail rides per-shard chips pipelines (single plans or split plans,
-  padded to shared shapes by ``chips_tail.pad_resident_plan`` /
-  ``pad_split_plan``) landed by the panel merge or ``index_add_``, or a
-  padded segment-sum;
+  first row). On ``core_layout="rows"`` (the default) the cores of a
+  device's shards form one row-quantum plan over their padded rows
+  (shard j's at ``j * h_rows``, ``ops/lane_rows.py``), which one launch
+  of :func:`lane_rows.lane_rows` runs, reading x in place. On
+  ``"lanes"`` the planes pad to the shards' largest QT and strip sets
+  union across shards, so one launch of :func:`lane_ell.lane_ell_sharded`
+  runs every shard of a device, each reading its window of one shared
+  padded x from ``r0``, out-of-window entries through per-shard ext
+  panels. The tail rides per-shard chips pipelines (single plans or
+  split plans, padded to shared shapes by ``chips_tail.pad_resident_plan``
+  / ``pad_split_plan``) landed by the panel merge or ``index_add_``, or a
+  padded segment-sum, on either layout;
 * :func:`prepare_row_sharded_pell`: fused PELL per shard, the tuning
   resolved once from the whole matrix, the tile count and span pinned to
   the shards' largest, and a per-shard row sort undone by the
@@ -52,7 +56,7 @@ import torch
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR, partition_rows_by_nnz
 from spmv_scpa_tpu_torch.formats.panel_ell import BR, csr_to_pell
 from spmv_scpa_tpu_torch.ops import chips_tail as CT
-from spmv_scpa_tpu_torch.ops import ext_gather, pell
+from spmv_scpa_tpu_torch.ops import ext_gather, lane_rows, pell
 from spmv_scpa_tpu_torch.ops import lane_ell as LE
 from spmv_scpa_tpu_torch.ops.registry import record_calls
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
@@ -114,6 +118,7 @@ class DistKernels(NamedTuple):
     """The functions a row-sharded call runs, by name."""
 
     lane_ell_sharded: Callable
+    lane_rows: Callable
     sorted_gather: Callable
     ranked_gather: Callable
     window_gather: Callable
@@ -122,10 +127,10 @@ class DistKernels(NamedTuple):
     unpermute: Callable
 
 
-KERNELS = DistKernels(LE.lane_ell_sharded, *CT.KERNELS, pell.pell_fused,
-                      pell.unpermute)
-PLAIN = DistKernels(LE.lane_ell_sharded_plain, *CT.PLAIN,
-                    pell.pell_fused_plain, pell.unpermute_plain)
+KERNELS = DistKernels(LE.lane_ell_sharded, lane_rows.lane_rows, *CT.KERNELS,
+                      pell.pell_fused, pell.unpermute)
+PLAIN = DistKernels(LE.lane_ell_sharded_plain, lane_rows.lane_rows_plain,
+                    *CT.PLAIN, pell.pell_fused_plain, pell.unpermute_plain)
 
 
 @dataclass
@@ -334,7 +339,39 @@ def _plan_sharded_split(tails, h_rows: int, n: int):
     return out
 
 
+def pack_shards(A: CSR, n_dev: int, loc_w: int | str = "auto",
+                slots: int | str = "auto", chunk: int = 24,
+                strip_cov: float | None = 0.985, ext: bool | str = "auto"):
+    """The hybrid's row shards, each packed on its own
+    (``pack_lane_ell(..., x_off=r0, core_only=True)``): (bounds, h_rows,
+    loc_w, the shards as CSRs of ``h_rows`` rows, their CoreBuilds)."""
+    # one window width from the global diagonal frame (x_off shifts a
+    # shard's rows and window together, so the frames coincide)
+    if loc_w == "auto":
+        loc_w = (LE._auto_loc_w(A.row_ids().astype(np.int64),
+                                A.ja.astype(np.int64))
+                 if A.nnz else 128)
+    bounds, h_rows = plan_row_shards(A, n_dev)
+    h_rows = max(h_rows, BC)
+    shards = [_shard(A, bounds, d, h_rows) for d in range(n_dev)]
+    cores = [LE.pack_lane_ell(
+        S, chunk=chunk, loc_w=loc_w, slots=slots, hot_k=0, ext=ext,
+        ext_windowed=False, strip_cov=strip_cov, x_off=int(bounds[d]),
+        core_only=True) for d, S in enumerate(shards)]
+    return bounds, h_rows, loc_w, shards, cores
+
+
 def prepare_row_sharded_hybrid(A: CSR, mesh=None,
+                               n_shards: int | None = None,
+                               core_layout: str = "rows", **knobs):
+    """Row shards of the lane-ELL hybrid (module docstring), the
+    reference's knobs and defaults (:func:`row_sharded_hybrid_layouts`).
+    ``core_layout``: ``"rows"`` (the default) or ``"lanes"``."""
+    return row_sharded_hybrid_layouts(A, (core_layout,), mesh, n_shards,
+                                      **knobs)[core_layout]
+
+
+def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
                                n_shards: int | None = None,
                                loc_w: int | str = "auto",
                                slots: int | str = "auto",
@@ -342,34 +379,27 @@ def prepare_row_sharded_hybrid(A: CSR, mesh=None,
                                strip_cov: float | None = 0.985,
                                tail_kind: str = "auto",
                                ext: bool | str = "auto",
-                               idx8: bool = False):
-    """Row shards of the lane-ELL hybrid (module docstring), the
-    reference's knobs and defaults. ``tail_kind``: ``"auto"`` (per-shard
-    chips pipelines for 2048 tail entries or more when they fit, else the
+                               idx8: bool = False) -> dict:
+    """The row-sharded hybrid on each core layout of ``layouts`` from
+    one packing of the shards: ``{layout: RowShardedSpmv}``, the tails
+    bound once and shared. ``tail_kind``: ``"auto"`` (per-shard chips
+    pipelines for 2048 tail entries or more when they fit, else the
     padded segment-sum), ``"chips"`` (the chips pipelines, ValueError
     when a shard's tail fits no plan or there is no tail),
     ``"chips-split"`` (split plans even where single ones fit) or
     ``"xla"`` (the segment-sum). f32, as the reference's default
-    ``dtype``. The meta has the reference's keys, and ``strip_sets``
-    (the union strip set of each plane) and ``tail_meta`` (each shard's
-    chips plan, as the hybrid's meta states it) beside them."""
+    ``dtype``. The meta, the same on both layouts, has the reference's
+    keys, and ``strip_sets`` (the union strip set of each plane) and
+    ``tail_meta`` (each shard's chips plan, as the hybrid's meta states
+    it) beside them; ``args`` are the reference's stacked arrays on both
+    layouts; ``hbm_bytes`` counts the layout's own."""
+    LE.check_layouts(layouts)
     if mesh is None:
         mesh = make_mesh(n_shards)
     n_dev = len(mesh)
-
-    # one window width from the global diagonal frame (x_off shifts a
-    # shard's rows and window together, so the frames coincide)
-    if loc_w == "auto":
-        loc_w = (LE._auto_loc_w(A.row_ids().astype(np.int64),
-                                A.ja.astype(np.int64))
-                 if A.nnz else 128)
-
-    bounds, h_rows = plan_row_shards(A, n_dev)
-    h_rows = max(h_rows, BC)
-    cores = [LE.pack_lane_ell(
-        _shard(A, bounds, d, h_rows), chunk=chunk, loc_w=loc_w, slots=slots,
-        hot_k=0, ext=ext, ext_windowed=False, strip_cov=strip_cov,
-        x_off=int(bounds[d]), core_only=True) for d in range(n_dev)]
+    bounds, h_rows, loc_w, shards, cores = pack_shards(
+        A, n_dev, loc_w=loc_w, slots=slots, chunk=chunk,
+        strip_cov=strip_cov, ext=ext)
 
     c0 = cores[0]
     steps, S, G_pad, P_pad = c0.steps, c0.S, c0.G_pad, c0.P_pad
@@ -533,7 +563,7 @@ def prepare_row_sharded_hybrid(A: CSR, mesh=None,
         return fn
 
     def tail_fn(d, dev):
-        """Shard d's tail, ``fn(y, xf, xpad, ops)`` adding it into the
+        """Shard d's tail, ``fn(y, xf, ops)`` adding it into the
         shard's padded y (h_rows,), or None for a shard without one (its
         padded tail adds exactly zero)."""
         nonlocal tail_hbm
@@ -544,12 +574,12 @@ def prepare_row_sharded_hybrid(A: CSR, mesh=None,
             # the reference's padded segment-sum, its real entries added
             # into y in place (as the single-card compact tail does)
             rows = _put(c.trows, torch.int64, dev)
-            tcol = _put(c.tcols.astype(np.int64) + loc_w, torch.int64, dev)
+            tcol = _put(c.tcols, torch.int64, dev)
             tv = _put(c.tvals, torch.float32, dev)
             tail_hbm += c.trows.size * 12
 
-            def fn(y, xf, xpad, ops):
-                return y.index_add_(0, rows, tv * xpad[tcol])
+            def fn(y, xf, ops):
+                return y.index_add_(0, rows, tv * xf[tcol])
             return fn
         contrib, hbm = CT.prepare_chips(cplans[d], n, dev)
         tail_hbm += hbm
@@ -559,38 +589,63 @@ def prepare_row_sharded_hybrid(A: CSR, mesh=None,
         else:
             mt = (_put(cplans[d].heavy_ids, torch.int64, dev),)
 
-        def fn(y, xf, xpad, ops):
+        def fn(y, xf, ops):
             return apply_m(y, contrib(xf, ops), *mt, ops=ops)
         return fn
 
+    def rows_plan(ids):
+        """The cores of a device's shards ``ids`` as one row-quantum
+        plan over their padded rows, shard j's at ``j * h_rows``."""
+        parts = []
+        for j, d in enumerate(ids):
+            S, c = shards[d], cores[d].core
+            parts.append((S.row_ids()[c] + j * h_rows, S.ja[c], S.as_[c]))
+        r, col, v = (np.concatenate(a) for a in zip(*parts))
+        return lane_rows.plan_core(len(ids) * h_rows, n, r, col,
+                                   v.astype(np.float32))
+
     groups = []
+    rows_hbm = 0
     for dev, ids in _device_groups(mesh):
         k = len(ids)
-        groups.append(dict(
-            dev=dev, ids=ids,
-            vals=_put(vals_s[ids], torch.float32, dev),
-            idx8=_put(idx8_s[ids], torch.int8, dev),
-            idx16=_put(idx16_s[ids], torch.int16, dev),
-            r0=_put(bounds[ids], torch.int32, dev),
-            tabs=_put(tabs_np, torch.int32, dev),
-            no_ext=torch.zeros((k, 0, BC), dtype=torch.float32, device=dev),
-            ext=ext_fn(ids, dev) if use_ext_d else None,
-            tail=[tail_fn(d, dev) for d in ids]))
+        g = dict(dev=dev, ids=ids, tail=[tail_fn(d, dev) for d in ids])
+        if "rows" in layouts:
+            cp = rows_plan(ids)
+            rows_hbm += cp.hbm_bytes
+            g["rows"] = lane_rows.bind(cp, dev)
+        if "lanes" in layouts:
+            g.update(
+                vals=_put(vals_s[ids], torch.float32, dev),
+                idx8=_put(idx8_s[ids], torch.int8, dev),
+                idx16=_put(idx16_s[ids], torch.int16, dev),
+                r0=_put(bounds[ids], torch.int32, dev),
+                tabs=_put(tabs_np, torch.int32, dev),
+                no_ext=torch.zeros((k, 0, BC), dtype=torch.float32,
+                                   device=dev),
+                ext=ext_fn(ids, dev) if use_ext_d else None)
+        groups.append(g)
 
-    def run(xs, ops):
-        y_pad = [None] * n_dev
-        for g in groups:
-            dev = g["dev"]
-            xf = xs[dev]
-            xpad = xf.new_zeros(loc_w + n + xw)
-            xpad[loc_w:loc_w + n] = xf
-            ext = g["no_ext"] if g["ext"] is None else g["ext"](xf, ops)
-            y = ops.lane_ell_sharded(xpad, g["r0"], g["vals"], g["idx8"],
-                                     g["idx16"], g["tabs"], ext, cfg)
-            for j, (d, tail) in enumerate(zip(g["ids"], g["tail"])):
-                y_pad[d] = y[j, :h_rows] if tail is None else \
-                    tail(y[j, :h_rows], xf, xpad, ops)
-        return _unpad_rows(y_pad, bounds, m, mesh[0])
+    def lanes_core(g, xf, ops):
+        xpad = xf.new_zeros(loc_w + n + xw)
+        xpad[loc_w:loc_w + n] = xf
+        ext = g["no_ext"] if g["ext"] is None else g["ext"](xf, ops)
+        return ops.lane_ell_sharded(xpad, g["r0"], g["vals"], g["idx8"],
+                                    g["idx16"], g["tabs"], ext, cfg)
+
+    def rows_core(g, xf, ops):
+        return ops.lane_rows(*g["rows"], xf).view(len(g["ids"]), h_rows)
+
+    def run_on(core):
+        def run(xs, ops):
+            y_pad = [None] * n_dev
+            for g in groups:
+                xf = xs[g["dev"]]
+                y = core(g, xf, ops)
+                for j, (d, tail) in enumerate(zip(g["ids"], g["tail"])):
+                    y_pad[d] = y[j, :h_rows] if tail is None else \
+                        tail(y[j, :h_rows], xf, ops)
+            return _unpad_rows(y_pad, bounds, m, mesh[0])
+        return run
 
     slot_b = 4 * QT + n8 + 2 * n16
     meta = {"slots": QT, "loc_w": loc_w, "chunk": chunk,
@@ -607,9 +662,12 @@ def prepare_row_sharded_hybrid(A: CSR, mesh=None,
             "strip_sets": used_t}
     if use_chips:
         meta["tail_meta"] = [CT.chips_meta(p, use_merge) for p in cplans]
-    return _finish("row-sharded-hybrid", A, mesh, bounds, run, meta=meta,
-                   args=tuple(args),
-                   hbm_bytes=n_dev * G_pad * BC * slot_b + tail_hbm)
+    core_hbm = {"rows": rows_hbm, "lanes": n_dev * G_pad * BC * slot_b}
+    return {layout: _finish(
+        "row-sharded-hybrid", A, mesh, bounds,
+        run_on(rows_core if layout == "rows" else lanes_core), meta=meta,
+        args=tuple(args), hbm_bytes=core_hbm[layout] + tail_hbm)
+        for layout in layouts}
 
 
 # ---------------------------------------------------------------------------

@@ -380,3 +380,36 @@ def test_chip_smoke_fp64_and_spmm_yardsticks(name):
     from spmv_scpa_tpu_torch.utils.validation import validate_result
     y = out if kname == "bcsr_spmm" else out.reshape(-1)[:A.m]
     validate_result(gold, cs.to_numpy(y), **vkw, what=name)
+
+
+@pytest.mark.parametrize("name", ["amazon60k", "ext-windowed40k",
+                                  "stencil4k-idx8"])
+def test_chip_smoke_rows_core_yardstick_and_bound(name):
+    """``lane_rows``' yardstick is cuSPARSE of the core's own entries: it
+    computes what the kernel does (run here on the plain version); the
+    bound is set by bytes and counts the layout's tables, the distinct x
+    elements the slots read and y (a 16-bit index can take it below the
+    format-free bound, which counts 4-byte columns and all of x);
+    ``core_call`` finds each layout's core call."""
+    cs = _chip_smoke()
+    from spmv_scpa_tpu_torch.bench.cases import SMALL_CASES
+    from spmv_scpa_tpu_torch.ops import lane_ell, lane_rows
+    from spmv_scpa_tpu_torch.utils.vector import make_x
+    make, kw = SMALL_CASES[name]
+    A = make()
+    preps = lane_ell.prepare_hybrid_layouts(A, device="cpu", **kw)
+    xd = torch.as_tensor(make_x(A.n), dtype=torch.float32)
+    kname, args = cs.core_call(preps["rows"], xd)
+    assert kname == "lane_rows"
+    assert cs.core_call(preps["lanes"], xd)[0] == "lane_ell_spmv"
+    out = lane_rows.lane_rows_plain(*args)
+    ms, by = cs.bound(kname, args, out)
+    cols = lane_rows.decode_cols(args[1], args[2], args[0].numel())
+    nbytes = (cs.tensor_bytes(args[:5]) + torch.unique(cols).numel() * 4
+              + out.numel() * 4)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / cs.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    assert cs.free_bound_ms(args, out) > 0
+    got = cs.library(kname, args, A, xd)().reshape(-1)
+    torch.testing.assert_close(got, out, rtol=1e-5, atol=1e-5)
+    assert cs.LINE_ORDER.count("lane_rows") == 1 and len(cs.LINE_ORDER) == 20

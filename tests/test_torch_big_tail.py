@@ -78,32 +78,39 @@ ROUTES = {
 
 @functools.cache
 def _route(name):
-    """The port on the tile layout, whose PELL meta and bytes are the
-    reference's (the row layout: tests/test_torch_pell_rows.py)."""
+    """The port on the tile layout, bound on both core layouts from one
+    pack: (A, x, the lanes core's Prepared, whose PELL meta and bytes are
+    the reference's, the JAX Prepared, the lanes y, the JAX y, the rows
+    core's Prepared). The PELL row layout: tests/test_torch_pell_rows.py;
+    the rows core: tests/test_torch_lane_rows.py."""
     make, kw = ROUTES[name]
     A = make(synth)
     x = make_x(A.n)
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu",
+    preps = lane_ell.prepare_hybrid_layouts(A, device="cpu",
                                             pell_layout="tiles", **kw)
+    prep = preps["lanes"]
     jprep = jax_prepare(make(jax_synth), interpret=True, **kw)
     return A, x, prep, jprep, to_numpy(prep.fn(x)), \
-        np.asarray(jprep.fn(x), dtype=np.float64)
+        np.asarray(jprep.fn(x), dtype=np.float64), preps["rows"]
 
 
 def check_route(name):
-    A, x, prep, jprep, y, y_jax = _route(name)
-    assert prep.meta == _port_meta(jprep.meta)
+    A, x, prep, jprep, y, y_jax, rows = _route(name)
+    assert prep.meta == _port_meta(jprep.meta) == rows.meta
     assert prep.hbm_bytes == jprep.hbm_bytes
     assert PORT_NAMES.get(jprep.strategy, "cuda-hybrid") == prep.strategy
     gold = spmv_oracle(A, x)
-    assert _rel_l2(y, y_jax) <= VS_JAX_REL_L2
-    assert _rel_l2(y, gold) <= VS_ORACLE_REL_L2
-    validate_result(gold, y, what=f"port hybrid (plain), {name}")
+    for layout, yl in (("lanes", y), ("rows", to_numpy(rows.fn(x)))):
+        assert _rel_l2(yl, y_jax) <= VS_JAX_REL_L2, layout
+        assert _rel_l2(yl, gold) <= VS_ORACLE_REL_L2, layout
+        validate_result(gold, yl, what=f"port hybrid (plain, {layout}), "
+                        f"{name}")
 
 
-def kernel_route(name):
-    A, _, prep, *_ = _route(name)
-    return [k for k, _ in prep.kernel_calls(make_x(A.n))]
+def kernel_route(name, layout="lanes"):
+    route = _route(name)
+    prep = route[2] if layout == "lanes" else route[6]
+    return [k for k, _ in prep.kernel_calls(make_x(route[0].n))]
 
 
 @pytest.mark.parametrize("name", ["compact-pell", "recursion"])
@@ -111,16 +118,18 @@ def test_route_matches_jax(name):
     check_route(name)
 
 
-def test_big_tail_routes_take_their_branches():
+@pytest.mark.parametrize("layout, core", [("lanes", "lane_ell_spmv"),
+                                          ("rows", "lane_rows")])
+def test_big_tail_routes_take_their_branches(layout, core):
     meta = {name: _route(name)[2].meta
             for name in ("compact-pell", "recursion")}
     assert meta["compact-pell"]["tail_kind"] == "compact-cuda-pell"
     assert meta["compact-pell"]["tail_meta"]["scheme"] == "fused"
     assert meta["recursion"]["tail_kind"] == "hybrid-r1"
     assert meta["recursion"]["tail_meta"]["tail_kind"] is not None
-    compact = kernel_route("compact-pell")
-    assert compact[0] == "lane_ell_spmv" and "pell_fused" in compact
-    assert kernel_route("recursion").count("lane_ell_spmv") == 2
+    compact = kernel_route("compact-pell", layout)
+    assert compact[0] == core and "pell_fused" in compact
+    assert kernel_route("recursion", layout).count(core) == 2
 
 
 def test_webbase200k_big_tail_runs_compact_pell():
@@ -145,9 +154,9 @@ def _xpose_tail():
     spec, kw = cases.XPOSE_TAIL
     A = cases.make(spec)
     x = make_x(A.n)
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", **kw)
+    preps = lane_ell.prepare_hybrid_layouts(A, device="cpu", **kw)
     jprep = jax_prepare(cases.make(spec, jax_synth), interpret=True, **kw)
-    return A, x, prep, jprep
+    return A, x, preps, jprep
 
 
 def test_xpose_tail_matches_jax():
@@ -157,24 +166,27 @@ def test_xpose_tail_matches_jax():
     equals the reference's but for the tail's own (the port's XPOSE meta
     and bytes count its layout) and the route's name; y within the XPOSE
     bound of tests/test_torch_xpose.py (both tails are f32)."""
-    A, x, prep, jprep = _xpose_tail()
-    m, jm = dict(prep.meta), dict(jprep.meta)
-    assert (m.pop("tail_kind"), jm.pop("tail_kind")) == (
-        "compact-cuda-xpose", "compact-pallas-xpose")
-    tail, jtail = m.pop("tail_meta"), jm.pop("tail_meta")
-    assert m == jm
-    for k in ("J1", "B2", "W1", "W3", "NWm", "fill"):
-        assert tail[k] == jtail[k], k
-    y = to_numpy(prep.fn(x))
+    A, x, preps, jprep = _xpose_tail()
     y_jax = np.asarray(jprep.fn(x), dtype=np.float64)
     gold = spmv_oracle(A, x)
-    assert _rel_l2(y, y_jax) <= VS_JAX_XPOSE_REL_L2
-    assert _rel_l2(y, gold) <= VS_ORACLE_REL_L2
-    validate_result(gold, y, what="port hybrid (plain), XPOSE tail")
-    assert [k for k, _ in prep.kernel_calls(
-        torch.as_tensor(x, dtype=torch.float32))] == [
-            "lane_ell_spmv", "xpose_mirror", "xpose_s1", "xpose_s3",
-            "window_gather"]
+    for layout, core in (("lanes", "lane_ell_spmv"), ("rows", "lane_rows")):
+        prep = preps[layout]
+        m, jm = dict(prep.meta), dict(jprep.meta)
+        assert (m.pop("tail_kind"), jm.pop("tail_kind")) == (
+            "compact-cuda-xpose", "compact-pallas-xpose")
+        tail, jtail = m.pop("tail_meta"), jm.pop("tail_meta")
+        assert m == jm
+        for k in ("J1", "B2", "W1", "W3", "NWm", "fill"):
+            assert tail[k] == jtail[k], k
+        y = to_numpy(prep.fn(x))
+        assert _rel_l2(y, y_jax) <= VS_JAX_XPOSE_REL_L2, layout
+        assert _rel_l2(y, gold) <= VS_ORACLE_REL_L2, layout
+        validate_result(gold, y, what=f"port hybrid (plain, {layout}), "
+                        "XPOSE tail")
+        assert [k for k, _ in prep.kernel_calls(
+            torch.as_tensor(x, dtype=torch.float32))] == [
+                core, "xpose_mirror", "xpose_s1", "xpose_s3",
+                "window_gather"]
 
 
 def test_xpose_tail_refusal_is_a_value_error(monkeypatch):

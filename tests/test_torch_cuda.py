@@ -34,7 +34,10 @@ its plain version does: bit-equal; Y against ``spmm_oracle`` by
 ``validate_result``. The row-shard core ``lane_ell_sharded`` rounds as
 its plain version does: bit-equal at 1, 2 and 4 shards on one card; a
 whole row-sharded call, and the chips tail's split streams, as the whole
-hybrid call (each kernel call replayed as above).
+hybrid call (each kernel call replayed as above). The rows core
+``lane_rows`` adds in ``pell_rows``' fixed order: bit-equal to its plain
+version run on the CPU, and within rel-L2 1e-6 of it on the card, on
+16-bit and 32-bit index blocks, single-card and row-sharded.
 """
 
 import numpy as np
@@ -48,8 +51,8 @@ from spmv_scpa_tpu_torch.bench import cases
 from spmv_scpa_tpu_torch.bench.cases import PELL_CASES, SMALL_CASES
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.ops import (ext_gather, lane_ell, lane_ell_fp64,
-                                     pell, pell_rows, segsum_kernel, spmm,
-                                     xpose)
+                                     lane_rows, pell, pell_rows,
+                                     segsum_kernel, spmm, xpose)
 from spmv_scpa_tpu_torch.parallel import distributed
 from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import to_numpy
@@ -82,7 +85,8 @@ def test_lane_ell_kernel_matches_plain(card, name):
     make, kw = SMALL_CASES[name]
     A = make()
     x = make_x(A.n)
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device=card, **kw)
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device=card,
+                                            core_layout="lanes", **kw)
     xd = torch.as_tensor(x, dtype=torch.float32, device=card)
     before = lane_ell.KERNEL_LAUNCHES
     yk = to_numpy(prep.fn(xd))
@@ -101,12 +105,14 @@ def test_lane_ell_kernel_matches_plain(card, name):
 
 def test_small_cases_launch_every_hybrid_kernel(card):
     """Between them the small cases drive the ext route (both stage-2
-    forms) and the chips tail through their kernels."""
+    forms, on the lanes core) and the chips tail through their
+    kernels."""
     before = _launches()
     for name in ("amazon60k", "ext-windowed40k"):
         make, kw = SMALL_CASES[name]
         A = make()
-        prep = lane_ell.prepare_lane_ell_hybrid(A, device=card, **kw)
+        prep = lane_ell.prepare_lane_ell_hybrid(A, device=card,
+                                                core_layout="lanes", **kw)
         prep.fn(make_x(A.n))
     after = _launches()
     assert after[0] >= before[0] + 2
@@ -213,7 +219,7 @@ def test_window_segsum_matches_plain(card):
 # fused and row kernels' plain versions use index_add_ (atomics on the
 # card), the segment-sums' add in the kernel's order there too
 ORDERED = ("pell_fused", "span_segsum", "window_segsum", "pell_fused_fp64",
-           "pell_rows", "pell_rows_fp64")
+           "pell_rows", "pell_rows_fp64", "lane_rows")
 # every kernel and its plain version, by name
 KERNELS = {**lane_ell.KERNELS._asdict(), **lane_ell_fp64.KERNELS._asdict(),
            **pell.FP64_KERNELS._asdict(), **spmm.KERNELS._asdict(),
@@ -401,17 +407,21 @@ def test_xpose_case_kernels_match_plain(card, name):
                            getattr(xpose.PLAIN, kname)(*cpu))
 
 
-def test_xpose_big_tail_and_nearfar_on_the_card(card):
+@pytest.mark.parametrize("layout, core", [("lanes", "lane_ell_spmv"),
+                                          ("rows", "lane_rows")])
+def test_xpose_big_tail_and_nearfar_on_the_card(card, layout, core):
     spec, kw = cases.XPOSE_TAIL
     A = cases.make(spec)
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device=card, **kw)
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device=card,
+                                            core_layout=layout, **kw)
     assert prep.meta["tail_kind"] == "compact-cuda-xpose"
     _check_prepared(prep, A, card, "cuda-hybrid with an XPOSE tail")
     A = cases.make(("amazon_csr", dict(m=24000, seed=6)))
-    prep = get_strategy("cuda-nearfar").prepare(A, device=card)
+    prep = get_strategy("cuda-nearfar").prepare(A, device=card,
+                                                core_layout=layout)
     assert "W" in prep.meta
     calls = _check_prepared(prep, A, card, "cuda-nearfar")
-    assert {"lane_ell_spmv", "xpose_s1", "xpose_s3"} <= {k for k, _ in calls}
+    assert {core, "xpose_s1", "xpose_s3"} <= {k for k, _ in calls}
 
 
 def test_xpose_kernels_read_zero_out_of_range(card):
@@ -668,7 +678,7 @@ def test_lane_ell_sharded_matches_plain(card, name, k):
     make, kw = SHARD_CORE_CASES[name]
     A = make()
     prep = distributed.prepare_row_sharded_hybrid(
-        A, mesh=[card] * k, **kw)
+        A, mesh=[card] * k, core_layout="lanes", **kw)
     assert prep.meta["ext"] == ("ext" in name)
     assert (prep.meta["idx8_planes"] > 0) == ("idx8" in name)
     calls = _dist_check(prep, A, card)
@@ -676,10 +686,13 @@ def test_lane_ell_sharded_matches_plain(card, name, k):
     assert len(core) == 1 and core[0][2].shape[0] == k
 
 
+@pytest.mark.parametrize("layout", ["lanes", "rows"])
 @pytest.mark.parametrize("name", sorted(cases.DIST_CASES))
-def test_dryrun_routes_on_one_card(card, name):
+def test_dryrun_routes_on_one_card(card, name, layout):
     prep_fn, make, kw = cases.DIST_CASES[name]
     A = make(4)
+    if prep_fn == "prepare_row_sharded_hybrid":
+        kw = {**kw, "core_layout": layout}
     prep = getattr(distributed, prep_fn)(A, mesh=[card] * 4, **kw)
     _dist_check(prep, A, card)
 
@@ -694,7 +707,8 @@ def test_sharded_pell_row_sort_on_one_card(card):
 
 def test_lane_ell_sharded_refuses_bad_arguments(card):
     A = synth.amazon_csr(40_000, seed=11)
-    prep = distributed.prepare_row_sharded_hybrid(A, mesh=[card] * 2)
+    prep = distributed.prepare_row_sharded_hybrid(A, mesh=[card] * 2,
+                                                  core_layout="lanes")
     calls = prep.kernel_calls(torch.zeros(A.n, device=card))
     (xpad, r0, vals, idx8, idx16, tabs, ext, cfg), = [
         a for n, a in calls if n == "lane_ell_sharded"]
@@ -735,3 +749,97 @@ def test_split_streams_match_plain(card):
         assert {"window_gather", "window_segsum"} <= {k for k, _ in calls}
         for kname, args in calls:
             _replay(kname, args)
+
+
+# ---- the lane-ELL core in row quanta -------------------------------------------
+
+def _mixed_matrix(seed=3):
+    """Near-diagonal rows (16-bit index blocks), then rows of columns
+    spread over 300,000 (32-bit blocks), long rows crossing blocks in
+    both, empty rows."""
+    rng = np.random.default_rng(seed)
+    n = 300_000
+    lens = np.concatenate([rng.integers(0, 12, 800), [3000, 0, 5],
+                           rng.integers(0, 12, 800), [2600], [0] * 3])
+    rows = np.repeat(np.arange(lens.size), lens)
+    near = (rows * 37 + rng.integers(0, 900, rows.size)) % n
+    cols = np.where(rows < 803, near, rng.integers(0, n, rows.size))
+    return CSR.from_coo("mixed", lens.size, n, rows, cols,
+                        rng.standard_normal(rows.size))
+
+
+def _core_tables(A, quantum=None):
+    plan = lane_rows.plan_core(A.m, A.n, A.row_ids(), A.ja,
+                               A.as_.astype(np.float32), quantum)
+    return plan, lane_rows.bind(plan, "cpu")
+
+
+@pytest.mark.parametrize("quantum", [None, 2, 4, 8, 16])
+def test_lane_rows_matches_plain_on_both_index_widths(card, quantum):
+    """Blocks of 16-bit offsets and of int32 columns in one core: the
+    kernel equals its plain version run on the CPU bit for bit, once a
+    call; a matrix with no entries writes zeros."""
+    for A in (_mixed_matrix(), CSR.from_coo("empty", 7, 9, [], [], [])):
+        plan, tabs = _core_tables(A, quantum)
+        if A.nnz:
+            wide = plan.ctab[:, 0] < 0
+            assert wide.any() and (~wide).any()
+        x = torch.as_tensor(make_x(A.n), dtype=torch.float32)
+        before = lane_rows.LAUNCHES["lane_rows"]
+        y = lane_rows.lane_rows(*[t.to(card) for t in tabs], x.to(card))
+        torch.cuda.synchronize()
+        assert lane_rows.LAUNCHES["lane_rows"] == before + 1
+        assert y.shape == (A.m,) and y.dtype == torch.float32
+        assert torch.equal(y.cpu(), lane_rows.lane_rows_plain(*tabs, x))
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_CASES))
+def test_lane_rows_hybrid_matches_plain(card, name):
+    """The small cases on the rows core: the call against its plain call
+    and the oracle, one ``lane_rows`` launch, each kernel call
+    replayed."""
+    make, kw = SMALL_CASES[name]
+    A = make()
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device=card, **kw)
+    before = lane_rows.LAUNCHES["lane_rows"]
+    prep.fn(torch.as_tensor(make_x(A.n), dtype=torch.float32, device=card))
+    torch.cuda.synchronize()
+    assert lane_rows.LAUNCHES["lane_rows"] == before + 1
+    calls = _check_prepared(prep, A, card, f"rows core on {name}")
+    assert [k for k, _ in calls].count("lane_rows") == 1
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("name", sorted(SHARD_CORE_CASES))
+def test_lane_rows_sharded_matches_plain(card, name, k):
+    """A card's shards on the rows core: one ``lane_rows`` launch over
+    their padded rows."""
+    make, kw = SHARD_CORE_CASES[name]
+    A = make()
+    prep = distributed.prepare_row_sharded_hybrid(A, mesh=[card] * k, **kw)
+    before = lane_rows.LAUNCHES["lane_rows"]
+    calls = _dist_check(prep, A, card)
+    core = [a for n, a in calls if n == "lane_rows"]
+    assert len(core) == 1 and lane_rows.LAUNCHES["lane_rows"] > before
+    assert core[0][3].numel() - 1 == k * max(
+        int(np.diff(prep.bounds).max()), BC)
+
+
+def test_lane_rows_refuses_bad_arguments(card):
+    plan, tabs = _core_tables(_mixed_matrix())
+    vals, idx, ctab, qptr, blk_lo = (t.to(card) for t in tabs)
+    x = torch.zeros(plan.n, device=card)
+    before = dict(lane_rows.LAUNCHES)
+    for bad, what in (((vals, idx, ctab, qptr, blk_lo, x.cpu()),
+                       "x is on cpu"),
+                      ((vals, idx.cpu(), ctab, qptr, blk_lo, x),
+                       "idx is on cpu"),
+                      ((vals.double(), idx, ctab, qptr, blk_lo, x), "vals"),
+                      ((vals, idx.int(), ctab, qptr, blk_lo, x), "idx"),
+                      ((vals, idx, ctab, qptr, blk_lo, x.double()), "x is"),
+                      ((vals, idx[:100], ctab, qptr, blk_lo, x), "idx"),
+                      ((vals, idx, ctab[:-1], qptr, blk_lo, x), "ctab"),
+                      ((vals, idx, ctab, qptr, blk_lo[:-1], x), "blk_lo")):
+        with pytest.raises(ValueError, match=what):
+            lane_rows.lane_rows(*bad)
+    assert lane_rows.LAUNCHES == before

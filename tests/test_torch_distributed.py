@@ -15,9 +15,9 @@ Tolerances:
   plans, merge tables, segment-sum tails, PELL tables) and the meta:
   exact;
 * the union strip sets: exact, read from the reference kernel's closure;
-* the port's y (plain versions on the CPU) against the JAX y, once per
-  route at 4 shards (the Pallas kernels in interpret mode): rel-L2 <=
-  1e-6, except the fused PELL route, <= 1e-5: the reference's fused
+* the port's y (plain versions on the CPU, the default rows core)
+  against the JAX y, once per route at 4 shards (the Pallas kernels in
+  interpret mode): rel-L2 <= 1e-6, except the fused PELL route, <= 1e-5: the reference's fused
   kernel reduces with two bf16 split passes (``precision_passes=2``, 16
   bits of each operand), 3.6e-6 from the fp64 oracle on this case, where
   the port's f32 sums are 6e-8 from it;
@@ -242,18 +242,30 @@ def test_reference_cases_pack_like_the_reference(name, k):
         assert pd.meta["tail_kind"] == kw["tail_kind"]
 
 
-def test_ext_panels_absorb_the_out_of_window_entries():
+# the kernels a call with ext panels and chips tails runs, by core layout:
+# the rows core reads x in place, the ext gathers only build the lanes
+# core's panels (the chips tails gather on both)
+EXT_ROUTE = {"lanes": {"lane_ell_sharded", "sorted_gather", "ranked_gather",
+                       "window_segsum"},
+             "rows": {"lane_rows", "sorted_gather", "ranked_gather",
+                      "window_segsum"}}
+
+
+@pytest.mark.parametrize("layout", sorted(EXT_ROUTE))
+def test_ext_panels_absorb_the_out_of_window_entries(layout):
     """The per-shard ext panels carry most out-of-window entries: the
     tail at 4 shards is under a quarter of the tail without them."""
     make = REF_CASES["hybrid-amazon40k-ext"][1]
     A = make(synth)
-    on = D.prepare_row_sharded_hybrid(A, mesh=_mesh(4))
-    off = D.prepare_row_sharded_hybrid(A, mesh=_mesh(4), ext=False)
+    on = D.prepare_row_sharded_hybrid(A, mesh=_mesh(4), core_layout=layout)
+    off = D.prepare_row_sharded_hybrid(A, mesh=_mesh(4), ext=False,
+                                       core_layout=layout)
     assert on.meta["ext"] and on.meta["ext_n_out"] > 0 and not off.meta["ext"]
     assert on.meta["tail_nnz"] < 0.25 * off.meta["tail_nnz"]
-    names = {k for k, _ in on.kernel_calls(torch.zeros(A.n))}
-    assert {"lane_ell_sharded", "sorted_gather", "ranked_gather",
-            "window_segsum"} <= names
+    calls = on.kernel_calls(torch.zeros(A.n))
+    assert EXT_ROUTE[layout] <= {k for k, _ in calls}
+    core = {"lanes": "lane_ell_sharded", "rows": "lane_rows"}[layout]
+    assert [k for k, _ in calls].count(core) == 1
 
 
 def test_ext_mixed_shards():
@@ -367,13 +379,22 @@ def test_make_mesh_takes_repeated_devices_and_never_falls_back():
         D.prepare_row_sharded_hybrid(synth.diag_csr(300), n_shards=2)
 
 
-def test_shards_of_one_device_share_one_core_launch():
-    """Every shard on one device: one ``lane_ell_sharded`` call, the
-    stacked planes of all shards in it."""
+@pytest.mark.parametrize("layout", ["lanes", "rows"])
+def test_shards_of_one_device_share_one_core_launch(layout):
+    """Every shard on one device: one core call. On the lanes layout
+    ``lane_ell_sharded`` with the stacked planes of all shards; on the
+    rows layout ``lane_rows`` over the shards' rows, shard j's at
+    ``j * h_rows``."""
     A = synth.banded_csr(1200, row_nnz=11, bandwidth=90, seed=21)
-    pd = D.prepare_row_sharded_hybrid(A, mesh=_mesh(3))
+    pd = D.prepare_row_sharded_hybrid(A, mesh=_mesh(3), core_layout=layout)
     calls = pd.kernel_calls(torch.as_tensor(make_x(A.n),
                                             dtype=torch.float32))
+    if layout == "rows":
+        assert [k for k, _ in calls] == ["lane_rows"]
+        qptr, x = calls[0][1][3], calls[0][1][5]
+        h_rows = max(int(np.diff(pd.bounds).max()), 128)
+        assert qptr.numel() == 3 * h_rows + 1 and x.numel() == A.n
+        return
     assert [k for k, _ in calls] == ["lane_ell_sharded"]
     xpad, r0, vals = calls[0][1][:3]
     cfg = calls[0][1][-1]
@@ -384,7 +405,7 @@ def test_shards_of_one_device_share_one_core_launch():
 
 def test_sharded_wrapper_checks_its_arguments():
     A = synth.banded_csr(1200, row_nnz=11, bandwidth=90, seed=21)
-    pd = D.prepare_row_sharded_hybrid(A, mesh=_mesh(2))
+    pd = D.prepare_row_sharded_hybrid(A, mesh=_mesh(2), core_layout="lanes")
     (name, args), = pd.kernel_calls(torch.zeros(A.n))
     xpad, r0, vals, idx8, idx16, tabs, ext, cfg = args
     fn = lane_ell.lane_ell_sharded

@@ -8,19 +8,24 @@ tests/test_torch_cuda.py.
 The cases are ``bench/cases.py``'s small cases: the core's branches,
 and ``amazon60k`` (ext panels with the resident stage 2, a chips tail
 landing through the ranked merge) and ``ext-windowed40k`` (the windowed
-stage 2).
+stage 2). Each case is packed once and bound on both core layouts:
+``"rows"`` (the default, ``ops/lane_rows.py``) and ``"lanes"`` (the
+reference's planes, whose meta and bytes are the reference's; the rows
+layout's own tests: tests/test_torch_lane_rows.py).
 
 Tolerances:
 * packed arrays, gather tables and meta against JAX: exact equality
   (the packer and planners are copies and keep the reference's cost
   models);
-* the port's plain y against the JAX hybrid's y: rel-L2 <= 1e-6 and,
-  per row, |dy| <= 1e-5 * (|A||x|)_row. The core sums the planes in the
-  same order in f32 and the gathers move values exactly; the slack
-  covers XLA's possible mul-add contraction, the compact tail's
-  summation order, and the chips tail's segment-sum, which JAX runs as a
-  one-hot matmul with b split in three bf16 terms (f32-grade: the three
-  terms carry 24 bits of b) while the port adds the f32 partials;
+* the port's plain y against the JAX hybrid's y, on both layouts:
+  rel-L2 <= 1e-6 and, per row, |dy| <= 1e-5 * (|A||x|)_row. The lanes
+  core sums the planes in the same order in f32 and the gathers move
+  values exactly; the slack covers XLA's possible mul-add contraction,
+  the compact tail's summation order, and the chips tail's segment-sum,
+  which JAX runs as a one-hot matmul with b split in three bf16 terms
+  (f32-grade: the three terms carry 24 bits of b) while the port adds
+  the f32 partials; the rows core reassociates each row's f32 sum (a
+  tree over quanta), within the same slack;
 * everything against ``spmv_oracle``: ``validate_result`` defaults.
 """
 
@@ -38,7 +43,7 @@ from spmv_scpa_tpu_torch import spmv
 from spmv_scpa_tpu_torch import testing as synth
 from spmv_scpa_tpu_torch.bench.cases import SMALL_CASES as CASES
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import lane_ell
+from spmv_scpa_tpu_torch.ops import lane_ell, lane_rows
 from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import pick_auto, to_numpy
 from spmv_scpa_tpu_torch.utils.validation import validate_result
@@ -88,12 +93,12 @@ def test_jax_cases_cover_the_small_cases():
 @functools.cache
 def _port(name):
     """One small case's matrix, knobs, packed plan and CPU-bound
-    ``cuda-hybrid``, built once for the whole module (the tests do not
-    mutate them)."""
+    ``cuda-hybrid`` on each core layout ({layout: Prepared}, one pack),
+    built once for the whole module (the tests do not mutate them)."""
     make, kw = CASES[name]
     A = make()
     return (A, kw, lane_ell.pack_lane_ell(A, **kw),
-            lane_ell.prepare_lane_ell_hybrid(A, device="cpu", **kw))
+            lane_ell.prepare_hybrid_layouts(A, device="cpu", **kw))
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
@@ -200,26 +205,33 @@ def test_plan_arrays_match_jax(case):
 
 
 def test_plan_meta_matches_jax(case):
-    name, A, kw, _, jprep, _, _, prep = case
+    """The lanes layout's meta and bytes are the reference's; the rows
+    layout keeps the packer's meta (its bytes: test_torch_lane_rows)."""
+    name, A, kw, _, jprep, _, _, preps = case
+    prep = preps["lanes"]
     want = dict(jprep.meta)
     if want["tail_kind"] == "xla-compact":
         want["tail_kind"] = "torch-compact"
     assert prep.meta == want
     assert prep.hbm_bytes == jprep.hbm_bytes
     assert prep.ref == "pallas-hybrid"
+    assert preps["rows"].meta == want and preps["rows"].ref == prep.ref
 
 
 def test_plain_y_matches_jax_and_oracle(case):
-    name, A, kw, x, _, y_jax, _, prep = case
-    before = lane_ell.KERNEL_LAUNCHES
-    y = to_numpy(prep.fn(x))
-    assert lane_ell.KERNEL_LAUNCHES == before      # CPU: plain version
-    assert _rel_l2(y, y_jax) <= PLAIN_VS_JAX_REL_L2
+    name, A, kw, x, _, y_jax, _, preps = case
     absA = CSR(A.name, A.m, A.n, A.irp, A.ja, np.abs(A.as_))
-    assert np.all(np.abs(y - y_jax)
-                  <= PLAIN_VS_JAX_ROW * spmv_oracle(absA, np.abs(x)))
     gold = spmv_oracle(A, x)
-    validate_result(gold, y, what=f"port cuda-hybrid (plain) on {name}")
+    for layout, prep in preps.items():
+        before = (lane_ell.KERNEL_LAUNCHES, dict(lane_rows.LAUNCHES))
+        y = to_numpy(prep.fn(x))
+        # CPU: plain versions
+        assert (lane_ell.KERNEL_LAUNCHES, lane_rows.LAUNCHES) == before
+        assert _rel_l2(y, y_jax) <= PLAIN_VS_JAX_REL_L2, layout
+        assert np.all(np.abs(y - y_jax)
+                      <= PLAIN_VS_JAX_ROW * spmv_oracle(absA, np.abs(x)))
+        validate_result(gold, y, what=f"port cuda-hybrid (plain, "
+                        f"{layout}) on {name}")
     validate_result(gold, y_jax, what=f"pallas-hybrid on {name}")
 
 
@@ -236,35 +248,49 @@ def test_plane_tabs_decode_the_strip_sets(case):
             assert tabs[q, 0] == plan.dyn_off.get(q, 0)
 
 
-# the kernels one call of each case runs, in order
+# the kernels one call of each case runs, in order, on each core layout:
+# the rows core reads x in place, without the ext route's gathers
 KERNEL_ROUTES = {
-    "amazon60k": ["sorted_gather", "ranked_gather", "lane_ell_spmv",
-                  "sorted_gather", "ranked_gather", "window_segsum",
-                  "ranked_gather"],
-    "ext-windowed40k": ["sorted_gather", "window_gather", "lane_ell_spmv"],
-    "banded512": ["lane_ell_spmv"],
+    "lanes": {
+        "amazon60k": ["sorted_gather", "ranked_gather", "lane_ell_spmv",
+                      "sorted_gather", "ranked_gather", "window_segsum",
+                      "ranked_gather"],
+        "ext-windowed40k": ["sorted_gather", "window_gather",
+                            "lane_ell_spmv"],
+        "banded512": ["lane_ell_spmv"],
+    },
+    "rows": {
+        "amazon60k": ["lane_rows", "sorted_gather", "ranked_gather",
+                      "window_segsum", "ranked_gather"],
+        "ext-windowed40k": ["lane_rows"],
+        "banded512": ["lane_rows"],
+    },
 }
+CORE_KERNEL = {"lanes": "lane_ell_spmv", "rows": "lane_rows"}
 
 
-@pytest.mark.parametrize("name", sorted(KERNEL_ROUTES))
-def test_kernel_calls_follow_the_route(name):
-    A, _, _, prep = _port(name)
+@pytest.mark.parametrize("layout", sorted(KERNEL_ROUTES))
+@pytest.mark.parametrize("name", sorted(KERNEL_ROUTES["lanes"]))
+def test_kernel_calls_follow_the_route(name, layout):
+    A, _, _, preps = _port(name)
+    prep = preps[layout]
     xf = torch.as_tensor(make_x(A.n), dtype=torch.float32)
     calls = prep.kernel_calls(xf)
-    assert [c[0] for c in calls] == KERNEL_ROUTES[name]
+    assert [c[0] for c in calls] == KERNEL_ROUTES[layout][name]
     ops = lane_ell.KERNELS
     for kname, args in calls:           # each call replays alone
         out = getattr(ops, kname)(*args)
         assert out.dtype == torch.float32 and torch.isfinite(out).all()
-    core = [a for k, a in calls if k == "lane_ell_spmv"][0]
-    assert torch.equal(lane_ell.lane_ell_spmv(*core),
-                       lane_ell.lane_ell_spmv(*prep.kernel_inputs(xf)))
+    kernel = getattr(ops, CORE_KERNEL[layout])
+    core = [a for k, a in calls if k == CORE_KERNEL[layout]][0]
+    assert torch.equal(kernel(*core), kernel(*prep.kernel_inputs(xf)))
 
 
 def test_ext_strip_reads_the_group_panel():
     """A slot whose strip is ``ext_w`` reads lane ``code & 127`` of its
     group's ext panel, whatever lies in the padded x."""
-    A, _, _, prep = _port("ext-windowed40k")
+    A, _, _, preps = _port("ext-windowed40k")
+    prep = preps["lanes"]
     xf = torch.as_tensor(make_x(A.n), dtype=torch.float32)
     xpad, vals, idx8, idx16, tabs, dynw, ext, cfg = prep.kernel_inputs(xf)
     assert cfg.ext_w >= 0 and ext.shape == (cfg.G_pad, BC)
@@ -283,7 +309,8 @@ def test_ext_strip_reads_the_group_panel():
 
 
 def test_wrapper_runs_plain_version_for_cpu_tensors():
-    A, _, _, prep = _port("amazon20k")
+    A, _, _, preps = _port("amazon20k")
+    prep = preps["lanes"]
     xf = torch.as_tensor(make_x(A.n), dtype=torch.float32)
     args = prep.kernel_inputs(xf)
     before = lane_ell.KERNEL_LAUNCHES
@@ -294,7 +321,8 @@ def test_wrapper_runs_plain_version_for_cpu_tensors():
 
 
 def test_wrapper_rejects_wrong_dtype_and_shape():
-    A, _, _, prep = _port("banded512")
+    A, _, _, preps = _port("banded512")
+    prep = preps["lanes"]
     xpad, vals, idx8, idx16, tabs, dynw, ext, cfg = prep.kernel_inputs(
         torch.zeros(A.n))
     with pytest.raises(ValueError, match="vals"):

@@ -416,11 +416,12 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors():
 def _tail_route():
     """tests/test_torch_big_tail.py's compact-PELL route (a 3,091-entry
     tail past tail_xla_max, no chips) on the default row layout, beside
-    the JAX hybrid."""
+    the JAX hybrid, on both core layouts ({layout: Prepared}, one
+    pack)."""
     kw = {"ext": False, "diag": "nochips", "tail_xla_max": 1000}
     A = synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4)
     x = make_x(A.n)
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", **kw)
+    prep = lane_ell.prepare_hybrid_layouts(A, device="cpu", **kw)
     jprep = jax_hybrid(jax_synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4),
                        interpret=True, **kw)
     return A, x, prep, jprep
@@ -428,23 +429,28 @@ def _tail_route():
 
 def test_row_layout_big_tail_matches_jax():
     """The hybrid's meta equals the reference's but for the tail's own
-    and the route's name; y within 1e-4 of the JAX hybrid."""
-    A, x, prep, jprep = _tail_route()
-    m, jm = dict(prep.meta), dict(jprep.meta)
-    assert (m.pop("tail_kind"), jm.pop("tail_kind")) == (
-        "compact-cuda-pell-rows", "compact-pallas-pell")
-    tail = m.pop("tail_meta")
-    jm.pop("tail_meta")
-    assert m == jm
-    assert tail["layout"] == "rows" and tail["fill"] > 0.5
-    assert [k for k, _ in prep.kernel_calls(
-        torch.as_tensor(x, dtype=torch.float32))] == [
-            "lane_ell_spmv", "pell_rows", "window_gather"]
-    y = to_numpy(prep.fn(x))
+    and the route's name; y within 1e-4 of the JAX hybrid, on both core
+    layouts."""
+    A, x, preps, jprep = _tail_route()
+    y_jax = np.asarray(jprep.fn(x), np.float64)
     gold = spmv_oracle(A, x)
-    assert _rel(y, np.asarray(jprep.fn(x), np.float64)) <= VS_JAX
-    assert _rel(y, gold) <= VS_ORACLE
-    validate_result(gold, y, what="port hybrid (plain), row-layout tail")
+    for layout, core in (("lanes", "lane_ell_spmv"), ("rows", "lane_rows")):
+        prep = preps[layout]
+        m, jm = dict(prep.meta), dict(jprep.meta)
+        assert (m.pop("tail_kind"), jm.pop("tail_kind")) == (
+            "compact-cuda-pell-rows", "compact-pallas-pell")
+        tail = m.pop("tail_meta")
+        jm.pop("tail_meta")
+        assert m == jm
+        assert tail["layout"] == "rows" and tail["fill"] > 0.5
+        assert [k for k, _ in prep.kernel_calls(
+            torch.as_tensor(x, dtype=torch.float32))] == [
+                core, "pell_rows", "window_gather"]
+        y = to_numpy(prep.fn(x))
+        assert _rel(y, y_jax) <= VS_JAX, layout
+        assert _rel(y, gold) <= VS_ORACLE, layout
+        validate_result(gold, y, what=f"port hybrid (plain, {layout}), "
+                        "row-layout tail")
 
 
 def test_escape_takes_the_row_layout():
