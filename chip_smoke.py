@@ -35,10 +35,11 @@ the script exits non-zero:
    gather must launch there;
 8. small PELL cases: every matrix of ``bench/cases.py``'s
    ``PELL_CASES`` through ``cuda-pell`` or ``cuda-bcsr`` at its default
-   layout, and the fused ones again on ``layout="tiles"``, checked as
-   the small hybrid cases are; between them they must launch the row
-   kernel, the fused kernel, the tile kernel, both segment-sums and the
-   un-permute;
+   layout, the fused and BCSR ones again on ``layout="tiles"``, and
+   ``BITS_CASES`` through ``cuda-bcsr``, checked as the small hybrid
+   cases are; between them they must launch the row kernel, the fused
+   kernel, the tile kernel, both segment-sums, the un-permute and
+   ``bcsr_bits``;
 9. main path 4, ``powerlaw100k`` (100k rows, about 11M nnz) through
    ``cuda-hybrid`` at default knobs: the no-locality escape to
    ``cuda-pell`` on the row layout; validated, timed, each kernel
@@ -54,8 +55,12 @@ the script exits non-zero:
    ``pell_layout="tiles"``);
 11. ``powerlaw100k`` through ``cuda-pell`` with ``scheme="span"``: the
    tile kernel and the span segment-sum at full size;
-12. the flagship through ``cuda-bcsr``: the tile kernel on dense tiles
-   and the window segment-sum at full size;
+12. main path 18, ``flagship-bcsr``: the flagship through ``cuda-bcsr``
+   on the bitmap tiles, timed; ``bcsr_bits`` must launch and neither
+   the tile kernel nor the window segment-sum; then
+   ``flagship-bcsr-tiles`` (``layout="tiles"``), which must launch
+   those two, and the A/B of the two layouts in turns (old, new, new,
+   old), the kernels alone and the whole calls, beside cuSPARSE of A;
 13. small XPOSE cases: every matrix of ``bench/cases.py``'s
    ``XPOSE_CASES`` through ``cuda-xpose``, and the hybrid with an XPOSE
    big tail (``XPOSE_TAIL``), checked as the small hybrid cases are;
@@ -72,10 +77,10 @@ the script exits non-zero:
    the three XPOSE kernels must launch;
 17. small fp64 and SpMM cases: ``bench/cases.py``'s ``FP64_CASES``
    (``cuda-hybrid-fp64``, ``cuda-pell-fp64`` on both layouts) and
-   ``SPMM_CASES`` (``cuda-bcsr-spmm`` at 1, 8 and 64 columns), checked
-   as the small hybrid cases are; between them they must launch
-   ``lane_ell_fp64``, ``pell_rows_fp64``, ``pell_fused_fp64`` and
-   ``bcsr_spmm``;
+   ``SPMM_CASES`` (``cuda-bcsr-spmm`` at 1, 8 and 64 columns, on both
+   layouts), checked as the small hybrid cases are; between them they
+   must launch ``lane_ell_fp64``, ``pell_rows_fp64``, ``pell_fused_fp64``,
+   ``bcsr_spmm`` and ``bcsr_bits_spmm``;
 18. main path 9, ``flagship-fp64``: the flagship through
    ``cuda-hybrid-fp64`` (x and y float64); ``lane_ell_fp64`` must
    launch; beside it the ``torch-ell-fp64`` baseline and cuSPARSE's fp64
@@ -85,10 +90,14 @@ the script exits non-zero:
    then ``powerlaw100k-fp64-tiles`` (``layout="tiles"``), which must
    launch ``pell_fused_fp64``, and the A/B of the two kernels in turns;
 20. main path 11, ``flagship-spmm8``: the flagship through
-   ``cuda-bcsr-spmm`` with X of 8 columns; ``bcsr_spmm`` must launch;
+   ``cuda-bcsr-spmm`` with X of 8 columns on the bitmap tiles;
+   ``bcsr_bits_spmm`` must launch and ``bcsr_spmm`` not; then
+   ``flagship-spmm8-tiles``, which must launch ``bcsr_spmm``, and the
+   A/B as path 18;
 21. main path 12, ``stencil48k-spmm64``: ``cases.stencil48k()`` (the
    flagship's stencil at 48,000 rows, whose X of 64 columns fits the
-   reference's X budget) through ``cuda-bcsr-spmm`` at 64 columns;
+   reference's X budget) through ``cuda-bcsr-spmm`` at 64 columns, the
+   same two runs and A/B;
 22. small row-sharded cases: ``bench/cases.py``'s ``DIST_CASES`` (the six
    routes of ``__graft_entry__.dryrun_multichip``) at 2 and 4 shards on
    one card, the hybrid routes on both core layouts (at 2 shards without
@@ -124,9 +133,10 @@ Each path sets the launch counts to 0 just before it and reads them
 just after; replays that hold a kernel against its plain version come
 after the read; a path on both core layouts reads the lanes run apart
 (its counts set to 0 just before it). Each prints its packing time.
-Then one JSON line of the twenty kernels' numbers (``lane_ell_spmv``,
+Then one JSON line of the twenty-two kernels' numbers (``lane_ell_spmv``,
 ``lane_ell_sharded`` and ``window_gather`` from the lanes runs of the
-flagship, ``dist-flagship`` and ``ext_windowed1m``), the card line, and
+flagship, ``dist-flagship`` and ``ext_windowed1m``, ``bcsr_spmm`` from
+``flagship-spmm8-tiles``), the card line, and
 the contract line ``{"ok":
 true, "device": {...}}`` last. Without a card it prints no result and
 exits 2.
@@ -152,7 +162,9 @@ plain versions run on the CPU; a whole fp64 call within rel-L2 1e-12 of its plai
 fused kernel adds windows with atomics on the card). SpMM:
 ``bcsr_spmm`` bit-equal to its plain version (both add each row's tiles
 and lanes in order, f32 products and sums rounded separately, no TF32);
-Y against ``spmm_oracle`` by ``validate_result``.
+Y against ``spmm_oracle`` by ``validate_result``. The bitmap kernels
+``bcsr_bits`` and ``bcsr_bits_spmm`` bit-equal to their plain versions
+on the card and run on the CPU (a fixed order, no atomics).
 
 ``bound_ms`` is the least time for the same work on an H100 SXM: the
 bytes of every input read once and every output written once over 3.35
@@ -163,7 +175,9 @@ stored zeros. Where the
 data decides what is read, only that counts: a gather's distinct in-
 range source elements, the segment-sums' partials that land in y, the
 distinct x elements the tile, fused and row kernels and ``lane_rows``
-read, the mirror's
+read, the distinct x elements (or rows of X) the bitmap kernels' stored
+slots name, beside all their arrays (2 x stored x cols operations), the
+mirror's
 distinct source rows, S1's distinct x elements (of its entries), S3's
 distinct product elements and the SpMM's distinct rows of X. Beside a
 row kernel's bound (its layout's bytes) the lines print its format-free
@@ -185,7 +199,9 @@ permute and the mirror, ``index_add_`` for the segment-sums and, after a
 flat gather of the routed products, for S3; cuSPARSE's fp64 CSR product
 for the fp64 core (of the whole matrix) and the fp64 fused kernel (of
 the matrix its tiles hold), and its f32 CSR SpMM ``A @ X`` for the SpMM
-kernel. The port never calls these yardsticks.
+kernel; for the bitmap kernels, its f32 CSR SpMV or SpMM of the matrix
+their tiles hold (A with duplicates summed). The port never calls these
+yardsticks.
 """
 
 import json
@@ -202,9 +218,10 @@ from spmv_scpa_tpu_torch.bench import cases, roofline as roof
 from spmv_scpa_tpu_torch.bench.timing import (time_cuda, time_device,
                                               time_prepared)
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import (ext_gather, lane_ell, lane_ell_fp64,
-                                     lane_rows, pell, pell_rows,
-                                     segsum_kernel, spmm, xpose, xpose_plan)
+from spmv_scpa_tpu_torch.ops import (bcsr_bits, ext_gather, lane_ell,
+                                     lane_ell_fp64, lane_rows, pell,
+                                     pell_rows, segsum_kernel, spmm, xpose,
+                                     xpose_plan)
 from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import FP64_RTOL, pick_auto, to_numpy
 from spmv_scpa_tpu_torch.parallel import distributed
@@ -222,10 +239,10 @@ F64_OPS_PER_S = 34e12              # f64 outside the tensor cores
 HYBRID_KERNELS = ("lane_ell_spmv", "lane_rows", "sorted_gather",
                   "ranked_gather", "window_gather", "window_segsum")
 PELL_KERNELS = ("pell_fused", "pell_tiles", "span_segsum", "window_segsum",
-                "unpermute", "pell_rows")
+                "unpermute", "pell_rows", "bcsr_bits")
 XPOSE_KERNELS = ("xpose_mirror", "xpose_s1", "xpose_s3")
 FP64_SPMM_KERNELS = ("lane_ell_fp64", "pell_fused_fp64", "bcsr_spmm",
-                     "pell_rows_fp64")
+                     "pell_rows_fp64", "bcsr_bits_spmm")
 DIST_KERNELS = ("lane_ell_sharded", "lane_rows", "sorted_gather",
                 "ranked_gather", "window_gather", "window_segsum",
                 "pell_fused", "unpermute")
@@ -239,6 +256,9 @@ CHIPS_KERNELS = ("sorted_gather", "ranked_gather", "window_gather",
 # with index_add_ (atomics), the segment-sums' in the kernel's order
 ORDERED = ("window_segsum", "span_segsum", "pell_fused", "pell_fused_fp64",
            "pell_rows", "pell_rows_fp64", "lane_rows")
+# kernels held bit-equal to their plain versions on the card and run on the
+# CPU alike (the plain versions add in the kernels' order without atomics)
+EXACT_BOTH = ("bcsr_bits", "bcsr_bits_spmm")
 # every kernel and its plain version, by name
 KERNELS = {**lane_ell.KERNELS._asdict(), **lane_ell_fp64.KERNELS._asdict(),
            **pell.FP64_KERNELS._asdict(), **spmm.KERNELS._asdict(),
@@ -288,13 +308,18 @@ SOURCES = {
                   "spmv_scpa_tpu/ops/pallas_kernels.py:419"),
     "pell_rows_fp64": ("spmv_scpa_tpu_torch/csrc/pell_rows.cu",
                        "spmv_scpa_tpu/ops/pallas_kernels.py:761"),
+    "bcsr_bits": ("spmv_scpa_tpu_torch/csrc/bcsr_bits.cu",
+                  "spmv_scpa_tpu/ops/pallas_kernels.py:64"),
+    "bcsr_bits_spmm": ("spmv_scpa_tpu_torch/csrc/bcsr_bits.cu",
+                       "spmv_scpa_tpu/ops/pallas_kernels.py:1076"),
 }
 LINE_ORDER = ("lane_ell_spmv", "lane_ell_sharded", "lane_rows",
               "stream_reduce", "sorted_gather",
               "ranked_gather", "window_gather", "window_segsum",
               "pell_fused", "pell_tiles", "span_segsum", "unpermute",
               "xpose_mirror", "xpose_s1", "xpose_s3", "lane_ell_fp64",
-              "pell_fused_fp64", "bcsr_spmm", "pell_rows", "pell_rows_fp64")
+              "pell_fused_fp64", "bcsr_spmm", "pell_rows", "pell_rows_fp64",
+              "bcsr_bits", "bcsr_bits_spmm")
 
 
 # ---- launch counts -----------------------------------------------------------
@@ -311,7 +336,8 @@ def counts() -> dict:
             "span_segsum": segsum_kernel.SPAN_LAUNCHES,
             **xpose.LAUNCHES,
             "lane_ell_fp64": lane_ell_fp64.KERNEL_LAUNCHES,
-            "bcsr_spmm": spmm.KERNEL_LAUNCHES}
+            "bcsr_spmm": spmm.KERNEL_LAUNCHES,
+            **bcsr_bits.LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -323,16 +349,21 @@ def reset_counts() -> None:
     segsum_kernel.KERNEL_LAUNCHES = 0
     segsum_kernel.SPAN_LAUNCHES = 0
     for table in (ext_gather.LAUNCHES, pell.LAUNCHES, pell_rows.LAUNCHES,
-                  lane_rows.LAUNCHES, xpose.LAUNCHES):
+                  lane_rows.LAUNCHES, xpose.LAUNCHES, bcsr_bits.LAUNCHES):
         for k in table:
             table[k] = 0
 
 
-def require(launched: dict, names, what: str) -> None:
+def require(launched: dict, names, what: str, forbid=()) -> None:
+    """Each of ``names`` launched at least once, none of ``forbid``."""
     missing = [k for k in names if launched.get(k, 0) < 1]
     if missing:
         raise AssertionError(f"{what}: kernels never launched: {missing} "
                              f"(counts {launched})")
+    ran = [k for k in forbid if launched.get(k, 0)]
+    if ran:
+        raise AssertionError(f"{what}: kernels launched that this path must "
+                             f"not run: {ran} (counts {launched})")
 
 
 # ---- checks and timing ---------------------------------------------------------
@@ -404,6 +435,9 @@ def check_call(name, args, what):
         rel = float((out - plain).norm() / max(float(plain.norm()), 1e-30))
         ok = exact and rel <= (FP64_TWIN if out.dtype == torch.float64
                                else TWIN_REL_L2)
+    elif name in EXACT_BOTH:
+        ok = (torch.equal(out, plain)
+              and torch.equal(out.cpu(), PLAIN[name](*to_cpu(args))))
     else:
         ok = torch.equal(out, plain)
     if not ok:
@@ -516,6 +550,14 @@ def bound(name, args, out) -> tuple:
                   + out.numel() * out.element_size())
         # the product needs the stored nonzeros' MACs, not the tiles' zeros
         ops = 2 * int((vals != 0).sum()) * X.shape[1]
+    elif name in ("bcsr_bits", "bcsr_bits_spmm"):
+        vals, x = args[1], args[5]
+        width = x.shape[1] if x.dim() == 2 else 1
+        _, col, _ = bits_entries(args)
+        nbytes = (tensor_bytes(args[:5])
+                  + torch.unique(col[col < x.shape[0]]).numel() * width
+                  * x.element_size() + out.numel() * out.element_size())
+        ops = 2 * vals.numel() * width
     elif name == "span_segsum":
         _, dest = segsum_rows(name, args)
         live = int((dest >= 0).sum())
@@ -555,6 +597,29 @@ def bound(name, args, out) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bits_entries(args):
+    """(row, column, value) of every stored slot of a bitmap-tile call
+    (bits, vals, vptr, pan, rowptr, x, m), in (tile, row, lane) order."""
+    bits, vals, vptr, pan, rowptr = args[:5]
+    mask, tiles = bcsr_bits.decode(bits, vals, vptr)
+    t, r, lane = mask.nonzero(as_tuple=True)
+    blk = torch.repeat_interleave(
+        torch.arange(rowptr.numel() - 1, device=bits.device),
+        (rowptr[1:] - rowptr[:-1]).long())
+    return blk[t] * 8 + r, pan.long()[t] * BC + lane, tiles[t, r, lane]
+
+
+def bits_library(args):
+    """A cuSPARSE CSR product (SpMV, or SpMM for a 2-D X) of the matrix a
+    bitmap-tile call holds: the function the kernel computes."""
+    x, m = args[5], args[6]
+    row, col, v = bits_entries(args)
+    A = torch.sparse_coo_tensor(torch.stack([row, col]), v,
+                                (m, x.shape[0])).coalesce().to_sparse_csr()
+    x2 = x if x.dim() == 2 else x.view(-1, 1)
+    return lambda: A.matmul(x2)
 
 
 def free_bound_ms(args, out) -> float:
@@ -757,6 +822,8 @@ def library(name, args, A, xd):
         return rows_library(args)
     if name == "pell_tiles":
         return tiles_library(args)
+    if name in ("bcsr_bits", "bcsr_bits_spmm"):
+        return bits_library(args)
     if name == "xpose_mirror":
         x, flat = mirror_flat(args)
         xz = torch.cat([x, x.new_zeros(1)])
@@ -862,6 +929,9 @@ def layout_meta(pm):
     if pm.get("layout") == "rows":
         return (f"PELL rows quantum {pm['quantum']} quanta {pm['quanta']} "
                 f"blocks {pm['blocks']} fill {pm['fill']:.4f}")
+    if pm.get("layout") == "bits":
+        return (f"BCSR bits tiles {pm['num_blocks']} stored {pm['stored']} "
+                f"block_rows {pm['block_rows']} fill {pm['fill']:.4f}")
     scheme = pm.get("scheme", "fused" if "quantum" in pm else "bcsr")
     return (f"PELL scheme {scheme} quantum "
             f"{pm.get('quantum', BC)} panel_w {pm.get('panel_w', 1)} "
@@ -889,11 +959,11 @@ def xpose_meta(m):
 
 def full_path(name, A, strategy, knobs, dev, card, kernels, branch,
               branch_what, timing=True, describe=pell_meta, profile=False,
-              prepare=None):
+              prepare=None, forbid=()):
     """One full-size path: the launch counts set to 0, ``A`` prepared
     (packing timed), the call validated against the oracle and timed, the
-    counts read; then the branch ``branch(meta)`` and the ``kernels``
-    that must have launched are checked, the call held against its plain
+    counts read; then the branch ``branch(meta)``, the ``kernels`` that
+    must have launched and the ``forbid`` ones that must not are checked, the call held against its plain
     call and each kernel replayed alone. ``timing`` adds host enqueue
     against device time over 200 calls, ``profile`` a profiler window;
     ``describe(prep)`` says what the line prints of the plan. ``prepare``
@@ -918,7 +988,7 @@ def full_path(name, A, strategy, knobs, dev, card, kernels, branch,
     if not branch(prep.meta):
         raise AssertionError(f"{name}: {prep.strategy} did not take "
                              f"{branch_what} (meta {prep.meta})")
-    require(launched, kernels, name)
+    require(launched, kernels, name, forbid)
     rel_l2, row_rel, _ = twin_check(A, x, prep.fn(xd), prep.plain(xd), name,
                                     **tkw)
     table = kernel_table(prep, xd, name, A=A)
@@ -985,6 +1055,59 @@ def layout_ab(name, old, new, xd, card):
           f" | format bytes for {nnz} entries: rows {rows_b} "
           f"({rows_b / max(nnz, 1):.2f} B/nnz), tiles {tiles_b} "
           f"({tiles_b / max(nnz, 1):.2f} B/nnz) | {card}", flush=True)
+
+
+def bits_ab(name, old, new, xd, A, card):
+    """The dense tiles (``old``: its kernel calls, summed) against the
+    bitmap tiles (``new``: its one kernel) of one matrix, in turns (old,
+    new, new, old) in this run, and the two whole calls the same way;
+    beside them cuSPARSE's CSR product of A (SpMV, or SpMM for a 2-D X),
+    the two layouts' bounds and their bytes per entry."""
+    oc = old.kernel_calls(xd)
+    (kn, an), = new.kernel_calls(xd)
+    kern = {"old": [], "new": []}
+    call = {"old": [], "new": []}
+    for side in ("old", "new", "new", "old"):
+        kern[side].append(sum(median_ms(KERNELS[k], *a) for k, a in oc)
+                          if side == "old" else median_ms(KERNELS[kn], *an))
+    for side in ("old", "new", "new", "old"):
+        call[side].append(call_ms((old if side == "old" else new).fn, xd))
+    b_old = sum(bound(k, a, KERNELS[k](*a))[0] for k, a in oc)
+    b_new = bound(kn, an, KERNELS[kn](*an))[0]
+
+    def ms(v):
+        return ", ".join(f"{t:.4f}" for t in v)
+
+    print(f"[{name}] A/B in turns (old, new, new, old): "
+          f"{'+'.join(k for k, _ in oc)} {ms(kern['old'])} ms, {kn} "
+          f"{ms(kern['new'])} ms | whole call, tiles {ms(call['old'])} ms, "
+          f"bits {ms(call['new'])} ms | cuSPARSE CSR of A "
+          f"{median_ms(matrix_library(A, xd)):.4f} ms | bound: bits "
+          f"{b_new:.4f}, tiles {b_old:.4f} ms | format bytes for {A.nnz} "
+          f"nnz: bits {new.hbm_bytes} ({new.hbm_bytes / max(A.nnz, 1):.2f} "
+          f"B/nnz), tiles {old.hbm_bytes} "
+          f"({old.hbm_bytes / max(A.nnz, 1):.2f} B/nnz) | {card}",
+          flush=True)
+
+
+def bcsr_paths(name, A, strategy, knobs, dev, card, kernel, old_kernels,
+               describe, timing=True):
+    """A BCSR main path on the bitmap tiles (the default), which must
+    launch ``kernel`` and none of ``old_kernels``; then the same matrix on
+    ``layout="tiles"`` as a path of its own (counts set to 0 just before
+    it), which must launch ``old_kernels``; then the A/B of the two.
+    Returns both runs' kernel tables and counts."""
+    bt, bcnt, new, _ = full_path(
+        name, A, strategy, knobs, dev, card, (kernel,),
+        lambda m: m.get("layout") == "bits", "the bitmap tiles",
+        timing=timing, describe=describe, forbid=old_kernels)
+    tt, tcnt, old, _ = full_path(
+        f"{name}-tiles", A, strategy, {**knobs, "layout": "tiles"}, dev,
+        card, old_kernels, lambda m: "layout" not in m, "the dense tiles",
+        timing=False, describe=describe, forbid=(kernel,))
+    _, xd, *_ = path_input(A, strategy, knobs, dev)
+    bits_ab(name, old, new, xd, A, card)
+    return bt, bcnt, tt, tcnt
 
 
 def core_call(prep, xd):
@@ -1212,8 +1335,9 @@ def fp64_spmm_meta(prep):
     """What a line says of an fp64 or SpMM plan."""
     m = prep.meta
     if prep.strategy == "cuda-bcsr-spmm":
-        return (f"{prep.strategy} nnz {prep.nnz} cols {m['cols']} tiles "
-                f"{m['num_blocks']} fill {m['fill']:.4f}")
+        return (f"{prep.strategy} nnz {prep.nnz} cols {m['cols']} layout "
+                f"{m.get('layout', 'tiles')} tiles {m['num_blocks']} fill "
+                f"{m['fill']:.4f}")
     if prep.strategy == "cuda-hybrid-fp64":
         return (f"{prep.strategy} nnz {prep.nnz} loc_w {m['loc_w']} Q "
                 f"{m['slots']} chunk {m['chunk']} steps {m['steps']} fill "
@@ -1237,6 +1361,9 @@ def fp64_spmm_phases(dev, card, flagship_A, PL):
               if strategy == "cuda-pell-fp64"]
     small += [(name, make(), "cuda-bcsr-spmm", kw)
               for name, (make, kw) in cases.SPMM_CASES.items()]
+    small += [(f"{name}-tiles", A, strategy, {**kw, "layout": "tiles"})
+              for name, A, strategy, kw in small
+              if strategy == "cuda-bcsr-spmm"]
     small_phase("small-fp64-spmm", small, FP64_SPMM_KERNELS,
                 lambda p, _: fp64_spmm_meta(p), dev,
                 "small fp64 and SpMM cases")
@@ -1278,16 +1405,16 @@ def fp64_spmm_phases(dev, card, flagship_A, PL):
               card)
     del pw_prep, pt_prep
 
-    # 20-21. main paths 11 and 12: the SpMM at 8 and 64 columns
-    sp, sp_counts, *_ = full_path(
+    # 20-21. main paths 11 and 12: the SpMM at 8 and 64 columns, each on
+    # the bitmap tiles, then on the dense tiles, then the two in turns
+    sp, sp_counts, st, st_counts = bcsr_paths(
         "flagship-spmm8", A, "cuda-bcsr-spmm", {"cols": 8}, dev, card,
-        ("bcsr_spmm",), lambda m: m["cols"] == 8, "8 columns",
-        describe=fp64_spmm_meta)
-    full_path("stencil48k-spmm64", cases.stencil48k(), "cuda-bcsr-spmm",
-              {"cols": 64}, dev, card, ("bcsr_spmm",),
-              lambda m: m["cols"] == 64, "64 columns",
-              describe=fp64_spmm_meta)
-    return fl, fl_counts, pw, pw_counts, pt, pt_counts, sp, sp_counts
+        "bcsr_bits_spmm", ("bcsr_spmm",), fp64_spmm_meta)
+    bcsr_paths("stencil48k-spmm64", cases.stencil48k(), "cuda-bcsr-spmm",
+               {"cols": 64}, dev, card, "bcsr_bits_spmm", ("bcsr_spmm",),
+               fp64_spmm_meta)
+    return (fl, fl_counts, pw, pw_counts, pt, pt_counts, sp, sp_counts, st,
+            st_counts)
 
 
 def dist_meta(prep):
@@ -1588,8 +1715,11 @@ def main() -> int:
              in cases.PELL_CASES.items()]
     small += [(f"{name}-tiles", A, strategy, {**kw, "layout": "tiles"})
               for name, A, strategy, kw in small
-              if strategy == "cuda-pell"
-              and kw.get("scheme") not in ("span", "pure")]
+              if strategy == "cuda-bcsr" or (
+                  strategy == "cuda-pell"
+                  and kw.get("scheme") not in ("span", "pure"))]
+    small += [(name, make(), "cuda-bcsr", {})
+              for name, make in cases.BITS_CASES.items()]
     small_phase("small-pell", small, PELL_KERNELS, pell_small_meta, dev,
                 "small PELL cases")
 
@@ -1621,14 +1751,14 @@ def main() -> int:
         "powerlaw100k-span", PL, "cuda-pell",
         {"scheme": "span"}, dev, card, ("pell_tiles", "span_segsum"),
         lambda m: m["scheme"] == "span", "the span scheme", timing=False)
-    bc, bc_counts, *_ = full_path(
-        "flagship-bcsr", flagship_A, "cuda-bcsr", {}, dev, card,
-        ("pell_tiles", "window_segsum"), lambda m: True, "dense tiles",
-        timing=False)
+    bc, bc_counts, *_ = bcsr_paths(
+        "flagship-bcsr", flagship_A, "cuda-bcsr", {}, dev, card, "bcsr_bits",
+        ("pell_tiles", "window_segsum"), pell_meta)
 
     wx, wx_counts = xpose_phases(dev, card)
     (fl64, fl64_counts, pw64, pw64_counts, pt64, pt64_counts, sp8,
-     sp8_counts) = fp64_spmm_phases(dev, card, flagship_A, PL)
+     sp8_counts, st8, st8_counts) = fp64_spmm_phases(dev, card, flagship_A,
+                                                     PL)
     dfl, dfl_counts, dpl, dpl_counts = dist_phases(dev, card, flagship_A, PL)
 
     # the kernels line: each kernel timed on the path that runs it
@@ -1649,7 +1779,9 @@ def main() -> int:
                 **{k: (wx[k], wx_counts) for k in XPOSE_KERNELS},
                 "lane_ell_fp64": (fl64["lane_ell_fp64"], fl64_counts),
                 "pell_fused_fp64": (pt64["pell_fused_fp64"], pt64_counts),
-                "bcsr_spmm": (sp8["bcsr_spmm"], sp8_counts)}
+                "bcsr_spmm": (st8["bcsr_spmm"], st8_counts),
+                "bcsr_bits": (bc["bcsr_bits"], bc_counts),
+                "bcsr_bits_spmm": (sp8["bcsr_bits_spmm"], sp8_counts)}
     line = []
     for name in LINE_ORDER:
         row, launched = measured[name]

@@ -61,6 +61,8 @@ SIGNATURES = {
               "xpose_s1": (P, I64, P, I, I, P, P, P, P, P, P, I, I, P),
               "xpose_s3": (P, P, P, I, I, I64, P)},
     "spmm": {"bcsr_spmm": (P, P, P, P, P, I, I, I, P)},
+    "bcsr_bits": {"bcsr_bits": (P, P, P, P, P, P, P, I, I, P),
+                  "bcsr_bits_spmm": (P, P, P, P, P, P, P, I, I, I, P)},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

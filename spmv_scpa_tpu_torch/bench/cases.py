@@ -26,11 +26,15 @@ uniform scatter) and ``webbase1m`` are what ``pick_auto`` sends to
 small cases of the fp64 grade (``cuda-hybrid-fp64``, ``cuda-pell-fp64``)
 and of ``cuda-bcsr-spmm``; ``stencil48k`` is the 64-column SpMM input
 (the flagship's X at 64 columns, 96.5 MB, is past the reference's X
-budget). ``heavy_scatter`` is a chips tail whose unique columns exceed
-the single plan's budgets (the split plan); ``CHIPS_CASES`` are the
-small ``cuda-chips`` cases; ``DIST_CASES`` are the six
-routes that ``__graft_entry__.dryrun_multichip`` drives through the
-row-sharded prepare functions, at its sizes for a given shard count.
+budget). ``BITS_CASES`` are the small matrices of the bitmap BCSR
+layout: a banded and a stencil matrix, a power-law one whose hub rows
+give block rows up to 24 tiles, and ``dup_zeros`` with explicit zeros,
+duplicate coordinates and ragged edges. ``heavy_scatter`` is a chips
+tail whose unique columns exceed the single plan's budgets (the split
+plan); ``CHIPS_CASES`` are the small ``cuda-chips`` cases;
+``DIST_CASES`` are the six routes that
+``__graft_entry__.dryrun_multichip`` drives through the row-sharded
+prepare functions, at its sizes for a given shard count.
 """
 
 from __future__ import annotations
@@ -215,6 +219,35 @@ SPMM_CASES = {
                                  seed=5), {"cols": 8, "chunk": 4}),
     "spmm-stencil4k-c1": (_stencil4k, {"cols": 1}),
     "spmm-stencil4k-c64": (_stencil4k, {"cols": 64}),
+}
+
+
+def dup_zeros() -> CSR:
+    """A banded matrix (m = 1003, n = 1500: ragged last block row and
+    panel) with explicit zeros, duplicate coordinates (one pair summing
+    to 0.0) and a full tile row: the bitmap layout's structural cases
+    (integer and normal draws only)."""
+    rng = np.random.default_rng(21)
+    m, n = 1003, 1500
+    r = np.repeat(np.arange(m, dtype=np.int64), 5)
+    c = np.clip(r + rng.integers(-40, 40, r.size), 0, n - 1)
+    v = rng.standard_normal(r.size)
+    v[::7] = 0.0                                   # explicit zeros
+    r = np.concatenate([r, r[:300], [500, 500], np.full(128, 880),
+                        [1002]])
+    c = np.concatenate([c, c[:300], [700, 700], 1280 + np.arange(128),
+                        [1499]])
+    v = np.concatenate([v, rng.standard_normal(300), [2.5, -2.5],
+                        rng.standard_normal(128), [3.0]])
+    return CSR.from_coo("dup_zeros", m, n, r, c, v)
+
+
+# name -> matrix factory: the bitmap BCSR layout's small cases
+BITS_CASES = {
+    "bits-banded200x300": SPMM_CASES["spmm-banded200x300"][0],
+    "bits-stencil4k": _stencil4k,
+    "bits-powerlaw2k": lambda: synth.powerlaw_csr(2000, 3000, seed=8),
+    "bits-dup-zeros": dup_zeros,
 }
 
 

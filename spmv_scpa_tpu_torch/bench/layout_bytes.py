@@ -1,8 +1,9 @@
-"""Bytes per entry of the row-quantum layouts on their main-path
-matrices, packed on the host (no card needed; the flagship's packing
-takes about a minute and several GB):
+"""Bytes per entry of the row-quantum layouts and of the bitmap BCSR
+tiles on their main-path matrices, packed on the host (no card needed;
+the flagship's packing takes about a minute and several GB):
 
-    python -m spmv_scpa_tpu_torch.bench.layout_bytes
+    python -m spmv_scpa_tpu_torch.bench.layout_bytes          # all
+    python -m spmv_scpa_tpu_torch.bench.layout_bytes bcsr     # BCSR only
 
 Prints, for ``powerlaw100k`` at f32 and fp64 and for ``webbase1m``'s
 compact tail (the hybrid's big tail), the quantum the host rule picks,
@@ -13,7 +14,10 @@ of the flagship (bench knobs), ``amazon262k``, ``webbase1m`` and
 slots per entry, share of 32-bit index blocks and bytes per core entry
 (values, index, ``qptr``, ``blk_lo``, ``ctab``) beside the byte cost of
 each quantum, and the lanes layout's plane count, slots per entry and
-plane bytes per core entry.
+plane bytes per core entry. Then, for the flagship and ``stencil48k``
+(the BCSR SpMV and SpMM paths), the dense (8, 128) tiles' bytes against
+the bitmap tiles' (``ops/bcsr_bits.py``: values, masks, ``pan`` and
+``vptr``, ``rowptr``), in all and per nonzero.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ import torch
 
 from spmv_scpa_tpu_torch.bench import cases
 from spmv_scpa_tpu_torch.formats.csr import BC
-from spmv_scpa_tpu_torch.ops import lane_ell, lane_rows, pell, pell_rows
+from spmv_scpa_tpu_torch.formats.panel_ell import BR
+from spmv_scpa_tpu_torch.ops import (bcsr_bits, lane_ell, lane_rows, pell,
+                                     pell_rows)
 
 
 def report(name, A, dtype=torch.float32) -> None:
@@ -71,7 +77,33 @@ def report_core(name, A, **knobs) -> None:
           f"| pack {pack_s:.2f} s, rows plan {rows_s:.2f} s", flush=True)
 
 
-def main() -> int:
+def bcsr_bytes(A) -> dict:
+    """The dense tiles' bytes (values only, as the tile kernel streams
+    them, without window padding) and the bitmap tiles' by array."""
+    plan = bcsr_bits.plan_bcsr_bits(A)
+    return {"nnz": A.nnz, "tiles": plan.num_tiles, "fill": plan.meta["fill"],
+            "dense": plan.num_tiles * BR * BC * 4, "bits": plan.hbm_bytes,
+            "vals": plan.vals.nbytes, "masks": plan.bits.nbytes,
+            "pan_vptr": plan.pan.nbytes + plan.vptr.nbytes,
+            "rowptr": plan.rowptr.nbytes}
+
+
+def report_bcsr(name, A) -> None:
+    b = bcsr_bytes(A)
+    nnz = max(b["nnz"], 1)
+    print(f"[{name}-bcsr] {b['nnz']} nnz, {b['tiles']} tiles, fill "
+          f"{b['fill']:.4f} | dense tiles {b['dense']} B = "
+          f"{b['dense'] / nnz:.2f} B/nnz | bits {b['bits']} B = "
+          f"{b['bits'] / nnz:.2f} B/nnz (values {b['vals']}, masks "
+          f"{b['masks']}, pan+vptr {b['pan_vptr']}, rowptr {b['rowptr']}) "
+          f"| dense / bits {b['dense'] / max(b['bits'], 1):.2f}", flush=True)
+
+
+def main(argv=()) -> int:
+    if "bcsr" in argv:
+        report_bcsr("flagship", cases.flagship())
+        report_bcsr("stencil48k", cases.stencil48k())
+        return 0
     A = cases.powerlaw100k()
     report("powerlaw100k", A)
     report("powerlaw100k-fp64", A, torch.float64)
@@ -82,8 +114,10 @@ def main() -> int:
     report_core("amazon262k", cases.amazon262k())
     report_core("webbase1m", W)
     report_core("ext_windowed1m", cases.ext_windowed1m())
+    report_bcsr("flagship", cases.flagship())
+    report_bcsr("stencil48k", cases.stencil48k())
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -42,7 +42,7 @@ def paths(dev):
         ("powerlaw100k-span", cases.powerlaw100k, lambda A: get_strategy(
             "cuda-pell").prepare(A, device=dev, scheme="span")),
         ("flagship-bcsr", cases.flagship, lambda A: get_strategy(
-            "cuda-bcsr").prepare(A, device=dev)),
+            "cuda-bcsr").prepare(A, device=dev, layout="tiles")),
         ("amazon262k", cases.amazon262k, lambda A: get_strategy(
             "cuda-hybrid").prepare(A, device=dev)),
         ("dist-webbase1m", cases.webbase1m, lambda A: hybrid(A, mesh=[dev])),

@@ -19,11 +19,12 @@ Three schemes, as in the reference:
 
 ``row_sort`` (scattered matrices) first permutes rows within each
 1024-row window, lane by lane, so that rows of similar length share an
-8-row block; :func:`unpermute` undoes it on y. ``cuda-bcsr`` runs the
-tile kernel on dense (8, 128) tiles (no lane index) with the window
-segment-sum. ``cuda-pell-fp64`` (the reference's ``prepare_pell_df64``)
-packs one panel per tile without the row sort (:func:`plan_pell_fp64`)
-and runs :func:`pell_fused_fp64`, the fused kernel in float64.
+8-row block; :func:`unpermute` undoes it on y. ``cuda-bcsr`` on
+``layout="tiles"`` runs the tile kernel on dense (8, 128) tiles (no lane
+index) with the window segment-sum. ``cuda-pell-fp64`` (the reference's
+``prepare_pell_df64``) packs one panel per tile without the row sort
+(:func:`plan_pell_fp64`) and runs :func:`pell_fused_fp64`, the fused
+kernel in float64.
 
 Layouts. ``prepare_pell`` and ``prepare_pell_fp64`` take ``layout``:
 ``"tiles"`` is all of the above, the reference's arrays; ``"auto"``
@@ -33,7 +34,11 @@ at a fraction of the tiles' bytes, for the fused scheme and the fp64
 grade, and the tiles for ``scheme="span"`` and ``"pure"``. The row layout keeps the reference's refusals (#8a-c
 below, the fp64 grade's 2^24 row and x-pair budgets), records the tile
 geometry knobs it has no use for in ``meta["tile_knobs"]``, and reads
-``quantum`` as its row quantum (2, 4, 8 or 16).
+``quantum`` as its row quantum (2, 4, 8 or 16). ``prepare_bcsr`` takes
+``layout`` too: ``"auto"`` packs the same tiles as bitmaps of their
+stored slots (``ops/bcsr_bits.py``, the kernel ``bcsr_bits``), keeping
+the dense tiles' refusal and recording ``chunk`` and ``window_h`` in
+``meta["tile_knobs"]``; ``"tiles"`` is the reference's.
 
 The host parts are JAX-free copies of the reference's and keep its
 TPU-tuned choices (quantum, window, chunk, superpanel width and the
@@ -64,6 +69,7 @@ from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.formats.panel_ell import (BR, DEFAULT_QUANTUM,
                                                    DEFAULT_WINDOW_H,
                                                    csr_to_pell)
+from spmv_scpa_tpu_torch.ops import bcsr_bits
 from spmv_scpa_tpu_torch.ops import pell_rows as prows
 from spmv_scpa_tpu_torch.ops import segsum_kernel
 from spmv_scpa_tpu_torch.ops.registry import (FP64_RTOL, Prepared,
@@ -636,11 +642,7 @@ def plan_bcsr(A: CSR, chunk: int = DEFAULT_CHUNK,
     est_tiles = np.unique(
         (A.row_ids().astype(np.int64) // BR) * ((A.n + BC - 1) // BC)
         + A.ja // BC).shape[0]
-    if est_tiles * BR * BC * 4 > max_padded_bytes:
-        raise ValueError(
-            f"bcsr: {est_tiles} tiles would need "
-            f"{est_tiles * BR * BC * 4} B; matrix too scattered for "
-            "dense tiles — use cuda-pell")
+    bcsr_bits.refuse_dense_tiles(est_tiles, max_padded_bytes)
     B = csr_to_bcsr(A, br=BR, bc=BC)
     rowblk = np.repeat(np.arange(B.num_block_rows, dtype=np.int32),
                        np.diff(B.rowptr))
@@ -901,14 +903,16 @@ class PellKernels(NamedTuple):
     window_segsum: Callable
     unpermute: Callable
     pell_rows: Callable
+    bcsr_bits: Callable
 
 
 KERNELS = PellKernels(pell_fused, pell_tiles, segsum_kernel.span_segsum,
-                      segsum_kernel.window_segsum, unpermute, prows.pell_rows)
+                      segsum_kernel.window_segsum, unpermute, prows.pell_rows,
+                      bcsr_bits.bcsr_bits)
 PLAIN = PellKernels(pell_fused_plain, pell_tiles_plain,
                     segsum_kernel.span_segsum_plain,
                     segsum_kernel.window_segsum_plain, unpermute_plain,
-                    prows.pell_rows_plain)
+                    prows.pell_rows_plain, bcsr_bits.bcsr_bits_plain)
 
 
 class PellFp64Kernels(NamedTuple):
@@ -984,9 +988,12 @@ def bind_plan(plan: PellPlan, dev) -> Callable:
 
 def _prepared(name: str, ref: str, A: CSR, plan, dev, kernels=KERNELS,
               plain=PLAIN):
-    """Bind ``plan`` (a :class:`PellPlan` or a row-layout
-    :class:`pell_rows.RowsPlan`) on ``dev`` as strategy ``name``."""
-    bind = prows.bind_plan if isinstance(plan, prows.RowsPlan) else bind_plan
+    """Bind ``plan`` (a :class:`PellPlan`, a row-layout
+    :class:`pell_rows.RowsPlan` or a :class:`bcsr_bits.BitsPlan`) on
+    ``dev`` as strategy ``name``."""
+    bind = (prows.bind_plan if isinstance(plan, prows.RowsPlan)
+            else bcsr_bits.bind_plan if isinstance(plan, bcsr_bits.BitsPlan)
+            else bind_plan)
     run = bind(plan, dev)
     n = A.n
 
@@ -1042,9 +1049,21 @@ def prepare_pell_fp64(A: CSR, device="cuda", layout: str = "auto",
                      FP64_KERNELS, FP64_PLAIN)
 
 
-def prepare_bcsr(A: CSR, device="cuda", **knobs) -> Prepared:
-    """``cuda-bcsr``: pack ``A`` (:func:`plan_bcsr`) and bind it on
-    ``device``."""
+def prepare_bcsr(A: CSR, device="cuda", layout: str = "auto",
+                 max_padded_bytes: int = 2 << 30, **knobs) -> Prepared:
+    """``cuda-bcsr``: pack ``A`` in ``layout`` (the bitmap tiles,
+    :func:`bcsr_bits.plan_bcsr_bits`, for ``"auto"``; :func:`plan_bcsr`
+    for ``"tiles"``), both refusing a matrix whose dense tiles would
+    exceed ``max_padded_bytes``, and bind it on ``device``."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"bcsr: unknown layout {layout!r}; one of "
+                         f"{LAYOUTS}")
     dev = resolve_device(device)
-    return _prepared("cuda-bcsr", "pallas-bcsr", A, plan_bcsr(A, **knobs),
-                     dev)
+    if layout == "tiles":
+        plan = plan_bcsr(A, max_padded_bytes=max_padded_bytes, **knobs)
+    else:
+        plan = bcsr_bits.plan_bcsr_bits(A, max_padded_bytes)
+        tile = {k: knobs[k] for k in ("chunk", "window_h") if k in knobs}
+        if tile:
+            plan.meta["tile_knobs"] = tile
+    return _prepared("cuda-bcsr", "pallas-bcsr", A, plan, dev)

@@ -12,16 +12,16 @@ of the JAX package it is held against:
                                              kernel
  cuda-pell              pallas-pell          PELL, fused / span / pure
                                              schemes
- cuda-bcsr              pallas-bcsr          dense (8, 128) tiles, tile
-                                             kernel
+ cuda-bcsr              pallas-bcsr          (8, 128) tiles as bitmaps of
+                                             their stored slots (or dense)
  cuda-xpose             pallas-xpose         static-routed transpose
                                              (mirror, S1 and S3 kernels)
  cuda-nearfar           pallas-nearfar       cuda-hybrid on the diagonal
                                              band + cuda-xpose on the rest
  cuda-hybrid-fp64       pallas-hybrid-df64   lane-ELL core in float64
  cuda-pell-fp64         pallas-pell-df64     fused PELL in float64
- cuda-bcsr-spmm         pallas-bcsr-spmm     SpMM over dense tiles (X is
-                                             (n, cols), spmm_only)
+ cuda-bcsr-spmm         pallas-bcsr-spmm     SpMM over the same tiles (X
+                                             is (n, cols), spmm_only)
  cuda-chips             pallas-chips         the whole matrix as chips
                                              (gathers + window segment-sum)
  torch-csr-segsum       xla-csr-segsum       gather + ``index_add_`` (spmm)

@@ -1,8 +1,11 @@
 """BCSR SpMM on PyTorch and CUDA (``cuda-bcsr-spmm``, counterpart of
 ``spmv_scpa_tpu/ops/pallas_kernels.py:make_bcsr_spmm`` and
 ``prepare_bcsr_spmm``, the ``pallas-bcsr-spmm`` strategy): Y (m, cols) =
-A @ X over dense (8, 128) tiles, the multi-vector case of BASELINE.json's
-config 3.
+A @ X over (8, 128) tiles, the multi-vector case of BASELINE.json's
+config 3. Two layouts (knob ``layout``): ``"auto"`` (the default) packs
+the tiles as bitmaps of their stored slots (``ops/bcsr_bits.py``, the
+kernel ``bcsr_bits_spmm``), ``"tiles"`` the reference's dense tiles
+below; both keep the reference's X budget.
 
 * :func:`plan_bcsr_spmm` — the host part of ``make_bcsr_spmm``
   (pallas_kernels.py:1132-1180) that the CUDA path needs, copied
@@ -21,9 +24,9 @@ config 3.
   grid; on Hopper one thread owns a block row's 8 elements of a column
   of Y), with
   :func:`bcsr_spmm_plain` beside it.
-* :func:`prepare_bcsr_spmm` — binds the plan: ``fn(X)`` takes X (n,
-  cols) and returns Y (m, cols) f32 on the device. It is ``spmm_only``:
-  ``registry.spmv`` drives it with a 1-D x in column 0.
+* :func:`prepare_bcsr_spmm` — binds either layout's plan: ``fn(X)``
+  takes X (n, cols) and returns Y (m, cols) f32 on the device. It is
+  ``spmm_only``: ``registry.spmv`` drives it with a 1-D x in column 0.
 """
 
 from __future__ import annotations
@@ -38,8 +41,9 @@ from spmv_scpa_tpu_torch import _kernels
 from spmv_scpa_tpu_torch.formats.bcsr import csr_to_bcsr
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.formats.panel_ell import BR
-from spmv_scpa_tpu_torch.ops.pell import (DEFAULT_CHUNK, X_VMEM_BUDGET,
-                                         _pad_tiles)
+from spmv_scpa_tpu_torch.ops import bcsr_bits
+from spmv_scpa_tpu_torch.ops.pell import (DEFAULT_CHUNK, LAYOUTS,
+                                         X_VMEM_BUDGET, _pad_tiles)
 from spmv_scpa_tpu_torch.ops.registry import Prepared, record_calls
 from spmv_scpa_tpu_torch.ops.segsum_kernel import make_visit_masks
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
@@ -67,16 +71,22 @@ class SpmmPlan:
         return self.pan.size
 
 
-def plan_bcsr_spmm(A: CSR, cols: int = 8, chunk: int = DEFAULT_CHUNK,
-                   **_) -> SpmmPlan:
-    """Pack ``A`` as the reference's ``make_bcsr_spmm`` does (its knobs
-    and defaults; ``chunk`` enters its meta only)."""
+def refuse_x(A: CSR, cols: int) -> None:
+    """The reference's X budget: ValueError for an X (n, cols) past
+    ``X_VMEM_BUDGET``, before any tile is built."""
     p_rows = max(1, -(-A.n // BC))
     x_bytes = p_rows * BC * cols * 4
     if x_bytes > X_VMEM_BUDGET:
         raise ValueError(
             f"bcsr-spmm: X ({x_bytes} B) exceeds VMEM budget; reduce cols"
             " or matrix size")
+
+
+def plan_bcsr_spmm(A: CSR, cols: int = 8, chunk: int = DEFAULT_CHUNK,
+                   **_) -> SpmmPlan:
+    """Pack ``A`` as the reference's ``make_bcsr_spmm`` does (its knobs
+    and defaults; ``chunk`` enters its meta only)."""
+    refuse_x(A, cols)
     B = csr_to_bcsr(A, br=BR, bc=BC)
     return SpmmPlan(
         m=A.m, n=A.n, cols=cols, chunk=chunk,
@@ -203,10 +213,11 @@ class SpmmKernels(NamedTuple):
     """The functions a ``cuda-bcsr-spmm`` call runs, by name."""
 
     bcsr_spmm: Callable
+    bcsr_bits_spmm: Callable
 
 
-KERNELS = SpmmKernels(bcsr_spmm)
-PLAIN = SpmmKernels(bcsr_spmm_plain)
+KERNELS = SpmmKernels(bcsr_spmm, bcsr_bits.bcsr_bits_spmm)
+PLAIN = SpmmKernels(bcsr_spmm_plain, bcsr_bits.bcsr_bits_spmm_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -214,22 +225,39 @@ PLAIN = SpmmKernels(bcsr_spmm_plain)
 # ---------------------------------------------------------------------------
 
 def prepare_bcsr_spmm(A: CSR, cols: int = 8, device="cuda",
-                      **knobs) -> Prepared:
-    """``cuda-bcsr-spmm``: pack ``A`` (:func:`plan_bcsr_spmm`) and bind
-    ``fn(X[n, cols]) -> Y[m, cols]`` on ``device``."""
+                      layout: str = "auto", **knobs) -> Prepared:
+    """``cuda-bcsr-spmm``: pack ``A`` in ``layout`` (the bitmap tiles,
+    :func:`bcsr_bits.plan_bcsr_bits`, for ``"auto"``, with ``cols`` in
+    meta and ``chunk`` under ``tile_knobs`` when given;
+    :func:`plan_bcsr_spmm` for ``"tiles"``), both behind the reference's
+    X budget, and bind ``fn(X[n, cols]) -> Y[m, cols]`` on ``device``."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"cuda-bcsr-spmm: unknown layout {layout!r}; one "
+                         f"of {LAYOUTS}")
     dev = resolve_device(device)
-    plan = plan_bcsr_spmm(A, cols=cols, **knobs)
-    vals = torch.as_tensor(plan.vals, dtype=torch.float32, device=dev)
-    pan = torch.as_tensor(plan.pan, device=dev)
-    rowptr = torch.as_tensor(plan.rowptr, device=dev)
     m, n = A.m, A.n
+    if layout == "tiles":
+        plan = plan_bcsr_spmm(A, cols=cols, **knobs)
+        vals = torch.as_tensor(plan.vals, dtype=torch.float32, device=dev)
+        pan = torch.as_tensor(plan.pan, device=dev)
+        rowptr = torch.as_tensor(plan.rowptr, device=dev)
+
+        def kernel(Xf, ops):
+            return ops.bcsr_spmm(vals, pan, rowptr, Xf, m)
+    else:
+        refuse_x(A, cols)
+        plan = bcsr_bits.plan_bcsr_bits(A)
+        plan.meta["cols"] = cols
+        if "chunk" in knobs:
+            plan.meta["tile_knobs"] = {"chunk": knobs["chunk"]}
+        kernel = bcsr_bits.bind_plan(plan, dev, spmm=True)
 
     def run(X, ops):
         Xf = torch.as_tensor(X, dtype=torch.float32, device=dev)
         if Xf.shape != (n, cols):
             raise ValueError(f"cuda-bcsr-spmm: X has shape "
                              f"{tuple(Xf.shape)}, expected ({n}, {cols})")
-        return ops.bcsr_spmm(vals, pan, rowptr, Xf.contiguous(), m)
+        return kernel(Xf.contiguous(), ops)
 
     return Prepared(
         "cuda-bcsr-spmm", A.name, lambda X: run(X, KERNELS), device=dev,

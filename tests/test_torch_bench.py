@@ -346,8 +346,9 @@ def test_chip_smoke_fp64_and_spmm_yardsticks(name):
     from spmv_scpa_tpu_torch.bench import cases
     if name in cases.FP64_CASES:
         make, strategy, kw = cases.FP64_CASES[name]
-    else:
+    else:   # the dense tiles' kernel; the bitmap one's bound is pinned below
         (make, kw), strategy = cases.SPMM_CASES[name], "cuda-bcsr-spmm"
+        kw = {**kw, "layout": "tiles"}
     A = make()
     x, xd, gold, vkw, _ = cs.path_input(A, strategy, kw,
                                         torch.device("cpu"))
@@ -412,4 +413,49 @@ def test_chip_smoke_rows_core_yardstick_and_bound(name):
     assert cs.free_bound_ms(args, out) > 0
     got = cs.library(kname, args, A, xd)().reshape(-1)
     torch.testing.assert_close(got, out, rtol=1e-5, atol=1e-5)
-    assert cs.LINE_ORDER.count("lane_rows") == 1 and len(cs.LINE_ORDER) == 20
+    assert cs.LINE_ORDER.count("lane_rows") == 1 and len(cs.LINE_ORDER) == 22
+
+
+def _bits_bound_case():
+    """16 rows, 300 columns: rows 0 and 1 share column 5, row 3 stores
+    column 130, row 9 column 7 twice (one slot) and row 10 column 299:
+    5 stored slots in 4 tiles (block row 0: panels 0 and 1; block row 1:
+    panels 0 and 2), reading 4 distinct columns."""
+    from spmv_scpa_tpu_torch.formats.csr import CSR
+    return CSR.from_coo("bits_bound", 16, 300, [0, 1, 3, 9, 9, 10],
+                        [5, 5, 130, 7, 7, 299],
+                        [1.0, 2.0, 3.0, 4.0, 0.5, 6.0])
+
+
+@pytest.mark.parametrize("cols", [None, 3])
+def test_chip_smoke_bound_counts_the_bitmap_layout(cols):
+    """The bitmap kernels' bound charges the masks, the stored values,
+    vptr, pan and rowptr whole, x (or X's rows) only at the distinct
+    columns the stored slots name, and the output; their operations are
+    2 x stored x cols. Their yardstick, cuSPARSE of the matrix the tiles
+    hold, computes what the kernels do."""
+    cs = _chip_smoke()
+    from spmv_scpa_tpu_torch.ops import bcsr_bits
+    A = _bits_bound_case()
+    plan = bcsr_bits.plan_bcsr_bits(A)
+    assert (plan.num_tiles, plan.vals.size) == (4, 5)
+    args = tuple(torch.as_tensor(a) for a in (plan.bits, plan.vals,
+                                              plan.vptr, plan.pan,
+                                              plan.rowptr))
+    width = 1 if cols is None else cols
+    x = torch.arange(300 * width, dtype=torch.float32).view(
+        (300,) if cols is None else (300, cols))
+    name = "bcsr_bits" if cols is None else "bcsr_bits_spmm"
+    args = args + (x, A.m)
+    out = cs.PLAIN[name](*args)
+    ms, by = cs.bound(name, args, out)
+    nbytes = (4 * 8 * 4 * 4 + 5 * 4 + 5 * 4 + 4 * 4 + 3 * 4
+              + 4 * width * 4 + 16 * width * 4)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / cs.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    ops = 2 * 5 * width
+    assert nbytes / cs.HBM_BYTES_PER_S > ops / cs.F32_OPS_PER_S
+    got = cs.library(name, args, A, x)().reshape(out.shape)
+    torch.testing.assert_close(got, out, rtol=1e-6, atol=0)
+    assert cs.SOURCES[name][0] == "spmv_scpa_tpu_torch/csrc/bcsr_bits.cu"
+    assert name in cs.LINE_ORDER and name in cs.EXACT_BOTH

@@ -37,7 +37,10 @@ whole row-sharded call, and the chips tail's split streams, as the whole
 hybrid call (each kernel call replayed as above). The rows core
 ``lane_rows`` adds in ``pell_rows``' fixed order: bit-equal to its plain
 version run on the CPU, and within rel-L2 1e-6 of it on the card, on
-16-bit and 32-bit index blocks, single-card and row-sharded.
+16-bit and 32-bit index blocks, single-card and row-sharded. The
+bitmap BCSR kernels ``bcsr_bits`` and ``bcsr_bits_spmm`` add in their
+plain versions' fixed order without atomics: bit-equal to them on the
+card and run on the CPU, at 1, 3, 8, 64 and 100 columns.
 """
 
 import numpy as np
@@ -50,9 +53,9 @@ from spmv_scpa_tpu_torch.bench import roofline, timing
 from spmv_scpa_tpu_torch.bench import cases
 from spmv_scpa_tpu_torch.bench.cases import PELL_CASES, SMALL_CASES
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import (ext_gather, lane_ell, lane_ell_fp64,
-                                     lane_rows, pell, pell_rows,
-                                     segsum_kernel, spmm, xpose)
+from spmv_scpa_tpu_torch.ops import (bcsr_bits, ext_gather, lane_ell,
+                                     lane_ell_fp64, lane_rows, pell,
+                                     pell_rows, segsum_kernel, spmm, xpose)
 from spmv_scpa_tpu_torch.parallel import distributed
 from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import to_numpy
@@ -253,13 +256,15 @@ def test_pell_case_kernels_match_plain(card, name):
     prep = get_strategy(strategy).prepare(A, device=card, **kw)
     xd = torch.as_tensor(x, dtype=torch.float32, device=card)
     before = (dict(pell.LAUNCHES), segsum_kernel.SPAN_LAUNCHES,
-              segsum_kernel.KERNEL_LAUNCHES, pell_rows.LAUNCHES["pell_rows"])
+              segsum_kernel.KERNEL_LAUNCHES, pell_rows.LAUNCHES["pell_rows"],
+              bcsr_bits.LAUNCHES["bcsr_bits"])
     yk = to_numpy(prep.fn(xd))
     calls = prep.kernel_calls(xd)
     launched = {**{k: pell.LAUNCHES[k] - before[0][k] for k in pell.LAUNCHES},
                 "span_segsum": segsum_kernel.SPAN_LAUNCHES - before[1],
                 "window_segsum": segsum_kernel.KERNEL_LAUNCHES - before[2],
-                "pell_rows": pell_rows.LAUNCHES["pell_rows"] - before[3]}
+                "pell_rows": pell_rows.LAUNCHES["pell_rows"] - before[3],
+                "bcsr_bits": bcsr_bits.LAUNCHES["bcsr_bits"] - before[4]}
     assert {k for k, v in launched.items() if v} == {k for k, _ in calls}
     yt = to_numpy(prep.plain(xd))
     assert np.linalg.norm(yk - yt) <= \
@@ -504,7 +509,7 @@ def test_spmm_case_kernel_matches_plain(card, name):
     make, kw = cases.SPMM_CASES[name]
     A = make()
     X = make_x(A.n, cols=kw["cols"]).reshape(A.n, kw["cols"])
-    prep = spmm.prepare_bcsr_spmm(A, device=card, **kw)
+    prep = spmm.prepare_bcsr_spmm(A, device=card, layout="tiles", **kw)
     Xd = torch.as_tensor(X, dtype=torch.float32, device=card)
     before = spmm.KERNEL_LAUNCHES
     Y = prep.fn(Xd)
@@ -541,7 +546,8 @@ def test_new_wrappers_refuse_mixed_devices_and_dtypes(card):
     with pytest.raises(ValueError, match="x is on cpu"):
         pell.pell_fused_fp64(vals, idx, pan, x.cpu(), rbl, base, cfg, lists)
     S = cases.SPMM_CASES["spmm-banded200x300"]
-    prep = spmm.prepare_bcsr_spmm(S[0](), device=card, **S[1])
+    prep = spmm.prepare_bcsr_spmm(S[0](), device=card, layout="tiles",
+                                  **S[1])
     (_, (v, p, rp, X, m)), = prep.kernel_calls(
         torch.zeros((300, 8), device=card))
     with pytest.raises(ValueError, match="X is on cpu"):
@@ -843,3 +849,120 @@ def test_lane_rows_refuses_bad_arguments(card):
         with pytest.raises(ValueError, match=what):
             lane_rows.lane_rows(*bad)
     assert lane_rows.LAUNCHES == before
+
+
+# ---- the bitmap BCSR kernels ---------------------------------------------
+
+def _bits_args(A, card):
+    plan = bcsr_bits.plan_bcsr_bits(A)
+    return tuple(torch.as_tensor(a, device=card) for a in (
+        plan.bits, plan.vals, plan.vptr, plan.pan, plan.rowptr))
+
+
+@pytest.mark.parametrize("name", sorted(cases.BITS_CASES))
+def test_bcsr_bits_matches_plain(card, name):
+    A = cases.BITS_CASES[name]()
+    args = _bits_args(A, card)
+    x = make_x(A.n)
+    xd = torch.as_tensor(x, dtype=torch.float32, device=card)
+    before = dict(bcsr_bits.LAUNCHES)
+    y = bcsr_bits.bcsr_bits(*args, xd, A.m)
+    assert bcsr_bits.LAUNCHES == {**before,
+                                  "bcsr_bits": before["bcsr_bits"] + 1}
+    torch.cuda.synchronize()
+    assert y.shape == (A.m,)
+    assert torch.equal(y, bcsr_bits.bcsr_bits_plain(*args, xd, A.m))
+    cpu = [a.cpu() for a in args]
+    assert torch.equal(y.cpu(), bcsr_bits.bcsr_bits_plain(*cpu, xd.cpu(),
+                                                           A.m))
+    validate_result(spmv_oracle(A, x), to_numpy(y), what=f"bcsr_bits {name}")
+
+
+@pytest.mark.parametrize("cols", [1, 3, 8, 64, 100])
+@pytest.mark.parametrize("name", sorted(cases.BITS_CASES))
+def test_bcsr_bits_spmm_matches_plain(card, name, cols):
+    """Every lane mapping: 1 column a lane (cols 1), groups of 2, 4 and
+    32 lanes, and two column groups (100)."""
+    A = cases.BITS_CASES[name]()
+    args = _bits_args(A, card)
+    X = make_x(A.n, cols=cols).reshape(A.n, cols)
+    Xd = torch.as_tensor(X, dtype=torch.float32, device=card)
+    before = bcsr_bits.LAUNCHES["bcsr_bits_spmm"]
+    Y = bcsr_bits.bcsr_bits_spmm(*args, Xd, A.m)
+    assert bcsr_bits.LAUNCHES["bcsr_bits_spmm"] == before + 1
+    torch.cuda.synchronize()
+    assert Y.shape == (A.m, cols)
+    assert torch.equal(Y, bcsr_bits.bcsr_bits_spmm_plain(*args, Xd, A.m))
+    cpu = [a.cpu() for a in args]
+    assert torch.equal(Y.cpu(), bcsr_bits.bcsr_bits_spmm_plain(
+        *cpu, Xd.cpu(), A.m))
+    validate_result(spmm_oracle(A, X), to_numpy(Y),
+                    what=f"bcsr_bits_spmm {name} at {cols} columns")
+
+
+@pytest.mark.parametrize("strategy, kw", [("cuda-bcsr", {}),
+                                          ("cuda-bcsr-spmm", {"cols": 8})])
+def test_bcsr_strategies_launch_the_bitmap_kernels(card, strategy, kw):
+    """Both BCSR strategies run their bitmap kernel alone by default and
+    the dense tiles' kernels on ``layout="tiles"``; an inf in x at a
+    column that no stored slot names leaves the bitmap y finite."""
+    A = cases.BITS_CASES["bits-dup-zeros"]()
+    x, xd, gold = _bcsr_input(A, kw.get("cols"), card)
+    for layout, want in (("auto", {"bcsr_bits", "bcsr_bits_spmm"}),
+                         ("tiles", {"pell_tiles", "window_segsum",
+                                    "bcsr_spmm"})):
+        prep = get_strategy(strategy).prepare(A, device=card, layout=layout,
+                                              **kw)
+        before = _bcsr_launches()
+        y = prep.fn(xd)
+        after = _bcsr_launches()
+        ran = {k for k in after if after[k] > before[k]}
+        assert ran and ran <= want
+        assert ran == {k for k, _ in prep.kernel_calls(xd)}
+        validate_result(gold, to_numpy(y), what=f"{strategy} {layout}")
+    free = np.setdiff1d(np.arange(A.n), A.ja)[0]
+    x[free] = np.inf
+    prep = get_strategy(strategy).prepare(A, device=card, **kw)
+    xd = torch.as_tensor(x, dtype=torch.float32, device=card)
+    y = prep.fn(xd)
+    assert bool(torch.isfinite(y).all())
+    assert torch.equal(y, prep.plain(xd))
+
+
+def _bcsr_input(A, cols, card):
+    x = make_x(A.n) if cols is None else make_x(A.n, cols=cols)
+    gold = spmv_oracle(A, x) if cols is None else spmm_oracle(A, x)
+    return x, torch.as_tensor(x, dtype=torch.float32, device=card), gold
+
+
+def _bcsr_launches():
+    return {**bcsr_bits.LAUNCHES, "bcsr_spmm": spmm.KERNEL_LAUNCHES,
+            "pell_tiles": pell.LAUNCHES["pell_tiles"],
+            "window_segsum": segsum_kernel.KERNEL_LAUNCHES}
+
+
+def test_bcsr_bits_wrappers_refuse_bad_arguments(card):
+    A = cases.BITS_CASES["bits-banded200x300"]()
+    bits, vals, vptr, pan, rowptr = _bits_args(A, card)
+    x = torch.zeros(A.n, device=card)
+    X = torch.zeros((A.n, 8), device=card)
+    before = dict(bcsr_bits.LAUNCHES)
+    for bad, what in (((bits, vals, vptr, pan, rowptr, x.cpu()),
+                       "x is on cpu"),
+                      ((bits.cpu(), vals, vptr, pan, rowptr, x),
+                       "vals is on cuda"),
+                      ((bits, vals.double(), vptr, pan, rowptr, x), "vals"),
+                      ((bits, vals, vptr, pan, rowptr, x.double()), "x is"),
+                      ((bits.view(-1, 8, 2, 2).reshape(-1, 4, 8), vals,
+                        vptr, pan, rowptr, x), "bits"),
+                      ((bits.view(-1)[1:1 + (bits.shape[0] - 1) * 32]
+                        .view(-1, 8, 4), vals, vptr[:-1], pan[:-1], rowptr,
+                        x), "aligned")):
+        with pytest.raises(ValueError, match=what):
+            bcsr_bits.bcsr_bits(*bad, A.m)
+    with pytest.raises(ValueError, match="x is on cpu"):
+        bcsr_bits.bcsr_bits_spmm(bits, vals, vptr, pan, rowptr, X.cpu(), A.m)
+    with pytest.raises(ValueError, match="x is not contiguous"):
+        bcsr_bits.bcsr_bits_spmm(bits, vals, vptr, pan, rowptr,
+                                 X.t().contiguous().t(), A.m)
+    assert bcsr_bits.LAUNCHES == before

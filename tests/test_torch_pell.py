@@ -5,9 +5,10 @@ as tests/test_kernels.py runs them. Each side builds its matrix with its
 own generator from the same seed. The CUDA kernels themselves are held
 against their plain versions in tests/test_torch_cuda.py.
 
-``cuda-pell`` runs here on ``layout="tiles"``, the layout whose arrays
-are the reference's; its default row layout is held against the same
-JAX strategies in tests/test_torch_pell_rows.py.
+``cuda-pell`` and ``cuda-bcsr`` run here on ``layout="tiles"``, the
+layout whose arrays are the reference's; their default layouts are held
+against the same JAX strategies in tests/test_torch_pell_rows.py (row
+quanta) and tests/test_torch_bcsr_bits.py (bitmap tiles).
 
 Tolerances:
 * host parts (tuning axes, the row sort, packed arrays, the fused and
@@ -107,9 +108,9 @@ def _run(name):
     np.testing.assert_array_equal(A.as_, A_jax.as_)
     planner = pell.plan_pell if strategy == "cuda-pell" else pell.plan_bcsr
     plan = planner(A, **kw)
-    # the reference's arrays: cuda-pell on the tile layout
-    tiles = {"layout": "tiles"} if strategy == "cuda-pell" else {}
-    prep = get_strategy(strategy).prepare(A, device="cpu", **kw, **tiles)
+    # the reference's arrays: both strategies on the tile layout
+    prep = get_strategy(strategy).prepare(A, device="cpu", layout="tiles",
+                                          **kw)
     jprep = jax_strategy(REF[strategy]).prepare(A_jax, interpret=True, **kw)
     x = make_x(A.n)
     return (A, plan, prep, jprep, x, to_numpy(prep.fn(x)),

@@ -8,6 +8,10 @@ against ``xla-csr-segsum-spmm``, ``torch-ell-rm``/``-cm`` against
 its matrix with its own generator from the same seed. The CUDA kernel is
 held against its plain version in tests/test_torch_cuda.py.
 
+The plan, meta and kernel tests here take ``layout="tiles"``, the
+layout whose arrays are the reference's; the default bitmap layout is
+held against the same JAX strategy in tests/test_torch_bcsr_bits.py.
+
 Tolerances:
 * the SpMM plan's tiles and window tables against JAX: exact;
 * Y against the JAX Y: relative L2 <= 1e-5 (both f32; the TPU kernel's
@@ -87,7 +91,8 @@ def test_spmm_plan_matches_jax(name, cols, chunk):
     T = plan.num_tiles
     np.testing.assert_array_equal(plan.vals.astype(np.float32), vals[:T * 8])
     np.testing.assert_array_equal(plan.pan, pan2.reshape(-1)[:T])
-    prep = spmm.prepare_bcsr_spmm(A, cols=cols, chunk=chunk, device="cpu")
+    prep = spmm.prepare_bcsr_spmm(A, cols=cols, chunk=chunk, device="cpu",
+                                  layout="tiles")
     assert prep.meta == jprep.meta
     assert prep.hbm_bytes == jprep.hbm_bytes == T * 8 * BC * 4
     assert prep.ref == jprep.strategy == "pallas-bcsr-spmm"
@@ -146,7 +151,7 @@ def test_bcsr_spmm_plain_adds_in_the_kernels_order():
     same bits, and so does a binary counter over groups of four (the
     kernel's way to the same tree)."""
     A = MATRICES["random"](synth)
-    prep = spmm.prepare_bcsr_spmm(A, cols=3, device="cpu")
+    prep = spmm.prepare_bcsr_spmm(A, cols=3, device="cpu", layout="tiles")
     X = torch.as_tensor(make_x(A.n, cols=3), dtype=torch.float32)
     (_, (vals, pan, rowptr, Xa, m)), = prep.kernel_calls(X)
     Y = spmm.bcsr_spmm(vals, pan, rowptr, Xa, m)
@@ -181,7 +186,7 @@ def test_bcsr_spmm_plain_adds_in_the_kernels_order():
 
 def test_bcsr_spmm_wrapper_on_cpu_tensors():
     A = MATRICES["banded200x300"](synth)
-    prep = spmm.prepare_bcsr_spmm(A, device="cpu")
+    prep = spmm.prepare_bcsr_spmm(A, device="cpu", layout="tiles")
     X = torch.as_tensor(make_x(A.n, cols=8), dtype=torch.float32)
     (name, args), = prep.kernel_calls(X)
     assert name == "bcsr_spmm"
