@@ -14,7 +14,12 @@ the script exits non-zero:
    path replayed against its plain version; between them the cases must
    launch all six kernels of the hybrid (``lane_rows``, and the lanes
    core ``lane_ell_spmv`` with the ext route's gathers);
-4. stream probe against its plain version (exact: sums of ones);
+4. the stream probe (``stream_reduce``, a TMA ring over contiguous
+   spans) and the first port's grid-stride kernel
+   (``stream_reduce_strided``) against their plain version (exact: sums
+   of ones), each through ``measure_stream_bw`` with the counts set to 0
+   just before and read just after, then both and ``sum`` in turns
+   (probe, strided, sum, sum, strided, probe);
 5. main path 1, the ML_Laplace stand-in (22.6M nnz), through
    ``cuda-hybrid``'s prepare on both core layouts from one pack
    (``lane_ell.prepare_hybrid_layouts``): the rows core (the default)
@@ -63,18 +68,25 @@ the script exits non-zero:
    old), the kernels alone and the whole calls, beside cuSPARSE of A;
 13. small XPOSE cases: every matrix of ``bench/cases.py``'s
    ``XPOSE_CASES`` through ``cuda-xpose``, and the hybrid with an XPOSE
-   big tail (``XPOSE_TAIL``), checked as the small hybrid cases are;
-   between them they must launch the mirror, S1 and S3;
+   big tail (``XPOSE_TAIL``), each on both S3 designs, checked as the
+   small hybrid cases are; between them they must launch the mirror, S1
+   and both S3 kernels;
 14. main path 6, ``webbase1m`` through ``spmv``'s auto route:
    ``pick_auto`` must choose ``cuda-xpose`` and its planner must accept
    the matrix (a refusal fails, printing the reason, instead of falling
-   back); ``spmv(A, x)`` must launch the three XPOSE kernels and no
-   other; validated, timed, each kernel alone, host against device over
-   200 calls, a profiler window, cuSPARSE of the whole matrix;
+   back); ``spmv(A, x)`` must launch the three XPOSE kernels (S3 as row
+   sums, ``xpose_s3_rows``) and no other; validated, timed, each kernel
+   alone, host against device over 200 calls, a profiler window,
+   cuSPARSE of the whole matrix; then the same plan on ``s3="prefix"``
+   (``webbase1m-xpose-prefix``), which must launch ``xpose_s3`` and not
+   the row sums, and the S3 A/B: the two kernels alone in turns (old,
+   new, new, old), the whole calls the same way, the yardstick and both
+   bounds (``S3 A/B`` lines);
 15. main path 7, ``random30k`` (uniform scatter) the same way;
 16. main path 8, ``amazon262k`` through ``cuda-nearfar``: the band
    through the hybrid, the scattered rest through XPOSE; the core and
-   the three XPOSE kernels must launch;
+   the three XPOSE kernels must launch; then ``s3="prefix"`` and the A/B
+   as path 6;
 17. small fp64 and SpMM cases: ``bench/cases.py``'s ``FP64_CASES``
    (``cuda-hybrid-fp64``, ``cuda-pell-fp64`` on both layouts) and
    ``SPMM_CASES`` (``cuda-bcsr-spmm`` at 1, 8 and 64 columns, on both
@@ -133,10 +145,12 @@ Each path sets the launch counts to 0 just before it and reads them
 just after; replays that hold a kernel against its plain version come
 after the read; a path on both core layouts reads the lanes run apart
 (its counts set to 0 just before it). Each prints its packing time.
-Then one JSON line of the twenty-two kernels' numbers (``lane_ell_spmv``,
+Then one JSON line of the twenty-four kernels' numbers (``lane_ell_spmv``,
 ``lane_ell_sharded`` and ``window_gather`` from the lanes runs of the
 flagship, ``dist-flagship`` and ``ext_windowed1m``, ``bcsr_spmm`` from
-``flagship-spmm8-tiles``), the card line, and
+``flagship-spmm8-tiles``, ``xpose_s3`` from ``webbase1m-xpose-prefix``,
+``stream_reduce_strided`` from its ``measure_stream_bw`` run), the card
+line, and
 the contract line ``{"ok":
 true, "device": {...}}`` last. Without a card it prints no result and
 exits 2.
@@ -147,8 +161,8 @@ kernel, the segment-sums and the un-permute are bit-equal to their plain
 versions, while the plain fused kernel and the compact tail's
 ``index_add_`` add with atomics in a varying order on the card. Each
 kernel call replayed alone: the core, the gathers, the tile kernel, the
-un-permute and XPOSE's mirror, S1 and S3 bit-equal to their plain
-versions, and so is the row-shard core ``lane_ell_sharded``; the
+un-permute and XPOSE's mirror, S1 and prefix S3 bit-equal to their
+plain versions, and so is the row-shard core ``lane_ell_sharded``; the
 segment-sums, the fused kernel, the row kernel and the rows core
 ``lane_rows`` bit-equal to their plain versions run on the CPU (the same
 fixed order) and within rel-L2 1e-6 of the plain versions on the card (1e-12 at fp64; the segment-sums'
@@ -163,8 +177,9 @@ fused kernel adds windows with atomics on the card). SpMM:
 ``bcsr_spmm`` bit-equal to its plain version (both add each row's tiles
 and lanes in order, f32 products and sums rounded separately, no TF32);
 Y against ``spmm_oracle`` by ``validate_result``. The bitmap kernels
-``bcsr_bits`` and ``bcsr_bits_spmm`` bit-equal to their plain versions
-on the card and run on the CPU (a fixed order, no atomics).
+``bcsr_bits`` and ``bcsr_bits_spmm``, and XPOSE's row sums
+``xpose_s3_rows``, bit-equal to their plain versions on the card and run
+on the CPU (a fixed order, no atomics).
 
 ``bound_ms`` is the least time for the same work on an H100 SXM: the
 bytes of every input read once and every output written once over 3.35
@@ -179,7 +194,8 @@ read, the distinct x elements (or rows of X) the bitmap kernels' stored
 slots name, beside all their arrays (2 x stored x cols operations), the
 mirror's
 distinct source rows, S1's distinct x elements (of its entries), S3's
-distinct product elements and the SpMM's distinct rows of X. Beside a
+distinct product elements (the row sums: beside their table and y) and
+the SpMM's distinct rows of X. Beside a
 row kernel's bound (its layout's bytes) the lines print its format-free
 bound: its entries at one value and one 4-byte column each, x and y,
 over 3.35 TB/s. Kernel and
@@ -196,7 +212,7 @@ whose product is the partials; for S1, of a matrix with one row per
 product slot holding its one entry, whose product is S1's product
 array), ``sum`` for the probe, flat indexing for a gather, the un-
 permute and the mirror, ``index_add_`` for the segment-sums and, after a
-flat gather of the routed products, for S3; cuSPARSE's fp64 CSR product
+flat gather of the routed products, for both S3 kernels; cuSPARSE's fp64 CSR product
 for the fp64 core (of the whole matrix) and the fp64 fused kernel (of
 the matrix its tiles hold), and its f32 CSR SpMM ``A @ X`` for the SpMM
 kernel; for the bitmap kernels, its f32 CSR SpMV or SpMM of the matrix
@@ -240,7 +256,9 @@ HYBRID_KERNELS = ("lane_ell_spmv", "lane_rows", "sorted_gather",
                   "ranked_gather", "window_gather", "window_segsum")
 PELL_KERNELS = ("pell_fused", "pell_tiles", "span_segsum", "window_segsum",
                 "unpermute", "pell_rows", "bcsr_bits")
-XPOSE_KERNELS = ("xpose_mirror", "xpose_s1", "xpose_s3")
+XPOSE_KERNELS = ("xpose_mirror", "xpose_s1", "xpose_s3_rows")
+# the same on s3="prefix": the reference's design carried over
+PREFIX_KERNELS = ("xpose_mirror", "xpose_s1", "xpose_s3")
 FP64_SPMM_KERNELS = ("lane_ell_fp64", "pell_fused_fp64", "bcsr_spmm",
                      "pell_rows_fp64", "bcsr_bits_spmm")
 DIST_KERNELS = ("lane_ell_sharded", "lane_rows", "sorted_gather",
@@ -258,7 +276,7 @@ ORDERED = ("window_segsum", "span_segsum", "pell_fused", "pell_fused_fp64",
            "pell_rows", "pell_rows_fp64", "lane_rows")
 # kernels held bit-equal to their plain versions on the card and run on the
 # CPU alike (the plain versions add in the kernels' order without atomics)
-EXACT_BOTH = ("bcsr_bits", "bcsr_bits_spmm")
+EXACT_BOTH = ("bcsr_bits", "bcsr_bits_spmm", "xpose_s3_rows")
 # every kernel and its plain version, by name
 KERNELS = {**lane_ell.KERNELS._asdict(), **lane_ell_fp64.KERNELS._asdict(),
            **pell.FP64_KERNELS._asdict(), **spmm.KERNELS._asdict(),
@@ -276,6 +294,8 @@ SOURCES = {
                   "spmv_scpa_tpu/ops/lane_ell.py:188"),
     "stream_reduce": ("spmv_scpa_tpu_torch/csrc/stream_probe.cu",
                       "spmv_scpa_tpu/bench/roofline.py:60"),
+    "stream_reduce_strided": ("spmv_scpa_tpu_torch/csrc/stream_probe.cu",
+                              "spmv_scpa_tpu/bench/roofline.py:60"),
     "sorted_gather": ("spmv_scpa_tpu_torch/csrc/ext_gather.cu",
                       "spmv_scpa_tpu/ops/ext_gather.py:79"),
     "ranked_gather": ("spmv_scpa_tpu_torch/csrc/ext_gather.cu",
@@ -298,6 +318,8 @@ SOURCES = {
                  "spmv_scpa_tpu/ops/xpose.py:62"),
     "xpose_s3": ("spmv_scpa_tpu_torch/csrc/xpose.cu",
                  "spmv_scpa_tpu/ops/xpose.py:87"),
+    "xpose_s3_rows": ("spmv_scpa_tpu_torch/csrc/xpose.cu",
+                      "spmv_scpa_tpu/ops/xpose.py:87"),
     "lane_ell_fp64": ("spmv_scpa_tpu_torch/csrc/lane_ell.cu",
                       "spmv_scpa_tpu/ops/lane_ell.py:282"),
     "pell_fused_fp64": ("spmv_scpa_tpu_torch/csrc/pell.cu",
@@ -314,10 +336,11 @@ SOURCES = {
                        "spmv_scpa_tpu/ops/pallas_kernels.py:1076"),
 }
 LINE_ORDER = ("lane_ell_spmv", "lane_ell_sharded", "lane_rows",
-              "stream_reduce", "sorted_gather",
+              "stream_reduce", "stream_reduce_strided", "sorted_gather",
               "ranked_gather", "window_gather", "window_segsum",
               "pell_fused", "pell_tiles", "span_segsum", "unpermute",
-              "xpose_mirror", "xpose_s1", "xpose_s3", "lane_ell_fp64",
+              "xpose_mirror", "xpose_s1", "xpose_s3", "xpose_s3_rows",
+              "lane_ell_fp64",
               "pell_fused_fp64", "bcsr_spmm", "pell_rows", "pell_rows_fp64",
               "bcsr_bits", "bcsr_bits_spmm")
 
@@ -328,6 +351,7 @@ def counts() -> dict:
     return {"lane_ell_spmv": lane_ell.KERNEL_LAUNCHES,
             "lane_ell_sharded": lane_ell.SHARDED_LAUNCHES,
             "stream_reduce": roof.KERNEL_LAUNCHES,
+            "stream_reduce_strided": roof.STRIDED_LAUNCHES,
             **ext_gather.LAUNCHES,
             "window_segsum": segsum_kernel.KERNEL_LAUNCHES,
             **pell.LAUNCHES,
@@ -346,6 +370,7 @@ def reset_counts() -> None:
     lane_ell_fp64.KERNEL_LAUNCHES = 0
     spmm.KERNEL_LAUNCHES = 0
     roof.KERNEL_LAUNCHES = 0
+    roof.STRIDED_LAUNCHES = 0
     segsum_kernel.KERNEL_LAUNCHES = 0
     segsum_kernel.SPAN_LAUNCHES = 0
     for table in (ext_gather.LAUNCHES, pell.LAUNCHES, pell_rows.LAUNCHES,
@@ -574,7 +599,7 @@ def bound(name, args, out) -> tuple:
         live = int(((rbl >= 0) & (rbl < h)).sum())
         ops = live * 8
         nbytes += live * 8 * part.element_size() - tensor_bytes((part,))
-    elif name == "stream_reduce":
+    elif name in ("stream_reduce", "stream_reduce_strided"):
         ops = args[0].numel()
     elif name in ("sorted_gather", "ranked_gather", "window_gather"):
         src, flat, ok = gather_flat(name, args)
@@ -593,6 +618,10 @@ def bound(name, args, out) -> tuple:
     elif name == "xpose_s3":
         src, _ = s3_slots(args)
         ops = args[1].shape[1] * BC
+        nbytes += torch.unique(src).numel() * 4 - tensor_bytes(args[:1])
+    elif name == "xpose_s3_rows":
+        src, _ = s3_rows_slots(args)
+        ops = src.numel()
         nbytes += torch.unique(src).numel() * 4 - tensor_bytes(args[:1])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
@@ -779,6 +808,23 @@ def s3_slots(args):
     return src, row[live][order][torch.searchsorted(end, pos)]
 
 
+def s3_rows_slots(args):
+    """The product slots an ``xpose_s3_rows`` call adds: each one's flat
+    index into mid and its row of y (pointers clamped as the kernel
+    clamps them, positions outside mid left out: they read 0.0)."""
+    mid, rowptr, pos = args
+    S = pos.numel()
+    lo = rowptr[:-1].long().clamp(0, S)
+    hi = torch.maximum(rowptr[1:].long().clamp(0, S), lo)
+    row = torch.repeat_interleave(torch.arange(lo.numel(), device=mid.device),
+                                  hi - lo)
+    k = torch.arange(row.numel(), device=mid.device) + torch.repeat_interleave(
+        lo - torch.cumsum(hi - lo, 0) + (hi - lo), hi - lo)
+    src = pos.long()[k]
+    ok = (src >= 0) & (src < mid.numel())
+    return src[ok], row[ok]
+
+
 def s1_library(args):
     """A cuSPARSE CSR product that forms S1's product array: one row per
     product slot (k, s, c2), holding at most its one entry, over x_ext."""
@@ -834,6 +880,11 @@ def library(name, args, A, xd):
         src, dest = s3_slots(args)
         midf, m2 = args[0].view(-1), args[2]
         return lambda: torch.zeros(m2, device=midf.device) \
+            .index_add_(0, dest, midf[src])
+    if name == "xpose_s3_rows":
+        src, dest = s3_rows_slots(args)
+        midf, m = args[0].view(-1), args[1].numel() - 1
+        return lambda: torch.zeros(m, device=midf.device) \
             .index_add_(0, dest, midf[src])
     if name in ("lane_ell_spmv", "lane_ell_sharded", "lane_ell_fp64",
                 "bcsr_spmm") and A is not None:
@@ -954,7 +1005,7 @@ def pell_meta(prep):
 def xpose_meta(m):
     """What a line says of an XPOSE plan's meta."""
     return (f"J1 {m['J1']} B2 {m['B2']} W1 {m['W1']} NWm {m['NWm']} fill "
-            f"{m['fill']:.4f} x_bytes {m['x_bytes']}")
+            f"{m['fill']:.4f} x_bytes {m['x_bytes']} s3 {m['s3']}")
 
 
 def full_path(name, A, strategy, knobs, dev, card, kernels, branch,
@@ -1193,10 +1244,14 @@ def auto_xpose_path(name, A, dev, card, profile):
     ``cuda-xpose``, whose plan must accept the matrix (a refusal fails
     here, printing the planner's reason, rather than let ``spmv`` fall
     back to the hybrid). With the launch counts set to 0, ``spmv(A, x)``
-    runs the auto route and must launch the three XPOSE kernels and no
-    other; the prepared call is then validated and timed, the counts
-    read, the call held against its plain call and ``spmv``'s y, and each
-    kernel replayed alone. Returns (the kernel table, the counts)."""
+    runs the auto route and must launch the three XPOSE kernels (S3 as
+    row sums) and no other; the prepared call is then validated and
+    timed, the counts read, the call held against its plain call and
+    ``spmv``'s y, and each kernel replayed alone. Then the same plan on
+    ``s3="prefix"`` as a path of its own (``[name-prefix]``, counts set to
+    0 just before it), which must launch the prefix S3 and not the row
+    sums, and the A/B of the two. Returns (the kernel table, the counts)
+    of each design."""
     x = make_x(A.n)
     gold = spmv_oracle(A, x)
     picked = pick_auto(A)
@@ -1205,12 +1260,13 @@ def auto_xpose_path(name, A, dev, card, profile):
                              "cuda-xpose")
     t0 = time.perf_counter()
     try:
-        prep = get_strategy("cuda-xpose").prepare(A, device=dev)
+        preps = xpose.prepare_xpose_designs(A, device=dev)
     except ValueError as err:
         print(f"[{name}] the XPOSE planner refuses {A.nnz} nnz: "
               f"{xpose_plan.REJECT_REASON}", flush=True)
         raise AssertionError(f"{name}: {err}") from err
     pack_s = time.perf_counter() - t0
+    prep = preps["rows"]
     reset_counts()
     t0 = time.perf_counter()
     y_auto = spmv(A, x)
@@ -1234,17 +1290,75 @@ def auto_xpose_path(name, A, dev, card, profile):
     table = kernel_table(prep, xd, name, A=A)
     m = prep.meta
     print(f"[{name}] nnz {A.nnz} ({A.nnz / A.m:.2f} per row) pick_auto "
-          f"{picked} | pack {pack_s:.2f} s, spmv auto (pack + call) "
-          f"{auto_s:.2f} s | {xpose_meta(m)} virtual rows {m['virtual_rows']} | "
-          f"hbm_bytes {prep.hbm_bytes} ({prep.hbm_bytes / A.nnz:.1f} B/nnz) "
-          f"| vs oracle rel {rel_o:.3e} | vs plain rel-L2 {rel_l2:.3e} row "
-          f"{row_rel:.3e} | spmv vs prepared rel-L2 {auto_l2:.3e}",
-          flush=True)
+          f"{picked} | pack {pack_s:.2f} s (both S3 designs), spmv auto "
+          f"(pack + call) {auto_s:.2f} s | {xpose_meta(m)} virtual rows "
+          f"{m['virtual_rows']} | hbm_bytes {prep.hbm_bytes} "
+          f"({prep.hbm_bytes / A.nnz:.1f} B/nnz) | vs oracle rel "
+          f"{rel_o:.3e} | vs plain rel-L2 {rel_l2:.3e} row {row_rel:.3e} | "
+          f"spmv vs prepared rel-L2 {auto_l2:.3e}", flush=True)
     report_times(name, prep, xd, r, launched, card, True, profile)
     print(f"[{name}] kernels alone: {phase_line(table)}", flush=True)
     print(f"[{name}] cuSPARSE CSR of the whole matrix: "
           f"{median_ms(matrix_library(A, xd)):.4f} ms", flush=True)
+    old, old_counts = prefix_path(f"{name}-prefix", A, preps["prefix"], dev,
+                                  card)
+    s3_ab(name, preps["prefix"], prep, xd, card)
+    return table, launched, old, old_counts
+
+
+def prefix_path(name, A, prep, dev, card, prefix_kernels=PREFIX_KERNELS):
+    """An XPOSE path on ``s3="prefix"``: counts set to 0, the call
+    validated and timed, the counts read (``prefix_kernels`` must launch,
+    ``xpose_s3_rows`` not), the call held against its plain call and each
+    kernel replayed alone. Returns (the kernel table, the counts)."""
+    x = make_x(A.n)
+    gold = spmv_oracle(A, x)
+    reset_counts()
+    rel_o = validate_result(gold, to_numpy(prep.fn(x)),
+                            what=f"{prep.strategy} on {name}")
+    r = time_prepared(prep, x)
+    validate_result(gold, r.data, what=f"{prep.strategy} timed run, {name}")
+    launched = counts()
+    require(launched, prefix_kernels, name, ("xpose_s3_rows",))
+    xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    rel_l2, row_rel, _ = twin_check(A, x, prep.fn(xd), prep.plain(xd), name)
+    table = kernel_table(prep, xd, name, A=A)
+    print(f"[{name}] hbm_bytes {prep.hbm_bytes} | vs oracle rel {rel_o:.3e}"
+          f" | vs plain rel-L2 {rel_l2:.3e} row {row_rel:.3e}", flush=True)
+    report_times(name, prep, xd, r, launched, card, False, False)
+    print(f"[{name}] kernels alone: {phase_line(table)}", flush=True)
     return table, launched
+
+
+def s3_ab(name, old, new, xd, card):
+    """The prefix S3 (``old``'s call; then its virtual rows'
+    ``index_add_``, outside the kernel) against the row sums (``new``'s)
+    of one plan, in turns (old, new, new, old), and the two whole calls
+    the same way; beside them the row sums' yardstick (gather +
+    ``index_add_``), the two bounds and S3's bytes."""
+    (ko, ao), = [c for c in old.kernel_calls(xd) if c[0] == "xpose_s3"]
+    (kn, an), = [c for c in new.kernel_calls(xd) if c[0] == "xpose_s3_rows"]
+    kern = {"old": [], "new": []}
+    call = {"old": [], "new": []}
+    for side in ("old", "new", "new", "old"):
+        k, a = (ko, ao) if side == "old" else (kn, an)
+        kern[side].append(median_ms(KERNELS[k], *a))
+    for side in ("old", "new", "new", "old"):
+        call[side].append(call_ms((old if side == "old" else new).fn, xd))
+    b_old = bound(ko, ao, KERNELS[ko](*ao))[0]
+    b_new = bound(kn, an, KERNELS[kn](*an))[0]
+    slots = an[2].numel()
+
+    def ms(v):
+        return ", ".join(f"{t:.4f}" for t in v)
+
+    print(f"[{name}] S3 A/B in turns (old, new, new, old): {ko} "
+          f"{ms(kern['old'])} ms, {kn} {ms(kern['new'])} ms | whole call, "
+          f"prefix {ms(call['old'])} ms, rows {ms(call['new'])} ms | gather "
+          f"+ index_add_ {median_ms(library(kn, an, None, xd)):.4f} ms | "
+          f"bound: rows {b_new:.4f}, prefix {b_old:.4f} ms | S3 input for "
+          f"{slots} products: planes {tensor_bytes(ao[1:2])} B, table "
+          f"{tensor_bytes(an[1:])} B | {card}", flush=True)
 
 
 def small_phase(tag, items, kernels, describe, dev, what):
@@ -1300,35 +1414,46 @@ def xpose_phases(dev, card):
     """Phases 13-16: the small XPOSE cases and the hybrid with an XPOSE
     big tail, the scattered regime's two main paths through the auto
     route, and near/far on amazon262k. Returns webbase1m's kernel table
-    and counts, which the kernels line reports."""
-    # 13. the small XPOSE cases, and the hybrid with an XPOSE big tail
+    and counts on each S3 design, which the kernels line reports."""
+    # 13. the small XPOSE cases, and the hybrid with an XPOSE big tail,
+    # each on both S3 designs
     spec, tail_kw = cases.XPOSE_TAIL
-    small = [(name, cases.make(sp), "cuda-xpose", {})
-             for name, sp in cases.XPOSE_CASES.items()]
-    small.append(("amazon20k-xpose-tail", cases.make(spec), "cuda-hybrid",
-                  tail_kw))
-    small_phase("small-xpose", small, XPOSE_KERNELS, xpose_small_meta, dev,
-                "small XPOSE cases")
+    small = [(f"{name}{sfx}", cases.make(sp), "cuda-xpose", kw)
+             for name, sp in cases.XPOSE_CASES.items()
+             for sfx, kw in (("", {}), ("-prefix", {"s3": "prefix"}))]
+    small += [("amazon20k-xpose-tail", cases.make(spec), "cuda-hybrid",
+               tail_kw),
+              ("amazon20k-xpose-tail-prefix", cases.make(spec),
+               "cuda-hybrid", {**tail_kw, "xpose_s3": "prefix"})]
+    small_phase("small-xpose", small, XPOSE_KERNELS + ("xpose_s3",),
+                xpose_small_meta, dev, "small XPOSE cases")
 
     # 14-15. main paths 6 and 7: the scattered regime through spmv's auto
-    # route, which must pick cuda-xpose
-    wx, wx_counts = auto_xpose_path("webbase1m-xpose", cases.webbase1m(),
-                                    dev, card, profile=True)
+    # route, which must pick cuda-xpose, each then on s3="prefix"
+    wx, wx_counts, wp, wp_counts = auto_xpose_path(
+        "webbase1m-xpose", cases.webbase1m(), dev, card, profile=True)
     auto_xpose_path("random30k", cases.random30k(), dev, card,
                     profile=False)
 
     # 16. main path 8: amazon262k through cuda-nearfar, the band on the
-    # hybrid and the scattered rest on XPOSE
-    full_path(
-        "amazon262k-nearfar", cases.amazon262k(), "cuda-nearfar", {}, dev,
+    # hybrid and the scattered rest on XPOSE, then on s3="prefix"
+    A = cases.amazon262k()
+    _, _, new, _ = full_path(
+        "amazon262k-nearfar", A, "cuda-nearfar", {}, dev,
         card, ("lane_rows",) + XPOSE_KERNELS, lambda m: "W" in m,
         "the split into band and scattered rest",
         describe=lambda p: (
             f"W {p.meta['W']} near_frac {p.meta['near_frac']} near_nnz "
             f"{p.meta['near_nnz']} far_nnz {p.meta['far_nnz']} | near: "
             f"tail {p.meta['near']['tail_kind']} ext {p.meta['near']['ext']}"
-            f" | far: {xpose_meta(p.meta['far'])}"), profile=True)
-    return wx, wx_counts
+            f" | far: {xpose_meta(p.meta['far'])}"), profile=True,
+        forbid=("xpose_s3",))
+    old = get_strategy("cuda-nearfar").prepare(A, device=dev, s3="prefix")
+    prefix_path("amazon262k-nearfar-prefix", A, old, dev, card,
+                ("lane_rows",) + PREFIX_KERNELS)
+    s3_ab("amazon262k-nearfar", old, new,
+          torch.as_tensor(make_x(A.n), dtype=torch.float32, device=dev), card)
+    return wx, wx_counts, wp, wp_counts
 
 
 def fp64_spmm_meta(prep):
@@ -1595,25 +1720,54 @@ def main() -> int:
         for layout in lane_ell.CORE_LAYOUTS], HYBRID_KERNELS,
         hybrid_small_meta, dev, "small cases")
 
-    # 4. stream probe against its plain version
+    # 4. the stream probe and the grid-stride kernel against their plain
+    # version, then each as measure_stream_bw runs it (counts set to 0
+    # just before and read just after), then the two and sum in turns
     buf = torch.ones(roof.PROBE_BYTES // 4, dtype=torch.float32, device=dev)
-    ok_, ot_ = roof.stream_reduce(buf), roof.stream_reduce_plain(buf)
     want = float(buf.numel() // roof.TILE)
-    if not (torch.equal(ok_, ot_) and bool((ok_ == want).all())):
-        raise AssertionError("stream probe disagrees with its plain "
-                             "version")
-    probe = {"max_abs_err": float((ok_ - ot_).abs().max()),
-             "ms": median_ms(roof.stream_reduce, buf),
-             "plain_ms": call_ms(roof.stream_reduce_plain, buf),
-             "library_ms": median_ms(lambda b: b.sum(), buf)}
-    probe["bound_ms"], probe["bound_by"] = bound("stream_reduce", (buf,),
-                                                 ok_)
-    print(f"[probe] {roof.PROBE_BYTES} B: exact match ({want:.0f} per "
-          f"position) | kernel {probe['ms']:.4f} ms = "
-          f"{roof.PROBE_BYTES / probe['ms'] / 1e6:.1f} GB/s | plain "
-          f"{probe['plain_ms']:.4f} ms | sum {probe['library_ms']:.4f} ms | "
-          f"bound {probe['bound_ms']:.4f} ms | {card}", flush=True)
+    entries = {"stream_reduce": roof.stream_reduce,
+               "stream_reduce_strided": roof.stream_reduce_strided}
+    probes, probe_counts, bws = {}, {}, {}
+    for name, fn in entries.items():
+        got, plain = fn(buf), roof.stream_reduce_plain(buf)
+        if not (torch.equal(got, plain) and bool((got == want).all())):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        probes[name] = {"max_abs_err": float((got - plain).abs().max()),
+                        "plain_ms": call_ms(roof.stream_reduce_plain, buf),
+                        "library_ms": None, "ms": None}
+        probes[name]["bound_ms"], probes[name]["bound_by"] = bound(
+            name, (buf,), got)
+        reset_counts()
+        bws[name] = roof.measure_stream_bw(dev, reduce=fn)
+        probe_counts[name] = counts()
+        require(probe_counts[name], (name,), f"measure_stream_bw ({name})")
+    turns = {k: [] for k in (*entries, "sum")}
+    order = (*entries, "sum")
+    for k in order + order[::-1]:
+        turns[k].append(median_ms(entries.get(k, lambda b: b.sum()), buf))
+    for name in entries:
+        probes[name]["ms"] = float(np.mean(turns[name]))
+        probes[name]["library_ms"] = float(np.mean(turns["sum"]))
     del buf
+
+    def gbs(ms):
+        return roof.PROBE_BYTES / (ms * 1e-3) / 1e9
+
+    print(f"[probe] {roof.PROBE_BYTES} B, exact match ({want:.0f} per "
+          f"position) on both | in turns (probe, strided, sum, sum, "
+          f"strided, probe): stream_reduce "
+          f"{', '.join(f'{t:.4f}' for t in turns['stream_reduce'])} ms = "
+          f"{gbs(probes['stream_reduce']['ms']):.1f} GB/s, "
+          f"stream_reduce_strided "
+          f"{', '.join(f'{t:.4f}' for t in turns['stream_reduce_strided'])}"
+          f" ms = {gbs(probes['stream_reduce_strided']['ms']):.1f} GB/s, sum "
+          f"{', '.join(f'{t:.4f}' for t in turns['sum'])} ms = "
+          f"{gbs(probes['stream_reduce']['library_ms']):.1f} GB/s | "
+          f"measure_stream_bw: {bws['stream_reduce']:.1f} GB/s, strided "
+          f"{bws['stream_reduce_strided']:.1f} GB/s | plain "
+          f"{probes['stream_reduce']['plain_ms']:.4f} ms | bound "
+          f"{probes['stream_reduce']['bound_ms']:.4f} ms | {card}",
+          flush=True)
 
     # 5. main path 1: the flagship on the rows core, then the lanes core
     # of the same pack, then the A/B of the two
@@ -1755,7 +1909,7 @@ def main() -> int:
         "flagship-bcsr", flagship_A, "cuda-bcsr", {}, dev, card, "bcsr_bits",
         ("pell_tiles", "window_segsum"), pell_meta)
 
-    wx, wx_counts = xpose_phases(dev, card)
+    wx, wx_counts, wp, wp_counts = xpose_phases(dev, card)
     (fl64, fl64_counts, pw64, pw64_counts, pt64, pt64_counts, sp8,
      sp8_counts, st8, st8_counts) = fp64_spmm_phases(dev, card, flagship_A,
                                                      PL)
@@ -1765,7 +1919,10 @@ def main() -> int:
     measured = {"lane_ell_spmv": (flag_lanes, flag_lanes_counts),
                 "lane_ell_sharded": (dfl["lane_ell_sharded"], dfl_counts),
                 "lane_rows": (flag, flag_counts),
-                "stream_reduce": (probe, flag_counts),
+                "stream_reduce": (probes["stream_reduce"], flag_counts),
+                "stream_reduce_strided": (
+                    probes["stream_reduce_strided"],
+                    probe_counts["stream_reduce_strided"]),
                 "sorted_gather": (amz["sorted_gather"], amz_counts),
                 "ranked_gather": (amz["ranked_gather"], amz_counts),
                 "window_segsum": (amz["window_segsum"], amz_counts),
@@ -1777,6 +1934,7 @@ def main() -> int:
                 "pell_tiles": (sp["pell_tiles"], sp_counts),
                 "span_segsum": (sp["span_segsum"], sp_counts),
                 **{k: (wx[k], wx_counts) for k in XPOSE_KERNELS},
+                "xpose_s3": (wp["xpose_s3"], wp_counts),
                 "lane_ell_fp64": (fl64["lane_ell_fp64"], fl64_counts),
                 "pell_fused_fp64": (pt64["pell_fused_fp64"], pt64_counts),
                 "bcsr_spmm": (st8["bcsr_spmm"], st8_counts),

@@ -43,7 +43,8 @@ SIGNATURES = {
                                       I, I, I, I, I, I, I, I, P)},
     "lane_rows": {"lane_rows": (P, P, P, P, P, P, P, P, I, I64, I, I, I,
                                 P)},
-    "stream_probe": {"stream_reduce": (P, I64, I, P, P)},
+    "stream_probe": {"stream_reduce": (P, I64, I, P, P),
+                     "stream_reduce_strided": (P, I64, I, P, P)},
     "ext_gather": {"sorted_gather": (P, P, P, P, P, I, I, I64, P),
                    "ranked_gather": (P, P, P, P, I, I, P),
                    "window_gather": (P, P, P, P, P, I, I, I64, P)},
@@ -59,7 +60,8 @@ SIGNATURES = {
                                      P)},
     "xpose": {"xpose_mirror": (P, I64, P, P, P, P, I, P),
               "xpose_s1": (P, I64, P, I, I, P, P, P, P, P, P, I, I, P),
-              "xpose_s3": (P, P, P, I, I, I64, P)},
+              "xpose_s3": (P, P, P, I, I, I64, P),
+              "xpose_s3_rows": (P, I64, P, P, I, P, I, P)},
     "spmm": {"bcsr_spmm": (P, P, P, P, P, I, I, I, P)},
     "bcsr_bits": {"bcsr_bits": (P, P, P, P, P, P, P, I, I, P),
                   "bcsr_bits_spmm": (P, P, P, P, P, P, P, I, I, I, P)},

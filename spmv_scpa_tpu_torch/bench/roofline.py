@@ -23,34 +23,56 @@ TILE = 8 * 128               # floats in the (8, 128) result tile
 # from device memory and not from L2.
 PROBE_BYTES = 512 << 20
 
-# Launches of the CUDA kernel by ``stream_reduce`` in this process.
-KERNEL_LAUNCHES = 0
+# Launches of each CUDA kernel by its wrapper in this process.
+KERNEL_LAUNCHES = 0          # stream_reduce
+STRIDED_LAUNCHES = 0         # stream_reduce_strided
 
 
-def stream_reduce(buf: torch.Tensor) -> torch.Tensor:
-    """Sum of ``buf`` viewed as (-1, 8, 128) tiles: an (8, 128) f32
-    tile. CUDA tensors launch ``csrc/stream_probe.cu``; CPU tensors run
-    :func:`stream_reduce_plain`."""
-    global KERNEL_LAUNCHES
+def _launch(entry: str, buf: torch.Tensor, blocks_per_sm: int):
+    """Check ``buf``; on the CPU return :func:`stream_reduce_plain`, on the
+    card launch ``csrc/stream_probe.cu``'s ``entry`` with
+    ``blocks_per_sm`` blocks an SM (None: launched nothing)."""
     if buf.dtype != torch.float32 or buf.dim() != 1 \
             or buf.numel() % TILE or not buf.is_contiguous():
-        raise ValueError("stream_reduce: buf must be a contiguous 1-D f32 "
+        raise ValueError(f"{entry}: buf must be a contiguous 1-D f32 "
                          f"tensor of whole (8, 128) tiles, got {buf.dtype} "
                          f"{tuple(buf.shape)}")
     if buf.device.type == "cpu":
         return stream_reduce_plain(buf)
     if buf.device.type != "cuda":
-        raise ValueError(f"stream_reduce: unsupported device {buf.device}")
+        raise ValueError(f"{entry}: unsupported device {buf.device}")
     if buf.data_ptr() % 16:
-        raise ValueError("stream_reduce: buf must be 16-byte aligned")
+        raise ValueError(f"{entry}: buf must be 16-byte aligned")
     lib = _kernels.load("stream_probe")
     sms = torch.cuda.get_device_properties(buf.device).multi_processor_count
-    nblocks = max(1, min(4 * sms, buf.numel() // TILE))
+    nblocks = max(1, min(blocks_per_sm * sms, buf.numel() // TILE))
     out = torch.zeros(8, 128, dtype=torch.float32, device=buf.device)
-    err = lib.stream_reduce(buf.data_ptr(), buf.numel(), nblocks,
-                            out.data_ptr(), _kernels.stream_handle(buf.device))
-    _kernels.check(lib, err, "stream_reduce")
-    KERNEL_LAUNCHES += 1
+    err = getattr(lib, entry)(buf.data_ptr(), buf.numel(), nblocks,
+                              out.data_ptr(),
+                              _kernels.stream_handle(buf.device))
+    _kernels.check(lib, err, entry)
+    return out
+
+
+def stream_reduce(buf: torch.Tensor) -> torch.Tensor:
+    """Sum of ``buf`` viewed as (-1, 8, 128) tiles: an (8, 128) f32
+    tile. CUDA tensors launch ``csrc/stream_probe.cu``'s probe (a
+    contiguous span of tiles a block, one block an SM); CPU tensors run
+    :func:`stream_reduce_plain`."""
+    global KERNEL_LAUNCHES
+    out = _launch("stream_reduce", buf, 1)
+    if buf.device.type == "cuda":
+        KERNEL_LAUNCHES += 1
+    return out
+
+
+def stream_reduce_strided(buf: torch.Tensor) -> torch.Tensor:
+    """:func:`stream_reduce` by the first port's grid-stride kernel, kept
+    for the A/B against the probe."""
+    global STRIDED_LAUNCHES
+    out = _launch("stream_reduce_strided", buf, 4)
+    if buf.device.type == "cuda":
+        STRIDED_LAUNCHES += 1
     return out
 
 
@@ -59,15 +81,16 @@ def stream_reduce_plain(buf: torch.Tensor) -> torch.Tensor:
 
 
 def measure_stream_bw(device="cuda", nbytes: int = PROBE_BYTES,
-                      reps: int = 20) -> float:
+                      reps: int = 20, reduce=stream_reduce) -> float:
     """Read-stream bandwidth of the card in GB/s: the median time of
-    :func:`stream_reduce` over a buffer of ones of ``nbytes``."""
+    ``reduce`` (:func:`stream_reduce`, or :func:`stream_reduce_strided`
+    for the A/B) over a buffer of ones of ``nbytes``."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("measure_stream_bw: a bandwidth is measured on "
                            f"the card, not on {dev}")
     buf = torch.ones(nbytes // 4, dtype=torch.float32, device=dev)
-    ms = float(np.median(time_cuda(stream_reduce, buf, reps=reps)))
+    ms = float(np.median(time_cuda(reduce, buf, reps=reps)))
     return buf.numel() * 4 / (ms * 1e-3) / 1e9
 
 

@@ -1,12 +1,15 @@
 // XPOSE, the static-routed transpose SpMV of the scattered regime, for
-// Hopper (sm_90a): the mirror build, stage S1 and stage S3.
+// Hopper (sm_90a): the mirror build, stage S1 and stage S3 (two designs).
 //
 // Replaces, in spmv_scpa_tpu/ops/xpose.py:
-//   xpose_mirror <- _mirror_kernel (called at :198)
-//   xpose_s1     <- _s1_kernel     (called at :219), with the S2 transpose
-//                   (jnp.swapaxes at :312) folded into its stores
-//   xpose_s3     <- _s3_kernel     (called at :253), with the strided
-//                   un-blocking of y (:316-317) folded into its stores
+//   xpose_mirror  <- _mirror_kernel (called at :198)
+//   xpose_s1      <- _s1_kernel     (called at :219), with the S2 transpose
+//                    (jnp.swapaxes at :312) folded into its stores
+//   xpose_s3_rows <- _s3_kernel     (called at :253), the strided
+//                    un-blocking of y (:316-317) and the virtual rows'
+//                    scatter-add (:319-323), as row sums over a host table
+//   xpose_s3      <- the same, carried over block by block (prefix sums
+//                    and routing planes); kept for the A/B
 //
 // Function, from the host plan's uint8 routing planes (ops/xpose_plan.py;
 // simulate_xpose there is the spec). x is read as windows of 128 x 128:
@@ -26,13 +29,23 @@
 //           passes st[q, lq] = psg[f, rpre[f, r]] with r = r3y[q, lq] and
 //           f = ys[q, r] (0 where r >= 128), and
 //             y_all[b + (q * 128 + lq) * B2] = st1 - st2   (q < 64, row < m2).
+//   S3 rows: y[r] = sum of mid[pos[k]] over rowptr[r] <= k < rowptr[r + 1]
+//           (ops/xpose.py:s3_rows_table turns the planes, once per plan,
+//           into each real row's product slots, its virtual rows' folded
+//           in, ascending). A row of at most kShortRow slots adds them in
+//           order from 0.0; a longer one is dealt round-robin to 32 lanes,
+//           each adding its share in order from 0.0, and the lanes combine
+//           by the halving tree (xor shuffles 16, 8, 4, 2, 1).
 // Any index outside its range (a lane or row >= 128, a step >= J1, a
 // source window past x) reads 0.0, so no plane can read out of bounds.
 //
 // What bounds them on this card: bytes. Per call the planes (gidx and asv,
-// the used rows of r2/r3, the eight S3 planes), the product array written
-// by S1 and read by S3, x and y; about 48 B per nonzero on the webbase-1M
-// stand-in against CSR's 12. No arithmetic worth counting.
+// the used rows of r2/r3), the product array written by S1 and read by
+// S3, x and y, and S3's own input: the eight planes (128 KB an out-block,
+// about 95 B per product on amazon262k's far part) for xpose_s3, or the
+// slot table (a 4-byte position per product and a 4-byte pointer per row)
+// and the occupied product slots for xpose_s3_rows. No arithmetic worth
+// counting.
 //
 // Design. The TPU needs transpose/lane-gather/transpose chains and batches
 // of 8 steps because Mosaic has no per-element gather; here a thread reads
@@ -44,11 +57,24 @@
 // out-block; a warp per row of fin gathers it from mid and scans it in
 // registers with the Hillis-Steele steps d = 1, 2, ..., 64 (shuffles for
 // d < 32), psum goes to shared memory, one warp scans the row totals the
-// same way, and the extraction reads psg from shared memory. All adds are
+// same way, and the extraction reads psg from shared memory. S3 rows: the
+// prefix trick is how a TPU, which has no scatter, sums rows; its routing
+// depends on the plan alone, so the host resolves it once and the kernel
+// reads only the occupied products, the table and y. A warp owns 32
+// consecutive rows, one a lane, so y is written coalesced with no atomics
+// and no second launch: each lane walks its row of at most kShortRow slots
+// with kDepth positions, then kDepth products, in flight; then the warp
+// takes its longer rows one at a time (ballot), all lanes on one row. The
+// planner refuses a row of more than 16k entries, so a warp's longest walk
+// is 512 slots a lane (the webbase-1M stand-in's longest row: 1,894). A
+// position is a 32-bit flat index into mid (B2 * J1 * 128 < 2^23): a
+// 16-bit offset within the row's out-block would save 2 B a product but
+// not fit a row whose virtual rows lie in other out-blocks. All adds are
 // plain f32 adds in the order the plain PyTorch version repeats
-// (p[l] + p[l - d] per step), products and sums rounded separately, so all
-// three kernels equal their plain versions bit for bit. No tensor cores: an
-// f32 MMA would run in TF32. Deterministic: no atomics.
+// (p[l] + p[l - d] per step; the rows' fixed orders above), products and
+// sums rounded separately, so all four kernels equal their plain versions
+// bit for bit. No tensor cores: an f32 MMA would run in TF32.
+// Deterministic: no atomics.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -63,6 +89,9 @@ constexpr int kS1Threads = 512;
 constexpr int kS3Threads = 512;
 constexpr int kS3Warps = kS3Threads / 32;
 constexpr int kStageRows = 64;             // y staging rows per out-block
+constexpr int kRowThreads = 256;
+constexpr int kShortRow = 32;              // longest row a single lane sums
+constexpr int kDepth = 16;                 // a lane's loads in flight
 
 __global__ void __launch_bounds__(kMirThreads)
 mirror_kernel(const float* __restrict__ x, int64_t n,
@@ -223,6 +252,65 @@ s3_kernel(const float* __restrict__ mid, const uint8_t* __restrict__ planes,
   }
 }
 
+// One product slot: mid[pos[k]], 0.0 for a position outside mid.
+__device__ __forceinline__ float slot_value(const float* __restrict__ mid,
+                                            int64_t n_mid, int p) {
+  return p >= 0 && p < n_mid ? __ldg(mid + p) : 0.0f;
+}
+
+// Lane's share of slots lo + lane0, lo + lane0 + step, ... < hi, added in
+// order from 0.0, kDepth positions then kDepth products in flight.
+__device__ __forceinline__ float strided_sum(const float* __restrict__ mid,
+                                             int64_t n_mid,
+                                             const int* __restrict__ pos,
+                                             int first, int hi, int step) {
+  float acc = 0.0f;
+  for (int k0 = first; k0 < hi; k0 += kDepth * step) {
+    int p[kDepth];
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u)
+      p[u] = k0 + u * step < hi ? __ldg(pos + k0 + u * step) : -1;
+    float v[kDepth];
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u) v[u] = slot_value(mid, n_mid, p[u]);
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u)
+      if (k0 + u * step < hi) acc = __fadd_rn(acc, v[u]);
+  }
+  return acc;
+}
+
+// Warp w owns rows 32 w .. 32 w + 31, lane l row 32 w + l. Row pointers
+// are clamped into [0, n_pos], an end below its start to the start.
+__global__ void __launch_bounds__(kRowThreads)
+s3_rows_kernel(const float* __restrict__ mid, int64_t n_mid,
+               const int* __restrict__ rowptr, const int* __restrict__ pos,
+               int n_pos, float* __restrict__ y, int m) {
+  const int lane = threadIdx.x & 31;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
+  if (r - lane >= m) return;                 // the whole warp is past y
+  int lo = 0, hi = 0;
+  if (r < m) {
+    lo = min(max(__ldg(rowptr + r), 0), n_pos);
+    hi = min(max(__ldg(rowptr + r + 1), lo), n_pos);
+  }
+  float acc = 0.0f;
+  if (hi - lo <= kShortRow) acc = strided_sum(mid, n_mid, pos, lo, hi, 1);
+  unsigned long_rows = __ballot_sync(kFull, hi - lo > kShortRow);
+  while (long_rows) {
+    const int owner = __ffs(long_rows) - 1;
+    long_rows &= long_rows - 1;
+    const int llo = __shfl_sync(kFull, lo, owner);
+    const int lhi = __shfl_sync(kFull, hi, owner);
+    float part = strided_sum(mid, n_mid, pos, llo + lane, lhi, 32);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      part = __fadd_rn(part, __shfl_xor_sync(kFull, part, off));
+    if (lane == owner) acc = part;
+  }
+  if (r < m) y[r] = acc;
+}
+
 template <class K>
 int raise_smem(K kernel, size_t bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
@@ -279,6 +367,21 @@ extern "C" int xpose_s3(const void* mid, const void* planes, void* y_all,
     s3_kernel<<<B2, kS3Threads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(mid), static_cast<const uint8_t*>(planes),
         static_cast<int64_t>(B2) * kWin, static_cast<float*>(y_all), J1, B2, m2);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mid (B2, J1, 128) f32, n_mid elements; rowptr (m + 1,) i32; pos (n_pos,)
+// i32 flat indices into mid; y (m,) f32.
+extern "C" int xpose_s3_rows(const void* mid, int64_t n_mid, const void* rowptr,
+                             const void* pos, int n_pos, void* y, int m,
+                             void* stream) {
+  if (m > 0) {
+    const int64_t blocks = (static_cast<int64_t>(m) + kRowThreads - 1) / kRowThreads;
+    s3_rows_kernel<<<static_cast<unsigned>(blocks), kRowThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(mid), n_mid, static_cast<const int*>(rowptr),
+        static_cast<const int*>(pos), n_pos, static_cast<float*>(y), m);
   }
   return static_cast<int>(cudaGetLastError());
 }

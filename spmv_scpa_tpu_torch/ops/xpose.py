@@ -9,18 +9,28 @@ turns the matrix into uint8 routing planes; three kernels execute them:
   multiplies by the values and routes the products to their out-blocks,
   storing them straight in S3's layout ``mid[k, s, :]`` (the reference's
   S2 ``swapaxes`` is folded into these stores);
-* :func:`xpose_s3`, per out-block, routes the products to dense
-  row-major slots, takes the block's prefix sum and writes
-  ``y[row] = prefix(end of row) - prefix(end of previous row)`` straight
-  into y's row order.
+* stage S3 in one of two designs (``s3``, knob of :func:`prepare_xpose`
+  and :func:`bind_plan`):
 
-Virtual (split) rows add back onto their rows with ``index_add_``, an
-XLA scatter outside any kernel in the reference too. Each kernel's
-wrapper launches ``csrc/xpose.cu`` on a CUDA tensor and runs its plain
-PyTorch version on a CPU tensor; an index outside its range reads 0.0.
-The plain versions repeat the kernels' arithmetic (one f32 product per
-slot; the prefix sums as Hillis-Steele steps ``p[l] + p[l - d]``), so
-kernel and plain version agree bit for bit.
+  - ``"rows"`` (the default), :func:`xpose_s3_rows`: each row of y as
+    the sum of its product slots, read through a table that
+    :func:`s3_rows_table` builds from the plan's S3 planes once (each
+    real row's slots in ``mid``, its virtual rows' folded in), so y
+    comes out whole;
+  - ``"prefix"``, :func:`xpose_s3`: the reference's design carried over,
+    per out-block routing the products to dense row-major slots, taking
+    the block's prefix sum and writing ``y[row] = prefix(end of row) -
+    prefix(end of previous row)`` straight into y's row order; the
+    virtual (split) rows then add back onto their rows with
+    ``index_add_``, an XLA scatter outside any kernel in the reference
+    too.
+
+Each kernel's wrapper launches ``csrc/xpose.cu`` on a CUDA tensor and
+runs its plain PyTorch version on a CPU tensor; an index outside its
+range reads 0.0. The plain versions repeat the kernels' arithmetic (one
+f32 product per slot; the prefix sums as Hillis-Steele steps ``p[l] +
+p[l - d]``; the row sums in :func:`xpose_s3_rows_plain`'s fixed order),
+so kernel and plain version agree bit for bit.
 
 The reference's TPU-only geometry (G_SUB step batching, the VMEM caps,
 the K1p padding of S3's planes and W3's two-window split) has no role
@@ -47,9 +57,13 @@ G_SUB = 8
 X_VMEM_CAP = X_EXT_BUDGET + (G_SUB - 1) * BC * BC * 4
 STAGE_ROWS = 64              # y staging rows (of 128) per out-block
 N_S3_PLANES = 8              # sub, r3b, rpre1, ys1, r3y1, rpre2, ys2, r3y2
+S3_DESIGNS = ("rows", "prefix")
+SHORT_ROW = 32               # longest row one lane sums (csrc kShortRow)
+WARP = 32
 
 # Launches of each CUDA kernel by its wrapper in this process.
-LAUNCHES = {"xpose_mirror": 0, "xpose_s1": 0, "xpose_s3": 0}
+LAUNCHES = {"xpose_mirror": 0, "xpose_s1": 0, "xpose_s3": 0,
+            "xpose_s3_rows": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -249,16 +263,90 @@ def xpose_s3_plain(mid, planes, m2: int) -> torch.Tensor:
     return st.reshape(B2, STAGE_ROWS * BC).t().reshape(-1)[:m2]
 
 
+def xpose_s3_rows(mid, rowptr, pos) -> torch.Tensor:
+    """Stage S3 as row sums (replaces ``_s3_kernel``, the un-blocking of y
+    and the virtual rows' scatter-add): ``y[r]`` = the sum of
+    ``mid.flat[pos[k]]`` over ``rowptr[r] <= k < rowptr[r + 1]``, in
+    :func:`xpose_s3_rows_plain`'s order. ``mid`` (B2, J1, 128) f32;
+    ``rowptr`` (m + 1,) int32 and ``pos`` (S,) int32 from
+    :func:`s3_rows_table`; returns (m,) f32. A pointer outside [0, S] is
+    clamped into it, an end below its start taken as the start, and a
+    position outside ``mid`` reads 0.0."""
+    if mid.dtype != torch.float32 or mid.dim() != 3 or mid.shape[2] != BC:
+        raise ValueError(f"xpose_s3_rows: mid is {mid.dtype} "
+                         f"{tuple(mid.shape)}, expected float32 (B2, J1, "
+                         f"{BC})")
+    if rowptr.dim() != 1 or rowptr.numel() < 1 or pos.dim() != 1:
+        raise ValueError(f"xpose_s3_rows: rowptr {tuple(rowptr.shape)} and "
+                         f"pos {tuple(pos.shape)} must be 1-D, rowptr of "
+                         "m + 1 >= 1 pointers")
+    if mid.numel() >= 2 ** 31 or pos.numel() >= 2 ** 31:
+        raise ValueError("xpose_s3_rows: mid or pos past 32-bit positions")
+    m = rowptr.numel() - 1
+    _check("xpose_s3_rows", {"mid": (mid, torch.float32, mid.shape),
+                             "rowptr": (rowptr, torch.int32, (m + 1,)),
+                             "pos": (pos, torch.int32, pos.shape)},
+           mid.device)
+    if mid.device.type == "cpu":
+        return xpose_s3_rows_plain(mid, rowptr, pos)
+    y = torch.empty(m, dtype=torch.float32, device=mid.device)
+    return _launch("xpose_s3_rows", y, mid.data_ptr(), mid.numel(),
+                   rowptr.data_ptr(), pos.data_ptr(), pos.numel(),
+                   y.data_ptr(), m)
+
+
+def _halve(v):
+    """The lanes' halving tree along the last axis (the kernel's xor
+    shuffles 16, 8, 4, 2, 1): ``v[:h] + v[h:2h]`` until one is left."""
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+def xpose_s3_rows_plain(mid, rowptr, pos) -> torch.Tensor:
+    """:func:`xpose_s3_rows` in PyTorch ops, in the kernel's order: a row
+    of at most ``SHORT_ROW`` slots adds them in table order from 0.0; a
+    longer one deals them round-robin to 32 lanes, each adding its share
+    in order from 0.0, and takes the lanes' halving tree."""
+    dev = mid.device
+    S = pos.numel()
+    lo = rowptr[:-1].to(torch.int64).clamp(0, S)
+    hi = torch.maximum(rowptr[1:].to(torch.int64).clamp(0, S), lo)
+    n = hi - lo
+    p = pos.to(torch.int64)
+    p = torch.where((p >= 0) & (p < mid.numel()), p, mid.numel())
+    vals = torch.cat([mid.reshape(-1), mid.new_zeros(1)])[
+        torch.cat([p, p.new_full((1,), mid.numel())])]     # vals[S] = 0.0
+    y = torch.zeros(n.numel(), dtype=torch.float32, device=dev)
+    short = torch.nonzero((n > 0) & (n <= SHORT_ROW)).view(-1)
+    for k in range(int(n[short].max()) if short.numel() else 0):
+        rows = short[n[short] > k]
+        y[rows] = y[rows] + vals[lo[rows] + k]
+    wide = torch.nonzero(n > SHORT_ROW).view(-1)
+    if wide.numel():
+        lane = torch.arange(WARP, device=dev)
+        part = torch.zeros((wide.numel(), WARP), dtype=torch.float32,
+                           device=dev)
+        for k0 in range(0, int(n[wide].max()), WARP):
+            k = lo[wide, None] + k0 + lane
+            part = part + vals[torch.where(k < hi[wide, None], k, S)]
+        y[wide] = _halve(part)
+    return y
+
+
 class XposeKernels(NamedTuple):
     """The functions an XPOSE call runs, by name."""
 
     xpose_mirror: Callable
     xpose_s1: Callable
     xpose_s3: Callable
+    xpose_s3_rows: Callable
 
 
-KERNELS = XposeKernels(xpose_mirror, xpose_s1, xpose_s3)
-PLAIN = XposeKernels(xpose_mirror_plain, xpose_s1_plain, xpose_s3_plain)
+KERNELS = XposeKernels(xpose_mirror, xpose_s1, xpose_s3, xpose_s3_rows)
+PLAIN = XposeKernels(xpose_mirror_plain, xpose_s1_plain, xpose_s3_plain,
+                     xpose_s3_rows_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -292,16 +380,86 @@ def compact_routes(plan: XposePlan, a: np.ndarray) -> np.ndarray:
     return a.reshape(plan.J1, plan.W1 * BC, BC)[:, :plan.B2].reshape(-1, BC)
 
 
-def hbm_bytes(plan: XposePlan) -> int:
+def s3_rows_table(plan: XposePlan) -> tuple[np.ndarray, np.ndarray]:
+    """S3's routing resolved on the host: (rowptr (m + 1,) int32, pos (S,)
+    int32), row r's product slots ``pos[rowptr[r]:rowptr[r + 1]]`` as
+    flat indices into mid (B2, J1, 128), ascending.
+
+    A final slot (f, l) of out-block b holds ``mid[b, s, c]`` with ``c =
+    r3b[f, l]``, ``s = sub[f, c]`` (occupied where c < CCAP and s < J1:
+    lane 127 and steps past J1 read 0.0). Row ``b + (q*128 + lq)*B2`` of
+    y_all is the block's prefix at its end minus that at the previous
+    row's end (the extraction passes ``(rpre1, ys1, r3y1)`` and ``(rpre2,
+    ys2, r3y2)``, 255 = nothing), so it sums the occupied slots after the
+    second end up to the first, in the block's row-major slot order.
+    Virtual row ``m + i`` folds into row ``v_row[i]``."""
+    B2, J1, m, m2 = plan.B2, plan.J1, plan.m, plan.m2
+
+    def planes(a, rows=BC):
+        return a.reshape(B2, BC, BC)[:, :rows].astype(np.int64)
+
+    r3b = planes(plan.r3b)
+    c = np.minimum(r3b, BC - 1)
+    s = np.take_along_axis(planes(plan.sub), c, 2)
+    occ = ((r3b < CCAP) & (s < J1)).reshape(B2, BC * BC)
+    blk = np.arange(B2).reshape(B2, 1, 1)
+    src = ((blk * J1 + s) * BC + c).reshape(B2, BC * BC)[occ]
+    # occupied slots before each (block, slot), counted over all blocks
+    before = np.zeros((B2, BC * BC + 1), np.int64)
+    np.cumsum(occ, 1, out=before[:, 1:])
+    before += np.r_[0, np.cumsum(before[:-1, -1])][:, None]
+
+    def ends(rpre, ys, r3y):
+        r = planes(r3y, STAGE_ROWS)
+        rc = np.minimum(r, BC - 1)
+        f = np.take_along_axis(planes(ys, STAGE_ROWS), rc, 2)
+        fc = np.minimum(f, BC - 1)
+        e = planes(rpre)[blk, fc, rc]
+        return np.where((r < BC) & (f < BC) & (e < BC), fc * BC + e, -1)
+
+    rows = blk + np.arange(STAGE_ROWS * BC).reshape(1, STAGE_ROWS, BC) * B2
+    live = rows < m2
+    b = np.broadcast_to(blk, rows.shape)[live]
+    e1 = ends(plan.rpre1, plan.ys1, plan.r3y1)[live]
+    e2 = ends(plan.rpre2, plan.ys2, plan.r3y2)[live]
+    first = before[b, e2 + 1]              # e2 = -1: the block's first slot
+    count = np.maximum(np.where(e1 >= 0, before[b, e1 + 1], first) - first,
+                       0)
+    # each y_all row's slots, then their real row
+    slot = np.arange(count.sum()) - np.repeat(np.cumsum(count) - count
+                                              - first, count)
+    row = np.repeat(rows[live], count)
+    virt = row >= m
+    row[virt] = plan.v_row[row[virt] - m]
+    pos = src[slot]
+    order = np.lexsort((pos, row))
+    rowptr = np.zeros(m + 1, np.int64)
+    np.cumsum(np.bincount(row, minlength=m), out=rowptr[1:])
+    return rowptr.astype(np.int32), pos[order].astype(np.int32)
+
+
+def check_s3(s3: str) -> None:
+    if s3 not in S3_DESIGNS:
+        raise ValueError(f"s3 {s3!r} is not one of {S3_DESIGNS}")
+
+
+def hbm_bytes(plan: XposePlan, s3: str = "rows") -> int:
     """Bytes one call moves on the card, the port's own layout: S1's
     planes (gidx, asv, the used rows of r2/r3), the mirror's planes and
-    table (written, then read), the product array (written by S1, read
-    by S3), S3's eight planes, x and y (with the virtual rows)."""
+    table (written, then read), the product array written by S1, x, and
+    S3's own: on ``"rows"`` the slot table (a pointer per row, a position
+    per product), the occupied products and y; on ``"prefix"`` the product
+    array whole, the eight planes and y with its virtual rows."""
+    check_s3(s3)
     J1, B2, NWm = plan.J1, plan.B2, plan.NWm
-    return (J1 * BC * BC * 5 + 2 * J1 * B2 * BC
-            + NWm * (4 * 4 + 2 * BC) + 2 * NWm * BC * BC * 4
-            + 2 * B2 * J1 * BC * 4 + N_S3_PLANES * B2 * BC * BC
-            + plan.n * 4 + plan.m2 * 4)
+    shared = (J1 * BC * BC * 5 + 2 * J1 * B2 * BC
+              + NWm * (4 * 4 + 2 * BC) + 2 * NWm * BC * BC * 4
+              + B2 * J1 * BC * 4 + plan.n * 4)
+    if s3 == "prefix":
+        return (shared + B2 * J1 * BC * 4 + N_S3_PLANES * B2 * BC * BC
+                + plan.m2 * 4)
+    # each entry fills one product slot: the table holds nnz positions
+    return shared + (plan.m + 1) * 4 + plan.nnz * 8 + plan.m * 4
 
 
 def plan_meta(plan: XposePlan, nnz: int) -> dict:
@@ -323,10 +481,12 @@ def plan_meta(plan: XposePlan, nnz: int) -> dict:
                               "s3": 64 << 20}}}
 
 
-def bind_plan(plan: XposePlan, dev) -> Callable:
+def bind_plan(plan: XposePlan, dev, s3: str = "rows") -> Callable:
     """The plan's planes on ``dev``, and ``run(xf, ops) -> y (m,)`` for x
     (f32 on ``dev``) through the kernels in ``ops`` (any object with
-    :class:`XposeKernels`' fields)."""
+    :class:`XposeKernels`' fields), stage S3 on design ``s3``."""
+    check_s3(s3)
+
     def put(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=dev)
@@ -342,13 +502,18 @@ def bind_plan(plan: XposePlan, dev) -> Callable:
     gidx, asv = put(plan.gidx, u8), put(plan.asv, torch.float32)
     r2 = put(compact_routes(plan, plan.r2), u8)
     r3 = put(compact_routes(plan, plan.r3), u8)
-    planes = put(s3_planes(plan), u8)
-    v_row = put(plan.v_row, torch.int64)
+    if s3 == "rows":
+        rowptr, pos = (put(a, torch.int32) for a in s3_rows_table(plan))
+    else:
+        planes = put(s3_planes(plan), u8)
+        v_row = put(plan.v_row, torch.int64)
 
     def run(xf, ops):
         xm = (ops.xpose_mirror(xf, msw, mir_sel, mir_sub) if NWm
               else no_mirror)
         mid = ops.xpose_s1(xf, xm, win, gidx, asv, r2, r3, nw0, B2)
+        if s3 == "rows":
+            return ops.xpose_s3_rows(mid, rowptr, pos)
         y_all = ops.xpose_s3(mid, planes, m2)
         y = y_all[:m]
         if m2 > m:
@@ -358,25 +523,41 @@ def bind_plan(plan: XposePlan, dev) -> Callable:
     return run
 
 
-def prepare_xpose(A: CSR, device="cuda", **_) -> Prepared:
+def prepare_xpose(A: CSR, device="cuda", s3: str = "rows",
+                  **_) -> Prepared:
     """``cuda-xpose``: plan ``A`` (:func:`plan_or_raise`) and bind ``fn(x)
     -> y`` on ``device`` (the card by default; ``"cpu"`` runs the plain
-    versions)."""
+    versions), stage S3 on design ``s3`` (``"rows"``, the default, or
+    ``"prefix"``; ``meta["s3"]``)."""
+    return prepare_xpose_designs(A, (s3,), device)[s3]
+
+
+def prepare_xpose_designs(A: CSR, designs=S3_DESIGNS,
+                          device="cuda") -> dict:
+    """:func:`prepare_xpose` on each S3 design of ``designs`` from one
+    plan: ``{s3: Prepared}``."""
+    for s3 in designs:
+        check_s3(s3)
     dev = resolve_device(device)
     plan = plan_or_raise(A)
-    run = bind_plan(plan, dev)
     n = A.n
 
-    def call(x, ops):
-        xf = torch.as_tensor(x, dtype=torch.float32, device=dev)
-        if xf.shape != (n,):
-            raise ValueError(f"cuda-xpose: x has shape {tuple(xf.shape)}, "
-                             f"expected ({n},)")
-        return run(xf, ops)
+    def prepared(s3):
+        run = bind_plan(plan, dev, s3)
 
-    return Prepared("cuda-xpose", A.name, lambda x: call(x, KERNELS),
-                    device=dev, nnz=A.nnz, ref="pallas-xpose",
-                    hbm_bytes=hbm_bytes(plan), meta=plan_meta(plan, A.nnz),
-                    plain=lambda x: call(x, PLAIN),
-                    kernel_calls=lambda xf: record_calls(
-                        lambda ops: call(xf, ops), PLAIN))
+        def call(x, ops):
+            xf = torch.as_tensor(x, dtype=torch.float32, device=dev)
+            if xf.shape != (n,):
+                raise ValueError(f"cuda-xpose: x has shape "
+                                 f"{tuple(xf.shape)}, expected ({n},)")
+            return run(xf, ops)
+
+        return Prepared("cuda-xpose", A.name, lambda x: call(x, KERNELS),
+                        device=dev, nnz=A.nnz, ref="pallas-xpose",
+                        hbm_bytes=hbm_bytes(plan, s3),
+                        meta={**plan_meta(plan, A.nnz), "s3": s3},
+                        plain=lambda x: call(x, PLAIN),
+                        kernel_calls=lambda xf: record_calls(
+                            lambda ops: call(xf, ops), PLAIN))
+
+    return {s3: prepared(s3) for s3 in designs}

@@ -296,23 +296,27 @@ def test_chip_smoke_fused_yardstick_on_the_tile_layout():
     assert cs.free_bound_ms(args, out) <= cs.bound(kname, args, out)[0]
 
 
+@pytest.mark.parametrize("s3", ["rows", "prefix"])
 @pytest.mark.parametrize("name", ["webbase30k", "amazon8k"])
-def test_chip_smoke_xpose_yardsticks_compute_the_kernels_function(name):
+def test_chip_smoke_xpose_yardsticks_compute_the_kernels_function(name, s3):
     """Each XPOSE kernel's library yardstick computes what the kernel
     does (run here on the plain versions): the mirror's flat indexing
     and S1's one-entry-per-row CSR product to f32 rounding, S3's gather
-    and index_add_ up to the order of the sums (the kernel differences
-    f32 block prefix sums); every bound is set by bytes and counts only
-    the elements the data reads."""
+    and index_add_ up to the order of the sums (the prefix kernel
+    differences f32 block prefix sums, the row sums add in their own
+    order); every bound is set by bytes and counts only the elements the
+    data reads. Both S3 designs add the same products into the same
+    rows."""
     cs = _chip_smoke()
     from spmv_scpa_tpu_torch.bench import cases
     from spmv_scpa_tpu_torch.ops import xpose
     from spmv_scpa_tpu_torch.utils.vector import make_x
     A = cases.make(cases.XPOSE_CASES[name])
-    prep = get_strategy("cuda-xpose").prepare(A, device="cpu")
+    prep = get_strategy("cuda-xpose").prepare(A, device="cpu", s3=s3)
     xd = torch.as_tensor(make_x(A.n), dtype=torch.float32)
     calls = prep.kernel_calls(xd)
-    assert [k for k, _ in calls] == list(cs.XPOSE_KERNELS)
+    assert [k for k, _ in calls] == list(
+        cs.XPOSE_KERNELS if s3 == "rows" else cs.PREFIX_KERNELS)
     for kname, args in calls:
         out = getattr(xpose.PLAIN, kname)(*args)
         ms, by = cs.bound(kname, args, out)
@@ -320,13 +324,23 @@ def test_chip_smoke_xpose_yardsticks_compute_the_kernels_function(name):
         assert 0 < ms <= (cs.tensor_bytes(args) + out.numel() * 4) \
             / cs.HBM_BYTES_PER_S * 1e3
         got = cs.library(kname, args, None, xd)().reshape(out.shape)
-        if kname == "xpose_s3":
+        if kname in ("xpose_s3", "xpose_s3_rows"):
             assert float((got - out).norm()) <= 1e-5 * float(out.norm())
         else:
             torch.testing.assert_close(got, out, rtol=1e-6, atol=0)
     _, col, _ = cs.s1_slots(calls[1][1])
-    src, dest = cs.s3_slots(calls[2][1])
+    slots = cs.s3_slots if s3 == "prefix" else cs.s3_rows_slots
+    src, dest = slots(calls[2][1])
     assert col.numel() == src.numel() == dest.numel() == A.nnz
+    if s3 == "rows":
+        plan = xpose.plan_or_raise(A)
+        mid = calls[2][1][0]
+        src0, dest0 = cs.s3_slots((mid, torch.as_tensor(
+            xpose.s3_planes(plan)), plan.m2))
+        v_row = torch.as_tensor(np.r_[np.arange(plan.m), plan.v_row],
+                                dtype=torch.int64)
+        assert sorted(zip(dest.tolist(), src.tolist())) == sorted(
+            zip(v_row[dest0].tolist(), src0.tolist()))
 
 
 @pytest.mark.parametrize("name", ["fp64-hybrid-stencil2k",
@@ -413,7 +427,7 @@ def test_chip_smoke_rows_core_yardstick_and_bound(name):
     assert cs.free_bound_ms(args, out) > 0
     got = cs.library(kname, args, A, xd)().reshape(-1)
     torch.testing.assert_close(got, out, rtol=1e-5, atol=1e-5)
-    assert cs.LINE_ORDER.count("lane_rows") == 1 and len(cs.LINE_ORDER) == 22
+    assert cs.LINE_ORDER.count("lane_rows") == 1 and len(cs.LINE_ORDER) == 24
 
 
 def _bits_bound_case():

@@ -150,25 +150,34 @@ def test_webbase200k_big_tail_runs_compact_pell():
 
 
 @functools.cache
-def _xpose_tail():
+def _xpose_tail(s3):
     spec, kw = cases.XPOSE_TAIL
     A = cases.make(spec)
     x = make_x(A.n)
-    preps = lane_ell.prepare_hybrid_layouts(A, device="cpu", **kw)
-    jprep = jax_prepare(cases.make(spec, jax_synth), interpret=True, **kw)
-    return A, x, preps, jprep
+    preps = lane_ell.prepare_hybrid_layouts(A, device="cpu", xpose_s3=s3,
+                                            **kw)
+    return A, x, preps, _jax_xpose_tail()
 
 
-def test_xpose_tail_matches_jax():
+@functools.cache
+def _jax_xpose_tail():
+    spec, kw = cases.XPOSE_TAIL
+    return jax_prepare(cases.make(spec, jax_synth), interpret=True, **kw)
+
+
+@pytest.mark.parametrize("s3", ["rows", "prefix"])
+def test_xpose_tail_matches_jax(s3):
     """``tail_strategy="pallas-xpose"``: the 3,091-entry tail runs as
     ``cuda-xpose`` over its rows compacted and lands through the merge,
-    as the reference's ``compact-pallas-xpose`` does. The hybrid's meta
-    equals the reference's but for the tail's own (the port's XPOSE meta
-    and bytes count its layout) and the route's name; y within the XPOSE
-    bound of tests/test_torch_xpose.py (both tails are f32)."""
-    A, x, preps, jprep = _xpose_tail()
+    as the reference's ``compact-pallas-xpose`` does, on both S3 designs
+    (``xpose_s3``). The hybrid's meta equals the reference's but for the
+    tail's own (the port's XPOSE meta and bytes count its layout) and the
+    route's name; y within the XPOSE bound of tests/test_torch_xpose.py
+    (both tails are f32)."""
+    A, x, preps, jprep = _xpose_tail(s3)
     y_jax = np.asarray(jprep.fn(x), dtype=np.float64)
     gold = spmv_oracle(A, x)
+    s3_kernel = "xpose_s3_rows" if s3 == "rows" else "xpose_s3"
     for layout, core in (("lanes", "lane_ell_spmv"), ("rows", "lane_rows")):
         prep = preps[layout]
         m, jm = dict(prep.meta), dict(jprep.meta)
@@ -178,6 +187,7 @@ def test_xpose_tail_matches_jax():
         assert m == jm
         for k in ("J1", "B2", "W1", "W3", "NWm", "fill"):
             assert tail[k] == jtail[k], k
+        assert tail["s3"] == s3
         y = to_numpy(prep.fn(x))
         assert _rel_l2(y, y_jax) <= VS_JAX_XPOSE_REL_L2, layout
         assert _rel_l2(y, gold) <= VS_ORACLE_REL_L2, layout
@@ -185,7 +195,7 @@ def test_xpose_tail_matches_jax():
                         "XPOSE tail")
         assert [k for k, _ in prep.kernel_calls(
             torch.as_tensor(x, dtype=torch.float32))] == [
-                core, "xpose_mirror", "xpose_s1", "xpose_s3",
+                core, "xpose_mirror", "xpose_s1", s3_kernel,
                 "window_gather"]
 
 

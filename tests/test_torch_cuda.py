@@ -12,7 +12,7 @@ varying order on the card) is held to rel-L2 <= 1e-6 and, per row,
 |dy| <= 1e-5 * (|A||x|)_row. The gathers move values without
 arithmetic: bit-equal. The segment-sum adds in a fixed order, the order
 of its plain version: bit-equal to it on the CPU and on the card. The
-stream probe sums
+stream probe (both entry points) sums
 ones, which is exact in f32 in any order: bit-equal. The PELL family:
 the tile kernel rounds as its plain version does and the un-permute
 moves values, so both are bit-equal to their plain versions on the
@@ -20,10 +20,11 @@ card; the fused kernel adds in the fixed order of its plain version on
 the CPU (bit-equal) and is within rel-L2 1e-6 of that on the card, and
 the span segment-sum is bit-equal to its plain version on both. The row-layout kernels ``pell_rows`` and
 ``pell_rows_fp64`` add in their plain version's fixed order: bit-equal
-to it run on the CPU, at both grades. XPOSE's three kernels move values, take one
-f32 product per slot and scan in the plain versions' order: bit-equal on
-the card and against the CPU; a whole XPOSE call (virtual rows added by
-``index_add_``) within rel-L2 1e-6 of its plain call. Against
+to it run on the CPU, at both grades. XPOSE's four kernels move values, take one
+f32 product per slot, scan or add rows in the plain versions' order:
+bit-equal on the card and against the CPU; a whole XPOSE call (on
+``s3="prefix"`` virtual rows added by ``index_add_``) within rel-L2 1e-6
+of its plain call. Against
 ``spmv_oracle``: ``validate_result`` defaults. The fp64 grade: the
 lane-ELL fp64 kernel rounds each product and sum as its plain version
 does (bit-equal); the fp64 fused PELL kernel is bit-equal to its plain
@@ -347,13 +348,20 @@ def test_span_segsum_matches_plain(card):
             assert torch.equal(y, segsum_kernel.span_segsum_plain(*args))
 
 
-def test_stream_probe_matches_plain_exactly(card):
-    buf = torch.ones(roofline.PROBE_BYTES // 4, device=card)
-    before = roofline.KERNEL_LAUNCHES
-    out = roofline.stream_reduce(buf)
-    assert roofline.KERNEL_LAUNCHES == before + 1
+@pytest.mark.parametrize("tiles", [roofline.PROBE_BYTES // 4 // roofline.TILE,
+                                   100_003])
+@pytest.mark.parametrize("entry, count", [
+    ("stream_reduce", "KERNEL_LAUNCHES"),
+    ("stream_reduce_strided", "STRIDED_LAUNCHES")])
+def test_stream_probe_matches_plain_exactly(card, entry, count, tiles):
+    """Both entry points on the probe's 512 MB and on 100,003 tiles, a
+    length that is no multiple of a block's span (264 or 528 blocks)."""
+    buf = torch.ones(tiles * roofline.TILE, device=card)
+    before = getattr(roofline, count)
+    out = getattr(roofline, entry)(buf)
+    assert getattr(roofline, count) == before + 1
     assert torch.equal(out, roofline.stream_reduce_plain(buf))
-    assert bool((out == buf.numel() // roofline.TILE).all())
+    assert bool((out == tiles).all())
 
 
 def test_stream_bw_and_event_timing(card):
@@ -400,33 +408,108 @@ def _check_prepared(prep, A, card, what):
     return calls
 
 
+XPOSE_CALLS = {"rows": ["xpose_mirror", "xpose_s1", "xpose_s3_rows"],
+               "prefix": ["xpose_mirror", "xpose_s1", "xpose_s3"]}
+
+
+@pytest.mark.parametrize("s3", xpose.S3_DESIGNS)
 @pytest.mark.parametrize("name", sorted(cases.XPOSE_CASES))
-def test_xpose_case_kernels_match_plain(card, name):
+def test_xpose_case_kernels_match_plain(card, name, s3):
     A = cases.make(cases.XPOSE_CASES[name])
-    prep = get_strategy("cuda-xpose").prepare(A, device=card)
+    prep = get_strategy("cuda-xpose").prepare(A, device=card, s3=s3)
     calls = _check_prepared(prep, A, card, f"cuda-xpose on {name}")
-    assert [k for k, _ in calls] == ["xpose_mirror", "xpose_s1", "xpose_s3"]
+    assert [k for k, _ in calls] == XPOSE_CALLS[s3]
     for kname, args in calls:       # bit-equal to the CPU's plain version
         cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
         assert torch.equal(getattr(xpose.KERNELS, kname)(*args).cpu(),
                            getattr(xpose.PLAIN, kname)(*cpu))
 
 
+def test_xpose_s3_rows_matches_plain_on_every_case(card):
+    """The row sums bit-equal to their plain version on the card and on
+    the CPU, on the six cases' products and tables; among them a plan
+    with virtual rows, rows with no slots and rows past one lane's 32."""
+    seen = {"virtual": False, "empty": False, "long": False}
+    for name in sorted(cases.XPOSE_CASES):
+        A = cases.make(cases.XPOSE_CASES[name])
+        prep = get_strategy("cuda-xpose").prepare(A, device=card)
+        (_, args), = [c for c in prep.kernel_calls(
+            torch.as_tensor(make_x(A.n), dtype=torch.float32, device=card))
+            if c[0] == "xpose_s3_rows"]
+        mid, rowptr, pos = args
+        before = xpose.LAUNCHES["xpose_s3_rows"]
+        y = xpose.xpose_s3_rows(*args)
+        assert xpose.LAUNCHES["xpose_s3_rows"] == before + 1
+        assert y.shape == (A.m,)
+        assert torch.equal(y, xpose.xpose_s3_rows_plain(*args))
+        assert torch.equal(y.cpu(), xpose.xpose_s3_rows_plain(
+            *[a.cpu() for a in args]))
+        n = (rowptr[1:] - rowptr[:-1]).cpu()
+        seen["virtual"] |= prep.meta["virtual_rows"] > 0
+        seen["empty"] |= bool((n == 0).any())
+        seen["long"] |= bool((n > xpose.SHORT_ROW).any())
+    assert all(seen.values()), seen
+
+
+def test_xpose_s3_rows_reads_zero_out_of_range(card):
+    """A table of random pointers (some past the positions, some ends
+    below their starts) and positions (some outside mid), rows of up to
+    3,000 slots: kernel equals plain, whose rule clamps the pointers and
+    reads 0.0 for such a position."""
+    rng = np.random.default_rng(11)
+    mid = torch.as_tensor(rng.standard_normal((7, 9, BC)),
+                          dtype=torch.float32, device=card)
+    lens = rng.choice([0, 1, 3, 17, 32, 33, 64, 500, 3000], 2000,
+                      p=[.2, .2, .2, .1, .1, .05, .05, .05, .05])
+    rowptr = np.r_[0, np.cumsum(lens)]
+    S = int(rowptr[-1])
+    bad = rng.random(rowptr.size) < 0.01
+    rowptr[bad] = rng.integers(-50, S + 5000, int(bad.sum()))
+    pos = rng.integers(-100, mid.numel() + 100, S)
+    args = (mid, torch.as_tensor(rowptr, dtype=torch.int32, device=card),
+            torch.as_tensor(pos, dtype=torch.int32, device=card))
+    y = xpose.xpose_s3_rows(*args)
+    assert torch.equal(y, xpose.xpose_s3_rows_plain(*args))
+    assert torch.equal(y.cpu(), xpose.xpose_s3_rows_plain(
+        *[a.cpu() for a in args]))
+    assert bool(torch.isfinite(y).all())
+
+
+def test_xpose_s3_rows_refuses_bad_tables(card):
+    mid = torch.zeros((2, 8, BC), device=card)
+    rowptr = torch.zeros(11, dtype=torch.int32, device=card)
+    pos = torch.zeros(5, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="rowptr is"):
+        xpose.xpose_s3_rows(mid, rowptr.long(), pos)
+    with pytest.raises(ValueError, match="pos is on cpu"):
+        xpose.xpose_s3_rows(mid, rowptr, pos.cpu())
+    with pytest.raises(ValueError, match="must be 1-D"):
+        xpose.xpose_s3_rows(mid, rowptr, pos.view(5, 1))
+    with pytest.raises(ValueError, match="must be 1-D"):
+        xpose.xpose_s3_rows(mid, rowptr[:0], pos)
+    with pytest.raises(ValueError, match="mid is"):
+        xpose.xpose_s3_rows(mid.double(), rowptr, pos)
+
+
+@pytest.mark.parametrize("s3", xpose.S3_DESIGNS)
 @pytest.mark.parametrize("layout, core", [("lanes", "lane_ell_spmv"),
                                           ("rows", "lane_rows")])
-def test_xpose_big_tail_and_nearfar_on_the_card(card, layout, core):
+def test_xpose_big_tail_and_nearfar_on_the_card(card, layout, core, s3):
     spec, kw = cases.XPOSE_TAIL
     A = cases.make(spec)
     prep = lane_ell.prepare_lane_ell_hybrid(A, device=card,
-                                            core_layout=layout, **kw)
+                                            core_layout=layout,
+                                            xpose_s3=s3, **kw)
     assert prep.meta["tail_kind"] == "compact-cuda-xpose"
-    _check_prepared(prep, A, card, "cuda-hybrid with an XPOSE tail")
+    calls = _check_prepared(prep, A, card, "cuda-hybrid with an XPOSE tail")
+    assert [k for k, _ in calls][1:4] == XPOSE_CALLS[s3]
     A = cases.make(("amazon_csr", dict(m=24000, seed=6)))
     prep = get_strategy("cuda-nearfar").prepare(A, device=card,
-                                                core_layout=layout)
+                                                core_layout=layout, s3=s3)
     assert "W" in prep.meta
     calls = _check_prepared(prep, A, card, "cuda-nearfar")
-    assert {core, "xpose_s1", "xpose_s3"} <= {k for k, _ in calls}
+    assert calls[0][0] == core
+    assert [k for k, _ in calls][-3:] == XPOSE_CALLS[s3]
 
 
 def test_xpose_kernels_read_zero_out_of_range(card):

@@ -124,25 +124,29 @@ def test_nearfar_matches_the_oracle(name):
                     what=f"cuda-nearfar on {name}")
 
 
+@pytest.mark.parametrize("s3, s3_kernel", [("rows", "xpose_s3_rows"),
+                                          ("prefix", "xpose_s3")])
 @pytest.mark.parametrize("layout, core", [("lanes", "lane_ell_spmv"),
                                           ("rows", "lane_rows")])
-def test_nearfar_is_the_sum_of_its_parts(layout, core):
+def test_nearfar_is_the_sum_of_its_parts(layout, core, s3, s3_kernel):
     """amazon24k: y is cuda-hybrid on the band plus cuda-xpose on the
     rest, and the call runs the core and the three XPOSE kernels (the
-    hybrid's ``core_layout`` passes through)."""
+    hybrid's ``core_layout`` and XPOSE's ``s3`` pass through)."""
     A, _ = _pair("amazon24k")
-    prep = nearfar.prepare_nearfar(A, device="cpu", core_layout=layout)
+    prep = nearfar.prepare_nearfar(A, device="cpu", core_layout=layout,
+                                   s3=s3)
     x = make_x(A.n)
     near, far = nearfar.split_by_window(A, prep.meta["W"])
     want = (lane_ell.prepare_lane_ell_hybrid(near, device="cpu",
                                              core_layout=layout).fn(x)
-            + xpose.prepare_xpose(far, device="cpu").fn(x))
+            + xpose.prepare_xpose(far, device="cpu", s3=s3).fn(x))
     assert torch.equal(prep.fn(x), want)
     assert torch.equal(prep.plain(x), want)
     names = [k for k, _ in prep.kernel_calls(
         torch.as_tensor(x, dtype=torch.float32))]
     assert names[0] == core
-    assert names[-3:] == ["xpose_mirror", "xpose_s1", "xpose_s3"]
+    assert names[-3:] == ["xpose_mirror", "xpose_s1", s3_kernel]
+    assert prep.meta["far"]["s3"] == s3
     assert prep.meta["near"]["tail_kind"] != "compact-cuda-xpose"
     assert prep.meta["far"]["B2"] == xpose_plan.plan_xpose(far).B2
 

@@ -13,11 +13,13 @@ Tolerances:
   stage from the JAX plan's planes: exact (they move values and take one
   f32 product per slot, as the NumPy recomputation in f32 does);
 * S3's y, and the whole call's, against ``simulate_xpose`` (fp64) and
-  against the JAX pipeline: rel-L2 <= 1e-5. Both sides take f32 block
-  prefix sums of up to 16,256 slots and difference them per row, in
-  different orders. Measured on the CPU: 2.7e-7 to 1.0e-6 against
-  ``simulate_xpose`` (the most on webbase200k), 3.5e-7 to 4.4e-7 against
-  the JAX pipeline (rand-1k 3.8e-7);
+  against the JAX pipeline: rel-L2 <= 1e-5. On ``s3="prefix"`` both
+  sides take f32 block prefix sums of up to 16,256 slots and difference
+  them per row, in different orders. Measured on the CPU: 2.7e-7 to
+  1.0e-6 against ``simulate_xpose`` (the most on webbase200k), 3.5e-7 to
+  4.4e-7 against the JAX pipeline (rand-1k 3.8e-7); the row sums
+  (``s3="rows"``, the default) add each row's own products, 5.2e-8 to
+  7.7e-8 against ``simulate_xpose``;
 * against ``spmv_oracle``: ``validate_result``.
 """
 
@@ -325,20 +327,25 @@ def test_wrappers_refuse_bad_arguments():
 
 # ---- the slice as a whole ------------------------------------------------------
 
+S3_CALLS = {"rows": ["xpose_mirror", "xpose_s1", "xpose_s3_rows"],
+            "prefix": ["xpose_mirror", "xpose_s1", "xpose_s3"]}
+
+
+@pytest.mark.parametrize("s3", xpose.S3_DESIGNS)
 @pytest.mark.parametrize("name", CASES)
-def test_cuda_xpose_matches_simulate_and_oracle(name):
+def test_cuda_xpose_matches_simulate_and_oracle(name, s3):
     A, plan, _, want = _case(name)
     x = make_x(A.n)
-    prep = get_strategy("cuda-xpose").prepare(A, device="cpu")
+    prep = get_strategy("cuda-xpose").prepare(A, device="cpu", s3=s3)
     assert (prep.strategy, prep.ref) == ("cuda-xpose", "pallas-xpose")
     y = to_numpy(prep.fn(x))
     assert y.shape == (A.m,)
     assert _rel_l2(y, jax_xp.simulate_xpose(want, x)) <= VS_SIM_REL_L2
     validate_result(spmv_oracle(A, x), y, what=f"cuda-xpose on {name}")
     assert [k for k, _ in prep.kernel_calls(
-        torch.as_tensor(x, dtype=torch.float32))] == [
-            "xpose_mirror", "xpose_s1", "xpose_s3"]
+        torch.as_tensor(x, dtype=torch.float32))] == S3_CALLS[s3]
     m = prep.meta
+    assert m["s3"] == s3
     assert (m["J1"], m["B2"], m["W1"], m["W3"], m["NWm"]) == (
         plan.J1, plan.B2, plan.W1, plan.W3, plan.NWm)
     assert m["tpu_knobs"]["K1p"] == plan.K1p
@@ -352,10 +359,10 @@ def _jax_interpret(name):
     return x, jprep, np.asarray(jprep.fn(x), dtype=np.float64)
 
 
-def _check_against_jax(name):
+def _check_against_jax(name, s3="rows"):
     A, _, _, _ = _case(name)
     x, jprep, y_jax = _jax_interpret(name)
-    prep = xpose.prepare_xpose(A, device="cpu")
+    prep = xpose.prepare_xpose(A, device="cpu", s3=s3)
     y = to_numpy(prep.fn(x))
     assert _rel_l2(y, y_jax) <= VS_JAX_REL_L2
     validate_result(spmv_oracle(A, x), y, what=f"cuda-xpose on {name}")
@@ -363,10 +370,11 @@ def _check_against_jax(name):
         assert prep.meta[k] == jprep.meta[k], k
 
 
-def test_cuda_xpose_matches_the_jax_pipeline():
+@pytest.mark.parametrize("s3", xpose.S3_DESIGNS)
+def test_cuda_xpose_matches_the_jax_pipeline(s3):
     """rand-1k against the JAX package's Pallas pipeline in interpret
-    mode (about 7 s on the CPU)."""
-    _check_against_jax("rand-1k")
+    mode (about 7 s on the CPU, once for both designs)."""
+    _check_against_jax("rand-1k", s3)
 
 
 @pytest.mark.slow
@@ -384,15 +392,25 @@ def test_auto_picks_cuda_xpose_and_matches_the_direct_call():
     validate_result(spmv_oracle(A, x), y, what="auto on webbase30k")
 
 
-def test_hbm_bytes_counts_the_port_layout():
-    """Planes (S1's used route rows only), the product array twice, the
-    mirror table twice, x and y: below the plan's padded planes plus the
-    reference's S2 and staging traffic."""
+@pytest.mark.parametrize("s3", xpose.S3_DESIGNS)
+def test_hbm_bytes_counts_the_port_layout(s3):
+    """Planes (S1's used route rows only), the product array written,
+    the mirror table twice, x, and S3's input and y: on "prefix" the
+    product array read whole, the eight planes and y with its virtual
+    rows, below the plan's padded planes plus the reference's S2 and
+    staging traffic; on "rows" the table (a pointer a row, a position a
+    product), the occupied products and y."""
     _, plan, _, _ = _case("webbase200k")
-    got = xpose.hbm_bytes(plan)
+    got = xpose.hbm_bytes(plan, s3)
     used_routes = 2 * plan.J1 * plan.B2 * BC
     assert used_routes < plan.r2.nbytes + plan.r3.nbytes
-    assert got == (plan.gidx.nbytes + plan.asv.nbytes + used_routes
-                   + plan.NWm * (16 + 2 * BC) + 2 * plan.NWm * BC * BC * 4
-                   + 2 * plan.B2 * plan.J1 * BC * 4
-                   + xpose.s3_planes(plan).nbytes + 4 * (plan.n + plan.m2))
+    shared = (plan.gidx.nbytes + plan.asv.nbytes + used_routes
+              + plan.NWm * (16 + 2 * BC) + 2 * plan.NWm * BC * BC * 4
+              + plan.B2 * plan.J1 * BC * 4 + 4 * plan.n)
+    if s3 == "prefix":
+        assert got == (shared + plan.B2 * plan.J1 * BC * 4
+                       + xpose.s3_planes(plan).nbytes + 4 * plan.m2)
+    else:
+        rowptr, pos = xpose.s3_rows_table(plan)
+        assert got == shared + rowptr.nbytes + 2 * pos.nbytes + 4 * plan.m
+        assert got < xpose.hbm_bytes(plan, "prefix")
