@@ -68,25 +68,32 @@ the script exits non-zero:
    old), the kernels alone and the whole calls, beside cuSPARSE of A;
 13. small XPOSE cases: every matrix of ``bench/cases.py``'s
    ``XPOSE_CASES`` through ``cuda-xpose``, and the hybrid with an XPOSE
-   big tail (``XPOSE_TAIL``), each on both S3 designs, checked as the
-   small hybrid cases are; between them they must launch the mirror, S1
-   and both S3 kernels;
+   big tail (``XPOSE_TAIL``), each on the default design, on
+   ``s1="slab"`` and on ``s3="prefix"``, checked as the small hybrid
+   cases are; between them they must launch the slot-table S1, the
+   mirror, the slab S1 and both S3 kernels;
 14. main path 6, ``webbase1m`` through ``spmv``'s auto route:
    ``pick_auto`` must choose ``cuda-xpose`` and its planner must accept
    the matrix (a refusal fails, printing the reason, instead of falling
-   back); ``spmv(A, x)`` must launch the three XPOSE kernels (S3 as row
-   sums, ``xpose_s3_rows``) and no other; validated, timed, each kernel
-   alone, host against device over 200 calls, a profiler window,
-   cuSPARSE of the whole matrix; then the same plan on ``s3="prefix"``
-   (``webbase1m-xpose-prefix``), which must launch ``xpose_s3`` and not
-   the row sums, and the S3 A/B: the two kernels alone in turns (old,
-   new, new, old), the whole calls the same way, the yardstick and both
-   bounds (``S3 A/B`` lines);
+   back); ``spmv(A, x)`` must launch the two XPOSE kernels of the
+   default design (S1 over the slot table, ``xpose_s1_slots``; S3 as
+   row sums, ``xpose_s3_rows``) and no other; validated, timed, each
+   kernel alone, host against device over 200 calls, a profiler window,
+   cuSPARSE of the whole matrix; the pack line gives the plan's, the S3
+   row table's and the S1 slot table's build times alone; then the same plan on
+   ``s1="slab"`` (``webbase1m-xpose-slab``), which must launch the
+   mirror and ``xpose_s1`` and not the slot kernel, and the S1 A/B: the
+   slab pair (mirror and ``xpose_s1`` back to back) against the slot
+   kernel alone in turns (old, new, new, old), the whole calls the same
+   way (their y equal), the yardstick and both bounds (``S1 A/B``
+   lines); then the plan on ``s3="prefix"`` (``webbase1m-xpose-prefix``),
+   which must launch ``xpose_s3`` and neither the row sums nor the slot
+   kernel, and the S3 A/B the same way (``S3 A/B`` lines);
 15. main path 7, ``random30k`` (uniform scatter) the same way;
 16. main path 8, ``amazon262k`` through ``cuda-nearfar``: the band
    through the hybrid, the scattered rest through XPOSE; the core and
-   the three XPOSE kernels must launch; then ``s3="prefix"`` and the A/B
-   as path 6;
+   the two XPOSE kernels must launch, neither the mirror nor the slab
+   S1; then ``s1="slab"``, ``s3="prefix"`` and the two A/Bs as path 6;
 17. small fp64 and SpMM cases: ``bench/cases.py``'s ``FP64_CASES``
    (``cuda-hybrid-fp64``, ``cuda-pell-fp64`` on both layouts) and
    ``SPMM_CASES`` (``cuda-bcsr-spmm`` at 1, 8 and 64 columns, on both
@@ -145,10 +152,11 @@ Each path sets the launch counts to 0 just before it and reads them
 just after; replays that hold a kernel against its plain version come
 after the read; a path on both core layouts reads the lanes run apart
 (its counts set to 0 just before it). Each prints its packing time.
-Then one JSON line of the twenty-four kernels' numbers (``lane_ell_spmv``,
+Then one JSON line of the twenty-five kernels' numbers (``lane_ell_spmv``,
 ``lane_ell_sharded`` and ``window_gather`` from the lanes runs of the
 flagship, ``dist-flagship`` and ``ext_windowed1m``, ``bcsr_spmm`` from
-``flagship-spmm8-tiles``, ``xpose_s3`` from ``webbase1m-xpose-prefix``,
+``flagship-spmm8-tiles``, ``xpose_mirror`` and ``xpose_s1`` from
+``webbase1m-xpose-slab``, ``xpose_s3`` from ``webbase1m-xpose-prefix``,
 ``stream_reduce_strided`` from its ``measure_stream_bw`` run), the card
 line, and
 the contract line ``{"ok":
@@ -177,9 +185,12 @@ fused kernel adds windows with atomics on the card). SpMM:
 ``bcsr_spmm`` bit-equal to its plain version (both add each row's tiles
 and lanes in order, f32 products and sums rounded separately, no TF32);
 Y against ``spmm_oracle`` by ``validate_result``. The bitmap kernels
-``bcsr_bits`` and ``bcsr_bits_spmm``, and XPOSE's row sums
-``xpose_s3_rows``, bit-equal to their plain versions on the card and run
-on the CPU (a fixed order, no atomics).
+``bcsr_bits`` and ``bcsr_bits_spmm``, XPOSE's row sums
+``xpose_s3_rows`` and its slot-table S1 ``xpose_s1_slots``, bit-equal to
+their plain versions on the card and run on the CPU (a fixed order, no
+atomics; the slot kernel at the slots of mid its table names, the only
+ones it writes). The slot and slab S1 designs' whole calls give equal y
+on the full-size XPOSE paths.
 
 ``bound_ms`` is the least time for the same work on an H100 SXM: the
 bytes of every input read once and every output written once over 3.35
@@ -193,7 +204,9 @@ distinct x elements the tile, fused and row kernels and ``lane_rows``
 read, the distinct x elements (or rows of X) the bitmap kernels' stored
 slots name, beside all their arrays (2 x stored x cols operations), the
 mirror's
-distinct source rows, S1's distinct x elements (of its entries), S3's
+distinct source rows, S1's distinct x elements (of its entries; the
+slot kernel: its table, the slots it writes and the distinct x elements
+its nonzero entries read), S3's
 distinct product elements (the row sums: beside their table and y) and
 the SpMM's distinct rows of X. Beside a
 row kernel's bound (its layout's bytes) the lines print its format-free
@@ -210,7 +223,8 @@ A/B lines print the whole matrix's beside it), for the fused kernel (of the matr
 for the tile kernel (of a matrix with one row per tile row and quantum,
 whose product is the partials; for S1, of a matrix with one row per
 product slot holding its one entry, whose product is S1's product
-array), ``sum`` for the probe, flat indexing for a gather, the un-
+array; for the slot kernel, one row per slot of mid over x itself),
+``sum`` for the probe, flat indexing for a gather, the un-
 permute and the mirror, ``index_add_`` for the segment-sums and, after a
 flat gather of the routed products, for both S3 kernels; cuSPARSE's fp64 CSR product
 for the fp64 core (of the whole matrix) and the fp64 fused kernel (of
@@ -256,9 +270,14 @@ HYBRID_KERNELS = ("lane_ell_spmv", "lane_rows", "sorted_gather",
                   "ranked_gather", "window_gather", "window_segsum")
 PELL_KERNELS = ("pell_fused", "pell_tiles", "span_segsum", "window_segsum",
                 "unpermute", "pell_rows", "bcsr_bits")
-XPOSE_KERNELS = ("xpose_mirror", "xpose_s1", "xpose_s3_rows")
-# the same on s3="prefix": the reference's design carried over
+XPOSE_KERNELS = ("xpose_s1_slots", "xpose_s3_rows")
+# S1 on the slab (s1="slab": the reference's design carried over), and
+# both stages so (s3="prefix")
+SLAB_KERNELS = ("xpose_mirror", "xpose_s1", "xpose_s3_rows")
 PREFIX_KERNELS = ("xpose_mirror", "xpose_s1", "xpose_s3")
+# the XPOSE designs each full-size XPOSE path runs, from one plan: the
+# default, S1 on the slab, both stages as the reference's
+DESIGNS = ("rows", ("rows", "slab"), "prefix")
 FP64_SPMM_KERNELS = ("lane_ell_fp64", "pell_fused_fp64", "bcsr_spmm",
                      "pell_rows_fp64", "bcsr_bits_spmm")
 DIST_KERNELS = ("lane_ell_sharded", "lane_rows", "sorted_gather",
@@ -276,7 +295,8 @@ ORDERED = ("window_segsum", "span_segsum", "pell_fused", "pell_fused_fp64",
            "pell_rows", "pell_rows_fp64", "lane_rows")
 # kernels held bit-equal to their plain versions on the card and run on the
 # CPU alike (the plain versions add in the kernels' order without atomics)
-EXACT_BOTH = ("bcsr_bits", "bcsr_bits_spmm", "xpose_s3_rows")
+EXACT_BOTH = ("bcsr_bits", "bcsr_bits_spmm", "xpose_s1_slots",
+              "xpose_s3_rows")
 # every kernel and its plain version, by name
 KERNELS = {**lane_ell.KERNELS._asdict(), **lane_ell_fp64.KERNELS._asdict(),
            **pell.FP64_KERNELS._asdict(), **spmm.KERNELS._asdict(),
@@ -316,6 +336,9 @@ SOURCES = {
                      "spmv_scpa_tpu/ops/xpose.py:137"),
     "xpose_s1": ("spmv_scpa_tpu_torch/csrc/xpose.cu",
                  "spmv_scpa_tpu/ops/xpose.py:62"),
+    # the mirror (xpose.py:137) folded into its table too
+    "xpose_s1_slots": ("spmv_scpa_tpu_torch/csrc/xpose.cu",
+                       "spmv_scpa_tpu/ops/xpose.py:62"),
     "xpose_s3": ("spmv_scpa_tpu_torch/csrc/xpose.cu",
                  "spmv_scpa_tpu/ops/xpose.py:87"),
     "xpose_s3_rows": ("spmv_scpa_tpu_torch/csrc/xpose.cu",
@@ -339,7 +362,8 @@ LINE_ORDER = ("lane_ell_spmv", "lane_ell_sharded", "lane_rows",
               "stream_reduce", "stream_reduce_strided", "sorted_gather",
               "ranked_gather", "window_gather", "window_segsum",
               "pell_fused", "pell_tiles", "span_segsum", "unpermute",
-              "xpose_mirror", "xpose_s1", "xpose_s3", "xpose_s3_rows",
+              "xpose_mirror", "xpose_s1", "xpose_s1_slots", "xpose_s3",
+              "xpose_s3_rows",
               "lane_ell_fp64",
               "pell_fused_fp64", "bcsr_spmm", "pell_rows", "pell_rows_fp64",
               "bcsr_bits", "bcsr_bits_spmm")
@@ -448,11 +472,20 @@ def to_cpu(args):
             for a in args]
 
 
+def written(name, args, out):
+    """What a call's output holds: the slots of mid its table names for
+    ``xpose_s1_slots`` (it leaves the others unwritten), else all of it."""
+    if name != "xpose_s1_slots":
+        return out
+    return out.reshape(-1)[s1_slot_entries(args)[0].to(out.device)]
+
+
 def check_call(name, args, what):
     """Replay one kernel call of the path: the kernel against its plain
-    version on the same inputs. Returns max |kernel - plain|."""
-    out = KERNELS[name](*args)
-    plain = PLAIN[name](*args)
+    version on the same inputs, where the kernel writes. Returns max
+    |kernel - plain|."""
+    out = written(name, args, KERNELS[name](*args))
+    plain = written(name, args, PLAIN[name](*args))
     torch.cuda.synchronize()
     err = float((out - plain).abs().max()) if out.numel() else 0.0
     if name in ORDERED:
@@ -461,8 +494,9 @@ def check_call(name, args, what):
         ok = exact and rel <= (FP64_TWIN if out.dtype == torch.float64
                                else TWIN_REL_L2)
     elif name in EXACT_BOTH:
-        ok = (torch.equal(out, plain)
-              and torch.equal(out.cpu(), PLAIN[name](*to_cpu(args))))
+        cpu_args = to_cpu(args)
+        ok = (torch.equal(out, plain) and torch.equal(
+            out.cpu(), written(name, cpu_args, PLAIN[name](*cpu_args))))
     else:
         ok = torch.equal(out, plain)
     if not ok:
@@ -615,6 +649,11 @@ def bound(name, args, out) -> tuple:
         ops = col.numel()
         nbytes += (torch.unique(col).numel() * 4
                    - tensor_bytes(args[:2]))
+    elif name == "xpose_s1_slots":
+        pos, col, _, reads = s1_slot_entries(args)
+        ops = int(reads.sum())
+        nbytes = (tensor_bytes(args[1:4]) + pos.numel() * 4
+                  + torch.unique(col[reads]).numel() * 4)
     elif name == "xpose_s3":
         src, _ = s3_slots(args)
         ops = args[1].shape[1] * BC
@@ -781,6 +820,30 @@ def s1_slots(args):
     return slot[ok], col[ok], a[ok]
 
 
+def s1_slot_entries(args):
+    """(flat index into mid, x column, value, whether it reads x) of each
+    slot an ``xpose_s1_slots`` call writes: padding and positions outside
+    mid left out; a zero value or a column outside x writes 0.0 and reads
+    no x."""
+    x, head, code, val, B2, J1 = args
+    pos, col, live = xpose.decode_slots(head, code, J1)
+    keep = live & (pos >= 0) & (pos < B2 * J1 * BC)
+    pos, col, v = pos[keep], col[keep], val[keep]
+    return pos, col, v, (v != 0) & (col >= 0) & (col < x.numel())
+
+
+def s1_slots_library(args):
+    """A cuSPARSE CSR product that forms the slot table's products: one
+    row per slot of mid, holding at most its one entry, over x itself."""
+    x, B2, J1 = args[0], args[4], args[5]
+    pos, col, v, reads = s1_slot_entries(args)
+    A = torch.sparse_coo_tensor(
+        torch.stack([pos[reads], col[reads]]), v[reads],
+        (B2 * J1 * BC, x.numel())).coalesce().to_sparse_csr()
+    x2 = x.view(-1, 1)
+    return lambda: A.matmul(x2)
+
+
 def s3_slots(args):
     """The occupied final slots of an S3 call: each slot's flat index into
     mid and the row of y_all whose sum it enters (the row whose end,
@@ -876,6 +939,8 @@ def library(name, args, A, xd):
         return lambda: xz[flat]
     if name == "xpose_s1":
         return s1_library(args)
+    if name == "xpose_s1_slots":
+        return s1_slots_library(args)
     if name == "xpose_s3":
         src, dest = s3_slots(args)
         midf, m2 = args[0].view(-1), args[2]
@@ -1244,14 +1309,15 @@ def auto_xpose_path(name, A, dev, card, profile):
     ``cuda-xpose``, whose plan must accept the matrix (a refusal fails
     here, printing the planner's reason, rather than let ``spmv`` fall
     back to the hybrid). With the launch counts set to 0, ``spmv(A, x)``
-    runs the auto route and must launch the three XPOSE kernels (S3 as
-    row sums) and no other; the prepared call is then validated and
-    timed, the counts read, the call held against its plain call and
-    ``spmv``'s y, and each kernel replayed alone. Then the same plan on
-    ``s3="prefix"`` as a path of its own (``[name-prefix]``, counts set to
-    0 just before it), which must launch the prefix S3 and not the row
-    sums, and the A/B of the two. Returns (the kernel table, the counts)
-    of each design."""
+    runs the auto route and must launch the two XPOSE kernels of the
+    default design (S1 over the slot table, S3 as row sums) and no
+    other; the prepared call is then validated and timed, the counts
+    read, the call held against its plain call and ``spmv``'s y, and each
+    kernel replayed alone. Then the same plan on ``s1="slab"``
+    (``[name-slab]``) and on ``s3="prefix"`` (``[name-prefix]``), each a
+    path of its own (counts set to 0 just before it), and the A/B of
+    each against the default. Returns the kernel table and the counts of
+    the default, the slab and the prefix runs."""
     x = make_x(A.n)
     gold = spmv_oracle(A, x)
     picked = pick_auto(A)
@@ -1260,12 +1326,19 @@ def auto_xpose_path(name, A, dev, card, profile):
                              "cuda-xpose")
     t0 = time.perf_counter()
     try:
-        preps = xpose.prepare_xpose_designs(A, device=dev)
+        preps = xpose.prepare_xpose_designs(A, DESIGNS, device=dev)
     except ValueError as err:
         print(f"[{name}] the XPOSE planner refuses {A.nnz} nnz: "
               f"{xpose_plan.REJECT_REASON}", flush=True)
         raise AssertionError(f"{name}: {err}") from err
     pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = xpose_plan.plan_xpose(A)
+    plan_s = time.perf_counter() - t0
+    s3_pos = xpose.s3_rows_table(plan)[1]
+    s3_s = time.perf_counter() - t0 - plan_s
+    xpose.s1_slots_table(plan, s3_pos)
+    s1_s = time.perf_counter() - t0 - plan_s - s3_s
     prep = preps["rows"]
     reset_counts()
     t0 = time.perf_counter()
@@ -1290,7 +1363,9 @@ def auto_xpose_path(name, A, dev, card, profile):
     table = kernel_table(prep, xd, name, A=A)
     m = prep.meta
     print(f"[{name}] nnz {A.nnz} ({A.nnz / A.m:.2f} per row) pick_auto "
-          f"{picked} | pack {pack_s:.2f} s (both S3 designs), spmv auto "
+          f"{picked} | pack {pack_s:.2f} s (the three designs; alone: plan "
+          f"{plan_s:.2f} s, S3 row table {s3_s:.2f} s, S1 slot table "
+          f"{s1_s:.2f} s), spmv auto "
           f"(pack + call) {auto_s:.2f} s | {xpose_meta(m)} virtual rows "
           f"{m['virtual_rows']} | hbm_bytes {prep.hbm_bytes} "
           f"({prep.hbm_bytes / A.nnz:.1f} B/nnz) | vs oracle rel "
@@ -1300,17 +1375,21 @@ def auto_xpose_path(name, A, dev, card, profile):
     print(f"[{name}] kernels alone: {phase_line(table)}", flush=True)
     print(f"[{name}] cuSPARSE CSR of the whole matrix: "
           f"{median_ms(matrix_library(A, xd)):.4f} ms", flush=True)
-    old, old_counts = prefix_path(f"{name}-prefix", A, preps["prefix"], dev,
-                                  card)
+    slab, slab_counts = design_path(f"{name}-slab", A, preps[DESIGNS[1]],
+                                    dev, card, SLAB_KERNELS)
+    s1_ab(name, preps[DESIGNS[1]], prep, xd, card)
+    old, old_counts = design_path(f"{name}-prefix", A, preps["prefix"], dev,
+                                  card, PREFIX_KERNELS)
     s3_ab(name, preps["prefix"], prep, xd, card)
-    return table, launched, old, old_counts
+    return table, launched, slab, slab_counts, old, old_counts
 
 
-def prefix_path(name, A, prep, dev, card, prefix_kernels=PREFIX_KERNELS):
-    """An XPOSE path on ``s3="prefix"``: counts set to 0, the call
-    validated and timed, the counts read (``prefix_kernels`` must launch,
-    ``xpose_s3_rows`` not), the call held against its plain call and each
-    kernel replayed alone. Returns (the kernel table, the counts)."""
+def design_path(name, A, prep, dev, card, kernels):
+    """An XPOSE path on another design than the default: counts set to 0,
+    the call validated and timed, the counts read (``kernels`` must
+    launch, the default's kernels of the stage it replaces must not), the
+    call held against its plain call and each kernel replayed alone.
+    Returns (the kernel table, the counts)."""
     x = make_x(A.n)
     gold = spmv_oracle(A, x)
     reset_counts()
@@ -1319,7 +1398,8 @@ def prefix_path(name, A, prep, dev, card, prefix_kernels=PREFIX_KERNELS):
     r = time_prepared(prep, x)
     validate_result(gold, r.data, what=f"{prep.strategy} timed run, {name}")
     launched = counts()
-    require(launched, prefix_kernels, name, ("xpose_s3_rows",))
+    require(launched, kernels, name, [k for k in XPOSE_KERNELS
+                                      if k not in kernels])
     xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
     rel_l2, row_rel, _ = twin_check(A, x, prep.fn(xd), prep.plain(xd), name)
     table = kernel_table(prep, xd, name, A=A)
@@ -1328,6 +1408,49 @@ def prefix_path(name, A, prep, dev, card, prefix_kernels=PREFIX_KERNELS):
     report_times(name, prep, xd, r, launched, card, False, False)
     print(f"[{name}] kernels alone: {phase_line(table)}", flush=True)
     return table, launched
+
+
+def _ms(v):
+    return ", ".join(f"{t:.4f}" for t in v)
+
+
+def s1_ab(name, old, new, xd, card):
+    """The slab S1 (``old``'s mirror and ``xpose_s1`` calls, launched back
+    to back) against the slot table (``new``'s ``xpose_s1_slots``) of one
+    plan, in turns (old, new, new, old), and the two whole calls the same
+    way, whose y must be equal; beside them the slot kernel's yardstick,
+    the two bounds and S1's input bytes."""
+    pair = [c for c in old.kernel_calls(xd)
+            if c[0] in ("xpose_mirror", "xpose_s1")]
+    (kn, an), = [c for c in new.kernel_calls(xd) if c[0] == "xpose_s1_slots"]
+    y_old, y_new = old.fn(xd), new.fn(xd)
+    if not torch.equal(y_old, y_new):
+        raise AssertionError(f"{name}: y on the slot table differs from y "
+                             "on the slab")
+
+    def run_pair():
+        for k, a in pair:
+            KERNELS[k](*a)
+
+    kern = {"old": [], "new": []}
+    call = {"old": [], "new": []}
+    for side in ("old", "new", "new", "old"):
+        kern[side].append(median_ms(run_pair) if side == "old"
+                          else median_ms(KERNELS[kn], *an))
+    for side in ("old", "new", "new", "old"):
+        call[side].append(call_ms((old if side == "old" else new).fn, xd))
+    b_old = sum(bound(k, a, KERNELS[k](*a))[0] for k, a in pair)
+    b_new = bound(kn, an, KERNELS[kn](*an))[0]
+    planes = sum(tensor_bytes(a[1:] if k == "xpose_mirror" else a[2:7])
+                 for k, a in pair)
+    print(f"[{name}] S1 A/B in turns (old, new, new, old): xpose_mirror + "
+          f"xpose_s1 {_ms(kern['old'])} ms, {kn} {_ms(kern['new'])} ms | "
+          f"whole call, slab {_ms(call['old'])} ms, slots "
+          f"{_ms(call['new'])} ms, y equal | cuSPARSE "
+          f"{median_ms(library(kn, an, None, xd)):.4f} ms | bound: slots "
+          f"{b_new:.4f}, slab {b_old:.4f} ms | S1 input for "
+          f"{s1_slot_entries(an)[0].numel()} slots: planes {planes} B, "
+          f"table {tensor_bytes(an[1:4])} B | {card}", flush=True)
 
 
 def s3_ab(name, old, new, xd, card):
@@ -1348,16 +1471,12 @@ def s3_ab(name, old, new, xd, card):
     b_old = bound(ko, ao, KERNELS[ko](*ao))[0]
     b_new = bound(kn, an, KERNELS[kn](*an))[0]
     slots = an[2].numel()
-
-    def ms(v):
-        return ", ".join(f"{t:.4f}" for t in v)
-
     print(f"[{name}] S3 A/B in turns (old, new, new, old): {ko} "
-          f"{ms(kern['old'])} ms, {kn} {ms(kern['new'])} ms | whole call, "
-          f"prefix {ms(call['old'])} ms, rows {ms(call['new'])} ms | gather "
-          f"+ index_add_ {median_ms(library(kn, an, None, xd)):.4f} ms | "
-          f"bound: rows {b_new:.4f}, prefix {b_old:.4f} ms | S3 input for "
-          f"{slots} products: planes {tensor_bytes(ao[1:2])} B, table "
+          f"{_ms(kern['old'])} ms, {kn} {_ms(kern['new'])} ms | whole call,"
+          f" prefix {_ms(call['old'])} ms, rows {_ms(call['new'])} ms | "
+          f"gather + index_add_ {median_ms(library(kn, an, None, xd)):.4f} "
+          f"ms | bound: rows {b_new:.4f}, prefix {b_old:.4f} ms | S3 input "
+          f"for {slots} products: planes {tensor_bytes(ao[1:2])} B, table "
           f"{tensor_bytes(an[1:])} B | {card}", flush=True)
 
 
@@ -1413,30 +1532,34 @@ def xpose_small_meta(prep, A):
 def xpose_phases(dev, card):
     """Phases 13-16: the small XPOSE cases and the hybrid with an XPOSE
     big tail, the scattered regime's two main paths through the auto
-    route, and near/far on amazon262k. Returns webbase1m's kernel table
-    and counts on each S3 design, which the kernels line reports."""
+    route, and near/far on amazon262k. Returns webbase1m's kernel tables
+    and counts on the default, slab and prefix designs, which the
+    kernels line reports."""
     # 13. the small XPOSE cases, and the hybrid with an XPOSE big tail,
-    # each on both S3 designs
+    # each on the three designs
     spec, tail_kw = cases.XPOSE_TAIL
+    variants = (("", {}), ("-slab", {"s1": "slab"}),
+                ("-prefix", {"s3": "prefix"}))
     small = [(f"{name}{sfx}", cases.make(sp), "cuda-xpose", kw)
              for name, sp in cases.XPOSE_CASES.items()
-             for sfx, kw in (("", {}), ("-prefix", {"s3": "prefix"}))]
-    small += [("amazon20k-xpose-tail", cases.make(spec), "cuda-hybrid",
-               tail_kw),
-              ("amazon20k-xpose-tail-prefix", cases.make(spec),
-               "cuda-hybrid", {**tail_kw, "xpose_s3": "prefix"})]
-    small_phase("small-xpose", small, XPOSE_KERNELS + ("xpose_s3",),
+             for sfx, kw in variants]
+    small += [(f"amazon20k-xpose-tail{sfx}", cases.make(spec), "cuda-hybrid",
+               {**tail_kw, **{f"xpose_{k}": v for k, v in kw.items()}})
+              for sfx, kw in variants]
+    small_phase("small-xpose", small, XPOSE_KERNELS + PREFIX_KERNELS,
                 xpose_small_meta, dev, "small XPOSE cases")
 
     # 14-15. main paths 6 and 7: the scattered regime through spmv's auto
-    # route, which must pick cuda-xpose, each then on s3="prefix"
-    wx, wx_counts, wp, wp_counts = auto_xpose_path(
-        "webbase1m-xpose", cases.webbase1m(), dev, card, profile=True)
+    # route, which must pick cuda-xpose, each then on s1="slab" and on
+    # s3="prefix"
+    wx = auto_xpose_path("webbase1m-xpose", cases.webbase1m(), dev, card,
+                         profile=True)
     auto_xpose_path("random30k", cases.random30k(), dev, card,
                     profile=False)
 
     # 16. main path 8: amazon262k through cuda-nearfar, the band on the
-    # hybrid and the scattered rest on XPOSE, then on s3="prefix"
+    # hybrid and the scattered rest on XPOSE, then on s1="slab" and on
+    # s3="prefix"
     A = cases.amazon262k()
     _, _, new, _ = full_path(
         "amazon262k-nearfar", A, "cuda-nearfar", {}, dev,
@@ -1447,13 +1570,18 @@ def xpose_phases(dev, card):
             f"{p.meta['near_nnz']} far_nnz {p.meta['far_nnz']} | near: "
             f"tail {p.meta['near']['tail_kind']} ext {p.meta['near']['ext']}"
             f" | far: {xpose_meta(p.meta['far'])}"), profile=True,
-        forbid=("xpose_s3",))
-    old = get_strategy("cuda-nearfar").prepare(A, device=dev, s3="prefix")
-    prefix_path("amazon262k-nearfar-prefix", A, old, dev, card,
+        forbid=("xpose_mirror", "xpose_s1", "xpose_s3"))
+    xd = torch.as_tensor(make_x(A.n), dtype=torch.float32, device=dev)
+    nearfar = get_strategy("cuda-nearfar")
+    slab = nearfar.prepare(A, device=dev, s1="slab")
+    design_path("amazon262k-nearfar-slab", A, slab, dev, card,
+                ("lane_rows",) + SLAB_KERNELS)
+    s1_ab("amazon262k-nearfar", slab, new, xd, card)
+    old = nearfar.prepare(A, device=dev, s3="prefix")
+    design_path("amazon262k-nearfar-prefix", A, old, dev, card,
                 ("lane_rows",) + PREFIX_KERNELS)
-    s3_ab("amazon262k-nearfar", old, new,
-          torch.as_tensor(make_x(A.n), dtype=torch.float32, device=dev), card)
-    return wx, wx_counts, wp, wp_counts
+    s3_ab("amazon262k-nearfar", old, new, xd, card)
+    return wx
 
 
 def fp64_spmm_meta(prep):
@@ -1909,7 +2037,7 @@ def main() -> int:
         "flagship-bcsr", flagship_A, "cuda-bcsr", {}, dev, card, "bcsr_bits",
         ("pell_tiles", "window_segsum"), pell_meta)
 
-    wx, wx_counts, wp, wp_counts = xpose_phases(dev, card)
+    wx, wx_counts, ws, ws_counts, wp, wp_counts = xpose_phases(dev, card)
     (fl64, fl64_counts, pw64, pw64_counts, pt64, pt64_counts, sp8,
      sp8_counts, st8, st8_counts) = fp64_spmm_phases(dev, card, flagship_A,
                                                      PL)
@@ -1934,6 +2062,8 @@ def main() -> int:
                 "pell_tiles": (sp["pell_tiles"], sp_counts),
                 "span_segsum": (sp["span_segsum"], sp_counts),
                 **{k: (wx[k], wx_counts) for k in XPOSE_KERNELS},
+                **{k: (ws[k], ws_counts) for k in ("xpose_mirror",
+                                                   "xpose_s1")},
                 "xpose_s3": (wp["xpose_s3"], wp_counts),
                 "lane_ell_fp64": (fl64["lane_ell_fp64"], fl64_counts),
                 "pell_fused_fp64": (pt64["pell_fused_fp64"], pt64_counts),

@@ -60,6 +60,7 @@ SIGNATURES = {
                                      P)},
     "xpose": {"xpose_mirror": (P, I64, P, P, P, P, I, P),
               "xpose_s1": (P, I64, P, I, I, P, P, P, P, P, P, I, I, P),
+              "xpose_s1_slots": (P, I64, P, P, P, I, I, P, I64, I, P),
               "xpose_s3": (P, P, P, I, I, I64, P),
               "xpose_s3_rows": (P, I64, P, P, I, P, I, P)},
     "spmm": {"bcsr_spmm": (P, P, P, P, P, I, I, I, P)},

@@ -1,10 +1,13 @@
 // XPOSE, the static-routed transpose SpMV of the scattered regime, for
-// Hopper (sm_90a): the mirror build, stage S1 and stage S3 (two designs).
+// Hopper (sm_90a): stage S1 (two designs) and stage S3 (two designs).
 //
 // Replaces, in spmv_scpa_tpu/ops/xpose.py:
-//   xpose_mirror  <- _mirror_kernel (called at :198)
-//   xpose_s1      <- _s1_kernel     (called at :219), with the S2 transpose
-//                    (jnp.swapaxes at :312) folded into its stores
+//   xpose_s1_slots <- _mirror_kernel (called at :198), _s1_kernel (called
+//                    at :219) and the S2 transpose (jnp.swapaxes at :312),
+//                    as products over a host table that reads x in place
+//   xpose_mirror  <- _mirror_kernel, carried over; kept for the A/B
+//   xpose_s1      <- _s1_kernel with the S2 transpose folded into its
+//                    stores, carried over; kept for the A/B
 //   xpose_s3_rows <- _s3_kernel     (called at :253), the strided
 //                    un-blocking of y (:316-317) and the virtual rows'
 //                    scatter-add (:319-323), as row sums over a host table
@@ -29,6 +32,14 @@
 //           passes st[q, lq] = psg[f, rpre[f, r]] with r = r3y[q, lq] and
 //           f = ys[q, r] (0 where r >= 128), and
 //             y_all[b + (q * 128 + lq) * B2] = st1 - st2   (q < 64, row < m2).
+//   S1 slots: mid.flat[pos] = x[col] * val per entry of the host table
+//           (ops/xpose.py:s1_slots_table resolves the S1 planes, the mirror
+//           folded away, once per plan, for exactly the slots S3's row
+//           table reads): chunk c holds entries of one step s = head[c][0]
+//           with source windows src = head[c][4..7]; an entry's code is
+//           (k * 128 + c2) << 16 | off, pos = (k * J1 + s) * 128 + c2, col =
+//           src[off >> 14] * 16384 + (off & 16383); val 0.0 writes 0.0 and
+//           reads no x, code 0xFFFF << 16 is padding and writes nothing.
 //   S3 rows: y[r] = sum of mid[pos[k]] over rowptr[r] <= k < rowptr[r + 1]
 //           (ops/xpose.py:s3_rows_table turns the planes, once per plan,
 //           into each real row's product slots, its virtual rows' folded
@@ -39,17 +50,35 @@
 // Any index outside its range (a lane or row >= 128, a step >= J1, a
 // source window past x) reads 0.0, so no plane can read out of bounds.
 //
-// What bounds them on this card: bytes. Per call the planes (gidx and asv,
-// the used rows of r2/r3), the product array written by S1 and read by
-// S3, x and y, and S3's own input: the eight planes (128 KB an out-block,
-// about 95 B per product on amazon262k's far part) for xpose_s3, or the
-// slot table (a 4-byte position per product and a 4-byte pointer per row)
-// and the occupied product slots for xpose_s3_rows. No arithmetic worth
-// counting.
+// What bounds them on this card: bytes. Per call S1's input: the planes
+// (gidx and asv, the used rows of r2/r3; about 13 B per product on
+// webbase1m's stand-in) for xpose_s1, or the slot table (8 B an entry and
+// 32 B a chunk of 1024; 12 B an entry as a flat position, column, value
+// table) for xpose_s1_slots; the product array written by S1 (whole, or
+// only the slots S3 reads) and read by S3, x and y, and S3's own input:
+// the eight planes (128 KB an out-block, about 95 B per product on
+// amazon262k's far part) for xpose_s3, or the slot table (a 4-byte
+// position per product and a 4-byte pointer per row) and the occupied
+// product slots for xpose_s3_rows. No arithmetic worth counting.
 //
 // Design. The TPU needs transpose/lane-gather/transpose chains and batches
 // of 8 steps because Mosaic has no per-element gather; here a thread reads
-// plane[r][c] directly. Mirror: one thread per output element. S1: one
+// plane[r][c] directly. S1 slots: every route of the slab design depends
+// on the plan alone, so the host resolves them once into "mid slot <- (x
+// column, value)" and the kernel is a stream over that table: no slab, no
+// mirror table, no barrier, and only the slots S3 reads are written (about
+// half of mid on these matrices). A block of 256 threads takes one chunk,
+// a thread four entries a pass through 16-byte streaming loads (__ldcs)
+// of codes and values, its four x gathers (__ldg; x, at most a few MB
+// here, stays in the 50 MB L2) in flight together, then four stores: no
+// atomics, each slot written once. The host stores each warp's 128
+// entries interleaved (lane l holds entries l, l + 32, l + 64, l + 96), so
+// each of the four stores covers 32 consecutive entries, a few sectors of
+// mid, where four consecutive entries a lane would scatter every store
+// over all the warp's sectors. The grid is the table's chunks, not
+// the steps, so a small plan fills the card too. A chunk header costs 32
+// B for 1024 entries; its step and source windows are what keep an entry
+// at 8 B. Mirror: one thread per output element. S1: one
 // 512-thread block per step builds the (128, 128) slab in shared memory
 // (64 KB, above the 48 KB default: the launch raises the limit), then its
 // threads emit mid[k, s, :] for every k, 512 coalesced bytes per k, which
@@ -72,7 +101,7 @@
 // not fit a row whose virtual rows lie in other out-blocks. All adds are
 // plain f32 adds in the order the plain PyTorch version repeats
 // (p[l] + p[l - d] per step; the rows' fixed orders above), products and
-// sums rounded separately, so all four kernels equal their plain versions
+// sums rounded separately, so all five kernels equal their plain versions
 // bit for bit. No tensor cores: an f32 MMA would run in TF32.
 // Deterministic: no atomics.
 
@@ -92,6 +121,51 @@ constexpr int kStageRows = 64;             // y staging rows per out-block
 constexpr int kRowThreads = 256;
 constexpr int kShortRow = 32;              // longest row a single lane sums
 constexpr int kDepth = 16;                 // a lane's loads in flight
+constexpr int kSlotThreads = 256;
+constexpr unsigned kNoSlot = 0xFFFFu;      // an entry's (k, c2): padding
+
+// Four entries of the slot table: the products, 0.0 where the value is
+// 0.0 or the column lies outside x (no x read), then the stores, padding
+// and positions outside mid skipped.
+__device__ __forceinline__ void slot_quad(const float* __restrict__ x, int64_t n,
+                                          uint4 c, float4 v, int64_t s,
+                                          int4 src, float* __restrict__ mid,
+                                          int64_t n_mid, int J1) {
+  const unsigned cs[4] = {c.x, c.y, c.z, c.w};
+  const float vs[4] = {v.x, v.y, v.z, v.w};
+  float p[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned off = cs[j] & 0xFFFFu;
+    const unsigned q = off >> 14;
+    const int w = q == 0 ? src.x : q == 1 ? src.y : q == 2 ? src.z : src.w;
+    const int64_t col = static_cast<int64_t>(w) * kWin + (off & (kWin - 1));
+    p[j] = 0.0f;
+    if (vs[j] != 0.0f && col >= 0 && col < n) p[j] = __fmul_rn(__ldg(x + col), vs[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned kc2 = cs[j] >> 16;
+    if (kc2 == kNoSlot) continue;
+    const int64_t pos = (static_cast<int64_t>(kc2 >> 7) * J1 + s) * kLanes + (kc2 & (kLanes - 1));
+    if (pos >= 0 && pos < n_mid) mid[pos] = p[j];
+  }
+}
+
+// Block b takes chunk b of the table: its header (step, -, -, -, four
+// source windows), then its entries four a thread a pass.
+__global__ void __launch_bounds__(kSlotThreads)
+s1_slots_kernel(const float* __restrict__ x, int64_t n, const int4* __restrict__ head,
+                const uint4* __restrict__ code, const float4* __restrict__ val,
+                int chunk4, float* __restrict__ mid, int64_t n_mid, int J1) {
+  const int64_t b = blockIdx.x;
+  const int64_t s = __ldg(head + 2 * b).x;
+  const int4 src = __ldg(head + 2 * b + 1);
+  for (int e = threadIdx.x; e < chunk4; e += kSlotThreads) {
+    const int64_t i = b * chunk4 + e;
+    slot_quad(x, n, __ldcs(code + i), __ldcs(val + i), s, src, mid, n_mid, J1);
+  }
+}
 
 __global__ void __launch_bounds__(kMirThreads)
 mirror_kernel(const float* __restrict__ x, int64_t n,
@@ -352,6 +426,22 @@ extern "C" int xpose_s1(const void* x, int64_t n, const void* xm, int nwm,
         nw0, static_cast<const int*>(win), static_cast<const uint8_t*>(gidx),
         static_cast<const float*>(asv), static_cast<const uint8_t*>(r2),
         static_cast<const uint8_t*>(r3), static_cast<float*>(mid), J1, B2);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (n,) f32; head (C, 8) i32; code (C, chunk) i32 (bit patterns);
+// val (C, chunk) f32, chunk a multiple of 4, all 16-byte aligned;
+// mid (B2, J1, 128) f32 of n_mid elements.
+extern "C" int xpose_s1_slots(const void* x, int64_t n, const void* head,
+                              const void* code, const void* val, int C,
+                              int chunk, void* mid, int64_t n_mid, int J1,
+                              void* stream) {
+  if (C > 0 && chunk > 0) {
+    s1_slots_kernel<<<C, kSlotThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), n, static_cast<const int4*>(head),
+        static_cast<const uint4*>(code), static_cast<const float4*>(val),
+        chunk / 4, static_cast<float*>(mid), n_mid, J1);
   }
   return static_cast<int>(cudaGetLastError());
 }

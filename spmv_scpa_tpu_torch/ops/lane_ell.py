@@ -1190,7 +1190,8 @@ def no_locality(A: CSR, loc_w="auto", ext="auto",
 
 
 def prepare_lane_ell_hybrid(A: CSR, device="cuda", pell_layout="auto",
-                            core_layout="rows", xpose_s3="rows", **knobs):
+                            core_layout="rows", xpose_s3="rows",
+                            xpose_s1="auto", **knobs):
     """Pack ``A`` (:func:`pack_lane_ell`, same knobs as the reference)
     and bind ``fn(x) -> y`` on ``device``: run the core, add the tail
     (chips tail and landing, the compact ``index_add_``, or the big-tail
@@ -1202,21 +1203,22 @@ def prepare_lane_ell_hybrid(A: CSR, device="cuda", pell_layout="auto",
     both; ``hbm_bytes`` counts the layout's own arrays. A matrix without
     diagonal locality returns ``cuda-pell``'s Prepared instead, its meta
     marked ``delegated``. ``pell_layout``: the layout of that escape and
-    of a compact PELL tail; ``xpose_s3``: the S3 design of a compact XPOSE
-    tail (``xpose.S3_DESIGNS``). ``device`` defaults to the card and
-    raises without one; ``"cpu"`` runs the plain versions."""
+    of a compact PELL tail; ``xpose_s3`` and ``xpose_s1``: the S3 and S1
+    designs of a compact XPOSE tail (``xpose.S3_DESIGNS``,
+    ``xpose.S1_DESIGNS``). ``device`` defaults to the card and raises
+    without one; ``"cpu"`` runs the plain versions."""
     return prepare_hybrid_layouts(A, (core_layout,), device, pell_layout,
-                                  xpose_s3, **knobs)[core_layout]
+                                  xpose_s3, xpose_s1, **knobs)[core_layout]
 
 
 def prepare_hybrid_layouts(A: CSR, layouts=CORE_LAYOUTS, device="cuda",
                            pell_layout="auto", xpose_s3="rows",
-                           **knobs) -> dict:
+                           xpose_s1="auto", **knobs) -> dict:
     """:func:`prepare_lane_ell_hybrid` on each core layout of
     ``layouts`` from one pack: ``{layout: Prepared}``, the tail bound
     once and shared."""
     check_layouts(layouts)
-    xpose.check_s3(xpose_s3)
+    xpose.resolve_s1(xpose_s1, xpose_s3)
     dev = resolve_device(device)
     pell.use_layout(pell_layout)
     d_cov = no_locality(A, **knobs)
@@ -1226,7 +1228,8 @@ def prepare_hybrid_layouts(A: CSR, layouts=CORE_LAYOUTS, device="cuda",
         prep.meta["delegated"] = "cuda-pell"
         prep.meta["d_cov"] = round(d_cov, 4)
         return dict.fromkeys(layouts, prep)
-    plan, bound = _bind(A, dev, pell_layout, layouts, xpose_s3, **knobs)
+    plan, bound = _bind(A, dev, pell_layout, layouts, (xpose_s3, xpose_s1),
+                        **knobs)
     out = {}
     for layout, (run, stage, hbm) in bound.items():
         out[layout] = Prepared(
@@ -1332,11 +1335,12 @@ def _lanes_core(A: CSR, plan: LanePlan, dev):
     return core, stage, cfg.steps * cfg.chunk * BC * plan.slot_bytes
 
 
-def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xpose_s3,
+def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xdesign,
                knobs):
     """The tail of ``plan``, bound once for every core layout: returns
     (``add(y, xf, ops, layout) -> y'``, {layout: its bytes}). Fills the
-    plan's meta for a big tail."""
+    plan's meta for a big tail. ``xdesign``: (S3, S1) design of a compact
+    XPOSE tail."""
     m, n, G_pad = plan.m, A.n, plan.cfg.G_pad
     if plan.chips is not None:
         contrib, hbm = chips_tail.prepare_chips(plan.chips, n, dev)
@@ -1350,7 +1354,7 @@ def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xpose_s3,
         tail = CSR.from_coo(A.name + "_tail", m, n, plan.trows, plan.tcols,
                             plan.tvals)
         sub, subs = _bind(
-            tail, dev, pell_layout, layouts, xpose_s3,
+            tail, dev, pell_layout, layouts, xdesign,
             depth=knobs.get("depth", 0) + 1,
             max_depth=knobs.get("max_depth", 2),
             tail_xla_max=knobs.get("tail_xla_max", 32768))
@@ -1363,10 +1367,12 @@ def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xpose_s3,
         tail, R = compact_tail(A, plan)
         if plan.big_tail == "pallas-xpose":
             tplan = xpose.plan_or_raise(tail)
-            sub_run = xpose.bind_plan(tplan, dev, xpose_s3)
-            t_meta, t_hbm = ({**xpose.plan_meta(tplan, tail.nnz),
-                              "s3": xpose_s3},
-                             xpose.hbm_bytes(tplan, xpose_s3))
+            s3, s1 = xdesign
+            tables = xpose.host_tables(tplan, s3, s1)
+            sub_run = xpose.bind_plan(tplan, dev, s3, s1, tables)
+            t_meta, t_hbm = ({**xpose.plan_meta(tplan, tail.nnz), "s3": s3,
+                              "s1": xpose.resolve_s1(s1, s3)},
+                             xpose.hbm_bytes(tplan, s3, s1, tables))
         elif pell.use_layout(pell_layout) == "rows":
             tplan = pell.plan_rows(tail)
             sub_run = pell_rows.bind_plan(tplan, dev)
@@ -1391,15 +1397,16 @@ def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xpose_s3,
 
 
 def _bind(A: CSR, dev, pell_layout="auto", layouts=("rows",),
-          xpose_s3="rows", **knobs):
+          xdesign=("rows", "auto"), **knobs):
     """Pack ``A`` once and bind it on ``dev`` for each core layout of
     ``layouts``: returns (plan, {layout: (run, stage, hbm_bytes)}) with
     ``run(x, ops) -> y`` (m,) and ``stage(xf)`` the core kernel's
-    arguments. The tail is bound once for all layouts."""
+    arguments. The tail is bound once for all layouts; ``xdesign`` is
+    the (S3, S1) design of a compact XPOSE tail."""
     plan = pack_lane_ell(A, **knobs)
     n = A.n
     add_tail, tail_hbm = _bind_tail(A, plan, dev, pell_layout, layouts,
-                                    xpose_s3, knobs)
+                                    xdesign, knobs)
     out = {}
     for layout in layouts:
         core, stage, core_hbm = (_rows_core if layout == "rows"

@@ -65,7 +65,7 @@ def choose_window(A: CSR) -> int | None:
 
 
 def _delegate(A: CSR, to: str, reason: str, dev, hybrid_kw,
-              s3: str = "rows") -> Prepared:
+              s3: str = "rows", s1: str = "auto") -> Prepared:
     """No band/scatter mix worth splitting: the single strategy that fits
     the whole matrix, under this strategy's name (``cuda-xpose`` falls
     back to ``cuda-hybrid`` when its planner refuses, the refusal kept
@@ -73,7 +73,7 @@ def _delegate(A: CSR, to: str, reason: str, dev, hybrid_kw,
     extra = {}
     if to == "cuda-xpose":
         try:
-            p = xpose.prepare_xpose(A, device=dev, s3=s3)
+            p = xpose.prepare_xpose(A, device=dev, s3=s3, s1=s1)
         except ValueError as err:
             to, extra = "cuda-hybrid", {"reject_reason": str(err)}
     if to == "cuda-hybrid":
@@ -89,19 +89,19 @@ def _delegate(A: CSR, to: str, reason: str, dev, hybrid_kw,
 
 
 def prepare_nearfar(A: CSR, device="cuda", W: int = 0, s3: str = "rows",
-                    **hybrid_kw) -> Prepared:
+                    s1: str = "auto", **hybrid_kw) -> Prepared:
     """``cuda-nearfar``: the hybrid on the band |col - row| <= W (chosen
-    by :func:`choose_window` unless given) plus XPOSE on the rest, stage
-    S3 on design ``s3`` (:func:`xpose.prepare_xpose`), bound on
-    ``device``; delegates to one of the two for the whole matrix when
-    there is no mix worth splitting."""
+    by :func:`choose_window` unless given) plus XPOSE on the rest, stages
+    S3 and S1 on designs ``s3`` and ``s1`` (:func:`xpose.prepare_xpose`),
+    bound on ``device``; delegates to one of the two for the whole matrix
+    when there is no mix worth splitting."""
     dev = resolve_device(device)
-    xpose.check_s3(s3)
+    xpose.resolve_s1(s1, s3)
     if not W:
         W = choose_window(A)
         if W is None:
             return _delegate(A, "cuda-xpose", "pure scatter", dev, hybrid_kw,
-                             s3)
+                             s3, s1)
     A_near, A_far = split_by_window(A, W)
     if A_far.nnz < FAR_MIN:
         return _delegate(A, "cuda-hybrid", "scattered part too small", dev,
@@ -112,7 +112,7 @@ def prepare_nearfar(A: CSR, device="cuda", W: int = 0, s3: str = "rows",
                          hybrid_kw)
     p_near = prepare_lane_ell_hybrid(A_near, device=dev, **hybrid_kw)
     try:
-        p_far = xpose.prepare_xpose(A_far, device=dev, s3=s3)
+        p_far = xpose.prepare_xpose(A_far, device=dev, s3=s3, s1=s1)
     except ValueError as err:
         # quick_envelope_ok is necessary, not sufficient
         p = _delegate(A, "cuda-hybrid", "XPOSE mid-plan rejection", dev,

@@ -301,7 +301,8 @@ def test_chip_smoke_fused_yardstick_on_the_tile_layout():
 def test_chip_smoke_xpose_yardsticks_compute_the_kernels_function(name, s3):
     """Each XPOSE kernel's library yardstick computes what the kernel
     does (run here on the plain versions): the mirror's flat indexing
-    and S1's one-entry-per-row CSR product to f32 rounding, S3's gather
+    and S1's one-entry-per-row CSR product (over x and the mirror windows
+    on the slab, over x on the slot table) to f32 rounding, S3's gather
     and index_add_ up to the order of the sums (the prefix kernel
     differences f32 block prefix sums, the row sums add in their own
     order); every bound is set by bytes and counts only the elements the
@@ -328,19 +329,60 @@ def test_chip_smoke_xpose_yardsticks_compute_the_kernels_function(name, s3):
             assert float((got - out).norm()) <= 1e-5 * float(out.norm())
         else:
             torch.testing.assert_close(got, out, rtol=1e-6, atol=0)
-    _, col, _ = cs.s1_slots(calls[1][1])
+    s1 = dict(calls)
+    if s3 == "rows":
+        _, col, _, reads = cs.s1_slot_entries(s1["xpose_s1_slots"])
+        col = col[reads]
+    else:
+        _, col, _ = cs.s1_slots(s1["xpose_s1"])
     slots = cs.s3_slots if s3 == "prefix" else cs.s3_rows_slots
-    src, dest = slots(calls[2][1])
+    src, dest = slots(calls[-1][1])
     assert col.numel() == src.numel() == dest.numel() == A.nnz
     if s3 == "rows":
         plan = xpose.plan_or_raise(A)
-        mid = calls[2][1][0]
+        mid = calls[-1][1][0]
         src0, dest0 = cs.s3_slots((mid, torch.as_tensor(
             xpose.s3_planes(plan)), plan.m2))
         v_row = torch.as_tensor(np.r_[np.arange(plan.m), plan.v_row],
                                 dtype=torch.int64)
         assert sorted(zip(dest.tolist(), src.tolist())) == sorted(
             zip(v_row[dest0].tolist(), src0.tolist()))
+
+
+def test_chip_smoke_bound_counts_the_slot_table():
+    """``xpose_s1_slots``' bound charges its table whole, the slots it
+    writes (padding writes none) and the distinct x elements that its
+    nonzero entries read (a zero value or a column past x reads none):
+    seven slots written, columns 5, 9 and 11 read; its operations are the
+    five products. Its yardstick computes the kernel's mid."""
+    cs = _chip_smoke()
+    from spmv_scpa_tpu_torch.ops import xpose
+    B2, J1, chunk = 2, 3, 8
+    x = torch.arange(1, 301, dtype=torch.float32)
+    head = torch.zeros((2, 8), dtype=torch.int32)
+    head[1, 0] = 2                       # chunk 1: step 2; all windows 0
+    # (k * 128 + c2, x offset, value); the rest of each chunk is padding
+    entries = [[(0, 5, 1.0), (1, 5, 2.0), (2, 7, 0.0), (3, 400, 3.0),
+                (4, 9, 4.0)],
+               [(0, 9, 5.0), (130, 11, 6.0)]]
+    code = torch.full((2, chunk), xpose.NO_SLOT << 16, dtype=torch.int64)
+    val = torch.zeros((2, chunk))
+    for c, chunk_entries in enumerate(entries):
+        for i, (kc2, off, v) in enumerate(chunk_entries):
+            code[c, i], val[c, i] = kc2 << 16 | off, v
+    args = (x, head, code.to(torch.int32), val, B2, J1)
+    out = xpose.xpose_s1_slots_plain(*args)
+    ms, by = cs.bound("xpose_s1_slots", args, out)
+    nbytes = 3 * 2 * chunk * 4 + 7 * 4 + 3 * 4
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / cs.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    pos, col, _, reads = cs.s1_slot_entries(args)
+    assert pos.numel() == 7 and int(reads.sum()) == 5
+    assert sorted(col[reads].unique().tolist()) == [5, 9, 11]
+    assert out.view(-1)[pos].tolist() == [6.0, 12.0, 0.0, 0.0, 40.0, 50.0,
+                                          72.0]
+    got = cs.library("xpose_s1_slots", args, None, x)().reshape(out.shape)
+    assert torch.equal(got, out)
 
 
 @pytest.mark.parametrize("name", ["fp64-hybrid-stencil2k",
@@ -427,7 +469,7 @@ def test_chip_smoke_rows_core_yardstick_and_bound(name):
     assert cs.free_bound_ms(args, out) > 0
     got = cs.library(kname, args, A, xd)().reshape(-1)
     torch.testing.assert_close(got, out, rtol=1e-5, atol=1e-5)
-    assert cs.LINE_ORDER.count("lane_rows") == 1 and len(cs.LINE_ORDER) == 24
+    assert cs.LINE_ORDER.count("lane_rows") == 1 and len(cs.LINE_ORDER) == 25
 
 
 def _bits_bound_case():

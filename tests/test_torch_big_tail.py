@@ -170,14 +170,17 @@ def test_xpose_tail_matches_jax(s3):
     """``tail_strategy="pallas-xpose"``: the 3,091-entry tail runs as
     ``cuda-xpose`` over its rows compacted and lands through the merge,
     as the reference's ``compact-pallas-xpose`` does, on both S3 designs
-    (``xpose_s3``). The hybrid's meta equals the reference's but for the
+    (``xpose_s3``; S1 on ``"auto"``: the slot table on the row sums, the
+    slab on the prefix S3). The hybrid's meta equals the reference's but
+    for the
     tail's own (the port's XPOSE meta and bytes count its layout) and the
     route's name; y within the XPOSE bound of tests/test_torch_xpose.py
     (both tails are f32)."""
     A, x, preps, jprep = _xpose_tail(s3)
     y_jax = np.asarray(jprep.fn(x), dtype=np.float64)
     gold = spmv_oracle(A, x)
-    s3_kernel = "xpose_s3_rows" if s3 == "rows" else "xpose_s3"
+    s3_kernels = (["xpose_s1_slots", "xpose_s3_rows"] if s3 == "rows"
+                  else ["xpose_mirror", "xpose_s1", "xpose_s3"])
     for layout, core in (("lanes", "lane_ell_spmv"), ("rows", "lane_rows")):
         prep = preps[layout]
         m, jm = dict(prep.meta), dict(jprep.meta)
@@ -188,6 +191,7 @@ def test_xpose_tail_matches_jax(s3):
         for k in ("J1", "B2", "W1", "W3", "NWm", "fill"):
             assert tail[k] == jtail[k], k
         assert tail["s3"] == s3
+        assert tail["s1"] == ("slots" if s3 == "rows" else "slab")
         y = to_numpy(prep.fn(x))
         assert _rel_l2(y, y_jax) <= VS_JAX_XPOSE_REL_L2, layout
         assert _rel_l2(y, gold) <= VS_ORACLE_REL_L2, layout
@@ -195,8 +199,7 @@ def test_xpose_tail_matches_jax(s3):
                         "XPOSE tail")
         assert [k for k, _ in prep.kernel_calls(
             torch.as_tensor(x, dtype=torch.float32))] == [
-                core, "xpose_mirror", "xpose_s1", s3_kernel,
-                "window_gather"]
+                core, *s3_kernels, "window_gather"]
 
 
 def test_xpose_tail_refusal_is_a_value_error(monkeypatch):

@@ -20,9 +20,10 @@ card; the fused kernel adds in the fixed order of its plain version on
 the CPU (bit-equal) and is within rel-L2 1e-6 of that on the card, and
 the span segment-sum is bit-equal to its plain version on both. The row-layout kernels ``pell_rows`` and
 ``pell_rows_fp64`` add in their plain version's fixed order: bit-equal
-to it run on the CPU, at both grades. XPOSE's four kernels move values, take one
+to it run on the CPU, at both grades. XPOSE's five kernels move values, take one
 f32 product per slot, scan or add rows in the plain versions' order:
-bit-equal on the card and against the CPU; a whole XPOSE call (on
+bit-equal on the card and against the CPU (the slot-table S1 at the
+slots of mid it writes); the two S1 designs' y equal; a whole XPOSE call (on
 ``s3="prefix"`` virtual rows added by ``index_add_``) within rel-L2 1e-6
 of its plain call. Against
 ``spmv_oracle``: ``validate_result`` defaults. The fp64 grade: the
@@ -233,11 +234,22 @@ PLAIN = {**lane_ell.PLAIN._asdict(), **lane_ell_fp64.PLAIN._asdict(),
          **distributed.PLAIN._asdict()}
 
 
+def _written(name, args, out):
+    """What a call's output holds: the slots of mid that an
+    ``xpose_s1_slots`` call's table names (it leaves the others
+    unwritten), else all of it."""
+    if name != "xpose_s1_slots":
+        return out
+    pos, _, live = xpose.decode_slots(args[1], args[2], args[5])
+    pos = pos[live & (pos >= 0) & (pos < out.numel())]
+    return out.reshape(-1)[pos.to(out.device)]
+
+
 def _replay(name, args):
     """One recorded kernel call against its plain versions."""
-    out = KERNELS[name](*args)
+    out = _written(name, args, KERNELS[name](*args))
     torch.cuda.synchronize()
-    plain = PLAIN[name](*args)
+    plain = _written(name, args, PLAIN[name](*args))
     if name in ORDERED:
         cpu = [a.cpu() if isinstance(a, torch.Tensor) else
                tuple(t.cpu() for t in a) if isinstance(a, tuple) else a
@@ -408,21 +420,140 @@ def _check_prepared(prep, A, card, what):
     return calls
 
 
-XPOSE_CALLS = {"rows": ["xpose_mirror", "xpose_s1", "xpose_s3_rows"],
-               "prefix": ["xpose_mirror", "xpose_s1", "xpose_s3"]}
+# the kernels of each (s3, s1) design
+XPOSE_CALLS = {("rows", "auto"): ["xpose_s1_slots", "xpose_s3_rows"],
+               ("rows", "slab"): ["xpose_mirror", "xpose_s1",
+                                  "xpose_s3_rows"],
+               ("prefix", "auto"): ["xpose_mirror", "xpose_s1", "xpose_s3"]}
 
 
-@pytest.mark.parametrize("s3", xpose.S3_DESIGNS)
+@pytest.mark.parametrize("s3, s1", sorted(XPOSE_CALLS))
 @pytest.mark.parametrize("name", sorted(cases.XPOSE_CASES))
-def test_xpose_case_kernels_match_plain(card, name, s3):
+def test_xpose_case_kernels_match_plain(card, name, s3, s1):
     A = cases.make(cases.XPOSE_CASES[name])
-    prep = get_strategy("cuda-xpose").prepare(A, device=card, s3=s3)
+    prep = get_strategy("cuda-xpose").prepare(A, device=card, s3=s3, s1=s1)
     calls = _check_prepared(prep, A, card, f"cuda-xpose on {name}")
-    assert [k for k, _ in calls] == XPOSE_CALLS[s3]
+    assert [k for k, _ in calls] == XPOSE_CALLS[s3, s1]
     for kname, args in calls:       # bit-equal to the CPU's plain version
         cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
-        assert torch.equal(getattr(xpose.KERNELS, kname)(*args).cpu(),
-                           getattr(xpose.PLAIN, kname)(*cpu))
+        assert torch.equal(
+            _written(kname, args, getattr(xpose.KERNELS, kname)(*args)).cpu(),
+            _written(kname, cpu, getattr(xpose.PLAIN, kname)(*cpu)))
+
+
+def test_xpose_s1_slots_matches_plain_and_the_slab(card):
+    """On every case the slot kernel launches once, equals its plain
+    version on the card and on the CPU at every slot it writes, equals
+    the slab design's mid (mirror and ``xpose_s1``) there, and the two
+    designs' y are equal."""
+    for name in sorted(cases.XPOSE_CASES):
+        A = cases.make(cases.XPOSE_CASES[name])
+        preps = xpose.prepare_xpose_designs(A, ("rows", ("rows", "slab")),
+                                            device=card)
+        xd = torch.as_tensor(make_x(A.n), dtype=torch.float32, device=card)
+        (_, args), = [c for c in preps["rows"].kernel_calls(xd)
+                      if c[0] == "xpose_s1_slots"]
+        before = xpose.LAUNCHES["xpose_s1_slots"]
+        mid = xpose.xpose_s1_slots(*args)
+        assert xpose.LAUNCHES["xpose_s1_slots"] == before + 1
+        got = _written("xpose_s1_slots", args, mid)
+        assert got.numel() == A.nnz
+        assert torch.equal(got, _written("xpose_s1_slots", args,
+                                         xpose.xpose_s1_slots_plain(*args)))
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        assert torch.equal(got.cpu(), _written(
+            "xpose_s1_slots", cpu, xpose.xpose_s1_slots_plain(*cpu)))
+        slab = dict(preps["rows", "slab"].kernel_calls(xd))
+        xm = xpose.xpose_mirror(*slab["xpose_mirror"])
+        s1 = xpose.xpose_s1(xd, xm, *slab["xpose_s1"][2:])
+        assert torch.equal(got, _written("xpose_s1_slots", args, s1))
+        assert torch.equal(preps["rows"].fn(xd),
+                           preps["rows", "slab"].fn(xd))
+
+
+def test_xpose_s1_slots_reads_zero_out_of_range(card):
+    """A random table: steps and source windows past their ranges, codes
+    naming columns past x or below 0, zero values, padding and positions
+    outside mid; kernel equals plain at every slot written (positions
+    unique, as the host builds them), and an inf in x at a column only a
+    zero value names stays out of mid."""
+    rng = np.random.default_rng(13)
+    n, B2, J1, C, chunk = 70_000, 5, 9, 6, 1024
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
+    x[3] = float("inf")
+    head = np.zeros((C, 8), np.int64)
+    head[:, 0] = rng.integers(-1, J1 + 1, C)
+    head[:, 4:] = rng.integers(-1, 6, (C, 4))
+    head[:, 4] = 0
+    kc2 = rng.integers(0, 1 << 15, C * chunk)
+    kc2[rng.random(kc2.size) < 0.05] = xpose.NO_SLOT
+    off = rng.integers(0, 1 << 16, kc2.size)
+    off[(np.arange(kc2.size) % chunk) < 4] = 3     # x[3] from window 0
+    val = rng.standard_normal(kc2.size).astype(np.float32)
+    val[rng.random(val.size) < 0.2] = 0.0
+    src = head[np.arange(kc2.size) // chunk, 4 + (off >> 14)]
+    val[src * BC * BC + (off & (BC * BC - 1)) == 3] = 0.0
+    # one entry a position of mid, as the host builds them
+    pos = (((kc2 >> 7) * J1 + head[np.arange(kc2.size) // chunk, 0]) * BC
+           + (kc2 & (BC - 1)))
+    live = np.flatnonzero(kc2 != xpose.NO_SLOT)
+    _, first = np.unique(pos[live], return_index=True)
+    dup = np.setdiff1d(live, live[first])
+    kc2[dup] = xpose.NO_SLOT
+    code = kc2 << 16 | off
+    args = (x, torch.as_tensor(head, dtype=torch.int32),
+            torch.as_tensor(code.astype(np.uint32).view(np.int32)
+                            .reshape(C, chunk)),
+            torch.as_tensor(val.reshape(C, chunk)), B2, J1)
+    want = xpose.xpose_s1_slots_plain(*args)
+    dargs = [a.to(card) if isinstance(a, torch.Tensor) else a for a in args]
+    got = _written("xpose_s1_slots", dargs, xpose.xpose_s1_slots(*dargs))
+    assert got.numel() > 0
+    assert torch.equal(got.cpu(), _written("xpose_s1_slots", args, want))
+    assert bool(torch.isfinite(got).all())
+
+
+def test_xpose_s1_slots_refuses_bad_tables(card):
+    A = cases.make(cases.XPOSE_CASES["rand-1k"])
+    plan = xpose.plan_or_raise(A)
+    head, code, val = (torch.as_tensor(a, device=card)
+                       for a in xpose.s1_slots_table(plan))
+    xd = torch.zeros(A.n, device=card)
+    ok = (xd, head, code, val, plan.B2, plan.J1)
+    before = xpose.LAUNCHES["xpose_s1_slots"]
+    for i, bad, what in ((1, head.long(), "head is"),
+                         (2, code.cpu(), "code is on cpu"),
+                         (3, val.double(), "val is"),
+                         (3, val[:, :-4], "val is"),
+                         (2, code[:, :-2].contiguous(), "multiple of 4"),
+                         (0, xd.double(), "x is"),
+                         (4, 0, "B2=0")):
+        args = list(ok)
+        args[i] = bad
+        with pytest.raises(ValueError, match=what):
+            xpose.xpose_s1_slots(*args)
+    flat = code.view(-1)[1:1 + (code.numel() - code.shape[1])]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        xpose.xpose_s1_slots(xd, head[:-1], flat.view(-1, code.shape[1]),
+                             val[:-1], plan.B2, plan.J1)
+    assert xpose.LAUNCHES["xpose_s1_slots"] == before
+
+
+def test_xpose_default_keeps_y_finite_on_the_card(card):
+    """x[0] = inf and x[n-1] = NaN at columns A never reads: the default
+    design's y is finite and equal to its plain version's."""
+    for name in ("rand-1k", "amazon8k", "webbase30k"):
+        A0 = cases.make(cases.XPOSE_CASES[name])
+        keep = (A0.ja != 0) & (A0.ja != A0.n - 1)
+        A = CSR.from_coo(name, A0.m, A0.n, A0.row_ids()[keep], A0.ja[keep],
+                         A0.as_[keep])
+        x = make_x(A.n)
+        x[0], x[-1] = np.inf, np.nan
+        xd = torch.as_tensor(x, dtype=torch.float32, device=card)
+        prep = get_strategy("cuda-xpose").prepare(A, device=card)
+        y = prep.fn(xd)
+        assert bool(torch.isfinite(y).all()), name
+        assert torch.equal(y, prep.plain(xd))
 
 
 def test_xpose_s3_rows_matches_plain_on_every_case(card):
@@ -491,25 +622,27 @@ def test_xpose_s3_rows_refuses_bad_tables(card):
         xpose.xpose_s3_rows(mid.double(), rowptr, pos)
 
 
-@pytest.mark.parametrize("s3", xpose.S3_DESIGNS)
+@pytest.mark.parametrize("s3, s1", sorted(XPOSE_CALLS))
 @pytest.mark.parametrize("layout, core", [("lanes", "lane_ell_spmv"),
                                           ("rows", "lane_rows")])
-def test_xpose_big_tail_and_nearfar_on_the_card(card, layout, core, s3):
+def test_xpose_big_tail_and_nearfar_on_the_card(card, layout, core, s3, s1):
     spec, kw = cases.XPOSE_TAIL
     A = cases.make(spec)
+    want = XPOSE_CALLS[s3, s1]
     prep = lane_ell.prepare_lane_ell_hybrid(A, device=card,
                                             core_layout=layout,
-                                            xpose_s3=s3, **kw)
+                                            xpose_s3=s3, xpose_s1=s1, **kw)
     assert prep.meta["tail_kind"] == "compact-cuda-xpose"
     calls = _check_prepared(prep, A, card, "cuda-hybrid with an XPOSE tail")
-    assert [k for k, _ in calls][1:4] == XPOSE_CALLS[s3]
+    assert [k for k, _ in calls][1:1 + len(want)] == want
     A = cases.make(("amazon_csr", dict(m=24000, seed=6)))
     prep = get_strategy("cuda-nearfar").prepare(A, device=card,
-                                                core_layout=layout, s3=s3)
+                                                core_layout=layout, s3=s3,
+                                                s1=s1)
     assert "W" in prep.meta
     calls = _check_prepared(prep, A, card, "cuda-nearfar")
     assert calls[0][0] == core
-    assert [k for k, _ in calls][-3:] == XPOSE_CALLS[s3]
+    assert [k for k, _ in calls][-len(want):] == want
 
 
 def test_xpose_kernels_read_zero_out_of_range(card):

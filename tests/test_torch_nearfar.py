@@ -124,14 +124,17 @@ def test_nearfar_matches_the_oracle(name):
                     what=f"cuda-nearfar on {name}")
 
 
-@pytest.mark.parametrize("s3, s3_kernel", [("rows", "xpose_s3_rows"),
-                                          ("prefix", "xpose_s3")])
+@pytest.mark.parametrize("s3, s3_kernel", [
+    ("rows", ["xpose_s1_slots", "xpose_s3_rows"]),
+    ("prefix", ["xpose_mirror", "xpose_s1", "xpose_s3"])])
 @pytest.mark.parametrize("layout, core", [("lanes", "lane_ell_spmv"),
                                           ("rows", "lane_rows")])
 def test_nearfar_is_the_sum_of_its_parts(layout, core, s3, s3_kernel):
     """amazon24k: y is cuda-hybrid on the band plus cuda-xpose on the
-    rest, and the call runs the core and the three XPOSE kernels (the
-    hybrid's ``core_layout`` and XPOSE's ``s3`` pass through)."""
+    rest, and the call runs the core and the XPOSE kernels of the design
+    (the hybrid's ``core_layout`` and XPOSE's ``s3`` pass through; S1 on
+    ``"auto"``: the slot table on the row sums, the slab on the prefix
+    S3)."""
     A, _ = _pair("amazon24k")
     prep = nearfar.prepare_nearfar(A, device="cpu", core_layout=layout,
                                    s3=s3)
@@ -145,8 +148,9 @@ def test_nearfar_is_the_sum_of_its_parts(layout, core, s3, s3_kernel):
     names = [k for k, _ in prep.kernel_calls(
         torch.as_tensor(x, dtype=torch.float32))]
     assert names[0] == core
-    assert names[-3:] == ["xpose_mirror", "xpose_s1", s3_kernel]
+    assert names[-len(s3_kernel):] == s3_kernel
     assert prep.meta["far"]["s3"] == s3
+    assert prep.meta["far"]["s1"] == ("slots" if s3 == "rows" else "slab")
     assert prep.meta["near"]["tail_kind"] != "compact-cuda-xpose"
     assert prep.meta["far"]["B2"] == xpose_plan.plan_xpose(far).B2
 

@@ -327,7 +327,9 @@ def test_wrappers_refuse_bad_arguments():
 
 # ---- the slice as a whole ------------------------------------------------------
 
-S3_CALLS = {"rows": ["xpose_mirror", "xpose_s1", "xpose_s3_rows"],
+# the default S1 design ("auto"): the slot table on the row sums, the
+# slab on the prefix S3
+S3_CALLS = {"rows": ["xpose_s1_slots", "xpose_s3_rows"],
             "prefix": ["xpose_mirror", "xpose_s1", "xpose_s3"]}
 
 
@@ -346,6 +348,7 @@ def test_cuda_xpose_matches_simulate_and_oracle(name, s3):
         torch.as_tensor(x, dtype=torch.float32))] == S3_CALLS[s3]
     m = prep.meta
     assert m["s3"] == s3
+    assert m["s1"] == ("slots" if s3 == "rows" else "slab")
     assert (m["J1"], m["B2"], m["W1"], m["W3"], m["NWm"]) == (
         plan.J1, plan.B2, plan.W1, plan.W3, plan.NWm)
     assert m["tpu_knobs"]["K1p"] == plan.K1p
@@ -394,14 +397,15 @@ def test_auto_picks_cuda_xpose_and_matches_the_direct_call():
 
 @pytest.mark.parametrize("s3", xpose.S3_DESIGNS)
 def test_hbm_bytes_counts_the_port_layout(s3):
-    """Planes (S1's used route rows only), the product array written,
-    the mirror table twice, x, and S3's input and y: on "prefix" the
-    product array read whole, the eight planes and y with its virtual
-    rows, below the plan's padded planes plus the reference's S2 and
-    staging traffic; on "rows" the table (a pointer a row, a position a
-    product), the occupied products and y."""
+    """S1 on the slab: planes (S1's used route rows only), the product
+    array written, the mirror table twice, x, and S3's input and y: on
+    "prefix" the product array read whole, the eight planes and y with
+    its virtual rows, below the plan's padded planes plus the reference's
+    S2 and staging traffic; on "rows" the table (a pointer a row, a
+    position a product), the occupied products and y. (S1 on the slot
+    table: tests/test_torch_xpose_s1.py.)"""
     _, plan, _, _ = _case("webbase200k")
-    got = xpose.hbm_bytes(plan, s3)
+    got = xpose.hbm_bytes(plan, s3, "slab")
     used_routes = 2 * plan.J1 * plan.B2 * BC
     assert used_routes < plan.r2.nbytes + plan.r3.nbytes
     shared = (plan.gidx.nbytes + plan.asv.nbytes + used_routes
@@ -413,4 +417,4 @@ def test_hbm_bytes_counts_the_port_layout(s3):
     else:
         rowptr, pos = xpose.s3_rows_table(plan)
         assert got == shared + rowptr.nbytes + 2 * pos.nbytes + 4 * plan.m
-        assert got < xpose.hbm_bytes(plan, "prefix")
+        assert got < xpose.hbm_bytes(plan, "prefix", "slab")

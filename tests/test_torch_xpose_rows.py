@@ -162,13 +162,15 @@ def test_rows_plain_matches_simulate(name):
 @pytest.mark.parametrize("name", ["rand-1k", "webbase30k"])
 def test_designs_share_one_plan(name):
     """prepare_xpose_designs binds both designs from one plan: the meta
-    differs only in ``s3``, the row sums move fewer bytes, and
-    prepare_xpose's default is the row sums."""
+    differs only in ``s3`` and the S1 design ``"auto"`` resolves to
+    (``s1``), the row sums move fewer bytes, and prepare_xpose's default
+    is the row sums."""
     A, plan, preps, x = _case(name)
     rows, prefix = preps["rows"].meta, preps["prefix"].meta
-    assert {k: v for k, v in rows.items() if k != "s3"} == \
-        {k: v for k, v in prefix.items() if k != "s3"}
+    assert {k: v for k, v in rows.items() if k not in ("s3", "s1")} == \
+        {k: v for k, v in prefix.items() if k not in ("s3", "s1")}
     assert (rows["s3"], prefix["s3"]) == ("rows", "prefix")
+    assert (rows["s1"], prefix["s1"]) == ("slots", "slab")
     assert preps["rows"].hbm_bytes < preps["prefix"].hbm_bytes
     assert preps["rows"].hbm_bytes == xpose.hbm_bytes(plan, "rows")
     assert xpose.prepare_xpose(A, device="cpu").meta["s3"] == "rows"
