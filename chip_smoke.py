@@ -12,8 +12,9 @@ the script exits non-zero:
    through ``cuda-hybrid`` on the card on both core layouts, the call
    against its plain version and the oracle, and each kernel call of the
    path replayed against its plain version; between them the cases must
-   launch all six kernels of the hybrid (``lane_rows``, and the lanes
-   core ``lane_ell_spmv`` with the ext route's gathers);
+   launch all seven kernels of the hybrid (``lane_rows``, the lanes core
+   ``lane_ell_spmv`` with the ext route's gathers, the chips tail's
+   ``chips_products`` and ``window_segsum``);
 4. the stream probe (``stream_reduce``, a TMA ring over contiguous
    spans) and the first port's grid-stride kernel
    (``stream_reduce_strided``) against their plain version (exact: sums
@@ -150,7 +151,9 @@ the script exits non-zero:
 
 Each path sets the launch counts to 0 just before it and reads them
 just after; replays that hold a kernel against its plain version come
-after the read; a path on both core layouts reads the lanes run apart
+after the read; a profiler window counts only where it saw every launch
+(``device_busy``), else its line says that events were lost and gives
+no idle share; a path on both core layouts reads the lanes run apart
 (its counts set to 0 just before it). Each prints its packing time.
 Then one JSON line of the twenty-five kernels' numbers (``lane_ell_spmv``,
 ``lane_ell_sharded`` and ``window_gather`` from the lanes runs of the
@@ -186,7 +189,8 @@ fused kernel adds windows with atomics on the card). SpMM:
 and lanes in order, f32 products and sums rounded separately, no TF32);
 Y against ``spmm_oracle`` by ``validate_result``. The bitmap kernels
 ``bcsr_bits`` and ``bcsr_bits_spmm``, XPOSE's row sums
-``xpose_s3_rows`` and its slot-table S1 ``xpose_s1_slots``, bit-equal to
+``xpose_s3_rows``, its slot-table S1 ``xpose_s1_slots`` and the chips
+tail's ``chips_products``, bit-equal to
 their plain versions on the card and run on the CPU (a fixed order, no
 atomics; the slot kernel at the slots of mid its table names, the only
 ones it writes). The slot and slab S1 designs' whole calls give equal y
@@ -207,8 +211,9 @@ mirror's
 distinct source rows, S1's distinct x elements (of its entries; the
 slot kernel: its table, the slots it writes and the distinct x elements
 its nonzero entries read), S3's
-distinct product elements (the row sums: beside their table and y) and
-the SpMM's distinct rows of X. Beside a
+distinct product elements (the row sums: beside their table and y), the
+slot products' distinct x elements (beside their columns, values and
+products, 12 B a slot) and the SpMM's distinct rows of X. Beside a
 row kernel's bound (its layout's bytes) the lines print its format-free
 bound: its entries at one value and one 4-byte column each, x and y,
 over 3.35 TB/s. Kernel and
@@ -225,8 +230,9 @@ whose product is the partials; for S1, of a matrix with one row per
 product slot holding its one entry, whose product is S1's product
 array; for the slot kernel, one row per slot of mid over x itself),
 ``sum`` for the probe, flat indexing for a gather, the un-
-permute and the mirror, ``index_add_`` for the segment-sums and, after a
-flat gather of the routed products, for both S3 kernels; cuSPARSE's fp64 CSR product
+permute and the mirror, ``x_pad[cols]`` for the slot products (the
+gather alone, without the multiply), ``index_add_`` for the
+segment-sums and, after a flat gather of the routed products, for both S3 kernels; cuSPARSE's fp64 CSR product
 for the fp64 core (of the whole matrix) and the fp64 fused kernel (of
 the matrix its tiles hold), and its f32 CSR SpMM ``A @ X`` for the SpMM
 kernel; for the bitmap kernels, its f32 CSR SpMV or SpMM of the matrix
@@ -248,10 +254,10 @@ from spmv_scpa_tpu_torch.bench import cases, roofline as roof
 from spmv_scpa_tpu_torch.bench.timing import (time_cuda, time_device,
                                               time_prepared)
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import (bcsr_bits, ext_gather, lane_ell,
-                                     lane_ell_fp64, lane_rows, pell,
-                                     pell_rows, segsum_kernel, spmm, xpose,
-                                     xpose_plan)
+from spmv_scpa_tpu_torch.ops import (bcsr_bits, chips_slots, ext_gather,
+                                     lane_ell, lane_ell_fp64, lane_rows,
+                                     pell, pell_rows, segsum_kernel, spmm,
+                                     xpose, xpose_plan)
 from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import FP64_RTOL, pick_auto, to_numpy
 from spmv_scpa_tpu_torch.parallel import distributed
@@ -267,7 +273,8 @@ F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
 F64_OPS_PER_S = 34e12              # f64 outside the tensor cores
 
 HYBRID_KERNELS = ("lane_ell_spmv", "lane_rows", "sorted_gather",
-                  "ranked_gather", "window_gather", "window_segsum")
+                  "ranked_gather", "window_gather", "window_segsum",
+                  "chips_products")
 PELL_KERNELS = ("pell_fused", "pell_tiles", "span_segsum", "window_segsum",
                 "unpermute", "pell_rows", "bcsr_bits")
 XPOSE_KERNELS = ("xpose_s1_slots", "xpose_s3_rows")
@@ -282,12 +289,16 @@ FP64_SPMM_KERNELS = ("lane_ell_fp64", "pell_fused_fp64", "bcsr_spmm",
                      "pell_rows_fp64", "bcsr_bits_spmm")
 DIST_KERNELS = ("lane_ell_sharded", "lane_rows", "sorted_gather",
                 "ranked_gather", "window_gather", "window_segsum",
-                "pell_fused", "unpermute")
+                "chips_products", "pell_fused", "unpermute", "pell_rows")
 # the core kernels of the two layouts: the lanes core's single-card and
 # row-shard kernels, and the rows core's one kernel
 CORE_KERNELS = ("lane_ell_spmv", "lane_ell_sharded", "lane_rows")
-CHIPS_KERNELS = ("sorted_gather", "ranked_gather", "window_gather",
-                 "window_segsum")
+# the chips tail on its default x side (the slot products), and on
+# chips_x="hot" (the two gather stages)
+CHIPS_KERNELS = ("chips_products", "window_segsum")
+CHIPS_HOT_KERNELS = ("sorted_gather", "ranked_gather", "window_gather",
+                     "window_segsum")
+GATHERS = ("sorted_gather", "ranked_gather", "window_gather")
 # kernels held bit-equal to their plain versions run on the CPU (the same
 # fixed order); on the card the fused and row kernels' plain versions add
 # with index_add_ (atomics), the segment-sums' in the kernel's order
@@ -296,7 +307,7 @@ ORDERED = ("window_segsum", "span_segsum", "pell_fused", "pell_fused_fp64",
 # kernels held bit-equal to their plain versions on the card and run on the
 # CPU alike (the plain versions add in the kernels' order without atomics)
 EXACT_BOTH = ("bcsr_bits", "bcsr_bits_spmm", "xpose_s1_slots",
-              "xpose_s3_rows")
+              "xpose_s3_rows", "chips_products")
 # every kernel and its plain version, by name
 KERNELS = {**lane_ell.KERNELS._asdict(), **lane_ell_fp64.KERNELS._asdict(),
            **pell.FP64_KERNELS._asdict(), **spmm.KERNELS._asdict(),
@@ -322,6 +333,10 @@ SOURCES = {
                       "spmv_scpa_tpu/ops/ext_gather.py:121"),
     "window_gather": ("spmv_scpa_tpu_torch/csrc/ext_gather.cu",
                       "spmv_scpa_tpu/ops/ext_gather.py:167"),
+    # stage 1 (ext_gather.py:79), stage 2 (:121 and :167) and the
+    # multiply on the chips tail's path, as one kernel
+    "chips_products": ("spmv_scpa_tpu_torch/csrc/chips_products.cu",
+                       "spmv_scpa_tpu/ops/ext_gather.py:79"),
     "window_segsum": ("spmv_scpa_tpu_torch/csrc/segsum.cu",
                       "spmv_scpa_tpu/ops/segsum_kernel.py:259"),
     "pell_fused": ("spmv_scpa_tpu_torch/csrc/pell.cu",
@@ -358,15 +373,18 @@ SOURCES = {
     "bcsr_bits_spmm": ("spmv_scpa_tpu_torch/csrc/bcsr_bits.cu",
                        "spmv_scpa_tpu/ops/pallas_kernels.py:1076"),
 }
+# the kernels line, in order; pell_rows twice: single-card powerlaw100k
+# and the row-sharded dist-powerlaw100k-pell
 LINE_ORDER = ("lane_ell_spmv", "lane_ell_sharded", "lane_rows",
               "stream_reduce", "stream_reduce_strided", "sorted_gather",
-              "ranked_gather", "window_gather", "window_segsum",
+              "ranked_gather", "window_gather", "chips_products",
+              "window_segsum",
               "pell_fused", "pell_tiles", "span_segsum", "unpermute",
               "xpose_mirror", "xpose_s1", "xpose_s1_slots", "xpose_s3",
               "xpose_s3_rows",
               "lane_ell_fp64",
-              "pell_fused_fp64", "bcsr_spmm", "pell_rows", "pell_rows_fp64",
-              "bcsr_bits", "bcsr_bits_spmm")
+              "pell_fused_fp64", "bcsr_spmm", "pell_rows", "pell_rows",
+              "pell_rows_fp64", "bcsr_bits", "bcsr_bits_spmm")
 
 
 # ---- launch counts -----------------------------------------------------------
@@ -377,6 +395,7 @@ def counts() -> dict:
             "stream_reduce": roof.KERNEL_LAUNCHES,
             "stream_reduce_strided": roof.STRIDED_LAUNCHES,
             **ext_gather.LAUNCHES,
+            **chips_slots.LAUNCHES,
             "window_segsum": segsum_kernel.KERNEL_LAUNCHES,
             **pell.LAUNCHES,
             **pell_rows.LAUNCHES,
@@ -397,8 +416,9 @@ def reset_counts() -> None:
     roof.STRIDED_LAUNCHES = 0
     segsum_kernel.KERNEL_LAUNCHES = 0
     segsum_kernel.SPAN_LAUNCHES = 0
-    for table in (ext_gather.LAUNCHES, pell.LAUNCHES, pell_rows.LAUNCHES,
-                  lane_rows.LAUNCHES, xpose.LAUNCHES, bcsr_bits.LAUNCHES):
+    for table in (ext_gather.LAUNCHES, chips_slots.LAUNCHES, pell.LAUNCHES,
+                  pell_rows.LAUNCHES, lane_rows.LAUNCHES, xpose.LAUNCHES,
+                  bcsr_bits.LAUNCHES):
         for k in table:
             table[k] = 0
 
@@ -635,10 +655,16 @@ def bound(name, args, out) -> tuple:
         nbytes += live * 8 * part.element_size() - tensor_bytes((part,))
     elif name in ("stream_reduce", "stream_reduce_strided"):
         ops = args[0].numel()
-    elif name in ("sorted_gather", "ranked_gather", "window_gather"):
+    elif name in GATHERS:
         src, flat, ok = gather_flat(name, args)
         nbytes += (torch.unique(flat[ok]).numel() * src.element_size()
                    - tensor_bytes((src,)))
+    elif name == "chips_products":
+        cols, _, x = args
+        reads = (cols >= 0) & (cols < x.numel())
+        ops = int(reads.sum())
+        nbytes += (torch.unique(cols[reads]).numel() * x.element_size()
+                   - tensor_bytes((x,)))
     elif name == "xpose_mirror":
         x, flat = mirror_flat(args)
         rows = torch.unique(flat[flat < x.numel()] // BC)
@@ -708,6 +734,18 @@ def gather_library(name, args):
     flat = torch.where(ok, flat, src.numel())
     srcz = torch.cat([src.reshape(-1), src.new_zeros(1)])
     return lambda: srcz[flat]
+
+
+def products_library(args):
+    """One flat-index read of x for the slot products' columns:
+    ``x_pad[cols]`` over x with one 0.0 appended, the columns that read
+    nothing pointed at it (the gathers' yardstick; the multiply is not
+    in it)."""
+    cols, _, x = args
+    flat = torch.where((cols >= 0) & (cols < x.numel()), cols.long(),
+                       x.numel())
+    xz = torch.cat([x, x.new_zeros(1)])
+    return lambda: xz[flat]
 
 
 def segsum_library(name, args):
@@ -921,8 +959,10 @@ def library(name, args, A, xd):
     """The PyTorch yardstick of one kernel call, or None."""
     if name in ("window_segsum", "span_segsum"):
         return segsum_library(name, args)
-    if name in ("sorted_gather", "ranked_gather", "window_gather"):
+    if name in GATHERS:
         return gather_library(name, args)
+    if name == "chips_products":
+        return products_library(args)
     if name == "unpermute":
         return unpermute_library(args)
     if name in ("pell_fused", "pell_fused_fp64"):
@@ -1003,15 +1043,11 @@ def host_vs_device(fn, xd, calls=200):
     return host_ms, start.elapsed_time(end) / calls
 
 
-def device_busy(fn, xd, calls=50):
-    """Device time per call by kernel (or copy) name, the device's busy
-    time per call, and its idle share, from a torch.profiler window of
-    ``calls`` calls. Only device-side events count: a CPU op's device
-    time is its kernels', which are listed on their own."""
-    from torch.autograd import DeviceType
+def profile_window(fn, xd, calls):
+    """One torch.profiler window of ``calls`` calls: (its key averages,
+    the wall ms of the calls, the port's launches in it)."""
     from torch.profiler import ProfilerActivity, profile
-    fn(xd)
-    torch.cuda.synchronize()
+    before = sum(counts().values())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1019,12 +1055,44 @@ def device_busy(fn, xd, calls=50):
             fn(xd)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {ev.key: ev.self_device_time_total / 1e3 / calls
-               for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and ev.self_device_time_total > 0}
+    return prof.key_averages(), wall_ms, sum(counts().values()) - before
+
+
+def device_busy(fn, xd, calls=50, tries=3):
+    """Device time per call by kernel (or copy) name, the device's busy
+    time per call and its idle share, from a torch.profiler window of
+    ``calls`` calls that saw every launch: the device events of the
+    port's kernels (every name outside PyTorch's ``at::`` kernels and the
+    copies) at least the launch counts over the same calls, and the
+    device kernel events exactly the host's ``cudaLaunchKernel`` calls.
+    A window that lost events (or took in events from outside it) is
+    measured again, up to ``tries`` windows. Returns (by name, busy ms a
+    call, idle share or None where no window saw every launch, the
+    counts line). Only device-side events count: a CPU op's device time
+    is its kernels', which are listed on their own."""
+    from torch.autograd import DeviceType
+    fn(xd)
+    torch.cuda.synchronize()
+    for k in range(1, tries + 1):
+        events, wall_ms, launched = profile_window(fn, xd, calls)
+        dev = [ev for ev in events if ev.device_type == DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+        kernels = [ev for ev in dev if not ev.key.startswith(("Memcpy",
+                                                              "Memset"))]
+        ours = sum(ev.count for ev in kernels if "at::" not in ev.key)
+        seen = sum(ev.count for ev in kernels)
+        host = sum(ev.count for ev in events
+                   if ev.key.startswith("cudaLaunchKernel"))
+        whole = ours >= launched and seen == host
+        if whole:
+            break
+    line = (f"window {k} of {tries}: kernel events {ours} of the port's for "
+            f"{launched} launches, {seen} in all for {host} cudaLaunchKernel "
+            "calls")
+    by_name = {ev.key: ev.self_device_time_total / 1e3 / calls for ev in dev}
     busy = sum(by_name.values())
-    return by_name, busy, 1.0 - busy * calls / wall_ms
+    idle = 1.0 - busy * calls / wall_ms if whole else None
+    return by_name, busy, idle, line
 
 
 def phase_line(rows):
@@ -1126,38 +1194,46 @@ def report_times(name, prep, xd, r, launched, card, timing, profile):
         hd = (f" | 200 calls back to back: host enqueue {host_ms:.4f} "
               f"ms/call, device {dev_ms:.4f} ms/call")
     if profile:
-        by_name, busy_ms, idle = device_busy(prep.fn, xd)
-        hd += (f" | profiler, 50 calls: device busy {busy_ms:.4f} ms/call, "
-               f"idle share {idle:.3f}")
+        by_name, busy_ms, idle, seen = device_busy(prep.fn, xd)
+        hd += (f" | profiler, 50 calls, {seen}; " + (
+            f"device busy {busy_ms:.4f} ms/call, idle share {idle:.3f}"
+            if idle is not None else
+            "events lost in every window: no idle share, the window's "
+            "device times are not the call's"))
     print(f"[{name}] call {r.duration_ms:.4f} ms = {r.gflops:.2f} GFLOP/s "
           f"(median of {r.reps}){hd} | launches {launched} | {card}",
           flush=True)
     if profile:
-        print(f"[{name}] device ms/call by name: " + ", ".join(
+        lost = "" if idle is not None else " (a window that lost events)"
+        print(f"[{name}] device ms/call by name{lost}: " + ", ".join(
             f"{k[:60]} {v:.4f}" for k, v in sorted(
                 by_name.items(), key=lambda kv: -kv[1])[:12]), flush=True)
 
 
-def layout_ab(name, old, new, xd, card):
-    """The tile layout's fused kernel (``old``'s call) against the row
-    layout's (``new``'s) on one matrix, in turns (old, new, new, old) in
-    this run, and the two whole calls the same way; beside them cuSPARSE's
-    CSR product of the matrix the row layout holds, the two formats'
-    bounds and bytes, and the format-free bound."""
-    (ko, ao), = [c for c in old.kernel_calls(xd)
-                 if c[0].startswith("pell_fused")]
+def layout_ab(name, old, new, xd, card, old_kernels=("pell_fused",)):
+    """The tile layout's fused kernel (``old``'s call; with
+    ``old_kernels`` naming more, those of its calls too, launched back to
+    back) against the row layout's (``new``'s) on one matrix, in turns
+    (old, new, new, old) in this run, and the two whole calls the same
+    way; beside them cuSPARSE's CSR product of the matrix the row layout
+    holds, the two formats' bounds and bytes, and the format-free
+    bound."""
+    oc = [c for c in old.kernel_calls(xd) if c[0].startswith(old_kernels)]
+    (ko, ao) = oc[0]
     (kn, an), = [c for c in new.kernel_calls(xd)
                  if c[0].startswith("pell_rows")]
     kern = {"old": [], "new": []}
     call = {"old": [], "new": []}
     for side in ("old", "new", "new", "old"):
-        k, a = (ko, ao) if side == "old" else (kn, an)
-        kern[side].append(median_ms(KERNELS[k], *a))
+        kern[side].append(median_ms(run_calls(oc)) if side == "old"
+                          else median_ms(KERNELS[kn], *an))
     for side in ("old", "new", "new", "old"):
         call[side].append(call_ms((old if side == "old" else new).fn, xd))
-    out_o, out_n = KERNELS[ko](*ao), KERNELS[kn](*an)
+    out_n = KERNELS[kn](*an)
     nnz = int((an[0] != 0).sum())
-    b_old, b_new = bound(ko, ao, out_o)[0], bound(kn, an, out_n)[0]
+    b_old = sum(bound(k, a, KERNELS[k](*a))[0] for k, a in oc)
+    b_new = bound(kn, an, out_n)[0]
+    ko = "+".join(k for k, _ in oc)
     rows_b, tiles_b = tensor_bytes(an[:4]), tensor_bytes(ao[:3])
 
     def ms(v):
@@ -1171,6 +1247,15 @@ def layout_ab(name, old, new, xd, card):
           f" | format bytes for {nnz} entries: rows {rows_b} "
           f"({rows_b / max(nnz, 1):.2f} B/nnz), tiles {tiles_b} "
           f"({tiles_b / max(nnz, 1):.2f} B/nnz) | {card}", flush=True)
+
+
+def run_calls(calls):
+    """A function that launches the kernel calls ``calls`` back to
+    back."""
+    def run():
+        for k, a in calls:
+            KERNELS[k](*a)
+    return run
 
 
 def bits_ab(name, old, new, xd, A, card):
@@ -1273,35 +1358,105 @@ def core_ab(name, new, old, xd, A, card):
 
 
 def layouts_path(name, A, knobs, dev, card, kernels, lanes_kernels, branch,
-                 branch_what, describe, profile=False):
+                 branch_what, describe, profile=False, forbid=(),
+                 chips=False):
     """A main path on both core layouts from one pack (the row-sharded
     hybrid's when ``knobs`` name a mesh): the rows core, the default,
     through ``full_path`` (its packing time covers both layouts), which
-    must launch ``kernels``; then the lanes core's own run, with the
-    counts set to 0 just before it, which must launch ``lanes_kernels``;
-    then the A/B of the two cores. Returns (the rows run's kernel table
-    and counts, the lanes run's, the rows Prepared)."""
+    must launch ``kernels`` and none of ``forbid``; then the lanes core's
+    own run, with the counts set to 0 just before it, which must launch
+    ``lanes_kernels``; then the A/B of the two cores. With ``chips`` the
+    same pack binds the rows core with the chips tail on
+    ``chips_x="hot"`` too, and the chips A/B follows (``chips_ab``).
+    Returns (the rows run's kernel table and counts, the lanes run's,
+    the rows Prepared)."""
     held = {}
     dist = "mesh" in knobs
+    hot = ("rows", "hot")
+    designs = lane_ell.CORE_LAYOUTS + ((hot,) if chips else ())
 
     def prepare(A, **kw):
-        held.update(distributed.row_sharded_hybrid_layouts(A, **kw) if dist
-                    else lane_ell.prepare_hybrid_layouts(A, device=dev,
-                                                         **kw))
+        held.update(distributed.row_sharded_hybrid_layouts(A, designs, **kw)
+                    if dist else lane_ell.prepare_hybrid_layouts(
+                        A, designs, device=dev, **kw))
         return held["rows"]
 
     strategy = "row-sharded-hybrid" if dist else "cuda-hybrid"
     rt, rc, rows, _ = full_path(name, A, strategy, knobs, dev, card, kernels,
                                 branch, branch_what, describe=describe,
-                                profile=profile, prepare=prepare)
+                                profile=profile, prepare=prepare,
+                                forbid=forbid)
     lt, lc, lanes, _ = full_path(
         f"{name}-lanes", A, strategy, knobs, dev, card, lanes_kernels,
         branch, branch_what, describe=lambda p: "packed with the rows core",
         timing=False, prepare=lambda A, **kw: held["lanes"])
-    core_ab(name, rows, lanes, torch.as_tensor(make_x(A.n),
-                                               dtype=torch.float32,
-                                               device=dev), A, card)
+    xd = torch.as_tensor(make_x(A.n), dtype=torch.float32, device=dev)
+    core_ab(name, rows, lanes, xd, A, card)
+    if chips:
+        chips_ab(name, held[hot], rows, xd, card)
     return rt, rc, lt, lc, rows
+
+
+def x_side_calls(hot, slots, xd):
+    """The chips tails' gather calls in one call of ``hot`` (a chips tail
+    on ``chips_x="hot"``): its gather calls whose index tables no gather
+    call of ``slots`` (the same pack on the slot products) holds. The
+    landing's panel merge and the ext route gather in both."""
+    def tables(k, a):
+        return a[1:3] if k == "ranked_gather" else a[2:4]
+
+    theirs = [tables(k, a) for k, a in slots.kernel_calls(xd) if k in GATHERS]
+
+    def shared(p, lane):
+        return any(p.shape == q.shape and torch.equal(p, q)
+                   and torch.equal(lane, r) for q, r in theirs)
+
+    return [(k, a) for k, a in hot.kernel_calls(xd)
+            if k in GATHERS and not shared(*tables(k, a))]
+
+
+def chips_ab(name, old, new, xd, card):
+    """The chips tail's x side on the two gather stages (``old``, the
+    rows core with ``chips_x="hot"``: its stage-1 and stage-2 gather
+    calls back to back) against the slot products (``new``, the default:
+    its ``chips_products`` calls) of one pack, in turns (old, new, new,
+    old), then the two whole calls the same way, whose y must be equal,
+    and host enqueue against device time over 200 calls back to back,
+    in turns; beside them the yardstick ``x_pad[cols]``, both bounds and
+    each call's launches of the port's kernels."""
+    y_old, y_new = old.fn(xd), new.fn(xd)
+    if not torch.equal(y_old, y_new):
+        raise AssertionError(f"{name}: y on the slot products differs from "
+                             "y on the two gather stages")
+    oc = x_side_calls(old, new, xd)
+    nc = [c for c in new.kernel_calls(xd) if c[0] == "chips_products"]
+    kern = {"old": [], "new": []}
+    call = {"old": [], "new": []}
+    hd = {"old": [], "new": []}
+    for side in ("old", "new", "new", "old"):
+        kern[side].append(median_ms(run_calls(oc if side == "old" else nc)))
+    for side in ("old", "new", "new", "old"):
+        call[side].append(call_ms((old if side == "old" else new).fn, xd))
+    for side in ("old", "new", "new", "old"):
+        hd[side].append(host_vs_device((old if side == "old" else new).fn,
+                                       xd))
+    b_old = sum(bound(k, a, KERNELS[k](*a))[0] for k, a in oc)
+    b_new = sum(bound(k, a, KERNELS[k](*a))[0] for k, a in nc)
+    lib = sum(median_ms(products_library(a)) for _, a in nc)
+    names = "+".join(dict.fromkeys(k for k, _ in oc))
+
+    def hdl(v):
+        return ", ".join(f"{h:.4f}/{d:.4f}" for h, d in v)
+
+    print(f"[{name}] chips A/B in turns (old, new, new, old): {names} x"
+          f"{len(oc)} {_ms(kern['old'])} ms, chips_products x{len(nc)} "
+          f"{_ms(kern['new'])} ms | whole call, hot {_ms(call['old'])} ms, "
+          f"slots {_ms(call['new'])} ms, y equal | host/device ms a call "
+          f"over 200: hot {hdl(hd['old'])}, slots {hdl(hd['new'])} | "
+          f"x_pad[cols] {lib:.4f} ms | bound: slots {b_new:.4f}, hot "
+          f"{b_old:.4f} ms | kernel calls a call: hot "
+          f"{len(old.kernel_calls(xd))}, slots {len(new.kernel_calls(xd))}"
+          f" | {card}", flush=True)
 
 
 def auto_xpose_path(name, A, dev, card, profile):
@@ -1673,8 +1828,12 @@ def fp64_spmm_phases(dev, card, flagship_A, PL):
 def dist_meta(prep):
     """What a row-sharded path's line says of its plan."""
     m = prep.meta
+    if prep.strategy == "row-sharded-pell" and m.get("layout") == "rows":
+        return (f"{prep.strategy} shards {len(prep.mesh)} h_rows "
+                f"{m['h_rows']} | PELL rows quantum {m['quantum']} quanta "
+                f"{m['quanta']} blocks {m['blocks']} fill {m['fill']:.4f}")
     if prep.strategy == "row-sharded-pell":
-        return (f"{prep.strategy} shards {len(prep.mesh)} quantum "
+        return (f"{prep.strategy} shards {len(prep.mesh)} tiles: quantum "
                 f"{m['quantum']} panel_w {m['panel_w']} row_sort "
                 f"{m['row_sort']} chunk {m['chunk']} window_h {m['window_h']}"
                 f" span {m['span']} tiles {m['tiles']}")
@@ -1695,12 +1854,25 @@ def dist_meta(prep):
             f"panel_merge {m['panel_merge']}{streams}")
 
 
+def one_call(name, prep, n, kernel, dev):
+    """The launches of ``kernel`` in one call of ``prep``, which must be
+    exactly one."""
+    reset_counts()
+    prep.fn(torch.as_tensor(make_x(n), dtype=torch.float32, device=dev))
+    one = counts()[kernel]
+    if one != 1:
+        raise AssertionError(f"{name}: {one} {kernel} launches in one call, "
+                             "expected 1")
+    print(f"[{name}] one call: {one} {kernel} launch for the "
+          f"{len(prep.mesh)} shards", flush=True)
+
+
 def dist_phases(dev, card, flagship_A, PL):
     """Phases 22-27: the small row-sharded cases, cuda-chips and the split
-    chips plan, then the five row-sharded main paths (the last on
+    chips plan, then the row-sharded main paths (the PELL ones on
     powerlaw100k, ``PL``). Returns the kernel tables and counts of
-    dist-flagship and dist-powerlaw100k-pell, which the kernels line
-    reports."""
+    dist-flagship, dist-powerlaw100k-pell and its tile layout, which the
+    kernels line reports."""
     # 22. the small row-sharded cases, all shards on one card
     launches = dict.fromkeys(DIST_KERNELS, 0)
     items = []
@@ -1708,17 +1880,27 @@ def dist_phases(dev, card, flagship_A, PL):
         for name, (prep_fn, make, kw) in cases.DIST_CASES.items():
             if k == 2 and name.startswith("hybrid-chips"):
                 continue        # both packages refuse: no tail on 2 shards
+            if prep_fn == "prepare_row_sharded_pell":
+                for layout in ("rows", "tiles"):
+                    items.append((f"{name}-{k}-{layout}", make(k), prep_fn,
+                                  {**kw, "layout": layout}, k))
+                continue
             if prep_fn != "prepare_row_sharded_hybrid":
                 items.append((f"{name}-{k}", make(k), prep_fn, kw, k))
                 continue
             for layout in lane_ell.CORE_LAYOUTS:
                 items.append((f"{name}-{k}-{layout}", make(k), prep_fn,
                               {**kw, "core_layout": layout}, k))
+    make = cases.DIST_CASES["hybrid-chips-split"][1]
     items += [("amazon40k-ext-4-lanes", synth.amazon_csr(40_000, seed=11),
                "prepare_row_sharded_hybrid", {"core_layout": "lanes"}, 4),
-              ("pell-rowsort1200-4", synth.powerlaw_csr(1200, 1200,
-                                                              seed=21),
-               "prepare_row_sharded_pell", {}, 4)]
+              ("hybrid-chips-split-4-rows-hot", make(4),
+               "prepare_row_sharded_hybrid",
+               {"tail_kind": "chips-split", "chips_x": "hot"}, 4)]
+    items += [(f"pell-rowsort1200-4-{layout}",
+               synth.powerlaw_csr(1200, 1200, seed=21),
+               "prepare_row_sharded_pell", {"layout": layout}, 4)
+              for layout in ("rows", "tiles")]
     for name, A, prep_fn, kw, k in items:
         prep = getattr(distributed, prep_fn)(A, mesh=[dev] * k, **kw)
         x = make_x(A.n)
@@ -1748,6 +1930,11 @@ def dist_phases(dev, card, flagship_A, PL):
                 lambda p, A: f"{p.strategy} nnz {A.nnz} chips "
                 f"{p.meta.get('tail_meta') or p.meta}", dev,
                 "cuda-chips and the split chips plan")
+    small_phase("small-chips-hot", [(f"{name}-hot", A, strategy,
+                                     {**kw, "chips_x": "hot"})
+                                    for name, A, strategy, kw in small],
+                CHIPS_HOT_KERNELS, lambda p, A: f"{p.strategy} nnz {A.nnz}",
+                dev, "cuda-chips and the split chips plan on chips_x='hot'")
 
     # 23-24. main paths 13 and 14: the flagship row-sharded on one card,
     # one shard on both core layouts (one pack) and four on the rows core
@@ -1775,43 +1962,61 @@ def dist_phases(dev, card, flagship_A, PL):
         {**knobs, "mesh": [dev] * 4}, dev, card, ("lane_rows",),
         lambda m: m["tail_kind"] == "xla", "the segment-sum tail",
         describe=dist_meta, prepare=hybrid)
-    reset_counts()
-    prep4.fn(torch.as_tensor(make_x(A.n), dtype=torch.float32, device=dev))
-    one = counts()["lane_rows"]
-    if one != 1:
-        raise AssertionError(f"dist-flagship-4x1: {one} lane_rows "
-                             "launches in one call, expected 1")
-    print(f"[dist-flagship-4x1] one call: {one} lane_rows launch for the "
-          "four shards", flush=True)
+    one_call("dist-flagship-4x1", prep4, A.n, "lane_rows", dev)
     del prep4
 
-    # 25. main path 15: webbase1m at mesh 1, the split chips plan
+    # 25. main path 15: webbase1m at mesh 1, the split chips plan, and the
+    # chips A/B
     layouts_path("dist-webbase1m", cases.webbase1m(), {"mesh": [dev]}, dev,
-                 card, ("lane_rows", "window_gather", "window_segsum"),
-                 ("lane_ell_sharded", "window_gather", "window_segsum"),
+                 card, ("lane_rows",) + CHIPS_KERNELS,
+                 ("lane_ell_sharded",) + CHIPS_KERNELS,
                  lambda m: m["tail_kind"] == "chips-split",
-                 "the chips-split tail", describe=dist_meta, profile=True)
+                 "the chips-split tail", describe=dist_meta, profile=True,
+                 forbid=GATHERS, chips=True)
 
-    # 26. main path 16: amazon262k on four shards with idx8
-    layouts_path("dist-amazon262k-4x1", cases.amazon262k(),
-                 {"idx8": True, "mesh": [dev] * 4}, dev, card,
-                 ("lane_rows", "sorted_gather", "ranked_gather",
-                  "window_segsum"),
-                 ("lane_ell_sharded", "sorted_gather", "ranked_gather",
-                  "window_segsum"),
-                 lambda m: (m["ext"] and m["tail_kind"] == "chips"
-                            and m["panel_merge"] and m["idx8_planes"] > 0),
-                 "ext panels, chips tails, the panel merge and idx8",
-                 describe=dist_meta, profile=True)
+    # 26. main path 16: amazon262k on four shards with idx8, and the
+    # chips A/B; one chips_products launch a call for the four shards
+    AZ = cases.amazon262k()
+    *_, az4 = layouts_path(
+        "dist-amazon262k-4x1", AZ, {"idx8": True, "mesh": [dev] * 4}, dev,
+        card, ("lane_rows",) + CHIPS_KERNELS,
+        ("lane_ell_sharded", "sorted_gather", "ranked_gather")
+        + CHIPS_KERNELS,
+        lambda m: (m["ext"] and m["tail_kind"] == "chips"
+                   and m["panel_merge"] and m["idx8_planes"] > 0),
+        "ext panels, chips tails, the panel merge and idx8",
+        describe=dist_meta, profile=True, forbid=("sorted_gather",),
+        chips=True)
+    one_call("dist-amazon262k-4x1", az4, AZ.n, "chips_products", dev)
+    del az4, AZ
 
-    # 27. main path 17: powerlaw100k through the row-sharded fused PELL
-    # (the tile layout)
-    dpl, dpl_counts, *_ = full_path(
+    # 27. main path 17: powerlaw100k through the row-sharded PELL on row
+    # quanta, then on the tiles (the fused kernel and the un-permute),
+    # the A/B of the two, then on four shards of the card
+    pell_prep = distributed.prepare_row_sharded_pell
+    dpl, dpl_counts, rows_prep, _ = full_path(
         "dist-powerlaw100k-pell", PL, "row-sharded-pell", {"mesh": [dev]},
-        dev, card, ("pell_fused", "unpermute"), lambda m: m["row_sort"],
-        "the row-sorted fused PELL", describe=dist_meta,
-        prepare=distributed.prepare_row_sharded_pell)
-    return fl, fl_counts, dpl, dpl_counts
+        dev, card, ("pell_rows",), lambda m: m["layout"] == "rows",
+        "the row-sharded PELL on row quanta", describe=dist_meta,
+        prepare=pell_prep, forbid=("pell_fused", "unpermute"))
+    dpt, dpt_counts, tiles_prep, _ = full_path(
+        "dist-powerlaw100k-pell-tiles", PL, "row-sharded-pell",
+        {"mesh": [dev], "layout": "tiles"}, dev, card,
+        ("pell_fused", "unpermute"), lambda m: m["row_sort"],
+        "the row-sorted fused PELL", describe=dist_meta, prepare=pell_prep,
+        timing=False, forbid=("pell_rows",))
+    layout_ab("dist-powerlaw100k-pell", tiles_prep, rows_prep,
+              torch.as_tensor(make_x(PL.n), dtype=torch.float32, device=dev),
+              card, old_kernels=("pell_fused", "unpermute"))
+    del rows_prep, tiles_prep
+    _, _, prep4, _ = full_path(
+        "dist-powerlaw100k-pell-4x1", PL, "row-sharded-pell",
+        {"mesh": [dev] * 4}, dev, card, ("pell_rows",),
+        lambda m: m["layout"] == "rows", "the row-sharded PELL on row quanta",
+        describe=dist_meta, prepare=pell_prep)
+    one_call("dist-powerlaw100k-pell-4x1", prep4, PL.n, "pell_rows", dev)
+    del prep4
+    return fl, fl_counts, dpl, dpl_counts, dpt, dpt_counts
 
 
 def main() -> int:
@@ -1963,14 +2168,14 @@ def main() -> int:
     flagship_A = A
 
     # 6. main path 2: amazon262k, the ext route (lanes core) and the
-    # chips tail
-    amz, amz_counts, *_ = layouts_path(
+    # chips tail, then the chips A/B
+    amz, amz_counts, amz_lanes, amz_lanes_counts, _ = layouts_path(
         "amazon262k", cases.amazon262k(), {}, dev, card,
-        ("lane_rows", "sorted_gather", "ranked_gather", "window_segsum"),
-        ("lane_ell_spmv", "sorted_gather", "ranked_gather",
-         "window_segsum"),
+        ("lane_rows",) + CHIPS_KERNELS,
+        ("lane_ell_spmv", "sorted_gather", "ranked_gather") + CHIPS_KERNELS,
         lambda m: m["ext"] and m["tail_kind"] == "chips",
-        "the ext route and the chips tail",
+        "the ext route and the chips tail", forbid=("sorted_gather",),
+        chips=True,
         describe=lambda p: (
             f"loc_w {p.meta['loc_w']} Q {p.meta['slots']}+"
             f"{p.meta['ov_slots']} chunk {p.meta['chunk']} steps "
@@ -2041,41 +2246,62 @@ def main() -> int:
     (fl64, fl64_counts, pw64, pw64_counts, pt64, pt64_counts, sp8,
      sp8_counts, st8, st8_counts) = fp64_spmm_phases(dev, card, flagship_A,
                                                      PL)
-    dfl, dfl_counts, dpl, dpl_counts = dist_phases(dev, card, flagship_A, PL)
+    dfl, dfl_counts, dpl, dpl_counts, dpt, dpt_counts = dist_phases(
+        dev, card, flagship_A, PL)
 
-    # the kernels line: each kernel timed on the path that runs it
-    measured = {"lane_ell_spmv": (flag_lanes, flag_lanes_counts),
-                "lane_ell_sharded": (dfl["lane_ell_sharded"], dfl_counts),
-                "lane_rows": (flag, flag_counts),
-                "stream_reduce": (probes["stream_reduce"], flag_counts),
-                "stream_reduce_strided": (
-                    probes["stream_reduce_strided"],
-                    probe_counts["stream_reduce_strided"]),
-                "sorted_gather": (amz["sorted_gather"], amz_counts),
-                "ranked_gather": (amz["ranked_gather"], amz_counts),
-                "window_segsum": (amz["window_segsum"], amz_counts),
-                "window_gather": (win["window_gather"], win_counts),
-                "pell_fused": (dpl["pell_fused"], dpl_counts),
-                "unpermute": (dpl["unpermute"], dpl_counts),
-                "pell_rows": (pw["pell_rows"], pw_counts),
-                "pell_rows_fp64": (pw64["pell_rows_fp64"], pw64_counts),
-                "pell_tiles": (sp["pell_tiles"], sp_counts),
-                "span_segsum": (sp["span_segsum"], sp_counts),
-                **{k: (wx[k], wx_counts) for k in XPOSE_KERNELS},
-                **{k: (ws[k], ws_counts) for k in ("xpose_mirror",
-                                                   "xpose_s1")},
-                "xpose_s3": (wp["xpose_s3"], wp_counts),
-                "lane_ell_fp64": (fl64["lane_ell_fp64"], fl64_counts),
-                "pell_fused_fp64": (pt64["pell_fused_fp64"], pt64_counts),
-                "bcsr_spmm": (st8["bcsr_spmm"], st8_counts),
-                "bcsr_bits": (bc["bcsr_bits"], bc_counts),
-                "bcsr_bits_spmm": (sp8["bcsr_bits_spmm"], sp8_counts)}
+    # the kernels line: each kernel timed on the path that runs it, as
+    # (its row, the path's counts, the path), in LINE_ORDER's order
+    measured = {
+        "lane_ell_spmv": [(flag_lanes, flag_lanes_counts, "flagship-lanes")],
+        "lane_ell_sharded": [(dfl["lane_ell_sharded"], dfl_counts,
+                              "dist-flagship-lanes")],
+        "lane_rows": [(flag, flag_counts, "flagship")],
+        "stream_reduce": [(probes["stream_reduce"], flag_counts,
+                           "flagship")],
+        "stream_reduce_strided": [(probes["stream_reduce_strided"],
+                                   probe_counts["stream_reduce_strided"],
+                                   "measure_stream_bw")],
+        "sorted_gather": [(amz_lanes["sorted_gather"], amz_lanes_counts,
+                           "amazon262k-lanes")],
+        "ranked_gather": [(amz_lanes["ranked_gather"], amz_lanes_counts,
+                           "amazon262k-lanes")],
+        "chips_products": [(amz["chips_products"], amz_counts,
+                            "amazon262k")],
+        "window_segsum": [(amz["window_segsum"], amz_counts, "amazon262k")],
+        "window_gather": [(win["window_gather"], win_counts,
+                           "ext_windowed1m-lanes")],
+        "pell_fused": [(dpt["pell_fused"], dpt_counts,
+                        "dist-powerlaw100k-pell-tiles")],
+        "unpermute": [(dpt["unpermute"], dpt_counts,
+                       "dist-powerlaw100k-pell-tiles")],
+        "pell_rows": [(pw["pell_rows"], pw_counts, "powerlaw100k"),
+                      (dpl["pell_rows"], dpl_counts,
+                       "dist-powerlaw100k-pell")],
+        "pell_rows_fp64": [(pw64["pell_rows_fp64"], pw64_counts,
+                            "powerlaw100k-fp64")],
+        "pell_tiles": [(sp["pell_tiles"], sp_counts, "powerlaw100k-span")],
+        "span_segsum": [(sp["span_segsum"], sp_counts, "powerlaw100k-span")],
+        **{k: [(wx[k], wx_counts, "webbase1m-xpose")]
+           for k in XPOSE_KERNELS},
+        **{k: [(ws[k], ws_counts, "webbase1m-xpose-slab")]
+           for k in ("xpose_mirror", "xpose_s1")},
+        "xpose_s3": [(wp["xpose_s3"], wp_counts, "webbase1m-xpose-prefix")],
+        "lane_ell_fp64": [(fl64["lane_ell_fp64"], fl64_counts,
+                           "flagship-fp64")],
+        "pell_fused_fp64": [(pt64["pell_fused_fp64"], pt64_counts,
+                             "powerlaw100k-fp64-tiles")],
+        "bcsr_spmm": [(st8["bcsr_spmm"], st8_counts,
+                       "flagship-spmm8-tiles")],
+        "bcsr_bits": [(bc["bcsr_bits"], bc_counts, "flagship-bcsr")],
+        "bcsr_bits_spmm": [(sp8["bcsr_bits_spmm"], sp8_counts,
+                            "flagship-spmm8")]}
     line = []
     for name in LINE_ORDER:
-        row, launched = measured[name]
+        row, launched, path = measured[name].pop(0)
         src, replaces = SOURCES[name]
         line.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launched[name],
+                     "replaces": replaces, "path": path,
+                     "launches": launched[name],
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                      "plain_ms": row["plain_ms"],
                      "bound_ms": row["bound_ms"],

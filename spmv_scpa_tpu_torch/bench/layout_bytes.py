@@ -17,7 +17,16 @@ each quantum, and the lanes layout's plane count, slots per entry and
 plane bytes per core entry. Then, for the flagship and ``stencil48k``
 (the BCSR SpMV and SpMM paths), the dense (8, 128) tiles' bytes against
 the bitmap tiles' (``ops/bcsr_bits.py``: values, masks, ``pan`` and
-``vptr``, ``rowptr``), in all and per nonzero.
+``vptr``, ``rowptr``), in all and per nonzero. Then the chips tails of
+``amazon262k`` (a single plan), ``webbase1m`` at one row shard (the
+split plan) and ``amazon262k`` at four shards: their chip slots and
+entries, the slot products' bytes (``ops/chips_slots.py``: a 4-byte
+column and value read and a 4-byte product written a slot) against the
+two gather stages' (their stage-2 tables, values and gathered values a
+slot, the stage-1 tables a hot slot and the zero-padded copy of x),
+per entry. ``chips`` alone:
+
+    python -m spmv_scpa_tpu_torch.bench.layout_bytes chips
 """
 
 from __future__ import annotations
@@ -31,8 +40,9 @@ import torch
 from spmv_scpa_tpu_torch.bench import cases
 from spmv_scpa_tpu_torch.formats.csr import BC
 from spmv_scpa_tpu_torch.formats.panel_ell import BR
-from spmv_scpa_tpu_torch.ops import (bcsr_bits, lane_ell, lane_rows, pell,
-                                     pell_rows)
+from spmv_scpa_tpu_torch.ops import (bcsr_bits, chips_slots, lane_ell,
+                                     lane_rows, pell, pell_rows)
+from spmv_scpa_tpu_torch.parallel import distributed
 
 
 def report(name, A, dtype=torch.float32) -> None:
@@ -99,7 +109,52 @@ def report_bcsr(name, A) -> None:
           f"| dense / bits {b['dense'] / max(b['bits'], 1):.2f}", flush=True)
 
 
+def chips_bytes(plans, n: int) -> dict:
+    """The chip slots of ``plans`` (single or split, one per shard), the
+    entries they hold and both x sides' bytes: the slot products' and the
+    two gather stages'."""
+    parts = [s for p in plans for s in chips_slots.slot_parts(p)]
+    slots = sum(s.E8 for s in parts) * BC
+    staged = [s for s in parts if getattr(s, "kind", "resident")
+              != "windowed-x"]
+    hot = sum(s.p1.size for s in staged)
+    x1 = sum(s.n1p_blocks * getattr(s, "R", getattr(s, "r1", 0)) * BC
+             for s in staged)
+    x1 += sum(s.H_pad * BC for s in parts
+              if getattr(s, "kind", None) == "windowed-x")
+    return {"slots": slots, "entries": int(sum(s.live.sum() for s in parts)),
+            "slot_bytes": slots * 12,
+            "hot_bytes": slots * 16 + hot * 8 + x1 * 4}
+
+
+def report_chips(name, plans, n) -> None:
+    b = chips_bytes(plans, n)
+    e = max(b["entries"], 1)
+    print(f"[{name}-chips] {len(plans)} plan(s), {b['slots']} chip slots "
+          f"for {b['entries']} entries ({b['slots'] / e:.2f} slots/entry) | "
+          f"slot products {b['slot_bytes']} B = {b['slot_bytes'] / e:.2f} "
+          f"B/entry | two gather stages {b['hot_bytes']} B = "
+          f"{b['hot_bytes'] / e:.2f} B/entry", flush=True)
+
+
+def sharded_chips(A, n_shards: int) -> list:
+    """The row-sharded hybrid's chips plans of ``A`` (default knobs)."""
+    _, h_rows, _, _, cores = distributed.pack_shards(A, n_shards)
+    return distributed._plan_sharded_chips(cores, h_rows, A.n)
+
+
+def chips_reports() -> None:
+    A = cases.amazon262k()
+    report_chips("amazon262k", [lane_ell.pack_lane_ell(A).chips], A.n)
+    W = cases.webbase1m()
+    report_chips("dist-webbase1m", sharded_chips(W, 1), W.n)
+    report_chips("dist-amazon262k-4x1", sharded_chips(A, 4), A.n)
+
+
 def main(argv=()) -> int:
+    if "chips" in argv:
+        chips_reports()
+        return 0
     if "bcsr" in argv:
         report_bcsr("flagship", cases.flagship())
         report_bcsr("stencil48k", cases.stencil48k())
@@ -116,6 +171,7 @@ def main(argv=()) -> int:
     report_core("ext_windowed1m", cases.ext_windowed1m())
     report_bcsr("flagship", cases.flagship())
     report_bcsr("stencil48k", cases.stencil48k())
+    chips_reports()
     return 0
 
 

@@ -19,6 +19,15 @@ kernel, cuda_csr.cu:96-140):
    windowed or ranked panel merge through the gathers, or ``index_add_``
    on the unique heavy rows when the merge tables exceed their budget.
 
+Steps 1-3 are the reference's staging of x for a TPU, kept on
+``chips_x="hot"``. On ``chips_x="slots"`` (the default) they are one
+kernel: :func:`chips_slots.slots_table` resolves both stages' routes on
+the host into one x column per chip slot, and one launch of
+:func:`chips_slots.chips_products` forms the products, reading x in
+place (every stream of a split plan in the same launch). The plans
+record which slots hold an entry (``live``), so that a slot without one
+reads no x.
+
 **Split mode** (:func:`plan_chips_split`), when the tail's unique
 columns exceed the single plan's budgets: entries split by diagonal
 distance. *Local* entries ride a windowed stage 2
@@ -49,7 +58,7 @@ import numpy as np
 import torch
 
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import ext_gather, segsum_kernel
+from spmv_scpa_tpu_torch.ops import chips_slots, ext_gather, segsum_kernel
 from spmv_scpa_tpu_torch.ops.registry import Prepared, record_calls
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
 
@@ -140,7 +149,7 @@ class ChipsPlan:
     __slots__ = ("n_e", "H", "n_groups", "R", "n1p_blocks", "base",
                  "p1", "l1", "E8", "p2", "l2", "vals", "rbl",
                  "win_of_step", "num_windows", "h", "rows_per_step",
-                 "heavy_ids", "NH")
+                 "heavy_ids", "NH", "live")
 
     def __init__(self, **kw):
         for k, v in kw.items():
@@ -154,7 +163,7 @@ class _Stream:
     ``"resident"`` (stage 1, then the resident stage 2)."""
     __slots__ = ("kind", "base1", "p1", "l1", "n1p_blocks", "r1", "H",
                  "E8", "p2", "l2", "vals", "rbl", "win_of_step",
-                 "base8", "H_pad", "r_hot", "n_entries")
+                 "base8", "H_pad", "r_hot", "n_entries", "live")
 
     def __init__(self, **kw):
         for k, v in kw.items():
@@ -193,6 +202,7 @@ def _placeholder_stream(kind_key: str, *, n: int, h: int,
     p2 = np.zeros((E8, BC), np.int32)
     l2 = np.zeros((E8, BC), np.int32)
     rbl = np.full(n_q_pad, h, np.int32)
+    live = np.zeros((E8, BC), bool)
     if kind_key == "loc":
         rh = r_hot if r_hot else 16
         return _Stream(kind="windowed-x", base1=None, p1=None, l1=None,
@@ -200,7 +210,8 @@ def _placeholder_stream(kind_key: str, *, n: int, h: int,
                        p2=p2, l2=l2, vals=vals_a, rbl=rbl,
                        win_of_step=wos,
                        base8=np.zeros(E8, np.int32),
-                       H_pad=-(-n // BC) + rh, r_hot=rh, n_entries=0)
+                       H_pad=-(-n // BC) + rh, r_hot=rh, n_entries=0,
+                       live=live)
     r1 = r_far if r_far else R_PANELS
     n_panels = -(-n // BC)
     return _Stream(kind="resident",
@@ -210,7 +221,7 @@ def _placeholder_stream(kind_key: str, *, n: int, h: int,
                    n1p_blocks=max(-(-n_panels // r1), 1), r1=r1,
                    H=8, E8=E8, p2=p2, l2=l2, vals=vals_a, rbl=rbl,
                    win_of_step=wos, base8=None, H_pad=8, r_hot=0,
-                   n_entries=0)
+                   n_entries=0, live=live)
 
 
 def plan_chips(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
@@ -277,6 +288,8 @@ def _plan_single(rows, cols, vals, m, n, h, rows_per_step,
     p2 = np.zeros((E8, BC), np.int32)
     l2 = np.zeros((E8, BC), np.int32)
     vals_a[erow, lane] = vals
+    live = np.zeros((E8, BC), bool)
+    live[erow, lane] = True
     hotpos = pos[inv]
     p2[erow, lane] = (hotpos // BC).astype(np.int32)
     l2[erow, lane] = (hotpos % BC).astype(np.int32)
@@ -288,7 +301,7 @@ def _plan_single(rows, cols, vals, m, n, h, rows_per_step,
         n1p_blocks=n1p_blocks, base=base,
         p1=p1, l1=l1, E8=E8, p2=p2, l2=l2, vals=vals_a, rbl=rbl,
         win_of_step=win_of_step, num_windows=num_windows, h=h,
-        rows_per_step=rows_per_step, heavy_ids=hr_sorted, NH=NH)
+        rows_per_step=rows_per_step, heavy_ids=hr_sorted, NH=NH, live=live)
 
 
 def pad_resident_plan(plan: ChipsPlan, *, n_groups: int,
@@ -327,6 +340,7 @@ def pad_resident_plan(plan: ChipsPlan, *, n_groups: int,
         [plan.vals, np.zeros((pad_e, BC), np.float32)])
     p2 = np.concatenate([plan.p2, np.zeros((pad_e, BC), np.int32)])
     l2 = np.concatenate([plan.l2, np.zeros((pad_e, BC), np.int32)])
+    live = np.concatenate([plan.live, np.zeros((pad_e, BC), bool)])
     rbl = np.concatenate(
         [plan.rbl,
          np.full(steps * qps - plan.rbl.size, h, np.int32)])
@@ -342,7 +356,7 @@ def pad_resident_plan(plan: ChipsPlan, *, n_groups: int,
         E8=steps * rps, p2=p2, l2=l2, vals=vals, rbl=rbl,
         win_of_step=np.asarray(wos, np.int64),
         num_windows=num_windows, h=h, rows_per_step=rps,
-        heavy_ids=heavy, NH=NH)
+        heavy_ids=heavy, NH=NH, live=live)
 
 
 def split_shape_template(plans: list) -> dict:
@@ -406,7 +420,9 @@ def pad_split_plan(plan: SplitChipsPlan, tpl: dict,
                   rbl=rbl, win_of_step=np.asarray(wos, np.int64),
                   H_pad=ent["H_pad"], r_hot=s.r_hot,
                   n_entries=s.n_entries, base1=s.base1, p1=s.p1,
-                  l1=s.l1, base8=s.base8)
+                  l1=s.l1, base8=s.base8,
+                  live=np.concatenate([s.live,
+                                       np.zeros((pad_e, BC), bool)]))
         if s.base8 is not None:             # windowed / windowed-x
             kw["base8"] = np.concatenate(
                 [s.base8, np.zeros(pad_e, np.int32)])
@@ -542,6 +558,8 @@ def plan_chips_split(rows, cols, vals, m, n, h: int = 256,
         p2 = np.zeros((E8, BC), np.int32)
         l2 = np.zeros((E8, BC), np.int32)
         vals_a[ef, lf] = vals[oi]
+        live = np.zeros((E8, BC), bool)
+        live[ef, lf] = True
         p2[ef, lf] = off[fits].astype(np.int32)
         l2[ef, lf] = (pos_e[fits] % BC).astype(np.int32)
         rbl = np.full(n_q_pad, h, np.int32)
@@ -552,7 +570,8 @@ def plan_chips_split(rows, cols, vals, m, n, h: int = 256,
                            n1p_blocks=n1pb, r1=r1l, H=Hl, E8=E8,
                            p2=p2, l2=l2, vals=vals_a, rbl=rbl,
                            win_of_step=wos, base8=base8, H_pad=H_pad,
-                           r_hot=r_hot, n_entries=int(fits.sum()))
+                           r_hot=r_hot, n_entries=int(fits.sum()),
+                           live=live)
 
     # ---- the far stream(s) (resident stage 2) --------------------------
     def _resident_stream(sel, r_cap=None):
@@ -585,6 +604,8 @@ def plan_chips_split(rows, cols, vals, m, n, h: int = 256,
         p2 = np.zeros((E8, BC), np.int32)
         l2 = np.zeros((E8, BC), np.int32)
         vals_a[erow, lane] = vals[fi]
+        live = np.zeros((E8, BC), bool)
+        live[erow, lane] = True
         p2[erow, lane] = (pos_e // BC).astype(np.int32)
         l2[erow, lane] = (pos_e % BC).astype(np.int32)
         rbl = np.full(n_q_pad, h, np.int32)
@@ -593,7 +614,7 @@ def plan_chips_split(rows, cols, vals, m, n, h: int = 256,
                        n1p_blocks=n1pb, r1=r1f, H=Hf, E8=E8,
                        p2=p2, l2=l2, vals=vals_a, rbl=rbl,
                        win_of_step=wos, base8=None, H_pad=Hf,
-                       r_hot=0, n_entries=int(sel.sum()))
+                       r_hot=0, n_entries=int(sel.sum()), live=live)
 
     far = (~loc) | migrate
     stream_f = stream_c = None
@@ -673,11 +694,91 @@ def _put(a, dtype, device):
                            device=device)
 
 
-def prepare_chips(plan, n: int, device):
+# what the chips tail's x side runs: one kernel over a host slot table
+# that reads x in place (ops/chips_slots.py, the default), or the
+# reference's two gather stages over a staged x and a multiply
+CHIPS_X = ("slots", "hot")
+
+
+def check_chips_x(chips_x: str) -> None:
+    if chips_x not in CHIPS_X:
+        raise ValueError(f"chips_x {chips_x!r} is not one of {CHIPS_X}")
+
+
+def _segsum(rbl, win_of_step, num_windows: int, h: int, rows_per_step: int,
+            device):
+    """``fn(part, ops) -> ys`` (num_windows*h, 8): the window segment-sum
+    of one stream's products ``part``."""
+    t_rbl = _put(rbl, torch.int32, device)
+    t_win = _put(win_of_step, torch.int32, device)
+    tables = segsum_kernel.window_tables(rbl, win_of_step, num_windows, h,
+                                         device)
+
+    def fn(part, ops):
+        return ops.window_segsum(part, t_rbl, t_win, num_windows, h,
+                                 rows_per_step, tables)
+    return fn
+
+
+def _slot_sums(plan, device):
+    """``fn(prod, ops) -> ys`` (NH,) over ``plan``'s products in
+    :func:`chips_slots.slots_table`'s order: each stream's segment-sum
+    over its rows of ``prod``, the streams' sums added in stream order."""
+    parts, r0 = [], 0
+    for s, rows in zip(chips_slots.slot_parts(plan),
+                       chips_slots.slot_rows(plan)):
+        parts.append((r0, r0 + rows, _segsum(
+            s.rbl, s.win_of_step, plan.num_windows, plan.h,
+            plan.rows_per_step, device)))
+        r0 += rows
+    NH = plan.NH
+
+    def fn(prod, ops):
+        ys = None
+        for a, b, seg in parts:
+            t = seg(prod[a:b], ops)
+            ys = t if ys is None else ys + t
+        return ys.view(-1)[:NH]
+    return fn
+
+
+def bind_slots(plans: list, n: int, device):
+    """The slot tables of ``plans`` (a device's shards) concatenated into
+    one: ``(products(xf, ops) -> prod, [sums(prod_j, ops) -> ys_j], hbm)``
+    with one ``chips_products`` launch for all of them and each plan's
+    segment-sums over its own rows of ``prod``. ``hbm``: 12 B a slot
+    (column, value, product) and the per-row sums."""
+    cols = np.concatenate([chips_slots.slots_table(p, n) for p in plans])
+    vals = np.concatenate([chips_slots.slot_vals(p) for p in plans])
+    t_cols = _put(cols, torch.int32, device)
+    t_vals = _put(vals, torch.float32, device)
+    sums, r0 = [], 0
+    for p in plans:
+        rows = sum(chips_slots.slot_rows(p))
+        seg = _slot_sums(p, device)
+        sums.append(lambda prod, ops, a=r0, b=r0 + rows, seg=seg:
+                    seg(prod[a:b], ops))
+        r0 += rows
+
+    def products(xf, ops):
+        return ops.chips_products(t_cols, t_vals, xf)
+
+    hbm = cols.size * 12 + sum(p.NH for p in plans) * 4
+    return products, sums, int(hbm)
+
+
+def prepare_chips(plan, n: int, device, chips_x: str = "slots"):
     """Device pipeline of a plan, single or split: returns ``(contrib,
     hbm)``, where ``contrib(xf, ops) -> ys`` (NH,) f32 gives the
     per-heavy-row sums in ``plan.heavy_ids`` order for x (f32, on
-    ``device``)."""
+    ``device``). ``chips_x``: ``"slots"`` (the default: one
+    ``chips_products`` launch over the plan's slot table, x read in
+    place) or ``"hot"`` (the reference's staged x, two gather stages and
+    a multiply)."""
+    check_chips_x(chips_x)
+    if chips_x == "slots":
+        products, (sums,), hbm = bind_slots([plan], n, device)
+        return (lambda xf, ops: sums(products(xf, ops), ops)), hbm
     if isinstance(plan, SplitChipsPlan):
         return prepare_chips_split(plan, n, device)
     base = _put(plan.base, torch.int32, device)
@@ -686,10 +787,8 @@ def prepare_chips(plan, n: int, device):
     p2 = _put(plan.p2, torch.int32, device)
     l2 = _put(plan.l2, torch.int32, device)
     vals = _put(plan.vals, torch.float32, device)
-    rbl = _put(plan.rbl, torch.int32, device)
-    win = _put(plan.win_of_step, torch.int32, device)
-    tables = segsum_kernel.window_tables(plan.rbl, plan.win_of_step,
-                                         plan.num_windows, plan.h, device)
+    segsum = _segsum(plan.rbl, plan.win_of_step, plan.num_windows, plan.h,
+                     plan.rows_per_step, device)
     n1 = plan.n1p_blocks * plan.R * BC
     NH = plan.NH
 
@@ -698,9 +797,7 @@ def prepare_chips(plan, n: int, device):
         x1[:n] = xf
         hot = ops.sorted_gather(base, x1.view(-1, BC), p1, l1, plan.R)
         xg = ops.ranked_gather(hot, p2, l2)
-        ys = ops.window_segsum(vals * xg, rbl, win, plan.num_windows,
-                               plan.h, plan.rows_per_step, tables)
-        return ys.view(-1)[:NH]
+        return segsum(vals * xg, ops).view(-1)[:NH]
 
     hbm = (plan.E8 * BC * (4 + 4 + 4 + 4)        # vals, p2, l2, xg
            + plan.n_groups * plan.R * BC * 4    # stage-1 windows
@@ -710,20 +807,19 @@ def prepare_chips(plan, n: int, device):
 
 def _prepare_stream(s: _Stream, n: int, h: int, rows_per_step: int,
                     num_windows: int, device):
-    """Device pipeline of one split-plan stream: ``fn(xf, ops) -> ys``
-    (num_windows*h, 8), its segment-sum's per-row sums."""
-    windowed = s.kind in ("windowed", "windowed-x")
+    """Device pipeline of one split-plan stream on ``chips_x="hot"``:
+    ``fn(xf, ops) -> ys`` (num_windows*h, 8), its segment-sum's per-row
+    sums."""
     t = {k: _put(getattr(s, k), torch.int32, device)
-         for k in ("p2", "l2", "rbl", "win_of_step")
-         + (("base8",) if windowed else ())
+         for k in ("p2", "l2")
+         + (("base8",) if s.kind != "resident" else ())
          + (("base1", "p1", "l1") if s.kind != "windowed-x" else ())}
     vals = _put(s.vals, torch.float32, device)
-    tables = segsum_kernel.window_tables(s.rbl, s.win_of_step, num_windows,
-                                         h, device)
+    seg = _segsum(s.rbl, s.win_of_step, num_windows, h, rows_per_step,
+                  device)
 
     def segsum(xg, ops):
-        return ops.window_segsum(vals * xg, t["rbl"], t["win_of_step"],
-                                 num_windows, h, rows_per_step, tables)
+        return seg(vals * xg, ops)
 
     if s.kind == "windowed-x":
         # the windowed gather over x itself, zero-padded to its reach
@@ -755,8 +851,9 @@ def _prepare_stream(s: _Stream, n: int, h: int, rows_per_step: int,
 
 
 def prepare_chips_split(plan: SplitChipsPlan, n: int, device):
-    """Device pipeline of a split plan: ``(contrib, hbm)`` as
-    :func:`prepare_chips`; the streams' sums add in stream order."""
+    """Device pipeline of a split plan on ``chips_x="hot"``: ``(contrib,
+    hbm)`` as :func:`prepare_chips`; the streams' sums add in stream
+    order."""
     parts = [_prepare_stream(s, n, plan.h, plan.rows_per_step,
                              plan.num_windows, device)
              for s in plan.streams]
@@ -972,22 +1069,28 @@ class ChipsKernels(NamedTuple):
     ranked_gather: Callable
     window_gather: Callable
     window_segsum: Callable
+    chips_products: Callable
 
 
 KERNELS = ChipsKernels(ext_gather.sorted_gather, ext_gather.ranked_gather,
-                       ext_gather.window_gather, segsum_kernel.window_segsum)
+                       ext_gather.window_gather, segsum_kernel.window_segsum,
+                       chips_slots.chips_products)
 PLAIN = ChipsKernels(ext_gather.sorted_gather_plain,
                      ext_gather.ranked_gather_plain,
                      ext_gather.window_gather_plain,
-                     segsum_kernel.window_segsum_plain)
+                     segsum_kernel.window_segsum_plain,
+                     chips_slots.chips_products_plain)
 
 
-def prepare_chips_strategy(A: CSR, device="cuda", **_) -> Prepared:
+def prepare_chips_strategy(A: CSR, device="cuda", chips_x: str = "slots",
+                           **_) -> Prepared:
     """``cuda-chips`` (the reference's ``pallas-chips``,
     ``prepare_chips_strategy``): the whole matrix as chips, every row
     reduced cooperatively (the reference study's block-per-row CSR
     kernel), through the single plan or the split plan, landed into a
-    zero y. Refuses (ValueError) a matrix neither plan fits."""
+    zero y; ``chips_x`` as :func:`prepare_chips`. Refuses (ValueError) a
+    matrix neither plan fits."""
+    check_chips_x(chips_x)
     dev = resolve_device(device)
     rows = A.row_ids().astype(np.int64)
     cols = A.ja.astype(np.int64)
@@ -996,7 +1099,7 @@ def prepare_chips_strategy(A: CSR, device="cuda", **_) -> Prepared:
         raise ValueError(
             "cuda-chips: matrix exceeds the resident-hot/VPU budget "
             f"(uniq cols or {A.nnz} entries too large)")
-    contrib, hbm = prepare_chips(plan, A.n, dev)
+    contrib, hbm = prepare_chips(plan, A.n, dev, chips_x)
     m, n = A.m, A.n
     land, use_merge, extra = make_landing(plan.heavy_ids, m, -(-m // BC),
                                           dev)

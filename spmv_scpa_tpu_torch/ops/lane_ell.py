@@ -20,7 +20,8 @@ Counterpart of ``spmv_scpa_tpu/ops/lane_ell.py:prepare_lane_ell_hybrid``
   ``"lanes"``, the planes through ``lane_ell_spmv`` with x staged (the
   ``loc_w`` left pad, the hot columns, and the ext panels through the
   two gather stages of ``ops/ext_gather.py``); then it adds the tail,
-  the same on both layouts: the chips tail (``ops/chips_tail.py``) for
+  the same on both layouts: the chips tail (``ops/chips_tail.py``; its
+  x side on ``chips_x``, one slot kernel by default) for
   2048 entries or more, else the compact tail with ``index_add_``, or,
   past ``tail_xla_max`` entries,
   the big-tail branch: PELL (or, under ``tail_strategy="pallas-xpose"``,
@@ -60,8 +61,8 @@ import torch
 
 from spmv_scpa_tpu_torch import _kernels
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import (chips_tail, ext_gather, lane_rows,
-                                     pell, pell_rows, xpose)
+from spmv_scpa_tpu_torch.ops import (chips_slots, chips_tail, ext_gather,
+                                     lane_rows, pell, pell_rows, xpose)
 from spmv_scpa_tpu_torch.ops.registry import Prepared, record_calls
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
 
@@ -1135,24 +1136,26 @@ def lane_ell_sharded_plain(xpad, r0, vals, idx8, idx16, plane_tabs, ext,
 
 # The functions one hybrid call runs: the core (``lane_rows`` on the
 # rows layout, ``lane_ell_spmv`` on the lanes layout), the three gathers
-# of the ext route and the chips tail, the PELL family's
+# of the ext route, the landing and the chips tail on ``chips_x="hot"``,
+# the chips tail's slot products, the PELL family's
 # (:class:`pell.PellKernels`, the window segment-sum among them) for the
 # chips tail, the no-locality escape and the compact big tail, and
 # XPOSE's (:class:`xpose.XposeKernels`) for the compact XPOSE big tail.
 HybridKernels = NamedTuple("HybridKernels", [
     (name, Callable) for name in ("lane_ell_spmv", "lane_rows",
                                   "sorted_gather", "ranked_gather",
-                                  "window_gather")
+                                  "window_gather", "chips_products")
     + pell.PellKernels._fields + xpose.XposeKernels._fields])
 
 KERNELS = HybridKernels(lane_ell_spmv, lane_rows.lane_rows,
                         ext_gather.sorted_gather, ext_gather.ranked_gather,
-                        ext_gather.window_gather, *pell.KERNELS,
-                        *xpose.KERNELS)
+                        ext_gather.window_gather, chips_slots.chips_products,
+                        *pell.KERNELS, *xpose.KERNELS)
 PLAIN = HybridKernels(lane_ell_spmv_plain, lane_rows.lane_rows_plain,
                       ext_gather.sorted_gather_plain,
                       ext_gather.ranked_gather_plain,
-                      ext_gather.window_gather_plain, *pell.PLAIN,
+                      ext_gather.window_gather_plain,
+                      chips_slots.chips_products_plain, *pell.PLAIN,
                       *xpose.PLAIN)
 
 # The core's layouts: row quanta (ops/lane_rows.py, the default) and the
@@ -1160,13 +1163,20 @@ PLAIN = HybridKernels(lane_ell_spmv_plain, lane_rows.lane_rows_plain,
 CORE_LAYOUTS = ("rows", "lanes")
 
 
-def check_layouts(layouts) -> None:
-    """Raise ValueError for a core layout that is not one of
-    ``CORE_LAYOUTS``."""
-    for layout in layouts:
+def designs(layouts, chips_x: str = "slots") -> list:
+    """``(key, core layout, chips_x)`` of each entry of ``layouts``: a
+    core layout (with ``chips_x``), or a ``(core layout, chips_x)``
+    pair. Raises ValueError for a layout not in ``CORE_LAYOUTS`` or a
+    chips_x not in ``chips_tail.CHIPS_X``."""
+    out = []
+    for key in layouts:
+        layout, cx = key if isinstance(key, tuple) else (key, chips_x)
         if layout not in CORE_LAYOUTS:
             raise ValueError(f"core_layout {layout!r} is not one of "
                              f"{CORE_LAYOUTS}")
+        chips_tail.check_chips_x(cx)
+        out.append((key, layout, cx))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1191,7 +1201,7 @@ def no_locality(A: CSR, loc_w="auto", ext="auto",
 
 def prepare_lane_ell_hybrid(A: CSR, device="cuda", pell_layout="auto",
                             core_layout="rows", xpose_s3="rows",
-                            xpose_s1="auto", **knobs):
+                            xpose_s1="auto", chips_x="slots", **knobs):
     """Pack ``A`` (:func:`pack_lane_ell`, same knobs as the reference)
     and bind ``fn(x) -> y`` on ``device``: run the core, add the tail
     (chips tail and landing, the compact ``index_add_``, or the big-tail
@@ -1205,19 +1215,26 @@ def prepare_lane_ell_hybrid(A: CSR, device="cuda", pell_layout="auto",
     marked ``delegated``. ``pell_layout``: the layout of that escape and
     of a compact PELL tail; ``xpose_s3`` and ``xpose_s1``: the S3 and S1
     designs of a compact XPOSE tail (``xpose.S3_DESIGNS``,
-    ``xpose.S1_DESIGNS``). ``device`` defaults to the card and raises
-    without one; ``"cpu"`` runs the plain versions."""
+    ``xpose.S1_DESIGNS``); ``chips_x``: the chips tail's x side
+    (``chips_tail.CHIPS_X``: ``"slots"``, one kernel over a host slot
+    table, or ``"hot"``, the reference's two gather stages). ``device``
+    defaults to the card and raises without one; ``"cpu"`` runs the
+    plain versions."""
     return prepare_hybrid_layouts(A, (core_layout,), device, pell_layout,
-                                  xpose_s3, xpose_s1, **knobs)[core_layout]
+                                  xpose_s3, xpose_s1, chips_x,
+                                  **knobs)[core_layout]
 
 
 def prepare_hybrid_layouts(A: CSR, layouts=CORE_LAYOUTS, device="cuda",
                            pell_layout="auto", xpose_s3="rows",
-                           xpose_s1="auto", **knobs) -> dict:
-    """:func:`prepare_lane_ell_hybrid` on each core layout of
-    ``layouts`` from one pack: ``{layout: Prepared}``, the tail bound
-    once and shared."""
-    check_layouts(layouts)
+                           xpose_s1="auto", chips_x="slots",
+                           **knobs) -> dict:
+    """:func:`prepare_lane_ell_hybrid` on each design of ``layouts``
+    from one pack: ``{design: Prepared}``. A design is a core layout
+    (its chips tail on ``chips_x``) or a ``(core layout, chips_x)`` pair
+    (:func:`designs`); each core and each chips_x's tail is bound once
+    and shared."""
+    designs(layouts, chips_x)
     xpose.resolve_s1(xpose_s1, xpose_s3)
     dev = resolve_device(device)
     pell.use_layout(pell_layout)
@@ -1229,7 +1246,7 @@ def prepare_hybrid_layouts(A: CSR, layouts=CORE_LAYOUTS, device="cuda",
         prep.meta["d_cov"] = round(d_cov, 4)
         return dict.fromkeys(layouts, prep)
     plan, bound = _bind(A, dev, pell_layout, layouts, (xpose_s3, xpose_s1),
-                        **knobs)
+                        chips_x, **knobs)
     out = {}
     for layout, (run, stage, hbm) in bound.items():
         out[layout] = Prepared(
@@ -1336,14 +1353,14 @@ def _lanes_core(A: CSR, plan: LanePlan, dev):
 
 
 def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xdesign,
-               knobs):
+               chips_x, knobs):
     """The tail of ``plan``, bound once for every core layout: returns
     (``add(y, xf, ops, layout) -> y'``, {layout: its bytes}). Fills the
     plan's meta for a big tail. ``xdesign``: (S3, S1) design of a compact
-    XPOSE tail."""
+    XPOSE tail; ``chips_x``: the chips tail's x side."""
     m, n, G_pad = plan.m, A.n, plan.cfg.G_pad
     if plan.chips is not None:
-        contrib, hbm = chips_tail.prepare_chips(plan.chips, n, dev)
+        contrib, hbm = chips_tail.prepare_chips(plan.chips, n, dev, chips_x)
         land, _, extra = chips_tail.make_landing(
             plan.chips.heavy_ids, m, G_pad, dev, tables=plan.landing)
         return ((lambda y, xf, ops, layout: land(y, contrib(xf, ops), ops)),
@@ -1354,7 +1371,7 @@ def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xdesign,
         tail = CSR.from_coo(A.name + "_tail", m, n, plan.trows, plan.tcols,
                             plan.tvals)
         sub, subs = _bind(
-            tail, dev, pell_layout, layouts, xdesign,
+            tail, dev, pell_layout, layouts, xdesign, chips_x,
             depth=knobs.get("depth", 0) + 1,
             max_depth=knobs.get("max_depth", 2),
             tail_xla_max=knobs.get("tail_xla_max", 32768))
@@ -1397,27 +1414,34 @@ def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xdesign,
 
 
 def _bind(A: CSR, dev, pell_layout="auto", layouts=("rows",),
-          xdesign=("rows", "auto"), **knobs):
-    """Pack ``A`` once and bind it on ``dev`` for each core layout of
-    ``layouts``: returns (plan, {layout: (run, stage, hbm_bytes)}) with
-    ``run(x, ops) -> y`` (m,) and ``stage(xf)`` the core kernel's
-    arguments. The tail is bound once for all layouts; ``xdesign`` is
-    the (S3, S1) design of a compact XPOSE tail."""
+          xdesign=("rows", "auto"), chips_x="slots", **knobs):
+    """Pack ``A`` once and bind it on ``dev`` for each design of
+    ``layouts`` (:func:`designs`): returns (plan, {design: (run, stage,
+    hbm_bytes)}) with ``run(x, ops) -> y`` (m,) and ``stage(xf)`` the
+    core kernel's arguments. Each core layout is bound once, and the
+    tail once per chips_x (``chips_x``: the default of a design that
+    names none); ``xdesign`` is the (S3, S1) design of a compact XPOSE
+    tail."""
     plan = pack_lane_ell(A, **knobs)
     n = A.n
-    add_tail, tail_hbm = _bind_tail(A, plan, dev, pell_layout, layouts,
-                                    xdesign, knobs)
+    ds = designs(layouts, chips_x)
+    cores = [c for c in CORE_LAYOUTS if any(d[1] == c for d in ds)]
+    tails = {cx: _bind_tail(A, plan, dev, pell_layout, cores, xdesign, cx,
+                            knobs)
+             for cx in dict.fromkeys(d[2] for d in ds)}
+    bound = {c: (_rows_core if c == "rows" else _lanes_core)(A, plan, dev)
+             for c in cores}
     out = {}
-    for layout in layouts:
-        core, stage, core_hbm = (_rows_core if layout == "rows"
-                                 else _lanes_core)(A, plan, dev)
+    for key, layout, cx in ds:
+        core, stage, core_hbm = bound[layout]
+        add_tail, tail_hbm = tails[cx]
 
-        def run(x, ops, core=core, layout=layout):
+        def run(x, ops, core=core, layout=layout, add_tail=add_tail):
             xf = torch.as_tensor(x, dtype=torch.float32, device=dev)
             if xf.shape != (n,):
                 raise ValueError(f"cuda-hybrid: x has shape "
                                  f"{tuple(xf.shape)}, expected ({n},)")
             return add_tail(core(xf, ops), xf, ops, layout)
 
-        out[layout] = (run, stage, core_hbm + tail_hbm[layout])
+        out[key] = (run, stage, core_hbm + tail_hbm[layout])
     return plan, out

@@ -33,11 +33,15 @@ Four prepare functions, as in the reference:
   padded x from ``r0``, out-of-window entries through per-shard ext
   panels. The tail rides per-shard chips pipelines (single plans or
   split plans, padded to shared shapes by ``chips_tail.pad_resident_plan``
-  / ``pad_split_plan``) landed by the panel merge or ``index_add_``, or a
-  padded segment-sum, on either layout;
-* :func:`prepare_row_sharded_pell`: fused PELL per shard, the tuning
-  resolved once from the whole matrix, the tile count and span pinned to
-  the shards' largest, and a per-shard row sort undone by the
+  / ``pad_split_plan``; on ``chips_x="slots"`` one ``chips_products``
+  launch per device over all its shards' slot tables) landed by the panel
+  merge or ``index_add_``, or a padded segment-sum, on either layout;
+* :func:`prepare_row_sharded_pell`: on ``layout="rows"`` (the default)
+  a device's shards as one row-quantum plan over their padded rows
+  (``ops/pell_rows.py``), one :func:`pell_rows.pell_rows` launch per
+  device; on ``"tiles"`` the reference's fused PELL per shard, the
+  tuning resolved once from the whole matrix, the tile count and span
+  pinned to the shards' largest, and a per-shard row sort undone by the
   un-permute kernel.
 
 Each returns a :class:`RowShardedSpmv` whose ``fn(x)`` runs the
@@ -57,6 +61,7 @@ from spmv_scpa_tpu_torch.formats.csr import BC, CSR, partition_rows_by_nnz
 from spmv_scpa_tpu_torch.formats.panel_ell import BR, csr_to_pell
 from spmv_scpa_tpu_torch.ops import chips_tail as CT
 from spmv_scpa_tpu_torch.ops import ext_gather, lane_rows, pell
+from spmv_scpa_tpu_torch.ops import pell_rows as prows
 from spmv_scpa_tpu_torch.ops import lane_ell as LE
 from spmv_scpa_tpu_torch.ops.registry import record_calls
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
@@ -123,14 +128,17 @@ class DistKernels(NamedTuple):
     ranked_gather: Callable
     window_gather: Callable
     window_segsum: Callable
+    chips_products: Callable
     pell_fused: Callable
     unpermute: Callable
+    pell_rows: Callable
 
 
 KERNELS = DistKernels(LE.lane_ell_sharded, lane_rows.lane_rows, *CT.KERNELS,
-                      pell.pell_fused, pell.unpermute)
+                      pell.pell_fused, pell.unpermute, prows.pell_rows)
 PLAIN = DistKernels(LE.lane_ell_sharded_plain, lane_rows.lane_rows_plain,
-                    *CT.PLAIN, pell.pell_fused_plain, pell.unpermute_plain)
+                    *CT.PLAIN, pell.pell_fused_plain, pell.unpermute_plain,
+                    prows.pell_rows_plain)
 
 
 @dataclass
@@ -366,7 +374,8 @@ def prepare_row_sharded_hybrid(A: CSR, mesh=None,
                                core_layout: str = "rows", **knobs):
     """Row shards of the lane-ELL hybrid (module docstring), the
     reference's knobs and defaults (:func:`row_sharded_hybrid_layouts`).
-    ``core_layout``: ``"rows"`` (the default) or ``"lanes"``."""
+    ``core_layout``: ``"rows"`` (the default) or ``"lanes"``;
+    ``chips_x`` (a knob): the chips tails' x side."""
     return row_sharded_hybrid_layouts(A, (core_layout,), mesh, n_shards,
                                       **knobs)[core_layout]
 
@@ -379,21 +388,30 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
                                strip_cov: float | None = 0.985,
                                tail_kind: str = "auto",
                                ext: bool | str = "auto",
-                               idx8: bool = False) -> dict:
-    """The row-sharded hybrid on each core layout of ``layouts`` from
-    one packing of the shards: ``{layout: RowShardedSpmv}``, the tails
-    bound once and shared. ``tail_kind``: ``"auto"`` (per-shard chips
-    pipelines for 2048 tail entries or more when they fit, else the
-    padded segment-sum), ``"chips"`` (the chips pipelines, ValueError
-    when a shard's tail fits no plan or there is no tail),
+                               idx8: bool = False,
+                               chips_x: str = "slots") -> dict:
+    """The row-sharded hybrid on each design of ``layouts`` from one
+    packing of the shards: ``{design: RowShardedSpmv}``, each core
+    layout bound once and the tails once per chips_x. ``tail_kind``:
+    ``"auto"`` (per-shard chips pipelines for 2048 tail entries or more
+    when they fit, else the padded segment-sum), ``"chips"`` (the chips
+    pipelines, ValueError when a shard's tail fits no plan or there is no
+    tail),
     ``"chips-split"`` (split plans even where single ones fit) or
-    ``"xla"`` (the segment-sum). f32, as the reference's default
-    ``dtype``. The meta, the same on both layouts, has the reference's
-    keys, and ``strip_sets`` (the union strip set of each plane) and
-    ``tail_meta`` (each shard's chips plan, as the hybrid's meta states
-    it) beside them; ``args`` are the reference's stacked arrays on both
-    layouts; ``hbm_bytes`` counts the layout's own."""
-    LE.check_layouts(layouts)
+    ``"xla"`` (the segment-sum). ``chips_x``: the chips tails' x side
+    (``chips_tail.CHIPS_X``): ``"slots"`` (the default: the slot tables
+    of a device's shards concatenated, one ``chips_products`` launch per
+    device and call, each shard's segment-sums over its rows of the
+    products) or ``"hot"`` (each shard's two gather stages). f32, as the
+    reference's default ``dtype``. ``layouts`` holds designs, as
+    ``lane_ell.designs`` reads them (a core layout, or a ``(core layout,
+    chips_x)`` pair), and the result is keyed by them. The meta, the
+    same on every design, has the reference's keys, and ``strip_sets``
+    (the union strip set of each plane) and ``tail_meta`` (each shard's
+    chips plan, as the hybrid's meta states it) beside them; ``args`` are
+    the reference's stacked arrays on every design; ``hbm_bytes`` counts
+    the design's own."""
+    ds = LE.designs(layouts, chips_x)
     if mesh is None:
         mesh = make_mesh(n_shards)
     n_dev = len(mesh)
@@ -539,7 +557,7 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
     tabs_np = LE.plane_tabs(used_t, n8)
     xw = P_pad * BC
     n, m = A.n, A.m
-    tail_hbm = 0
+    tail_hbm = dict.fromkeys((cx for *_, cx in ds), 0)
 
     def ext_fn(ids, dev):
         """The ext panels (k, G_pad, 128) of a device's shards ``ids``:
@@ -562,11 +580,26 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
                 for j, (p2, l2) in enumerate(st2)])
         return fn
 
-    def tail_fn(d, dev):
-        """Shard d's tail, ``fn(y, xf, ops)`` adding it into the
-        shard's padded y (h_rows,), or None for a shard without one (its
-        padded tail adds exactly zero)."""
-        nonlocal tail_hbm
+    def tail_group(ids, dev, cx):
+        """The tails of a device's shards ``ids`` on chips_x ``cx``:
+        ``(shared, fns)``, with ``shared(xf, ops)`` what the shards' tails
+        share (on ``"slots"`` the products of all their slot tables, one
+        ``chips_products`` launch; else None) and, per shard, ``fn(y, xf,
+        ops, shared) -> y'`` adding its tail into its padded y (h_rows,),
+        or None for a shard without one (its padded tail adds exactly
+        zero)."""
+        chips = [d for d in ids if cores[d].trows.size] if use_chips else []
+        if chips and cx == "slots":
+            products, sums, hbm = CT.bind_slots([cplans[d] for d in chips],
+                                                n, dev)
+            tail_hbm[cx] += hbm
+            sums = dict(zip(chips, sums))
+            return products, [tail_fn(d, dev, cx, sums.get(d)) for d in ids]
+        return (lambda xf, ops: None), [tail_fn(d, dev, cx) for d in ids]
+
+    def tail_fn(d, dev, cx, sums=None):
+        """Shard d's tail (``tail_group``); ``sums(prod, ops)``: its
+        chips' segment-sums over its rows of the shared products."""
         c = cores[d]
         if not c.trows.size:
             return None
@@ -576,21 +609,28 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
             rows = _put(c.trows, torch.int64, dev)
             tcol = _put(c.tcols, torch.int64, dev)
             tv = _put(c.tvals, torch.float32, dev)
-            tail_hbm += c.trows.size * 12
+            tail_hbm[cx] += c.trows.size * 12
 
-            def fn(y, xf, ops):
+            def fn(y, xf, ops, shared):
                 return y.index_add_(0, rows, tv * xf[tcol])
             return fn
-        contrib, hbm = CT.prepare_chips(cplans[d], n, dev)
-        tail_hbm += hbm
+        if sums is None:                       # chips_x="hot"
+            hot, hbm = CT.prepare_chips(cplans[d], n, dev, "hot")
+            tail_hbm[cx] += hbm
+
+            def contrib(xf, ops, shared):
+                return hot(xf, ops)
+        else:
+            def contrib(xf, ops, shared):
+                return sums(shared, ops)
         if use_merge:
             mt = tuple(_put(t, torch.int32, dev) for t in mtabs[d])
-            tail_hbm += CT.merge_hbm(cplans[d].NH, G_pad)
+            tail_hbm[cx] += CT.merge_hbm(cplans[d].NH, G_pad)
         else:
             mt = (_put(cplans[d].heavy_ids, torch.int64, dev),)
 
-        def fn(y, xf, ops):
-            return apply_m(y, contrib(xf, ops), *mt, ops=ops)
+        def fn(y, xf, ops, shared):
+            return apply_m(y, contrib(xf, ops, shared), *mt, ops=ops)
         return fn
 
     def rows_plan(ids):
@@ -608,12 +648,13 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
     rows_hbm = 0
     for dev, ids in _device_groups(mesh):
         k = len(ids)
-        g = dict(dev=dev, ids=ids, tail=[tail_fn(d, dev) for d in ids])
-        if "rows" in layouts:
+        g = dict(dev=dev, ids=ids, tails={
+            cx: tail_group(ids, dev, cx) for cx in tail_hbm})
+        if any(layout == "rows" for _, layout, _ in ds):
             cp = rows_plan(ids)
             rows_hbm += cp.hbm_bytes
             g["rows"] = lane_rows.bind(cp, dev)
-        if "lanes" in layouts:
+        if any(layout == "lanes" for _, layout, _ in ds):
             g.update(
                 vals=_put(vals_s[ids], torch.float32, dev),
                 idx8=_put(idx8_s[ids], torch.int8, dev),
@@ -635,15 +676,17 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
     def rows_core(g, xf, ops):
         return ops.lane_rows(*g["rows"], xf).view(len(g["ids"]), h_rows)
 
-    def run_on(core):
+    def run_on(core, cx):
         def run(xs, ops):
             y_pad = [None] * n_dev
             for g in groups:
                 xf = xs[g["dev"]]
                 y = core(g, xf, ops)
-                for j, (d, tail) in enumerate(zip(g["ids"], g["tail"])):
+                share, tails = g["tails"][cx]
+                shared = share(xf, ops)
+                for j, (d, tail) in enumerate(zip(g["ids"], tails)):
                     y_pad[d] = y[j, :h_rows] if tail is None else \
-                        tail(y[j, :h_rows], xf, ops)
+                        tail(y[j, :h_rows], xf, ops, shared)
             return _unpad_rows(y_pad, bounds, m, mesh[0])
         return run
 
@@ -663,11 +706,12 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
     if use_chips:
         meta["tail_meta"] = [CT.chips_meta(p, use_merge) for p in cplans]
     core_hbm = {"rows": rows_hbm, "lanes": n_dev * G_pad * BC * slot_b}
-    return {layout: _finish(
+    return {key: _finish(
         "row-sharded-hybrid", A, mesh, bounds,
-        run_on(rows_core if layout == "rows" else lanes_core), meta=meta,
-        args=tuple(args), hbm_bytes=core_hbm[layout] + tail_hbm)
-        for layout in layouts}
+        run_on(rows_core if layout == "rows" else lanes_core, cx),
+        meta=meta, args=tuple(args),
+        hbm_bytes=core_hbm[layout] + tail_hbm[cx])
+        for key, layout, cx in ds}
 
 
 # ---------------------------------------------------------------------------
@@ -675,21 +719,88 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
 # ---------------------------------------------------------------------------
 
 def prepare_row_sharded_pell(A: CSR, mesh=None, n_shards: int | None = None,
+                             layout: str = "rows",
                              quantum: int | str = "auto",
                              window_h: int | str = "auto",
                              chunk: int | str = "auto",
                              panel_w: int | str = "auto",
                              row_sort: bool | str = "auto",
                              span_max: int = 8):
-    """Row shards of the fused PELL kernel. The tuning (quantum,
-    window_h, panel_w, row_sort, chunk) is resolved once from the whole
-    matrix, so one shard packs as single-card ``cuda-pell`` does; the
+    """Row shards of PELL. ``layout``: ``"rows"`` (the default: each
+    device's shards as one row-quantum plan over their padded rows,
+    shard j's at ``j * h_rows``, one :func:`pell_rows.pell_rows` launch
+    per device, x read in place; Q from
+    :func:`pell_rows.pick_quantum` over the whole matrix's row lengths,
+    so that every device takes the same Q, unless ``quantum`` is given;
+    no row sort, no window escalation, no un-permute; the tile knobs
+    given recorded in ``meta["tile_knobs"]``) or ``"tiles"`` (the
+    reference's fused PELL per shard, :func:`_row_sharded_pell_tiles`)."""
+    if layout not in ("rows", "tiles"):
+        raise ValueError(f"row-sharded PELL: layout {layout!r} is not "
+                         "'rows' or 'tiles'")
+    if mesh is None:
+        mesh = make_mesh(n_shards)
+    if layout == "tiles":
+        return _row_sharded_pell_tiles(A, mesh, quantum, window_h, chunk,
+                                       panel_w, row_sort, span_max)
+    n_dev = len(mesh)
+    Q = (prows.pick_quantum(np.diff(A.irp).astype(np.int64), 4)
+         if quantum == "auto" else quantum)
+    bounds, h_rows = plan_row_shards(A, n_dev)
+    groups, plans = [], []
+    for dev, ids in _device_groups(mesh):
+        plan = prows.plan_pell_rows(_stack_shards(A, bounds, ids, h_rows),
+                                    torch.float32, Q)
+        plans.append(plan)
+        groups.append((dev, ids, prows.bind_plan(plan, dev)))
+
+    def run(xs, ops):
+        y_pad = [None] * n_dev
+        for dev, ids, rows in groups:
+            y = rows(xs[dev], ops).view(len(ids), h_rows)
+            for j, d in enumerate(ids):
+                y_pad[d] = y[j]
+        return _unpad_rows(y_pad, bounds, A.m, mesh[0])
+
+    quanta = sum(p.meta["quanta"] for p in plans)
+    meta = {"layout": "rows", "quantum": Q, "quanta": quanta,
+            "blocks": sum(p.meta["blocks"] for p in plans),
+            "fill": A.nnz / max(quanta * Q, 1), "h_rows": h_rows}
+    tile = {k: v for k, v, default in (
+        ("window_h", window_h, "auto"), ("chunk", chunk, "auto"),
+        ("panel_w", panel_w, "auto"), ("row_sort", row_sort, "auto"),
+        ("span_max", span_max, 8)) if v != default}
+    if tile:
+        meta["tile_knobs"] = tile
+    return _finish("row-sharded-pell", A, mesh, bounds, run, meta=meta,
+                   args=tuple(a for p in plans for a in (
+                       p.vals, p.cols, p.qptr, p.blk_lo)),
+                   hbm_bytes=sum(p.hbm_bytes for p in plans))
+
+
+def _stack_shards(A: CSR, bounds: np.ndarray, ids, h_rows: int) -> CSR:
+    """The shards ``ids`` of ``A`` as one CSR of ``len(ids) * h_rows``
+    rows, shard j's rows at ``j * h_rows`` (each padded with empty rows
+    to ``h_rows``), columns global."""
+    parts = [_shard(A, bounds, d, h_rows) for d in ids]
+    off = np.cumsum([0] + [S.nnz for S in parts])
+    irp = np.concatenate([np.zeros(1, np.int64)] + [
+        S.irp[1:].astype(np.int64) + o for S, o in zip(parts, off)])
+    return CSR(A.name, len(ids) * h_rows, A.n, irp,
+               np.concatenate([S.ja for S in parts]),
+               np.concatenate([S.as_ for S in parts]))
+
+
+def _row_sharded_pell_tiles(A: CSR, mesh, quantum, window_h, chunk,
+                            panel_w, row_sort, span_max: int):
+    """Row shards of the fused PELL kernel (``layout="tiles"``). The
+    tuning (quantum, window_h, panel_w, row_sort, chunk) is resolved once
+    from the whole matrix, so one shard packs as single-card
+    ``cuda-pell`` on the tiles does; the
     window height escalates jointly until every shard's span is within
     ``span_max`` (or windows cover a shard); the tile count and the span
     pin to the shards' largest. A row-sorted shard's y goes through the
     un-permute kernel."""
-    if mesh is None:
-        mesh = make_mesh(n_shards)
     n_dev = len(mesh)
 
     auto = pell.auto_pell_params(A, quantum=quantum, window_h=window_h,

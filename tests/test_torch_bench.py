@@ -469,7 +469,8 @@ def test_chip_smoke_rows_core_yardstick_and_bound(name):
     assert cs.free_bound_ms(args, out) > 0
     got = cs.library(kname, args, A, xd)().reshape(-1)
     torch.testing.assert_close(got, out, rtol=1e-5, atol=1e-5)
-    assert cs.LINE_ORDER.count("lane_rows") == 1 and len(cs.LINE_ORDER) == 25
+    assert cs.LINE_ORDER.count("lane_rows") == 1 and len(cs.LINE_ORDER) == 27
+    assert cs.LINE_ORDER.count("pell_rows") == 2    # single card, row shards
 
 
 def _bits_bound_case():
@@ -515,3 +516,30 @@ def test_chip_smoke_bound_counts_the_bitmap_layout(cols):
     torch.testing.assert_close(got, out, rtol=1e-6, atol=0)
     assert cs.SOURCES[name][0] == "spmv_scpa_tpu_torch/csrc/bcsr_bits.cu"
     assert name in cs.LINE_ORDER and name in cs.EXACT_BOTH
+
+
+def test_chip_smoke_bound_counts_the_slot_products():
+    """``chips_products``' bound charges its column and value tables and
+    its products whole (12 B a slot) and x only at the distinct columns
+    its slots read (-1 and columns past x read nothing): 5 distinct
+    columns; its operations are the reading slots' products. Its
+    yardstick ``x_pad[cols]`` gathers what the kernel multiplies."""
+    cs = _chip_smoke()
+    from spmv_scpa_tpu_torch.ops import chips_slots
+    cols = torch.full((2, 128), -1, dtype=torch.int32)
+    cols[0, :6] = torch.tensor([3, 3, 7, 11, 300, 400], dtype=torch.int32)
+    cols[1, :3] = torch.tensor([7, 0, 299], dtype=torch.int32)
+    vals = torch.arange(256, dtype=torch.float32).view(2, 128) + 1
+    x = torch.arange(300, dtype=torch.float32)
+    args = (cols, vals, x)
+    out = chips_slots.chips_products_plain(*args)
+    ms, by = cs.bound("chips_products", args, out)
+    nbytes = 3 * 256 * 4 + 5 * 4
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / cs.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    got = cs.library("chips_products", args, None, x)()
+    assert torch.equal(got * vals, out)
+    assert cs.SOURCES["chips_products"][0] == \
+        "spmv_scpa_tpu_torch/csrc/chips_products.cu"
+    assert "chips_products" in cs.LINE_ORDER and \
+        "chips_products" in cs.EXACT_BOTH

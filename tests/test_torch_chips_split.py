@@ -197,7 +197,8 @@ def test_split_plan_sums_match_jax():
     raw, args, jhbm = jax_ct.prepare_chips(jplan, n, jnp.float32, True)
     ys_jax, hid = raw(jnp.asarray(x, jnp.float32), *args)
     plan = ct.plan_chips_split(rows, cols, vals, m, n)
-    contrib, hbm = ct.prepare_chips(plan, n, torch.device("cpu"))
+    # the reference's pipeline (its bytes): the gather stages
+    contrib, hbm = ct.prepare_chips(plan, n, torch.device("cpu"), "hot")
     ys = contrib(torch.as_tensor(x, dtype=torch.float32), ct.PLAIN)
     np.testing.assert_array_equal(np.asarray(hid), plan.heavy_ids)
     assert _rel_l2(ys.numpy(), np.asarray(ys_jax, np.float64)) <= REL_L2
@@ -333,10 +334,12 @@ def test_heavy_scatter_takes_the_split_plan():
     """``heavy_scatter`` through ``cuda-hybrid``: a 128,000-entry tail
     whose single plan does not fit rides the split plan (a direct-x local
     stream and a far resident one) and the panel merge; meta as the
-    reference's, y against the JAX hybrid's and the oracle."""
+    reference's, y against the JAX hybrid's and the oracle; on
+    ``chips_x="hot"`` the streams run the reference's gathers (the slot
+    products: tests/test_torch_chips_slots.py)."""
     A = cases.heavy_scatter()
     jA = JaxCSR(A.name, A.m, A.n, A.irp, A.ja, A.as_)
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu")
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", chips_x="hot")
     jprep = jax_hybrid(jA, interpret=True)
     assert prep.meta["tail_kind"] == jprep.meta["tail_kind"] == "chips"
     assert prep.meta == {**jprep.meta, "tail_kind": "chips"}
@@ -357,7 +360,8 @@ def test_heavy_scatter_takes_the_split_plan():
 def test_cuda_chips_matches_pallas_chips(name):
     make = cases.CHIPS_CASES[name]
     A = make(synth)
-    prep = get_strategy("cuda-chips").prepare(A, device="cpu")
+    # the reference's pipeline, whose bytes hbm_bytes counts
+    prep = get_strategy("cuda-chips").prepare(A, device="cpu", chips_x="hot")
     jprep = jax_ct.prepare_chips_strategy(make(jax_synth), interpret=True)
     assert prep.meta == jprep.meta and prep.hbm_bytes == jprep.hbm_bytes
     assert prep.ref == "pallas-chips"

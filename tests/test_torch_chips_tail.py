@@ -82,7 +82,8 @@ def test_per_row_sums_match_jax(tail):
     _, (rows, cols, vals, m, n) = tail
     plan = ct.plan_chips(rows, cols, vals, m, n)
     x = np.random.default_rng(5).standard_normal(n).astype(np.float32)
-    contrib, hbm = ct.prepare_chips(plan, n, torch.device("cpu"))
+    # the reference's pipeline (its bytes): the two gather stages
+    contrib, hbm = ct.prepare_chips(plan, n, torch.device("cpu"), "hot")
     raw, args, jhbm = jax_ct.prepare_chips(jax_ct.plan_chips(
         rows, cols, vals, m, n), n, jnp.float32, True)
     ys_jax, hid = raw(jnp.asarray(x), *args)

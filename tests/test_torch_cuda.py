@@ -42,7 +42,11 @@ version run on the CPU, and within rel-L2 1e-6 of it on the card, on
 16-bit and 32-bit index blocks, single-card and row-sharded. The
 bitmap BCSR kernels ``bcsr_bits`` and ``bcsr_bits_spmm`` add in their
 plain versions' fixed order without atomics: bit-equal to them on the
-card and run on the CPU, at 1, 3, 8, 64 and 100 columns.
+card and run on the CPU, at 1, 3, 8, 64 and 100 columns. The chips
+tail's slot products ``chips_products`` round one f32 product a slot as
+their plain version does: bit-equal on the card and run on the CPU; y on
+``chips_x="slots"`` equals y on ``"hot"``. The row-sharded PELL on row
+quanta, one ``pell_rows`` launch a call, as the whole hybrid call.
 """
 
 import numpy as np
@@ -921,7 +925,8 @@ def test_dryrun_routes_on_one_card(card, name, layout):
 
 def test_sharded_pell_row_sort_on_one_card(card):
     A = synth.powerlaw_csr(1200, 1200, seed=21)
-    prep = distributed.prepare_row_sharded_pell(A, mesh=[card] * 4)
+    prep = distributed.prepare_row_sharded_pell(A, mesh=[card] * 4,
+                                                layout="tiles")
     assert prep.meta["row_sort"]
     calls = _dist_check(prep, A, card)
     assert {k for k, _ in calls} == {"pell_fused", "unpermute"}
@@ -954,23 +959,124 @@ def test_split_streams_match_plain(card):
     cuda-hybrid (direct-x local stream and a far resident one), and a
     whole webbase stand-in through cuda-chips (split)."""
     A = cases.heavy_scatter()
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device=card)
-    assert prep.meta["tail_meta"]["split"]
     B = synth.webbase_csr(m=30000)
-    chips = get_strategy("cuda-chips").prepare(B, device=card)
-    assert chips.meta["split"]
-    for M, p in ((A, prep), (B, chips)):
-        x = make_x(M.n)
-        xd = torch.as_tensor(x, dtype=torch.float32, device=card)
-        yk = to_numpy(p.fn(xd))
-        yt = to_numpy(p.plain(xd))
-        assert np.linalg.norm(yk - yt) <= \
-            KERNEL_VS_PLAIN_REL_L2 * np.linalg.norm(yt)
-        validate_result(spmv_oracle(M, x), yk, what=f"split on {M.name}")
-        calls = p.kernel_calls(xd)
-        assert {"window_gather", "window_segsum"} <= {k for k, _ in calls}
-        for kname, args in calls:
-            _replay(kname, args)
+    ys = {}
+    for chips_x, kernel in (("hot", "window_gather"),
+                            ("slots", "chips_products")):
+        prep = lane_ell.prepare_lane_ell_hybrid(A, device=card,
+                                                chips_x=chips_x)
+        assert prep.meta["tail_meta"]["split"]
+        chips = get_strategy("cuda-chips").prepare(B, device=card,
+                                                   chips_x=chips_x)
+        assert chips.meta["split"]
+        for M, p in ((A, prep), (B, chips)):
+            x = make_x(M.n)
+            xd = torch.as_tensor(x, dtype=torch.float32, device=card)
+            yk = p.fn(xd)
+            ys.setdefault(M.name, []).append(yk)
+            yk = to_numpy(yk)
+            yt = to_numpy(p.plain(xd))
+            assert np.linalg.norm(yk - yt) <= \
+                KERNEL_VS_PLAIN_REL_L2 * np.linalg.norm(yt)
+            validate_result(spmv_oracle(M, x), yk,
+                            what=f"split on {M.name}, {chips_x}")
+            calls = p.kernel_calls(xd)
+            assert {kernel, "window_segsum"} <= {k for k, _ in calls}
+            for kname, args in calls:
+                _replay(kname, args)
+    for name, (hot, slots) in ys.items():
+        assert torch.equal(hot, slots), name
+
+
+# ---- the chips tail's slot products and the row-sharded PELL on rows ------
+
+def _products_case(card):
+    """A table of 64 chip rows over x of 5,000: columns in x, -1 (reads
+    nothing) and past x (reads nothing), explicit 0.0 values; x is inf
+    and NaN at columns no slot names."""
+    rng = np.random.default_rng(4)
+    n = 5000
+    cols = rng.integers(0, n - 2, (64, BC)).astype(np.int32)
+    cols[rng.random(cols.shape) < 0.2] = -1
+    cols[0, :3] = (n, n + 7, -1)
+    vals = rng.standard_normal(cols.shape).astype(np.float32)
+    vals[1, :5] = 0.0
+    x = rng.standard_normal(n).astype(np.float32)
+    x[n - 2], x[n - 1] = np.inf, np.nan
+    return tuple(torch.as_tensor(a, device=card) for a in (cols, vals, x))
+
+
+def test_chips_products_matches_plain(card):
+    """Bit-equal to its plain version on the card and run on the CPU,
+    +0.0 at every slot whose column lies outside x, finite where x is
+    non-finite only at columns no slot names; one launch a call."""
+    from spmv_scpa_tpu_torch.ops import chips_slots
+    cols, vals, x = _products_case(card)
+    before = chips_slots.LAUNCHES["chips_products"]
+    out = chips_slots.chips_products(cols, vals, x)
+    torch.cuda.synchronize()
+    assert chips_slots.LAUNCHES["chips_products"] == before + 1
+    plain = chips_slots.chips_products_plain(cols, vals, x)
+    assert torch.equal(out, plain)
+    assert torch.equal(out.cpu(), chips_slots.chips_products_plain(
+        cols.cpu(), vals.cpu(), x.cpu()))
+    assert bool(torch.isfinite(out).all())
+    off = (cols < 0) | (cols >= x.numel())
+    assert bool((out[off] == 0).all()) and not bool(out[off].signbit().any())
+    ok = ~off
+    want = vals[ok] * x[cols[ok].long()]
+    assert torch.equal(out[ok], want)
+
+
+def test_chips_products_refuses_bad_arguments(card):
+    from spmv_scpa_tpu_torch.ops import chips_slots
+    cols, vals, x = _products_case(card)
+    fn = chips_slots.chips_products
+    before = dict(chips_slots.LAUNCHES)
+    for bad, what in (((cols.long(), vals, x), "cols"),
+                      ((cols, vals.double(), x), "vals"),
+                      ((cols, vals, x.cpu()), "x is on cpu"),
+                      ((cols, vals, x.double()), "x is"),
+                      ((cols.view(-1)[1:1 + 63 * BC].view(63, BC),
+                        vals[1:].contiguous(), x), "16-byte")):
+        with pytest.raises(ValueError, match=what):
+            fn(*bad)
+    assert chips_slots.LAUNCHES == before
+
+
+def test_sharded_chips_launch_once_per_card(card):
+    """amazon40k at 4 shards of one card: the shards' chips tails share
+    one ``chips_products`` launch a call, and y equals the two gather
+    stages' (``chips_x="hot"``)."""
+    from spmv_scpa_tpu_torch.ops import chips_slots
+    A = synth.amazon_csr(40_000, seed=11)
+    slots = distributed.prepare_row_sharded_hybrid(A, mesh=[card] * 4)
+    hot = distributed.prepare_row_sharded_hybrid(A, mesh=[card] * 4,
+                                                 chips_x="hot")
+    assert slots.meta["tail_kind"] == "chips"
+    calls = _dist_check(slots, A, card)
+    assert [k for k, _ in calls].count("chips_products") == 1
+    assert "sorted_gather" not in {k for k, _ in calls}
+    xd = torch.as_tensor(make_x(A.n), dtype=torch.float32, device=card)
+    before = chips_slots.LAUNCHES["chips_products"]
+    y = slots.fn(xd)
+    assert chips_slots.LAUNCHES["chips_products"] == before + 1
+    assert torch.equal(y, hot.fn(xd))
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_sharded_pell_rows_on_one_card(card, k):
+    """The row-sharded PELL on row quanta: one ``pell_rows`` launch a
+    call for the card's k shards, against its plain call and the
+    oracle."""
+    A = synth.powerlaw_csr(6000, 6000, seed=21)
+    prep = distributed.prepare_row_sharded_pell(A, mesh=[card] * k)
+    assert prep.meta["layout"] == "rows"
+    calls = _dist_check(prep, A, card)
+    assert [n for n, _ in calls] == ["pell_rows"]
+    before = pell_rows.LAUNCHES["pell_rows"]
+    prep.fn(torch.zeros(A.n, device=card))
+    assert pell_rows.LAUNCHES["pell_rows"] == before + 1
 
 
 # ---- the lane-ELL core in row quanta -------------------------------------------

@@ -12,12 +12,13 @@ generator from the same seed.
 Tolerances:
 * the stacked host arrays (the reference's ``out.args``: planes, int8
   codes over the union strip sets, r0, ext tables, padded chips or split
-  plans, merge tables, segment-sum tails, PELL tables) and the meta:
-  exact;
+  plans, merge tables, segment-sum tails, PELL tables on
+  ``layout="tiles"``) and the meta: exact;
 * the union strip sets: exact, read from the reference kernel's closure;
-* the port's y (plain versions on the CPU, the default rows core)
-  against the JAX y, once per route at 4 shards (the Pallas kernels in
-  interpret mode): rel-L2 <= 1e-6, except the fused PELL route, <= 1e-5: the reference's fused
+* the port's y (plain versions on the CPU, the default rows core and
+  the PELL's default row layout) against the JAX y, once per route at 4
+  shards (the Pallas kernels in interpret mode): rel-L2 <= 1e-6, except
+  the PELL route, <= 1e-5: the reference's fused
   kernel reduces with two bf16 split passes (``precision_passes=2``, 16
   bits of each operand), 3.6e-6 from the fp64 oracle on this case, where
   the port's f32 sums are 6e-8 from it;
@@ -64,12 +65,20 @@ def _mesh(k):
     return D.make_mesh(devices=["cpu"] * k)
 
 
-def _build(prep_fn, make, k, **kw):
-    """Both packages' prepared SpMV of ``make(module)`` on k shards."""
+def _build(prep_fn, make, k, port_kw=None, **kw):
+    """Both packages' prepared SpMV of ``make(module)`` on k shards;
+    ``port_kw``: knobs of the port's alone."""
     jkw = dict(kw) if prep_fn == SEGSUM else {**kw, "interpret": True}
     jd = getattr(JD, prep_fn)(make(jax_synth), mesh=_jax_mesh(k), **jkw)
     A = make(synth)
-    return jd, getattr(D, prep_fn)(A, mesh=_mesh(k), **kw), A
+    return jd, getattr(D, prep_fn)(A, mesh=_mesh(k), **kw,
+                                   **(port_kw or {})), A
+
+
+# the port's knobs of the parity tests that hold its arrays to the
+# reference's: the PELL on the reference's tiles (its default is the row
+# layout: tests/test_torch_dist_pell_rows.py)
+PARITY = {PELL: {"layout": "tiles"}}
 
 
 def _closure_value(fn, fname: str, var: str, seen=None):
@@ -161,7 +170,7 @@ def test_dryrun_routes_pack_like_the_reference(name, k):
         with pytest.raises(ValueError, match="forced"):
             getattr(D, prep_fn)(mk(synth), mesh=_mesh(k), **kw)
         return
-    jd, pd, A = _build(prep_fn, mk, k, **kw)
+    jd, pd, A = _build(prep_fn, mk, k, PARITY.get(prep_fn), **kw)
     assert_same_arrays(prep_fn, jd, pd)
     _validate(A, pd, f"{name} on {k} shards")
     if name == "hybrid-chips-split":
@@ -235,7 +244,7 @@ REF_CASES = {
                                      for k in ks])
 def test_reference_cases_pack_like_the_reference(name, k):
     prep_fn, make, _, kw = REF_CASES[name]
-    jd, pd, A = _build(prep_fn, make, k, **kw)
+    jd, pd, A = _build(prep_fn, make, k, PARITY.get(prep_fn), **kw)
     assert_same_arrays(prep_fn, jd, pd)
     _validate(A, pd, f"{name} on {k} shards")
     if prep_fn == HYBRID and "tail_kind" in kw:
@@ -244,7 +253,8 @@ def test_reference_cases_pack_like_the_reference(name, k):
 
 # the kernels a call with ext panels and chips tails runs, by core layout:
 # the rows core reads x in place, the ext gathers only build the lanes
-# core's panels (the chips tails gather on both)
+# core's panels (the chips tails on chips_x="hot" gather on both; the
+# slot products: tests/test_torch_chips_slots.py)
 EXT_ROUTE = {"lanes": {"lane_ell_sharded", "sorted_gather", "ranked_gather",
                        "window_segsum"},
              "rows": {"lane_rows", "sorted_gather", "ranked_gather",
@@ -257,9 +267,10 @@ def test_ext_panels_absorb_the_out_of_window_entries(layout):
     tail at 4 shards is under a quarter of the tail without them."""
     make = REF_CASES["hybrid-amazon40k-ext"][1]
     A = make(synth)
-    on = D.prepare_row_sharded_hybrid(A, mesh=_mesh(4), core_layout=layout)
+    on = D.prepare_row_sharded_hybrid(A, mesh=_mesh(4), core_layout=layout,
+                                      chips_x="hot")
     off = D.prepare_row_sharded_hybrid(A, mesh=_mesh(4), ext=False,
-                                       core_layout=layout)
+                                       core_layout=layout, chips_x="hot")
     assert on.meta["ext"] and on.meta["ext_n_out"] > 0 and not off.meta["ext"]
     assert on.meta["tail_nnz"] < 0.25 * off.meta["tail_nnz"]
     calls = on.kernel_calls(torch.zeros(A.n))

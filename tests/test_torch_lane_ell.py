@@ -94,11 +94,15 @@ def test_jax_cases_cover_the_small_cases():
 def _port(name):
     """One small case's matrix, knobs, packed plan and CPU-bound
     ``cuda-hybrid`` on each core layout ({layout: Prepared}, one pack),
-    built once for the whole module (the tests do not mutate them)."""
+    built once for the whole module (the tests do not mutate them). The
+    chips tail runs the reference's gathers (``chips_x="hot"``), whose
+    bytes and kernels these tests pin; the slot products:
+    tests/test_torch_chips_slots.py."""
     make, kw = CASES[name]
     A = make()
     return (A, kw, lane_ell.pack_lane_ell(A, **kw),
-            lane_ell.prepare_hybrid_layouts(A, device="cpu", **kw))
+            lane_ell.prepare_hybrid_layouts(A, device="cpu", chips_x="hot",
+                                            **kw))
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
