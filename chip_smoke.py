@@ -147,7 +147,21 @@ the script exits non-zero:
    A/B;
 27. main path 17, ``dist-powerlaw100k-pell``: ``powerlaw100k`` through
    ``prepare_row_sharded_pell`` at mesh 1 (the tile layout): the fused
-   kernel and the un-permute.
+   kernel and the un-permute;
+28. the port's CLI as its users run it (``cli.run`` in process,
+   ``cli_phase``): (a) ``amazon262k`` written as a ``.mtx``, read by the
+   native parser into the layout cache, with ``-d --chunks 64
+   --distributed --spmm-cols 8 --host-parallel`` and ``-b`` every torch
+   and cuda SpMV strategy; ``lane_rows``, ``chips_products``,
+   ``window_segsum`` and ``pell_rows`` must launch; the same command
+   again must read the cache without a parse and append under the
+   single headers; then the runner's ``cuda-hybrid`` row beside path 2's
+   call time; (b) the ``stencil48k`` spec through ``cuda-hybrid``,
+   ``cuda-hybrid-fp64`` and ``cuda-bcsr`` with the SpMM at 8 and 64
+   columns; ``bcsr_bits``, ``bcsr_bits_spmm`` and ``lane_ell_fp64`` must
+   launch. Each run must exit 0, every row must have passed ``-d``,
+   every skipped cell must be a refusal (printed with its reason), the
+   CSVs carry the reference's headers and the JAX package's kernel ids.
 
 Each path sets the launch counts to 0 just before it and reads them
 just after; replays that hold a kernel against its plain version come
@@ -241,23 +255,28 @@ yardsticks.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels, get_strategy, list_strategies, spmv
+from spmv_scpa_tpu_torch import _kernels, cli, get_strategy, list_strategies
+from spmv_scpa_tpu_torch import spmv
 from spmv_scpa_tpu_torch import testing as synth
-from spmv_scpa_tpu_torch.bench import cases, roofline as roof
+from spmv_scpa_tpu_torch.bench import cases, logger, roofline as roof
+from spmv_scpa_tpu_torch.bench.runner import REFUSALS
 from spmv_scpa_tpu_torch.bench.timing import (time_cuda, time_device,
                                               time_prepared)
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
+from spmv_scpa_tpu_torch.io import cache, mmio, native
 from spmv_scpa_tpu_torch.ops import (bcsr_bits, chips_slots, ext_gather,
                                      lane_ell, lane_ell_fp64, lane_rows,
-                                     pell, pell_rows, segsum_kernel, spmm,
-                                     xpose, xpose_plan)
+                                     native_omp, pell, pell_rows,
+                                     segsum_kernel, spmm, xpose, xpose_plan)
 from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import FP64_RTOL, pick_auto, to_numpy
 from spmv_scpa_tpu_torch.parallel import distributed
@@ -1369,7 +1388,7 @@ def layouts_path(name, A, knobs, dev, card, kernels, lanes_kernels, branch,
     same pack binds the rows core with the chips tail on
     ``chips_x="hot"`` too, and the chips A/B follows (``chips_ab``).
     Returns (the rows run's kernel table and counts, the lanes run's,
-    the rows Prepared)."""
+    the rows Prepared, its timed result)."""
     held = {}
     dist = "mesh" in knobs
     hot = ("rows", "hot")
@@ -1382,7 +1401,7 @@ def layouts_path(name, A, knobs, dev, card, kernels, lanes_kernels, branch,
         return held["rows"]
 
     strategy = "row-sharded-hybrid" if dist else "cuda-hybrid"
-    rt, rc, rows, _ = full_path(name, A, strategy, knobs, dev, card, kernels,
+    rt, rc, rows, r = full_path(name, A, strategy, knobs, dev, card, kernels,
                                 branch, branch_what, describe=describe,
                                 profile=profile, prepare=prepare,
                                 forbid=forbid)
@@ -1394,7 +1413,7 @@ def layouts_path(name, A, knobs, dev, card, kernels, lanes_kernels, branch,
     core_ab(name, rows, lanes, xd, A, card)
     if chips:
         chips_ab(name, held[hot], rows, xd, card)
-    return rt, rc, lt, lc, rows
+    return rt, rc, lt, lc, rows, r
 
 
 def x_side_calls(hot, slots, xd):
@@ -1941,7 +1960,7 @@ def dist_phases(dev, card, flagship_A, PL):
     knobs = {"loc_w": 256, "chunk": 24}
     hybrid = distributed.prepare_row_sharded_hybrid
     A = flagship_A
-    *_, fl, fl_counts, rows1 = layouts_path(
+    *_, fl, fl_counts, rows1, _ = layouts_path(
         "dist-flagship", A, {**knobs, "mesh": [dev]}, dev, card,
         ("lane_rows",), ("lane_ell_sharded",),
         lambda m: m["tail_kind"] == "xla", "the segment-sum tail",
@@ -1977,7 +1996,7 @@ def dist_phases(dev, card, flagship_A, PL):
     # 26. main path 16: amazon262k on four shards with idx8, and the
     # chips A/B; one chips_products launch a call for the four shards
     AZ = cases.amazon262k()
-    *_, az4 = layouts_path(
+    *_, az4, _ = layouts_path(
         "dist-amazon262k-4x1", AZ, {"idx8": True, "mesh": [dev] * 4}, dev,
         card, ("lane_rows",) + CHIPS_KERNELS,
         ("lane_ell_sharded", "sorted_gather", "ranked_gather")
@@ -2017,6 +2036,126 @@ def dist_phases(dev, card, flagship_A, PL):
     one_call("dist-powerlaw100k-pell-4x1", prep4, PL.n, "pell_rows", dev)
     del prep4
     return fl, fl_counts, dpl, dpl_counts, dpt, dpt_counts
+
+
+def cli_run(tag, argv, card):
+    """One in-process run of the port's CLI (``cli.run``), the launch
+    counts set to 0 just before it and read just after. It must exit 0,
+    every row must have passed ``-d``, and every skipped cell must be a
+    refusal (``ValueError`` / ``NotImplementedError``); each row and each
+    skipped cell is printed. Returns (the run, its counts)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    done = cli.run(argv)
+    secs = time.perf_counter() - t0
+    launched = counts()
+    if done.code != 0:
+        raise AssertionError(f"[cli {tag}] exit {done.code}")
+    for r in done.results:
+        if r.rel_err is None:
+            raise AssertionError(f"[cli {tag}] {r.strategy} not validated")
+        print(f"[cli {tag}] {r.strategy} chunk {r.chunk} "
+              f"{r.bench.duration_ms:.4f} ms {r.bench.gflops:.2f} GFLOP/s "
+              f"rel_err {r.rel_err:.3e} | {card}", flush=True)
+    for name, chunk, why in done.cfg.skipped:
+        print(f"[cli {tag}] skipped {name} (chunk={chunk}): {why}",
+              flush=True)
+        if not why.startswith(tuple(f"refused ({e.__name__})"
+                                    for e in REFUSALS)):
+            raise AssertionError(f"[cli {tag}] {name}: not a refusal")
+    print(f"[cli {tag}] {secs:.1f} s, {len(done.results)} rows, "
+          f"{len(done.cfg.skipped)} skipped | launches "
+          f"{ {k: v for k, v in launched.items() if v} } | {card}",
+          flush=True)
+    return done, launched
+
+
+def check_csvs(tag, out, done, runs=1):
+    """The CSVs of ``runs`` identical CLI runs into ``out``: each file has
+    the JAX package's header once (``logger._HEADERS``, held equal to it
+    by the tests), ``runs`` times the run's rows, and every ``kernel`` id
+    is one of the JAX package's (``logger.REF_IDS``)."""
+    rows = {"serial": 0, "omp": 0, "cuda": 0}
+    for r in done.results:
+        kind = ("serial" if r.strategy.startswith("oracle-") else
+                "omp" if "@" in r.strategy else "cuda")
+        rows[kind] += 1
+    for kind, header in logger._HEADERS.items():
+        with open(os.path.join(out, f"{kind}.csv")) as f:
+            lines = f.read().splitlines()
+        if lines[0] != header or lines.count(header) != 1 \
+                or len(lines) != 1 + runs * rows[kind]:
+            raise AssertionError(f"[cli {tag}] {kind}.csv: header "
+                                 f"{lines[0]!r}, {len(lines)} lines")
+        if kind == "cuda":
+            ids = {ln.split(",")[2] for ln in lines[1:]}
+            if not ids <= {str(i) for i in logger.REF_IDS.values()}:
+                raise AssertionError(f"[cli {tag}] kernel ids {ids}")
+    print(f"[cli {tag}] CSVs: the reference's headers once, {rows} rows a "
+          f"run x {runs}, kernel ids the JAX package's", flush=True)
+
+
+def cli_phase(card, amz_call_ms):
+    """28. The port's CLI as its users run it, in process: (a) the
+    amazon262k stand-in written as a ``.mtx``, parsed by the native parser
+    into the layout cache, every registered torch and cuda SpMV strategy
+    at chunk 64 with ``-d``, the row shards, the SpMM at 8 columns and the
+    native OpenMP sweep; then the same command again, which must read the
+    cache without parsing and append under the single headers; (b) the
+    stencil48k spec through the hybrid, its fp64 grade and BCSR, the SpMM
+    at 8 and 64 columns."""
+    if not (native.available() and native_omp.available()):
+        raise AssertionError("cli: the native parser or the OpenMP kernels "
+                             "did not build (g++)")
+    spmv_names = [n for n in list_strategies()
+                  if get_strategy(n).backend in ("torch", "cuda")
+                  and not get_strategy(n).spmm_only]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        A = cases.amazon262k()
+        path = os.path.join(tmp, "amazon262k.mtx")
+        t0 = time.perf_counter()
+        mmio.write(path, A.m, A.n, A.row_ids(), A.ja, A.as_)
+        print(f"[cli a] amazon262k.mtx: nnz {A.nnz}, "
+              f"{os.path.getsize(path)} B written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out = os.path.join(tmp, "res-a")
+        argv = ["-m", path, "-o", out, "-d", "--chunks", "64",
+                "--distributed", "--spmm-cols", "8", "--host-parallel",
+                "-b", ",".join(spmv_names)]
+        native.PARSES = 0
+        first, launched = cli_run("a", argv, card)
+        if native.PARSES != 1 or not os.path.exists(cache.cache_path(path)):
+            raise AssertionError(f"cli (a): {native.PARSES} native parses, "
+                                 "cache written: "
+                                 f"{os.path.exists(cache.cache_path(path))}")
+        require(launched, ("lane_rows", "chips_products", "window_segsum",
+                           "pell_rows"), "cli (a)")
+        check_csvs("a", out, first)
+        native.PARSES = 0
+        second, _ = cli_run("a-cached", argv, card)
+        if native.PARSES != 0:
+            raise AssertionError("cli (a) again: parsed instead of reading "
+                                 "the layout cache")
+        check_csvs("a-cached", out, second, runs=2)
+        hybrid = next(r for r in first.results
+                      if r.strategy == "cuda-hybrid")
+        print(f"[cli a] runner's cuda-hybrid row (chunk {hybrid.chunk}) "
+              f"{hybrid.bench.duration_ms:.4f} ms against this run's "
+              f"amazon262k path call (default chunk) {amz_call_ms:.4f} ms: "
+              f"ratio {hybrid.bench.duration_ms / amz_call_ms:.3f} (both "
+              f"time_prepared of the same call) | {card}", flush=True)
+
+        out = os.path.join(tmp, "res-b")
+        done, launched = cli_run("b", [
+            "-m", "synth:stencil:m=48000,points=6,run_len=12,bandwidth=500,"
+            "seed=3", "-o", out, "-b", "cuda-hybrid,cuda-hybrid-fp64,cuda-bcsr",
+            "-d", "--chunks", "64", "--spmm-cols", "8,64"], card)
+        require(launched, ("bcsr_bits", "bcsr_bits_spmm", "lane_ell_fp64"),
+                "cli (b)")
+        check_csvs("b", out, done)
+    print(f"[cli] phase {time.perf_counter() - t_phase:.1f} s | {card}",
+          flush=True)
 
 
 def main() -> int:
@@ -2169,7 +2308,7 @@ def main() -> int:
 
     # 6. main path 2: amazon262k, the ext route (lanes core) and the
     # chips tail, then the chips A/B
-    amz, amz_counts, amz_lanes, amz_lanes_counts, _ = layouts_path(
+    amz, amz_counts, amz_lanes, amz_lanes_counts, _, amz_r = layouts_path(
         "amazon262k", cases.amazon262k(), {}, dev, card,
         ("lane_rows",) + CHIPS_KERNELS,
         ("lane_ell_spmv", "sorted_gather", "ranked_gather") + CHIPS_KERNELS,
@@ -2187,7 +2326,7 @@ def main() -> int:
         profile=True)
 
     # 7. main path 3: the windowed stage 2 (lanes core) at full size
-    *_, win, win_counts, _ = layouts_path(
+    *_, win, win_counts, _, _ = layouts_path(
         "ext_windowed1m", cases.ext_windowed1m(), {}, dev, card,
         ("lane_rows",), ("lane_ell_spmv", "sorted_gather", "window_gather"),
         lambda m: m["ext_windowed"], "the windowed stage 2",
@@ -2224,7 +2363,7 @@ def main() -> int:
     layout_ab("powerlaw100k", old, pw_prep, xd, card)
     del old, pw_prep
     WB = cases.webbase1m()
-    *_, wb_prep = layouts_path(
+    *_, wb_prep, _ = layouts_path(
         "webbase1m", WB, {}, dev, card, ("lane_rows", "pell_rows"),
         ("lane_ell_spmv", "pell_rows"),
         lambda m: (m["tail_kind"] == "compact-cuda-pell-rows"
@@ -2248,6 +2387,8 @@ def main() -> int:
                                                      PL)
     dfl, dfl_counts, dpl, dpl_counts, dpt, dpt_counts = dist_phases(
         dev, card, flagship_A, PL)
+    del flagship_A, PL
+    cli_phase(card, amz_r.duration_ms)
 
     # the kernels line: each kernel timed on the path that runs it, as
     # (its row, the path's counts, the path), in LINE_ORDER's order

@@ -14,7 +14,9 @@ out-of-window entries and the chips tail for spilled rows. Beside it
 sit PELL, BCSR and XPOSE, the fp64 grade (``cuda-hybrid-fp64``,
 ``cuda-pell-fp64``: x and y float64), the BCSR SpMM
 (``cuda-bcsr-spmm``), the baselines, CUDA-event timing and the
-stream-probe roofline.
+stream-probe roofline. ``python -m spmv_scpa_tpu_torch.cli`` is the
+JAX package's benchmark CLI on the card (``bench/runner.py``, the three
+CSVs of ``bench/logger.py``, the native parser and OpenMP kernels).
 The port imports nothing of the JAX package: the host modules it needs
 (CSR, loader, synthetic matrices, oracle, validation) are its own
 copies, held equal to the originals by the tests.

@@ -9,6 +9,12 @@ renamed, so a reader never sees half a library. Libraries are loaded
 with ``ctypes``; every entry point returns ``cudaGetLastError()`` and
 :func:`check` turns a non-zero code into an exception.
 
+The host harness's C++ sources (``native/*.cpp``: the Matrix Market
+parser and the OpenMP kernels, copies of the JAX package's
+``native/``) are built the same way by ``g++`` (:func:`build_native`),
+into the same directory, keyed on their source, flags, compiler and
+CPU.
+
 Nothing here runs when the module is imported: the CPU tests import
 every module of the port on a machine with no ``nvcc`` and no card.
 """
@@ -18,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,9 +33,19 @@ import torch
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
+NATIVE_DIR = PKG_DIR / "native"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# native/Makefile's flags: a source built by both packages computes the
+# same bits (-march=native lets g++ contract a*b + c into one FMA).
+GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
+             "-Wall")
+# native/<name>.cpp -> its extra flags
+NATIVE = {"mtx_parser": (), "spmv_omp": ("-fopenmp",)}
+# What a failed native build or load raises: the native modules then
+# report the library unavailable.
+BUILD_ERRORS = (OSError, RuntimeError, subprocess.SubprocessError)
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -104,29 +121,72 @@ def build_all(names=None) -> list[Path]:
     outs = [library_path(name) for name in names]
     todo = [(name, out) for name, out in zip(names, outs)
             if not out.exists()]
-    if not todo:
-        return outs
-    nvcc = find_nvcc()
+    if todo:
+        nvcc = find_nvcc()
+        _compile([((nvcc, *NVCC_FLAGS), CSRC_DIR / f"{name}.cu", out)
+                  for name, out in todo])
+    return outs
+
+
+def _compile(jobs) -> None:
+    """Run each job ``(command, source, library)`` as ``command -o tmp
+    source``, all started together; each output is renamed onto its
+    library when its compiler succeeds, so a reader never sees half a
+    library. Raises with every failure's output."""
     BUILD_DIR.mkdir(exist_ok=True)
     procs = []
-    for name, out in todo:
+    for cmd, src, out in jobs:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        procs.append((name, out, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-             str(CSRC_DIR / f"{name}.cu")],
+        procs.append((src, out, tmp, subprocess.Popen(
+            [*cmd, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
-    for name, out, tmp, proc in procs:
+    for src, out, tmp, proc in procs:
         _, stderr = proc.communicate()
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed to build csrc/{name}.cu (exit "
+            failed.append(f"{Path(proc.args[0]).name} failed to build "
+                          f"{src.parent.name}/{src.name} (exit "
                           f"{proc.returncode}):\n{stderr}")
         else:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return outs
+
+
+def _host_key() -> bytes:
+    """What a ``-march=native`` build depends on beside its source and
+    flags: the compiler's version and this CPU's features."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the port's native parser and "
+                           "OpenMP kernels are built from native/*.cpp")
+    version = subprocess.run([gxx, "--version"], capture_output=True,
+                             text=True, check=True, timeout=60).stdout
+    try:
+        cpu = next(ln for ln in Path("/proc/cpuinfo").read_text()
+                   .splitlines() if ln.startswith("flags"))
+    except (OSError, StopIteration):
+        cpu = platform.processor()
+    return (version + cpu).encode()
+
+
+def native_library_path(name: str) -> Path:
+    """Where the library of ``native/<name>.cpp`` lives once built."""
+    flags = GXX_FLAGS + NATIVE[name]
+    digest = hashlib.sha256((NATIVE_DIR / f"{name}.cpp").read_bytes()
+                            + " ".join(flags).encode()
+                            + _host_key()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build_native(name: str) -> Path:
+    """Compile ``native/<name>.cpp`` with g++ unless it is built."""
+    out = native_library_path(name)
+    if not out.exists():
+        _compile([(("g++", *GXX_FLAGS, *NATIVE[name]),
+                   NATIVE_DIR / f"{name}.cpp", out)])
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

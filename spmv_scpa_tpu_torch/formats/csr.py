@@ -13,7 +13,7 @@ equal the reference's.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 
@@ -105,6 +105,9 @@ class CSR:
         return CSR(name=name or f"{self.name}[{r0}:{r1}]",
                    m=r1 - r0, n=self.n,
                    irp=irp, ja=self.ja[lo:hi], as_=self.as_[lo:hi].copy())
+
+    def with_name(self, name: str) -> "CSR":
+        return replace(self, name=name)
 
 
 def partition_rows_by_nnz(irp: np.ndarray, num_parts: int) -> np.ndarray:

@@ -8,8 +8,9 @@ semantics (counterpart of ``spmv_scpa_tpu/io/loader.py``, copied):
 * sparse real/pattern/integer input only (csr.c:48-52);
 * the name is the basename without ``.mtx`` (csr.c:18-30).
 
-The NumPy parser (``io/mmio.py``) reads the file; the native C++ parser
-comes with the CLI (ROADMAP queue 1 #14).
+The native C++ parser (``io/native.py``) reads the file where its
+library builds, else the NumPy parser (``io/mmio.py``); both give the
+same arrays.
 """
 
 from __future__ import annotations
@@ -18,11 +19,10 @@ import os
 
 import numpy as np
 
-from spmv_scpa_tpu_torch.errors import MatrixBoundsError, MatrixFormatError
+from spmv_scpa_tpu_torch.errors import (MatrixBoundsError, MatrixFormatError,
+                                       SpmvError)
 from spmv_scpa_tpu_torch.formats.csr import CSR
-from spmv_scpa_tpu_torch.io import mmio
-
-_TODO_NATIVE = "ROADMAP queue 1 #14 (CLI, with the native C++ parser)"
+from spmv_scpa_tpu_torch.io import mmio, native
 
 
 def extract_matrix_name(path: str) -> str:
@@ -36,11 +36,17 @@ def extract_matrix_name(path: str) -> str:
 def load_csr(path, name: str | None = None,
              use_native: bool | None = None) -> CSR:
     """Load a Matrix Market file into CSR with the reference study's
-    expansion semantics. ``use_native=True`` asks for the C++ parser,
-    which the port does not have yet."""
-    if use_native:
-        raise NotImplementedError(f"load_csr(use_native=True): {_TODO_NATIVE}")
-    coo = mmio.read(path)
+    expansion semantics. ``use_native`` selects the C++ parser: None
+    tries it and falls back to NumPy, True raises where it fails."""
+    coo = None
+    if use_native is not False:
+        try:
+            coo = native.read_mtx(path)
+        except (RuntimeError, OSError, SpmvError):
+            if use_native:  # explicitly requested
+                raise
+    if coo is None:
+        coo = mmio.read(path)
     banner = coo.banner
     if banner.symmetry in ("skew-symmetric", "hermitian"):
         raise MatrixFormatError(

@@ -32,12 +32,19 @@ of the JAX package it is held against:
  torch-dense            xla-dense            dense matvec (tiny matrices)
  oracle-csr             oracle-csr           fp64 host oracle
  oracle-ell             oracle-ell           fp64 host HLL oracle
+ omp-csr-guided         omp-csr-guided       native OpenMP CSR, guided
+ omp-csr-nnz            omp-csr-nnz          native OpenMP CSR, nnz spans
+ omp-ell                omp-ell              native OpenMP ELL slices
 =====================  ===================  ==============================
 
 The fp64 strategies take x as float64 and return y float64 on the
 device; their ``meta["rtol"]`` is the reference's 1e-9 gate. Those
 marked ``spmm`` also take X (n, cols) to Y (m, cols); ``spmm_only``
 ones take only that, and ``spmv`` drives them with a 1-D x in column 0.
+``tunable`` marks the device strategies whose plan on the card changes
+with ``chunk``, the runner's sweep axis; the others record it, if at
+all, and get one sweep cell. A strategy's ``fmt`` is the reference's,
+the ``format`` column of the CSV logs.
 """
 
 from __future__ import annotations
@@ -110,6 +117,8 @@ class StrategySpec:
     prepare: Callable[..., Prepared] = None
     spmm: bool = False                # takes a 2-D (n, cols) x too
     spmm_only: bool = False           # requires a 2-D (n, cols) x
+    tunable: bool = True              # chunk changes the plan (module
+                                      # docstring); False = one sweep cell
 
 
 _REGISTRY: dict[str, StrategySpec] = {}
@@ -234,7 +243,7 @@ def _ensure_builtin():
 
     from spmv_scpa_tpu_torch.formats.ell import csr_to_ell
     from spmv_scpa_tpu_torch.ops.chips_tail import prepare_chips_strategy
-    from spmv_scpa_tpu_torch.ops import torch_ops
+    from spmv_scpa_tpu_torch.ops import native_omp, torch_ops
     from spmv_scpa_tpu_torch.ops.lane_ell import prepare_lane_ell_hybrid
     from spmv_scpa_tpu_torch.ops.lane_ell_fp64 import prepare_lane_ell_fp64
     from spmv_scpa_tpu_torch.ops.nearfar import prepare_nearfar
@@ -311,6 +320,24 @@ def _ensure_builtin():
                         meta={"num_blocks": E.num_slices, "rtol": FP64_RTOL,
                               "fill": A.nnz / max(U.ja.size, 1)})
 
+    def _prep_omp(A: CSR, kind: str, nthreads: int = 0, **_):
+        if not native_omp.available():
+            raise ValueError("native OpenMP library unavailable "
+                             "(g++ -fopenmp required; see native/)")
+        nblocks = None
+        if kind == "guided":
+            fn = native_omp.make_csr_omp_guided(A, nthreads)
+        elif kind == "nnz":
+            fn = native_omp.make_csr_omp_nnz(A, nthreads or 1)
+        else:
+            E = csr_to_ell(A, slice_h=32, col_major=True, pad_mode="last")
+            fn = native_omp.make_ell_omp(E, nthreads)
+            nblocks = E.num_slices
+        name = f"omp-csr-{kind}" if kind != "ell" else "omp-ell"
+        return Prepared(name, A.name, fn, device=torch.device("cpu"),
+                        nnz=A.nnz, ref=name, hbm_bytes=A.nnz * 12,
+                        meta={"num_blocks": nblocks, "num_threads": nthreads})
+
     def _prep_dense(A: CSR, device="cuda", max_bytes: int = 512 << 20,
                     **_):
         if A.m * A.n * 4 > max_bytes:
@@ -329,14 +356,19 @@ def _ensure_builtin():
                           spmm=True))
     register(StrategySpec("torch-dense", "DENSE", "torch", "xla-dense",
                           prepare=_prep_dense))
-    register(StrategySpec("cuda-hybrid", "HLL", "cuda", "pallas-hybrid",
+    # the lane-ELL packer picks the core's entries by chunk
+    # (ops/lane_ell.py:pack_lane_ell), for near/far's band too; the row
+    # layouts of PELL and the bitmap tiles of BCSR record it only;
+    # XPOSE's geometry comes from its plan (the reference's
+    # pallas-xpose is untunable too)
+    register(StrategySpec("cuda-hybrid", "LELL", "cuda", "pallas-hybrid",
                           prepare=prepare_lane_ell_hybrid))
     register(StrategySpec("cuda-pell", "PELL", "cuda", "pallas-pell",
-                          prepare=prepare_pell))
+                          prepare=prepare_pell, tunable=False))
     register(StrategySpec("cuda-bcsr", "BCSR", "cuda", "pallas-bcsr",
-                          prepare=prepare_bcsr))
+                          prepare=prepare_bcsr, tunable=False))
     register(StrategySpec("cuda-xpose", "XPOSE", "cuda", "pallas-xpose",
-                          prepare=prepare_xpose))
+                          prepare=prepare_xpose, tunable=False))
     register(StrategySpec("cuda-nearfar", "XPOSE", "cuda", "pallas-nearfar",
                           prepare=prepare_nearfar))
     register(StrategySpec("oracle-ell", "HLL", "host", "oracle-ell",
@@ -352,13 +384,21 @@ def _ensure_builtin():
                           spmm=True))
     register(StrategySpec("torch-ell-fp64", "HLL", "torch", "xla-ell-df64",
                           prepare=_prep_ell_fp64))
-    register(StrategySpec("cuda-hybrid-fp64", "HLL", "cuda",
+    register(StrategySpec("cuda-hybrid-fp64", "LELL", "cuda",
                           "pallas-hybrid-df64",
                           prepare=prepare_lane_ell_fp64))
     register(StrategySpec("cuda-pell-fp64", "PELL", "cuda", "pallas-pell-df64",
-                          prepare=prepare_pell_fp64))
+                          prepare=prepare_pell_fp64, tunable=False))
     register(StrategySpec("cuda-bcsr-spmm", "BCSR", "cuda",
                           "pallas-bcsr-spmm", prepare=prepare_bcsr_spmm,
-                          spmm=True, spmm_only=True))
+                          spmm=True, spmm_only=True, tunable=False))
     register(StrategySpec("cuda-chips", "CHIPS", "cuda", "pallas-chips",
-                          prepare=prepare_chips_strategy))
+                          prepare=prepare_chips_strategy, tunable=False))
+    # the reference study's OpenMP family: csr.c:278-298 (guided),
+    # csr.c:218-339 (nnz spans), hll.c:178-211 (ELL slices)
+    for kind, name, fmt in (("guided", "omp-csr-guided", "CSR"),
+                            ("nnz", "omp-csr-nnz", "CSR"),
+                            ("ell", "omp-ell", "HLL")):
+        register(StrategySpec(
+            name, fmt, "host", name,
+            prepare=lambda A, kind=kind, **kw: _prep_omp(A, kind, **kw)))

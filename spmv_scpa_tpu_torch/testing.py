@@ -180,3 +180,13 @@ def tiny_fixture_csr() -> CSR:
         [5.0, 0.0, 0.0, -1.0, 0.0],
     ])
     return CSR.from_dense("tiny", dense)
+
+
+ARCHETYPES = {
+    "banded": banded_csr,
+    "stencil": stencil_csr,
+    "random": random_csr,
+    "powerlaw": powerlaw_csr,
+    "webbase": webbase_csr,
+    "amazon": amazon_csr,
+}

@@ -46,7 +46,10 @@ card and run on the CPU, at 1, 3, 8, 64 and 100 columns. The chips
 tail's slot products ``chips_products`` round one f32 product a slot as
 their plain version does: bit-equal on the card and run on the CPU; y on
 ``chips_x="slots"`` equals y on ``"hot"``. The row-sharded PELL on row
-quanta, one ``pell_rows`` launch a call, as the whole hybrid call.
+quanta, one ``pell_rows`` launch a call, as the whole hybrid call. The
+benchmark runner (``bench/runner.py``) on the card: every row validated
+against the oracle (``validate_result`` defaults; fp64 rows at rel-L2
+1e-9, the absolute gate off), through the kernels.
 """
 
 import numpy as np
@@ -55,13 +58,14 @@ import torch
 
 from spmv_scpa_tpu_torch import get_strategy
 from spmv_scpa_tpu_torch import testing as synth
-from spmv_scpa_tpu_torch.bench import roofline, timing
+from spmv_scpa_tpu_torch.bench import roofline, runner, timing
 from spmv_scpa_tpu_torch.bench import cases
 from spmv_scpa_tpu_torch.bench.cases import PELL_CASES, SMALL_CASES
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import (bcsr_bits, ext_gather, lane_ell,
-                                     lane_ell_fp64, lane_rows, pell,
-                                     pell_rows, segsum_kernel, spmm, xpose)
+from spmv_scpa_tpu_torch.ops import (bcsr_bits, chips_slots, ext_gather,
+                                     lane_ell, lane_ell_fp64, lane_rows,
+                                     pell, pell_rows, segsum_kernel, spmm,
+                                     xpose)
 from spmv_scpa_tpu_torch.parallel import distributed
 from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import to_numpy
@@ -1288,3 +1292,47 @@ def test_bcsr_bits_wrappers_refuse_bad_arguments(card):
         bcsr_bits.bcsr_bits_spmm(bits, vals, vptr, pan, rowptr,
                                  X.t().contiguous().t(), A.m)
     assert bcsr_bits.LAUNCHES == before
+
+
+def _runner_launches():
+    return {**lane_rows.LAUNCHES, **pell_rows.LAUNCHES,
+            **chips_slots.LAUNCHES, **bcsr_bits.LAUNCHES,
+            "window_segsum": segsum_kernel.KERNEL_LAUNCHES,
+            "lane_ell_fp64": lane_ell_fp64.KERNEL_LAUNCHES}
+
+
+def test_run_benchmarks_on_the_card(card, tmp_path):
+    """``run_benchmarks`` on the card with -d, the row shards and the
+    SpMM: every row validated, through the kernels."""
+    A = synth.amazon_csr(m=6000, seed=30)          # a chips tail
+    before = _runner_launches()
+    cfg = runner.RunConfig(
+        out_dir=str(tmp_path / "r"), debug=True, chunks=(64,),
+        strategies=["cuda-hybrid", "cuda-pell", "cuda-bcsr",
+                    "cuda-pell-fp64", "torch-csr-segsum"],
+        distributed=True, spmm_cols=(8,))
+    results = runner.run_benchmarks(A, cfg)
+    assert cfg.skipped == []
+    assert all(r.rel_err is not None for r in results)
+    assert [r.strategy for r in results[2:]] == [
+        "cuda-hybrid", "cuda-pell", "cuda-bcsr", "cuda-pell-fp64",
+        "torch-csr-segsum", "distributed-rowshard", "distributed-rowshard",
+        "cuda-bcsr-spmm", "torch-csr-segsum-spmm"]
+    assert results[5].rel_err <= FP64_VS_ORACLE_REL_L2
+    dist = [r for r in results if r.strategy == "distributed-rowshard"]
+    assert [r.chunk for r in dist] == [torch.cuda.device_count()] * 2
+    after = _runner_launches()
+    for name in ("lane_rows", "pell_rows", "pell_rows_fp64",
+                 "chips_products", "window_segsum", "bcsr_bits",
+                 "bcsr_bits_spmm"):
+        assert after[name] > before[name], name
+    assert all(r.bench.duration_ms > 0 for r in results)
+
+
+def test_time_device_fn_on_the_card(card):
+    A = synth.banded_csr(4096, row_nnz=9, bandwidth=64, seed=1)
+    prep = get_strategy("cuda-hybrid").prepare(A, device=card)
+    xd = torch.as_tensor(make_x(A.n), dtype=torch.float32, device=card)
+    r = timing.time_device_fn(prep.fn, xd, nnz=A.nnz)
+    assert r.duration_ms > 0 and r.reps == 20
+    validate_result(spmv_oracle(A, make_x(A.n)), r.data)

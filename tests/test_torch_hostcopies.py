@@ -91,7 +91,13 @@ def test_port_and_chip_smoke_load_no_jax_package():
             "spmv_scpa_tpu_torch.ops.lane_ell_fp64",
             "spmv_scpa_tpu_torch.ops.spmm",
             "spmv_scpa_tpu_torch.parallel",
-            "spmv_scpa_tpu_torch.parallel.distributed"} <= set(mods)
+            "spmv_scpa_tpu_torch.parallel.distributed",
+            "spmv_scpa_tpu_torch.cli",
+            "spmv_scpa_tpu_torch.bench.runner",
+            "spmv_scpa_tpu_torch.bench.logger",
+            "spmv_scpa_tpu_torch.io.native",
+            "spmv_scpa_tpu_torch.io.cache",
+            "spmv_scpa_tpu_torch.ops.native_omp"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -241,15 +247,19 @@ def test_load_csr_errors_match(tmp_path):
         load_csr(str(oob))
     with pytest.raises(jax_errors.MatrixBoundsError):
         jax_loader.load_csr(str(oob), use_native=False)
-    for cls in ("MatrixFormatError", "MatrixBoundsError", "ValidationError"):
+    for cls in ("MatrixFormatError", "MatrixBoundsError", "ValidationError",
+                "ConfigError"):
         assert getattr(errors, cls).code == getattr(jax_errors, cls).code
 
 
 def test_load_csr_native_waits_for_its_roadmap_item(tmp_path):
+    """The item is done: ``use_native=True`` reads with the port's C++
+    parser, to the CSR of the NumPy parser and of the original."""
     path = tmp_path / "g.mtx"
     _write_mtx(path, "general", np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_csr(str(path), use_native=True)
+    a = load_csr(str(path), use_native=True)
+    _same_csr(a, load_csr(str(path), use_native=False))
+    _same_csr(a, jax_loader.load_csr(str(path), use_native=False))
 
 
 def test_oracle_and_make_x_match():

@@ -88,7 +88,8 @@ def test_strategies_and_refs():
                             "cuda-hybrid-fp64", "cuda-pell-fp64",
                             "cuda-bcsr-spmm", "torch-csr-segsum-spmm",
                             "torch-ell-rm", "torch-ell-cm",
-                            "torch-ell-fp64", "oracle-ell", "cuda-chips"])
+                            "torch-ell-fp64", "oracle-ell", "cuda-chips",
+                            "omp-csr-guided", "omp-csr-nnz", "omp-ell"])
     jax_names = set(jax_registry.list_strategies())
     for name in names:
         spec = get_strategy(name)
@@ -116,6 +117,13 @@ def test_strategies_and_refs():
         "cuda-hybrid-fp64", "cuda-nearfar", "cuda-pell", "cuda-pell-fp64",
         "cuda-xpose"]
     assert list_strategies(fmt="XPOSE") == ["cuda-nearfar", "cuda-xpose"]
+    assert list_strategies(backend="host") == [
+        "omp-csr-guided", "omp-csr-nnz", "omp-ell", "oracle-csr",
+        "oracle-ell"]
+    # each strategy logs the reference's format (the CSV format column)
+    for name in names:
+        assert get_strategy(name).fmt == \
+            jax_registry.get_strategy(get_strategy(name).ref).fmt, name
     with pytest.raises(KeyError, match="unknown strategy"):
         get_strategy("pallas-pell")
 
