@@ -12,9 +12,10 @@ the script exits non-zero:
    through ``cuda-hybrid`` on the card on both core layouts, the call
    against its plain version and the oracle, and each kernel call of the
    path replayed against its plain version; between them the cases must
-   launch all seven kernels of the hybrid (``lane_rows``, the lanes core
+   launch all eight kernels of the hybrid (``lane_rows``, the lanes core
    ``lane_ell_spmv`` with the ext route's gathers, the chips tail's
-   ``chips_products`` and ``window_segsum``);
+   ``chips_products``, ``window_segsum`` and ``heavy_land``, the direct
+   landing);
 4. the stream probe (``stream_reduce``, a TMA ring over contiguous
    spans) and the first port's grid-stride kernel
    (``stream_reduce_strided``) against their plain version (exact: sums
@@ -35,7 +36,16 @@ the script exits non-zero:
    the same two runs and A/B, each run validated, timed, each kernel
    alone at this matrix's shapes; the rows run also host enqueue against
    device time over 200 back-to-back calls and a profiler window; the
-   core, both gathers and the segment-sum must launch in each run;
+   core, the slot products, the segment-sum and ``heavy_land`` must
+   launch in each run (the lanes run: both ext gathers too), and no
+   gather in the rows run; then the chips A/B (the x side on the two
+   gather stages against the slot products) and the landing A/B
+   (``landing="merge"``, the reference's segment-sum per stream and
+   panel merge, against the default direct landing, one segment-sum and
+   ``heavy_land``, from one pack in turns: those kernels alone, the
+   whole calls, host enqueue against device time over 200 calls, port
+   kernel calls a call, ``heavy_land`` beside its bound and
+   ``index_add_``);
 7. main path 3, ``ext_windowed1m`` (1M rows, 5M nnz), default knobs:
    the same; the lanes run takes the windowed stage 2, and the windowed
    gather must launch there;
@@ -55,8 +65,10 @@ the script exits non-zero:
    old), and the two whole calls so, beside cuSPARSE and the bounds;
 10. main path 5, ``webbase1m`` (the webbase-1M stand-in) through
    ``cuda-hybrid`` at default knobs: the core and a tail past
-   ``BIG_TAIL`` run as compact PELL on the row layout; the same two
-   core runs and A/B as path 2; the core and ``pell_rows`` must launch;
+   ``BIG_TAIL`` run as compact PELL on the row layout, landed by
+   ``heavy_land``; the same two core runs and A/B as path 2, and the
+   landing A/B; the core, ``pell_rows`` and ``heavy_land`` must launch,
+   and no gather in the rows run;
    then the A/B of the tail's two kernels (the hybrid with
    ``pell_layout="tiles"``);
 11. ``powerlaw100k`` through ``cuda-pell`` with ``scheme="span"``: the
@@ -129,7 +141,9 @@ the script exits non-zero:
    the three gathers, ``window_segsum``, ``pell_fused`` and
    ``pell_unpermute``; then ``cuda-chips`` on its small cases and
    ``heavy_scatter`` through ``cuda-hybrid`` (the split chips plan),
-   which must launch the gathers and the segment-sum;
+   which must launch the slot products, the segment-sum and
+   ``heavy_land`` (on ``chips_x="hot"``: the gathers, the segment-sum
+   and ``heavy_land``);
 23. main path 13, ``dist-flagship``: the flagship through the row-sharded
    hybrid on the mesh ``[cuda:0]`` (``loc_w`` 256, chunk 24), both core
    layouts from one pack (``row_sharded_hybrid_layouts``), the two runs
@@ -139,12 +153,18 @@ the script exits non-zero:
 24. main path 14, ``dist-flagship-4x1``: the rows core on ``["cuda:0"] *
    4``, one ``lane_rows`` launch per call;
 25. main path 15, ``dist-webbase1m``: ``webbase1m`` at mesh 1, whose tail
-   must take the ``chips-split`` route (the split streams' gathers and
-   segment-sum), the two runs and the A/B;
+   must take the ``chips-split`` route (the split streams' slot
+   products, one segment-sum and ``heavy_land``, no gather), the two runs
+   and the core, chips and landing A/Bs; one call launches the slot
+   products, the segment-sum and ``heavy_land`` once each (four port
+   kernel calls);
 26. main path 16, ``dist-amazon262k-4x1``: ``amazon262k`` on four shards
-   of one card with ``idx8``: the per-shard chips tails and the panel
-   merge (and the ext panels on the lanes core), the two runs and the
-   A/B;
+   of one card with ``idx8``: the shards' chips tails (the reference's
+   meta picks the panel merge; the default lands them directly), the
+   ext panels on the lanes core, the two runs and the core, chips and
+   landing A/Bs; one call launches ``lane_rows``, the slot products, the
+   segment-sum and ``heavy_land`` once each for the four shards (four
+   port kernel calls);
 27. main path 17, ``dist-powerlaw100k-pell``: ``powerlaw100k`` through
    ``prepare_row_sharded_pell`` at mesh 1 (the tile layout): the fused
    kernel and the un-permute;
@@ -169,7 +189,7 @@ after the read; a profiler window counts only where it saw every launch
 (``device_busy``), else its line says that events were lost and gives
 no idle share; a path on both core layouts reads the lanes run apart
 (its counts set to 0 just before it). Each prints its packing time.
-Then one JSON line of the twenty-five kernels' numbers (``lane_ell_spmv``,
+Then one JSON line of the twenty-seven kernels' numbers (``lane_ell_spmv``,
 ``lane_ell_sharded`` and ``window_gather`` from the lanes runs of the
 flagship, ``dist-flagship`` and ``ext_windowed1m``, ``bcsr_spmm`` from
 ``flagship-spmm8-tiles``, ``xpose_mirror`` and ``xpose_s1`` from
@@ -203,8 +223,9 @@ fused kernel adds windows with atomics on the card). SpMM:
 and lanes in order, f32 products and sums rounded separately, no TF32);
 Y against ``spmm_oracle`` by ``validate_result``. The bitmap kernels
 ``bcsr_bits`` and ``bcsr_bits_spmm``, XPOSE's row sums
-``xpose_s3_rows``, its slot-table S1 ``xpose_s1_slots`` and the chips
-tail's ``chips_products``, bit-equal to
+``xpose_s3_rows``, its slot-table S1 ``xpose_s1_slots``, the chips
+tail's ``chips_products`` and the direct landing ``heavy_land`` (each
+replay on its own copy of y, which it updates in place), bit-equal to
 their plain versions on the card and run on the CPU (a fixed order, no
 atomics; the slot kernel at the slots of mid its table names, the only
 ones it writes). The slot and slab S1 designs' whole calls give equal y
@@ -246,7 +267,9 @@ array; for the slot kernel, one row per slot of mid over x itself),
 ``sum`` for the probe, flat indexing for a gather, the un-
 permute and the mirror, ``x_pad[cols]`` for the slot products (the
 gather alone, without the multiply), ``index_add_`` for the
-segment-sums and, after a flat gather of the routed products, for both S3 kernels; cuSPARSE's fp64 CSR product
+segment-sums and ``heavy_land`` (the same sums into the same rows) and,
+after a flat gather of the routed products, for both S3 kernels;
+cuSPARSE's fp64 CSR product
 for the fp64 core (of the whole matrix) and the fp64 fused kernel (of
 the matrix its tiles hold), and its f32 CSR SpMM ``A @ X`` for the SpMM
 kernel; for the bitmap kernels, its f32 CSR SpMV or SpMM of the matrix
@@ -273,9 +296,9 @@ from spmv_scpa_tpu_torch.bench.timing import (time_cuda, time_device,
                                               time_prepared)
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.io import cache, mmio, native
-from spmv_scpa_tpu_torch.ops import (bcsr_bits, chips_slots, ext_gather,
-                                     lane_ell, lane_ell_fp64, lane_rows,
-                                     native_omp, pell, pell_rows,
+from spmv_scpa_tpu_torch.ops import (bcsr_bits, chips_slots, chips_tail,
+                                     ext_gather, lane_ell, lane_ell_fp64,
+                                     lane_rows, native_omp, pell, pell_rows,
                                      segsum_kernel, spmm, xpose, xpose_plan)
 from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import FP64_RTOL, pick_auto, to_numpy
@@ -293,7 +316,7 @@ F64_OPS_PER_S = 34e12              # f64 outside the tensor cores
 
 HYBRID_KERNELS = ("lane_ell_spmv", "lane_rows", "sorted_gather",
                   "ranked_gather", "window_gather", "window_segsum",
-                  "chips_products")
+                  "chips_products", "heavy_land")
 PELL_KERNELS = ("pell_fused", "pell_tiles", "span_segsum", "window_segsum",
                 "unpermute", "pell_rows", "bcsr_bits")
 XPOSE_KERNELS = ("xpose_s1_slots", "xpose_s3_rows")
@@ -308,15 +331,20 @@ FP64_SPMM_KERNELS = ("lane_ell_fp64", "pell_fused_fp64", "bcsr_spmm",
                      "pell_rows_fp64", "bcsr_bits_spmm")
 DIST_KERNELS = ("lane_ell_sharded", "lane_rows", "sorted_gather",
                 "ranked_gather", "window_gather", "window_segsum",
-                "chips_products", "pell_fused", "unpermute", "pell_rows")
+                "chips_products", "heavy_land", "pell_fused", "unpermute",
+                "pell_rows")
+# one call of the row-sharded hybrid with chips tails, on the rows core:
+# one launch each for all the shards of the card
+DIST_CALL = ("lane_rows", "chips_products", "window_segsum", "heavy_land")
 # the core kernels of the two layouts: the lanes core's single-card and
 # row-shard kernels, and the rows core's one kernel
 CORE_KERNELS = ("lane_ell_spmv", "lane_ell_sharded", "lane_rows")
-# the chips tail on its default x side (the slot products), and on
-# chips_x="hot" (the two gather stages)
-CHIPS_KERNELS = ("chips_products", "window_segsum")
+# the chips tail on its default x side (the slot products) and landing
+# (one segment-sum, the direct scatter), and on chips_x="hot" (the two
+# gather stages)
+CHIPS_KERNELS = ("chips_products", "window_segsum", "heavy_land")
 CHIPS_HOT_KERNELS = ("sorted_gather", "ranked_gather", "window_gather",
-                     "window_segsum")
+                     "window_segsum", "heavy_land")
 GATHERS = ("sorted_gather", "ranked_gather", "window_gather")
 # kernels held bit-equal to their plain versions run on the CPU (the same
 # fixed order); on the card the fused and row kernels' plain versions add
@@ -326,7 +354,10 @@ ORDERED = ("window_segsum", "span_segsum", "pell_fused", "pell_fused_fp64",
 # kernels held bit-equal to their plain versions on the card and run on the
 # CPU alike (the plain versions add in the kernels' order without atomics)
 EXACT_BOTH = ("bcsr_bits", "bcsr_bits_spmm", "xpose_s1_slots",
-              "xpose_s3_rows", "chips_products")
+              "xpose_s3_rows", "chips_products", "heavy_land")
+# kernels that update their first argument in place: a replay gives each
+# call its own copy of it
+INPLACE = ("heavy_land",)
 # every kernel and its plain version, by name
 KERNELS = {**lane_ell.KERNELS._asdict(), **lane_ell_fp64.KERNELS._asdict(),
            **pell.FP64_KERNELS._asdict(), **spmm.KERNELS._asdict(),
@@ -356,6 +387,10 @@ SOURCES = {
     # multiply on the chips tail's path, as one kernel
     "chips_products": ("spmv_scpa_tpu_torch/csrc/chips_products.cu",
                        "spmv_scpa_tpu/ops/ext_gather.py:79"),
+    # the landing's panel merge: the ranked gather (ext_gather.py:121; the
+    # windowed one, :167) over every row of y, as a direct scatter
+    "heavy_land": ("spmv_scpa_tpu_torch/csrc/heavy_land.cu",
+                   "spmv_scpa_tpu/ops/ext_gather.py:121"),
     "window_segsum": ("spmv_scpa_tpu_torch/csrc/segsum.cu",
                       "spmv_scpa_tpu/ops/segsum_kernel.py:259"),
     "pell_fused": ("spmv_scpa_tpu_torch/csrc/pell.cu",
@@ -397,7 +432,7 @@ SOURCES = {
 LINE_ORDER = ("lane_ell_spmv", "lane_ell_sharded", "lane_rows",
               "stream_reduce", "stream_reduce_strided", "sorted_gather",
               "ranked_gather", "window_gather", "chips_products",
-              "window_segsum",
+              "window_segsum", "heavy_land",
               "pell_fused", "pell_tiles", "span_segsum", "unpermute",
               "xpose_mirror", "xpose_s1", "xpose_s1_slots", "xpose_s3",
               "xpose_s3_rows",
@@ -415,6 +450,7 @@ def counts() -> dict:
             "stream_reduce_strided": roof.STRIDED_LAUNCHES,
             **ext_gather.LAUNCHES,
             **chips_slots.LAUNCHES,
+            **chips_tail.LAUNCHES,
             "window_segsum": segsum_kernel.KERNEL_LAUNCHES,
             **pell.LAUNCHES,
             **pell_rows.LAUNCHES,
@@ -435,9 +471,9 @@ def reset_counts() -> None:
     roof.STRIDED_LAUNCHES = 0
     segsum_kernel.KERNEL_LAUNCHES = 0
     segsum_kernel.SPAN_LAUNCHES = 0
-    for table in (ext_gather.LAUNCHES, chips_slots.LAUNCHES, pell.LAUNCHES,
-                  pell_rows.LAUNCHES, lane_rows.LAUNCHES, xpose.LAUNCHES,
-                  bcsr_bits.LAUNCHES):
+    for table in (ext_gather.LAUNCHES, chips_slots.LAUNCHES,
+                  chips_tail.LAUNCHES, pell.LAUNCHES, pell_rows.LAUNCHES,
+                  lane_rows.LAUNCHES, xpose.LAUNCHES, bcsr_bits.LAUNCHES):
         for k in table:
             table[k] = 0
 
@@ -519,21 +555,31 @@ def written(name, args, out):
     return out.reshape(-1)[s1_slot_entries(args)[0].to(out.device)]
 
 
+def fresh(name, args):
+    """The arguments of one replay of a call: an in-place kernel's
+    (``INPLACE``) first argument copied, so that each replay starts from
+    the same y."""
+    if name not in INPLACE:
+        return args
+    return (args[0].clone(), *args[1:])
+
+
 def check_call(name, args, what):
     """Replay one kernel call of the path: the kernel against its plain
     version on the same inputs, where the kernel writes. Returns max
     |kernel - plain|."""
-    out = written(name, args, KERNELS[name](*args))
-    plain = written(name, args, PLAIN[name](*args))
+    out = written(name, args, KERNELS[name](*fresh(name, args)))
+    plain = written(name, args, PLAIN[name](*fresh(name, args)))
     torch.cuda.synchronize()
     err = float((out - plain).abs().max()) if out.numel() else 0.0
     if name in ORDERED:
-        exact = torch.equal(out.cpu(), PLAIN[name](*to_cpu(args)))
+        exact = torch.equal(out.cpu(), PLAIN[name](*to_cpu(fresh(name,
+                                                                args))))
         rel = float((out - plain).norm() / max(float(plain.norm()), 1e-30))
         ok = exact and rel <= (FP64_TWIN if out.dtype == torch.float64
                                else TWIN_REL_L2)
     elif name in EXACT_BOTH:
-        cpu_args = to_cpu(args)
+        cpu_args = to_cpu(fresh(name, args))
         ok = (torch.equal(out, plain) and torch.equal(
             out.cpu(), written(name, cpu_args, PLAIN[name](*cpu_args))))
     else:
@@ -684,6 +730,12 @@ def bound(name, args, out) -> tuple:
         ops = int(reads.sum())
         nbytes += (torch.unique(cols[reads]).numel() * x.element_size()
                    - tensor_bytes((x,)))
+    elif name == "heavy_land":
+        # land read whole; per heavy row its sum, and its row of y read
+        # and written
+        land = args[2]
+        ops = int((land >= 0).sum())
+        nbytes = land.numel() * land.element_size() + ops * 12
     elif name == "xpose_mirror":
         x, flat = mirror_flat(args)
         rows = torch.unique(flat[flat < x.numel()] // BC)
@@ -765,6 +817,17 @@ def products_library(args):
                        x.numel())
     xz = torch.cat([x, x.new_zeros(1)])
     return lambda: xz[flat]
+
+
+def land_library(args):
+    """``index_add_`` of the heavy rows' sums into a copy of y: the same
+    sums into the same rows, as one PyTorch call (the copy is made
+    once)."""
+    y, ys, land = args
+    sel = torch.nonzero(land >= 0).flatten()
+    idx, vals = land[sel].long(), ys[sel]
+    yc = y.clone().view(-1)
+    return lambda: yc.index_add_(0, idx, vals).view_as(y)
 
 
 def segsum_library(name, args):
@@ -982,6 +1045,8 @@ def library(name, args, A, xd):
         return gather_library(name, args)
     if name == "chips_products":
         return products_library(args)
+    if name == "heavy_land":
+        return land_library(args)
     if name == "unpermute":
         return unpermute_library(args)
     if name in ("pell_fused", "pell_fused_fp64"):
@@ -1026,7 +1091,7 @@ def kernel_table(prep, xd, what, A=None):
         err = check_call(name, args, what)
         fn = KERNELS[name]
         plainfn = PLAIN[name]
-        out = fn(*args)
+        out = fn(*fresh(name, args))
         b_ms, b_by = bound(name, args, out)
         lib = library(name, args, A, xd)
         r = rows.setdefault(name, {"calls": 0, "ms": 0.0, "plain_ms": 0.0,
@@ -1378,7 +1443,7 @@ def core_ab(name, new, old, xd, A, card):
 
 def layouts_path(name, A, knobs, dev, card, kernels, lanes_kernels, branch,
                  branch_what, describe, profile=False, forbid=(),
-                 chips=False):
+                 chips=False, landing=False):
     """A main path on both core layouts from one pack (the row-sharded
     hybrid's when ``knobs`` name a mesh): the rows core, the default,
     through ``full_path`` (its packing time covers both layouts), which
@@ -1386,13 +1451,17 @@ def layouts_path(name, A, knobs, dev, card, kernels, lanes_kernels, branch,
     own run, with the counts set to 0 just before it, which must launch
     ``lanes_kernels``; then the A/B of the two cores. With ``chips`` the
     same pack binds the rows core with the chips tail on
-    ``chips_x="hot"`` too, and the chips A/B follows (``chips_ab``).
-    Returns (the rows run's kernel table and counts, the lanes run's,
-    the rows Prepared, its timed result)."""
+    ``chips_x="hot"`` too, and the chips A/B follows (``chips_ab``); with
+    ``landing`` it binds the rows core on ``landing="merge"`` too, and the
+    landing A/B follows (``landing_ab``). Returns (the rows run's kernel
+    table and counts, the lanes run's, the rows Prepared, its timed
+    result)."""
     held = {}
     dist = "mesh" in knobs
     hot = ("rows", "hot")
-    designs = lane_ell.CORE_LAYOUTS + ((hot,) if chips else ())
+    merge = ("rows", "slots", "merge")
+    designs = (lane_ell.CORE_LAYOUTS + ((hot,) if chips else ())
+               + ((merge,) if landing else ()))
 
     def prepare(A, **kw):
         held.update(distributed.row_sharded_hybrid_layouts(A, designs, **kw)
@@ -1413,6 +1482,8 @@ def layouts_path(name, A, knobs, dev, card, kernels, lanes_kernels, branch,
     core_ab(name, rows, lanes, xd, A, card)
     if chips:
         chips_ab(name, held[hot], rows, xd, card)
+    if landing:
+        landing_ab(name, held[merge], rows, xd, card)
     return rt, rc, lt, lc, rows, r
 
 
@@ -1464,18 +1535,82 @@ def chips_ab(name, old, new, xd, card):
     lib = sum(median_ms(products_library(a)) for _, a in nc)
     names = "+".join(dict.fromkeys(k for k, _ in oc))
 
-    def hdl(v):
-        return ", ".join(f"{h:.4f}/{d:.4f}" for h, d in v)
-
     print(f"[{name}] chips A/B in turns (old, new, new, old): {names} x"
           f"{len(oc)} {_ms(kern['old'])} ms, chips_products x{len(nc)} "
           f"{_ms(kern['new'])} ms | whole call, hot {_ms(call['old'])} ms, "
           f"slots {_ms(call['new'])} ms, y equal | host/device ms a call "
-          f"over 200: hot {hdl(hd['old'])}, slots {hdl(hd['new'])} | "
+          f"over 200: hot {_hd(hd['old'])}, slots {_hd(hd['new'])} | "
           f"x_pad[cols] {lib:.4f} ms | bound: slots {b_new:.4f}, hot "
           f"{b_old:.4f} ms | kernel calls a call: hot "
           f"{len(old.kernel_calls(xd))}, slots {len(new.kernel_calls(xd))}"
           f" | {card}", flush=True)
+
+
+def _hd(v):
+    """Host enqueue / device ms pairs, as a line prints them."""
+    return ", ".join(f"{h:.4f}/{d:.4f}" for h, d in v)
+
+
+# the kernels of the landing on each design: the merge's segment-sums
+# (one per stream and shard) and panel-merge gathers, and the direct
+# design's one segment-sum and scatter
+MERGE_LANDING = ("window_segsum", "ranked_gather", "window_gather")
+DIRECT_LANDING = ("window_segsum", "heavy_land")
+
+
+def landing_ab(name, old, new, xd, card):
+    """The heavy-row landing on the reference's design (``old``, the rows
+    core on ``landing="merge"``: each stream's and shard's segment-sum,
+    then the panel merge's gathers and the torch ops around them) against
+    the direct one (``new``, the default: one segment-sum for every
+    stream and shard, one ``heavy_land``) of one pack, in turns (old,
+    new, new, old): those kernel calls alone back to back, then the two
+    whole calls, then host enqueue against device time over 200 calls
+    back to back; beside them each design's port kernel calls a call,
+    ``heavy_land`` alone, the merge's gathers alone, the ``index_add_``
+    yardstick of the same sums into the same rows, and both bounds. The
+    two y agree within rel-L2 1e-6 (a split plan's one segment-sum adds
+    a heavy row's streams in another order)."""
+    y_old, y_new = old.fn(xd), new.fn(xd)
+    rel = float((y_old - y_new).norm() / max(float(y_old.norm()), 1e-30))
+    if rel > TWIN_REL_L2:
+        raise AssertionError(f"{name}: y on the direct landing is {rel:.3e}"
+                             " from y on the merge")
+    oc = [c for c in old.kernel_calls(xd) if c[0] in MERGE_LANDING]
+    nc = [c for c in new.kernel_calls(xd) if c[0] in DIRECT_LANDING]
+    (_, la), = [c for c in nc if c[0] == "heavy_land"]
+    gathers = [c for c in oc if c[0] in GATHERS]
+    kern = {"old": [], "new": []}
+    call = {"old": [], "new": []}
+    hd = {"old": [], "new": []}
+    for side in ("old", "new", "new", "old"):
+        kern[side].append(median_ms(run_calls(oc if side == "old" else nc)))
+    for side in ("old", "new", "new", "old"):
+        call[side].append(call_ms((old if side == "old" else new).fn, xd))
+    for side in ("old", "new", "new", "old"):
+        hd[side].append(host_vs_device((old if side == "old" else new).fn,
+                                       xd))
+    b_old = sum(bound(k, a, KERNELS[k](*fresh(k, a)))[0] for k, a in oc)
+    b_new = sum(bound(k, a, KERNELS[k](*fresh(k, a)))[0] for k, a in nc)
+    b_land = bound("heavy_land", la, KERNELS["heavy_land"](*fresh(
+        "heavy_land", la)))[0]
+    heavy = int((la[2] >= 0).sum())
+    merged = (f"the merge's gathers x{len(gathers)} "
+              f"{median_ms(run_calls(gathers)):.4f} ms" if gathers else
+              "the merge past its budget: index_add_, no gather")
+    print(f"[{name}] landing A/B in turns (old, new, new, old): merge "
+          f"{'+'.join(dict.fromkeys(k for k, _ in oc))} x{len(oc)} "
+          f"{_ms(kern['old'])} ms, direct "
+          f"{'+'.join(k for k, _ in nc)} x{len(nc)} {_ms(kern['new'])} ms |"
+          f" whole call, merge {_ms(call['old'])} ms, direct "
+          f"{_ms(call['new'])} ms, y rel-L2 {rel:.2e} | host/device ms a "
+          f"call over 200: merge {_hd(hd['old'])}, direct {_hd(hd['new'])}"
+          f" | port kernel calls a call: merge {len(old.kernel_calls(xd))},"
+          f" direct {len(new.kernel_calls(xd))} | {heavy} heavy rows: "
+          f"heavy_land alone {median_ms(KERNELS['heavy_land'], *la):.4f} ms"
+          f" (bound {b_land:.4f}), {merged}, index_add_ "
+          f"{median_ms(land_library(la)):.4f} ms | bound: direct "
+          f"{b_new:.4f}, merge {b_old:.4f} ms | {card}", flush=True)
 
 
 def auto_xpose_path(name, A, dev, card, profile):
@@ -1873,17 +2008,24 @@ def dist_meta(prep):
             f"panel_merge {m['panel_merge']}{streams}")
 
 
-def one_call(name, prep, n, kernel, dev):
-    """The launches of ``kernel`` in one call of ``prep``, which must be
-    exactly one."""
+def one_call(name, prep, n, kernels, dev, calls=None):
+    """The launches of each of ``kernels`` in one call of ``prep``, which
+    must be exactly one each; with ``calls``, the port's kernel calls in
+    that call must number ``calls``."""
     reset_counts()
     prep.fn(torch.as_tensor(make_x(n), dtype=torch.float32, device=dev))
-    one = counts()[kernel]
-    if one != 1:
-        raise AssertionError(f"{name}: {one} {kernel} launches in one call, "
-                             "expected 1")
-    print(f"[{name}] one call: {one} {kernel} launch for the "
-          f"{len(prep.mesh)} shards", flush=True)
+    launched = counts()
+    bad = {k: launched[k] for k in kernels if launched[k] != 1}
+    if bad:
+        raise AssertionError(f"{name}: launches in one call {bad}, "
+                             "expected 1 each")
+    total = sum(launched.values())
+    if calls is not None and total != calls:
+        raise AssertionError(f"{name}: {total} port kernel calls in one "
+                             f"call, expected {calls} ({launched})")
+    print(f"[{name}] one call: one launch each of {', '.join(kernels)} for "
+          f"the {len(prep.mesh)} shards; {total} port kernel calls in all",
+          flush=True)
 
 
 def dist_phases(dev, card, flagship_A, PL):
@@ -1981,20 +2123,26 @@ def dist_phases(dev, card, flagship_A, PL):
         {**knobs, "mesh": [dev] * 4}, dev, card, ("lane_rows",),
         lambda m: m["tail_kind"] == "xla", "the segment-sum tail",
         describe=dist_meta, prepare=hybrid)
-    one_call("dist-flagship-4x1", prep4, A.n, "lane_rows", dev)
+    one_call("dist-flagship-4x1", prep4, A.n, ("lane_rows",), dev)
     del prep4
 
     # 25. main path 15: webbase1m at mesh 1, the split chips plan, and the
-    # chips A/B
-    layouts_path("dist-webbase1m", cases.webbase1m(), {"mesh": [dev]}, dev,
-                 card, ("lane_rows",) + CHIPS_KERNELS,
-                 ("lane_ell_sharded",) + CHIPS_KERNELS,
-                 lambda m: m["tail_kind"] == "chips-split",
-                 "the chips-split tail", describe=dist_meta, profile=True,
-                 forbid=GATHERS, chips=True)
+    # chips and landing A/Bs; one segment-sum and one heavy_land a call
+    # for all the streams
+    WB = cases.webbase1m()
+    *_, wb1, _ = layouts_path(
+        "dist-webbase1m", WB, {"mesh": [dev]}, dev, card,
+        ("lane_rows",) + CHIPS_KERNELS, ("lane_ell_sharded",) + CHIPS_KERNELS,
+        lambda m: m["tail_kind"] == "chips-split", "the chips-split tail",
+        describe=dist_meta, profile=True, forbid=GATHERS, chips=True,
+        landing=True)
+    one_call("dist-webbase1m", wb1, WB.n, DIST_CALL, dev, calls=4)
+    del wb1, WB
 
     # 26. main path 16: amazon262k on four shards with idx8, and the
-    # chips A/B; one chips_products launch a call for the four shards
+    # chips and landing A/Bs; one chips_products, one window_segsum and
+    # one heavy_land launch a call for the four shards (four port kernel
+    # calls a call)
     AZ = cases.amazon262k()
     *_, az4, _ = layouts_path(
         "dist-amazon262k-4x1", AZ, {"idx8": True, "mesh": [dev] * 4}, dev,
@@ -2004,9 +2152,9 @@ def dist_phases(dev, card, flagship_A, PL):
         lambda m: (m["ext"] and m["tail_kind"] == "chips"
                    and m["panel_merge"] and m["idx8_planes"] > 0),
         "ext panels, chips tails, the panel merge and idx8",
-        describe=dist_meta, profile=True, forbid=("sorted_gather",),
-        chips=True)
-    one_call("dist-amazon262k-4x1", az4, AZ.n, "chips_products", dev)
+        describe=dist_meta, profile=True, forbid=GATHERS,
+        chips=True, landing=True)
+    one_call("dist-amazon262k-4x1", az4, AZ.n, DIST_CALL, dev, calls=4)
     del az4, AZ
 
     # 27. main path 17: powerlaw100k through the row-sharded PELL on row
@@ -2033,7 +2181,7 @@ def dist_phases(dev, card, flagship_A, PL):
         {"mesh": [dev] * 4}, dev, card, ("pell_rows",),
         lambda m: m["layout"] == "rows", "the row-sharded PELL on row quanta",
         describe=dist_meta, prepare=pell_prep)
-    one_call("dist-powerlaw100k-pell-4x1", prep4, PL.n, "pell_rows", dev)
+    one_call("dist-powerlaw100k-pell-4x1", prep4, PL.n, ("pell_rows",), dev)
     del prep4
     return fl, fl_counts, dpl, dpl_counts, dpt, dpt_counts
 
@@ -2130,7 +2278,7 @@ def cli_phase(card, amz_call_ms):
                                  "cache written: "
                                  f"{os.path.exists(cache.cache_path(path))}")
         require(launched, ("lane_rows", "chips_products", "window_segsum",
-                           "pell_rows"), "cli (a)")
+                           "heavy_land", "pell_rows"), "cli (a)")
         check_csvs("a", out, first)
         native.PARSES = 0
         second, _ = cli_run("a-cached", argv, card)
@@ -2313,8 +2461,8 @@ def main() -> int:
         ("lane_rows",) + CHIPS_KERNELS,
         ("lane_ell_spmv", "sorted_gather", "ranked_gather") + CHIPS_KERNELS,
         lambda m: m["ext"] and m["tail_kind"] == "chips",
-        "the ext route and the chips tail", forbid=("sorted_gather",),
-        chips=True,
+        "the ext route and the chips tail", forbid=GATHERS,
+        chips=True, landing=True,
         describe=lambda p: (
             f"loc_w {p.meta['loc_w']} Q {p.meta['slots']}+"
             f"{p.meta['ov_slots']} chunk {p.meta['chunk']} steps "
@@ -2364,11 +2512,13 @@ def main() -> int:
     del old, pw_prep
     WB = cases.webbase1m()
     *_, wb_prep, _ = layouts_path(
-        "webbase1m", WB, {}, dev, card, ("lane_rows", "pell_rows"),
-        ("lane_ell_spmv", "pell_rows"),
+        "webbase1m", WB, {}, dev, card, ("lane_rows", "pell_rows",
+                                         "heavy_land"),
+        ("lane_ell_spmv", "pell_rows", "heavy_land"),
         lambda m: (m["tail_kind"] == "compact-cuda-pell-rows"
                    and m["tail_nnz"] > lane_ell.BIG_TAIL),
-        "a compact-PELL tail (row layout) past BIG_TAIL", describe=pell_meta)
+        "a compact-PELL tail (row layout) past BIG_TAIL", describe=pell_meta,
+        forbid=GATHERS, landing=True)
     xd = torch.as_tensor(make_x(WB.n), dtype=torch.float32, device=dev)
     old = hybrid.prepare(WB, device=dev, pell_layout="tiles")
     layout_ab("webbase1m-tail", old, wb_prep, xd, card)
@@ -2409,6 +2559,7 @@ def main() -> int:
         "chips_products": [(amz["chips_products"], amz_counts,
                             "amazon262k")],
         "window_segsum": [(amz["window_segsum"], amz_counts, "amazon262k")],
+        "heavy_land": [(amz["heavy_land"], amz_counts, "amazon262k")],
         "window_gather": [(win["window_gather"], win_counts,
                            "ext_windowed1m-lanes")],
         "pell_fused": [(dpt["pell_fused"], dpt_counts,

@@ -66,6 +66,7 @@ SIGNATURES = {
                    "ranked_gather": (P, P, P, P, I, I, P),
                    "window_gather": (P, P, P, P, P, I, I, I64, P)},
     "chips_products": {"chips_products": (P, P, P, I64, P, I64, P)},
+    "heavy_land": {"heavy_land": (P, P, P, I64, I64, P)},
     "segsum": {"dest_segsum": (P, P, P, P, P, P, P, P, I, I, I, P)},
     "pell": {"pell_tiles": (P, P, P, P, P, I64, I, I, I, I, I, P),
              "pell_fused": (P, P, P, P, P, P, P, P, P,

@@ -15,9 +15,19 @@ kernel, cuda_csr.cu:96-140):
 4. :func:`segsum_kernel.window_segsum` reduces the chips to one sum per
    heavy row (8 heavy rows per block, quantum (tile, lane) holding one
    rank of a block's 8 rows);
-5. the landing (:func:`make_landing`) adds the per-row sums into y: a
-   windowed or ranked panel merge through the gathers, or ``index_add_``
-   on the unique heavy rows when the merge tables exceed their budget.
+5. the landing adds the per-row sums into y.
+
+Steps 4-5 have two designs (knob ``landing``, :data:`LANDINGS`). On
+``"direct"`` (the default) one segment-sum covers every stream of a
+plan, and on the row-sharded hybrid every shard of a card
+(:func:`bind_sums`: one table whose windows stack the plans' heavy-row
+spaces), and one launch of :func:`heavy_land` (``csrc/heavy_land.cu``)
+adds each heavy row's sum into its row of y in place, through an int32
+map built on the host (:func:`land_map`). On ``"merge"`` each stream
+has its own segment-sum, the streams' sums add, and the reference's
+landing (:func:`make_landing`) merges them into y: a windowed or ranked
+panel merge through the gathers over every row of y, or ``index_add_``
+on the unique heavy rows when the merge tables exceed their budget.
 
 Steps 1-3 are the reference's staging of x for a TPU, kept on
 ``chips_x="hot"``. On ``chips_x="slots"`` (the default) they are one
@@ -35,9 +45,10 @@ distance. *Local* entries ride a windowed stage 2
 past the windowed gather's cap, over a dedup'd hot region
 (``windowed``); *far* entries, and local ones past the window's reach,
 ride the resident stage 2, split by column popularity into a ``far`` and
-a ``cold`` stream when one resident stream would not fit. Every stream
-has its own segment-sum over one shared heavy-row space, and the
-streams' sums add before the landing.
+a ``cold`` stream when one resident stream would not fit. The streams
+share one heavy-row space: on ``landing="direct"`` one segment-sum adds
+a heavy row's quanta of all streams, on ``"merge"`` each stream has its
+own and the streams' sums add before the landing.
 
 For the row-sharded hybrid (``parallel/distributed.py``),
 :func:`pad_resident_plan` and :func:`pad_split_plan` pad per-shard plans
@@ -57,6 +68,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from spmv_scpa_tpu_torch import _kernels
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.ops import chips_slots, ext_gather, segsum_kernel
 from spmv_scpa_tpu_torch.ops.registry import Prepared, record_calls
@@ -149,9 +161,10 @@ class ChipsPlan:
     __slots__ = ("n_e", "H", "n_groups", "R", "n1p_blocks", "base",
                  "p1", "l1", "E8", "p2", "l2", "vals", "rbl",
                  "win_of_step", "num_windows", "h", "rows_per_step",
-                 "heavy_ids", "NH", "live")
+                 "heavy_ids", "NH", "live", "n_real")
 
     def __init__(self, **kw):
+        kw.setdefault("n_real", kw["NH"])
         for k, v in kw.items():
             setattr(self, k, v)
 
@@ -172,11 +185,12 @@ class _Stream:
 
 class SplitChipsPlan:
     __slots__ = ("n_e", "h", "rows_per_step", "num_windows",
-                 "heavy_ids", "NH", "loc", "far", "cold", "pop_k")
+                 "heavy_ids", "NH", "loc", "far", "cold", "pop_k", "n_real")
 
     def __init__(self, **kw):
         kw.setdefault("cold", None)
         kw.setdefault("pop_k", None)
+        kw.setdefault("n_real", kw["NH"])
         for k, v in kw.items():
             setattr(self, k, v)
 
@@ -317,8 +331,9 @@ def pad_resident_plan(plan: ChipsPlan, *, n_groups: int,
       (the segment-sum writes every window it is given), then repeat the
       last window, so ``win_of_step`` stays non-decreasing;
     * extra heavy slots take ids from ``heavy_pad_pool`` (rows with no
-      tail entries on this shard: their sums are 0, and the landing adds
-      0 to them).
+      tail entries on this shard: their sums are 0, and the merge adds 0
+      to them); ``n_real`` keeps the number of real ranks, and the
+      direct landing (:func:`land_map`) adds nothing for the others.
     """
     h, rps = plan.h, plan.rows_per_step
     qps = (rps // 8) * BC
@@ -356,7 +371,7 @@ def pad_resident_plan(plan: ChipsPlan, *, n_groups: int,
         E8=steps * rps, p2=p2, l2=l2, vals=vals, rbl=rbl,
         win_of_step=np.asarray(wos, np.int64),
         num_windows=num_windows, h=h, rows_per_step=rps,
-        heavy_ids=heavy, NH=NH, live=live)
+        heavy_ids=heavy, NH=NH, live=live, n_real=plan.n_real)
 
 
 def split_shape_template(plans: list) -> dict:
@@ -453,7 +468,7 @@ def pad_split_plan(plan: SplitChipsPlan, tpl: dict,
            for k in ("loc", "far", "cold")}
     return SplitChipsPlan(n_e=plan.n_e, h=h, rows_per_step=rps,
                           num_windows=nw, heavy_ids=heavy,
-                          NH=tpl["NH"], **out)
+                          NH=tpl["NH"], n_real=plan.n_real, **out)
 
 
 def plan_chips_split(rows, cols, vals, m, n, h: int = 256,
@@ -698,11 +713,21 @@ def _put(a, dtype, device):
 # that reads x in place (ops/chips_slots.py, the default), or the
 # reference's two gather stages over a staged x and a multiply
 CHIPS_X = ("slots", "hot")
+# how the per-heavy-row sums reach y: one segment-sum over every stream
+# (of every shard of a card) and one direct scatter, ``heavy_land`` (the
+# default), or the reference's segment-sum per stream and its panel
+# merge through the gathers (``index_add_`` past the merge's budget)
+LANDINGS = ("direct", "merge")
 
 
 def check_chips_x(chips_x: str) -> None:
     if chips_x not in CHIPS_X:
         raise ValueError(f"chips_x {chips_x!r} is not one of {CHIPS_X}")
+
+
+def check_landing(landing: str) -> None:
+    if landing not in LANDINGS:
+        raise ValueError(f"landing {landing!r} is not one of {LANDINGS}")
 
 
 def _segsum(rbl, win_of_step, num_windows: int, h: int, rows_per_step: int,
@@ -742,16 +767,28 @@ def _slot_sums(plan, device):
     return fn
 
 
-def bind_slots(plans: list, n: int, device):
-    """The slot tables of ``plans`` (a device's shards) concatenated into
-    one: ``(products(xf, ops) -> prod, [sums(prod_j, ops) -> ys_j], hbm)``
-    with one ``chips_products`` launch for all of them and each plan's
-    segment-sums over its own rows of ``prod``. ``hbm``: 12 B a slot
-    (column, value, product) and the per-row sums."""
+def _slot_products(plans: list, n: int, device):
+    """``(products(xf, ops) -> prod, hbm)``: the slot tables of ``plans``
+    concatenated into one, one ``chips_products`` launch for all of them;
+    ``hbm`` 12 B a slot (column, value, product)."""
     cols = np.concatenate([chips_slots.slots_table(p, n) for p in plans])
     vals = np.concatenate([chips_slots.slot_vals(p) for p in plans])
     t_cols = _put(cols, torch.int32, device)
     t_vals = _put(vals, torch.float32, device)
+
+    def products(xf, ops):
+        return ops.chips_products(t_cols, t_vals, xf)
+    return products, int(cols.size * 12)
+
+
+def bind_slots(plans: list, n: int, device):
+    """The slot tables of ``plans`` (a device's shards) concatenated into
+    one: ``(products(xf, ops) -> prod, [sums(prod_j, ops) -> ys_j], hbm)``
+    with one ``chips_products`` launch for all of them and each plan's
+    segment-sums over its own rows of ``prod`` (the ``"merge"``
+    landing's). ``hbm``: 12 B a slot (column, value, product) and the
+    per-row sums."""
+    products, hbm = _slot_products(plans, n, device)
     sums, r0 = [], 0
     for p in plans:
         rows = sum(chips_slots.slot_rows(p))
@@ -759,19 +796,64 @@ def bind_slots(plans: list, n: int, device):
         sums.append(lambda prod, ops, a=r0, b=r0 + rows, seg=seg:
                     seg(prod[a:b], ops))
         r0 += rows
+    return products, sums, int(hbm + sum(p.NH for p in plans) * 4)
+
+
+def _hot_products(plans: list, n: int, device):
+    """``(products(xf, ops) -> prod, hbm)`` on ``chips_x="hot"``: each
+    stream's two gather stages and multiply, the streams of every plan
+    concatenated in :func:`chips_slots.slots_table`'s order."""
+    parts = [(_stream_products(s, n, device) if isinstance(p, SplitChipsPlan)
+              else _single_products(s, n, device))
+             for p in plans for s in chips_slots.slot_parts(p)]
+    fns = [fn for fn, _ in parts]
 
     def products(xf, ops):
-        return ops.chips_products(t_cols, t_vals, xf)
+        out = [fn(xf, ops) for fn in fns]
+        return out[0] if len(out) == 1 else torch.cat(out)
+    return products, sum(hbm for _, hbm in parts)
 
-    hbm = cols.size * 12 + sum(p.NH for p in plans) * 4
-    return products, sums, int(hbm)
+
+def bind_sums(plans: list, n: int, device, chips_x: str = "slots"):
+    """Every heavy row's sum of ``plans`` (one plan, or a device's shards)
+    from one window segment-sum launch, the ``"direct"`` landing's: the
+    plans' chip rows stacked in slot order (their products from one
+    ``chips_products`` launch on ``chips_x="slots"``, or from each stream's
+    gathers on ``"hot"``), the quanta of every stream of plan j in one
+    table whose windows follow plan j - 1's, so that one destination holds
+    the quanta of all of a heavy row's streams, in ascending order (loc,
+    far, cold: another order than the streams' sums added one after the
+    other, so y differs from the merge's by rounding). Returns
+    ``(sums(xf, ops) -> ys, ranks, hbm)``: ys (L,) f32 with plan j's heavy
+    rank k at ``ranks[j] + k``; ``hbm`` the x side's bytes and the sums'."""
+    h, rps = plans[0].h, plans[0].rows_per_step
+    if any(p.h != h or p.rows_per_step != rps for p in plans):
+        raise ValueError("bind_sums: plans of different h or rows_per_step "
+                         "cannot share one segment-sum")
+    rbl, win, ranks, w0 = [], [], [], 0
+    for p in plans:
+        for s in chips_slots.slot_parts(p):
+            rbl.append(np.asarray(s.rbl, np.int32))
+            win.append(np.asarray(s.win_of_step, np.int64) + w0)
+        ranks.append(w0 * h * 8)
+        w0 += p.num_windows
+    seg = _segsum(np.concatenate(rbl), np.concatenate(win), w0, h, rps,
+                  device)
+    L = ranks[-1] + plans[-1].NH
+    products, hbm = (_slot_products if chips_x == "slots" else
+                     _hot_products)(plans, n, device)
+
+    def sums(xf, ops):
+        return seg(products(xf, ops), ops).view(-1)[:L]
+    return sums, ranks, int(hbm + sum(p.NH for p in plans) * 4)
 
 
 def prepare_chips(plan, n: int, device, chips_x: str = "slots"):
     """Device pipeline of a plan, single or split: returns ``(contrib,
     hbm)``, where ``contrib(xf, ops) -> ys`` (NH,) f32 gives the
     per-heavy-row sums in ``plan.heavy_ids`` order for x (f32, on
-    ``device``). ``chips_x``: ``"slots"`` (the default: one
+    ``device``), each stream's segment-sum apart (the ``"merge"``
+    landing's). ``chips_x``: ``"slots"`` (the default: one
     ``chips_products`` launch over the plan's slot table, x read in
     place) or ``"hot"`` (the reference's staged x, two gather stages and
     a multiply)."""
@@ -781,45 +863,49 @@ def prepare_chips(plan, n: int, device, chips_x: str = "slots"):
         return (lambda xf, ops: sums(products(xf, ops), ops)), hbm
     if isinstance(plan, SplitChipsPlan):
         return prepare_chips_split(plan, n, device)
+    prod, hbm = _single_products(plan, n, device)
+    segsum = _segsum(plan.rbl, plan.win_of_step, plan.num_windows, plan.h,
+                     plan.rows_per_step, device)
+    NH = plan.NH
+
+    def contrib(xf, ops):
+        return segsum(prod(xf, ops), ops).view(-1)[:NH]
+
+    return contrib, int(hbm + plan.NH * 4)
+
+
+def _single_products(plan: ChipsPlan, n: int, device):
+    """``(fn(xf, ops) -> vals * xg, hbm)`` of a single plan on
+    ``chips_x="hot"``: stage 1 into the hot region, stage 2 into the chip
+    layout, the multiply."""
     base = _put(plan.base, torch.int32, device)
     p1 = _put(plan.p1, torch.int32, device)
     l1 = _put(plan.l1, torch.int32, device)
     p2 = _put(plan.p2, torch.int32, device)
     l2 = _put(plan.l2, torch.int32, device)
     vals = _put(plan.vals, torch.float32, device)
-    segsum = _segsum(plan.rbl, plan.win_of_step, plan.num_windows, plan.h,
-                     plan.rows_per_step, device)
     n1 = plan.n1p_blocks * plan.R * BC
-    NH = plan.NH
 
-    def contrib(xf, ops):
+    def fn(xf, ops):
         x1 = torch.zeros(n1, dtype=torch.float32, device=xf.device)
         x1[:n] = xf
         hot = ops.sorted_gather(base, x1.view(-1, BC), p1, l1, plan.R)
-        xg = ops.ranked_gather(hot, p2, l2)
-        return segsum(vals * xg, ops).view(-1)[:NH]
+        return vals * ops.ranked_gather(hot, p2, l2)
 
     hbm = (plan.E8 * BC * (4 + 4 + 4 + 4)        # vals, p2, l2, xg
-           + plan.n_groups * plan.R * BC * 4    # stage-1 windows
-           + plan.NH * 4)
-    return contrib, int(hbm)
+           + plan.n_groups * plan.R * BC * 4)   # stage-1 windows
+    return fn, int(hbm)
 
 
-def _prepare_stream(s: _Stream, n: int, h: int, rows_per_step: int,
-                    num_windows: int, device):
-    """Device pipeline of one split-plan stream on ``chips_x="hot"``:
-    ``fn(xf, ops) -> ys`` (num_windows*h, 8), its segment-sum's per-row
-    sums."""
+def _stream_products(s: _Stream, n: int, device):
+    """``(fn(xf, ops) -> vals * xg, hbm)`` of one split-plan stream on
+    ``chips_x="hot"``: its gathers and the multiply."""
     t = {k: _put(getattr(s, k), torch.int32, device)
          for k in ("p2", "l2")
          + (("base8",) if s.kind != "resident" else ())
          + (("base1", "p1", "l1") if s.kind != "windowed-x" else ())}
     vals = _put(s.vals, torch.float32, device)
-    seg = _segsum(s.rbl, s.win_of_step, num_windows, h, rows_per_step,
-                  device)
-
-    def segsum(xg, ops):
-        return seg(vals * xg, ops)
+    hbm = s.E8 * BC * 16 + s.H_pad * BC * 4
 
     if s.kind == "windowed-x":
         # the windowed gather over x itself, zero-padded to its reach
@@ -829,9 +915,9 @@ def _prepare_stream(s: _Stream, n: int, h: int, rows_per_step: int,
             xp = torch.zeros(s.H_pad * BC, dtype=torch.float32,
                              device=xf.device)
             xp[:nx] = xf[:nx]
-            return segsum(ops.window_gather(t["base8"], xp.view(-1, BC),
-                                            t["p2"], t["l2"], s.r_hot), ops)
-        return fn
+            return vals * ops.window_gather(t["base8"], xp.view(-1, BC),
+                                            t["p2"], t["l2"], s.r_hot)
+        return fn, hbm
 
     n1 = s.n1p_blocks * s.r1 * BC
 
@@ -841,34 +927,34 @@ def _prepare_stream(s: _Stream, n: int, h: int, rows_per_step: int,
         hot = ops.sorted_gather(t["base1"], x1.view(-1, BC), t["p1"],
                                 t["l1"], s.r1)
         if s.kind == "resident":
-            return segsum(ops.ranked_gather(hot, t["p2"], t["l2"]), ops)
+            return vals * ops.ranked_gather(hot, t["p2"], t["l2"])
         if hot.shape[0] != s.H_pad:          # pad or cut to the reach
             hot = torch.cat([hot, hot.new_zeros(
                 (max(s.H_pad - hot.shape[0], 0), BC))])[:s.H_pad]
-        return segsum(ops.window_gather(t["base8"], hot, t["p2"], t["l2"],
-                                        s.r_hot), ops)
-    return fn
+        return vals * ops.window_gather(t["base8"], hot, t["p2"], t["l2"],
+                                        s.r_hot)
+    return fn, hbm
 
 
 def prepare_chips_split(plan: SplitChipsPlan, n: int, device):
     """Device pipeline of a split plan on ``chips_x="hot"``: ``(contrib,
-    hbm)`` as :func:`prepare_chips`; the streams' sums add in stream
-    order."""
-    parts = [_prepare_stream(s, n, plan.h, plan.rows_per_step,
-                             plan.num_windows, device)
-             for s in plan.streams]
+    hbm)`` as :func:`prepare_chips`; each stream's segment-sum apart, the
+    streams' sums added in stream order."""
+    parts = []
+    for s in plan.streams:
+        prod, hbm = _stream_products(s, n, device)
+        parts.append((prod, _segsum(s.rbl, s.win_of_step, plan.num_windows,
+                                    plan.h, plan.rows_per_step, device), hbm))
     NH = plan.NH
 
     def contrib(xf, ops):
         ys = None
-        for fn in parts:
-            t = fn(xf, ops)
+        for prod, seg, _ in parts:
+            t = seg(prod(xf, ops), ops)
             ys = t if ys is None else ys + t
         return ys.view(-1)[:NH]
 
-    hbm = sum(s.E8 * BC * 16 + s.H_pad * BC * 4
-              for s in plan.streams) + plan.NH * 4
-    return contrib, int(hbm)
+    return contrib, int(sum(hbm for *_, hbm in parts) + plan.NH * 4)
 
 
 def split_plan_host_args(plan: SplitChipsPlan) -> list:
@@ -1058,6 +1144,118 @@ def make_landing(heavy_ids: np.ndarray, m: int, G_pad: int, device,
     return land, use_merge, extra
 
 
+# ---- the direct landing: heavy_land -----------------------------------------
+
+# Launches of ``heavy_land``'s CUDA kernel by its wrapper in this process.
+LAUNCHES = {"heavy_land": 0}
+
+
+def land_map(plans: list, ranks, size: int, row0) -> np.ndarray:
+    """The ``"direct"`` landing's map of the sums of :func:`bind_sums`
+    (int64, (size,)): position ``ranks[j] + k`` holds ``row0[j] +
+    heavy_ids_j[k]`` for each real heavy rank k of plan j (k <
+    ``n_real``), -1 elsewhere: window padding, and a padded shard plan's
+    pad ranks, which add into no row."""
+    land = np.full(size, -1, np.int64)
+    for p, r, o in zip(plans, ranks, row0):
+        k = int(p.n_real)
+        land[r:r + k] = o + np.asarray(p.heavy_ids[:k], np.int64)
+    return land
+
+
+def check_land(land, n_rows: int) -> None:
+    """Raise ValueError unless every entry of ``land`` is -1 or a row in
+    [0, n_rows) and no row appears twice (the kernel adds without
+    atomics)."""
+    land = np.asarray(land, np.int64)
+    if land.size and (int(land.min()) < -1 or int(land.max()) >= n_rows):
+        raise ValueError(f"heavy_land: land holds rows in [{land.min()}, "
+                         f"{land.max()}], outside y's {n_rows} (or -1)")
+    live = land[land >= 0]
+    if np.unique(live).size != live.size:
+        raise ValueError("heavy_land: land names a row of y more than once")
+
+
+def bind_land(land, n_rows: int, device) -> torch.Tensor:
+    """``land`` checked (:func:`check_land`) as an int32 tensor on
+    ``device``."""
+    check_land(land, n_rows)
+    return _put(land, torch.int32, device)
+
+
+def land_hbm(land) -> int:
+    """Bytes one ``heavy_land`` call moves: 4 B an entry of ``land``, and
+    per heavy row its sum read and its row of y read and written (16 B a
+    heavy row in all)."""
+    land = np.asarray(land)
+    return int(land.size * 4 + int((land >= 0).sum()) * 12)
+
+
+def _check_land_args(y, ys, land) -> None:
+    if y.dtype != torch.float32 or ys.dtype != torch.float32 \
+            or ys.dim() != 1:
+        raise ValueError(f"heavy_land: y is {y.dtype}, ys {ys.dtype} "
+                         f"{tuple(ys.shape)}, expected float32 and (n,)")
+    if land.dtype != torch.int32 or land.shape != ys.shape:
+        raise ValueError(f"heavy_land: land is {land.dtype} "
+                         f"{tuple(land.shape)}, expected int32 "
+                         f"{tuple(ys.shape)}")
+    for name, t in (("ys", ys), ("land", land)):
+        if t.device != y.device:
+            raise ValueError(f"heavy_land: {name} is on {t.device}, y on "
+                             f"{y.device}")
+    for name, t in (("y", y), ("ys", ys), ("land", land)):
+        if not t.is_contiguous():
+            raise ValueError(f"heavy_land: {name} is not contiguous")
+    if y.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"heavy_land: unsupported device {y.device}")
+
+
+def heavy_land(y, ys, land) -> torch.Tensor:
+    """``y[land[k]] += ys[k]`` in place for every k with ``land[k] >=
+    0``, y (any shape, contiguous) indexed flat; returns y. ``land``
+    names each row at most once (:func:`bind_land` checks that on the
+    host, once per matrix; on a CPU tensor it is checked here). CUDA
+    tensors launch ``csrc/heavy_land.cu``; CPU tensors run
+    :func:`heavy_land_plain`."""
+    _check_land_args(y, ys, land)
+    if y.device.type == "cpu":
+        check_land(land.numpy(), y.numel())
+        return heavy_land_plain(y, ys, land)
+    lib = _kernels.load("heavy_land")
+    err = lib.heavy_land(ys.data_ptr(), land.data_ptr(), y.data_ptr(),
+                         land.numel(), y.numel(),
+                         _kernels.stream_handle(y.device))
+    _kernels.check(lib, err, "heavy_land")
+    LAUNCHES["heavy_land"] += 1
+    return y
+
+
+def heavy_land_plain(y, ys, land) -> torch.Tensor:
+    """:func:`heavy_land` in PyTorch ops: ``y[idx] = y[idx] + ys[sel]``,
+    one f32 add a heavy row, in place."""
+    sel = torch.nonzero(land >= 0).flatten()
+    idx = land[sel].long()
+    flat = y.view(-1)
+    flat[idx] = flat[idx] + ys[sel]
+    return y
+
+
+def land_chips(plan, n: int, m: int, device, chips_x: str = "slots"):
+    """The ``"direct"`` landing of one chips plan into y (m,): ``(add(y,
+    xf, ops) -> y, hbm)`` with ``add`` one segment-sum over all the
+    plan's streams (:func:`bind_sums`) and one ``heavy_land`` into y in
+    place; ``hbm`` the tail's bytes, the landing's 16 B a heavy row
+    among them."""
+    sums, ranks, hbm = bind_sums([plan], n, device, chips_x)
+    land = land_map([plan], ranks, plan.NH, [0])
+    t_land = bind_land(land, m, device)
+
+    def add(y, xf, ops):
+        return ops.heavy_land(y, sums(xf, ops), t_land)
+    return add, hbm + land_hbm(land)
+
+
 # ---------------------------------------------------------------------------
 # The strategy
 # ---------------------------------------------------------------------------
@@ -1070,27 +1268,33 @@ class ChipsKernels(NamedTuple):
     window_gather: Callable
     window_segsum: Callable
     chips_products: Callable
+    heavy_land: Callable
 
 
 KERNELS = ChipsKernels(ext_gather.sorted_gather, ext_gather.ranked_gather,
                        ext_gather.window_gather, segsum_kernel.window_segsum,
-                       chips_slots.chips_products)
+                       chips_slots.chips_products, heavy_land)
 PLAIN = ChipsKernels(ext_gather.sorted_gather_plain,
                      ext_gather.ranked_gather_plain,
                      ext_gather.window_gather_plain,
                      segsum_kernel.window_segsum_plain,
-                     chips_slots.chips_products_plain)
+                     chips_slots.chips_products_plain, heavy_land_plain)
 
 
 def prepare_chips_strategy(A: CSR, device="cuda", chips_x: str = "slots",
-                           **_) -> Prepared:
+                           landing: str = "direct", **_) -> Prepared:
     """``cuda-chips`` (the reference's ``pallas-chips``,
     ``prepare_chips_strategy``): the whole matrix as chips, every row
     reduced cooperatively (the reference study's block-per-row CSR
     kernel), through the single plan or the split plan, landed into a
-    zero y; ``chips_x`` as :func:`prepare_chips`. Refuses (ValueError) a
-    matrix neither plan fits."""
+    zero y; ``chips_x`` as :func:`prepare_chips`; ``landing``
+    (:data:`LANDINGS`): ``"direct"`` (the default: one segment-sum over
+    all streams, then ``heavy_land``) or ``"merge"`` (the reference's
+    segment-sum per stream and panel merge). The meta has the
+    reference's keys (``panel_merge`` what the reference picks) and
+    ``landing``. Refuses (ValueError) a matrix neither plan fits."""
     check_chips_x(chips_x)
+    check_landing(landing)
     dev = resolve_device(device)
     rows = A.row_ids().astype(np.int64)
     cols = A.ja.astype(np.int64)
@@ -1099,23 +1303,31 @@ def prepare_chips_strategy(A: CSR, device="cuda", chips_x: str = "slots",
         raise ValueError(
             "cuda-chips: matrix exceeds the resident-hot/VPU budget "
             f"(uniq cols or {A.nnz} entries too large)")
-    contrib, hbm = prepare_chips(plan, A.n, dev, chips_x)
     m, n = A.m, A.n
-    land, use_merge, extra = make_landing(plan.heavy_ids, m, -(-m // BC),
-                                          dev)
+    tables = landing_tables(plan.heavy_ids, m, -(-m // BC))
+    if landing == "direct":
+        add, hbm = land_chips(plan, n, m, dev, chips_x)
+    else:
+        contrib, hbm = prepare_chips(plan, n, dev, chips_x)
+        land, _, extra = make_landing(plan.heavy_ids, m, -(-m // BC), dev,
+                                      tables=tables)
+        hbm += extra
+
+        def add(y, xf, ops):
+            return land(y, contrib(xf, ops), ops)
 
     def call(x, ops):
         xf = torch.as_tensor(x, dtype=torch.float32, device=dev)
         if xf.shape != (n,):
             raise ValueError(f"cuda-chips: x has shape {tuple(xf.shape)}, "
                              f"expected ({n},)")
-        return land(torch.zeros(m, dtype=torch.float32, device=dev),
-                    contrib(xf, ops), ops)
+        return add(torch.zeros(m, dtype=torch.float32, device=dev), xf, ops)
 
-    meta = {"chunk": plan.rows_per_step, **chips_meta(plan, use_merge)}
+    meta = {"chunk": plan.rows_per_step,
+            **chips_meta(plan, tables[0] != "scatter"), "landing": landing}
     return Prepared("cuda-chips", A.name, lambda x: call(x, KERNELS),
                     device=dev, nnz=A.nnz, ref="pallas-chips",
-                    hbm_bytes=hbm + extra, meta=meta,
+                    hbm_bytes=hbm, meta=meta,
                     plain=lambda x: call(x, PLAIN),
                     kernel_calls=lambda xf: record_calls(
                         lambda ops: call(xf, ops), PLAIN))

@@ -21,12 +21,15 @@ Counterpart of ``spmv_scpa_tpu/ops/lane_ell.py:prepare_lane_ell_hybrid``
   ``loc_w`` left pad, the hot columns, and the ext panels through the
   two gather stages of ``ops/ext_gather.py``); then it adds the tail,
   the same on both layouts: the chips tail (``ops/chips_tail.py``; its
-  x side on ``chips_x``, one slot kernel by default) for
+  x side on ``chips_x``, one slot kernel by default; its sums landed on
+  ``landing``, one segment-sum and the direct scatter ``heavy_land`` by
+  default) for
   2048 entries or more, else the compact tail with ``index_add_``, or,
   past ``tail_xla_max`` entries,
   the big-tail branch: PELL (or, under ``tail_strategy="pallas-xpose"``,
   XPOSE, ``ops/xpose.py``) over the tail's rows renumbered 0..NH-1
-  landed through ``chips_tail.make_landing``, or under
+  landed by ``chips_tail.heavy_land`` (``landing="merge"``: through
+  ``chips_tail.make_landing``), or under
   ``tail_strategy="auto"`` a second hybrid over the tail when it has
   locality, y summed on the device. A matrix whose widest diagonal
   window covers under 40% of its entries goes to ``cuda-pell`` whole
@@ -1136,46 +1139,52 @@ def lane_ell_sharded_plain(xpad, r0, vals, idx8, idx16, plane_tabs, ext,
 
 # The functions one hybrid call runs: the core (``lane_rows`` on the
 # rows layout, ``lane_ell_spmv`` on the lanes layout), the three gathers
-# of the ext route, the landing and the chips tail on ``chips_x="hot"``,
-# the chips tail's slot products, the PELL family's
+# of the ext route, the merge landing and the chips tail on
+# ``chips_x="hot"``, the chips tail's slot products, the direct landing
+# ``heavy_land``, the PELL family's
 # (:class:`pell.PellKernels`, the window segment-sum among them) for the
 # chips tail, the no-locality escape and the compact big tail, and
 # XPOSE's (:class:`xpose.XposeKernels`) for the compact XPOSE big tail.
 HybridKernels = NamedTuple("HybridKernels", [
     (name, Callable) for name in ("lane_ell_spmv", "lane_rows",
                                   "sorted_gather", "ranked_gather",
-                                  "window_gather", "chips_products")
+                                  "window_gather", "chips_products",
+                                  "heavy_land")
     + pell.PellKernels._fields + xpose.XposeKernels._fields])
 
 KERNELS = HybridKernels(lane_ell_spmv, lane_rows.lane_rows,
                         ext_gather.sorted_gather, ext_gather.ranked_gather,
                         ext_gather.window_gather, chips_slots.chips_products,
-                        *pell.KERNELS, *xpose.KERNELS)
+                        chips_tail.heavy_land, *pell.KERNELS, *xpose.KERNELS)
 PLAIN = HybridKernels(lane_ell_spmv_plain, lane_rows.lane_rows_plain,
                       ext_gather.sorted_gather_plain,
                       ext_gather.ranked_gather_plain,
                       ext_gather.window_gather_plain,
-                      chips_slots.chips_products_plain, *pell.PLAIN,
-                      *xpose.PLAIN)
+                      chips_slots.chips_products_plain,
+                      chips_tail.heavy_land_plain, *pell.PLAIN, *xpose.PLAIN)
 
 # The core's layouts: row quanta (ops/lane_rows.py, the default) and the
 # reference's slot planes.
 CORE_LAYOUTS = ("rows", "lanes")
 
 
-def designs(layouts, chips_x: str = "slots") -> list:
-    """``(key, core layout, chips_x)`` of each entry of ``layouts``: a
-    core layout (with ``chips_x``), or a ``(core layout, chips_x)``
-    pair. Raises ValueError for a layout not in ``CORE_LAYOUTS`` or a
-    chips_x not in ``chips_tail.CHIPS_X``."""
+def designs(layouts, chips_x: str = "slots", landing: str = "direct") -> list:
+    """``(key, core layout, chips_x, landing)`` of each entry of
+    ``layouts``: a core layout (with ``chips_x`` and ``landing``), a
+    ``(core layout, chips_x)`` pair (with ``landing``) or a ``(core
+    layout, chips_x, landing)`` triple. Raises ValueError for a layout
+    not in ``CORE_LAYOUTS``, a chips_x not in ``chips_tail.CHIPS_X`` or a
+    landing not in ``chips_tail.LANDINGS``."""
     out = []
     for key in layouts:
-        layout, cx = key if isinstance(key, tuple) else (key, chips_x)
+        layout, cx, ld = ((key + (landing,))[:3] if isinstance(key, tuple)
+                          else (key, chips_x, landing))
         if layout not in CORE_LAYOUTS:
             raise ValueError(f"core_layout {layout!r} is not one of "
                              f"{CORE_LAYOUTS}")
         chips_tail.check_chips_x(cx)
-        out.append((key, layout, cx))
+        chips_tail.check_landing(ld)
+        out.append((key, layout, cx, ld))
     return out
 
 
@@ -1201,7 +1210,8 @@ def no_locality(A: CSR, loc_w="auto", ext="auto",
 
 def prepare_lane_ell_hybrid(A: CSR, device="cuda", pell_layout="auto",
                             core_layout="rows", xpose_s3="rows",
-                            xpose_s1="auto", chips_x="slots", **knobs):
+                            xpose_s1="auto", chips_x="slots",
+                            landing="direct", **knobs):
     """Pack ``A`` (:func:`pack_lane_ell`, same knobs as the reference)
     and bind ``fn(x) -> y`` on ``device``: run the core, add the tail
     (chips tail and landing, the compact ``index_add_``, or the big-tail
@@ -1217,24 +1227,29 @@ def prepare_lane_ell_hybrid(A: CSR, device="cuda", pell_layout="auto",
     designs of a compact XPOSE tail (``xpose.S3_DESIGNS``,
     ``xpose.S1_DESIGNS``); ``chips_x``: the chips tail's x side
     (``chips_tail.CHIPS_X``: ``"slots"``, one kernel over a host slot
-    table, or ``"hot"``, the reference's two gather stages). ``device``
-    defaults to the card and raises without one; ``"cpu"`` runs the
-    plain versions."""
+    table, or ``"hot"``, the reference's two gather stages); ``landing``:
+    how the chips tail's sums and a compact big tail's rows reach y
+    (``chips_tail.LANDINGS``: ``"direct"``, one segment-sum over the
+    chips tail's streams and one ``heavy_land``, or ``"merge"``, the
+    reference's segment-sum per stream and panel merge). The meta adds
+    ``landing`` to the packer's. ``device`` defaults to the card and
+    raises without one; ``"cpu"`` runs the plain versions."""
     return prepare_hybrid_layouts(A, (core_layout,), device, pell_layout,
-                                  xpose_s3, xpose_s1, chips_x,
+                                  xpose_s3, xpose_s1, chips_x, landing,
                                   **knobs)[core_layout]
 
 
 def prepare_hybrid_layouts(A: CSR, layouts=CORE_LAYOUTS, device="cuda",
                            pell_layout="auto", xpose_s3="rows",
                            xpose_s1="auto", chips_x="slots",
-                           **knobs) -> dict:
+                           landing="direct", **knobs) -> dict:
     """:func:`prepare_lane_ell_hybrid` on each design of ``layouts``
     from one pack: ``{design: Prepared}``. A design is a core layout
-    (its chips tail on ``chips_x``) or a ``(core layout, chips_x)`` pair
-    (:func:`designs`); each core and each chips_x's tail is bound once
-    and shared."""
-    designs(layouts, chips_x)
+    (its chips tail on ``chips_x`` and ``landing``), a ``(core layout,
+    chips_x)`` pair or a ``(core layout, chips_x, landing)`` triple
+    (:func:`designs`); each core and each (chips_x, landing) tail is
+    bound once and shared."""
+    ds = designs(layouts, chips_x, landing)
     xpose.resolve_s1(xpose_s1, xpose_s3)
     dev = resolve_device(device)
     pell.use_layout(pell_layout)
@@ -1246,13 +1261,15 @@ def prepare_hybrid_layouts(A: CSR, layouts=CORE_LAYOUTS, device="cuda",
         prep.meta["d_cov"] = round(d_cov, 4)
         return dict.fromkeys(layouts, prep)
     plan, bound = _bind(A, dev, pell_layout, layouts, (xpose_s3, xpose_s1),
-                        chips_x, **knobs)
+                        chips_x, landing, **knobs)
     out = {}
-    for layout, (run, stage, hbm) in bound.items():
-        out[layout] = Prepared(
+    for key, *_, ld in ds:
+        run, stage, hbm = bound[key]
+        out[key] = Prepared(
             "cuda-hybrid", A.name, functools.partial(run, ops=KERNELS),
             device=dev, nnz=A.nnz, ref="pallas-hybrid", hbm_bytes=int(hbm),
-            meta=plan.meta, plain=functools.partial(run, ops=PLAIN),
+            meta={**plan.meta, "landing": ld},
+            plain=functools.partial(run, ops=PLAIN),
             kernel_inputs=stage,
             kernel_calls=functools.partial(_record, run))
     return out
@@ -1353,13 +1370,19 @@ def _lanes_core(A: CSR, plan: LanePlan, dev):
 
 
 def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xdesign,
-               chips_x, knobs):
+               chips_x, landing, knobs):
     """The tail of ``plan``, bound once for every core layout: returns
     (``add(y, xf, ops, layout) -> y'``, {layout: its bytes}). Fills the
     plan's meta for a big tail. ``xdesign``: (S3, S1) design of a compact
-    XPOSE tail; ``chips_x``: the chips tail's x side."""
+    XPOSE tail; ``chips_x``: the chips tail's x side; ``landing``: how
+    the chips tail's sums and a compact tail's rows reach y (the direct
+    landing adds into the core's y in place)."""
     m, n, G_pad = plan.m, A.n, plan.cfg.G_pad
     if plan.chips is not None:
+        if landing == "direct":
+            add, hbm = chips_tail.land_chips(plan.chips, n, m, dev, chips_x)
+            return ((lambda y, xf, ops, layout: add(y, xf, ops)),
+                    dict.fromkeys(layouts, hbm))
         contrib, hbm = chips_tail.prepare_chips(plan.chips, n, dev, chips_x)
         land, _, extra = chips_tail.make_landing(
             plan.chips.heavy_ids, m, G_pad, dev, tables=plan.landing)
@@ -1371,7 +1394,7 @@ def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xdesign,
         tail = CSR.from_coo(A.name + "_tail", m, n, plan.trows, plan.tcols,
                             plan.tvals)
         sub, subs = _bind(
-            tail, dev, pell_layout, layouts, xdesign, chips_x,
+            tail, dev, pell_layout, layouts, xdesign, chips_x, landing,
             depth=knobs.get("depth", 0) + 1,
             max_depth=knobs.get("max_depth", 2),
             tail_xla_max=knobs.get("tail_xla_max", 32768))
@@ -1399,8 +1422,13 @@ def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xdesign,
             tplan = pell.plan_pell(tail)
             sub_run = pell.bind_plan(tplan, dev)
             t_meta, t_hbm = tplan.meta, tplan.hbm_bytes
-        land, _, extra = chips_tail.make_landing(R, m, G_pad, dev)
         plan.meta["tail_meta"] = t_meta
+        if landing == "direct":
+            t_land = chips_tail.bind_land(R, m, dev)
+            return ((lambda y, xf, ops, layout:
+                     ops.heavy_land(y, sub_run(xf, ops), t_land)),
+                    dict.fromkeys(layouts, chips_tail.land_hbm(R) + t_hbm))
+        land, _, extra = chips_tail.make_landing(R, m, G_pad, dev)
         return ((lambda y, xf, ops, layout: land(y, sub_run(xf, ops), ops)),
                 dict.fromkeys(layouts, extra + t_hbm))
     if plan.trows.size:
@@ -1414,27 +1442,28 @@ def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xdesign,
 
 
 def _bind(A: CSR, dev, pell_layout="auto", layouts=("rows",),
-          xdesign=("rows", "auto"), chips_x="slots", **knobs):
+          xdesign=("rows", "auto"), chips_x="slots", landing="direct",
+          **knobs):
     """Pack ``A`` once and bind it on ``dev`` for each design of
     ``layouts`` (:func:`designs`): returns (plan, {design: (run, stage,
     hbm_bytes)}) with ``run(x, ops) -> y`` (m,) and ``stage(xf)`` the
     core kernel's arguments. Each core layout is bound once, and the
-    tail once per chips_x (``chips_x``: the default of a design that
-    names none); ``xdesign`` is the (S3, S1) design of a compact XPOSE
-    tail."""
+    tail once per (chips_x, landing) (``chips_x``, ``landing``: the
+    defaults of a design that names none); ``xdesign`` is the (S3, S1)
+    design of a compact XPOSE tail."""
     plan = pack_lane_ell(A, **knobs)
     n = A.n
-    ds = designs(layouts, chips_x)
+    ds = designs(layouts, chips_x, landing)
     cores = [c for c in CORE_LAYOUTS if any(d[1] == c for d in ds)]
-    tails = {cx: _bind_tail(A, plan, dev, pell_layout, cores, xdesign, cx,
-                            knobs)
-             for cx in dict.fromkeys(d[2] for d in ds)}
+    tails = {(cx, ld): _bind_tail(A, plan, dev, pell_layout, cores, xdesign,
+                                  cx, ld, knobs)
+             for cx, ld in dict.fromkeys(d[2:] for d in ds)}
     bound = {c: (_rows_core if c == "rows" else _lanes_core)(A, plan, dev)
              for c in cores}
     out = {}
-    for key, layout, cx in ds:
+    for key, layout, cx, ld in ds:
         core, stage, core_hbm = bound[layout]
-        add_tail, tail_hbm = tails[cx]
+        add_tail, tail_hbm = tails[cx, ld]
 
         def run(x, ops, core=core, layout=layout, add_tail=add_tail):
             xf = torch.as_tensor(x, dtype=torch.float32, device=dev)

@@ -34,8 +34,11 @@ Four prepare functions, as in the reference:
   panels. The tail rides per-shard chips pipelines (single plans or
   split plans, padded to shared shapes by ``chips_tail.pad_resident_plan``
   / ``pad_split_plan``; on ``chips_x="slots"`` one ``chips_products``
-  launch per device over all its shards' slot tables) landed by the panel
-  merge or ``index_add_``, or a padded segment-sum, on either layout;
+  launch per device over all its shards' slot tables; on
+  ``landing="direct"`` one ``window_segsum`` launch per device over
+  every stream of every shard and one ``heavy_land`` into the core's
+  (k, rows) y; on ``"merge"`` per-shard segment-sums landed by the panel
+  merge or ``index_add_``), or a padded segment-sum, on either layout;
 * :func:`prepare_row_sharded_pell`: on ``layout="rows"`` (the default)
   a device's shards as one row-quantum plan over their padded rows
   (``ops/pell_rows.py``), one :func:`pell_rows.pell_rows` launch per
@@ -129,6 +132,7 @@ class DistKernels(NamedTuple):
     window_gather: Callable
     window_segsum: Callable
     chips_products: Callable
+    heavy_land: Callable
     pell_fused: Callable
     unpermute: Callable
     pell_rows: Callable
@@ -375,7 +379,8 @@ def prepare_row_sharded_hybrid(A: CSR, mesh=None,
     """Row shards of the lane-ELL hybrid (module docstring), the
     reference's knobs and defaults (:func:`row_sharded_hybrid_layouts`).
     ``core_layout``: ``"rows"`` (the default) or ``"lanes"``;
-    ``chips_x`` (a knob): the chips tails' x side."""
+    ``chips_x`` and ``landing`` (knobs): the chips tails' x side and
+    how their sums reach y."""
     return row_sharded_hybrid_layouts(A, (core_layout,), mesh, n_shards,
                                       **knobs)[core_layout]
 
@@ -389,12 +394,14 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
                                tail_kind: str = "auto",
                                ext: bool | str = "auto",
                                idx8: bool = False,
-                               chips_x: str = "slots") -> dict:
+                               chips_x: str = "slots",
+                               landing: str = "direct") -> dict:
     """The row-sharded hybrid on each design of ``layouts`` from one
     packing of the shards: ``{design: RowShardedSpmv}``, each core
-    layout bound once and the tails once per chips_x. ``tail_kind``:
-    ``"auto"`` (per-shard chips pipelines for 2048 tail entries or more
-    when they fit, else the padded segment-sum), ``"chips"`` (the chips
+    layout bound once and the tails once per (chips_x, landing).
+    ``tail_kind``: ``"auto"`` (per-shard chips pipelines for 2048 tail
+    entries or more when they fit, else the padded segment-sum),
+    ``"chips"`` (the chips
     pipelines, ValueError when a shard's tail fits no plan or there is no
     tail),
     ``"chips-split"`` (split plans even where single ones fit) or
@@ -402,16 +409,22 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
     (``chips_tail.CHIPS_X``): ``"slots"`` (the default: the slot tables
     of a device's shards concatenated, one ``chips_products`` launch per
     device and call, each shard's segment-sums over its rows of the
-    products) or ``"hot"`` (each shard's two gather stages). f32, as the
+    products) or ``"hot"`` (each shard's two gather stages).
+    ``landing`` (``chips_tail.LANDINGS``): ``"direct"`` (the default: one
+    segment-sum launch per device over every stream of every shard, the
+    shards' heavy-row spaces stacked, then one ``heavy_land`` launch into
+    the core's y, in place) or ``"merge"`` (each shard's segment-sums and
+    the reference's panel merge, or ``index_add_``). f32, as the
     reference's default ``dtype``. ``layouts`` holds designs, as
-    ``lane_ell.designs`` reads them (a core layout, or a ``(core layout,
-    chips_x)`` pair), and the result is keyed by them. The meta, the
-    same on every design, has the reference's keys, and ``strip_sets``
-    (the union strip set of each plane) and ``tail_meta`` (each shard's
-    chips plan, as the hybrid's meta states it) beside them; ``args`` are
-    the reference's stacked arrays on every design; ``hbm_bytes`` counts
-    the design's own."""
-    ds = LE.designs(layouts, chips_x)
+    ``lane_ell.designs`` reads them (a core layout, a ``(core layout,
+    chips_x)`` pair or a ``(core layout, chips_x, landing)`` triple), and
+    the result is keyed by them. The meta has the reference's keys, and
+    ``strip_sets`` (the union strip set of each plane), ``tail_meta``
+    (each shard's chips plan, as the hybrid's meta states it) and the
+    design's ``landing`` beside them; ``args`` are the reference's
+    stacked arrays on every design; ``hbm_bytes`` counts the design's
+    own."""
+    ds = LE.designs(layouts, chips_x, landing)
     if mesh is None:
         mesh = make_mesh(n_shards)
     n_dev = len(mesh)
@@ -557,7 +570,7 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
     tabs_np = LE.plane_tabs(used_t, n8)
     xw = P_pad * BC
     n, m = A.n, A.m
-    tail_hbm = dict.fromkeys((cx for *_, cx in ds), 0)
+    tail_hbm = dict.fromkeys((tuple(d[2:]) for d in ds), 0)
 
     def ext_fn(ids, dev):
         """The ext panels (k, G_pad, 128) of a device's shards ``ids``:
@@ -580,26 +593,55 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
                 for j, (p2, l2) in enumerate(st2)])
         return fn
 
-    def tail_group(ids, dev, cx):
-        """The tails of a device's shards ``ids`` on chips_x ``cx``:
-        ``(shared, fns)``, with ``shared(xf, ops)`` what the shards' tails
-        share (on ``"slots"`` the products of all their slot tables, one
-        ``chips_products`` launch; else None) and, per shard, ``fn(y, xf,
-        ops, shared) -> y'`` adding its tail into its padded y (h_rows,),
-        or None for a shard without one (its padded tail adds exactly
-        zero)."""
+    def tail_group(ids, dev, key):
+        """The tails of a device's shards ``ids`` on ``key`` = (chips_x,
+        landing): ``fn(y, xf, ops) -> [y_j]`` taking the device's core
+        output y (k, W) and giving each shard's padded y (h_rows,), its
+        tail added (a shard without one adds exactly zero)."""
+        cx, ld = key
         chips = [d for d in ids if cores[d].trows.size] if use_chips else []
+        if chips and ld == "direct":
+            return direct_group(ids, chips, dev, cx)
+        share, sums = None, {}
         if chips and cx == "slots":
-            products, sums, hbm = CT.bind_slots([cplans[d] for d in chips],
-                                                n, dev)
-            tail_hbm[cx] += hbm
+            share, sums, hbm = CT.bind_slots([cplans[d] for d in chips],
+                                             n, dev)
+            tail_hbm[key] += hbm
             sums = dict(zip(chips, sums))
-            return products, [tail_fn(d, dev, cx, sums.get(d)) for d in ids]
-        return (lambda xf, ops: None), [tail_fn(d, dev, cx) for d in ids]
+        tails = [tail_fn(d, dev, key, sums.get(d)) for d in ids]
 
-    def tail_fn(d, dev, cx, sums=None):
-        """Shard d's tail (``tail_group``); ``sums(prod, ops)``: its
-        chips' segment-sums over its rows of the shared products."""
+        def fn(y, xf, ops):
+            shared = None if share is None else share(xf, ops)
+            return [y[j, :h_rows] if tail is None else
+                    tail(y[j, :h_rows], xf, ops, shared)
+                    for j, tail in enumerate(tails)]
+        return fn
+
+    def direct_group(ids, chips, dev, cx):
+        """``landing="direct"``: every stream of the chips shards' plans
+        in one segment-sum launch (``CT.bind_sums``), their sums added by
+        one ``heavy_land`` launch into the core's y (k, W) in place, shard
+        j's heavy row r at ``j * W + r`` (a land map per core width: the
+        rows core's ``h_rows``, the lanes core's ``G_pad * 128``)."""
+        plans = [cplans[d] for d in chips]
+        sums, ranks, hbm = CT.bind_sums(plans, n, dev, cx)
+        pos = [ids.index(d) for d in chips]
+        k, size = len(ids), ranks[-1] + plans[-1].NH
+        lands = {}
+        for W in widths:
+            land = CT.land_map(plans, ranks, size, [j * W for j in pos])
+            lands[W] = CT.bind_land(land, k * W, dev)
+        tail_hbm[cx, "direct"] += hbm + CT.land_hbm(land)
+
+        def fn(y, xf, ops):
+            ops.heavy_land(y, sums(xf, ops), lands[y.shape[1]])
+            return [y[j, :h_rows] for j in range(k)]
+        return fn
+
+    def tail_fn(d, dev, key, sums=None):
+        """Shard d's tail on the merge landing or without chips
+        (``tail_group``); ``sums(prod, ops)``: its chips' segment-sums over
+        its rows of the shared products."""
         c = cores[d]
         if not c.trows.size:
             return None
@@ -609,14 +651,14 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
             rows = _put(c.trows, torch.int64, dev)
             tcol = _put(c.tcols, torch.int64, dev)
             tv = _put(c.tvals, torch.float32, dev)
-            tail_hbm[cx] += c.trows.size * 12
+            tail_hbm[key] += c.trows.size * 12
 
             def fn(y, xf, ops, shared):
                 return y.index_add_(0, rows, tv * xf[tcol])
             return fn
         if sums is None:                       # chips_x="hot"
             hot, hbm = CT.prepare_chips(cplans[d], n, dev, "hot")
-            tail_hbm[cx] += hbm
+            tail_hbm[key] += hbm
 
             def contrib(xf, ops, shared):
                 return hot(xf, ops)
@@ -625,7 +667,7 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
                 return sums(shared, ops)
         if use_merge:
             mt = tuple(_put(t, torch.int32, dev) for t in mtabs[d])
-            tail_hbm[cx] += CT.merge_hbm(cplans[d].NH, G_pad)
+            tail_hbm[key] += CT.merge_hbm(cplans[d].NH, G_pad)
         else:
             mt = (_put(cplans[d].heavy_ids, torch.int64, dev),)
 
@@ -644,17 +686,21 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
         return lane_rows.plan_core(len(ids) * h_rows, n, r, col,
                                    v.astype(np.float32))
 
+    # the core's y (k, W) on each bound layout, into which the direct
+    # landing adds
+    widths = {h_rows if layout == "rows" else cfg.G_pad * BC
+              for _, layout, *_ in ds}
     groups = []
     rows_hbm = 0
     for dev, ids in _device_groups(mesh):
         k = len(ids)
         g = dict(dev=dev, ids=ids, tails={
-            cx: tail_group(ids, dev, cx) for cx in tail_hbm})
-        if any(layout == "rows" for _, layout, _ in ds):
+            key: tail_group(ids, dev, key) for key in tail_hbm})
+        if any(layout == "rows" for _, layout, *_ in ds):
             cp = rows_plan(ids)
             rows_hbm += cp.hbm_bytes
             g["rows"] = lane_rows.bind(cp, dev)
-        if any(layout == "lanes" for _, layout, _ in ds):
+        if any(layout == "lanes" for _, layout, *_ in ds):
             g.update(
                 vals=_put(vals_s[ids], torch.float32, dev),
                 idx8=_put(idx8_s[ids], torch.int8, dev),
@@ -676,17 +722,14 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
     def rows_core(g, xf, ops):
         return ops.lane_rows(*g["rows"], xf).view(len(g["ids"]), h_rows)
 
-    def run_on(core, cx):
+    def run_on(core, key):
         def run(xs, ops):
             y_pad = [None] * n_dev
             for g in groups:
                 xf = xs[g["dev"]]
-                y = core(g, xf, ops)
-                share, tails = g["tails"][cx]
-                shared = share(xf, ops)
-                for j, (d, tail) in enumerate(zip(g["ids"], tails)):
-                    y_pad[d] = y[j, :h_rows] if tail is None else \
-                        tail(y[j, :h_rows], xf, ops, shared)
+                ys = g["tails"][key](core(g, xf, ops), xf, ops)
+                for d, y in zip(g["ids"], ys):
+                    y_pad[d] = y
             return _unpad_rows(y_pad, bounds, m, mesh[0])
         return run
 
@@ -708,10 +751,10 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
     core_hbm = {"rows": rows_hbm, "lanes": n_dev * G_pad * BC * slot_b}
     return {key: _finish(
         "row-sharded-hybrid", A, mesh, bounds,
-        run_on(rows_core if layout == "rows" else lanes_core, cx),
-        meta=meta, args=tuple(args),
-        hbm_bytes=core_hbm[layout] + tail_hbm[cx])
-        for key, layout, cx in ds}
+        run_on(rows_core if layout == "rows" else lanes_core, (cx, ld)),
+        meta={**meta, "landing": ld}, args=tuple(args),
+        hbm_bytes=core_hbm[layout] + tail_hbm[cx, ld])
+        for key, layout, cx, ld in ds}
 
 
 # ---------------------------------------------------------------------------

@@ -469,7 +469,7 @@ def test_chip_smoke_rows_core_yardstick_and_bound(name):
     assert cs.free_bound_ms(args, out) > 0
     got = cs.library(kname, args, A, xd)().reshape(-1)
     torch.testing.assert_close(got, out, rtol=1e-5, atol=1e-5)
-    assert cs.LINE_ORDER.count("lane_rows") == 1 and len(cs.LINE_ORDER) == 27
+    assert cs.LINE_ORDER.count("lane_rows") == 1 and len(cs.LINE_ORDER) == 28
     assert cs.LINE_ORDER.count("pell_rows") == 2    # single card, row shards
 
 

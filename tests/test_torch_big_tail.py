@@ -39,10 +39,14 @@ PORT_NAMES = {"xla-compact": "torch-compact", "pallas-pell": "cuda-pell",
               "compact-pallas-pell": "compact-cuda-pell"}
 
 
-def _port_meta(meta):
+def _port_meta(meta, landing=None):
     """The JAX meta with the reference's route names mapped to the
-    port's (hybrid-rN keeps its name), nested tail meta included."""
+    port's (hybrid-rN keeps its name), nested tail meta included, and
+    the port's ``landing`` beside them where given (a hybrid's own meta:
+    a call delegated to PELL lands nothing)."""
     out = dict(meta)
+    if landing is not None and "delegated" not in out:
+        out["landing"] = landing
     for key in ("tail_kind", "delegated"):
         if out.get(key) in PORT_NAMES:
             out[key] = PORT_NAMES[out[key]]
@@ -78,16 +82,18 @@ ROUTES = {
 
 @functools.cache
 def _route(name):
-    """The port on the tile layout, bound on both core layouts from one
-    pack: (A, x, the lanes core's Prepared, whose PELL meta and bytes are
-    the reference's, the JAX Prepared, the lanes y, the JAX y, the rows
+    """The port on the tile layout and the reference's landing
+    (``landing="merge"``), bound on both core layouts from one pack: (A,
+    x, the lanes core's Prepared, whose PELL meta and bytes are the
+    reference's, the JAX Prepared, the lanes y, the JAX y, the rows
     core's Prepared). The PELL row layout: tests/test_torch_pell_rows.py;
     the rows core: tests/test_torch_lane_rows.py."""
     make, kw = ROUTES[name]
     A = make(synth)
     x = make_x(A.n)
     preps = lane_ell.prepare_hybrid_layouts(A, device="cpu",
-                                            pell_layout="tiles", **kw)
+                                            pell_layout="tiles",
+                                            landing="merge", **kw)
     prep = preps["lanes"]
     jprep = jax_prepare(make(jax_synth), interpret=True, **kw)
     return A, x, prep, jprep, to_numpy(prep.fn(x)), \
@@ -96,7 +102,7 @@ def _route(name):
 
 def check_route(name):
     A, x, prep, jprep, y, y_jax, rows = _route(name)
-    assert prep.meta == _port_meta(jprep.meta) == rows.meta
+    assert prep.meta == _port_meta(jprep.meta, "merge") == rows.meta
     assert prep.hbm_bytes == jprep.hbm_bytes
     assert PORT_NAMES.get(jprep.strategy, "cuda-hybrid") == prep.strategy
     gold = spmv_oracle(A, x)
@@ -155,7 +161,7 @@ def _xpose_tail(s3):
     A = cases.make(spec)
     x = make_x(A.n)
     preps = lane_ell.prepare_hybrid_layouts(A, device="cpu", xpose_s3=s3,
-                                            **kw)
+                                            landing="merge", **kw)
     return A, x, preps, _jax_xpose_tail()
 
 
@@ -187,7 +193,7 @@ def test_xpose_tail_matches_jax(s3):
         assert (m.pop("tail_kind"), jm.pop("tail_kind")) == (
             "compact-cuda-xpose", "compact-pallas-xpose")
         tail, jtail = m.pop("tail_meta"), jm.pop("tail_meta")
-        assert m == jm
+        assert m == {**jm, "landing": "merge"}
         for k in ("J1", "B2", "W1", "W3", "NWm", "fill"):
             assert tail[k] == jtail[k], k
         assert tail["s3"] == s3
@@ -245,14 +251,16 @@ def test_plan_chips_gives_up_only_for_big_tails():
 def test_forcechips_keeps_raising():
     """``diag="forcechips"`` keeps the split plan of webbase200k's
     184,079-entry tail past ``BIG_TAIL``: the same meta as the reference,
-    y against the JAX hybrid's and the oracle."""
+    y against the JAX hybrid's and the oracle (on the reference's
+    landing, whose meta this pins)."""
     A = synth.webbase_csr(m=200_000, seed=7)
     jA = jax_synth.webbase_csr(m=200_000, seed=7)
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", diag="forcechips")
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", diag="forcechips",
+                                            landing="merge")
     jprep = jax_prepare(jA, interpret=True, diag="forcechips")
     assert prep.meta["tail_nnz"] > lane_ell.BIG_TAIL
     assert prep.meta["tail_meta"]["split"]
-    assert _port_meta(jprep.meta) == prep.meta
+    assert _port_meta(jprep.meta, "merge") == prep.meta
     x = make_x(A.n)
     y = to_numpy(prep.fn(x))
     assert _rel_l2(y, np.asarray(jprep.fn(x), np.float64)) <= 1e-6

@@ -334,15 +334,19 @@ def test_heavy_scatter_takes_the_split_plan():
     """``heavy_scatter`` through ``cuda-hybrid``: a 128,000-entry tail
     whose single plan does not fit rides the split plan (a direct-x local
     stream and a far resident one) and the panel merge; meta as the
-    reference's, y against the JAX hybrid's and the oracle; on
-    ``chips_x="hot"`` the streams run the reference's gathers (the slot
-    products: tests/test_torch_chips_slots.py)."""
+    reference's (and the port's ``landing``), y against the JAX hybrid's
+    and the oracle; on ``chips_x="hot"`` and ``landing="merge"`` the
+    streams run the reference's gathers and segment-sums (the slot
+    products: tests/test_torch_chips_slots.py; the direct landing:
+    tests/test_torch_landing.py)."""
     A = cases.heavy_scatter()
     jA = JaxCSR(A.name, A.m, A.n, A.irp, A.ja, A.as_)
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", chips_x="hot")
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", chips_x="hot",
+                                            landing="merge")
     jprep = jax_hybrid(jA, interpret=True)
     assert prep.meta["tail_kind"] == jprep.meta["tail_kind"] == "chips"
-    assert prep.meta == {**jprep.meta, "tail_kind": "chips"}
+    assert prep.meta == {**jprep.meta, "tail_kind": "chips",
+                         "landing": "merge"}
     assert prep.meta["tail_meta"]["split"]
     x = make_x(A.n)
     y = prep.fn(x).double().numpy()
@@ -360,10 +364,12 @@ def test_heavy_scatter_takes_the_split_plan():
 def test_cuda_chips_matches_pallas_chips(name):
     make = cases.CHIPS_CASES[name]
     A = make(synth)
-    # the reference's pipeline, whose bytes hbm_bytes counts
-    prep = get_strategy("cuda-chips").prepare(A, device="cpu", chips_x="hot")
+    # the reference's pipeline and landing, whose bytes hbm_bytes counts
+    prep = get_strategy("cuda-chips").prepare(A, device="cpu", chips_x="hot",
+                                              landing="merge")
     jprep = jax_ct.prepare_chips_strategy(make(jax_synth), interpret=True)
-    assert prep.meta == jprep.meta and prep.hbm_bytes == jprep.hbm_bytes
+    assert prep.meta == {**jprep.meta, "landing": "merge"}
+    assert prep.hbm_bytes == jprep.hbm_bytes
     assert prep.ref == "pallas-chips"
     assert prep.meta["split"] == (name == "webbase30k-split")
     x = make_x(A.n)

@@ -45,7 +45,13 @@ plain versions' fixed order without atomics: bit-equal to them on the
 card and run on the CPU, at 1, 3, 8, 64 and 100 columns. The chips
 tail's slot products ``chips_products`` round one f32 product a slot as
 their plain version does: bit-equal on the card and run on the CPU; y on
-``chips_x="slots"`` equals y on ``"hot"``. The row-sharded PELL on row
+``chips_x="slots"`` equals y on ``"hot"``. The direct landing
+``heavy_land`` adds one f32 sum into each heavy row as its plain version
+does: bit-equal on the card and run on the CPU; its one segment-sum over
+every stream of every shard (a split plan at 4 shards of one card) is
+held as the segment-sums are, and the call's y within rel-L2 1e-6 of the
+merge landing's (the one segment-sum adds a heavy row's streams in
+another order). The row-sharded PELL on row
 quanta, one ``pell_rows`` launch a call, as the whole hybrid call. The
 benchmark runner (``bench/runner.py``) on the card: every row validated
 against the oracle (``validate_result`` defaults; fp64 rows at rel-L2
@@ -253,11 +259,17 @@ def _written(name, args, out):
     return out.reshape(-1)[pos.to(out.device)]
 
 
+def _fresh(name, args):
+    """The arguments of one replay: ``heavy_land`` updates y (its first
+    argument) in place, so each replay gets its own copy."""
+    return (args[0].clone(), *args[1:]) if name == "heavy_land" else args
+
+
 def _replay(name, args):
     """One recorded kernel call against its plain versions."""
-    out = _written(name, args, KERNELS[name](*args))
+    out = _written(name, args, KERNELS[name](*_fresh(name, args)))
     torch.cuda.synchronize()
-    plain = _written(name, args, PLAIN[name](*args))
+    plain = _written(name, args, PLAIN[name](*_fresh(name, args)))
     if name in ORDERED:
         cpu = [a.cpu() if isinstance(a, torch.Tensor) else
                tuple(t.cpu() for t in a) if isinstance(a, tuple) else a
@@ -267,6 +279,10 @@ def _replay(name, args):
             KERNEL_VS_PLAIN_REL_L2 * float(plain.norm())
     else:
         assert torch.equal(out, plain), name
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else a
+               for a in _fresh(name, args)]
+        if name == "heavy_land":
+            assert torch.equal(out.cpu(), PLAIN[name](*cpu))
 
 
 @pytest.mark.parametrize("name", sorted(PELL_CASES))
@@ -803,7 +819,7 @@ def test_pell_fused_fp64_refuses_a_step_past_shared_memory(card):
     assert pell.LAUNCHES["pell_fused_fp64"] == before
 
 
-# ---- PELL over row quanta ----------------------------------------------------
+# ---- PELL over row quanta ---------------------------------------------------
 
 def _carry_matrix():
     """Rows that cross 2048-slot blocks: a row over four blocks at Q=2,
@@ -1083,7 +1099,7 @@ def test_sharded_pell_rows_on_one_card(card, k):
     assert pell_rows.LAUNCHES["pell_rows"] == before + 1
 
 
-# ---- the lane-ELL core in row quanta -------------------------------------------
+# ---- the lane-ELL core in row quanta ----------------------------------------
 
 def _mixed_matrix(seed=3):
     """Near-diagonal rows (16-bit index blocks), then rows of columns
@@ -1336,3 +1352,89 @@ def test_time_device_fn_on_the_card(card):
     r = timing.time_device_fn(prep.fn, xd, nnz=A.nnz)
     assert r.duration_ms > 0 and r.reps == 20
     validate_result(spmv_oracle(A, make_x(A.n)), r.data)
+
+
+# ---- the direct landing -----------------------------------------------------
+
+def _land_case(card):
+    """y of 70,000 rows, 6,000 sums of which 5,000 land (each in its own
+    row) and 1,000 are padding (-1)."""
+    from spmv_scpa_tpu_torch.ops import chips_tail
+    rng = np.random.default_rng(8)
+    y = rng.standard_normal(70_000).astype(np.float32)
+    land = np.full(6000, -1, np.int64)
+    land[rng.choice(6000, 5000, replace=False)] = rng.choice(
+        y.size, 5000, replace=False)
+    ys = rng.standard_normal(6000).astype(np.float32)
+    return (torch.as_tensor(y, device=card), torch.as_tensor(ys, device=card),
+            chips_tail.bind_land(land, y.size, card))
+
+
+def test_heavy_land_matches_plain(card):
+    """Bit-equal to its plain version on the card and run on the CPU, in
+    place, one launch a call; the rows no rank names keep their values;
+    a 2-D y (the row shards' (k, W)) is indexed flat."""
+    from spmv_scpa_tpu_torch.ops import chips_tail
+    y, ys, land = _land_case(card)
+    before = chips_tail.LAUNCHES["heavy_land"]
+    yk = y.clone()
+    out = chips_tail.heavy_land(yk, ys, land)
+    torch.cuda.synchronize()
+    assert out is yk and chips_tail.LAUNCHES["heavy_land"] == before + 1
+    plain = chips_tail.heavy_land_plain(y.clone(), ys, land)
+    assert torch.equal(out, plain)
+    assert torch.equal(out.cpu(), chips_tail.heavy_land_plain(
+        y.cpu().clone(), ys.cpu(), land.cpu()))
+    hit = torch.zeros(y.numel(), dtype=torch.bool, device=card)
+    hit[land[land >= 0].long()] = True
+    assert torch.equal(out[~hit], y[~hit]) and not torch.equal(out[hit],
+                                                               y[hit])
+    y2 = chips_tail.heavy_land(y.clone().view(7, 10_000), ys, land)
+    assert torch.equal(y2.view(-1), out)
+
+
+def test_heavy_land_refuses_bad_arguments(card):
+    from spmv_scpa_tpu_torch.ops import chips_tail
+    y, ys, land = _land_case(card)
+    before = chips_tail.LAUNCHES["heavy_land"]
+    for bad, what in (((y, ys.cpu(), land), "ys is on cpu"),
+                      ((y, ys, land.cpu()), "land is on cpu"),
+                      ((y, ys, land.long()), "land is"),
+                      ((y.double(), ys, land), "float32"),
+                      ((y, ys[:-1], land), "land is")):
+        with pytest.raises(ValueError, match=what):
+            chips_tail.heavy_land(*bad)
+    assert chips_tail.LAUNCHES["heavy_land"] == before
+
+
+def test_one_table_segsum_on_four_shards_matches_plain(card):
+    """A split chips plan on 4 shards of one card, the direct landing:
+    one ``window_segsum`` over every stream of every shard and one
+    ``heavy_land`` a call; the segment-sum bit-equal to its plain version
+    run on the CPU (and within rel-L2 1e-6 of it on the card), the call
+    against its plain call, the oracle and the merge landing's y."""
+    from spmv_scpa_tpu_torch.ops import chips_tail
+    A = synth.webbase_csr(m=12000, seed=5)
+    direct = distributed.prepare_row_sharded_hybrid(
+        A, mesh=[card] * 4, tail_kind="chips-split")
+    merge = distributed.prepare_row_sharded_hybrid(
+        A, mesh=[card] * 4, tail_kind="chips-split", landing="merge")
+    assert direct.meta["tail_kind"] == "chips-split"
+    calls = _dist_check(direct, A, card)
+    names = [k for k, _ in calls]
+    assert names.count("window_segsum") == names.count("heavy_land") == 1
+    (args,) = [a for k, a in calls if k == "window_segsum"]
+    assert args[0].shape[0] == sum(a[0].shape[0] for k, a in
+                                   merge.kernel_calls(torch.zeros(
+                                       A.n, device=card))
+                                   if k == "window_segsum")
+    xd = torch.as_tensor(make_x(A.n), dtype=torch.float32, device=card)
+    before = (segsum_kernel.KERNEL_LAUNCHES,
+              chips_tail.LAUNCHES["heavy_land"])
+    y = direct.fn(xd)
+    torch.cuda.synchronize()
+    assert (segsum_kernel.KERNEL_LAUNCHES - before[0],
+            chips_tail.LAUNCHES["heavy_land"] - before[1]) == (1, 1)
+    y_m = merge.fn(xd)
+    assert float((y - y_m).norm()) <= \
+        KERNEL_VS_PLAIN_REL_L2 * float(y_m.norm())

@@ -112,7 +112,8 @@ def _closure_value(fn, fname: str, var: str, seen=None):
 
 def assert_same_arrays(prep_fn, jd, pd):
     """The shards' stacked host arrays equal the reference's, and the
-    meta (the hybrid's, without the port's per-shard ``tail_meta``)."""
+    meta (the hybrid's, without the port's per-shard ``tail_meta``,
+    ``strip_sets`` and ``landing``)."""
     ja = [np.asarray(a) for a in jd.args]
     pa = list(pd.args)
     if prep_fn == PELL:
@@ -140,7 +141,7 @@ def assert_same_arrays(prep_fn, jd, pd):
         np.testing.assert_array_equal(want, got, err_msg=str(i))
     if prep_fn == HYBRID:
         meta = {k: v for k, v in pd.meta.items()
-                if k not in ("tail_meta", "strip_sets")}
+                if k not in ("tail_meta", "strip_sets", "landing")}
         assert meta == jd.meta
         used = _closure_value(jd.raw, "kernel", "used")
         assert used is not None and used == pd.meta["strip_sets"]

@@ -95,14 +95,15 @@ def _port(name):
     """One small case's matrix, knobs, packed plan and CPU-bound
     ``cuda-hybrid`` on each core layout ({layout: Prepared}, one pack),
     built once for the whole module (the tests do not mutate them). The
-    chips tail runs the reference's gathers (``chips_x="hot"``), whose
-    bytes and kernels these tests pin; the slot products:
-    tests/test_torch_chips_slots.py."""
+    chips tail runs the reference's gathers (``chips_x="hot"``) and
+    landing (``landing="merge"``), whose bytes and kernels these tests
+    pin; the slot products: tests/test_torch_chips_slots.py; the direct
+    landing: tests/test_torch_landing.py."""
     make, kw = CASES[name]
     A = make()
     return (A, kw, lane_ell.pack_lane_ell(A, **kw),
             lane_ell.prepare_hybrid_layouts(A, device="cpu", chips_x="hot",
-                                            **kw))
+                                            landing="merge", **kw))
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
@@ -209,11 +210,12 @@ def test_plan_arrays_match_jax(case):
 
 
 def test_plan_meta_matches_jax(case):
-    """The lanes layout's meta and bytes are the reference's; the rows
-    layout keeps the packer's meta (its bytes: test_torch_lane_rows)."""
+    """The lanes layout's meta and bytes are the reference's (the meta
+    with the port's ``landing`` beside its keys); the rows layout keeps
+    the packer's meta (its bytes: test_torch_lane_rows)."""
     name, A, kw, _, jprep, _, _, preps = case
     prep = preps["lanes"]
-    want = dict(jprep.meta)
+    want = {**jprep.meta, "landing": "merge"}
     if want["tail_kind"] == "xla-compact":
         want["tail_kind"] = "torch-compact"
     assert prep.meta == want

@@ -415,13 +415,15 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors():
 @functools.cache
 def _tail_route():
     """tests/test_torch_big_tail.py's compact-PELL route (a 3,091-entry
-    tail past tail_xla_max, no chips) on the default row layout, beside
-    the JAX hybrid, on both core layouts ({layout: Prepared}, one
-    pack)."""
+    tail past tail_xla_max, no chips) on the default row layout, landed
+    as the reference lands it (``landing="merge"``; the direct landing:
+    tests/test_torch_landing.py), beside the JAX hybrid, on both core
+    layouts ({layout: Prepared}, one pack)."""
     kw = {"ext": False, "diag": "nochips", "tail_xla_max": 1000}
     A = synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4)
     x = make_x(A.n)
-    prep = lane_ell.prepare_hybrid_layouts(A, device="cpu", **kw)
+    prep = lane_ell.prepare_hybrid_layouts(A, device="cpu", landing="merge",
+                                           **kw)
     jprep = jax_hybrid(jax_synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4),
                        interpret=True, **kw)
     return A, x, prep, jprep
@@ -441,7 +443,7 @@ def test_row_layout_big_tail_matches_jax():
             "compact-cuda-pell-rows", "compact-pallas-pell")
         tail = m.pop("tail_meta")
         jm.pop("tail_meta")
-        assert m == jm
+        assert m == {**jm, "landing": "merge"}
         assert tail["layout"] == "rows" and tail["fill"] > 0.5
         assert [k for k, _ in prep.kernel_calls(
             torch.as_tensor(x, dtype=torch.float32))] == [

@@ -14,6 +14,9 @@
 * A window segment-sum with a hub row block against the Pallas kernel in
   interpret mode: rel-L2 <= 1e-6 (the TPU reduces with a one-hot matmul
   on three bf16 terms of the partials, f32-grade, in another order).
+* The chips tails' one table over every stream of every plan
+  (``chips_tail.bind_sums``, the direct landing's) walked as the kernel
+  walks it against the plain version: exact.
 """
 
 import numpy as np
@@ -26,7 +29,9 @@ from spmv_scpa_tpu.ops.segsum_kernel import make_window_segsum
 
 from spmv_scpa_tpu_torch import get_strategy
 from spmv_scpa_tpu_torch import testing as synth
-from spmv_scpa_tpu_torch.ops import pell, segsum_kernel as sk
+from spmv_scpa_tpu_torch.bench import cases
+from spmv_scpa_tpu_torch.ops import chips_tail, pell, segsum_kernel as sk
+from spmv_scpa_tpu_torch.parallel import distributed
 from spmv_scpa_tpu_torch.utils.vector import make_x
 
 C = sk.CHUNK
@@ -290,6 +295,43 @@ def test_tables_walked_as_the_kernel_walks_them_give_the_plain_y(kind, nq):
     np.testing.assert_array_equal(
         _walk(part, tables, nw * h),
         _call(kind, part, rbl, base, nw, h, span, rps).numpy())
+
+
+def _chips_plans(name):
+    """Chips plans that share one table: ``megarow``'s (one row of 600
+    quanta, a hub) or webbase12k's padded split plans on 4 shards."""
+    if name == "megarow":
+        A = cases.CHIPS_CASES["megarow"]()
+        return [chips_tail.plan_chips(A.row_ids().astype(np.int64),
+                                      A.ja.astype(np.int64), A.as_, A.m,
+                                      A.n)], A.n
+    A = synth.webbase_csr(m=12000, seed=5)
+    _, h_rows, _, _, cores = distributed.pack_shards(A, 4)
+    return distributed._plan_sharded_chips(cores, h_rows, A.n,
+                                           split_only=True), A.n
+
+
+@pytest.mark.parametrize("name", ["megarow", "split-4-shards"])
+def test_one_chips_table_walked_as_the_kernel_walks_it(name):
+    """The direct landing's one window segment-sum over every stream of
+    every plan (``chips_tail.bind_sums``): its tables, walked as the
+    kernel walks them, give the plain version's y bit for bit, a hub row
+    block included."""
+    plans, n = _chips_plans(name)
+    calls = []
+
+    def rec(*args):
+        calls.append(args)
+        return sk.window_segsum_plain(*args)
+
+    sums, _, _ = chips_tail.bind_sums(plans, n, torch.device("cpu"))
+    sums(torch.as_tensor(make_x(n), dtype=torch.float32),
+         chips_tail.PLAIN._replace(window_segsum=rec))
+    (part, rbl, win, nw, h, rps, tables), = calls
+    assert tables.hub.shape[0] >= (name == "megarow")
+    np.testing.assert_array_equal(
+        _walk(part, tables, nw * h),
+        sk.window_segsum_plain(part, rbl, win, nw, h, rps).numpy())
 
 
 def test_warp_groups_share_a_warp_among_small_chunks():
