@@ -168,7 +168,28 @@ the script exits non-zero:
 27. main path 17, ``dist-powerlaw100k-pell``: ``powerlaw100k`` through
    ``prepare_row_sharded_pell`` at mesh 1 (the tile layout): the fused
    kernel and the un-permute;
-28. the port's CLI as its users run it (``cli.run`` in process,
+28. main path 19, ``banded3m3`` (3.3M rows, 12M nnz, x 13.2 MB: past
+   the reference's 12 MB x budget) through ``spmv``'s route:
+   ``pick_auto`` must give ``cuda-pell``, on the row layout with no
+   stripe, one ``pell_rows`` launch a call and no fused kernel;
+   validated, timed, each kernel alone beside cuSPARSE of the matrix;
+   then ``banded3m3-tiles`` (``layout="tiles"``), the reference's three
+   column stripes, three ``pell_fused`` launches a call, and the A/B of
+   the two layouts in turns;
+29. ``powerlaw100k-hot``: the tiles with 2,048 hot columns, each kernel
+   replayed, its fill beside the tiles' without the remap;
+30. ``webbase1m-bcsr``: ``webbase1m`` through ``cuda-hybrid`` with its
+   big tail through ``pallas-bcsr`` (compact, the bitmap tiles, landed
+   by ``heavy_land``): ``lane_rows``, ``bcsr_bits`` and ``heavy_land``
+   must launch, no gather and no ``pell_rows``; then the tail A/B in
+   turns against the default compact-PELL tail (the tails' kernels
+   alone, the whole calls);
+31. small column and tail cases: ``bench/cases.py``'s ``COLUMN_CASES``
+   (three stripes, the padded boundary, hot columns, the shifted grid)
+   through ``cuda-pell`` on the tiles and on the rows, and the hybrid
+   with ``cases.BIG_TAIL``'s tail through each reference name that runs
+   (``lane_ell.COMPACT_TAILS``), checked as the small hybrid cases are;
+32. the port's CLI as its users run it (``cli.run`` in process,
    ``cli_phase``): (a) ``amazon262k`` written as a ``.mtx``, read by the
    native parser into the layout cache, with ``-d --chunks 64
    --distributed --spmm-cols 8 --host-parallel`` and ``-b`` every torch
@@ -181,7 +202,13 @@ the script exits non-zero:
    columns; ``bcsr_bits``, ``bcsr_bits_spmm`` and ``lane_ell_fp64`` must
    launch. Each run must exit 0, every row must have passed ``-d``,
    every skipped cell must be a refusal (printed with its reason), the
-   CSVs carry the reference's headers and the JAX package's kernel ids.
+   CSVs carry the reference's headers and the JAX package's kernel ids;
+33. the script harness (``scripts_phase``): ``scripts.results`` on the
+   synthetic suite's first spec with ``-i 2 --debug``, then
+   ``scripts.scaling`` on the scaling suite's first matrix at 1 and 4
+   shards of the card (``--pell --hybrid``), every row validated, their
+   CSVs' rows and ids checked; ``lane_rows`` and ``pell_rows`` must
+   launch in each.
 
 Each path sets the launch counts to 0 just before it and reads them
 just after; replays that hold a kernel against its plain version come
@@ -189,7 +216,10 @@ after the read; a profiler window counts only where it saw every launch
 (``device_busy``), else its line says that events were lost and gives
 no idle share; a path on both core layouts reads the lanes run apart
 (its counts set to 0 just before it). Each prints its packing time.
-Then one JSON line of the twenty-seven kernels' numbers (``lane_ell_spmv``,
+Then one JSON line of the twenty-seven kernels' numbers, thirty-two
+lines (``pell_rows`` also on ``dist-powerlaw100k-pell`` and
+``banded3m3``, ``pell_fused`` also on ``banded3m3-tiles``, ``bcsr_bits``
+and ``heavy_land`` also on ``webbase1m-bcsr``; ``lane_ell_spmv``,
 ``lane_ell_sharded`` and ``window_gather`` from the lanes runs of the
 flagship, ``dist-flagship`` and ``ext_windowed1m``, ``bcsr_spmm`` from
 ``flagship-spmm8-tiles``, ``xpose_mirror`` and ``xpose_s1`` from
@@ -303,6 +333,7 @@ from spmv_scpa_tpu_torch.ops import (bcsr_bits, chips_slots, chips_tail,
 from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import FP64_RTOL, pick_auto, to_numpy
 from spmv_scpa_tpu_torch.parallel import distributed
+from spmv_scpa_tpu_torch.scripts import results, scaling
 from spmv_scpa_tpu_torch.utils.platform import card_label, cuda_device
 from spmv_scpa_tpu_torch.utils.validation import validate_result
 from spmv_scpa_tpu_torch.utils.vector import make_x
@@ -428,7 +459,9 @@ SOURCES = {
                        "spmv_scpa_tpu/ops/pallas_kernels.py:1076"),
 }
 # the kernels line, in order; pell_rows twice: single-card powerlaw100k
-# and the row-sharded dist-powerlaw100k-pell
+# and the row-sharded dist-powerlaw100k-pell; then the column branches'
+# and the BCSR big tail's lines: pell_rows on banded3m3, pell_fused as
+# its three stripes, bcsr_bits and heavy_land on webbase1m-bcsr
 LINE_ORDER = ("lane_ell_spmv", "lane_ell_sharded", "lane_rows",
               "stream_reduce", "stream_reduce_strided", "sorted_gather",
               "ranked_gather", "window_gather", "chips_products",
@@ -438,7 +471,8 @@ LINE_ORDER = ("lane_ell_spmv", "lane_ell_sharded", "lane_rows",
               "xpose_s3_rows",
               "lane_ell_fp64",
               "pell_fused_fp64", "bcsr_spmm", "pell_rows", "pell_rows",
-              "pell_rows_fp64", "bcsr_bits", "bcsr_bits_spmm")
+              "pell_rows_fp64", "bcsr_bits", "bcsr_bits_spmm",
+              "pell_rows", "pell_fused", "bcsr_bits", "heavy_land")
 
 
 # ---- launch counts -----------------------------------------------------------
@@ -1201,11 +1235,13 @@ def layout_meta(pm):
         return (f"BCSR bits tiles {pm['num_blocks']} stored {pm['stored']} "
                 f"block_rows {pm['block_rows']} fill {pm['fill']:.4f}")
     scheme = pm.get("scheme", "fused" if "quantum" in pm else "bcsr")
+    cols = "".join(f" {k} {pm[k]}" for k in ("stripes", "hot_cols",
+                                             "split_shift") if pm.get(k))
     return (f"PELL scheme {scheme} quantum "
             f"{pm.get('quantum', BC)} panel_w {pm.get('panel_w', 1)} "
             f"row_sort {pm.get('row_sort', False)} chunk {pm.get('chunk')} "
             f"window_h {pm.get('window_h')} tiles {pm.get('num_blocks')} "
-            f"fill {pm.get('fill', 0.0):.4f}")
+            f"fill {pm.get('fill', 0.0):.4f}{cols}")
 
 
 def pell_meta(prep):
@@ -1303,7 +1339,6 @@ def layout_ab(name, old, new, xd, card, old_kernels=("pell_fused",)):
     holds, the two formats' bounds and bytes, and the format-free
     bound."""
     oc = [c for c in old.kernel_calls(xd) if c[0].startswith(old_kernels)]
-    (ko, ao) = oc[0]
     (kn, an), = [c for c in new.kernel_calls(xd)
                  if c[0].startswith("pell_rows")]
     kern = {"old": [], "new": []}
@@ -1318,7 +1353,9 @@ def layout_ab(name, old, new, xd, card, old_kernels=("pell_fused",)):
     b_old = sum(bound(k, a, KERNELS[k](*a))[0] for k, a in oc)
     b_new = bound(kn, an, out_n)[0]
     ko = "+".join(k for k, _ in oc)
-    rows_b, tiles_b = tensor_bytes(an[:4]), tensor_bytes(ao[:3])
+    rows_b = tensor_bytes(an[:4])
+    # the tiles of every call of the first kernel (each stripe's)
+    tiles_b = sum(tensor_bytes(a[:3]) for k, a in oc if k == oc[0][0])
 
     def ms(v):
         return ", ".join(f"{t:.4f}" for t in v)
@@ -1830,6 +1867,14 @@ def pell_small_meta(prep, A):
     return f"{prep.strategy} nnz {A.nnz} {layout_meta(prep.meta)}"
 
 
+def column_small_meta(prep, A):
+    m = prep.meta
+    if "tail_kind" in m:
+        return (f"{prep.strategy} nnz {A.nnz} tail_nnz {m['tail_nnz']} "
+                f"tail {m['tail_kind']}")
+    return f"{prep.strategy} nnz {A.nnz} {layout_meta(m)}"
+
+
 def xpose_small_meta(prep, A):
     m = prep.meta
     if "tail_kind" in m:
@@ -2186,6 +2231,171 @@ def dist_phases(dev, card, flagship_A, PL):
     return fl, fl_counts, dpl, dpl_counts, dpt, dpt_counts
 
 
+def tail_ab(name, old, new, xd, card):
+    """Two big tails of one matrix through the hybrid (``old`` and
+    ``new``: two packs that differ in ``tail_strategy``) in turns (old,
+    new, new, old) in this run: each tail's kernel calls back to back
+    (the core and the landing left out, the same on both), then the two
+    whole calls the same way; beside them each tail's bound."""
+    def tail_calls(prep):
+        return [c for c in prep.kernel_calls(xd)
+                if c[0] not in CORE_KERNELS + ("heavy_land",)]
+
+    tails = {"old": tail_calls(old), "new": tail_calls(new)}
+    kern = {"old": [], "new": []}
+    call = {"old": [], "new": []}
+    for side in ("old", "new", "new", "old"):
+        kern[side].append(median_ms(run_calls(tails[side])))
+    for side in ("old", "new", "new", "old"):
+        call[side].append(call_ms((old if side == "old" else new).fn, xd))
+    bounds = {side: sum(bound(k, a, KERNELS[k](*a))[0] for k, a in calls)
+              for side, calls in tails.items()}
+
+    def names(side):
+        return "+".join(k for k, _ in tails[side])
+
+    print(f"[{name}] tail A/B in turns (old, new, new, old): {names('old')} "
+          f"{_ms(kern['old'])} ms, {names('new')} {_ms(kern['new'])} ms | "
+          f"whole call, old {_ms(call['old'])} ms, new {_ms(call['new'])} ms"
+          f" | bound: old {bounds['old']:.4f}, new {bounds['new']:.4f} ms | "
+          f"{card}", flush=True)
+
+
+def column_phases(dev, card, PL, pl_tiles_fill):
+    """28-31: the branches the reference's PELL takes on the columns and
+    the big tails through every f32 strategy. 28: ``banded3m3``, whose x
+    is past the reference's budget, through ``spmv``'s auto route
+    (``pick_auto`` must give ``cuda-pell``): the row layout, one
+    ``pell_rows`` launch a call and no fused kernel; then
+    ``banded3m3-tiles``, the reference's three column stripes, three
+    ``pell_fused`` launches a call, and the A/B of the two layouts in
+    turns. 29: ``powerlaw100k-hot``, the tiles with 2,048 hot columns,
+    its fill beside the tiles' without the remap. 30: ``webbase1m-bcsr``,
+    the hybrid with its big tail through ``pallas-bcsr`` (the bitmap
+    tiles, landed by ``heavy_land``), then the tail A/B against the
+    default compact-PELL tail in turns. 31: the small cases of the column
+    branches (``cases.COLUMN_CASES`` on the tiles and on the rows) and of
+    every reference tail name that runs (``cases.BIG_TAIL``). Returns the
+    kernel tables and counts of 28 and 30."""
+    A = cases.banded3m3()
+    strategy = pick_auto(A)
+    if strategy != "cuda-pell":
+        raise AssertionError(f"banded3m3: pick_auto gave {strategy}")
+    b3, b3_counts, rows, _ = full_path(
+        "banded3m3", A, strategy, {}, dev, card, ("pell_rows",),
+        lambda m: m.get("layout") == "rows" and m.get("stripes") == 0,
+        "the row layout, no stripe, x past the 12 MB budget",
+        forbid=("pell_fused",))
+    xd = torch.as_tensor(make_x(A.n), dtype=torch.float32, device=dev)
+    b3t, b3t_counts, tiles, _ = full_path(
+        "banded3m3-tiles", A, "cuda-pell", {"layout": "tiles"}, dev, card,
+        ("pell_fused",), lambda m: m.get("stripes") == 3,
+        "three column stripes at the 12 MB budget", timing=False,
+        forbid=("pell_rows",))
+    for prep, want in ((rows, ["pell_rows"]), (tiles, ["pell_fused"] * 3)):
+        got = [k for k, _ in prep.kernel_calls(xd)]
+        if got != want:
+            raise AssertionError(f"banded3m3: a call runs {got}, not {want}")
+    layout_ab("banded3m3", tiles, rows, xd, card)
+    del A, rows, tiles, xd
+
+    _, _, hot, _ = full_path(
+        "powerlaw100k-hot", PL, "cuda-pell",
+        {"layout": "tiles", "hot_cols": 2048}, dev, card, ("pell_fused",),
+        lambda m: m["hot_cols"] > 0, "hot columns", timing=False,
+        forbid=("pell_rows",))
+    print(f"[powerlaw100k-hot] fill {hot.meta['fill']:.4f} with "
+          f"{hot.meta['hot_cols']} hot columns, {pl_tiles_fill:.4f} without "
+          f"(the same tiles, powerlaw100k-tiles) | {card}", flush=True)
+    del hot
+
+    WB = cases.webbase1m()
+    wbb, wbb_counts, new, _ = full_path(
+        "webbase1m-bcsr", WB, "cuda-hybrid", {"tail_strategy": "pallas-bcsr"},
+        dev, card, ("lane_rows", "bcsr_bits", "heavy_land"),
+        lambda m: (m["tail_kind"] == "compact-cuda-bcsr-bits"
+                   and m["tail_nnz"] > lane_ell.BIG_TAIL),
+        "a compact BCSR tail (bitmap tiles) past BIG_TAIL",
+        describe=pell_meta, forbid=GATHERS + ("pell_rows",))
+    old = get_strategy("cuda-hybrid").prepare(WB, device=dev)
+    xd = torch.as_tensor(make_x(WB.n), dtype=torch.float32, device=dev)
+    tail_ab("webbase1m", old, new, xd, card)
+    del WB, old, new, xd
+
+    small = []
+    for name, (spec, kw) in cases.COLUMN_CASES.items():
+        A = cases.make(spec)
+        small += [(f"{name}-tiles", A, "cuda-pell", {**kw, "layout": "tiles"}),
+                  (f"{name}-rows", A, "cuda-pell", kw)]
+    spec, kw = cases.BIG_TAIL
+    A = cases.make(spec)
+    small += [(f"amazon20k-tail-{name}", A, "cuda-hybrid",
+               {**kw, "tail_strategy": name})
+              for name in lane_ell.COMPACT_TAILS]
+    small_phase("small-columns", small,
+                ("pell_fused", "pell_rows", "lane_rows", "bcsr_bits",
+                 "chips_products", "window_segsum", "heavy_land",
+                 "xpose_s1_slots", "xpose_s3_rows"),
+                column_small_meta, dev, "small column and tail cases")
+    return b3, b3_counts, b3t, b3t_counts, wbb, wbb_counts
+
+
+def scripts_phase(card):
+    """33. The script harness as its users run it, in process: the batch
+    driver (``scripts.results``) on the suite's first spec, twice
+    (``-i 2``), every row validated (``--debug``), then the row-shard
+    sweep (``scripts.scaling``) on the scaling suite's first matrix at 1
+    and 4 shards of the card, every variant, every call validated; each
+    with the launch counts set to 0 just before it and read just after,
+    and its CSVs' rows and ids checked."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "results")
+        suite = results.SYNTH_SUITE
+        results.SYNTH_SUITE = suite[:1]
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            rc = results.main(["--synth-suite", "-o", out, "-i", "2",
+                               "--debug", "--chunks", "64", "--bench",
+                               "cuda-hybrid,cuda-pell,torch-csr-segsum"])
+        finally:
+            results.SYNTH_SUITE = suite
+        launched = counts()
+        require(launched, ("lane_rows", "pell_rows"), "scripts results")
+        with open(os.path.join(out, "cuda.csv")) as f:
+            ids = [ln.split(",")[2] for ln in f.read().splitlines()[1:]]
+        if rc != 0 or sorted(ids) != sorted(["0", "11", "5"] * 2):
+            raise AssertionError(f"scripts results: exit {rc}, ids {ids}")
+        print(f"[scripts results] {suite[0]} -i 2: exit {rc}, cuda.csv "
+              f"ids {ids}, {time.perf_counter() - t0:.1f} s | launches "
+              f"{ {k: v for k, v in launched.items() if v} } | {card}",
+              flush=True)
+
+        out = os.path.join(tmp, "scaling")
+        spec = scaling.SUITE[0][0]
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = scaling.main(["-o", out, "-m", spec, "--devices", "1,4",
+                           "--pell", "--hybrid"])
+        launched = counts()
+        require(launched, ("lane_rows", "pell_rows"), "scripts scaling")
+        with open(os.path.join(out, "omp.csv")) as f:
+            rows = [ln.split(",") for ln in f.read().splitlines()[1:]]
+        cells = [(r[2], r[7]) for r in rows]
+        want = [(b, k) for b in ("mesh_rowshard", "mesh_rowshard_pell",
+                                 "mesh_rowshard_hybrid") for k in ("1", "4")]
+        if rc != 0 or cells != want:
+            raise AssertionError(f"scripts scaling: exit {rc}, {cells}")
+        print(f"[scripts scaling] {spec} at 1 and 4 shards of the card: "
+              + ", ".join(f"{r[2]} x{r[7]} {float(r[8]):.4f} ms" for r in rows)
+              + f" | {time.perf_counter() - t0:.1f} s | launches "
+              f"{ {k: v for k, v in launched.items() if v} } | {card}",
+              flush=True)
+    print(f"[scripts] phase {time.perf_counter() - t_phase:.1f} s | {card}",
+          flush=True)
+
+
 def cli_run(tag, argv, card):
     """One in-process run of the port's CLI (``cli.run``), the launch
     counts set to 0 just before it and read just after. It must exit 0,
@@ -2509,6 +2719,7 @@ def main() -> int:
     xd = torch.as_tensor(make_x(PL.n), dtype=torch.float32, device=dev)
     old = get_strategy("cuda-pell").prepare(PL, device=dev, layout="tiles")
     layout_ab("powerlaw100k", old, pw_prep, xd, card)
+    pl_tiles_fill = old.meta["fill"]
     del old, pw_prep
     WB = cases.webbase1m()
     *_, wb_prep, _ = layouts_path(
@@ -2537,8 +2748,12 @@ def main() -> int:
                                                      PL)
     dfl, dfl_counts, dpl, dpl_counts, dpt, dpt_counts = dist_phases(
         dev, card, flagship_A, PL)
-    del flagship_A, PL
+    del flagship_A
+    b3, b3_counts, b3t, b3t_counts, wbb, wbb_counts = column_phases(
+        dev, card, PL, pl_tiles_fill)
+    del PL
     cli_phase(card, amz_r.duration_ms)
+    scripts_phase(card)
 
     # the kernels line: each kernel timed on the path that runs it, as
     # (its row, the path's counts, the path), in LINE_ORDER's order
@@ -2559,16 +2774,19 @@ def main() -> int:
         "chips_products": [(amz["chips_products"], amz_counts,
                             "amazon262k")],
         "window_segsum": [(amz["window_segsum"], amz_counts, "amazon262k")],
-        "heavy_land": [(amz["heavy_land"], amz_counts, "amazon262k")],
+        "heavy_land": [(amz["heavy_land"], amz_counts, "amazon262k"),
+                       (wbb["heavy_land"], wbb_counts, "webbase1m-bcsr")],
         "window_gather": [(win["window_gather"], win_counts,
                            "ext_windowed1m-lanes")],
         "pell_fused": [(dpt["pell_fused"], dpt_counts,
-                        "dist-powerlaw100k-pell-tiles")],
+                        "dist-powerlaw100k-pell-tiles"),
+                       (b3t["pell_fused"], b3t_counts, "banded3m3-tiles")],
         "unpermute": [(dpt["unpermute"], dpt_counts,
                        "dist-powerlaw100k-pell-tiles")],
         "pell_rows": [(pw["pell_rows"], pw_counts, "powerlaw100k"),
                       (dpl["pell_rows"], dpl_counts,
-                       "dist-powerlaw100k-pell")],
+                       "dist-powerlaw100k-pell"),
+                      (b3["pell_rows"], b3_counts, "banded3m3")],
         "pell_rows_fp64": [(pw64["pell_rows_fp64"], pw64_counts,
                             "powerlaw100k-fp64")],
         "pell_tiles": [(sp["pell_tiles"], sp_counts, "powerlaw100k-span")],
@@ -2584,7 +2802,8 @@ def main() -> int:
                              "powerlaw100k-fp64-tiles")],
         "bcsr_spmm": [(st8["bcsr_spmm"], st8_counts,
                        "flagship-spmm8-tiles")],
-        "bcsr_bits": [(bc["bcsr_bits"], bc_counts, "flagship-bcsr")],
+        "bcsr_bits": [(bc["bcsr_bits"], bc_counts, "flagship-bcsr"),
+                      (wbb["bcsr_bits"], wbb_counts, "webbase1m-bcsr")],
         "bcsr_bits_spmm": [(sp8["bcsr_bits_spmm"], sp8_counts,
                             "flagship-spmm8")]}
     line = []

@@ -121,6 +121,13 @@ def webbase1m():
     return synth.webbase_csr(1_000_000, seed=7)
 
 
+def banded3m3():
+    """3.3M rows of a narrow band: an n whose f32 x (13.2 MB) is past the
+    reference's 12 MB x budget, so its PELL stripes the columns (three
+    stripes of 1,572,864) and the hybrid refuses its resident x."""
+    return synth.banded_csr(3_300_000, row_nnz=4, bandwidth=16, seed=1)
+
+
 def empty_windows() -> CSR:
     """Entries in rows 1100-1199 and 5900-5949 of 6000 only: with windows
     of 128 (or 16) row blocks, leading, interior and trailing windows
@@ -186,6 +193,34 @@ XPOSE_CASES = {
 XPOSE_TAIL = (("amazon_csr", dict(m=20000, avg_nnz=4.7, seed=4)),
               {"ext": False, "diag": "nochips", "tail_xla_max": 1000,
                "tail_strategy": "pallas-xpose"})
+
+
+# PELL's column branches at small sizes: name -> (generator spec for
+# ``make``, ``cuda-pell`` knobs on the tiles). Three stripes of 1,024
+# columns; an n whose x fits its budget but whose padded panels do not
+# (the reference stripes it, never raises); 256 hot columns on
+# superpanels; column runs that straddle panel boundaries, moved to the
+# shifted grid.
+COLUMN_CASES = {
+    "stripes3": (("banded_csr", dict(m=2000, n=3000, row_nnz=7,
+                                     bandwidth=900, seed=13)),
+                 {"x_vmem_budget": 8192, "chunk": 4}),
+    "boundary": (("banded_csr", dict(m=1000, n=2100, row_nnz=7,
+                                     bandwidth=300, seed=13)),
+                 {"x_vmem_budget": 10_000, "chunk": 16}),
+    "hot-powerlaw2000": (("powerlaw_csr", dict(m=2000, n=2000, avg_nnz=20,
+                                               seed=17)),
+                         {"hot_cols": 256, "chunk": 4, "quantum": 8}),
+    "split-runs": (("banded_csr", dict(m=2000, row_nnz=16, bandwidth=64,
+                                       runs=2, seed=3)),
+                   {"split_shift": True, "chunk": 4}),
+}
+
+# The hybrid's big tail through each reference name whose compact branch
+# runs (``lane_ell.COMPACT_TAILS``): the amazon20k small case's
+# 3,091-entry tail past tail_xla_max.
+BIG_TAIL = (("amazon_csr", dict(m=20000, avg_nnz=4.7, seed=4)),
+            {"ext": False, "diag": "nochips", "tail_xla_max": 1000})
 
 
 def wide_exponents() -> CSR:

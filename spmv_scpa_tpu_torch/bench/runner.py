@@ -13,8 +13,8 @@ against the golden (utils.c:39-60) and a failure aborts the run
 
 A refusal is a skipped cell: a strategy whose ``prepare`` raises
 ``ValueError`` (a budget or a layout it cannot hold) or
-``NotImplementedError`` (a branch the port does not have yet, its
-message naming the ROADMAP item) gets no row, and its reason goes into
+``NotImplementedError`` (a branch a strategy does not have; no strategy
+of the port raises it) gets no row, and its reason goes into
 ``RunConfig.skipped``. Any other exception, from a ``prepare`` or a call
 (a kernel build, a CUDA error, a wrapper's check), propagates: a fault
 never becomes a quiet skipped row, and nothing is retried.

@@ -1330,4 +1330,4 @@ def prepare_chips_strategy(A: CSR, device="cuda", chips_x: str = "slots",
                     hbm_bytes=hbm, meta=meta,
                     plain=lambda x: call(x, PLAIN),
                     kernel_calls=lambda xf: record_calls(
-                        lambda ops: call(xf, ops), PLAIN))
+                        lambda ops: call(xf, ops), PLAIN), run=call)

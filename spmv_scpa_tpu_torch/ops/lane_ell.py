@@ -26,16 +26,19 @@ Counterpart of ``spmv_scpa_tpu/ops/lane_ell.py:prepare_lane_ell_hybrid``
   default) for
   2048 entries or more, else the compact tail with ``index_add_``, or,
   past ``tail_xla_max`` entries,
-  the big-tail branch: PELL (or, under ``tail_strategy="pallas-xpose"``,
-  XPOSE, ``ops/xpose.py``) over the tail's rows renumbered 0..NH-1
-  landed by ``chips_tail.heavy_land`` (``landing="merge"``: through
-  ``chips_tail.make_landing``), or under
-  ``tail_strategy="auto"`` a second hybrid over the tail when it has
-  locality, y summed on the device. A matrix whose widest diagonal
+  the big-tail branch: the port's strategy for ``tail_strategy`` (PELL
+  by default; any of :data:`COMPACT_TAILS`, the reference's names) over
+  the tail's rows renumbered 0..NH-1, run inside the call with the
+  kernels of this call's ``ops`` (``Prepared.run``), landed by
+  ``chips_tail.heavy_land`` (``landing="merge"``: through
+  ``chips_tail.make_landing``), or under ``tail_strategy="pallas-hybrid"``
+  (``"auto"`` when the tail has locality) a second hybrid over the
+  tail, y summed on the device. A matrix whose widest diagonal
   window covers under 40% of its entries goes to ``cuda-pell`` whole
   (the no-locality escape). ``pell_layout`` is the PELL layout of the
   escape and of a compact PELL tail (``ops/pell.py``): ``"auto"``, the
-  row quanta of ``ops/pell_rows.py``, or ``"tiles"``, the reference's.
+  row quanta of ``ops/pell_rows.py``, or ``"tiles"``, the reference's;
+  a compact BCSR tail takes it too (the bitmap tiles, or the dense).
 
 ``pack_lane_ell(..., x_off=r0, core_only=True)`` packs one row shard
 for ``parallel/distributed.py``: the window frame shifts by the shard's
@@ -45,11 +48,10 @@ row-sharded hybrid stacks across shards (:class:`CoreBuild`).
 stacked planes in one launch, each shard reading x from its own offset
 into one shared padded x.
 
-Big tails through a ``tail_strategy`` other than PELL, XPOSE or
-``"auto"`` are not ported yet and raise ``NotImplementedError`` naming
-their ROADMAP item. A big tail through an fp64-grade ``tail_strategy``
-is refused with ``ValueError`` at prepare time (the reference fails at
-its first call).
+A big tail through any other ``tail_strategy`` is refused with
+``ValueError`` at prepare time, its message saying what the reference
+does with that name (:data:`REFUSED_TAILS`; an fp64 grade's tail cannot
+land in the f32 core's y: the reference fails at its first call).
 """
 
 from __future__ import annotations
@@ -65,8 +67,9 @@ import torch
 from spmv_scpa_tpu_torch import _kernels
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.ops import (chips_slots, chips_tail, ext_gather,
-                                     lane_rows, pell, pell_rows, xpose)
-from spmv_scpa_tpu_torch.ops.registry import Prepared, record_calls
+                                     lane_rows, pell, xpose)
+from spmv_scpa_tpu_torch.ops.registry import (Prepared, by_ref,
+                                              get_strategy, record_calls)
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
 
 X_VMEM_BUDGET = 10 << 20     # same budget as the fused PELL kernel
@@ -91,9 +94,27 @@ BIG_TAIL = 131072
 # The reference's fp64-grade strategies: none can take a big tail.
 FP64_GRADES = ("pallas-pell-df64", "pallas-hybrid-df64", "xla-ell-df64")
 
-# Roadmap items named by the NotImplementedError of each missing branch.
-_TODO_BIG_TAIL = ("ROADMAP queue 1 #8d (big tails through strategies "
-                  "other than PELL and XPOSE)")
+# The reference's strategies whose compact big-tail branch runs
+# (lane_ell.py:1563-1590; each of its twenty tried on the CPU on
+# amazon_csr(m=20000, avg_nnz=4.7, seed=4) with ext=False,
+# diag="nochips", tail_xla_max=1000); "pallas-hybrid" recurses instead.
+COMPACT_TAILS = ("pallas-pell", "pallas-xpose", "pallas-bcsr",
+                 "pallas-chips", "pallas-nearfar", "xla-csr-segsum",
+                 "xla-ell-rm", "xla-ell-cm", "xla-dense")
+# What the reference does with each other name (the fp64 grades:
+# FP64_GRADES).
+_HOST = ("prepares the tail and fails at its first call with TypeError "
+         "('NoneType' object is not callable): a host strategy has no "
+         "device program to run inside the hybrid's")
+_SPMM = ("prepares the tail and fails at its first call with {}: an "
+         "SpMM-only strategy takes X (n, cols), not the tail's x")
+REFUSED_TAILS = {
+    **dict.fromkeys(("oracle-csr", "oracle-ell", "omp-csr-guided",
+                     "omp-csr-nnz", "omp-ell"), _HOST),
+    "pallas-bcsr-spmm": _SPMM.format(
+        "ValueError (incompatible shapes for broadcasting)"),
+    "xla-csr-segsum-spmm": _SPMM.format("TypeError (a reshape)"),
+}
 
 # Launches of the CUDA kernels by ``lane_ell_spmv`` and by
 # ``lane_ell_sharded`` in this process.
@@ -917,11 +938,8 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
                 "its compact branch feeds the f32 x to a strategy that "
                 "takes the hi/lo x pair); use an f32 tail_strategy, or "
                 "cuda-hybrid-fp64 / cuda-pell-fp64 for the whole matrix")
-        if big not in ("pallas-hybrid", "pallas-pell", "pallas-xpose"):
-            raise NotImplementedError(
-                f"lane-ELL hybrid: a {tail_nnz}-entry tail exceeds "
-                f"tail_xla_max={tail_xla_max} and tail_strategy {big!r} "
-                f"is not ported for big tails: {_TODO_BIG_TAIL}")
+        if big != "pallas-hybrid":
+            compact_strategy(big)
 
     meta = {"loc_w": loc_w, "slots": Q, "ov_slots": Qo,
             "hot_k": hot_k, "idx8_planes": n8,
@@ -944,8 +962,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
                           "chips" if cplan is not None else
                           "torch-compact" if big is None else
                           f"hybrid-r{depth + 1}" if big == "pallas-hybrid"
-                          else "compact-cuda-xpose" if big == "pallas-xpose"
-                          else "compact-cuda-pell"),
+                          else f"compact-{compact_strategy(big)}"),
             "tail_meta": chips_meta,
             "tail_frac": tail_nnz / max(nnz, 1)}
     cfg = LaneCfg(QT=QT, n8=n8, chunk=chunk, steps=steps, S=S, nw=nw,
@@ -1271,12 +1288,27 @@ def prepare_hybrid_layouts(A: CSR, layouts=CORE_LAYOUTS, device="cuda",
             meta={**plan.meta, "landing": ld},
             plain=functools.partial(run, ops=PLAIN),
             kernel_inputs=stage,
-            kernel_calls=functools.partial(_record, run))
+            kernel_calls=functools.partial(_record, run), run=run)
     return out
 
 
 def _record(run, xf):
     return record_calls(lambda ops: run(xf, ops), PLAIN)
+
+
+def compact_strategy(big: str) -> str:
+    """The port's strategy for a big tail through the reference's
+    ``tail_strategy`` ``big`` (one of :data:`COMPACT_TAILS`, mapped
+    through ``ref``); a ValueError for any other name, saying what the
+    reference does with it."""
+    if big in COMPACT_TAILS:
+        return by_ref(big).name
+    why = REFUSED_TAILS.get(big, "raises KeyError at prepare: it is not "
+                                 "one of its strategies")
+    raise ValueError(
+        f"lane-ELL hybrid: tail_strategy {big!r} cannot take a compact big "
+        f"tail: the reference {why}; use one of {COMPACT_TAILS}, "
+        "'pallas-hybrid' or 'auto'")
 
 
 def compact_tail(A: CSR, plan: LanePlan):
@@ -1402,27 +1434,26 @@ def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xdesign,
         return ((lambda y, xf, ops, layout: y + subs[layout][0](xf, ops)),
                 {layout: subs[layout][2] for layout in layouts})
     if plan.big_tail is not None:
-        # PELL or XPOSE over the tail's NH rows renumbered 0..NH-1,
-        # landed like the chips tail's per-row sums
+        # the port's strategy for the reference's over the tail's NH rows
+        # renumbered 0..NH-1, run inside the call with its kernels taken
+        # from ops, its rows landed like the chips tail's per-row sums;
+        # a layout that is not the reference's names itself in tail_kind
         tail, R = compact_tail(A, plan)
-        if plan.big_tail == "pallas-xpose":
-            tplan = xpose.plan_or_raise(tail)
-            s3, s1 = xdesign
-            tables = xpose.host_tables(tplan, s3, s1)
-            sub_run = xpose.bind_plan(tplan, dev, s3, s1, tables)
-            t_meta, t_hbm = ({**xpose.plan_meta(tplan, tail.nnz), "s3": s3,
-                              "s1": xpose.resolve_s1(s1, s3)},
-                             xpose.hbm_bytes(tplan, s3, s1, tables))
-        elif pell.use_layout(pell_layout) == "rows":
-            tplan = pell.plan_rows(tail)
-            sub_run = pell_rows.bind_plan(tplan, dev)
-            t_meta, t_hbm = tplan.meta, tplan.hbm_bytes
-            plan.meta["tail_kind"] = "compact-cuda-pell-rows"
-        else:
-            tplan = pell.plan_pell(tail)
-            sub_run = pell.bind_plan(tplan, dev)
-            t_meta, t_hbm = tplan.meta, tplan.hbm_bytes
-        plan.meta["tail_meta"] = t_meta
+        name = compact_strategy(plan.big_tail)
+        s3, s1 = xdesign
+        kw = {"cuda-pell": {"layout": pell_layout},
+              "cuda-bcsr": {"layout": pell_layout},
+              "cuda-xpose": {"s3": s3, "s1": s1},
+              "cuda-chips": {"chips_x": chips_x, "landing": landing},
+              "cuda-nearfar": {"s3": s3, "s1": s1, "pell_layout": pell_layout,
+                               "chips_x": chips_x, "landing": landing},
+              }.get(name, {})
+        sub = get_strategy(name).prepare(tail, device=dev, **kw)
+        sub_run = sub.run or (lambda xf, ops: sub.fn(xf))
+        t_hbm = sub.hbm_bytes
+        plan.meta["tail_meta"] = sub.meta
+        plan.meta["tail_kind"] = f"compact-{name}" + (
+            f"-{sub.meta['layout']}" if "layout" in sub.meta else "")
         if landing == "direct":
             t_land = chips_tail.bind_land(R, m, dev)
             return ((lambda y, xf, ops, layout:

@@ -85,7 +85,7 @@ def _delegate(A: CSR, to: str, reason: str, dev, hybrid_kw,
     return Prepared("cuda-nearfar", A.name, p.fn, device=dev, nnz=A.nnz,
                     ref="pallas-nearfar", hbm_bytes=p.hbm_bytes, meta=meta,
                     plain=p.plain, kernel_inputs=p.kernel_inputs,
-                    kernel_calls=p.kernel_calls)
+                    kernel_calls=p.kernel_calls, run=p.run)
 
 
 def prepare_nearfar(A: CSR, device="cuda", W: int = 0, s3: str = "rows",
@@ -122,12 +122,12 @@ def prepare_nearfar(A: CSR, device="cuda", W: int = 0, s3: str = "rows",
     n = A.n
 
     def both(near, far):
-        def fn(x):
+        def fn(x, *ops):
             xf = torch.as_tensor(x, dtype=torch.float32, device=dev)
             if xf.shape != (n,):
                 raise ValueError(f"cuda-nearfar: x has shape "
                                  f"{tuple(xf.shape)}, expected ({n},)")
-            return near(xf) + far(xf)
+            return near(xf, *ops) + far(xf, *ops)
         return fn
 
     return Prepared(
@@ -139,4 +139,5 @@ def prepare_nearfar(A: CSR, device="cuda", W: int = 0, s3: str = "rows",
               "near": p_near.meta, "far": p_far.meta},
         plain=both(p_near.plain, p_far.plain),
         kernel_calls=lambda xf: (p_near.kernel_calls(xf)
-                                 + p_far.kernel_calls(xf)))
+                                 + p_far.kernel_calls(xf)),
+        run=both(p_near.run, p_far.run))

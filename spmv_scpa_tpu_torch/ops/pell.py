@@ -31,14 +31,15 @@ Layouts. ``prepare_pell`` and ``prepare_pell_fp64`` take ``layout``:
 (the default) packs row quanta without panels (``ops/pell_rows.py``,
 the kernels ``pell_rows`` and ``pell_rows_fp64``), which Hopper streams
 at a fraction of the tiles' bytes, for the fused scheme and the fp64
-grade, and the tiles for ``scheme="span"`` and ``"pure"``. The row layout keeps the reference's refusals (#8a-c
-below, the fp64 grade's 2^24 row and x-pair budgets), records the tile
-geometry knobs it has no use for in ``meta["tile_knobs"]``, and reads
-``quantum`` as its row quantum (2, 4, 8 or 16). ``prepare_bcsr`` takes
-``layout`` too: ``"auto"`` packs the same tiles as bitmaps of their
-stored slots (``ops/bcsr_bits.py``, the kernel ``bcsr_bits``), keeping
-the dense tiles' refusal and recording ``chunk`` and ``window_h`` in
-``meta["tile_knobs"]``; ``"tiles"`` is the reference's.
+grade, and the tiles for ``scheme="span"`` and ``"pure"``. The row
+layout keeps the fp64 grade's refusals (the 2^24 row and x-pair
+budgets), records the tile geometry knobs it has no use for in
+``meta["tile_knobs"]``, and reads ``quantum`` as its row quantum (2,
+4, 8 or 16). ``prepare_bcsr`` takes ``layout`` too: ``"auto"`` packs
+the same tiles as bitmaps of their stored slots (``ops/bcsr_bits.py``,
+the kernel ``bcsr_bits``), keeping the dense tiles' refusal and
+recording ``chunk`` and ``window_h`` in ``meta["tile_knobs"]``;
+``"tiles"`` is the reference's.
 
 The host parts are JAX-free copies of the reference's and keep its
 TPU-tuned choices (quantum, window, chunk, superpanel width and the
@@ -50,9 +51,23 @@ and change nothing: the port computes in f32. Each kernel's wrapper
 launches ``csrc/pell.cu`` (or ``csrc/segsum.cu``) on a CUDA tensor and
 runs its plain PyTorch version on a CPU tensor.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: the column-striped path for an x above ``x_vmem_budget``, the hot
-column remap (``hot_cols``) and the dual panel grid (``split_shift``).
+Three branches of the reference's ``prepare_pell`` act on the columns:
+
+* an x past ``x_vmem_budget`` (n above about 3.15M at the 12 MB
+  default): on the tiles, the reference's column stripes
+  (:func:`plan_striped`), one fused plan a stripe over the stripe's
+  active row blocks, each stripe one :func:`pell_fused` launch on the
+  view ``x[c0:c1]``, its y part added into y by a slice-add; the row
+  layout reads x in place through ``__ldg`` at any n and needs none;
+* ``split_shift`` (:func:`_dual_grid_remap`) and ``hot_cols``
+  (:func:`_hot_column_remap`): host remaps that move column runs that
+  straddle a panel and the most frequent columns into panels appended
+  past n; on the tiles x is extended at each call (zeros to the panel
+  multiple, then ``x[64:n]`` or ``x[hot_idx]``) and the kernels run on
+  the extended column space. Both exist to pack (8-row block, panel)
+  buckets, which the row layout does not have: it accepts both knobs,
+  records them in ``meta["tile_knobs"]`` and computes the same y
+  without them.
 """
 
 from __future__ import annotations
@@ -89,11 +104,6 @@ TPU_KNOBS = {"precision_passes": 2, "epilogue_passes": 2,
 TILE_KNOBS = ("chunk", "window_h", "epilogue_sub", "span_max", "row_sort",
               "panel_w", "g_max")
 LAYOUTS = ("auto", "tiles")
-
-_TODO_STRIPES = ("ROADMAP queue 1 #8a (PELL column stripes: "
-                 "_prepare_pell_striped)")
-_TODO_HOT = "ROADMAP queue 1 #8b (PELL hot-column remap: hot_cols)"
-_TODO_SHIFT = "ROADMAP queue 1 #8c (PELL dual panel grid: split_shift)"
 
 # Launches of each CUDA kernel by its wrapper in this process.
 LAUNCHES = {"pell_fused": 0, "pell_tiles": 0, "unpermute": 0,
@@ -248,6 +258,82 @@ def _rank_sort_sigma(A: CSR):
     return sigma[:m], bsrc.reshape(nwin * SORT_WIN, BR)
 
 
+def _dual_grid_remap(A: CSR):
+    """Relabel contiguous column runs that straddle a 128-column panel
+    boundary into a second, 64-column-shifted panel grid appended past
+    ``ceil(n/128)*128``, for a run group that fits one shifted panel
+    whole (the reference's ``_dual_grid_remap``, pallas_kernels.py:1247).
+    Runs are grouped by (8-row block, diagonal-normalised 64-column
+    bucket of their start) and a group moves as one. At run time x is
+    extended by its own copy ``x[64:n]``. Returns (remapped CSR, width
+    of the shifted region, 0 when nothing moves)."""
+    if A.n <= 64 or A.nnz == 0:
+        return A, 0
+    rows = A.row_ids().astype(np.int64)
+    cols = A.ja.astype(np.int64)
+    brk = np.ones(A.nnz, dtype=bool)
+    brk[1:] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1] + 1)
+    run_id = np.cumsum(brk) - 1
+    nruns = int(run_id[-1]) + 1
+    c0 = np.full(nruns, np.iinfo(np.int64).max)
+    c1 = np.zeros(nruns, dtype=np.int64)
+    np.minimum.at(c0, run_id, cols)
+    np.maximum.at(c1, run_id, cols)
+    r_row = np.zeros(nruns, dtype=np.int64)
+    np.maximum.at(r_row, run_id, rows)
+    gkey = (r_row // BR) * (2 * (A.n // 64 + 2)) \
+        + (c0 - (r_row % BR)) // 64 + 1
+    guniq, g_of = np.unique(gkey, return_inverse=True)
+    ng = guniq.shape[0]
+    gmin = np.full(ng, np.iinfo(np.int64).max)
+    gmax = np.zeros(ng, dtype=np.int64)
+    np.minimum.at(gmin, g_of, c0)
+    np.maximum.at(gmax, g_of, c1)
+    g_crosses = (gmin // BC) != (gmax // BC)
+    g_fits = (gmin >= 64) & (((gmin - 64) // BC) == ((gmax - 64) // BC))
+    move = (g_crosses & g_fits)[g_of]
+    if not move.any():
+        return A, 0
+    n_pad = -(-A.n // BC) * BC
+    sel = move[run_id]
+    new_cols = cols.copy()
+    new_cols[sel] = n_pad + (cols[sel] - 64)
+    extra = A.n - 64
+    A2 = CSR.from_coo(A.name, A.m, n_pad + extra, rows, new_cols, A.as_)
+    return A2, extra
+
+
+def _hot_column_remap(A: CSR, hot_cols: int, quantum: int):
+    """Relabel the ``hot_cols`` most frequent columns (rounded down to a
+    panel multiple, and trimmed to those of at least ``2 * quantum``
+    entries) into virtual panels appended past ``ceil(n/128)*128`` (the
+    reference's ``_hot_column_remap``, pallas_kernels.py:1309): a hub
+    column otherwise puts one entry into thousands of (row block, panel)
+    buckets, each padded to a quantum. At run time x is extended by
+    ``x[hot_idx]``. Returns (remapped CSR, its n, hot_idx int32 or
+    None)."""
+    counts = np.zeros(A.n, dtype=np.int64)
+    np.add.at(counts, A.ja, 1)
+    k = min(hot_cols, A.n)
+    k = max((k // BC) * BC, 0)
+    if k == 0:
+        return A, A.n, None
+    hot_idx = np.argpartition(counts, -k)[-k:]
+    hot_idx = hot_idx[np.argsort(-counts[hot_idx], kind="stable")]
+    if counts[hot_idx[-1]] < 2 * quantum:
+        keep = counts[hot_idx] >= 2 * quantum
+        k = max((int(keep.sum()) // BC) * BC, 0)
+        if k == 0:
+            return A, A.n, None
+        hot_idx = hot_idx[:k]
+    n_pad = -(-A.n // BC) * BC
+    col_map = np.arange(A.n, dtype=np.int64)
+    col_map[hot_idx] = n_pad + np.arange(k)
+    A2 = CSR.from_coo(A.name, A.m, n_pad + k, A.row_ids(),
+                      col_map[A.ja], A.as_)
+    return A2, n_pad + k, hot_idx.astype(np.int32)
+
+
 # ---------------------------------------------------------------------------
 # Host tables of _make_fused_spmv and _make_tile_spmv
 # ---------------------------------------------------------------------------
@@ -287,10 +373,29 @@ class PellPlan:
     meta: dict
     hbm_bytes: int
     dtype: torch.dtype = torch.float32
+    # how x (n_orig,) grows into the packed column space before the
+    # kernels read it, in order: (n before, None for the split grid's
+    # x[64:n] or the hot columns' int32 ids) (:func:`extend_x`)
+    extend: tuple = ()
 
     @property
     def steps(self) -> int:
         return self.vals.shape[0] // (self.chunk * BR)
+
+
+@dataclass
+class StripedPlan:
+    """The reference's column stripes on the tiles: ``parts`` is one
+    (fused :class:`PellPlan`, first column, end column, first row, rows
+    kept) a stripe that holds entries; the stripe's plan covers its
+    active row blocks only, y rows ``row0 .. row0 + keep``."""
+
+    m: int
+    n: int
+    parts: list
+    meta: dict
+    hbm_bytes: int
+    dtype: torch.dtype = torch.float32
 
 
 def fused_tables(*, m: int, n: int, vals, lcol, panel, rbl, window,
@@ -433,11 +538,16 @@ def plan_pell(A: CSR, chunk: int | str = "auto",
               split_shift: bool = False, scheme: str = "auto",
               span_max: int = 8, x_vmem_budget: int = X_VMEM_BUDGET,
               row_sort: bool | str = "auto", panel_w: int | str = "auto",
-              g_max: int | None = None, **knobs) -> PellPlan:
+              g_max: int | None = None,
+              **knobs) -> PellPlan | StripedPlan:
     """Pack ``A`` as the reference's ``prepare_pell`` does (its knobs
-    and defaults): resolve the tuning axes, row-sort, choose the scheme
-    (fused while some window size keeps every step within ``span_max``
-    windows, else pure), pack and build the scheme's tables."""
+    and defaults): resolve the tuning axes; an x past ``x_vmem_budget``
+    goes to the column stripes (:func:`plan_striped`, which ignores the
+    row sort and both remaps, as the reference does); else row-sort,
+    apply ``split_shift`` (while x and its shifted copy stay under
+    ``X_VMEM_BUDGET``) and then ``hot_cols``, choose the scheme (fused
+    while some window size keeps every step within ``span_max`` windows,
+    else pure), pack and build the scheme's tables."""
     if scheme not in ("auto", "fused", "span", "pure"):
         raise ValueError(f"pell: unknown scheme {scheme!r}")
     tpu = {k: knobs[k] for k in TPU_KNOBS
@@ -447,21 +557,30 @@ def plan_pell(A: CSR, chunk: int | str = "auto",
                             g_max=g_max, chunk=chunk)
     quantum, window_h = auto["quantum"], auto["window_h"]
     panel_w, row_sort = auto["panel_w"], auto["row_sort"]
-    p_rows_pad = -(-(-(-A.n // BC)) // 8) * 8
-    if p_rows_pad * BC * 4 > x_vmem_budget:
-        raise NotImplementedError(
-            f"cuda-pell: x ({p_rows_pad * BC * 4} B) exceeds "
-            f"x_vmem_budget={x_vmem_budget}: {_TODO_STRIPES}")
-    if hot_cols:
-        raise NotImplementedError(f"cuda-pell hot_cols: {_TODO_HOT}")
-    if split_shift:
-        raise NotImplementedError(f"cuda-pell split_shift: {_TODO_SHIFT}")
+    if x_past_budget(A.n, x_vmem_budget):
+        return plan_striped(A, x_vmem_budget, auto["chunk"], quantum,
+                            window_h, span_max, tpu)
     m_orig = A.m
     bsrc = None
     if row_sort:
         sigma, bsrc = _rank_sort_sigma(A)
         A = CSR.from_coo(A.name, bsrc.shape[0] * BR, A.n,
                          sigma[A.row_ids()], A.ja, A.as_)
+    # each remap appends a region past ceil(n/128)*128; the later one
+    # sees the extended space
+    extend = []
+    if split_shift and 2 * 4 * (A.n + BC) < X_VMEM_BUDGET:
+        n_before = A.n
+        A, extra = _dual_grid_remap(A)
+        if extra:
+            extend.append((n_before, None))
+    if hot_cols:
+        n_before = A.n
+        A, _, hot_idx = _hot_column_remap(A, hot_cols, quantum)
+        if hot_idx is not None:
+            extend.append((n_before, hot_idx))
+    n_hot = 0 if not extend or extend[-1][1] is None \
+        else int(extend[-1][1].shape[0])
     chunk = auto["chunk"]
 
     P = None
@@ -514,9 +633,10 @@ def plan_pell(A: CSR, chunk: int | str = "auto",
     T = t["vals"].shape[0]
     idx_bytes = 1 if P.panel_w == 1 else 2
     meta = {"num_blocks": P.num_tiles, "fill": P.fill, "chunk": chunk,
-            "quantum": quantum, "window_h": use_wh, "hot_cols": 0,
+            "quantum": quantum, "window_h": use_wh, "hot_cols": n_hot,
             "panel_w": P.panel_w, "scheme": use_scheme,
-            "row_sort": bsrc is not None, "split_shift": False}
+            "row_sort": bsrc is not None,
+            "split_shift": bool(extend and extend[0][1] is None)}
     if tpu:
         meta["tpu_knobs"] = tpu
     return PellPlan(
@@ -526,7 +646,80 @@ def plan_pell(A: CSR, chunk: int | str = "auto",
         idx=_idx_plane(t["lcol"], T, P.panel_w), pan2=t["pan2"], rbl=rbl,
         base=base, span=span_used, seg=seg, rows_per_step=rps, h=use_wh,
         num_win=t["num_win"], bsrc=bsrc, meta=meta,
-        hbm_bytes=P.num_tiles * BR * BC * (4 + idx_bytes))
+        hbm_bytes=P.num_tiles * BR * BC * (4 + idx_bytes),
+        extend=tuple(extend))
+
+
+def x_past_budget(n: int, x_vmem_budget: int) -> bool:
+    """Whether an f32 x of ``n`` exceeds ``x_vmem_budget`` at the
+    reference's padded width (panels rounded up to a multiple of 8, the
+    widest superpanel: an n at the boundary stripes, never raises)."""
+    p_rows_pad = -(-(-(-n // BC)) // 8) * 8
+    return p_rows_pad * BC * 4 > x_vmem_budget
+
+
+def stripe_width(x_vmem_budget: int) -> int:
+    """Columns a stripe: half the budget of f32, a panel multiple."""
+    return max(BC, x_vmem_budget // 2 // 4 // BC * BC)
+
+
+def plan_striped(A: CSR, x_vmem_budget: int, chunk: int, quantum: int,
+                 window_h, span_max: int, tpu: dict) -> StripedPlan:
+    """The reference's ``_prepare_pell_striped`` (pallas_kernels.py:
+    1341-1446): columns in stripes of :func:`stripe_width`; each stripe
+    that holds entries becomes a fused plan over its active row-block
+    range only, its window height escalated (1, 2, 4, 8, 16 times
+    ``window_h``, then the whole range) until a step of ``chunk`` tiles
+    spans at most ``span_max`` windows; one panel a tile, no row sort."""
+    ws = stripe_width(x_vmem_budget)
+    rows = A.row_ids()
+    wh0 = window_h if isinstance(window_h, int) else DEFAULT_WINDOW_H
+    parts, wh_used_all = [], []
+    num_tiles = nnz_seen = 0
+    for s in range(-(-A.n // ws)):
+        c0, c1 = s * ws, min((s + 1) * ws, A.n)
+        sel = (A.ja >= c0) & (A.ja < c1)
+        if not sel.any():
+            continue
+        rsel = rows[sel]
+        rb0 = int(rsel.min()) // BR
+        rb1 = int(rsel.max()) // BR + 1
+        m_loc = (rb1 - rb0) * BR
+        S = CSR.from_coo(f"{A.name}[c{c0}:{c1}]", m_loc, c1 - c0,
+                         rsel - rb0 * BR, A.ja[sel] - c0, A.as_[sel])
+        nnz_seen += S.nnz
+        mb_loc = rb1 - rb0
+        for mult in (1, 2, 4, 8, 16, 0):
+            wh = mb_loc if mult == 0 else min(wh0 * mult, mb_loc)
+            P = csr_to_pell(S, quantum=quantum, window_h=wh, chunk_align=1,
+                            min_chunk_align=1)
+            if _span_of(P.window, chunk) <= span_max or wh >= mb_loc:
+                break
+        t = fused_tables(m=m_loc, n=S.n, vals=P.vals.astype(np.float32),
+                         lcol=P.lcol, panel=P.panel, rbl=P.rbl,
+                         window=P.window, window_h=wh, chunk=chunk)
+        T = t["vals"].shape[0]
+        plan = PellPlan(
+            kind="fused", m=m_loc, n=S.n, m_orig=m_loc, quantum=quantum,
+            panel_w=1, chunk=chunk, vals=t["vals"].reshape(T * BR, BC),
+            idx=_idx_plane(t["lcol"], T, 1), pan2=t["pan2"], rbl=t["rbl2"],
+            base=t["base"], span=t["W"], seg="span",
+            rows_per_step=chunk * BR, h=wh, num_win=t["num_win"], bsrc=None,
+            meta={}, hbm_bytes=P.num_tiles * BR * BC * 5)
+        num_tiles += P.num_tiles
+        wh_used_all.append(wh)
+        parts.append((plan, c0, c1, rb0 * BR, min(m_loc, A.m - rb0 * BR)))
+    if nnz_seen != A.nnz:
+        raise AssertionError(f"pell stripes: {nnz_seen} of {A.nnz} entries")
+    meta = {"num_blocks": num_tiles,
+            "fill": A.nnz / max(num_tiles * BR * BC, 1),
+            "stripes": len(parts), "scheme": "fused", "chunk": chunk,
+            "quantum": quantum, "window_h": max(wh_used_all, default=wh0),
+            "hot_cols": 0}
+    if tpu:
+        meta["tpu_knobs"] = tpu
+    return StripedPlan(m=A.m, n=A.n, parts=parts, meta=meta,
+                       hbm_bytes=num_tiles * BR * BC * 5)
 
 
 def fp64_refusals(A: CSR, quantum: int) -> None:
@@ -601,30 +794,32 @@ def plan_rows(A: CSR, dtype=torch.float32, quantum: int | str = "auto",
               **knobs) -> prows.RowsPlan:
     """Pack ``A`` in the row layout (:func:`pell_rows.plan_pell_rows`)
     for ``cuda-pell`` (float32) or ``cuda-pell-fp64`` (float64), with the
-    reference's refusals of each and its knobs recorded in meta."""
+    fp64 grade's refusals and the reference's knobs recorded in meta.
+
+    An f32 x past ``x_vmem_budget`` needs no stripes: the row kernel
+    reads x in place at any n, so the plan is one ``pell_rows`` launch a
+    call and its meta says ``stripes: 0``. ``hot_cols`` and
+    ``split_shift`` pack (8-row block, panel) buckets, which row quanta
+    do not have: they are recorded in ``meta["tile_knobs"]``, the meta
+    says ``hot_cols: 0`` and ``split_shift: False``, and y is the same."""
     if scheme not in ("auto", "fused"):
         raise ValueError(f"pell: scheme {scheme!r} runs on the tile layout; "
                          "use layout='tiles'")
     if dtype == torch.float64:
         fp64_refusals(A, auto_pell_params(A, quantum=quantum)["quantum"])
-    else:
-        p_rows_pad = -(-(-(-A.n // BC)) // 8) * 8
-        if p_rows_pad * BC * 4 > x_vmem_budget:
-            raise NotImplementedError(
-                f"cuda-pell: x ({p_rows_pad * BC * 4} B) exceeds "
-                f"x_vmem_budget={x_vmem_budget}: {_TODO_STRIPES}")
-        if hot_cols:
-            raise NotImplementedError(f"cuda-pell hot_cols: {_TODO_HOT}")
-        if split_shift:
-            raise NotImplementedError(
-                f"cuda-pell split_shift: {_TODO_SHIFT}")
     plan = prows.plan_pell_rows(A, dtype,
                                 None if quantum == "auto" else quantum)
     tile = {k: knobs[k] for k in TILE_KNOBS if k in knobs}
+    remaps = {k: v for k, v in (("hot_cols", hot_cols),
+                                ("split_shift", split_shift)) if v}
     tpu = {k: knobs[k] for k in TPU_KNOBS
            if k in knobs and knobs[k] != TPU_KNOBS[k]}
-    if tile:
-        plan.meta["tile_knobs"] = tile
+    if tile or remaps:
+        plan.meta["tile_knobs"] = {**tile, **remaps}
+    if remaps:
+        plan.meta.update(hot_cols=0, split_shift=False)
+    if dtype == torch.float32 and x_past_budget(A.n, x_vmem_budget):
+        plan.meta["stripes"] = 0
     if tpu:
         plan.meta["tpu_knobs"] = tpu
     if dtype == torch.float64:
@@ -939,6 +1134,7 @@ def bind_plan(plan: PellPlan, dev) -> Callable:
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=dev)
 
+    extend = extend_x(plan.extend, dev)
     vals = put(plan.vals, plan.dtype)
     idx = None if plan.idx is None else torch.as_tensor(
         np.ascontiguousarray(plan.idx), device=dev)
@@ -965,6 +1161,7 @@ def bind_plan(plan: PellPlan, dev) -> Callable:
     mbp8 = 0 if plan.bsrc is None else plan.bsrc.size
 
     def run(xf, ops):
+        xf = extend(xf)
         if plan.kind == "fused":
             fused = (ops.pell_fused_fp64 if plan.dtype == torch.float64
                      else ops.pell_fused)
@@ -986,13 +1183,50 @@ def bind_plan(plan: PellPlan, dev) -> Callable:
     return run
 
 
+def extend_x(extend, dev) -> Callable:
+    """``f(xf)``: x grown into a remapped plan's column space, as the
+    reference's call does (pallas_kernels.py:1756-1771): for each entry
+    of ``extend`` in order, zeros up to the panel multiple of the width
+    before it, then ``x[64:n_before]`` (the split grid) or ``x[hot_idx]``
+    (the hot columns)."""
+    steps = [(nb, -(-nb // BC) * BC, None if hot is None else
+              torch.as_tensor(hot, dtype=torch.int64, device=dev))
+             for nb, hot in extend]
+
+    def f(xf):
+        for nb, n_pad, hot in steps:
+            xf = torch.cat([xf, xf.new_zeros(n_pad - nb),
+                            xf[64:nb] if hot is None else xf[hot]])
+        return xf
+
+    return f
+
+
+def bind_striped(plan: StripedPlan, dev) -> Callable:
+    """``run(xf, ops) -> y (m,)`` of a striped plan: each stripe's fused
+    call on the view ``x[c0:c1]``, its rows added into ``y[row0:row0 +
+    keep]`` (the reference adds the stripes' y outside any kernel,
+    pallas_kernels.py:1421-1430)."""
+    parts = [(bind_plan(p, dev), c0, c1, row0, keep)
+             for p, c0, c1, row0, keep in plan.parts]
+
+    def run(xf, ops):
+        y = torch.zeros(plan.m, dtype=plan.dtype, device=dev)
+        for part, c0, c1, row0, keep in parts:
+            y[row0:row0 + keep] += part(xf[c0:c1], ops)[:keep]
+        return y
+
+    return run
+
+
 def _prepared(name: str, ref: str, A: CSR, plan, dev, kernels=KERNELS,
               plain=PLAIN):
-    """Bind ``plan`` (a :class:`PellPlan`, a row-layout
-    :class:`pell_rows.RowsPlan` or a :class:`bcsr_bits.BitsPlan`) on
-    ``dev`` as strategy ``name``."""
+    """Bind ``plan`` (a :class:`PellPlan`, a :class:`StripedPlan`, a
+    row-layout :class:`pell_rows.RowsPlan` or a
+    :class:`bcsr_bits.BitsPlan`) on ``dev`` as strategy ``name``."""
     bind = (prows.bind_plan if isinstance(plan, prows.RowsPlan)
             else bcsr_bits.bind_plan if isinstance(plan, bcsr_bits.BitsPlan)
+            else bind_striped if isinstance(plan, StripedPlan)
             else bind_plan)
     run = bind(plan, dev)
     n = A.n
@@ -1008,7 +1242,7 @@ def _prepared(name: str, ref: str, A: CSR, plan, dev, kernels=KERNELS,
                     nnz=A.nnz, ref=ref, hbm_bytes=int(plan.hbm_bytes),
                     meta=plan.meta, plain=lambda x: call(x, plain),
                     kernel_calls=lambda xf: record_calls(
-                        lambda ops: call(xf, ops), plain))
+                        lambda ops: call(xf, ops), plain), run=call)
 
 
 def use_layout(layout: str, scheme: str = "auto") -> str:

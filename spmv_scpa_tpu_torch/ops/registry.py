@@ -89,6 +89,12 @@ class Prepared:
     # order as (kernel name, wrapper arguments), for checking and timing
     # each kernel alone at the call's shapes.
     kernel_calls: Callable[[Any], list] | None = None
+    # run(x, ops): ``fn`` with each kernel taken by its name from ``ops``
+    # (a NamedTuple of kernels, or of their plain versions, such as
+    # ``lane_ell.KERNELS``), so that another strategy's call can run this
+    # one inside it (a hybrid's compact big tail). None where the
+    # strategy has no kernel: ``fn`` is then its own plain version.
+    run: Callable[[Any, Any], Any] | None = None
 
 
 def record_calls(run: Callable[[Any], Any], plain) -> list:
@@ -155,6 +161,13 @@ def to_numpy(y) -> np.ndarray:
     if isinstance(y, torch.Tensor):
         y = y.detach().cpu().numpy()
     return np.asarray(y, dtype=np.float64)
+
+
+def by_ref(ref: str) -> StrategySpec | None:
+    """The port's strategy held against the JAX strategy ``ref``, or
+    None."""
+    _ensure_builtin()
+    return next((s for s in _REGISTRY.values() if s.ref == ref), None)
 
 
 def spmv(A: CSR, x, strategy: str = "auto", device="cuda",

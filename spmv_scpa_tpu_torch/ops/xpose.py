@@ -812,6 +812,6 @@ def prepare_xpose_designs(A: CSR, designs=S3_DESIGNS,
                               "s1": resolve_s1(s1, s3)},
                         plain=lambda x: call(x, PLAIN),
                         kernel_calls=lambda xf: record_calls(
-                            lambda ops: call(xf, ops), PLAIN))
+                            lambda ops: call(xf, ops), PLAIN), run=call)
 
     return {d: prepared(*pair) for d, pair in pairs.items()}

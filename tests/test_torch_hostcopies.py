@@ -1,9 +1,11 @@
 """The port's own copies of the JAX package's host modules
 (spmv_scpa_tpu_torch/{formats/csr,formats/ell,errors,io,ops/oracle,
 utils/validation,utils/vector,testing}.py, bench/timing.py's BenchResult
-and compute_gflops), and the import boundary that makes them necessary: the
-port and ``chip_smoke.py`` import neither ``jax`` nor any module of
-``spmv_scpa_tpu``.
+and compute_gflops, PELL's two column remaps, the constants of the
+script harness), and the import boundary that makes them necessary: the
+port (its script modules included) and ``chip_smoke.py`` import neither
+``jax`` nor any module of ``spmv_scpa_tpu``, and the plotter needs no
+matplotlib or pandas to be imported.
 
 Each copy is held equal to its original: the same arrays from every
 generator and seed, the same CSR from ``load_csr`` on the same file, the
@@ -12,6 +14,7 @@ comparisons are exact.
 """
 
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -31,6 +34,7 @@ from spmv_scpa_tpu.formats.csr import \
     partition_rows_by_nnz as jax_partition_rows_by_nnz
 from spmv_scpa_tpu.io import loader as jax_loader
 from spmv_scpa_tpu.io import mmio as jax_mmio
+from spmv_scpa_tpu.ops import pallas_kernels as jax_pk
 from spmv_scpa_tpu.ops import segsum_kernel as jax_segsum
 from spmv_scpa_tpu.ops import xla as jax_xla
 from spmv_scpa_tpu.ops import xpose_plan as jax_xpose_plan
@@ -43,8 +47,9 @@ from spmv_scpa_tpu_torch import errors, load_csr, testing as synth
 from spmv_scpa_tpu_torch.bench import timing
 from spmv_scpa_tpu_torch.formats import bcsr, ell, panel_ell
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR, partition_rows_by_nnz
-from spmv_scpa_tpu_torch.ops import (registry, segsum_kernel, torch_ops,
-                                     xpose_plan)
+from spmv_scpa_tpu_torch.ops import (pell, registry, segsum_kernel,
+                                     torch_ops, xpose_plan)
+from spmv_scpa_tpu_torch.scripts import plots, results, scaling
 from spmv_scpa_tpu_torch.io import mmio
 from spmv_scpa_tpu_torch.ops.oracle import spmm_oracle, spmv_oracle
 from spmv_scpa_tpu_torch.utils import validation
@@ -97,7 +102,10 @@ def test_port_and_chip_smoke_load_no_jax_package():
             "spmv_scpa_tpu_torch.bench.logger",
             "spmv_scpa_tpu_torch.io.native",
             "spmv_scpa_tpu_torch.io.cache",
-            "spmv_scpa_tpu_torch.ops.native_omp"} <= set(mods)
+            "spmv_scpa_tpu_torch.ops.native_omp",
+            "spmv_scpa_tpu_torch.scripts.results",
+            "spmv_scpa_tpu_torch.scripts.scaling",
+            "spmv_scpa_tpu_torch.scripts.plots"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
@@ -113,6 +121,14 @@ def test_port_and_chip_smoke_load_no_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split(" ", 1)[1].strip() == "[]", out.stdout
+    # the plotter imports matplotlib and pandas only when it draws
+    code = ("import sys\n"
+            "import spmv_scpa_tpu_torch.scripts.plots\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('matplotlib', 'pandas')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert (out.returncode, out.stdout.strip()) == (0, "[]"), out.stderr
 
 
 def _imported(path: Path):
@@ -434,3 +450,64 @@ def test_spmm_oracle_and_visit_masks_match():
         np.testing.assert_array_equal(
             segsum_kernel.make_visit_masks(base, nw, span, rep),
             jax_segsum.make_visit_masks(base, nw, span, rep))
+
+
+# ---- PELL's column remaps ----------------------------------------------------
+
+REMAP_MATRICES = {
+    **{k: GENERATORS[k] for k in ("banded", "banded-runs", "banded-rect",
+                                  "stencil", "powerlaw", "random", "tiny")},
+    "powerlaw2000": ("powerlaw_csr", dict(m=2000, n=2000, avg_nnz=20,
+                                          seed=17)),
+    "runs": ("banded_csr", dict(m=2000, row_nnz=16, bandwidth=64, runs=2,
+                                seed=3)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REMAP_MATRICES))
+def test_column_remaps_match_the_originals(name):
+    """``_dual_grid_remap`` and ``_hot_column_remap`` (ops/pell.py) give
+    the reference's remapped CSR, shifted width and hot columns."""
+    fn, kw = REMAP_MATRICES[name]
+    a, b = getattr(synth, fn)(**kw), getattr(jax_synth, fn)(**kw)
+    mine, extra = pell._dual_grid_remap(a)
+    want, extra_j = jax_pk._dual_grid_remap(b)
+    assert extra == extra_j
+    _same_csr(mine, want)
+    for hot, q in ((128, 8), (256, 8), (256, 16), (1000, 2), (0, 8)):
+        mine, n_eff, idx = pell._hot_column_remap(a, hot, q)
+        want, n_eff_j, idx_j = jax_pk._hot_column_remap(b, hot, q)
+        assert n_eff == n_eff_j
+        _same_csr(mine, want)
+        if idx_j is None:
+            assert idx is None
+        else:
+            assert idx.dtype == idx_j.dtype
+            np.testing.assert_array_equal(idx, idx_j)
+
+
+# ---- the script harness -------------------------------------------------------
+
+def _jax_script(name):
+    """``scripts/<name>.py`` of the JAX package's harness, as a module."""
+    spec = importlib.util.spec_from_file_location(
+        f"jax_scripts_{name}", ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_script_suites_match_the_originals():
+    assert results.SYNTH_SUITE == _jax_script("results").SYNTH_SUITE
+    jax_scaling = _jax_script("scaling")
+    assert scaling.SUITE == jax_scaling.SUITE
+    assert scaling.DEVICE_COUNTS == jax_scaling.DEVICE_COUNTS
+
+
+def test_plot_bins_and_ids_match_the_originals():
+    pytest.importorskip("matplotlib")
+    pytest.importorskip("pandas")
+    jax_plots = _jax_script("plots")
+    assert plots.NNZ_BINS == jax_plots.NNZ_BINS
+    assert plots.NNZ_LABELS == jax_plots.NNZ_LABELS
+    assert plots.ID_TO_NAME == jax_plots.ID_TO_NAME

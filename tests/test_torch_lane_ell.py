@@ -347,23 +347,54 @@ def test_wrapper_rejects_wrong_dtype_and_shape():
         prep.fn(np.ones(A.n + 1))
 
 
-# a big tail through a strategy the port lacks for big tails (BCSR)
+# a big tail through BCSR, a strategy that serves big tails since the
+# port took every name the reference's compact branch runs
 BIG_TAIL_BCSR = {"ext": False, "diag": "nochips", "tail_xla_max": 1000,
                  "tail_strategy": "pallas-bcsr"}
 
 
-@pytest.mark.parametrize("A_make, kw, what", [
-    # the escape to PELL with an x past its resident bound: the striped
-    # path
-    (lambda: synth.random_csr(2000, 3_200_000, density=1e-6, seed=4), {},
+@pytest.mark.parametrize("make, kw, what", [
+    # the escape to PELL with an x past its resident bound: the row
+    # layout reads x in place, the tiles take the reference's stripes
+    (lambda s: s.random_csr(2000, 3_200_000, density=1e-6, seed=4), {},
      "PELL column stripes"),
-    (lambda: synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4), BIG_TAIL_BCSR,
+    (lambda s: s.amazon_csr(m=20000, avg_nnz=4.7, seed=4), BIG_TAIL_BCSR,
      "big tails"),
 ], ids=["no-locality", "big-tail"])
-def test_missing_branches_raise_not_implemented(A_make, kw, what):
-    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-        lane_ell.prepare_lane_ell_hybrid(A_make(), device="cpu", **kw)
-    assert what in str(err.value)
+def test_missing_branches_raise_not_implemented(make, kw, what):
+    """The two branches that raised ``NotImplementedError`` before the
+    port had them (``what``), now held against the JAX hybrid on the
+    same inputs: the no-locality escape of a 3.2M-column matrix to
+    ``cuda-pell`` (the reference stripes its columns: 3 stripes), and a
+    3,091-entry big tail through ``pallas-bcsr``. y within rel-L2 1e-5
+    of the JAX y (its fused PELL adds in bf16 split passes) and
+    ``validate_result`` of the oracle, on the default layouts and on the
+    reference's (``pell_layout="tiles"``: the stripes, the dense
+    tiles)."""
+    A, A_jax = make(synth), make(jax_synth)
+    np.testing.assert_array_equal(A.ja, A_jax.ja)
+    x = make_x(A.n)
+    gold = spmv_oracle(A, x)
+    jprep = jax_prepare(A_jax, interpret=True, **kw)
+    y_jax = np.asarray(jprep.fn(x), np.float64)
+    for layout in ("auto", "tiles"):
+        prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu",
+                                                pell_layout=layout, **kw)
+        y = to_numpy(prep.fn(x))
+        assert np.linalg.norm(y - y_jax) <= 1e-5 * np.linalg.norm(y_jax)
+        validate_result(gold, y, what=f"{what} ({layout})")
+        if what == "big tails":
+            assert prep.meta["tail_kind"] == (
+                "compact-cuda-bcsr" if layout == "tiles"
+                else "compact-cuda-bcsr-bits")
+            assert jprep.meta["tail_kind"] == "compact-pallas-bcsr"
+        elif layout == "tiles":
+            assert prep.meta["delegated"] == "cuda-pell"
+            for k in ("stripes", "num_blocks", "fill", "window_h"):
+                assert prep.meta[k] == jprep.meta[k], k
+            assert prep.meta["stripes"] == 3
+        else:
+            assert (prep.meta["layout"], prep.meta["stripes"]) == ("rows", 0)
 
 
 @pytest.mark.parametrize("tail", ["pallas-pell-df64", "pallas-hybrid-df64",
@@ -383,10 +414,17 @@ def test_fp64_big_tail_is_refused_at_prepare(tail):
 
 
 def test_auto_does_not_swallow_not_implemented():
+    """Where ``spmv``'s auto route raised ``NotImplementedError`` (a big
+    tail through ``pallas-bcsr``), it now answers: the hybrid with a
+    compact BCSR tail, y equal to the strategy's named call and within
+    ``validate_result`` of the oracle."""
     A = synth.amazon_csr(m=20000, avg_nnz=4.7, seed=4)
     assert pick_auto(A) == "cuda-hybrid"
-    with pytest.raises(NotImplementedError):
-        spmv(A, make_x(A.n), "auto", device="cpu", **BIG_TAIL_BCSR)
+    x = make_x(A.n)
+    y = spmv(A, x, "auto", device="cpu", **BIG_TAIL_BCSR)
+    validate_result(spmv_oracle(A, x), y, what="spmv auto, BCSR tail")
+    np.testing.assert_array_equal(
+        y, spmv(A, x, "cuda-hybrid", device="cpu", **BIG_TAIL_BCSR))
 
 
 def test_resident_x_refusal_stays_a_value_error(monkeypatch):

@@ -328,10 +328,27 @@ def test_wrappers_reject_wrong_arguments():
     ({"hot_cols": 128}, "hot_cols"), ({"split_shift": True}, "split_shift"),
     ({"x_vmem_budget": 1024}, "column stripes")])
 def test_unported_options_raise_not_implemented(kw, what):
+    """The three options that raised ``NotImplementedError`` before the
+    port had them (``what``), now held against ``pallas-pell`` with the
+    same option on the same matrix: on the tiles the meta and bytes
+    exactly (128 hot columns trim to none on this band, the shifted grid
+    applies, 1,024 B of x make 16 stripes of 128 columns) and y within
+    f32 rel-L2 1e-5; the row layout's y the same way. Both sides at
+    chunk 4, which keeps the reference's interpret-mode steps short."""
+    kw = {**kw, "chunk": 4}
     A = cases.PELL_CASES["pell-banded2000"][0]()
-    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-        pell.prepare_pell(A, device="cpu", **kw)
-    assert what in str(err.value)
+    jprep = jax_strategy("pallas-pell").prepare(
+        JAX_CASES["pell-banded2000"](), interpret=True, **kw)
+    tiles = pell.prepare_pell(A, device="cpu", layout="tiles", **kw)
+    assert tiles.meta == jprep.meta and tiles.hbm_bytes == jprep.hbm_bytes
+    x = make_x(A.n)
+    y_jax = np.asarray(jprep.fn(x), np.float64)
+    for prep in (tiles, pell.prepare_pell(A, device="cpu", **kw)):
+        y = to_numpy(prep.fn(x))
+        assert _rel_l2(y, y_jax) <= 1e-5
+        validate_result(spmv_oracle(A, x), y, what=f"cuda-pell, {what}")
+    assert tiles.meta.get("stripes", 0) == (16 if "x_vmem_budget" in kw
+                                            else 0)
 
 
 def test_tpu_knobs_are_recorded_and_change_nothing():

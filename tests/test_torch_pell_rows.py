@@ -378,12 +378,30 @@ def test_fp64_rows_keep_the_reference_refusals():
 
 
 def test_f32_rows_keep_the_unported_options():
-    A = _matrix("banded2000")
-    for kw, what in (({"hot_cols": 128}, "hot_cols"),
-                     ({"split_shift": True}, "split_shift"),
-                     ({"x_vmem_budget": 1024}, "column stripes")):
-        with pytest.raises(NotImplementedError, match=what):
-            pell.prepare_pell(A, device="cpu", **kw)
+    """The three options the row layout refused with
+    ``NotImplementedError`` before: it now takes each and computes the
+    y it computes without it, bit for bit (no stripe: x is read in
+    place; no remap: row quanta have no panels to pack), one
+    ``pell_rows`` call, its meta saying so; and that y is within the
+    bounds above of the JAX y with the same option (the reference
+    stripes and remaps; at chunk 4, which keeps its interpret-mode
+    steps short)."""
+    A, A_jax = _matrix("banded2000"), _matrix("banded2000", jax_synth)
+    x = make_x(A.n)
+    xf = torch.as_tensor(x, dtype=torch.float32)
+    base = to_numpy(pell.prepare_pell(A, device="cpu").fn(x))
+    for kw, meta in (({"hot_cols": 128}, {"hot_cols": 0}),
+                     ({"split_shift": True}, {"split_shift": False}),
+                     ({"x_vmem_budget": 1024}, {"stripes": 0})):
+        prep = pell.prepare_pell(A, device="cpu", **kw)
+        assert prep.meta["layout"] == "rows"
+        assert {k: prep.meta[k] for k in meta} == meta
+        assert [k for k, _ in prep.kernel_calls(xf)] == ["pell_rows"]
+        y = to_numpy(prep.fn(x))
+        assert np.array_equal(y, base), kw
+        jprep = jax_strategy("pallas-pell").prepare(A_jax, interpret=True,
+                                                    chunk=4, **kw)
+        assert _rel(y, np.asarray(jprep.fn(x), np.float64)) <= VS_JAX
 
 
 def test_wrappers_run_the_plain_version_on_cpu_tensors():
