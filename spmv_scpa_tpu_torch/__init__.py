@@ -23,10 +23,15 @@ copies, held equal to the originals by the tests.
 """
 
 from spmv_scpa_tpu_torch.io.loader import load_csr
+from spmv_scpa_tpu_torch.ops import registry as _registry
 from spmv_scpa_tpu_torch.ops.registry import (
     get_strategy,
     list_strategies,
     spmv,
 )
+
+# The built-in strategies' modules load with the package, not inside the
+# first get_strategy, whose caller may be timing a prepare.
+_registry._ensure_builtin()
 
 __all__ = ["load_csr", "spmv", "get_strategy", "list_strategies"]

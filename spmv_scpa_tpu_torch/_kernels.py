@@ -31,6 +31,8 @@ from pathlib import Path
 
 import torch
 
+from spmv_scpa_tpu_torch import trace
+
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 NATIVE_DIR = PKG_DIR / "native"
@@ -129,6 +131,7 @@ def build_all(names=None) -> list[Path]:
     return outs
 
 
+@trace.span("kernels.build")
 def _compile(jobs) -> None:
     """Run each job ``(command, source, library)`` as ``command -o tmp
     source``, all started together; each output is renamed onto its
@@ -191,16 +194,20 @@ def build_native(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``, with argtypes set."""
+    """Build (if needed) and load ``csrc/<name>.cu``, with argtypes set.
+    The first load of a library is a ``kernels.load`` span (``built``:
+    whether nvcc ran)."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        for fn, argtypes in SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = ctypes.c_int
-        lib.spmv_error_string.argtypes = [ctypes.c_int]
-        lib.spmv_error_string.restype = ctypes.c_char_p
+        with trace.span("kernels.load", name=name) as s:
+            s.attrs["built"] = not library_path(name).exists()
+            lib = ctypes.CDLL(str(build(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            lib.spmv_error_string.argtypes = [ctypes.c_int]
+            lib.spmv_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
     return lib
 

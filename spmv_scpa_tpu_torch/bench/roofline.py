@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch import _kernels, trace
 from spmv_scpa_tpu_torch.bench.timing import time_cuda
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
 
@@ -54,6 +54,7 @@ def _launch(entry: str, buf: torch.Tensor, blocks_per_sm: int):
     return out
 
 
+@trace.launch("stream_reduce")
 def stream_reduce(buf: torch.Tensor) -> torch.Tensor:
     """Sum of ``buf`` viewed as (-1, 8, 128) tiles: an (8, 128) f32
     tile. CUDA tensors launch ``csrc/stream_probe.cu``'s probe (a
@@ -66,6 +67,7 @@ def stream_reduce(buf: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@trace.launch("stream_reduce_strided")
 def stream_reduce_strided(buf: torch.Tensor) -> torch.Tensor:
     """:func:`stream_reduce` by the first port's grid-stride kernel, kept
     for the A/B against the probe."""

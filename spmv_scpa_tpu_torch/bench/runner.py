@@ -28,6 +28,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from spmv_scpa_tpu_torch import trace
 from spmv_scpa_tpu_torch.bench.logger import CsvLogger
 from spmv_scpa_tpu_torch.bench.timing import (BenchResult, time_host_fn,
                                               time_prepared)
@@ -90,6 +91,21 @@ def _fmt_blocks(prep):
     return None if nb is None else int(nb)
 
 
+def _log_setup() -> None:
+    """The newest prepare's set-up spans at INFO, as a tree: each span's
+    name, attributes, seconds and self seconds."""
+    if not log.isEnabledFor(logging.INFO):
+        return
+    recorded = trace.spans()
+    roots = trace.roots("prepare", recorded)
+    if not roots:
+        return
+    for depth, s in trace.tree(roots[-1], recorded):
+        log.info("set-up %s%s%s %.3f s (self %.3f s)", "  " * depth,
+                 s.name, f" {s.attrs}" if s.attrs else "", s.seconds,
+                 trace.self_s(s, recorded))
+
+
 def _refused(cfg, name, chunk, err) -> None:
     reason = f"refused ({type(err).__name__}): {err}"
     log.warning("%s (chunk=%s) skipped: %s", name, chunk, reason)
@@ -104,6 +120,7 @@ def run_benchmarks(A: CSR, cfg: RunConfig) -> list[RowResult]:
     with CsvLogger(cfg.out_dir) as logger:
         # --- serial golden (main.c:126-146) ---
         prep = get_strategy("oracle-csr").prepare(A)
+        _log_setup()
         r = time_host_fn(prep.fn, x, nnz=A.nnz)
         golden = r.data
         logger.log_serial(matrix=A.name, fmt="CSR", rows=A.m, cols=A.n,
@@ -115,6 +132,7 @@ def run_benchmarks(A: CSR, cfg: RunConfig) -> list[RowResult]:
         # --- serial HLL (main.c:150-171) ---
         if not cfg.skip_serial_hll:
             prep = get_strategy("oracle-ell").prepare(A)
+            _log_setup()
             r = time_host_fn(prep.fn, x, nnz=A.nnz)
             rel = _check(cfg, golden, r.data, "oracle-ell")
             logger.log_serial(matrix=A.name, fmt="HLL", rows=A.m, cols=A.n,
@@ -149,6 +167,7 @@ def run_benchmarks(A: CSR, cfg: RunConfig) -> list[RowResult]:
                 except REFUSALS as e:
                     _refused(cfg, name, chunk, e)
                     continue
+                _log_setup()
                 # the fp64 grade states its gate (meta rtol): x and y
                 # float64, the absolute gate off
                 fp64 = prep.meta.get("rtol")
@@ -215,6 +234,7 @@ def _run_spmm(A, cfg, logger, results):
             except REFUSALS as e:
                 _refused(cfg, name, cols, e)
                 continue
+            _log_setup()
             r = time_prepared(prep, X, device=cfg.device)
             rel = validate_result(golden, r.data,
                                   what=f"{name} cols={cols}")
@@ -257,6 +277,7 @@ def _run_distributed(A, x, golden, cfg, logger, results):
         except REFUSALS as e:
             _refused(cfg, what, len(mesh), e)
             continue
+        _log_setup()
         r = time_prepared(dist, x, device=cfg.device)
         rel = _check(cfg, golden, r.data, what)
         logger.log_device(matrix=A.name, fmt=fmt,
@@ -319,6 +340,7 @@ def _run_host_parallel_torch(A, x, golden, cfg, logger, results):
         except REFUSALS as e:
             _refused(cfg, f"host {name}", nthreads, e)
             continue
+        _log_setup()
         r = time_prepared(prep, x, device="cpu")
         rel = _check(cfg, golden, r.data, f"host {name}")
         logger.log_omp(matrix=A.name, fmt=fmt, bench=bench_name,

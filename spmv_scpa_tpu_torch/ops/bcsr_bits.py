@@ -53,7 +53,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch import _kernels, trace
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.formats.panel_ell import BR
 
@@ -92,10 +92,12 @@ def refuse_dense_tiles(tiles: int, max_padded_bytes: int) -> None:
             "matrix too scattered for dense tiles — use cuda-pell")
 
 
+@trace.span("plan_bcsr_bits")
 def plan_bcsr_bits(A: CSR, max_padded_bytes: int | None = None) -> BitsPlan:
     """Pack ``A`` in bitmap tiles (module docstring). With
     ``max_padded_bytes``, refuse (ValueError) a matrix whose dense tiles
     would exceed it, as ``plan_bcsr`` does, before any value is packed."""
+    trace.stage("pack.plan", step="slot sort")
     rows = A.row_ids().astype(np.int64)
     cols = A.ja.astype(np.int64)
     npan = max(1, -(-A.n // BC))
@@ -117,8 +119,10 @@ def plan_bcsr_bits(A: CSR, max_padded_bytes: int | None = None) -> BitsPlan:
                          "value index")
     # duplicates add in CSR order from 0.0 in float64, as np.add.at does
     # in csr_to_bcsr (bincount walks its input in order)
+    trace.stage("pack.plan", step="value sum")
     vals = np.bincount(inv.reshape(-1), weights=A.as_,
                        minlength=S).astype(np.float32)
+    trace.stage("pack.layout", step="bitmaps")
     tile_of = np.cumsum(first) - 1
     word = tile_of * (BR * WORDS) + (slots % (BR * BC)) // 32
     bit = np.left_shift(np.uint32(1), (slots % 32).astype(np.uint32))
@@ -204,6 +208,7 @@ def _check(what, bits, vals, vptr, pan, rowptr, x, m: int, xdim: int):
         raise ValueError(f"{what}: bits are not 16-byte aligned")
 
 
+@trace.launch("bcsr_bits")
 def bcsr_bits(bits, vals, vptr, pan, rowptr, x, m: int) -> torch.Tensor:
     """y (m,) f32 of the bitmap tiles: the module docstring's SpMV sum of
     ``vals * x[pan * 128 + lane]`` over the stored slots, a column at or
@@ -223,6 +228,7 @@ def bcsr_bits(bits, vals, vptr, pan, rowptr, x, m: int) -> torch.Tensor:
     return y
 
 
+@trace.launch("bcsr_bits_spmm")
 def bcsr_bits_spmm(bits, vals, vptr, pan, rowptr, X, m: int) -> torch.Tensor:
     """Y (m, cols) f32 = A @ X of the bitmap tiles, X (n, cols): the
     module docstring's SpMM sum, a row of X at or past ``X.shape[0]``
@@ -323,8 +329,10 @@ def bind_plan(plan: BitsPlan, dev, spmm: bool = False) -> Callable:
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
-    args = tuple(put(a) for a in (plan.bits, plan.vals, plan.vptr, plan.pan,
-                                  plan.rowptr))
+    with trace.span("pack.upload", fn="bcsr_bits.bind_plan",
+                    bytes=plan.hbm_bytes):
+        args = tuple(put(a) for a in (plan.bits, plan.vals, plan.vptr,
+                                      plan.pan, plan.rowptr))
     m = plan.m
 
     def run(x, ops):

@@ -35,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch import _kernels, trace
 from spmv_scpa_tpu_torch.formats.csr import BC
 
 # Launches of the CUDA kernel by its wrapper in this process.
@@ -171,6 +171,7 @@ def _check(cols, vals, x) -> None:
                          "16-byte boundary (the kernel's vector loads)")
 
 
+@trace.launch("chips_products")
 def chips_products(cols, vals, x) -> torch.Tensor:
     """prod (E, 128) f32: ``vals * x[cols]`` at every slot whose column
     lies in x, +0.0 with no x read elsewhere (column -1). CUDA tensors

@@ -68,7 +68,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch import _kernels, trace
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.ops import chips_slots, ext_gather, segsum_kernel
 from spmv_scpa_tpu_torch.ops.registry import Prepared, record_calls
@@ -238,6 +238,7 @@ def _placeholder_stream(kind_key: str, *, n: int, h: int,
                    n_entries=0, live=live)
 
 
+@trace.span("pack.plan", fn="plan_chips")
 def plan_chips(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
                m: int, n: int, h: int = 256, rows_per_step: int = 8,
                big_tail: bool = False):
@@ -471,6 +472,7 @@ def pad_split_plan(plan: SplitChipsPlan, tpl: dict,
                           NH=tpl["NH"], n_real=plan.n_real, **out)
 
 
+@trace.span("pack.plan", fn="plan_chips_split")
 def plan_chips_split(rows, cols, vals, m, n, h: int = 256,
                      rows_per_step: int = 8, w_loc: int = W_LOC,
                      r_hot: int | None = None,
@@ -848,6 +850,7 @@ def bind_sums(plans: list, n: int, device, chips_x: str = "slots"):
     return sums, ranks, int(hbm + sum(p.NH for p in plans) * 4)
 
 
+@trace.span("pack.upload", fn="prepare_chips")
 def prepare_chips(plan, n: int, device, chips_x: str = "slots"):
     """Device pipeline of a plan, single or split: returns ``(contrib,
     hbm)``, where ``contrib(xf, ops) -> ys`` (NH,) f32 gives the
@@ -936,6 +939,7 @@ def _stream_products(s: _Stream, n: int, device):
     return fn, hbm
 
 
+@trace.span("pack.upload", fn="prepare_chips_split")
 def prepare_chips_split(plan: SplitChipsPlan, n: int, device):
     """Device pipeline of a split plan on ``chips_x="hot"``: ``(contrib,
     hbm)`` as :func:`prepare_chips`; each stream's segment-sum apart, the
@@ -1112,6 +1116,7 @@ def landing_tables(heavy_ids: np.ndarray, m: int, G_pad: int,
     return ("ranked", t) if t is not None else ("scatter", None)
 
 
+@trace.span("pack.upload", fn="make_landing")
 def make_landing(heavy_ids: np.ndarray, m: int, G_pad: int, device,
                  budget: float = 6e8, tables: tuple | None = None):
     """The heavy-row landing, composed: returns ``(land, use_merge,
@@ -1176,6 +1181,7 @@ def check_land(land, n_rows: int) -> None:
         raise ValueError("heavy_land: land names a row of y more than once")
 
 
+@trace.span("pack.upload", fn="bind_land")
 def bind_land(land, n_rows: int, device) -> torch.Tensor:
     """``land`` checked (:func:`check_land`) as an int32 tensor on
     ``device``."""
@@ -1211,6 +1217,7 @@ def _check_land_args(y, ys, land) -> None:
         raise ValueError(f"heavy_land: unsupported device {y.device}")
 
 
+@trace.launch("heavy_land")
 def heavy_land(y, ys, land) -> torch.Tensor:
     """``y[land[k]] += ys[k]`` in place for every k with ``land[k] >=
     0``, y (any shape, contiguous) indexed flat; returns y. ``land``
@@ -1241,6 +1248,7 @@ def heavy_land_plain(y, ys, land) -> torch.Tensor:
     return y
 
 
+@trace.span("pack.upload", fn="land_chips")
 def land_chips(plan, n: int, m: int, device, chips_x: str = "slots"):
     """The ``"direct"`` landing of one chips plan into y (m,): ``(add(y,
     xf, ops) -> y, hbm)`` with ``add`` one segment-sum over all the

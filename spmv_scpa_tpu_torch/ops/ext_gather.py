@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch import _kernels, trace
 from spmv_scpa_tpu_torch.formats.csr import BC
 
 # stage-1 window reach, in 128-col panels (windows are R-panel aligned)
@@ -246,6 +246,7 @@ def _launch(what: str, fn_args: tuple, out):
     return out
 
 
+@trace.launch("sorted_gather")
 def sorted_gather(base, x1, p1, l1, R: int) -> torch.Tensor:
     """Stage 1 (replaces ``make_sorted_gather``): ``out[r, j] =
     x1[base[r // 8] * R + p1[r, j], l1[r, j]]`` for ``p1`` in [0, R),
@@ -272,6 +273,7 @@ def sorted_gather_plain(base, x1, p1, l1, R: int) -> torch.Tensor:
     return _gather_plain(x1, rbase + p, p, l1.to(torch.int64), R)
 
 
+@trace.launch("ranked_gather")
 def ranked_gather(hot, p2, l2) -> torch.Tensor:
     """Stage 2, resident (replaces ``make_ranked_gather``):
     ``out[r, j] = hot[p2[r, j], l2[r, j]]`` for ``p2`` in [0, H), else 0.
@@ -292,6 +294,7 @@ def ranked_gather_plain(hot, p2, l2) -> torch.Tensor:
     return _gather_plain(hot, p, p, l2.to(torch.int64), hot.shape[0])
 
 
+@trace.launch("window_gather")
 def window_gather(base8, hot, p, l, R_h: int) -> torch.Tensor:
     """Stage 2, windowed (replaces ``make_resident_window_gather``):
     ``out[r, j] = hot[base8[r] * 8 + p[r, j], l[r, j]]`` for ``p`` in

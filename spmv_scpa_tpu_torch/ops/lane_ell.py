@@ -64,7 +64,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch import _kernels, trace
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.ops import (chips_slots, chips_tail, ext_gather,
                                      lane_rows, pell, xpose)
@@ -315,6 +315,7 @@ class CoreBuild:
                                     # shard's), each row's in plane order
 
 
+@trace.span("pack.plan", fn="pack_lane_ell")
 def pack_lane_ell(A: CSR, chunk: int | None = None,
                   loc_w: int | str = "auto",
                   slots: int | str = "auto",
@@ -346,6 +347,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     and the packer returns a :class:`CoreBuild` before any tail is planned. It
     requires ``hot_k=0`` and a non-windowed ext, as the reference
     asserts."""
+    trace.stage("window")
     m, n = A.m, A.n
     rows = A.row_ids().astype(np.int64)
     cols = A.ja.astype(np.int64)
@@ -365,6 +367,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
 
     out_cols = cols[~is_local]
 
+    trace.stage("ext_route")
     # ---- ext gather route (ops/ext_gather.py): out-of-window entries
     # read x from per-group ext panels built by two gather stages; the
     # gate keeps the reference's TPU-measured cost model for parity.
@@ -384,6 +387,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     if use_ext:
         hot_k = 0                # ext supersedes the top-k hot region
 
+    trace.stage("hot_cols")
     if hot_k == "auto":
         hot_k = _auto_hot_k(out_cols, nnz) if nnz else 0
     Hs = hot_k // BC
@@ -402,6 +406,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     if use_ext:
         eligible |= eplan.ext_lane >= 0
 
+    trace.stage("row_rank")
     # per-row rank among eligible entries (CSR order = column order)
     if nnz:
         excl = np.cumsum(eligible) - eligible
@@ -411,6 +416,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     else:
         sl = np.zeros(0, np.int64)
 
+    trace.stage("slots")
     G_est = max(1, -(-m // BC))
     # Chips-tail feasibility probe at the smallest realistic Q (spill
     # sets shrink with Q, so this bounds every candidate): single
@@ -453,6 +459,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
         chunk = max(8, min(256, (2048 // Q) // 8 * 8))
     take0 = eligible & (sl < Q)
 
+    trace.stage("demotion")
     # ---- strip demotion + relocation --------------------------------
     # Each primary plane keeps only its dominant strips (cumulative
     # coverage >= strip_cov); a demoted entry RELOCATES to another
@@ -700,6 +707,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
         plane[ov] = next_q + sl2[ov]
         if ov.any():
             next_q += int(sl2[ov].max()) + 1
+    trace.stage("dyn_strips")
     # Catch-all planes get per-step DYNAMIC local strips instead of the
     # full strip decode; the per-step top-dyn_k keeps most entries and
     # the rest join the tail.
@@ -738,6 +746,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     take = plane >= 0
     QT = Q + Qo
 
+    trace.stage("demotion_cost")
     # ---- cost-aware demotion acceptance ------------------------------
     # Demotion trades streamed plane bytes (each plane: 6 B/lane/step)
     # for select passes (~SEL_B bytes-equivalent each); compare both
@@ -774,6 +783,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     # overflow-plane occupancy BEFORE the idx8 remap permutes ids
     n_ov_nnz = int(np.sum(plane >= Q)) if nnz else 0
 
+    trace.stage("plane_major")
     # ---- pack plane-major arrays ------------------------------------
     sets: list[tuple] = [() for _ in range(QT)]
     if nnz:
@@ -892,6 +902,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     for q, tab in dyn_tab.items():
         dynw_a[:, dyn_off[q]:dyn_off[q] + dyn_k_of[q]] = tab
 
+    trace.stage("ext_stage2")
     # ---- ext stage-2 tables --------------------------------------------
     ext_p2 = ext_l2 = ext_b8 = None
     if use_ext:
@@ -904,6 +915,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
         if eplan.windowed:
             ext_b8 = ext_gather.build_base8(eplan, G_pad)
 
+    trace.stage("tail")
     # ---- tail: chips, else compact -----------------------------------
     tail_nnz = int(np.sum(~take)) if nnz else 0
     if "notail" in diag:        # diag-only: results invalid, core cost
@@ -1010,6 +1022,7 @@ def _check_args(xpad, vals, idx8, idx16, plane_tabs, dynw, ext,
     })
 
 
+@trace.launch("lane_ell_spmv")
 def lane_ell_spmv(xpad, vals, idx8, idx16, plane_tabs, dynw, ext,
                   cfg: LaneCfg) -> torch.Tensor:
     """Core lane-ELL SpMV: ``y`` of shape (G_pad*128,) f32 (row
@@ -1112,6 +1125,7 @@ def _check_sharded(xpad, r0, vals, idx8, idx16, plane_tabs, ext,
     return n_sh
 
 
+@trace.launch("lane_ell_sharded")
 def lane_ell_sharded(xpad, r0, vals, idx8, idx16, plane_tabs, ext,
                      cfg: LaneCfg) -> torch.Tensor:
     """The core of ``n_sh`` row shards in one launch: ``y`` (n_sh,
@@ -1209,6 +1223,7 @@ def designs(layouts, chips_x: str = "slots", landing: str = "direct") -> list:
 # The strategy
 # ---------------------------------------------------------------------------
 
+@trace.span("pack.plan", fn="no_locality")
 def no_locality(A: CSR, loc_w="auto", ext="auto",
                 tail_strategy="pallas-pell", depth: int = 0,
                 core_only: bool = False, x_off: int = 0, **_):
@@ -1311,6 +1326,7 @@ def compact_strategy(big: str) -> str:
         "'pallas-hybrid' or 'auto'")
 
 
+@trace.span("pack.plan", fn="compact_tail")
 def compact_tail(A: CSR, plan: LanePlan):
     """The big tail of ``plan`` as its own matrix over the tail's rows
     renumbered 0..NH-1: (that CSR, the tail's row ids in ``A``)."""
@@ -1321,6 +1337,7 @@ def compact_tail(A: CSR, plan: LanePlan):
     return tail, R
 
 
+@trace.span("pack.layout", fn="rows_plan")
 def rows_plan(A: CSR, plan: LanePlan | CoreBuild) -> lane_rows.CorePlan:
     """The core that ``pack_lane_ell`` recorded, in row quanta."""
     c = plan.core
@@ -1328,8 +1345,11 @@ def rows_plan(A: CSR, plan: LanePlan | CoreBuild) -> lane_rows.CorePlan:
                                A.as_[c].astype(np.float32))
 
 
+@trace.span("pack.upload")
 def _put(a, dtype, dev):
-    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+    t = torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+    trace.note(bytes=t.nbytes)
+    return t
 
 
 def _rows_core(A: CSR, plan: LanePlan, dev):

@@ -33,7 +33,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch import _kernels, trace
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.ops.lane_ell import _LOC_CHOICES, X_VMEM_BUDGET
 from spmv_scpa_tpu_torch.ops.registry import (FP64_RTOL, Prepared,
@@ -76,6 +76,7 @@ class LaneFp64Plan:
         return self.vals.size
 
 
+@trace.span("pack.plan", fn="pack_lane_ell_fp64")
 def pack_lane_ell_fp64(A: CSR, chunk: int | None = None,
                        loc_w: int | str = "auto", **_) -> LaneFp64Plan:
     """Pack ``A`` as the reference's ``prepare_lane_ell_df64`` does (its
@@ -170,6 +171,7 @@ def _check_args(xpad, vals, idx, cfg: LaneFp64Cfg):
         raise ValueError(f"lane_ell_fp64: unsupported device {xpad.device}")
 
 
+@trace.launch("lane_ell_fp64")
 def lane_ell_fp64(xpad, vals, idx, cfg: LaneFp64Cfg) -> torch.Tensor:
     """y (G_pad*128,) float64, row ``g*128 + l``: the sum over the slot
     planes q, in order, of ``vals[q] * xpad[g*128 + idx[q]]`` (plane q of
@@ -226,8 +228,9 @@ def prepare_lane_ell_fp64(A: CSR, device="cuda", **knobs) -> Prepared:
     dev = resolve_device(device)
     plan = pack_lane_ell_fp64(A, **knobs)
     cfg = plan.cfg
-    vals = torch.as_tensor(plan.vals, device=dev)
-    idx = torch.as_tensor(plan.idx, device=dev)
+    with trace.span("pack.upload", bytes=plan.vals.nbytes + plan.idx.nbytes):
+        vals = torch.as_tensor(plan.vals, device=dev)
+        idx = torch.as_tensor(plan.idx, device=dev)
     loc_w, n_local, m, n = plan.loc_w, plan.n_local, plan.m, plan.n
 
     def run(x, ops):

@@ -44,7 +44,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch import _kernels, trace
 from spmv_scpa_tpu_torch.ops.pell_rows import (BLOCK_SLOTS, QUANTA,
                                                pell_rows_plain)
 
@@ -128,6 +128,7 @@ def layout_bytes(rows, cols, lens, Q: int) -> int:
             + 4 * (nb + 1) + 8 * nb)
 
 
+@trace.span("pick_quantum")
 def pick_quantum(rows, cols, lens) -> int:
     """The Q of {2, 4, 8, 16} whose layout costs the fewest bytes
     (:func:`layout_bytes`), ties to the larger Q."""
@@ -139,6 +140,7 @@ def pick_quantum(rows, cols, lens) -> int:
     return best
 
 
+@trace.span("plan_core")
 def plan_core(m: int, n: int, rows, cols, vals,
               quantum: int | None = None) -> CorePlan:
     """Pack the entries ``(rows, cols, vals)`` (grouped by row, rows
@@ -202,8 +204,10 @@ def plan_core(m: int, n: int, rows, cols, vals,
     return plan
 
 
+@trace.span("pack.upload", fn="lane_rows.bind")
 def bind(plan: CorePlan, dev) -> tuple:
     """The plan's tables on ``dev``, in the kernel's argument order."""
+    trace.note(bytes=plan.hbm_bytes)
     return tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev)
                  for a in plan.arrays())
 
@@ -252,6 +256,7 @@ def _check(vals, idx, ctab, qptr, blk_lo, x) -> int:
     return nb
 
 
+@trace.launch("lane_rows")
 def lane_rows(vals, idx, ctab, qptr, blk_lo, x) -> torch.Tensor:
     """y (m,) f32 of the core (``m = qptr.numel() - 1``): ``pell_rows``'
     sum of ``vals * x[col]`` with each slot's column decoded from the

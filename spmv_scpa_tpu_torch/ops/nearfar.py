@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from spmv_scpa_tpu_torch.formats.csr import CSR
+from spmv_scpa_tpu_torch import trace
 from spmv_scpa_tpu_torch.ops import xpose
 from spmv_scpa_tpu_torch.ops.lane_ell import prepare_lane_ell_hybrid
 from spmv_scpa_tpu_torch.ops.registry import Prepared
@@ -38,6 +39,7 @@ FAR_MIN = 8192
 NEAR_FRAC_MIN = 0.45
 
 
+@trace.span("pack.plan", fn="split_by_window")
 def split_by_window(A: CSR, W: int) -> tuple[CSR, CSR]:
     """Exact per-entry split at |col - row| <= W (same (m, n) shape)."""
     rows = A.row_ids().astype(np.int64)
@@ -51,6 +53,7 @@ def split_by_window(A: CSR, W: int) -> tuple[CSR, CSR]:
     return A_near, A_far
 
 
+@trace.span("pack.plan", fn="choose_window")
 def choose_window(A: CSR) -> int | None:
     """Smallest candidate window that captures NEAR_FRAC_MIN of the
     entries. None = no usable band (pure scatter, or no entries)."""

@@ -78,7 +78,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch import _kernels, trace
 from spmv_scpa_tpu_torch.formats.bcsr import csr_to_bcsr
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.formats.panel_ell import (BR, DEFAULT_QUANTUM,
@@ -532,6 +532,7 @@ def _idx_plane(lcol, T: int, panel_w: int):
                                            else np.int16)
 
 
+@trace.span("pack.plan", fn="plan_pell")
 def plan_pell(A: CSR, chunk: int | str = "auto",
               quantum: int | str = "auto", window_h: int | str = "auto",
               epilogue_sub: int = 4, hot_cols: int = 0,
@@ -663,6 +664,7 @@ def stripe_width(x_vmem_budget: int) -> int:
     return max(BC, x_vmem_budget // 2 // 4 // BC * BC)
 
 
+@trace.span("pack.plan", fn="plan_striped")
 def plan_striped(A: CSR, x_vmem_budget: int, chunk: int, quantum: int,
                  window_h, span_max: int, tpu: dict) -> StripedPlan:
     """The reference's ``_prepare_pell_striped`` (pallas_kernels.py:
@@ -744,6 +746,7 @@ def fp64_refusals(A: CSR, quantum: int) -> None:
             f"{X_VMEM_BUDGET} B; use torch-ell-fp64 for this matrix")
 
 
+@trace.span("pack.plan", fn="plan_pell_fp64")
 def plan_pell_fp64(A: CSR, chunk: int = DEFAULT_CHUNK,
                    quantum: int | str = "auto",
                    window_h: int | str = "auto", span_max: int = 8,
@@ -788,6 +791,7 @@ def plan_pell_fp64(A: CSR, chunk: int = DEFAULT_CHUNK,
         hbm_bytes=P.num_tiles * BR * BC * 9, dtype=torch.float64)
 
 
+@trace.span("pack.plan", fn="plan_rows")
 def plan_rows(A: CSR, dtype=torch.float32, quantum: int | str = "auto",
               scheme: str = "auto", x_vmem_budget: int = X_VMEM_BUDGET,
               hot_cols: int = 0, split_shift: bool = False,
@@ -827,6 +831,7 @@ def plan_rows(A: CSR, dtype=torch.float32, quantum: int | str = "auto",
     return plan
 
 
+@trace.span("pack.plan", fn="plan_bcsr")
 def plan_bcsr(A: CSR, chunk: int = DEFAULT_CHUNK,
               window_h: int = DEFAULT_WINDOW_H,
               max_padded_bytes: int = 2 << 30, **_) -> PellPlan:
@@ -923,6 +928,7 @@ def _kind(idx) -> int:
     return 0 if idx is None else 1 if idx.dtype == torch.int8 else 2
 
 
+@trace.launch("pell_tiles")
 def pell_tiles(vals, idx, pan, x, quantum: int,
                panel_w: int = 1) -> torch.Tensor:
     """Per-quantum partials (T*8, 128 // quantum) f32 of the tile stream:
@@ -1013,6 +1019,7 @@ def _fused(what, dtype, vals, idx, pan, x, rbl, base, cfg: FusedCfg,
     return y
 
 
+@trace.launch("pell_fused")
 def pell_fused(vals, idx, pan, x, rbl, base, cfg: FusedCfg,
                lists) -> torch.Tensor:
     """y (num_windows*h, 8) f32 of the tile stream in one pass: each
@@ -1027,6 +1034,7 @@ def pell_fused(vals, idx, pan, x, rbl, base, cfg: FusedCfg,
                   cfg, lists)
 
 
+@trace.launch("pell_fused_fp64")
 def pell_fused_fp64(vals, idx, pan, x, rbl, base, cfg: FusedCfg,
                     lists) -> torch.Tensor:
     """:func:`pell_fused` in float64: vals and x float64, y (num_windows*h,
@@ -1065,6 +1073,7 @@ def _check_unpermute(yp, bsrc):
         raise ValueError(f"unpermute: unsupported device {yp.device}")
 
 
+@trace.launch("unpermute")
 def unpermute(yp, bsrc) -> torch.Tensor:
     """Undo the row sort: ``y[b, i] = yp[(b // 128) * 128 + bsrc[b, i],
     i]`` for (mb_pad, 8) f32 ``yp`` and window-local int32 ``bsrc``. CUDA
@@ -1125,6 +1134,7 @@ FP64_PLAIN = PellFp64Kernels(pell_fused_plain, prows.pell_rows_plain)
 # The strategies
 # ---------------------------------------------------------------------------
 
+@trace.span("pack.upload", fn="pell.bind_plan")
 def bind_plan(plan: PellPlan, dev) -> Callable:
     """The plan's arrays on ``dev``, and ``run(xf, ops) -> y (m_orig,)``
     for x (on ``dev``, in ``plan.dtype``) through the kernels in ``ops``:

@@ -53,7 +53,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch import _kernels, trace
 from spmv_scpa_tpu_torch.formats.csr import CSR
 
 QUANTA = (2, 4, 8, 16)       # the quantum sizes the kernels take
@@ -93,6 +93,7 @@ def pick_quantum(lens: np.ndarray, itemsize: int) -> int:
     return best
 
 
+@trace.span("pack.plan", fn="plan_pell_rows")
 def plan_pell_rows(A: CSR, dtype=torch.float32,
                    quantum: int | None = None) -> RowsPlan:
     """Pack ``A`` in row quanta of ``Q`` slots (:func:`pick_quantum`
@@ -198,6 +199,7 @@ def _rows(what, dtype, vals, cols, qptr, blk_lo, x) -> torch.Tensor:
     return y
 
 
+@trace.launch("pell_rows")
 def pell_rows(vals, cols, qptr, blk_lo, x) -> torch.Tensor:
     """y (m,) f32 of the row-quantum matrix (``m = qptr.numel() - 1``):
     the module docstring's sum of ``vals * x[cols]``, a column outside x
@@ -206,6 +208,7 @@ def pell_rows(vals, cols, qptr, blk_lo, x) -> torch.Tensor:
     return _rows("pell_rows", torch.float32, vals, cols, qptr, blk_lo, x)
 
 
+@trace.launch("pell_rows_fp64")
 def pell_rows_fp64(vals, cols, qptr, blk_lo, x) -> torch.Tensor:
     """:func:`pell_rows` in float64 (vals, x and y)."""
     return _rows("pell_rows_fp64", torch.float64, vals, cols, qptr, blk_lo,
@@ -303,6 +306,7 @@ def pell_rows_plain(vals, cols, qptr, blk_lo=None, x=None) -> torch.Tensor:
 # Binding
 # ---------------------------------------------------------------------------
 
+@trace.span("pack.upload", fn="pell_rows.bind_plan")
 def bind_plan(plan: RowsPlan, dev) -> Callable:
     """The plan's arrays on ``dev``, and ``run(xf, ops) -> y (m,)`` for x
     (on ``dev``, in ``plan.dtype``) through ``ops.pell_rows`` or, for a

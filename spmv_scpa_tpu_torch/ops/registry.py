@@ -49,12 +49,15 @@ the ``format`` column of the CSV logs.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from spmv_scpa_tpu_torch import trace
 from spmv_scpa_tpu_torch.formats.csr import CSR
 from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
 from spmv_scpa_tpu_torch.ops.xpose_plan import quick_envelope_ok
@@ -131,10 +134,31 @@ _REGISTRY: dict[str, StrategySpec] = {}
 
 
 def register(spec: StrategySpec) -> StrategySpec:
+    """Register ``spec`` with its ``prepare`` traced: a ``prepare`` root
+    span over the whole set-up (attributes strategy, m, n, nnz, cols),
+    and a ``call`` span around the returned ``Prepared.fn``."""
     if spec.name in _REGISTRY:
         raise ValueError(f"duplicate strategy {spec.name!r}")
+    spec = dataclasses.replace(spec, prepare=traced(spec.name)(spec.prepare))
     _REGISTRY[spec.name] = spec
     return spec
+
+
+def traced(name: str):
+    """Decorator of a prepare function ``prepare(A, ...)`` of strategy
+    ``name``: the set-up under a ``prepare`` root span (attributes
+    strategy, m, n, nnz, cols), and the returned object's ``fn`` under a
+    ``call`` span."""
+    def deco(prepare):
+        @functools.wraps(prepare)
+        def traced_prepare(A, *args, **kwargs):
+            with trace.span("prepare", strategy=name, m=A.m, n=A.n,
+                            nnz=A.nnz, cols=kwargs.get("cols", 1)):
+                prep = prepare(A, *args, **kwargs)
+            prep.fn = trace.call_span("call", strategy=prep.strategy)(prep.fn)
+            return prep
+        return traced_prepare
+    return deco
 
 
 def get_strategy(name: str) -> StrategySpec:
@@ -215,6 +239,7 @@ def spmv(A: CSR, x, strategy: str = "auto", device="cuda",
     return y[:, 0] if squeeze else y
 
 
+@trace.span("pick_auto")
 def pick_auto(A: CSR) -> str:
     """The JAX package's choice on a TPU (``registry.pick_auto``, its
     TPU branch), mapped onto the port: ``xla-dense`` -> ``torch-dense``,

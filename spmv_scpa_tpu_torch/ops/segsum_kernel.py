@@ -43,7 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch import _kernels, trace
 from spmv_scpa_tpu_torch.formats.csr import BC
 
 BR = 8          # rows of a partial tile, and columns of y
@@ -160,6 +160,7 @@ def warp_groups(size: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.nonzero(start).flatten(), torch.tensor([n])])
 
 
+@trace.span("dest_tables")
 def dest_tables(dest, n_dest: int, device, chunk: int = CHUNK) -> DestTables:
     """:class:`DestTables` on ``device`` of the quanta's destinations
     ``dest`` (per quantum, -1 for none), in chunks of at most ``chunk``
@@ -270,6 +271,7 @@ def _launch(part, tables, n_dest):
     return y
 
 
+@trace.launch("window_segsum")
 def window_segsum(part, rbl, win, num_windows: int, h: int,
                   rows_per_step: int, tables) -> torch.Tensor:
     """y (num_windows * h, 8) f32 with ``y[win[s]*h + rbl[q], r] +=
@@ -289,6 +291,7 @@ def window_segsum(part, rbl, win, num_windows: int, h: int,
     return y
 
 
+@trace.launch("span_segsum")
 def span_segsum(part, rbl, base, num_windows: int, h: int, span: int,
                 rows_per_step: int, tables) -> torch.Tensor:
     """y (num_windows * h, 8) f32 with ``y[rbl[q], r] += part[...]`` (as

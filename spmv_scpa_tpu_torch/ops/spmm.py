@@ -37,7 +37,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch import _kernels, trace
 from spmv_scpa_tpu_torch.formats.bcsr import csr_to_bcsr
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.formats.panel_ell import BR
@@ -158,6 +158,7 @@ def _check_args(vals, pan, rowptr, X, m: int):
         raise ValueError(f"bcsr_spmm: unsupported device {vals.device}")
 
 
+@trace.launch("bcsr_spmm")
 def bcsr_spmm(vals, pan, rowptr, X, m: int) -> torch.Tensor:
     """Y (m, cols) f32: ``Y[i, c]`` sums, over the tiles t of block row
     i // 8 (``rowptr[b] .. rowptr[b + 1]``) in order, each tile's partial:

@@ -58,7 +58,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from spmv_scpa_tpu_torch import _kernels
+from spmv_scpa_tpu_torch import _kernels, trace
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
 from spmv_scpa_tpu_torch.ops import xpose_plan
 from spmv_scpa_tpu_torch.ops.registry import Prepared, record_calls
@@ -127,6 +127,7 @@ def _x_rows(x, rows: int):
     return xr.view(rows, BC)
 
 
+@trace.launch("xpose_mirror")
 def xpose_mirror(x, msw, mir_sel, mir_sub) -> torch.Tensor:
     """The mirror windows (replaces ``_mirror_kernel``): ``out[v*128 + s,
     l]`` = row ``msw[v*4 + mir_sel[v, s]] * 128 + mir_sub[v, s]`` of x as
@@ -161,6 +162,7 @@ def xpose_mirror_plain(x, msw, mir_sel, mir_sub) -> torch.Tensor:
     return xz[torch.where(ok, idx, x.numel())].view(nwm * BC, BC)
 
 
+@trace.launch("xpose_s1")
 def xpose_s1(x, xm, win, gidx, asv, r2, r3, nw0: int,
              B2: int) -> torch.Tensor:
     """Stage S1 (replaces ``_s1_kernel`` and the S2 transpose): per step
@@ -227,6 +229,7 @@ def decode_slots(head, code, J1: int):
     return pos, src * (BC * BC) + (off & (BC * BC - 1)), kc2 != NO_SLOT
 
 
+@trace.launch("xpose_s1_slots")
 def xpose_s1_slots(x, head, code, val, B2: int, J1: int) -> torch.Tensor:
     """Stage S1 over a slot table (replaces ``_mirror_kernel``,
     ``_s1_kernel`` and the S2 transpose): ``mid.flat[pos] = x[col] *
@@ -272,6 +275,7 @@ def xpose_s1_slots_plain(x, head, code, val, B2: int,
     return mid.view(B2, J1, BC)
 
 
+@trace.launch("xpose_s3")
 def xpose_s3(mid, planes, m2: int) -> torch.Tensor:
     """Stage S3 (replaces ``_s3_kernel`` and the strided un-blocking):
     per out-block ``b``, ``fin[f, l] = mid[b, sub[f, c], c]`` with ``c =
@@ -339,6 +343,7 @@ def xpose_s3_plain(mid, planes, m2: int) -> torch.Tensor:
     return st.reshape(B2, STAGE_ROWS * BC).t().reshape(-1)[:m2]
 
 
+@trace.launch("xpose_s3_rows")
 def xpose_s3_rows(mid, rowptr, pos) -> torch.Tensor:
     """Stage S3 as row sums (replaces ``_s3_kernel``, the un-blocking of y
     and the virtual rows' scatter-add): ``y[r]`` = the sum of
@@ -432,6 +437,7 @@ PLAIN = XposeKernels(xpose_mirror_plain, xpose_s1_plain,
 # The strategy
 # ---------------------------------------------------------------------------
 
+@trace.span("pack.plan", fn="plan_or_raise")
 def plan_or_raise(A: CSR) -> XposePlan:
     """``plan_xpose(A)``, or the reference's ``ValueError`` (with the
     planner's reason) when the matrix is outside the envelope, so that
@@ -716,6 +722,7 @@ def plan_meta(plan: XposePlan, nnz: int) -> dict:
                               "s3": 64 << 20}}}
 
 
+@trace.span("pack.upload", fn="xpose.bind_plan")
 def bind_plan(plan: XposePlan, dev, s3: str = "rows", s1: str = "auto",
               tables=None) -> Callable:
     """The plan's tables on ``dev``, and ``run(xf, ops) -> y (m,)`` for x
@@ -791,8 +798,9 @@ def prepare_xpose_designs(A: CSR, designs=S3_DESIGNS,
     dev = resolve_device(device)
     plan = plan_or_raise(A)
     tables = None
-    for s3, s1 in pairs.values():
-        tables = host_tables(plan, s3, s1, tables)
+    with trace.span("pack.layout", fn="xpose.host_tables"):
+        for s3, s1 in pairs.values():
+            tables = host_tables(plan, s3, s1, tables)
     n = A.n
 
     def prepared(s3, s1):

@@ -66,7 +66,7 @@ from spmv_scpa_tpu_torch.ops import chips_tail as CT
 from spmv_scpa_tpu_torch.ops import ext_gather, lane_rows, pell
 from spmv_scpa_tpu_torch.ops import pell_rows as prows
 from spmv_scpa_tpu_torch.ops import lane_ell as LE
-from spmv_scpa_tpu_torch.ops.registry import record_calls
+from spmv_scpa_tpu_torch.ops.registry import record_calls, traced
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
 
 
@@ -204,6 +204,7 @@ def _put(a, dtype, device):
 # Segment-sum shards
 # ---------------------------------------------------------------------------
 
+@traced("row-sharded-segsum")
 def prepare_row_sharded(A: CSR, mesh=None, n_shards: int | None = None):
     """Row shards of a gather-multiply-``index_add_`` SpMV (the
     reference's XLA segment-sum local kernel). Each shard's entries pad
@@ -373,6 +374,7 @@ def pack_shards(A: CSR, n_dev: int, loc_w: int | str = "auto",
     return bounds, h_rows, loc_w, shards, cores
 
 
+@traced("row-sharded-hybrid")
 def prepare_row_sharded_hybrid(A: CSR, mesh=None,
                                n_shards: int | None = None,
                                core_layout: str = "rows", **knobs):
@@ -761,6 +763,7 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
 # Fused PELL
 # ---------------------------------------------------------------------------
 
+@traced("row-sharded-pell")
 def prepare_row_sharded_pell(A: CSR, mesh=None, n_shards: int | None = None,
                              layout: str = "rows",
                              quantum: int | str = "auto",
