@@ -91,6 +91,9 @@ _Q_CHOICES = (1, 2, 4, 8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88,
 # branch (the reference's TPU-measured cut, kept for parity)
 BIG_TAIL = 131072
 
+# Entries :func:`strip_pairs` reads at a time (8 MiB of int64).
+PAIR_SLICE = 1 << 20
+
 # The reference's fp64-grade strategies: none can take a big tail.
 FP64_GRADES = ("pallas-pell-df64", "pallas-hybrid-df64", "xla-ell-df64")
 
@@ -156,6 +159,48 @@ def idx8_encode(enc: np.ndarray, second_b: np.ndarray) -> np.ndarray:
     pos = (enc >> 7) == second_b
     return (np.where(pos, 128 + (enc & 127), enc & 127)
             .astype(np.uint8).view(np.int8))
+
+
+def strip_pairs(q: np.ndarray, w: np.ndarray, nw: int, n_q: int,
+                where: np.ndarray | None = None):
+    """The distinct (plane, strip) pairs of the entries on planes ``q``
+    and strips ``w`` (those where ``where`` is true, if given), as keys
+    ``q * nw + w`` in ascending order, and the entries each pair holds:
+    a 1-D ``np.unique(q * nw + w, return_counts=True)``, counted in a
+    dense table of ``n_q * nw`` cells instead of sorted. It reads the
+    entries in slices of :data:`PAIR_SLICE`, so no temporary is as long
+    as a packer's arrays. A plane outside ``[0, n_q)`` or a strip
+    outside ``[0, nw)`` raises ``ValueError``."""
+    cnt = np.zeros(n_q * nw, np.int64)
+    for i in range(0, q.size, PAIR_SLICE):
+        qs, ws = q[i:i + PAIR_SLICE], w[i:i + PAIR_SLICE]
+        if where is not None:
+            keep = where[i:i + PAIR_SLICE]
+            qs, ws = qs[keep], ws[keep]
+        if qs.size and (qs.min() < 0 or qs.max() >= n_q
+                        or ws.min() < 0 or ws.max() >= nw):
+            raise ValueError(
+                f"strip_pairs: planes {qs.min()}..{qs.max()}, strips "
+                f"{ws.min()}..{ws.max()} outside {n_q} planes of {nw} "
+                "strips")
+        key = qs * nw
+        key += ws
+        cnt += np.bincount(key, minlength=cnt.size)
+    keys = np.flatnonzero(cnt)
+    return keys, cnt[keys]
+
+
+def _slot_index(r: np.ndarray, q: np.ndarray, nq: int, chunk: int):
+    """Flat index, into a ``(steps * nq * chunk, BC)`` plane array, of
+    row ``r``'s slot on plane ``q``: array row ``(step * nq + q) * chunk
+    + c`` and lane ``l`` for ``r = (step * chunk + c) * BC + l``. Built in
+    place on one new array (a packer's arrays hold every entry)."""
+    flat = r // (chunk * BC)
+    flat *= nq - 1
+    flat += q
+    flat *= chunk * BC
+    flat += r
+    return flat
 
 
 def _auto_loc_w(rows: np.ndarray, cols: np.ndarray) -> int:
@@ -486,8 +531,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     dyn_tab: dict[int, np.ndarray] = {}   # plane -> (steps, K) strips
     dyn_on = dyn_strips if dyn_strips != "auto" else not core_only
     if nnz and strip_cov is not None and Q > 0:
-        pair, cnt = np.unique(sl[take0] * nw + strip_all[take0],
-                              return_counts=True)
+        pair, cnt = strip_pairs(sl, strip_all, nw, Q, where=take0)
         keep = np.zeros((Q, nw), bool)
         ti = np.flatnonzero(take0)
         step_all = grp // chunk
@@ -643,9 +687,8 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
                 taken = _in_sorted(skey, extra_keys)
                 u_g, inv_g, c_g = np.unique(
                     gkey, return_inverse=True, return_counts=True)
-                pm = plane >= 0
-                present = np.unique(plane[pm] * np.int64(nw)
-                                    + strip_all[pm])
+                present = strip_pairs(plane, strip_all, nw, Q,
+                                      where=plane >= 0)[0]
                 free_pass = _in_sorted(gkey, present)
                 back = ((c_g[inv_g] >= undrop_min) | free_pass) & ~taken
                 plane[unpl[back]] = sl[unpl[back]]
@@ -753,8 +796,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     # packings and keep the cheaper.
     if n_demoted and nnz:
         def _strip_ops(pl_arr, msk):
-            return np.unique(pl_arr[msk] * np.int64(nw)
-                             + strip_all[msk]).size
+            return strip_pairs(pl_arr, strip_all, nw, QT, where=msk)[0].size
         if dyn_k_of:
             # dynamic planes run exactly K select passes per step;
             # count their static (hot) members from entries as usual
@@ -786,23 +828,27 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     trace.stage("plane_major")
     # ---- pack plane-major arrays ------------------------------------
     sets: list[tuple] = [() for _ in range(QT)]
+    pairs = np.empty(0, np.int64)
     if nnz:
-        pq = plane[take]
-        pw = (enc_all[take] // BC).astype(np.int64)
+        tq = plane[take]
+        enc = enc_all[take]
+        pw = enc // BC                # absolute strip id
         # dynamic planes list their local strips as negative SLOT
         # members (-1.. -K), not as static strips
-        dyn_loc = np.zeros(take.sum() if nnz else 0, bool)
         if dyn_k_of:
             dvec = np.zeros(QT, bool)
             dvec[list(dyn_k_of)] = True
-            dyn_loc = dvec[pq] & (pw < S)
-        qs = np.unique(np.stack([pq[~dyn_loc], pw[~dyn_loc]]), axis=1)
-        acc_sets: list[set] = [set() for _ in range(QT)]
-        for q, w in qs.T:
-            acc_sets[int(q)].add(int(w))
+            stat = ~(dvec[tq] & (pw < S))
+        else:
+            stat = None
+        pairs = strip_pairs(tq, pw, nw, QT, where=stat)[0]
+        acc_sets: list[list] = [[] for _ in range(QT)]
+        for key in pairs.tolist():
+            acc_sets[key // nw].append(key % nw)
         for q, K in dyn_k_of.items():
-            acc_sets[q].update(-(j + 1) for j in range(K))
-        sets = [tuple(sorted(u)) for u in acc_sets]
+            acc_sets[q][:0] = range(-K, 0)
+        sets = [tuple(u) for u in acc_sets]
+    trace.note(pairs=int(pairs.size), table=QT * nw)
     n8 = 0
     second8 = np.zeros(0, np.int64)
     if idx8 and not core_only and nnz:
@@ -810,7 +856,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
         remap = np.zeros(QT, np.int64)
         for newq, oldq in enumerate(order):
             remap[oldq] = newq
-        plane[take] = remap[plane[take]]
+        tq = remap[tq]
         dyn_k_of = {int(remap[q]): K for q, K in dyn_k_of.items()}
         dyn_pos = {int(remap[q]): v for q, v in dyn_pos.items()}
         dyn_tab = {int(remap[q]): v for q, v in dyn_tab.items()}
@@ -818,42 +864,37 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     # the core's entries, recorded once: each row's in plane order (the
     # rows core's layout, ops/lane_rows.py, takes them from here)
     core = np.flatnonzero(take) if nnz else np.zeros(0, np.int64)
-    core = core[np.argsort(rows[core] * np.int64(QT) + plane[core],
-                           kind="stable")]
     n16 = QT - n8
 
     vals_a = np.zeros((steps * QT * chunk, BC), np.float32)
     idx_a = np.zeros((steps * n16 * chunk, BC), np.int16)
     idx8_a = np.zeros((steps * n8 * chunk, BC), np.int8)
     if nnz:
-        tg = grp[take]
-        tq = plane[take]
-        lane = (rows[take] % BC).astype(np.int64)
-        enc = enc_all[take].copy()
+        r = rows[core]
+        key = r * np.int64(QT)
+        key += tq
+        core = core[np.argsort(key, kind="stable")]
         if dyn_k_of:
-            st_t = tg // chunk
-            pw_t = enc // BC          # absolute strip id
+            st_t = r // (chunk * BC)
             for q, posq in dyn_pos.items():
-                mloc = (tq == q) & (pw_t < S)
+                mloc = (tq == q) & (pw < S)
                 if not mloc.any():
                     continue
-                j = posq[st_t[mloc], pw_t[mloc]]
+                j = posq[st_t[mloc], pw[mloc]]
                 if (j < 0).any():
                     raise AssertionError("dyn slot missing for kept entry")
                 enc[mloc] = (nw + j) * BC + enc[mloc] % BC
-        arow = (tg // chunk) * (QT * chunk) + tq * chunk + tg % chunk
-        vals_a[arow, lane] = A.as_[take]
-        m16 = tq >= n8
-        if m16.any():
-            arow16 = ((tg[m16] // chunk) * (n16 * chunk)
-                      + (tq[m16] - n8) * chunk + tg[m16] % chunk)
-            idx_a[arow16, lane[m16]] = enc[m16].astype(np.int16)
+        flat = _slot_index(r, tq, QT, chunk)
+        vals_a.reshape(-1)[flat] = A.as_[take]
         if n8:
-            m8 = ~m16
-            arow8 = ((tg[m8] // chunk) * (n8 * chunk)
-                     + tq[m8] * chunk + tg[m8] % chunk)
-            idx8_a[arow8, lane[m8]] = idx8_encode(enc[m8],
-                                                  second8[tq[m8]])
+            m8 = tq < n8
+            idx8_a.reshape(-1)[_slot_index(r[m8], tq[m8], n8, chunk)] = \
+                idx8_encode(enc[m8], second8[tq[m8]])
+            m16 = ~m8
+            flat = _slot_index(r[m16], tq[m16] - n8, n16, chunk)
+            enc = enc[m16]
+        # (without int8 planes the int16 ones are the value planes)
+        idx_a.reshape(-1)[flat] = enc.astype(np.int16)
 
     # resident x: loc_w left pad + local span + window slack, then hot
     P_pad = G_pad + S            # window read for the last step fits

@@ -35,7 +35,8 @@ import torch
 
 from spmv_scpa_tpu_torch import _kernels, trace
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops.lane_ell import _LOC_CHOICES, X_VMEM_BUDGET
+from spmv_scpa_tpu_torch.ops.lane_ell import (_LOC_CHOICES, X_VMEM_BUDGET,
+                                              strip_pairs)
 from spmv_scpa_tpu_torch.ops.registry import (FP64_RTOL, Prepared,
                                               record_calls)
 from spmv_scpa_tpu_torch.utils.platform import resolve_device
@@ -131,21 +132,20 @@ def pack_lane_ell_fp64(A: CSR, chunk: int | None = None,
 
     vals = np.zeros((steps * Q * chunk, BC), np.float64)
     idx = np.zeros((steps * Q * chunk, BC), np.int16)
-    used: list[set] = [set() for _ in range(Q)]
+    used: list[list] = [[] for _ in range(Q)]
     if nnz:
         lane = rows % BC
         arow = (grp // chunk) * (Q * chunk) + sl * chunk + grp % chunk
         vals[arow, lane] = np.asarray(A.as_, np.float64)
         idx[arow, lane] = off.astype(np.int16)
-        qs = np.unique(np.stack([sl, off // BC]), axis=1)
-        for q, w in qs.T:
-            used[int(q)].add(int(w))
+        for key in strip_pairs(sl, off // BC, S, Q)[0].tolist():
+            used[key // S].append(key % S)
     meta = {"loc_w": loc_w, "slots": Q, "strips": S, "chunk": chunk,
             "steps": steps, "fill": float(nnz) / max(G_pad * Q * BC, 1),
             "rtol": FP64_RTOL}
     return LaneFp64Plan(
         cfg=LaneFp64Cfg(Q=Q, chunk=chunk, steps=steps, P_pad=P_pad),
-        vals=vals, idx=idx, used=tuple(tuple(sorted(u)) for u in used),
+        vals=vals, idx=idx, used=tuple(tuple(u) for u in used),
         loc_w=loc_w, n_local=n_local, m=m, n=n, meta=meta)
 
 

@@ -48,6 +48,7 @@ from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import pick_auto, to_numpy
 from spmv_scpa_tpu_torch.utils.validation import validate_result
 from spmv_scpa_tpu_torch.utils.vector import make_x
+from test_torch_fp64 import _closure_value
 
 PLAIN_VS_JAX_REL_L2 = 1e-6
 PLAIN_VS_JAX_ROW = 1e-5
@@ -252,6 +253,82 @@ def test_plane_tabs_decode_the_strip_sets(case):
                 assert (tabs[q, 0], tabs[q, 1]) == (u[0], u[-1])
         else:
             assert tabs[q, 0] == plan.dyn_off.get(q, 0)
+
+
+def test_plan_strip_sets_match_jax(case):
+    """The packer's per-plane strip sets (dynamic slots as -1..-K) are
+    the reference kernel's ``used``, which it keeps only in the kernel's
+    closure."""
+    jprep, plan = case[4], case[6]
+    used = _closure_value(jprep.raw, "kernel", "used")
+    assert used is not None and plan.used == used
+
+
+PAIRS_S = 5
+
+
+def _pairs_input(kind):
+    """(planes, strips, nw, planes in the table) of one strip_pairs case."""
+    rng = np.random.default_rng(11)
+    S, Hs = PAIRS_S, 3
+    nw = S + Hs + 1                      # local, hot and the ext strip
+    if kind == "empty":
+        return np.zeros(0, np.int64), np.zeros(0, np.int64), nw, 4
+    if kind == "one-plane":
+        return np.zeros(500, np.int64), rng.integers(0, S, 500), nw, 1
+    q = rng.integers(0, 40, 20000)
+    w = rng.integers(0, nw, 20000)
+    w[:3] = nw - 1                       # the ext strip, and hot ones
+    if kind == "hot-and-ext":
+        return q, w, nw, 40
+    if kind == "dyn-local-excluded":
+        # a dynamic plane's local entries are left out by a mask, and a
+        # left-out strip may lie outside the table
+        w[np.flatnonzero(np.isin(q, [3, 17]) & (w < S))[:5]] = nw + 5
+        return q, w, nw, 40
+    if kind == "strip-past-nw":
+        w[7] = nw
+        return q, w, nw, 40
+    if kind == "plane-past-table":
+        q[7] = 40
+        return q, w, nw, 40
+    assert kind == "negative-plane"
+    q[7] = -1
+    return q, w, nw, 40
+
+
+OUT_OF_TABLE = ("strip-past-nw", "plane-past-table", "negative-plane")
+
+
+@pytest.mark.parametrize("slice_", [lane_ell.PAIR_SLICE, 777])
+@pytest.mark.parametrize("kind", ["empty", "one-plane", "hot-and-ext",
+                                  "dyn-local-excluded", *OUT_OF_TABLE])
+def test_strip_pairs_is_the_sorted_unique(kind, slice_, monkeypatch):
+    """The dense table gives the 2-D unique's pairs in its order, and the
+    1-D unique's keys and counts, read in one slice or in many; a key
+    outside the table raises rather than wrapping onto another plane's
+    strip."""
+    monkeypatch.setattr(lane_ell, "PAIR_SLICE", slice_)
+    q, w, nw, n_q = _pairs_input(kind)
+    if kind in OUT_OF_TABLE:
+        with pytest.raises(ValueError, match="outside"):
+            lane_ell.strip_pairs(q, w, nw, n_q)
+        return
+    where = None
+    if kind == "dyn-local-excluded":
+        where = ~(np.isin(q, [3, 17]) & (w < PAIRS_S)) & (w < nw)
+        keys, cnt = lane_ell.strip_pairs(q, w, nw, n_q, where=where)
+        q, w = q[where], w[where]
+    else:
+        keys, cnt = lane_ell.strip_pairs(q, w, nw, n_q)
+    want = np.unique(np.stack([q, w]), axis=1)
+    np.testing.assert_array_equal(np.stack([keys // nw, keys % nw]), want)
+    want_k, want_c = np.unique(q * nw + w, return_counts=True)
+    assert keys.dtype == want_k.dtype and cnt.dtype == want_c.dtype
+    np.testing.assert_array_equal(keys, want_k)
+    np.testing.assert_array_equal(cnt, want_c)
+    if kind == "dyn-local-excluded":
+        assert all(k % nw >= PAIRS_S for k in keys if k // nw in (3, 17))
 
 
 # the kernels one call of each case runs, in order, on each core layout:

@@ -13,6 +13,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from spmv_scpa_tpu_torch import _kernels, trace
 from spmv_scpa_tpu_torch import testing as synth
+from spmv_scpa_tpu_torch.bench.cases import SMALL_CASES
+from spmv_scpa_tpu_torch.ops import lane_ell
 from spmv_scpa_tpu_torch.ops.registry import get_strategy
 
 PACK = ("pack.plan", "pack.layout", "pack.upload")
@@ -204,6 +206,22 @@ def test_a_prepare_is_one_root_its_pack_spans_cover(stencil, strategy, kw):
         assert {"plane_major", "plan_core", "pick_quantum"} <= set(names)
         (upload,) = parts["pack.upload"]
         assert upload.attrs["bytes"] > 0
+
+
+@pytest.mark.parametrize("name", ["banded512", "stencil4k-idx8",
+                                  "stencil4k-dyn", "amazon20k",
+                                  "ext-windowed40k"])
+def test_plane_major_notes_its_pair_table(name):
+    """``pack_lane_ell``'s ``plane_major`` stage carries the distinct
+    (plane, strip) pairs it found and the size of the table it counted
+    them in: every static member of the plan's strip sets is one pair."""
+    make, kw = SMALL_CASES[name]
+    plan = lane_ell.pack_lane_ell(make(), **kw)
+    (stage,) = [s for s in trace.spans() if s.name == "plane_major"]
+    assert stage.attrs == {
+        "pairs": sum(w >= 0 for u in plan.used for w in u),
+        "table": plan.QT * plan.cfg.nw}
+    assert stage.attrs["pairs"] <= stage.attrs["table"]
 
 
 def test_a_hybrids_compact_tail_is_a_nested_prepare():
