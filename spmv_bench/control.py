@@ -1,7 +1,8 @@
 """The control of ``correct``: the reference put in the program's place
-at the precision below the configuration's float32 (TF32 inputs, float32
-sums, ``reference.control_product``), read the way a run reads the
-program.
+at the precision below the configuration's ``dtype``
+(``reference.control_product``), read the way a run reads the program:
+for a float32 configuration TF32 inputs and float32 sums, for a float64
+one A's values rounded to float32 with X and the sums in float64.
 
     python3 -m spmv_bench.control --workload <cell> --seeds 1 2 3
 
@@ -23,7 +24,7 @@ import sys
 import torch
 
 from spmv_bench import reference
-from spmv_bench.harness import inputs
+from spmv_bench.harness import inputs, value_dtype
 from spmv_bench.spec import ROOT, load_cell
 
 
@@ -31,11 +32,13 @@ def readings(cell, seed: int, device) -> dict:
     """The control's widest reading of each number over the cell's X
     vectors for ``seed``."""
     mat, xs = inputs(cell, seed)
+    dtype = value_dtype(cell.config)
     worst = {k: 0.0 for k in cell.checks["limits"]}
     for x in xs:
         X = torch.from_numpy(x).to(device)
         Y, S = reference.product(mat, X)
-        got = reference.compare(reference.control_product(mat, X), Y, S)
+        got = reference.compare(reference.control_product(mat, X, dtype),
+                                Y, S)
         for k in worst:
             worst[k] = max(worst[k], got[k])
     return worst

@@ -63,29 +63,49 @@ def port_launches() -> int:
     return total
 
 
-def draw(seed: int, nnz: int, n: int, cols: int, vectors: int):
-    """A's float32 values and the X vectors, from ``seed``."""
+# A configuration's ``dtype`` -> the numpy type A's values and X are
+# drawn in; a configuration without the key is float32.
+DTYPES = {"float32": np.float32, "float64": np.float64}
+
+
+def value_dtype(config: dict):
+    """The numpy type of the configuration's ``dtype`` (float32 where it
+    has none); another dtype is refused."""
+    name = config.get("dtype", "float32")
+    if name not in DTYPES:
+        raise ValueError(f"{config.get('name')}: dtype {name!r} is not one "
+                         f"of {sorted(DTYPES)}")
+    return DTYPES[name]
+
+
+def draw(seed: int, nnz: int, n: int, cols: int, vectors: int, dtype):
+    """A's values and the X vectors, standard normal in ``dtype``, from
+    ``seed``: float64 draws are doubles of their own, not float32
+    widened."""
     rng = np.random.default_rng(seed & ((1 << 64) - 1))
-    vals = rng.standard_normal(nnz, dtype=np.float32)
+    vals = rng.standard_normal(nnz, dtype=dtype)
     shape = (vectors, n) if cols == 1 else (vectors, n, cols)
-    xs = rng.standard_normal(shape, dtype=np.float32)
+    xs = rng.standard_normal(shape, dtype=dtype)
     return vals, xs
 
 
 def inputs(cell, seed: int):
     """The cell's matrix (values drawn from ``seed``) and its X vectors
-    as host arrays. A matrix whose shape or count of entries differs
-    from the configuration's is refused: the cell would measure another
-    matrix than its source."""
+    as host arrays, both in the configuration's ``dtype``
+    (:func:`value_dtype`; the matrix keeps its values as float64). A
+    matrix whose shape or count of entries differs from the
+    configuration's is refused: the cell would measure another matrix
+    than its source."""
     cfg, tr = cell.config, cell.traffic
+    dtype = value_dtype(cfg)
     mat = cell.module("generators", cfg["generator"]).build(**cfg["args"])
     got = {"rows": mat.m, "cols": mat.n, "nnz": mat.nnz}
     want = {k: cfg[k] for k in got}
     if got != want:
         raise ValueError(f"{cfg['name']}: the generator built {got}, the "
                          f"configuration states {want}")
-    vals, xs = draw(seed, mat.nnz, mat.n, tr["cols"], tr["vectors"])
-    mat.vals = vals.astype(np.float64)
+    vals, xs = draw(seed, mat.nnz, mat.n, tr["cols"], tr["vectors"], dtype)
+    mat.vals = vals.astype(np.float64, copy=False)
     return mat, xs
 
 
@@ -244,7 +264,8 @@ class Run:
         if not self.on_card:
             return None
         m = self.mat
-        return roofline.bound_ms(self.kind, m.nnz, m.m, m.n, self.cols)
+        return roofline.bound_ms(self.kind, m.nnz, m.m, m.n, self.cols,
+                                 value_dtype(self.cell.config))
 
     def profile(self):
         """The profiler window (``trace.profile_window``), None on the

@@ -12,11 +12,17 @@ from a y the program produced:
   its y;
 * ``rel_l2``: ``||y - Y|| / ||Y||`` over the whole y.
 
-A non-finite y reads infinity. :func:`control_product` is the control:
-the same product with A's values and X rounded to TF32 (10 mantissa
-bits, what a tensor-core float32 product reads) and summed in float32,
-the step below the configuration's float32 that would tempt a later
-change. Imports nothing of the port.
+A non-finite y reads infinity. :func:`control_product` is the control,
+the step below the configuration's ``dtype`` that would tempt a later
+change:
+
+* for float32, the same product with A's values and X rounded to TF32
+  (10 mantissa bits, what a tensor-core float32 product reads) and
+  summed in float32;
+* for float64, the same product with A's values rounded to float32 (the
+  value bytes halved) and X and the sums in float64.
+
+Imports nothing of the port.
 """
 
 from __future__ import annotations
@@ -39,18 +45,13 @@ def _as_2d(X: torch.Tensor) -> torch.Tensor:
     return X if X.dim() == 2 else X[:, None]
 
 
-def _product(mat, X: torch.Tensor, dtype, scale: bool):
+def _product(mat, vals: torch.Tensor, X: torch.Tensor, scale: bool):
+    """``A @ X`` (and ``|A| @ |X|`` where ``scale``) from ``vals`` in
+    the order of ``mat``'s entries and a 2-D ``X``, in their dtype."""
     dev = X.device
-    X = _as_2d(X).to(dtype)
     rows = row_ids(mat.irp, dev)
     ja = torch.as_tensor(np.asarray(mat.ja, dtype=np.int64), device=dev)
-    vals = torch.as_tensor(mat.vals, device=dev)
-    if dtype == torch.float32:
-        vals = tf32(vals.to(torch.float32))
-        X = tf32(X)
-    else:
-        vals = vals.to(dtype)
-    Y = torch.zeros((mat.m, X.shape[1]), dtype=dtype, device=dev)
+    Y = torch.zeros((mat.m, X.shape[1]), dtype=X.dtype, device=dev)
     S = torch.zeros_like(Y) if scale else None
     for s in range(0, mat.nnz, BLOCK):
         p = vals[s:s + BLOCK, None] * X[ja[s:s + BLOCK]]
@@ -63,13 +64,28 @@ def _product(mat, X: torch.Tensor, dtype, scale: bool):
 def product(mat, X: torch.Tensor):
     """``(Y, S)``: ``A @ X`` and ``|A| @ |X|`` in float64, each (m, cols),
     on X's device; X is (n,) or (n, cols)."""
-    return _product(mat, X, torch.float64, True)
+    X = _as_2d(X).to(torch.float64)
+    vals = torch.as_tensor(mat.vals, device=X.device).to(torch.float64)
+    return _product(mat, vals, X, True)
 
 
-def control_product(mat, X: torch.Tensor) -> torch.Tensor:
-    """The control: ``A @ X`` from TF32-rounded A and X, summed in
-    float32 (each product of two TF32 numbers is exact in float32)."""
-    return _product(mat, X, torch.float32, False)[0]
+def control_product(mat, X: torch.Tensor, dtype=np.float32) -> torch.Tensor:
+    """The control of a configuration whose ``dtype`` is float32 or
+    float64. float32: ``A @ X`` from TF32-rounded A and X, summed in
+    float32 (each product of two TF32 numbers is exact in float32).
+    float64: ``A @ X`` from A's values rounded to float32, with X and
+    the sums in float64."""
+    name = np.dtype(dtype).name
+    vals = torch.as_tensor(mat.vals, device=X.device)
+    if name == "float32":
+        X = tf32(_as_2d(X).to(torch.float32))
+        vals = tf32(vals.to(torch.float32))
+    elif name == "float64":
+        X = _as_2d(X).to(torch.float64)
+        vals = vals.to(torch.float32).to(torch.float64)
+    else:
+        raise ValueError(f"no control for dtype {name!r}")
+    return _product(mat, vals, X, False)[0]
 
 
 def tf32(t: torch.Tensor) -> torch.Tensor:

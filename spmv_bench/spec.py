@@ -1,8 +1,14 @@
 """What a cell is made of, found by name from ``BENCHMARK.json``.
 
 A workload entry names a configuration and a traffic mix. The
-configuration's file is the one its ``configs`` entry gives; the rest
-lies beside it by name: ``generators/<generator>.py`` (named in the
+configuration's file is the one its ``configs`` entry gives. Of its keys
+the harness reads ``name``, ``generator`` and ``args`` (the structure),
+``rows``, ``cols`` and ``nnz`` (what the generator has to build) and
+``dtype`` (``float32``, the default, or ``float64``), which sets the
+type A's values and X are drawn in, the bytes and the rate of the bound
+(``roofline.bound_ms``) and the control (``reference.control_product``);
+the other keys document the deployment. The rest lies beside it by
+name: ``generators/<generator>.py`` (named in the
 configuration's file), ``traffic/<traffic>.json``, ``checks/<cell>.json``
 (the limits of the numbers that decide ``correct``) and one reader
 ``metrics/<metric>.py`` a metric. A cell reports the end-to-end metrics

@@ -11,7 +11,7 @@ from pathlib import Path
 
 from spmv_bench.spec import ROOT, load_module
 
-SMALL_ROWS = {"flagship": 1500}
+SMALL_ROWS = {"flagship": 1500, "flagship-fp64": 1500}
 
 
 def copy_bench(dest: Path, rows=SMALL_ROWS) -> Path:

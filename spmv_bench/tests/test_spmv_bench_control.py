@@ -1,20 +1,22 @@
 """What decides ``correct`` has to fail what it must: the control (the
-reference at TF32, put in the program's place) and each fault this
+reference a precision below the configuration's, put in the program's
+place: TF32 for float32, float32 values for float64) and each fault this
 system's cells can have, planted under the timed path of a whole run.
 At sizes the CPU holds; ``python3 -m spmv_bench.control`` reads the
 control at the cells' own sizes on the card."""
 
+import numpy as np
 import pytest
 import torch
 
 from spmv_bench import reference
 from spmv_bench.control import readings
-from spmv_bench.harness import inputs
+from spmv_bench.harness import inputs, value_dtype
 from spmv_bench.run import execute
 from spmv_bench.spec import load_cell
 from spmv_bench.tests.small import copy_bench
 
-CELLS = ("flagship.spmv", "flagship.spmm8")
+CELLS = ("flagship.spmv", "flagship.spmm8", "flagship-fp64.spmv")
 
 
 @pytest.fixture(scope="module")
@@ -35,9 +37,10 @@ def test_the_control_fails_every_cell(root, name, seed):
 def test_the_control_in_the_programs_place_is_not_correct(root, name):
     cell = load_cell(name, root)
     mat, _ = inputs(cell, 5)
+    dtype = value_dtype(cell.config)
 
     def control(_fn):
-        return lambda x: reference.control_product(mat, x).reshape(
+        return lambda x: reference.control_product(mat, x, dtype).reshape(
             x.shape[0] if x.dim() == 1 else mat.m, *x.shape[1:])
 
     out = execute(cell, 5, 0.3, False, device="cpu", fault=control,
@@ -103,3 +106,39 @@ def test_the_control_reads_what_a_program_in_tf32_would():
     x = torch.tensor([1.0, 1 + 2 ** -12, 2 ** -14], dtype=torch.float32)
     y = reference.control_product(a, x)[:, 0]
     assert y.tolist() == [1.0 + 2 ** -14, 3.0, -1.0]
+
+
+def float32_values(cell, seed):
+    """The port's own strategy prepared on A's values rounded to float32
+    (the value bytes halved, X and the sums still float64): the shortcut
+    a float64 cell's limits have to catch."""
+    from spmv_scpa_tpu_torch.formats.csr import CSR
+    from spmv_scpa_tpu_torch.ops.registry import get_strategy
+
+    mat, _ = inputs(cell, seed)
+    A = CSR(name="f32 values", m=mat.m, n=mat.n, irp=mat.irp, ja=mat.ja,
+            as_=mat.vals.astype(np.float32).astype(np.float64))
+    prep = get_strategy(cell.traffic["strategy"]).prepare(A, device="cpu")
+    return lambda _fn: prep.fn
+
+
+def float32_y(fn):
+    """y rounded to float32 where it is produced."""
+    return lambda x: fn(x).to(torch.float32).to(torch.float64)
+
+
+@pytest.mark.parametrize("seed", [13, 2**31 + 17])
+@pytest.mark.parametrize("fault", ["values", "y"])
+def test_float32_in_a_float64_cell_is_not_correct(root, seed, fault):
+    """The float64 cell's limits fail a program that keeps A's values,
+    or its y, at float32, by both numbers, as the control does."""
+    cell = load_cell("flagship-fp64.spmv", root)
+    planted = float32_values(cell, seed) if fault == "values" else float32_y
+    out = execute(cell, seed, 0.3, False, device="cpu", fault=planted,
+                  log=lambda _: None)
+    assert out["correct"] is False and out["failed"] > 0
+    for c in out["checks"].values():
+        assert c["value"] > 100 * c["limit"]
+    control = readings(cell, seed, "cpu")
+    for k, c in out["checks"].items():
+        assert control[k] > 100 * c["limit"]

@@ -96,12 +96,19 @@ def test_the_last_line(tmp_path, trace):
                                    "memory_peak_bytes"}
     for name, c in line["checks"].items():
         assert set(c) == {"value", "limit"} and c["value"] <= c["limit"]
-    # off the card no device number is written
-    names = set(line["metrics"])
+    # off the card no device number is written: the line holds the
+    # cell's metrics that the host reads, in the cell's order, the ones
+    # the cell was committed with first
+    names = list(line["metrics"])
     if trace:
-        assert names == {"pack_s", "port_kernel_calls"}
+        assert names[:2] == ["pack_s", "port_kernel_calls"]
+        assert set(names[2:]) >= {"pack_plan_s", "pack_layout_s",
+                                  "pack_upload_s"}
+        assert not set(names) & {"host_enqueue_ms", "device_ms",
+                                 "kernel_roofline", "device_idle_share",
+                                 "kernel_load_s", "call_host_ms"}
     else:
-        assert names == {"setup_s"}
+        assert names == ["setup_s"]
 
 
 @pytest.mark.cuda

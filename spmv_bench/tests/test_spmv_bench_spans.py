@@ -52,3 +52,16 @@ def test_the_kernel_load_reader_reads_none_without_a_load(root):
         pass
     assert cell.module("metrics", "kernel_load_s").read(run) > 0
     trace.reset()
+
+
+def test_the_float64_pack_reads_its_upload_alone(root):
+    """cuda-hybrid-fp64's pack records its upload as a span of its own;
+    its plan and layout are one span, so neither part is read there."""
+    out = execute(load_cell("flagship-fp64.spmv", root), 2**31 + 13, 0.3,
+                  True, device="cpu", log=lambda _: None)
+    metrics = out["metrics"]
+    assert out["correct"] is True
+    upload = metrics["pack_upload_s"]["value"]
+    assert 0 < upload <= metrics["pack_s"]["value"]
+    assert not set(metrics) & {"pack_plan_s", "pack_layout_s",
+                               "call_host_ms", "kernel_load_s"}

@@ -9,8 +9,22 @@ from spmv_bench.run import execute
 from spmv_bench.spec import ROOT, load_cell
 from spmv_bench.tests.small import copy_bench
 
-CELLS = ("flagship.spmv", "flagship.spmm8")
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+# The per-layer metrics each cell was committed with, in their order; a
+# later entry in BENCHMARK.json may follow them.
+FIRST = ["pack_s", "host_enqueue_ms", "port_kernel_calls", "device_ms",
+         "kernel_roofline", "device_idle_share"]
+SPANS = ["pack_plan_s", "pack_layout_s", "pack_upload_s", "kernel_load_s",
+         "call_host_ms"]
+PER_LAYER = {
+    "flagship.spmv": FIRST + SPANS,
+    "flagship.spmm8": FIRST + SPANS,
+    # the fp64 pack records no pack.layout span, and its one pack.plan
+    # span covers the whole pack
+    "flagship-fp64.spmv": FIRST + ["pack_upload_s", "kernel_load_s",
+                                   "call_host_ms"],
+}
+CELLS = tuple(PER_LAYER)
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -22,9 +36,8 @@ def test_every_piece_of_a_cell_is_a_file(name):
     assert set(cell.checks["limits"]) == {"row_err", "rel_l2"}
     assert [m["name"] for m in cell.end_to_end] == [
         "gflops", "call_p95_ms", "setup_s"]
-    assert [m["name"] for m in cell.per_layer] == [
-        "pack_s", "host_enqueue_ms", "port_kernel_calls", "device_ms",
-        "kernel_roofline", "device_idle_share"]
+    names = [m["name"] for m in cell.per_layer]
+    assert names[:len(PER_LAYER[name])] == PER_LAYER[name]
     for m in cell.end_to_end + cell.per_layer:
         assert callable(cell.module("metrics", m["name"]).read)
 
@@ -106,11 +119,25 @@ def test_a_matrix_other_than_the_configurations_is_refused(tmp_path):
             inputs(other, 3)
 
 
-def test_the_committed_configuration_states_its_matrix():
-    cfg = load_cell("flagship.spmv").config
+@pytest.mark.parametrize("name, itemsize", [("flagship.spmv", 4),
+                                            ("flagship-fp64.spmv", 8)])
+def test_the_committed_configuration_states_its_matrix(name, itemsize):
+    cfg = load_cell(name).config
     assert (cfg["rows"], cfg["cols"]) == (cfg["source_rows"],) * 2
-    assert cfg["value_bytes"] == 4 * cfg["nnz"]
+    assert cfg["value_bytes"] == itemsize * cfg["nnz"]
     assert cfg["reduced"] == [] == next(
-        c for c in BENCH["configs"] if c["name"] == "flagship")["reduced"]
+        c for c in BENCH["configs"] if c["name"] == cfg["name"])["reduced"]
     # within a tenth of a percent of the source's entries
     assert abs(cfg["nnz"] / cfg["source_nnz"] - 1) < 1e-3
+
+
+def test_the_float64_configuration_is_the_flagships_structure():
+    """flagship-fp64 differs from flagship in its precision alone."""
+    f32 = load_cell("flagship.spmv").config
+    f64 = load_cell("flagship-fp64.spmv").config
+    assert (f32["dtype"], f64["dtype"]) == ("float32", "float64")
+    for key in ("source", "generator", "args", "rows", "cols", "nnz",
+                "source_rows", "source_nnz", "l2_bytes"):
+        assert f64[key] == f32[key], key
+    # values 4.2x the card's L2, so no call is served from it
+    assert round(f64["value_bytes"] / f64["l2_bytes"], 1) == 4.2
