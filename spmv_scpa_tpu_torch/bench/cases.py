@@ -14,12 +14,16 @@ count (1,000,000 rows, 5M nnz), the full-size input of the windowed
 stage 2. ``powerlaw100k`` (the synthetic suite's no-locality stress
 case, ``scripts/results.py``) takes the hybrid's no-locality escape to
 ``cuda-pell``; ``webbase1m`` (the webbase-1M stand-in of the reference
-study's matrix) leaves the hybrid a big tail that runs as compact PELL.
+study's matrix at the generator's default density: about 2.21M entries,
+71% of the source's 3,105,536; ``WEBBASE1M`` below has the source's)
+leaves the hybrid a big tail that runs as compact PELL.
 ``PELL_CASES`` are the small PELL-family cases. ``XPOSE_CASES`` are the
 small ``cuda-xpose`` cases: the JAX package's XPOSE test matrices
 (``tests/test_xpose.py:_cases``), webbase and amazon stand-ins with
 mirror windows and virtual rows, and ``webbase200k``, whose plan routes
-S1 through two output windows (W1 = 2). ``random30k``
+S1 through two output windows (W1 = 2); ``WEBBASE1M`` is webbase-1M at
+its source's size, whose plan passes the reference's 254 steps.
+``random30k``
 (``random_csr(30000, density=0.0005, seed=3)``, the mac_econ-like
 uniform scatter) and ``webbase1m`` are what ``pick_auto`` sends to
 ``cuda-xpose`` at full size. ``FP64_CASES`` and ``SPMM_CASES`` are the
@@ -187,6 +191,14 @@ XPOSE_CASES = {
     "amazon8k": ("amazon_csr", dict(m=8000, seed=6)),
     "webbase200k": ("webbase_csr", dict(m=200_000, seed=7)),
 }
+
+# webbase-1M (SuiteSparse Williams/webbase-1M: 1,000,005 rows, 3,105,536
+# entries) at its source's size, the benchmark's ``webbase1m``
+# configuration: ``avg_nnz`` (draws a row before duplicates merge) and the
+# seed searched on the card host's numpy 2.3.5, where the merge leaves
+# 3,106,075 entries (3,105,565 on numpy 2.0.2). Its XPOSE plan takes 296
+# steps, past the reference's 254 (the Hopper envelope).
+WEBBASE1M = ("webbase_csr", dict(m=1_000_005, avg_nnz=5.678, seed=0))
 
 # The hybrid with a big tail through XPOSE: the amazon20k small case's
 # 3,091-entry tail past tail_xla_max, planned by XPOSE.

@@ -96,7 +96,7 @@
 // takes its longer rows one at a time (ballot), all lanes on one row. The
 // planner refuses a row of more than 16k entries, so a warp's longest walk
 // is 512 slots a lane (the webbase-1M stand-in's longest row: 1,894). A
-// position is a 32-bit flat index into mid (B2 * J1 * 128 < 2^23): a
+// position is a 32-bit flat index into mid (B2 * J1 * 128 < 2^31): a
 // 16-bit offset within the row's out-block would save 2 B a product but
 // not fit a row whose virtual rows lie in other out-blocks. All adds are
 // plain f32 adds in the order the plain PyTorch version repeats

@@ -40,11 +40,24 @@ Stage S3 (``s3``):
 
 Each kernel's wrapper launches ``csrc/xpose.cu`` on a CUDA tensor and
 runs its plain PyTorch version on a CPU tensor; an index outside its
-range reads 0.0. The plain versions repeat the kernels' arithmetic (one
+range reads 0.0. The slot-table designs' wrappers are their checks and
+a card launch (:func:`_launch_s1_slots`, :func:`_launch_s3_rows`); the
+prepared call of those designs on the card checks its tables once, when
+:func:`bind_plan` binds them, and then makes the two launches alone.
+The plain versions repeat the kernels' arithmetic (one
 f32 product per slot; the prefix sums as Hillis-Steele steps ``p[l] +
 p[l - d]``; the row sums in :func:`xpose_s3_rows_plain`'s fixed order),
 so kernel and plain version agree bit for bit, and both S1 designs give
 the same products at every slot S3 reads.
+
+The plan (:func:`plan_or_raise`) takes up to ``xpose_plan.HOPPER_J1_MAX``
+steps, the wrappers' own limits (mid under 2^31 slots, ``k * 128 + c2``
+in 16 bits), not the reference's ``J1_MAX`` of 254, its uint8 step
+index (``xpose_plan.plan_xpose``'s default, for parity). Past 256 steps
+the plan's step plane ``sub`` is uint16, and only the slot-table designs
+run (``s1="slots"``, ``s3="rows"``: an int32 step a chunk, 32-bit
+positions); the TPU-shaped designs, which read the reference's 8-bit
+planes, refuse such a plan by name (:func:`check_designs`).
 
 The reference's TPU-only geometry (G_SUB step batching, the VMEM caps,
 the K1p padding of S3's planes and W3's two-window split) has no role
@@ -241,6 +254,26 @@ def xpose_s1_slots(x, head, code, val, B2: int, J1: int) -> torch.Tensor:
     mid (B2, J1, 128) f32, whose slots that the table does not name are
     left unwritten on the card (0.0 here)."""
     _check_x("xpose_s1_slots", x)
+    _check_slot_table(head, code, val, B2, J1, x.device)
+    if x.device.type == "cpu":
+        return xpose_s1_slots_plain(x, head, code, val, B2, J1)
+    return _launch_s1_slots(x, head, code, val, B2, J1)
+
+
+def _launch_s1_slots(x, head, code, val, B2: int, J1: int) -> torch.Tensor:
+    """:func:`xpose_s1_slots`' launch on the card, with ``x`` float32
+    (n,) and the table checked (:func:`_check_slot_table`) on its
+    device."""
+    C, chunk = code.shape
+    mid = torch.empty((B2, J1, BC), dtype=torch.float32, device=x.device)
+    return _launch("xpose_s1_slots", mid, x.data_ptr(), x.numel(),
+                   head.data_ptr(), code.data_ptr(), val.data_ptr(), C,
+                   chunk, mid.data_ptr(), mid.numel(), J1)
+
+
+def _check_slot_table(head, code, val, B2: int, J1: int, dev) -> None:
+    """:func:`xpose_s1_slots`' checks of its table and mid's shape, and
+    on the card of the table's 16-byte alignment."""
     if code.dim() != 2 or code.shape[1] % 4:
         raise ValueError(f"xpose_s1_slots: code is {tuple(code.shape)}, "
                          "expected (C, chunk) with chunk a multiple of 4")
@@ -251,15 +284,10 @@ def xpose_s1_slots(x, head, code, val, B2: int, J1: int) -> torch.Tensor:
     _check("xpose_s1_slots", {"head": (head, torch.int32, (C, 8)),
                               "code": (code, torch.int32, (C, chunk)),
                               "val": (val, torch.float32, (C, chunk))},
-           x.device)
-    if x.device.type == "cpu":
-        return xpose_s1_slots_plain(x, head, code, val, B2, J1)
-    if any(t.data_ptr() % 16 for t in (head, code, val)):
+           dev)
+    if dev.type == "cuda" and any(t.data_ptr() % 16
+                                  for t in (head, code, val)):
         raise ValueError("xpose_s1_slots: the table is not 16-byte aligned")
-    mid = torch.empty((B2, J1, BC), dtype=torch.float32, device=x.device)
-    return _launch("xpose_s1_slots", mid, x.data_ptr(), x.numel(),
-                   head.data_ptr(), code.data_ptr(), val.data_ptr(), C,
-                   chunk, mid.data_ptr(), mid.numel(), J1)
 
 
 def xpose_s1_slots_plain(x, head, code, val, B2: int,
@@ -357,23 +385,37 @@ def xpose_s3_rows(mid, rowptr, pos) -> torch.Tensor:
         raise ValueError(f"xpose_s3_rows: mid is {mid.dtype} "
                          f"{tuple(mid.shape)}, expected float32 (B2, J1, "
                          f"{BC})")
-    if rowptr.dim() != 1 or rowptr.numel() < 1 or pos.dim() != 1:
-        raise ValueError(f"xpose_s3_rows: rowptr {tuple(rowptr.shape)} and "
-                         f"pos {tuple(pos.shape)} must be 1-D, rowptr of "
-                         "m + 1 >= 1 pointers")
-    if mid.numel() >= 2 ** 31 or pos.numel() >= 2 ** 31:
-        raise ValueError("xpose_s3_rows: mid or pos past 32-bit positions")
-    m = rowptr.numel() - 1
-    _check("xpose_s3_rows", {"mid": (mid, torch.float32, mid.shape),
-                             "rowptr": (rowptr, torch.int32, (m + 1,)),
-                             "pos": (pos, torch.int32, pos.shape)},
+    _check_row_table(rowptr, pos, mid.numel(), mid.device)
+    _check("xpose_s3_rows", {"mid": (mid, torch.float32, mid.shape)},
            mid.device)
     if mid.device.type == "cpu":
         return xpose_s3_rows_plain(mid, rowptr, pos)
+    return _launch_s3_rows(mid, rowptr, pos)
+
+
+def _launch_s3_rows(mid, rowptr, pos) -> torch.Tensor:
+    """:func:`xpose_s3_rows`' launch on the card, with ``mid`` float32
+    (B2, J1, 128) and the table checked (:func:`_check_row_table`) on its
+    device."""
+    m = rowptr.numel() - 1
     y = torch.empty(m, dtype=torch.float32, device=mid.device)
     return _launch("xpose_s3_rows", y, mid.data_ptr(), mid.numel(),
                    rowptr.data_ptr(), pos.data_ptr(), pos.numel(),
                    y.data_ptr(), m)
+
+
+def _check_row_table(rowptr, pos, n_mid: int, dev) -> None:
+    """:func:`xpose_s3_rows`' checks of its table against a mid of
+    ``n_mid`` slots."""
+    if rowptr.dim() != 1 or rowptr.numel() < 1 or pos.dim() != 1:
+        raise ValueError(f"xpose_s3_rows: rowptr {tuple(rowptr.shape)} and "
+                         f"pos {tuple(pos.shape)} must be 1-D, rowptr of "
+                         "m + 1 >= 1 pointers")
+    if n_mid >= 2 ** 31 or pos.numel() >= 2 ** 31:
+        raise ValueError("xpose_s3_rows: mid or pos past 32-bit positions")
+    _check("xpose_s3_rows", {"rowptr": (rowptr, torch.int32,
+                                        (rowptr.numel(),)),
+                             "pos": (pos, torch.int32, pos.shape)}, dev)
 
 
 def _halve(v):
@@ -439,17 +481,42 @@ PLAIN = XposeKernels(xpose_mirror_plain, xpose_s1_plain,
 
 @trace.span("pack.plan", fn="plan_or_raise")
 def plan_or_raise(A: CSR) -> XposePlan:
-    """``plan_xpose(A)``, or the reference's ``ValueError`` (with the
-    planner's reason) when the matrix is outside the envelope, so that
-    ``spmv``'s auto route falls back."""
-    plan = xpose_plan.plan_xpose(A)
+    """``plan_xpose(A)`` up to ``HOPPER_J1_MAX`` steps, or the reference's
+    ``ValueError`` (with the planner's reason) when the matrix is outside
+    that envelope, so that ``spmv``'s auto route falls back. Notes the
+    plan's J1, B2, m2, NWm and the step cap it was planned under on its
+    span."""
+    j1_max = xpose_plan.HOPPER_J1_MAX
+    with trace.span("plan_xpose"):
+        plan = xpose_plan.plan_xpose(A, j1_max=j1_max)
     if plan is None:
         raise ValueError(
             "cuda-xpose: matrix outside the v1 planning envelope "
             "(concentrated (window, block) cells, >4M entries, or a "
             ">16k-entry row); use cuda-hybrid/cuda-pell (planner: "
             f"{xpose_plan.REJECT_REASON})")
+    trace.note(J1=plan.J1, B2=plan.B2, m2=plan.m2, NWm=plan.NWm,
+               j1_max=j1_max)
     return plan
+
+
+def check_designs(plan: XposePlan, s3: str, s1: str) -> None:
+    """Raise ValueError, naming the design, where design (``s3``, ``s1``)
+    cannot run ``plan``: past 256 steps only the slot-table designs run,
+    since the prefix S3 reads the step plane ``sub`` as uint8 and the slab
+    S1 is the reference's design of that same 8-bit envelope."""
+    if plan.sub.dtype == np.uint8:         # steps in the reference's index
+        return
+    s1 = resolve_s1(s1, s3)
+    past = (f"this plan has J1={plan.J1} steps, past the 256 of the "
+            "reference's uint8 step index")
+    if s3 == "prefix":
+        raise ValueError(f"cuda-xpose: s3='prefix' reads the step plane "
+                         f"sub as uint8; {past}; take s3='rows'")
+    if s1 == "slab":
+        raise ValueError(f"cuda-xpose: s1='slab', the reference's TPU "
+                         f"design, runs only inside its 8-bit step "
+                         f"envelope; {past}; take s1='slots'")
 
 
 def s3_planes(plan: XposePlan) -> np.ndarray:
@@ -665,6 +732,7 @@ def host_tables(plan: XposePlan, s3: str = "rows", s1: str = "auto",
     """``tables`` (a dict, may be None) completed with the host tables
     that design (``s3``, ``s1``) reads: ``"rows"``, :func:`s3_rows_table`;
     ``"slots"``, :func:`s1_slots_table` over those rows' positions."""
+    check_designs(plan, s3, s1)
     s1 = resolve_s1(s1, s3)
     out = dict(tables or {})
     if s3 == "rows" and "rows" not in out:
@@ -724,11 +792,14 @@ def plan_meta(plan: XposePlan, nnz: int) -> dict:
 
 @trace.span("pack.upload", fn="xpose.bind_plan")
 def bind_plan(plan: XposePlan, dev, s3: str = "rows", s1: str = "auto",
-              tables=None) -> Callable:
-    """The plan's tables on ``dev``, and ``run(xf, ops) -> y (m,)`` for x
+              tables=None) -> tuple[Callable, Callable]:
+    """The plan's tables on ``dev``, ``run(xf, ops) -> y (m,)`` for x
     (f32 on ``dev``) through the kernels in ``ops`` (any object with
     :class:`XposeKernels`' fields), stage S1 on design ``s1`` and S3 on
-    ``s3``; ``tables`` as :func:`host_tables` gives them."""
+    ``s3``, and ``call(xf) -> y``, the same through :data:`KERNELS`; on
+    the card the slot-table designs' ``call`` makes the two launches
+    alone, their tables checked here, once. ``tables`` as
+    :func:`host_tables` gives them."""
     s1 = resolve_s1(s1, s3)
     tables = host_tables(plan, s3, s1, tables)
 
@@ -772,7 +843,18 @@ def bind_plan(plan: XposePlan, dev, s3: str = "rows", s1: str = "auto",
             y.index_add_(0, v_row, y_all[m:])
         return y
 
-    return run
+    if dev.type != "cuda" or (s1, s3) != ("slots", "rows"):
+        return run, lambda xf: run(xf, KERNELS)
+    _check_slot_table(head, code, val, B2, J1, dev)
+    _check_row_table(rowptr, pos, B2 * J1 * BC, dev)
+    s1_launch = trace.launch("xpose_s1_slots")(_launch_s1_slots)
+    s3_launch = trace.launch("xpose_s3_rows")(_launch_s3_rows)
+
+    def call(xf):
+        return s3_launch(s1_launch(xf, head, code, val, B2, J1), rowptr,
+                         pos)
+
+    return run, call
 
 
 def prepare_xpose(A: CSR, device="cuda", s3: str = "rows", s1: str = "auto",
@@ -804,16 +886,19 @@ def prepare_xpose_designs(A: CSR, designs=S3_DESIGNS,
     n = A.n
 
     def prepared(s3, s1):
-        run = bind_plan(plan, dev, s3, s1, tables)
+        run, bound = bind_plan(plan, dev, s3, s1, tables)
 
-        def call(x, ops):
+        def as_x(x):
             xf = torch.as_tensor(x, dtype=torch.float32, device=dev)
             if xf.shape != (n,):
                 raise ValueError(f"cuda-xpose: x has shape "
                                  f"{tuple(xf.shape)}, expected ({n},)")
-            return run(xf, ops)
+            return xf
 
-        return Prepared("cuda-xpose", A.name, lambda x: call(x, KERNELS),
+        def call(x, ops):
+            return run(as_x(x), ops)
+
+        return Prepared("cuda-xpose", A.name, lambda x: bound(as_x(x)),
                         device=dev, nnz=A.nnz, ref="pallas-xpose",
                         hbm_bytes=hbm_bytes(plan, s3, s1, tables),
                         meta={**plan_meta(plan, A.nnz), "s3": s3,

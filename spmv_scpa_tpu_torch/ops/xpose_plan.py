@@ -1,12 +1,25 @@
 """Host planner for XPOSE — the scattered-regime SpMV pipeline (the
-port's copy of ``spmv_scpa_tpu/ops/xpose_plan.py``, whole and unchanged
-below this paragraph, so that its plans equal the reference's array for
-array; ``tests/test_torch_xpose.py`` holds them equal). The port's
-kernels (``ops/xpose.py``, ``csrc/xpose.cu``) execute the same planes on
-Hopper. The TPU-sized bounds stay for parity: ``X_EXT_BUDGET`` (VMEM
-residency of the x window table), ``J1_MAX``/``B2_MAX`` (the uint8
-planes), ``MIR_TJ`` and ``KEEP_MIN`` (fill targets of the TPU's step
-cost); ROADMAP queue 1 #5 re-derives them on the card.
+port's copy of ``spmv_scpa_tpu/ops/xpose_plan.py``, unchanged below this
+paragraph but for three additions, so that its plans equal the
+reference's array for array; ``tests/test_torch_xpose.py`` holds them
+equal). The port's kernels (``ops/xpose.py``, ``csrc/xpose.cu``) execute
+the same planes on Hopper. The TPU-sized bounds stay for parity:
+``X_EXT_BUDGET`` (VMEM residency of the x window table),
+``J1_MAX``/``B2_MAX`` (the uint8 planes), ``MIR_TJ`` and ``KEEP_MIN``
+(fill targets of the TPU's step cost); ROADMAP queue 1 #5 re-derives
+them on the card. The additions:
+
+* ``plan_xpose(A, seed, j1_max)``: the step cap, ``J1_MAX`` (the
+  reference's, read when the plan is made) where ``j1_max`` is None;
+* the mid-row (step) plane ``sub`` in the narrowest unsigned type that
+  holds every step (:func:`step_dtype`): uint8, the reference's, up to
+  256 steps, so every plan inside the reference's envelope is its plan;
+  uint16 past it, up to ``HOPPER_J1_MAX``. The reference's ``J1_MAX`` of
+  254 is that uint8 index, which the port's Hopper designs (an int32
+  step in each slot-table chunk, 32-bit flat positions into mid) do not
+  have;
+* ``trace.stage`` sections (``colorings``, ``s1_planes``, ``s3_index``,
+  ``y_routes``), recorded where a span is open (``xpose.plan_or_raise``).
 
 Reference analog: the irregular-matrix CUDA results the reference gets
 from its texture-cached CSR kernels (``cuda_csr.cu:145-178`` k4 +
@@ -44,11 +57,15 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from spmv_scpa_tpu_torch import trace
+
 BC = 128
 CCAP = 127                  # colors per side; lane 127 reserved zero
 BLK_CAP = BC * CCAP         # final slots per out-block (16256)
 ROWS_PER_BLK = 64 * BC      # y staging (64, 128) per block
 J1_MAX = 254                # mid-row index must fit uint8
+HOPPER_J1_MAX = 1 << 16     # the port's cap: steps fit uint16, and mid
+                            # (B2_MAX * 2^16 * 128 slots) stays under 2^31
 B2_MAX = 248                # S1 out-route windows <= 2
 MIR_TJ = 3                  # target S1 steps per mirror window: hot
                             # ranges get ceil(cnt / (120*MIR_TJ))
@@ -101,6 +118,7 @@ class XposePlan:
     r3: np.ndarray          # (J1*W1*128, 128) u8  lane: c1 per (t, c2)
     # S3 planes
     sub: np.ndarray         # (B2*128, 128) u8  mid row per (f, c2)
+                            # (u16 past 256 steps: step_dtype)
     r3b: np.ndarray         # (B2*128, 128) u8  c2 per (f, l)
     # y extraction: two 3-stage routed gathers over psG
     # (end pass minus prev pass; each: lane rpre, TLG ys, lane r3y
@@ -350,9 +368,27 @@ def _reject(why):
     return None
 
 
-def plan_xpose(A, seed: int = 0):
+def step_dtype(J1: int):
+    """The narrowest unsigned type of the ``sub`` plane that holds every
+    step of a plan of ``J1`` (padded) steps: uint8 up to 256, else
+    uint16 (up to ``HOPPER_J1_MAX``)."""
+    if J1 <= 1 << 8:
+        return np.uint8
+    if J1 <= 1 << 16:
+        return np.uint16
+    raise ValueError(f"step_dtype: J1={J1} steps past 2^16")
+
+
+def plan_xpose(A, seed: int = 0, j1_max: int | None = None):
     """Build an XposePlan for CSR ``A`` or return None if out of the
-    v1 envelope (callers fall back to hybrid/PELL)."""
+    v1 envelope (callers fall back to hybrid/PELL). ``j1_max`` caps the
+    steps (None: ``J1_MAX``, the reference's; at most
+    ``HOPPER_J1_MAX``)."""
+    if j1_max is None:
+        j1_max = J1_MAX
+    if j1_max > HOPPER_J1_MAX:
+        raise ValueError(f"plan_xpose: j1_max={j1_max} is past "
+                         f"HOPPER_J1_MAX={HOPPER_J1_MAX}")
     m, n, nnz = A.m, A.n, A.nnz
     if nnz == 0 or m == 0:
         return _reject("empty")
@@ -623,8 +659,8 @@ def plan_xpose(A, seed: int = 0):
     base_w = np.r_[0, np.cumsum(j_of_w)]
     step_of += base_w[wwin]
     J1 = int(base_w[-1])
-    if J1 > J1_MAX:
-        return _reject(f"J1={J1}>{J1_MAX}")
+    if J1 > j1_max:
+        return _reject(f"J1={J1}>{j1_max}")
 
     # repair per-(step, block) overflow (> CCAP) by moving entries to
     # sibling steps of the same window with slack in both dims
@@ -667,6 +703,7 @@ def plan_xpose(A, seed: int = 0):
         return _reject("(step,stripe) overflow")
 
     # ---- the two edge colorings --------------------------------------
+    trace.stage("colorings")
     c1 = edge_color(step_of * BC + stripe, step_of * B2 + blk, CCAP,
                     seed=seed)
     c2 = edge_color(blk * (J1 + 8) + step_of, blk * BC + f, CCAP,
@@ -678,6 +715,7 @@ def plan_xpose(A, seed: int = 0):
     W1 = -(-B2 // BC)
     W3 = -(-J1p // BC)
 
+    trace.stage("s1_planes")
     gidx = np.zeros((J1p * BC, BC), np.uint8)
     asv = np.zeros((J1p * BC, BC), np.float32)
     rs = step_of * BC + stripe
@@ -692,13 +730,16 @@ def plan_xpose(A, seed: int = 0):
     r2[rt, c1] = stripe.astype(np.uint8)
     r3[rt, c2] = c1.astype(np.uint8)
 
-    sub = np.zeros((B2 * BC, BC), np.uint8)
+    sdt = step_dtype(J1p)
+    trace.stage("s3_index", J1=J1p, bits=8 * np.dtype(sdt).itemsize)
+    sub = np.zeros((B2 * BC, BC), sdt)
     r3b = np.full((B2 * BC, BC), CCAP, np.uint8)
     rf = blk * BC + f
-    sub[rf, c2] = step_of.astype(np.uint8)
+    sub[rf, c2] = step_of.astype(sdt)
     r3b[rf, l_fin] = c2.astype(np.uint8)
 
     # ---- y extraction planes -------------------------------------------
+    trace.stage("y_routes")
     # y[r] = psG[end(r)] - psG[end(prev non-empty r in block)]; empty
     # rows gather nothing on either pass (0 - 0). Each pass is a
     # 3-stage routed gather over psG:

@@ -210,8 +210,9 @@ def test_xpose_tail_matches_jax(s3):
 
 def test_xpose_tail_refusal_is_a_value_error(monkeypatch):
     """A tail the XPOSE planner refuses surfaces its ValueError, as the
-    reference's prepare does, so "auto" can fall back."""
-    monkeypatch.setattr(xpose_plan, "J1_MAX", 0)
+    reference's prepare does, so "auto" can fall back (the step cap of
+    ``cuda-xpose``'s plan, ``HOPPER_J1_MAX``, at 0)."""
+    monkeypatch.setattr(xpose_plan, "HOPPER_J1_MAX", 0)
     spec, kw = cases.XPOSE_TAIL
     with pytest.raises(ValueError, match="planning envelope"):
         lane_ell.prepare_lane_ell_hybrid(cases.make(spec), device="cpu",

@@ -23,7 +23,8 @@ the span segment-sum is bit-equal to its plain version on both. The row-layout k
 to it run on the CPU, at both grades. XPOSE's five kernels move values, take one
 f32 product per slot, scan or add rows in the plain versions' order:
 bit-equal on the card and against the CPU (the slot-table S1 at the
-slots of mid it writes); the two S1 designs' y equal; a whole XPOSE call (on
+slots of mid it writes), also on a plan past the reference's 254 steps;
+the two S1 designs' y equal; a whole XPOSE call (on
 ``s3="prefix"`` virtual rows added by ``index_add_``) within rel-L2 1e-6
 of its plain call. Against
 ``spmv_oracle``: ``validate_result`` defaults. The fp64 grade: the
@@ -463,6 +464,43 @@ def test_xpose_case_kernels_match_plain(card, name, s3, s1):
         assert torch.equal(
             _written(kname, args, getattr(xpose.KERNELS, kname)(*args)).cpu(),
             _written(kname, cpu, getattr(xpose.PLAIN, kname)(*cpu)))
+
+
+def test_xpose_kernels_match_plain_past_the_reference_cap(card):
+    """webbase-1M at its source's size plans past the reference's 254
+    steps (a uint16 step plane, the Hopper envelope): the call against
+    its plain call and the oracle, and ``xpose_s1_slots`` and
+    ``xpose_s3_rows`` bit-equal to their plain versions on the card and
+    on the CPU."""
+    A = cases.make(cases.WEBBASE1M)
+    prep = get_strategy("cuda-xpose").prepare(A, device=card)
+    assert prep.meta["J1"] > 256
+    calls = _check_prepared(prep, A, card, "cuda-xpose on webbase-1M")
+    assert [k for k, _ in calls] == XPOSE_CALLS["rows", "auto"]
+    for kname, args in calls:
+        cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        assert torch.equal(
+            _written(kname, args, getattr(xpose.KERNELS, kname)(*args)).cpu(),
+            _written(kname, cpu, getattr(xpose.PLAIN, kname)(*cpu)))
+
+
+@pytest.mark.parametrize("name", ["rand-1k", "webbase30k", "webbase200k"])
+def test_xpose_bound_call_equals_the_checked_wrappers(card, name):
+    """The slot-table designs' call on the card (``bind_plan``'s: the
+    tables checked once, when bound, and no per-call checks) launches
+    each kernel once and gives y bit-equal to the same call through the
+    checked wrappers (``run`` with ``KERNELS``)."""
+    A = cases.make(cases.XPOSE_CASES[name])
+    prep = get_strategy("cuda-xpose").prepare(A, device=card)
+    xd = torch.as_tensor(make_x(A.n), dtype=torch.float32, device=card)
+    before = dict(xpose.LAUNCHES)
+    y = prep.fn(xd)
+    assert {k: xpose.LAUNCHES[k] - before[k] for k in before} == {
+        **{k: 0 for k in before}, "xpose_s1_slots": 1, "xpose_s3_rows": 1}
+    checked = prep.run(xd, xpose.KERNELS)
+    assert checked.data_ptr() != y.data_ptr()
+    assert torch.equal(y, checked)
+    assert torch.equal(y, prep.fn(xd))
 
 
 def test_xpose_s1_slots_matches_plain_and_the_slab(card):

@@ -159,8 +159,10 @@ def test_delegation_keeps_the_delegates_own_decision(monkeypatch):
     """Pure scatter that the XPOSE planner refuses goes to the hybrid,
     which itself escapes to PELL: ``delegated`` says cuda-hybrid, the
     hybrid's own ``delegated`` (cuda-pell) stays under
-    ``delegate_delegated``, and the refusal under ``reject_reason``."""
-    monkeypatch.setattr(xpose_plan, "J1_MAX", 30)
+    ``delegate_delegated``, and the refusal under ``reject_reason``. The
+    planner refuses at ``prepare_xpose``'s step cap, ``HOPPER_J1_MAX``,
+    lowered to 30."""
+    monkeypatch.setattr(xpose_plan, "HOPPER_J1_MAX", 30)
     A = cases.random30k()
     prep = get_strategy("cuda-nearfar").prepare(A, device="cpu")
     m = prep.meta

@@ -169,10 +169,11 @@ def test_pick_auto_sends_the_scattered_regime_to_cuda_xpose(monkeypatch,
 
 def test_auto_falls_back_when_xpose_refuses_mid_plan(monkeypatch):
     """quick_envelope_ok passes but the planner refuses (its step cap
-    lowered to 30, which still admits the 449,892 entries): ``cuda-xpose``
-    raises ValueError and "auto" falls back to the hybrid (here its
-    no-locality escape to PELL)."""
-    monkeypatch.setattr(xpose_plan, "J1_MAX", 30)
+    ``HOPPER_J1_MAX`` lowered to 30, which still admits the 449,892
+    entries):
+    ``cuda-xpose`` raises ValueError and "auto" falls back to the hybrid
+    (here its no-locality escape to PELL)."""
+    monkeypatch.setattr(xpose_plan, "HOPPER_J1_MAX", 30)
     A = cases.random30k()
     assert pick_auto(A) == "cuda-xpose"
     x = make_x(A.n)

@@ -93,10 +93,15 @@ def test_cases_cover_the_plan_shapes():
     ("J1_MAX", 4, "rand-8k"), ("B2_MAX", 50, "rand-8k"),
     ("X_EXT_BUDGET", 1 << 17, "webbase30k"), (None, None, "empty")])
 def test_rejections_match_jax(monkeypatch, knob, value, name):
-    """The planner refuses where the reference does, with its reason."""
+    """The planner refuses where the reference does, with its reason, and
+    ``prepare_xpose`` with it (``cuda-xpose`` plans up to
+    ``HOPPER_J1_MAX`` steps, so the step cap is lowered there too:
+    tests/test_torch_xpose_wide.py)."""
     if knob:
         monkeypatch.setattr(xpose_plan, knob, value)
         monkeypatch.setattr(jax_xp, knob, value)
+        if knob == "J1_MAX":
+            monkeypatch.setattr(xpose_plan, "HOPPER_J1_MAX", value)
         spec = cases.XPOSE_CASES[name]
         A, Aj = cases.make(spec), cases.make(spec, jax_synth)
     else:
