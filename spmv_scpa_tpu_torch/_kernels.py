@@ -86,7 +86,8 @@ SIGNATURES = {
               "xpose_s3_rows": (P, I64, P, P, I, P, I, P)},
     "spmm": {"bcsr_spmm": (P, P, P, P, P, I, I, I, P)},
     "bcsr_bits": {"bcsr_bits": (P, P, P, P, P, P, P, I, I, P),
-                  "bcsr_bits_spmm": (P, P, P, P, P, P, P, I, I, I, P)},
+                  "bcsr_bits_spmm": (P, P, P, P, P, P, P, I, I, I, P),
+                  "bcsr_bits_spmm_design": (I,)},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -2,7 +2,8 @@
 ``csrc/bcsr_bits.cu`` timed as committed and with one part of its work
 taken out (a text substitution in a copy of the source, built beside
 the port's own libraries), on the flagship (SpMV, and SpMM at 8
-columns) and ``stencil48k`` (SpMM at 64 columns):
+columns: ``warp_rows``) and ``stencil48k`` (SpMM at 64 columns:
+``lane_groups``):
 
     python -m spmv_scpa_tpu_torch.bench.bits_study
 
@@ -14,7 +15,9 @@ What each takes out:
 * SpMV ``no-value-reads``: the shared-memory value reads (a constant);
 * SpMV ``no-x``: the x loads (a constant);
 * SpMM ``no-x``, ``no-values``, ``no-fp``: the X row loads, the value
-  loads, or the multiply-adds (a plain add in their place).
+  reads (from the stage in the ``warp_rows`` design, from device memory
+  in ``lane_groups``), or the multiply-adds (a plain add in their
+  place), in both designs.
 
 Each line gives the device ms (``bench.timing.time_device``, median of
 20) and the card's name and power limit.
@@ -25,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -36,8 +40,8 @@ from spmv_scpa_tpu_torch.ops import bcsr_bits
 from spmv_scpa_tpu_torch.utils.platform import card_label, cuda_device
 
 SPMV = {
-    "no-sums": [("            acc[r] = w[r][q] & mine ? __fadd_rn(acc[r], "
-                 "__fmul_rn(v, xv[q]))\n                                    "
+    "no-sums": [("          acc[r] = w[r][q] & mine ? __fadd_rn(acc[r], "
+                 "__fmul_rn(v, xv[q]))\n                                  "
                  ": acc[r];", "")],
     "no-value-reads": [(
         "sv[start[r] + __popc(w[r][q] & below)]", "1.0f")],
@@ -45,12 +49,22 @@ SPMV = {
               "xv[q] = 1.0f;")],
 }
 SPMM = {
-    "no-x": [("    xv[c] = xr < n && c0 + c < cols ? "
+    "no-x": [("        load_xrow<CPL, VEC>(xt, stride, k, "
+              "(!last || i + u < end)\n"
+              "                            && (!edge || k < lim), cols, c0, "
+              "xv[u]);",
+              "        for (int c = 0; c < CPL; ++c) xv[u][c] = 1.0f + k;"),
+             ("    xv[c] = xr < n && c0 + c < cols ? "
               "__ldg(X + xr * cols + c0 + c) : 0.0f;",
               "    xv[c] = 1.0f + xr;")],
-    "no-values": [("            const float v = __ldg(vals + pos[r]);",
+    "no-values": [("        a[u] = sv[i + u];",
+                   "        a[u] = 1.0f + i + u;"),
+                  ("            const float v = __ldg(vals + pos[r]);",
                    "            const float v = 1.0f + pos[r];")],
-    "no-fp": [("              acc[r][c] = __fadd_rn(acc[r][c], "
+    "no-fp": [("          const float sum = __fadd_rn(acc[c], "
+               "__fmul_rn(a[u], xv[u][c]));",
+               "          const float sum = a[u] + xv[u][c];"),
+              ("              acc[r][c] = __fadd_rn(acc[r][c], "
                "__fmul_rn(v, xv[c]));",
                "              acc[r][c] = v + xv[c];")],
 }
@@ -97,30 +111,35 @@ def main() -> int:
         return 2
     dev = cuda_device()
     card = card_label()
-    libs = {"committed": build_variant("committed", [])}
-    libs.update({f"spmv-{k}": build_variant(f"spmv_{k}", v)
-                 for k, v in SPMV.items()})
-    libs.update({f"spmm-{k}": build_variant(f"spmm_{k}", v)
-                 for k, v in SPMM.items()})
-    for path, make, cols in (("flagship-bcsr", cases.flagship, None),
-                             ("flagship-spmm8", cases.flagship, 8),
-                             ("stencil48k-spmm64", cases.stencil48k, 64)):
-        A = make()
-        plan = bcsr_bits.plan_bcsr_bits(A)
-        args = [torch.as_tensor(a, device=dev) for a in (
-            plan.bits, plan.vals, plan.vptr, plan.pan, plan.rowptr)]
+    variants = {"committed": [],
+                **{f"spmv-{k}": v for k, v in SPMV.items()},
+                **{f"spmm-{k}": v for k, v in SPMM.items()}}
+    with ThreadPoolExecutor(len(variants)) as pool:     # nvcc in parallel
+        built = pool.map(lambda kv: build_variant(kv[0], kv[1]),
+                         variants.items())
+        libs = dict(zip(variants, built))
+    flagship = cases.flagship()
+    runs = [("flagship-bcsr", flagship, None, "spmv"),
+            ("flagship-spmm8", flagship, 8, "spmm"),
+            ("stencil48k-spmm64", cases.stencil48k(), 64, "spmm")]
+    plans = {}
+    for path, A, cols, kind in runs:
+        if id(A) not in plans:
+            plan = bcsr_bits.plan_bcsr_bits(A)
+            plans[id(A)] = [torch.as_tensor(a, device=dev) for a in (
+                plan.bits, plan.vals, plan.vptr, plan.pan, plan.rowptr)]
+        args = plans[id(A)]
         gen = torch.Generator(device=dev).manual_seed(0)
         shape = (A.n,) if cols is None else (A.n, cols)
         x = torch.randn(shape, device=dev, generator=gen)
         out = torch.empty((A.m,) + shape[1:], device=dev)
-        kind = "spmv" if cols is None else "spmm"
         times = {name: time_variant(lib, args, x, out, A.m)
                  for name, lib in libs.items()
                  if name == "committed" or name.startswith(kind)}
         print(f"[{path}] " + " | ".join(f"{k} {v:.4f} ms"
                                          for k, v in times.items())
               + f" | {card}", flush=True)
-        del args, x, out
+        del x, out
     return 0
 
 

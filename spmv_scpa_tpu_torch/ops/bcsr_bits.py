@@ -47,6 +47,7 @@ slot's column (the dense tiles multiply it by 0).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable
 
@@ -61,6 +62,11 @@ WORDS = BC // 32             # mask words per tile row
 
 # Launches of each CUDA kernel by its wrapper in this process.
 LAUNCHES = {"bcsr_bits": 0, "bcsr_bits_spmm": 0}
+
+# The SpMM kernel's designs, indexed by what ``bcsr_bits_spmm_design``
+# returns (``csrc/bcsr_bits.cu``): a group of lanes per block row, or a
+# warp per block row with its lanes split by (row, column slice).
+SPMM_DESIGNS = ("lane_groups", "warp_rows")
 
 
 @dataclass
@@ -238,6 +244,7 @@ def bcsr_bits_spmm(bits, vals, vptr, pan, rowptr, X, m: int) -> torch.Tensor:
     if bits.device.type == "cpu":
         return bcsr_bits_spmm_plain(bits, vals, vptr, pan, rowptr, X, m)
     lib = _kernels.load("bcsr_bits")
+    trace.note(design=spmm_design(X.shape[1]))
     Y = torch.empty((m, X.shape[1]), dtype=torch.float32, device=bits.device)
     err = lib.bcsr_bits_spmm(bits.data_ptr(), vals.data_ptr(),
                              vptr.data_ptr(), pan.data_ptr(),
@@ -247,6 +254,15 @@ def bcsr_bits_spmm(bits, vals, vptr, pan, rowptr, X, m: int) -> torch.Tensor:
     _kernels.check(lib, err, "bcsr_bits_spmm")
     LAUNCHES["bcsr_bits_spmm"] += 1
     return Y
+
+
+@functools.cache
+def spmm_design(cols: int) -> str:
+    """The design :func:`bcsr_bits_spmm` launches at ``cols`` columns, by
+    the kernel library's own rule (``bcsr_bits_spmm_design``); its
+    ``launch.bcsr_bits_spmm`` span notes it as ``design``."""
+    lib = _kernels.load("bcsr_bits")
+    return SPMM_DESIGNS[lib.bcsr_bits_spmm_design(cols)]
 
 
 def _gather_rows(x, col):

@@ -225,16 +225,19 @@ def stage(name: str, /, **attrs) -> None:
 
 
 def note(**attrs) -> None:
-    """Add ``attrs`` to the innermost open span."""
+    """Add ``attrs`` to the innermost open span, and to no other span that
+    shares its attributes (a call span's)."""
     st = _stack()
     if st:
-        st[-1].span.attrs.update(attrs)
+        sp = st[-1].span
+        sp.attrs = {**sp.attrs, **attrs}
 
 
 def call_span(name: str, /, **attrs):
     """Decorator: a call span ``name`` around ``f``, recorded between
     :func:`enable` and :func:`disable`, and entered into a recording
-    profiler. Its spans share one ``attrs`` dict."""
+    profiler. Its spans share one ``attrs`` dict, until :func:`note`
+    gives one its own."""
     def deco(f):
         @functools.wraps(f)
         def wrapper(*args, **kwargs):

@@ -43,7 +43,8 @@ version run on the CPU, and within rel-L2 1e-6 of it on the card, on
 16-bit and 32-bit index blocks, single-card and row-sharded. The
 bitmap BCSR kernels ``bcsr_bits`` and ``bcsr_bits_spmm`` add in their
 plain versions' fixed order without atomics: bit-equal to them on the
-card and run on the CPU, at 1, 3, 8, 64 and 100 columns. The chips
+card and run on the CPU, at 1 to 100 columns, each branch of the SpMM's
+dispatch; each SpMM launch's span names its design. The chips
 tail's slot products ``chips_products`` round one f32 product a slot as
 their plain version does: bit-equal on the card and run on the CPU; y on
 ``chips_x="slots"`` equals y on ``"hot"``. The direct landing
@@ -63,7 +64,7 @@ import numpy as np
 import pytest
 import torch
 
-from spmv_scpa_tpu_torch import get_strategy
+from spmv_scpa_tpu_torch import get_strategy, trace
 from spmv_scpa_tpu_torch import testing as synth
 from spmv_scpa_tpu_torch.bench import roofline, runner, timing
 from spmv_scpa_tpu_torch.bench import cases
@@ -1258,11 +1259,13 @@ def test_bcsr_bits_matches_plain(card, name):
     validate_result(spmv_oracle(A, x), to_numpy(y), what=f"bcsr_bits {name}")
 
 
-@pytest.mark.parametrize("cols", [1, 3, 8, 64, 100])
+@pytest.mark.parametrize("cols", [1, 2, 3, 4, 8, 16, 32, 48, 64, 100])
 @pytest.mark.parametrize("name", sorted(cases.BITS_CASES))
 def test_bcsr_bits_spmm_matches_plain(card, name, cols):
-    """Every lane mapping: 1 column a lane (cols 1), groups of 2, 4 and
-    32 lanes, and two column groups (100)."""
+    """Every branch of the dispatch: ``warp_rows`` to 32 columns at 1,
+    2, 4 and 8 columns a lane (1-4, 8, 16, 32; 2 and 3 with lanes past
+    the columns, on scalar loads); ``lane_groups`` past 32, with lanes
+    past the columns (48), at 64 and in two column groups (100)."""
     A = cases.BITS_CASES[name]()
     args = _bits_args(A, card)
     X = make_x(A.n, cols=cols).reshape(A.n, cols)
@@ -1278,6 +1281,70 @@ def test_bcsr_bits_spmm_matches_plain(card, name, cols):
         *cpu, Xd.cpu(), A.m))
     validate_result(spmm_oracle(A, X), to_numpy(Y),
                     what=f"bcsr_bits_spmm {name} at {cols} columns")
+
+
+@pytest.mark.parametrize("cols", [8, 16, 32])
+def test_bcsr_bits_spmm_takes_an_unaligned_x(card, cols):
+    """X and Y one float off a 16-byte boundary: ``warp_rows`` then loads
+    and stores scalars, not vectors, and still equals the plain version."""
+    A = cases.BITS_CASES["bits-stencil4k"]()
+    args = _bits_args(A, card)
+    X = make_x(A.n, cols=cols).reshape(A.n, cols)
+    buf = torch.empty(A.n * cols + 1, dtype=torch.float32, device=card)
+    Xd = buf[1:].view(A.n, cols)
+    Xd.copy_(torch.as_tensor(X, dtype=torch.float32))
+    assert Xd.data_ptr() % 16
+    Y = bcsr_bits.bcsr_bits_spmm(*args, Xd, A.m)
+    torch.cuda.synchronize()
+    assert torch.equal(Y, bcsr_bits.bcsr_bits_spmm_plain(*args, Xd, A.m))
+
+
+@pytest.mark.parametrize("cols", [None, 1, 8])
+def test_bcsr_bits_kernels_take_unaligned_values(card, cols):
+    """vals one float off a 16-byte boundary: the stages' 16-byte copies
+    start at vals' own boundaries, the first value a copy where a copy
+    would start before vals[0]; y and Y equal their plain versions."""
+    A = cases.BITS_CASES["bits-powerlaw2k"]()
+    bits, vals, vptr, pan, rowptr = _bits_args(A, card)
+    buf = torch.empty(vals.numel() + 1, dtype=torch.float32, device=card)
+    vals1 = buf[1:]
+    vals1.copy_(vals)
+    assert vals1.data_ptr() % 16
+    args = (bits, vals1, vptr, pan, rowptr)
+    if cols is None:
+        x = torch.as_tensor(make_x(A.n), dtype=torch.float32, device=card)
+        y = bcsr_bits.bcsr_bits(*args, x, A.m)
+        torch.cuda.synchronize()
+        assert torch.equal(y, bcsr_bits.bcsr_bits_plain(*args, x, A.m))
+    else:
+        X = torch.as_tensor(make_x(A.n, cols=cols).reshape(A.n, cols),
+                            dtype=torch.float32, device=card)
+        Y = bcsr_bits.bcsr_bits_spmm(*args, X, A.m)
+        torch.cuda.synchronize()
+        assert torch.equal(Y, bcsr_bits.bcsr_bits_spmm_plain(*args, X, A.m))
+
+
+def test_bcsr_bits_spmm_notes_its_design(card):
+    """The ``launch.bcsr_bits_spmm`` span of each call names the design
+    that ran: ``warp_rows`` at 8 columns, ``lane_groups`` at 64."""
+    A = cases.BITS_CASES["bits-banded200x300"]()
+    args = _bits_args(A, card)
+    trace.reset()
+    trace.enable()
+    try:
+        for cols in (8, 64, 8):
+            X = make_x(A.n, cols=cols).reshape(A.n, cols)
+            bcsr_bits.bcsr_bits_spmm(
+                *args, torch.as_tensor(X, dtype=torch.float32, device=card),
+                A.m)
+        got = [s.attrs["design"] for s in trace.spans()
+               if s.name == "launch.bcsr_bits_spmm"]
+    finally:
+        trace.disable()
+        trace.reset()
+    assert got == ["warp_rows", "lane_groups", "warp_rows"]
+    assert [bcsr_bits.spmm_design(c) for c in (1, 2, 32, 33, 64, 100)] \
+        == ["warp_rows"] * 3 + ["lane_groups"] * 3
 
 
 @pytest.mark.parametrize("strategy, kw", [("cuda-bcsr", {}),

@@ -80,6 +80,24 @@ def test_spans_nest_under_their_parent_and_share_the_call(calls_on):
         assert load.parent is None and load.call is None
 
 
+def test_a_note_stays_on_its_own_call_span():
+    """Spans of one call-span decorator share their attributes until a
+    note: each call's note lands on that call's span alone, and a later
+    call that notes nothing finds the decorator's attributes as they
+    were."""
+    @trace.launch("k")
+    def kernel(design=None):
+        if design is not None:
+            trace.note(design=design)
+
+    trace.enable()
+    for design in ("a", "b", None, "a"):
+        kernel(design)
+    trace.disable()
+    got = [s.attrs for s in trace.spans() if s.name == "launch.k"]
+    assert got == [{"design": "a"}, {"design": "b"}, {}, {"design": "a"}]
+
+
 def test_a_span_left_open_ends_with_its_parent_even_on_an_exception():
     @trace.span("outer")
     def outer():
