@@ -14,7 +14,7 @@ the script exits non-zero:
    path replayed against its plain version; between them the cases must
    launch all eight kernels of the hybrid (``lane_rows``, the lanes core
    ``lane_ell_spmv`` with the ext route's gathers, the chips tail's
-   ``chips_products``, ``window_segsum`` and ``heavy_land``, the direct
+   ``chips_products``, ``window_segsum`` and ``heavy_land``, the
    landing);
 4. the stream probe (``stream_reduce``, a TMA ring over contiguous
    spans) and the first port's grid-stride kernel
@@ -38,14 +38,7 @@ the script exits non-zero:
    device time over 200 back-to-back calls and a profiler window; the
    core, the slot products, the segment-sum and ``heavy_land`` must
    launch in each run (the lanes run: both ext gathers too), and no
-   gather in the rows run; then the chips A/B (the x side on the two
-   gather stages against the slot products) and the landing A/B
-   (``landing="merge"``, the reference's segment-sum per stream and
-   panel merge, against the default direct landing, one segment-sum and
-   ``heavy_land``, from one pack in turns: those kernels alone, the
-   whole calls, host enqueue against device time over 200 calls, port
-   kernel calls a call, ``heavy_land`` beside its bound and
-   ``index_add_``);
+   gather in the rows run;
 7. main path 3, ``ext_windowed1m`` (1M rows, 5M nnz), default knobs:
    the same; the lanes run takes the windowed stage 2, and the windowed
    gather must launch there;
@@ -66,9 +59,9 @@ the script exits non-zero:
 10. main path 5, ``webbase1m`` (the webbase-1M stand-in) through
    ``cuda-hybrid`` at default knobs: the core and a tail past
    ``BIG_TAIL`` run as compact PELL on the row layout, landed by
-   ``heavy_land``; the same two core runs and A/B as path 2, and the
-   landing A/B; the core, ``pell_rows`` and ``heavy_land`` must launch,
-   and no gather in the rows run;
+   ``heavy_land``; the same two core runs and A/B as path 2; the core,
+   ``pell_rows`` and ``heavy_land`` must launch, and no gather in the
+   rows run;
    then the A/B of the tail's two kernels (the hybrid with
    ``pell_layout="tiles"``);
 11. ``powerlaw100k`` through ``cuda-pell`` with ``scheme="span"``: the
@@ -138,12 +131,11 @@ the script exits non-zero:
    ``powerlaw1200`` through the row-sorted PELL at 4 shards, each call
    against its plain call and the oracle and each kernel call replayed;
    between them they must launch ``lane_ell_sharded``, ``lane_rows``,
-   the three gathers, ``window_segsum``, ``pell_fused`` and
-   ``pell_unpermute``; then ``cuda-chips`` on its small cases and
-   ``heavy_scatter`` through ``cuda-hybrid`` (the split chips plan),
-   which must launch the slot products, the segment-sum and
-   ``heavy_land`` (on ``chips_x="hot"``: the gathers, the segment-sum
-   and ``heavy_land``);
+   the ext route's two gathers, the slot products, ``window_segsum``,
+   ``heavy_land``, ``pell_fused`` and ``pell_unpermute``; then
+   ``cuda-chips`` on its small cases and ``heavy_scatter`` through
+   ``cuda-hybrid`` (the split chips plan), which must launch the slot
+   products, the segment-sum and ``heavy_land``;
 23. main path 13, ``dist-flagship``: the flagship through the row-sharded
    hybrid on the mesh ``[cuda:0]`` (``loc_w`` 256, chunk 24), both core
    layouts from one pack (``row_sharded_hybrid_layouts``), the two runs
@@ -155,16 +147,14 @@ the script exits non-zero:
 25. main path 15, ``dist-webbase1m``: ``webbase1m`` at mesh 1, whose tail
    must take the ``chips-split`` route (the split streams' slot
    products, one segment-sum and ``heavy_land``, no gather), the two runs
-   and the core, chips and landing A/Bs; one call launches the slot
-   products, the segment-sum and ``heavy_land`` once each (four port
-   kernel calls);
+   and the core A/B; one call launches the slot products, the
+   segment-sum and ``heavy_land`` once each (four port kernel calls);
 26. main path 16, ``dist-amazon262k-4x1``: ``amazon262k`` on four shards
-   of one card with ``idx8``: the shards' chips tails (the reference's
-   meta picks the panel merge; the default lands them directly), the
-   ext panels on the lanes core, the two runs and the core, chips and
-   landing A/Bs; one call launches ``lane_rows``, the slot products, the
-   segment-sum and ``heavy_land`` once each for the four shards (four
-   port kernel calls);
+   of one card with ``idx8``: the shards' chips tails (where the
+   reference's meta records its panel merge), the ext panels on the
+   lanes core, the two runs and the core A/B; one call launches
+   ``lane_rows``, the slot products, the segment-sum and ``heavy_land``
+   once each for the four shards (four port kernel calls);
 27. main path 17, ``dist-powerlaw100k-pell``: ``powerlaw100k`` through
    ``prepare_row_sharded_pell`` at mesh 1 (the tile layout): the fused
    kernel and the un-permute;
@@ -254,7 +244,7 @@ and lanes in order, f32 products and sums rounded separately, no TF32);
 Y against ``spmm_oracle`` by ``validate_result``. The bitmap kernels
 ``bcsr_bits`` and ``bcsr_bits_spmm``, XPOSE's row sums
 ``xpose_s3_rows``, its slot-table S1 ``xpose_s1_slots``, the chips
-tail's ``chips_products`` and the direct landing ``heavy_land`` (each
+tail's ``chips_products`` and its landing ``heavy_land`` (each
 replay on its own copy of y, which it updates in place), bit-equal to
 their plain versions on the card and run on the CPU (a fixed order, no
 atomics; the slot kernel at the slots of mid its table names, the only
@@ -361,21 +351,16 @@ DESIGNS = ("rows", ("rows", "slab"), "prefix")
 FP64_SPMM_KERNELS = ("lane_ell_fp64", "pell_fused_fp64", "bcsr_spmm",
                      "pell_rows_fp64", "bcsr_bits_spmm")
 DIST_KERNELS = ("lane_ell_sharded", "lane_rows", "sorted_gather",
-                "ranked_gather", "window_gather", "window_segsum",
-                "chips_products", "heavy_land", "pell_fused", "unpermute",
-                "pell_rows")
+                "ranked_gather", "window_segsum", "chips_products",
+                "heavy_land", "pell_fused", "unpermute", "pell_rows")
 # one call of the row-sharded hybrid with chips tails, on the rows core:
 # one launch each for all the shards of the card
 DIST_CALL = ("lane_rows", "chips_products", "window_segsum", "heavy_land")
 # the core kernels of the two layouts: the lanes core's single-card and
 # row-shard kernels, and the rows core's one kernel
 CORE_KERNELS = ("lane_ell_spmv", "lane_ell_sharded", "lane_rows")
-# the chips tail on its default x side (the slot products) and landing
-# (one segment-sum, the direct scatter), and on chips_x="hot" (the two
-# gather stages)
+# the chips tail: the slot products, one segment-sum, the landing
 CHIPS_KERNELS = ("chips_products", "window_segsum", "heavy_land")
-CHIPS_HOT_KERNELS = ("sorted_gather", "ranked_gather", "window_gather",
-                     "window_segsum", "heavy_land")
 GATHERS = ("sorted_gather", "ranked_gather", "window_gather")
 # kernels held bit-equal to their plain versions run on the CPU (the same
 # fixed order); on the card the fused and row kernels' plain versions add
@@ -418,7 +403,7 @@ SOURCES = {
     # multiply on the chips tail's path, as one kernel
     "chips_products": ("spmv_scpa_tpu_torch/csrc/chips_products.cu",
                        "spmv_scpa_tpu/ops/ext_gather.py:79"),
-    # the landing's panel merge: the ranked gather (ext_gather.py:121; the
+    # the reference's panel merge: the ranked gather (ext_gather.py:121; the
     # windowed one, :167) over every row of y, as a direct scatter
     "heavy_land": ("spmv_scpa_tpu_torch/csrc/heavy_land.cu",
                    "spmv_scpa_tpu/ops/ext_gather.py:121"),
@@ -1479,31 +1464,22 @@ def core_ab(name, new, old, xd, A, card):
 
 
 def layouts_path(name, A, knobs, dev, card, kernels, lanes_kernels, branch,
-                 branch_what, describe, profile=False, forbid=(),
-                 chips=False, landing=False):
+                 branch_what, describe, profile=False, forbid=()):
     """A main path on both core layouts from one pack (the row-sharded
     hybrid's when ``knobs`` name a mesh): the rows core, the default,
     through ``full_path`` (its packing time covers both layouts), which
     must launch ``kernels`` and none of ``forbid``; then the lanes core's
     own run, with the counts set to 0 just before it, which must launch
-    ``lanes_kernels``; then the A/B of the two cores. With ``chips`` the
-    same pack binds the rows core with the chips tail on
-    ``chips_x="hot"`` too, and the chips A/B follows (``chips_ab``); with
-    ``landing`` it binds the rows core on ``landing="merge"`` too, and the
-    landing A/B follows (``landing_ab``). Returns (the rows run's kernel
-    table and counts, the lanes run's, the rows Prepared, its timed
-    result)."""
+    ``lanes_kernels``; then the A/B of the two cores. Returns (the rows
+    run's kernel table and counts, the lanes run's, the rows Prepared,
+    its timed result)."""
     held = {}
     dist = "mesh" in knobs
-    hot = ("rows", "hot")
-    merge = ("rows", "slots", "merge")
-    designs = (lane_ell.CORE_LAYOUTS + ((hot,) if chips else ())
-               + ((merge,) if landing else ()))
 
     def prepare(A, **kw):
-        held.update(distributed.row_sharded_hybrid_layouts(A, designs, **kw)
+        held.update(distributed.row_sharded_hybrid_layouts(A, **kw)
                     if dist else lane_ell.prepare_hybrid_layouts(
-                        A, designs, device=dev, **kw))
+                        A, device=dev, **kw))
         return held["rows"]
 
     strategy = "row-sharded-hybrid" if dist else "cuda-hybrid"
@@ -1517,137 +1493,7 @@ def layouts_path(name, A, knobs, dev, card, kernels, lanes_kernels, branch,
         timing=False, prepare=lambda A, **kw: held["lanes"])
     xd = torch.as_tensor(make_x(A.n), dtype=torch.float32, device=dev)
     core_ab(name, rows, lanes, xd, A, card)
-    if chips:
-        chips_ab(name, held[hot], rows, xd, card)
-    if landing:
-        landing_ab(name, held[merge], rows, xd, card)
     return rt, rc, lt, lc, rows, r
-
-
-def x_side_calls(hot, slots, xd):
-    """The chips tails' gather calls in one call of ``hot`` (a chips tail
-    on ``chips_x="hot"``): its gather calls whose index tables no gather
-    call of ``slots`` (the same pack on the slot products) holds. The
-    landing's panel merge and the ext route gather in both."""
-    def tables(k, a):
-        return a[1:3] if k == "ranked_gather" else a[2:4]
-
-    theirs = [tables(k, a) for k, a in slots.kernel_calls(xd) if k in GATHERS]
-
-    def shared(p, lane):
-        return any(p.shape == q.shape and torch.equal(p, q)
-                   and torch.equal(lane, r) for q, r in theirs)
-
-    return [(k, a) for k, a in hot.kernel_calls(xd)
-            if k in GATHERS and not shared(*tables(k, a))]
-
-
-def chips_ab(name, old, new, xd, card):
-    """The chips tail's x side on the two gather stages (``old``, the
-    rows core with ``chips_x="hot"``: its stage-1 and stage-2 gather
-    calls back to back) against the slot products (``new``, the default:
-    its ``chips_products`` calls) of one pack, in turns (old, new, new,
-    old), then the two whole calls the same way, whose y must be equal,
-    and host enqueue against device time over 200 calls back to back,
-    in turns; beside them the yardstick ``x_pad[cols]``, both bounds and
-    each call's launches of the port's kernels."""
-    y_old, y_new = old.fn(xd), new.fn(xd)
-    if not torch.equal(y_old, y_new):
-        raise AssertionError(f"{name}: y on the slot products differs from "
-                             "y on the two gather stages")
-    oc = x_side_calls(old, new, xd)
-    nc = [c for c in new.kernel_calls(xd) if c[0] == "chips_products"]
-    kern = {"old": [], "new": []}
-    call = {"old": [], "new": []}
-    hd = {"old": [], "new": []}
-    for side in ("old", "new", "new", "old"):
-        kern[side].append(median_ms(run_calls(oc if side == "old" else nc)))
-    for side in ("old", "new", "new", "old"):
-        call[side].append(call_ms((old if side == "old" else new).fn, xd))
-    for side in ("old", "new", "new", "old"):
-        hd[side].append(host_vs_device((old if side == "old" else new).fn,
-                                       xd))
-    b_old = sum(bound(k, a, KERNELS[k](*a))[0] for k, a in oc)
-    b_new = sum(bound(k, a, KERNELS[k](*a))[0] for k, a in nc)
-    lib = sum(median_ms(products_library(a)) for _, a in nc)
-    names = "+".join(dict.fromkeys(k for k, _ in oc))
-
-    print(f"[{name}] chips A/B in turns (old, new, new, old): {names} x"
-          f"{len(oc)} {_ms(kern['old'])} ms, chips_products x{len(nc)} "
-          f"{_ms(kern['new'])} ms | whole call, hot {_ms(call['old'])} ms, "
-          f"slots {_ms(call['new'])} ms, y equal | host/device ms a call "
-          f"over 200: hot {_hd(hd['old'])}, slots {_hd(hd['new'])} | "
-          f"x_pad[cols] {lib:.4f} ms | bound: slots {b_new:.4f}, hot "
-          f"{b_old:.4f} ms | kernel calls a call: hot "
-          f"{len(old.kernel_calls(xd))}, slots {len(new.kernel_calls(xd))}"
-          f" | {card}", flush=True)
-
-
-def _hd(v):
-    """Host enqueue / device ms pairs, as a line prints them."""
-    return ", ".join(f"{h:.4f}/{d:.4f}" for h, d in v)
-
-
-# the kernels of the landing on each design: the merge's segment-sums
-# (one per stream and shard) and panel-merge gathers, and the direct
-# design's one segment-sum and scatter
-MERGE_LANDING = ("window_segsum", "ranked_gather", "window_gather")
-DIRECT_LANDING = ("window_segsum", "heavy_land")
-
-
-def landing_ab(name, old, new, xd, card):
-    """The heavy-row landing on the reference's design (``old``, the rows
-    core on ``landing="merge"``: each stream's and shard's segment-sum,
-    then the panel merge's gathers and the torch ops around them) against
-    the direct one (``new``, the default: one segment-sum for every
-    stream and shard, one ``heavy_land``) of one pack, in turns (old,
-    new, new, old): those kernel calls alone back to back, then the two
-    whole calls, then host enqueue against device time over 200 calls
-    back to back; beside them each design's port kernel calls a call,
-    ``heavy_land`` alone, the merge's gathers alone, the ``index_add_``
-    yardstick of the same sums into the same rows, and both bounds. The
-    two y agree within rel-L2 1e-6 (a split plan's one segment-sum adds
-    a heavy row's streams in another order)."""
-    y_old, y_new = old.fn(xd), new.fn(xd)
-    rel = float((y_old - y_new).norm() / max(float(y_old.norm()), 1e-30))
-    if rel > TWIN_REL_L2:
-        raise AssertionError(f"{name}: y on the direct landing is {rel:.3e}"
-                             " from y on the merge")
-    oc = [c for c in old.kernel_calls(xd) if c[0] in MERGE_LANDING]
-    nc = [c for c in new.kernel_calls(xd) if c[0] in DIRECT_LANDING]
-    (_, la), = [c for c in nc if c[0] == "heavy_land"]
-    gathers = [c for c in oc if c[0] in GATHERS]
-    kern = {"old": [], "new": []}
-    call = {"old": [], "new": []}
-    hd = {"old": [], "new": []}
-    for side in ("old", "new", "new", "old"):
-        kern[side].append(median_ms(run_calls(oc if side == "old" else nc)))
-    for side in ("old", "new", "new", "old"):
-        call[side].append(call_ms((old if side == "old" else new).fn, xd))
-    for side in ("old", "new", "new", "old"):
-        hd[side].append(host_vs_device((old if side == "old" else new).fn,
-                                       xd))
-    b_old = sum(bound(k, a, KERNELS[k](*fresh(k, a)))[0] for k, a in oc)
-    b_new = sum(bound(k, a, KERNELS[k](*fresh(k, a)))[0] for k, a in nc)
-    b_land = bound("heavy_land", la, KERNELS["heavy_land"](*fresh(
-        "heavy_land", la)))[0]
-    heavy = int((la[2] >= 0).sum())
-    merged = (f"the merge's gathers x{len(gathers)} "
-              f"{median_ms(run_calls(gathers)):.4f} ms" if gathers else
-              "the merge past its budget: index_add_, no gather")
-    print(f"[{name}] landing A/B in turns (old, new, new, old): merge "
-          f"{'+'.join(dict.fromkeys(k for k, _ in oc))} x{len(oc)} "
-          f"{_ms(kern['old'])} ms, direct "
-          f"{'+'.join(k for k, _ in nc)} x{len(nc)} {_ms(kern['new'])} ms |"
-          f" whole call, merge {_ms(call['old'])} ms, direct "
-          f"{_ms(call['new'])} ms, y rel-L2 {rel:.2e} | host/device ms a "
-          f"call over 200: merge {_hd(hd['old'])}, direct {_hd(hd['new'])}"
-          f" | port kernel calls a call: merge {len(old.kernel_calls(xd))},"
-          f" direct {len(new.kernel_calls(xd))} | {heavy} heavy rows: "
-          f"heavy_land alone {median_ms(KERNELS['heavy_land'], *la):.4f} ms"
-          f" (bound {b_land:.4f}), {merged}, index_add_ "
-          f"{median_ms(land_library(la)):.4f} ms | bound: direct "
-          f"{b_new:.4f}, merge {b_old:.4f} ms | {card}", flush=True)
 
 
 def auto_xpose_path(name, A, dev, card, profile):
@@ -2097,12 +1943,8 @@ def dist_phases(dev, card, flagship_A, PL):
             for layout in lane_ell.CORE_LAYOUTS:
                 items.append((f"{name}-{k}-{layout}", make(k), prep_fn,
                               {**kw, "core_layout": layout}, k))
-    make = cases.DIST_CASES["hybrid-chips-split"][1]
-    items += [("amazon40k-ext-4-lanes", synth.amazon_csr(40_000, seed=11),
-               "prepare_row_sharded_hybrid", {"core_layout": "lanes"}, 4),
-              ("hybrid-chips-split-4-rows-hot", make(4),
-               "prepare_row_sharded_hybrid",
-               {"tail_kind": "chips-split", "chips_x": "hot"}, 4)]
+    items.append(("amazon40k-ext-4-lanes", synth.amazon_csr(40_000, seed=11),
+                  "prepare_row_sharded_hybrid", {"core_layout": "lanes"}, 4))
     items += [(f"pell-rowsort1200-4-{layout}",
                synth.powerlaw_csr(1200, 1200, seed=21),
                "prepare_row_sharded_pell", {"layout": layout}, 4)
@@ -2136,11 +1978,6 @@ def dist_phases(dev, card, flagship_A, PL):
                 lambda p, A: f"{p.strategy} nnz {A.nnz} chips "
                 f"{p.meta.get('tail_meta') or p.meta}", dev,
                 "cuda-chips and the split chips plan")
-    small_phase("small-chips-hot", [(f"{name}-hot", A, strategy,
-                                     {**kw, "chips_x": "hot"})
-                                    for name, A, strategy, kw in small],
-                CHIPS_HOT_KERNELS, lambda p, A: f"{p.strategy} nnz {A.nnz}",
-                dev, "cuda-chips and the split chips plan on chips_x='hot'")
 
     # 23-24. main paths 13 and 14: the flagship row-sharded on one card,
     # one shard on both core layouts (one pack) and four on the rows core
@@ -2171,23 +2008,20 @@ def dist_phases(dev, card, flagship_A, PL):
     one_call("dist-flagship-4x1", prep4, A.n, ("lane_rows",), dev)
     del prep4
 
-    # 25. main path 15: webbase1m at mesh 1, the split chips plan, and the
-    # chips and landing A/Bs; one segment-sum and one heavy_land a call
-    # for all the streams
+    # 25. main path 15: webbase1m at mesh 1, the split chips plan; one
+    # segment-sum and one heavy_land a call for all the streams
     WB = cases.webbase1m()
     *_, wb1, _ = layouts_path(
         "dist-webbase1m", WB, {"mesh": [dev]}, dev, card,
         ("lane_rows",) + CHIPS_KERNELS, ("lane_ell_sharded",) + CHIPS_KERNELS,
         lambda m: m["tail_kind"] == "chips-split", "the chips-split tail",
-        describe=dist_meta, profile=True, forbid=GATHERS, chips=True,
-        landing=True)
+        describe=dist_meta, profile=True, forbid=GATHERS)
     one_call("dist-webbase1m", wb1, WB.n, DIST_CALL, dev, calls=4)
     del wb1, WB
 
-    # 26. main path 16: amazon262k on four shards with idx8, and the
-    # chips and landing A/Bs; one chips_products, one window_segsum and
-    # one heavy_land launch a call for the four shards (four port kernel
-    # calls a call)
+    # 26. main path 16: amazon262k on four shards with idx8; one
+    # chips_products, one window_segsum and one heavy_land launch a call
+    # for the four shards (four port kernel calls a call)
     AZ = cases.amazon262k()
     *_, az4, _ = layouts_path(
         "dist-amazon262k-4x1", AZ, {"idx8": True, "mesh": [dev] * 4}, dev,
@@ -2196,9 +2030,8 @@ def dist_phases(dev, card, flagship_A, PL):
         + CHIPS_KERNELS,
         lambda m: (m["ext"] and m["tail_kind"] == "chips"
                    and m["panel_merge"] and m["idx8_planes"] > 0),
-        "ext panels, chips tails, the panel merge and idx8",
-        describe=dist_meta, profile=True, forbid=GATHERS,
-        chips=True, landing=True)
+        "ext panels, chips tails, the reference's panel merge and idx8",
+        describe=dist_meta, profile=True, forbid=GATHERS)
     one_call("dist-amazon262k-4x1", az4, AZ.n, DIST_CALL, dev, calls=4)
     del az4, AZ
 
@@ -2665,14 +2498,13 @@ def main() -> int:
     flagship_A = A
 
     # 6. main path 2: amazon262k, the ext route (lanes core) and the
-    # chips tail, then the chips A/B
+    # chips tail
     amz, amz_counts, amz_lanes, amz_lanes_counts, _, amz_r = layouts_path(
         "amazon262k", cases.amazon262k(), {}, dev, card,
         ("lane_rows",) + CHIPS_KERNELS,
         ("lane_ell_spmv", "sorted_gather", "ranked_gather") + CHIPS_KERNELS,
         lambda m: m["ext"] and m["tail_kind"] == "chips",
         "the ext route and the chips tail", forbid=GATHERS,
-        chips=True, landing=True,
         describe=lambda p: (
             f"loc_w {p.meta['loc_w']} Q {p.meta['slots']}+"
             f"{p.meta['ov_slots']} chunk {p.meta['chunk']} steps "
@@ -2729,7 +2561,7 @@ def main() -> int:
         lambda m: (m["tail_kind"] == "compact-cuda-pell-rows"
                    and m["tail_nnz"] > lane_ell.BIG_TAIL),
         "a compact-PELL tail (row layout) past BIG_TAIL", describe=pell_meta,
-        forbid=GATHERS, landing=True)
+        forbid=GATHERS)
     xd = torch.as_tensor(make_x(WB.n), dtype=torch.float32, device=dev)
     old = hybrid.prepare(WB, device=dev, pell_layout="tiles")
     layout_ab("webbase1m-tail", old, wb_prep, xd, card)

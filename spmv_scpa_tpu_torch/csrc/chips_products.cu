@@ -9,15 +9,15 @@
 //                     split plan's windowed stage 2, :167, called at :188),
 //                     the zero-padded copy of x they read and the multiply
 //                     vals * xg (chips_tail.py:839)
-// The ext route of the lanes core and the landing's panel merge keep the
-// three gathers (csrc/ext_gather.cu).
+// The ext route of the lanes core keeps the three gathers
+// (csrc/ext_gather.cu).
 //
 // Function, per slot e of the table (ops/chips_slots.py:slots_table
 // resolves the plan's stage-1 and stage-2 tables into one x column per
 // chip slot, once per plan):
 //     prod[e] = vals[e] * x[cols[e]]      0 <= cols[e] < n
 //     prod[e] = +0.0, no x read           otherwise (column -1: a slot the
-//                                         old pipeline read as 0.0, or one
+//                                         two stages read as 0.0, or one
 //                                         that holds no entry)
 // One f32 product rounded once (__fmul_rn), as the reference's multiply:
 // bit-equal to the plain version.

@@ -1,12 +1,14 @@
-// The three lane gathers of the ext route and the chips tail, for Hopper
+// The three lane gathers of the lanes core's ext route, for Hopper
 // (sm_90a).
 //
 // Replaces, in spmv_scpa_tpu/ops/ext_gather.py:
 //   sorted_gather  <- make_sorted_gather (stage 1: the compact hot region)
-//   ranked_gather  <- make_ranked_gather (stage 2, resident hot region;
-//                     also the ranked heavy-row merge of the chips tail)
+//   ranked_gather  <- make_ranked_gather (stage 2, resident hot region)
 //   window_gather  <- make_resident_window_gather (stage 2, a window of the
-//                     hot region per output row; also the windowed merge)
+//                     hot region per output row)
+// The reference runs them in the chips tail and its heavy-row merge too;
+// the port's chips tail reads x in place (csrc/chips_products.cu) and
+// lands its sums directly (csrc/heavy_land.cu).
 //
 // Every one computes, per output element e = r * 128 + j,
 //     out[e] = src[row(r, p[e]) * 128 + l[e]]      p[e] in [0, P)

@@ -2,15 +2,13 @@
 // sums added into y by a direct scatter.
 //
 // Replaces, in the landing role (spmv_scpa_tpu/ops/chips_tail.py, the
-// "zero-scatter panel merge" make_merge_apply / make_merge_apply_windowed
-// at :987-1064, called from ops/lane_ell.py:1479 and :1573 and
-// parallel/distributed.py:576-582):
+// "zero-scatter panel merge" at :987-1064, called from ops/lane_ell.py:1479
+// and :1573 and parallel/distributed.py:576-582):
 //   heavy_land <- make_ranked_gather (ops/ext_gather.py:121) or
 //                 make_resident_window_gather (:167) run over every row of
 //                 y, with the zeroed, padded copy of the sums they read and
 //                 the add of their whole output into y
-// The ext route of the lanes core and the chips tail's x side on
-// chips_x="hot" keep those gathers (csrc/ext_gather.cu).
+// The ext route of the lanes core keeps those gathers (csrc/ext_gather.cu).
 //
 // Function, for every k < n:
 //     y[land[k]] = y[land[k]] + ys[k]     0 <= land[k] < n_y

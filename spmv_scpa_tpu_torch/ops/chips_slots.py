@@ -1,6 +1,5 @@
 """The chips tail's x side as one kernel: products over a host slot table
-that reads x in place (``csrc/chips_products.cu``), the default of the
-chips tail (``chips_x="slots"``).
+that reads x in place (``csrc/chips_products.cu``).
 
 The reference's chips tail stages x for a TPU, which must hold what it
 gathers in VMEM: stage 1 (:func:`ext_gather.sorted_gather`) packs the
@@ -8,16 +7,16 @@ tail's unique columns of a zero-padded copy of x into a compact hot
 region, stage 2 (:func:`ext_gather.ranked_gather`, or
 :func:`ext_gather.window_gather` for a split plan's windowed streams)
 gathers each chip slot's value from it, and a multiply forms the
-products (``chips_x="hot"`` keeps that pipeline). On Hopper x is read in
+products. On Hopper x is read in
 place through the 50 MB L2, and every route of the two stages depends
 on the plan alone: :func:`slots_table` resolves it once on the host into
 one int32 x column per chip slot, and one launch of
 :func:`chips_products` forms ``vals * x[col]`` for every slot of every
 stream of a plan (of every shard of a device, on the row-sharded
-hybrid). The segment-sums and the landing stay as they are.
+hybrid).
 
 Column -1 marks a slot that reads no x and whose product is +0.0:
-* every slot the old pipeline read as 0.0: a stage-1 or stage-2 index
+* every slot the two stages read as 0.0: a stage-1 or stage-2 index
   outside its gather's range, a column past x in the zero-padded copy,
   a windowed index past the hot region cut to its reach, a ``windowed-x``
   column past ``nx``;
@@ -25,7 +24,7 @@ Column -1 marks a slot that reads no x and whose product is +0.0:
   that ``pad_resident_plan`` / ``pad_split_plan`` add (the plans'
   ``live`` masks).
 A real entry keeps its column even when its value is 0.0. So for finite
-x the products equal the old pipeline's (a 0.0 where it had a 0.0 of
+x the products equal the two stages' (a 0.0 where they give a 0.0 of
 either sign), and a non-finite x at a column no entry names never
 reaches y.
 """
@@ -115,7 +114,7 @@ def slots_table(plan, n: int) -> np.ndarray:
     """One int32 x column for each chip slot of ``plan`` (a single plan,
     a split plan's stream or a whole split plan, its streams' tables
     concatenated in stream order), for x of ``n`` elements: the column
-    the old pipeline's gathers read, or -1 where they read 0.0 or the
+    the two stages read, or -1 where they read 0.0 or the
     slot holds no entry (module docstring)."""
     out = []
     for s in slot_parts(plan):
@@ -132,13 +131,6 @@ def slot_vals(plan) -> np.ndarray:
     """The chip slots' values in :func:`slots_table`'s order, f32."""
     parts = [np.asarray(s.vals, np.float32) for s in slot_parts(plan)]
     return parts[0] if len(parts) == 1 else np.concatenate(parts)
-
-
-def slot_rows(plan) -> list:
-    """The chip rows (of 128 slots) of each part of ``plan`` in
-    :func:`slots_table`'s order: one for a single plan or a stream, one
-    per stream of a split plan."""
-    return [s.E8 for s in slot_parts(plan)]
 
 
 # ---------------------------------------------------------------------------

@@ -4,51 +4,42 @@
 Entries the lane-ELL core cannot hold (rows longer than its Q slot
 planes, demotion leftovers) become dense 128-lane "chips", reduced per
 row (the CSR-vector shape of the reference study's block-per-row CUDA
-kernel, cuda_csr.cu:96-140):
+kernel, cuda_csr.cu:96-140). The planners (:func:`plan_chips`,
+:func:`plan_chips_split`) are JAX-free copies of the reference's and
+produce its arrays. A call runs three kernels:
 
-1. stage 1 (:func:`ext_gather.sorted_gather`): the tail's sorted unique
-   columns become a compact hot region (H, 128);
-2. stage 2 (:func:`ext_gather.ranked_gather`): every tail entry reads its
-   x value from the hot region into the chip layout;
-3. ``prod = vals * xg``, a PyTorch multiply as in the reference (an XLA
-   elementwise op outside its kernels, chips_tail.py:839);
-4. :func:`segsum_kernel.window_segsum` reduces the chips to one sum per
-   heavy row (8 heavy rows per block, quantum (tile, lane) holding one
-   rank of a block's 8 rows);
-5. the landing adds the per-row sums into y.
-
-Steps 4-5 have two designs (knob ``landing``, :data:`LANDINGS`). On
-``"direct"`` (the default) one segment-sum covers every stream of a
-plan, and on the row-sharded hybrid every shard of a card
-(:func:`bind_sums`: one table whose windows stack the plans' heavy-row
-spaces), and one launch of :func:`heavy_land` (``csrc/heavy_land.cu``)
-adds each heavy row's sum into its row of y in place, through an int32
-map built on the host (:func:`land_map`). On ``"merge"`` each stream
-has its own segment-sum, the streams' sums add, and the reference's
-landing (:func:`make_landing`) merges them into y: a windowed or ranked
-panel merge through the gathers over every row of y, or ``index_add_``
-on the unique heavy rows when the merge tables exceed their budget.
-
-Steps 1-3 are the reference's staging of x for a TPU, kept on
-``chips_x="hot"``. On ``chips_x="slots"`` (the default) they are one
-kernel: :func:`chips_slots.slots_table` resolves both stages' routes on
-the host into one x column per chip slot, and one launch of
-:func:`chips_slots.chips_products` forms the products, reading x in
-place (every stream of a split plan in the same launch). The plans
-record which slots hold an entry (``live``), so that a slot without one
-reads no x.
+1. :func:`chips_slots.chips_products` forms ``vals * x[col]`` for every
+   chip slot of every stream of a plan (of every shard of a card, on the
+   row-sharded hybrid) in one launch, reading x in place. The reference
+   stages x for a TPU in two gathers (stage 1,
+   :func:`ext_gather.sorted_gather`, packs the tail's unique columns into
+   a compact hot region; stage 2, :func:`ext_gather.ranked_gather` or
+   :func:`ext_gather.window_gather`, reads each slot's value from it) and
+   multiplies; every route of those stages depends on the plan alone, so
+   :func:`chips_slots.slots_table` resolves them on the host into one x
+   column per slot. The plans record which slots hold an entry
+   (``live``), and a slot without one reads no x.
+2. :func:`segsum_kernel.window_segsum` reduces the products to one sum
+   per heavy row (8 heavy rows per block, quantum (tile, lane) holding
+   one rank of a block's 8 rows), one launch over every stream of every
+   plan (:func:`bind_sums`: one table whose windows stack the plans'
+   heavy-row spaces).
+3. :func:`heavy_land` (``csrc/heavy_land.cu``) adds each heavy row's sum
+   into its row of y in place, through an int32 map built on the host
+   (:func:`land_map`). The reference lands the sums by a panel merge
+   through its gathers, or ``index_add_`` past the merge's budget; the
+   meta records its choice (``panel_merge``, :func:`merge_kind`), and no
+   merge table is built.
 
 **Split mode** (:func:`plan_chips_split`), when the tail's unique
 columns exceed the single plan's budgets: entries split by diagonal
-distance. *Local* entries ride a windowed stage 2
-(:func:`ext_gather.window_gather`) over x itself (``windowed-x``) or,
-past the windowed gather's cap, over a dedup'd hot region
-(``windowed``); *far* entries, and local ones past the window's reach,
-ride the resident stage 2, split by column popularity into a ``far`` and
-a ``cold`` stream when one resident stream would not fit. The streams
-share one heavy-row space: on ``landing="direct"`` one segment-sum adds
-a heavy row's quanta of all streams, on ``"merge"`` each stream has its
-own and the streams' sums add before the landing.
+distance. *Local* entries ride a windowed stage 2 over x itself
+(``windowed-x``) or, past the windowed gather's cap, over a dedup'd hot
+region (``windowed``); *far* entries, and local ones past the window's
+reach, ride the resident stage 2, split by column popularity into a
+``far`` and a ``cold`` stream when one resident stream would not fit.
+The streams share one heavy-row space, and the one segment-sum adds a
+heavy row's quanta of all of them.
 
 For the row-sharded hybrid (``parallel/distributed.py``),
 :func:`pad_resident_plan` and :func:`pad_split_plan` pad per-shard plans
@@ -56,9 +47,8 @@ to shared shapes, every padded slot adding exactly zero.
 
 The device functions take ``ops``, the kernels to run by name
 (:data:`KERNELS`, ``lane_ell.KERNELS``, or a ``PLAIN`` for the plain
-versions). The host planners are JAX-free copies of the reference's.
-``cuda-chips`` (:func:`prepare_chips_strategy`) runs a whole matrix as
-chips.
+versions). ``cuda-chips`` (:func:`prepare_chips_strategy`) runs a whole
+matrix as chips.
 """
 
 from __future__ import annotations
@@ -84,16 +74,13 @@ SPLIT_VPU_BUDGET = 1.2e9
 # default stage-1 window reach (panels); adaptive per unique spacing
 R_PANELS = 512
 # windowed stage-2 reach (rows of the hot region), and the hot cap of
-# the windowed gather (the split plan's local stream, the windowed merge)
+# the windowed gather (the split plan's local stream; the reference's
+# windowed merge, :func:`merge_kind`)
 R_HOT = 128
 H_WIN_CAP = 16384
 # local/far diagonal split distance of the split plan (its feasibility
 # proxy in the hybrid's packer uses it)
 W_LOC = 4096
-# windowed-merge reach (rows of the padded per-row sums): heavy ranks
-# are contiguous per 128-row output group, so a group's slots span <= 2
-# rows, +8 for the 8-row base alignment
-MERGE_R_H = 16
 
 def _adaptive_r(uniq: np.ndarray, cap: int = R_PANELS) -> int:
     """Stage-1 window reach: smallest power-of-two panel count whose
@@ -332,9 +319,9 @@ def pad_resident_plan(plan: ChipsPlan, *, n_groups: int,
       (the segment-sum writes every window it is given), then repeat the
       last window, so ``win_of_step`` stays non-decreasing;
     * extra heavy slots take ids from ``heavy_pad_pool`` (rows with no
-      tail entries on this shard: their sums are 0, and the merge adds 0
-      to them); ``n_real`` keeps the number of real ranks, and the
-      direct landing (:func:`land_map`) adds nothing for the others.
+      tail entries on this shard: their sums are 0); ``n_real`` keeps
+      the number of real ranks, and the landing (:func:`land_map`) adds
+      nothing for the others.
     """
     h, rps = plan.h, plan.rows_per_step
     qps = (rps // 8) * BC
@@ -711,68 +698,11 @@ def _put(a, dtype, device):
                            device=device)
 
 
-# what the chips tail's x side runs: one kernel over a host slot table
-# that reads x in place (ops/chips_slots.py, the default), or the
-# reference's two gather stages over a staged x and a multiply
-CHIPS_X = ("slots", "hot")
-# how the per-heavy-row sums reach y: one segment-sum over every stream
-# (of every shard of a card) and one direct scatter, ``heavy_land`` (the
-# default), or the reference's segment-sum per stream and its panel
-# merge through the gathers (``index_add_`` past the merge's budget)
-LANDINGS = ("direct", "merge")
-
-
-def check_chips_x(chips_x: str) -> None:
-    if chips_x not in CHIPS_X:
-        raise ValueError(f"chips_x {chips_x!r} is not one of {CHIPS_X}")
-
-
-def check_landing(landing: str) -> None:
-    if landing not in LANDINGS:
-        raise ValueError(f"landing {landing!r} is not one of {LANDINGS}")
-
-
-def _segsum(rbl, win_of_step, num_windows: int, h: int, rows_per_step: int,
-            device):
-    """``fn(part, ops) -> ys`` (num_windows*h, 8): the window segment-sum
-    of one stream's products ``part``."""
-    t_rbl = _put(rbl, torch.int32, device)
-    t_win = _put(win_of_step, torch.int32, device)
-    tables = segsum_kernel.window_tables(rbl, win_of_step, num_windows, h,
-                                         device)
-
-    def fn(part, ops):
-        return ops.window_segsum(part, t_rbl, t_win, num_windows, h,
-                                 rows_per_step, tables)
-    return fn
-
-
-def _slot_sums(plan, device):
-    """``fn(prod, ops) -> ys`` (NH,) over ``plan``'s products in
-    :func:`chips_slots.slots_table`'s order: each stream's segment-sum
-    over its rows of ``prod``, the streams' sums added in stream order."""
-    parts, r0 = [], 0
-    for s, rows in zip(chips_slots.slot_parts(plan),
-                       chips_slots.slot_rows(plan)):
-        parts.append((r0, r0 + rows, _segsum(
-            s.rbl, s.win_of_step, plan.num_windows, plan.h,
-            plan.rows_per_step, device)))
-        r0 += rows
-    NH = plan.NH
-
-    def fn(prod, ops):
-        ys = None
-        for a, b, seg in parts:
-            t = seg(prod[a:b], ops)
-            ys = t if ys is None else ys + t
-        return ys.view(-1)[:NH]
-    return fn
-
-
-def _slot_products(plans: list, n: int, device):
+def bind_slots(plans: list, n: int, device):
     """``(products(xf, ops) -> prod, hbm)``: the slot tables of ``plans``
-    concatenated into one, one ``chips_products`` launch for all of them;
-    ``hbm`` 12 B a slot (column, value, product)."""
+    (one plan, or a card's shards) concatenated into one, one
+    ``chips_products`` launch for all of them; ``hbm`` 12 B a slot
+    (column, value, product)."""
     cols = np.concatenate([chips_slots.slots_table(p, n) for p in plans])
     vals = np.concatenate([chips_slots.slot_vals(p) for p in plans])
     t_cols = _put(cols, torch.int32, device)
@@ -783,51 +713,15 @@ def _slot_products(plans: list, n: int, device):
     return products, int(cols.size * 12)
 
 
-def bind_slots(plans: list, n: int, device):
-    """The slot tables of ``plans`` (a device's shards) concatenated into
-    one: ``(products(xf, ops) -> prod, [sums(prod_j, ops) -> ys_j], hbm)``
-    with one ``chips_products`` launch for all of them and each plan's
-    segment-sums over its own rows of ``prod`` (the ``"merge"``
-    landing's). ``hbm``: 12 B a slot (column, value, product) and the
-    per-row sums."""
-    products, hbm = _slot_products(plans, n, device)
-    sums, r0 = [], 0
-    for p in plans:
-        rows = sum(chips_slots.slot_rows(p))
-        seg = _slot_sums(p, device)
-        sums.append(lambda prod, ops, a=r0, b=r0 + rows, seg=seg:
-                    seg(prod[a:b], ops))
-        r0 += rows
-    return products, sums, int(hbm + sum(p.NH for p in plans) * 4)
-
-
-def _hot_products(plans: list, n: int, device):
-    """``(products(xf, ops) -> prod, hbm)`` on ``chips_x="hot"``: each
-    stream's two gather stages and multiply, the streams of every plan
-    concatenated in :func:`chips_slots.slots_table`'s order."""
-    parts = [(_stream_products(s, n, device) if isinstance(p, SplitChipsPlan)
-              else _single_products(s, n, device))
-             for p in plans for s in chips_slots.slot_parts(p)]
-    fns = [fn for fn, _ in parts]
-
-    def products(xf, ops):
-        out = [fn(xf, ops) for fn in fns]
-        return out[0] if len(out) == 1 else torch.cat(out)
-    return products, sum(hbm for _, hbm in parts)
-
-
-def bind_sums(plans: list, n: int, device, chips_x: str = "slots"):
-    """Every heavy row's sum of ``plans`` (one plan, or a device's shards)
-    from one window segment-sum launch, the ``"direct"`` landing's: the
-    plans' chip rows stacked in slot order (their products from one
-    ``chips_products`` launch on ``chips_x="slots"``, or from each stream's
-    gathers on ``"hot"``), the quanta of every stream of plan j in one
-    table whose windows follow plan j - 1's, so that one destination holds
-    the quanta of all of a heavy row's streams, in ascending order (loc,
-    far, cold: another order than the streams' sums added one after the
-    other, so y differs from the merge's by rounding). Returns
-    ``(sums(xf, ops) -> ys, ranks, hbm)``: ys (L,) f32 with plan j's heavy
-    rank k at ``ranks[j] + k``; ``hbm`` the x side's bytes and the sums'."""
+def bind_sums(plans: list, n: int, device):
+    """Every heavy row's sum of ``plans`` (one plan, or a card's shards)
+    from one window segment-sum launch: the plans' chip rows stacked in
+    slot order (their products from :func:`bind_slots`), the quanta of
+    every stream of plan j in one table whose windows follow plan j - 1's,
+    so that one destination holds the quanta of all of a heavy row's
+    streams, in ascending order (loc, far, cold). Returns ``(sums(xf, ops)
+    -> ys, ranks, hbm)``: ys (L,) f32 with plan j's heavy rank k at
+    ``ranks[j] + k``; ``hbm`` the products' bytes and the sums'."""
     h, rps = plans[0].h, plans[0].rows_per_step
     if any(p.h != h or p.rows_per_step != rps for p in plans):
         raise ValueError("bind_sums: plans of different h or rows_per_step "
@@ -839,126 +733,17 @@ def bind_sums(plans: list, n: int, device, chips_x: str = "slots"):
             win.append(np.asarray(s.win_of_step, np.int64) + w0)
         ranks.append(w0 * h * 8)
         w0 += p.num_windows
-    seg = _segsum(np.concatenate(rbl), np.concatenate(win), w0, h, rps,
-                  device)
+    rbl, win = np.concatenate(rbl), np.concatenate(win)
+    t_rbl, t_win = _put(rbl, torch.int32, device), _put(win, torch.int32,
+                                                        device)
+    tables = segsum_kernel.window_tables(rbl, win, w0, h, device)
     L = ranks[-1] + plans[-1].NH
-    products, hbm = (_slot_products if chips_x == "slots" else
-                     _hot_products)(plans, n, device)
+    products, hbm = bind_slots(plans, n, device)
 
     def sums(xf, ops):
-        return seg(products(xf, ops), ops).view(-1)[:L]
+        return ops.window_segsum(products(xf, ops), t_rbl, t_win, w0, h, rps,
+                                 tables).view(-1)[:L]
     return sums, ranks, int(hbm + sum(p.NH for p in plans) * 4)
-
-
-@trace.span("pack.upload", fn="prepare_chips")
-def prepare_chips(plan, n: int, device, chips_x: str = "slots"):
-    """Device pipeline of a plan, single or split: returns ``(contrib,
-    hbm)``, where ``contrib(xf, ops) -> ys`` (NH,) f32 gives the
-    per-heavy-row sums in ``plan.heavy_ids`` order for x (f32, on
-    ``device``), each stream's segment-sum apart (the ``"merge"``
-    landing's). ``chips_x``: ``"slots"`` (the default: one
-    ``chips_products`` launch over the plan's slot table, x read in
-    place) or ``"hot"`` (the reference's staged x, two gather stages and
-    a multiply)."""
-    check_chips_x(chips_x)
-    if chips_x == "slots":
-        products, (sums,), hbm = bind_slots([plan], n, device)
-        return (lambda xf, ops: sums(products(xf, ops), ops)), hbm
-    if isinstance(plan, SplitChipsPlan):
-        return prepare_chips_split(plan, n, device)
-    prod, hbm = _single_products(plan, n, device)
-    segsum = _segsum(plan.rbl, plan.win_of_step, plan.num_windows, plan.h,
-                     plan.rows_per_step, device)
-    NH = plan.NH
-
-    def contrib(xf, ops):
-        return segsum(prod(xf, ops), ops).view(-1)[:NH]
-
-    return contrib, int(hbm + plan.NH * 4)
-
-
-def _single_products(plan: ChipsPlan, n: int, device):
-    """``(fn(xf, ops) -> vals * xg, hbm)`` of a single plan on
-    ``chips_x="hot"``: stage 1 into the hot region, stage 2 into the chip
-    layout, the multiply."""
-    base = _put(plan.base, torch.int32, device)
-    p1 = _put(plan.p1, torch.int32, device)
-    l1 = _put(plan.l1, torch.int32, device)
-    p2 = _put(plan.p2, torch.int32, device)
-    l2 = _put(plan.l2, torch.int32, device)
-    vals = _put(plan.vals, torch.float32, device)
-    n1 = plan.n1p_blocks * plan.R * BC
-
-    def fn(xf, ops):
-        x1 = torch.zeros(n1, dtype=torch.float32, device=xf.device)
-        x1[:n] = xf
-        hot = ops.sorted_gather(base, x1.view(-1, BC), p1, l1, plan.R)
-        return vals * ops.ranked_gather(hot, p2, l2)
-
-    hbm = (plan.E8 * BC * (4 + 4 + 4 + 4)        # vals, p2, l2, xg
-           + plan.n_groups * plan.R * BC * 4)   # stage-1 windows
-    return fn, int(hbm)
-
-
-def _stream_products(s: _Stream, n: int, device):
-    """``(fn(xf, ops) -> vals * xg, hbm)`` of one split-plan stream on
-    ``chips_x="hot"``: its gathers and the multiply."""
-    t = {k: _put(getattr(s, k), torch.int32, device)
-         for k in ("p2", "l2")
-         + (("base8",) if s.kind != "resident" else ())
-         + (("base1", "p1", "l1") if s.kind != "windowed-x" else ())}
-    vals = _put(s.vals, torch.float32, device)
-    hbm = s.E8 * BC * 16 + s.H_pad * BC * 4
-
-    if s.kind == "windowed-x":
-        # the windowed gather over x itself, zero-padded to its reach
-        nx = min(n, s.H_pad * BC)
-
-        def fn(xf, ops):
-            xp = torch.zeros(s.H_pad * BC, dtype=torch.float32,
-                             device=xf.device)
-            xp[:nx] = xf[:nx]
-            return vals * ops.window_gather(t["base8"], xp.view(-1, BC),
-                                            t["p2"], t["l2"], s.r_hot)
-        return fn, hbm
-
-    n1 = s.n1p_blocks * s.r1 * BC
-
-    def fn(xf, ops):
-        x1 = torch.zeros(n1, dtype=torch.float32, device=xf.device)
-        x1[:n] = xf
-        hot = ops.sorted_gather(t["base1"], x1.view(-1, BC), t["p1"],
-                                t["l1"], s.r1)
-        if s.kind == "resident":
-            return vals * ops.ranked_gather(hot, t["p2"], t["l2"])
-        if hot.shape[0] != s.H_pad:          # pad or cut to the reach
-            hot = torch.cat([hot, hot.new_zeros(
-                (max(s.H_pad - hot.shape[0], 0), BC))])[:s.H_pad]
-        return vals * ops.window_gather(t["base8"], hot, t["p2"], t["l2"],
-                                        s.r_hot)
-    return fn, hbm
-
-
-@trace.span("pack.upload", fn="prepare_chips_split")
-def prepare_chips_split(plan: SplitChipsPlan, n: int, device):
-    """Device pipeline of a split plan on ``chips_x="hot"``: ``(contrib,
-    hbm)`` as :func:`prepare_chips`; each stream's segment-sum apart, the
-    streams' sums added in stream order."""
-    parts = []
-    for s in plan.streams:
-        prod, hbm = _stream_products(s, n, device)
-        parts.append((prod, _segsum(s.rbl, s.win_of_step, plan.num_windows,
-                                    plan.h, plan.rows_per_step, device), hbm))
-    NH = plan.NH
-
-    def contrib(xf, ops):
-        ys = None
-        for prod, seg, _ in parts:
-            t = seg(prod(xf, ops), ops)
-            ys = t if ys is None else ys + t
-        return ys.view(-1)[:NH]
-
-    return contrib, int(sum(hbm for *_, hbm in parts) + plan.NH * 4)
 
 
 def split_plan_host_args(plan: SplitChipsPlan) -> list:
@@ -983,18 +768,19 @@ def split_plan_host_args(plan: SplitChipsPlan) -> list:
     return out
 
 
-def chips_meta(plan, use_merge: bool) -> dict:
+def chips_meta(plan, panel_merge: bool) -> dict:
     """What the hybrid's and ``cuda-chips``' meta say of a chips plan
-    (the reference's keys)."""
+    (the reference's keys; ``panel_merge``: :func:`merge_kind`'s
+    verdict)."""
     if isinstance(plan, SplitChipsPlan):
         return {"heavy_rows": plan.NH, "split": True,
-                "panel_merge": use_merge, "windows": plan.num_windows,
+                "panel_merge": panel_merge, "windows": plan.num_windows,
                 "loc_entries": plan.loc.n_entries if plan.loc else 0,
                 "far_entries": plan.far.n_entries if plan.far else 0,
                 "cold_entries": plan.cold.n_entries if plan.cold else 0,
                 "hot_h": tuple(s.H_pad for s in plan.streams)}
     return {"heavy_rows": plan.NH, "hot_h": plan.H, "split": False,
-            "panel_merge": use_merge, "gather_groups": plan.n_groups,
+            "panel_merge": panel_merge, "gather_groups": plan.n_groups,
             "tile_rows": plan.E8, "windows": plan.num_windows}
 
 
@@ -1002,161 +788,40 @@ def chips_meta(plan, use_merge: bool) -> dict:
 # The heavy-row landing
 # ---------------------------------------------------------------------------
 
-def _merge_h8(NH: int) -> int:
-    """Height of the padded per-row sums for the panel merge: more than
-    NH/128 rows (slot NH is the guaranteed-zero pad entry), a multiple
-    of 8."""
-    return -(-(NH // BC + 1) // 8) * 8
-
-
-def merge_tables(heavy_ids: np.ndarray, m: int, G_pad: int,
-                 budget: float = 6e8):
-    """Host (p2, l2) tables of the ranked panel merge, or None when NH
-    exceeds the budgets. Each 128-row output group's lane points at its
-    heavy row's slot in the padded sums; unset lanes point at slot NH,
-    which holds 0."""
+def merge_kind(heavy_ids: np.ndarray, m: int, G_pad: int,
+               budget: float = 6e8, windowed: bool = True) -> str:
+    """How the reference lands the sums of ``heavy_ids`` into a y of
+    ``G_pad`` 128-row groups (the choice of its landing step, which the
+    meta's ``panel_merge`` records; the port lands them by
+    :func:`heavy_land` and builds none of its tables): ``"windowed"``
+    when the ids ascend and the padded sums fit the windowed gather's cap
+    (``H_WIN_CAP`` rows), else ``"ranked"`` when they fit the resident
+    cap (``H_CAP``) and ``budget`` of gather work (3 ops a lane of every
+    padded row for each output group), else ``"scatter"``.
+    ``windowed=False`` asks the row-sharded reference, whose shards try
+    the ranked merge alone. Raises ValueError unless the ids index rows
+    below ``min(m, G_pad * 128)``."""
     NH = int(heavy_ids.size)
     if NH and int(heavy_ids.max()) >= min(m, G_pad * BC):
         raise ValueError("heavy_ids must index rows (< m <= G_pad*128)")
-    H8 = _merge_h8(NH)
-    G_out = -(-G_pad // 8) * 8
-    if H8 > H_CAP or G_out * H8 * BC * 3 > budget:
-        return None
-    p2 = np.full((G_out, BC), NH // BC, np.int32)
-    l2 = np.full((G_out, BC), NH % BC, np.int32)
-    grp = (heavy_ids // BC).astype(np.int64)
-    lane = (heavy_ids % BC).astype(np.int64)
-    k = np.arange(NH, dtype=np.int64)
-    p2[grp, lane] = (k // BC).astype(np.int32)
-    l2[grp, lane] = (k % BC).astype(np.int32)
-    return p2, l2
+    # rows of the padded sums: past NH/128 (slot NH holds a zero), in 8s
+    h8 = -(-(NH // BC + 1) // 8) * 8
+    if windowed and h8 <= H_WIN_CAP and not (
+            NH and np.any(np.diff(heavy_ids) <= 0)):
+        return "windowed"
+    if h8 <= H_CAP and -(-G_pad // 8) * 8 * h8 * BC * 3 <= budget:
+        return "ranked"
+    return "scatter"
 
 
-def merge_tables_windowed(heavy_ids: np.ndarray, m: int, G_pad: int,
-                          r_h: int = MERGE_R_H):
-    """Windowed variant of :func:`merge_tables`: per-output-row window
-    bases, O(r_h) per output row. Needs ascending heavy ids (ranks are
-    then contiguous per group); out-of-window lanes (p == r_h) gather 0.
-    Returns (base8, p2, l2, H8) or None."""
-    NH = int(heavy_ids.size)
-    if NH and int(heavy_ids.max()) >= min(m, G_pad * BC):
-        raise ValueError("heavy_ids must index rows (< m <= G_pad*128)")
-    if NH and np.any(np.diff(heavy_ids) <= 0):
-        return None
-    H8 = max(_merge_h8(NH), r_h)
-    if H8 > H_WIN_CAP:
-        return None
-    G_out = -(-G_pad // 8) * 8
-    k = np.arange(NH, dtype=np.int64)
-    grp = (heavy_ids // BC).astype(np.int64)
-    lane = (heavy_ids % BC).astype(np.int64)
-    k_lo = np.searchsorted(heavy_ids, np.arange(G_out) * BC)
-    base8 = np.clip(k_lo // BC // 8, 0, (H8 - r_h) // 8).astype(
-        np.int32)
-    p2 = np.full((G_out, BC), r_h, np.int32)   # out-of-window => 0
-    l2 = np.zeros((G_out, BC), np.int32)
-    p2[grp, lane] = (k // BC - base8[grp].astype(np.int64) * 8) \
-        .astype(np.int32)
-    l2[grp, lane] = (k % BC).astype(np.int32)
-    if NH and not ((0 <= p2[grp, lane]).all()
-                   and (p2[grp, lane] < r_h).all()):
-        raise AssertionError("merge window overflow")
-    return base8, p2, l2, H8
-
-
-def merge_hbm(NH: int, G_pad: int) -> int:
-    """Bytes the panel merge streams per call: p2/l2/out lanes (12 B
-    each) + the padded per-row sums."""
-    G_out = -(-G_pad // 8) * 8
-    return G_out * BC * 12 + _merge_h8(NH) * BC * 4
-
-
-def make_merge_apply(NH: int, m: int, use_merge: bool):
-    """``apply(y, ys, *tables, ops=ops) -> y'`` adding the
-    per-heavy-row sums ``ys`` (NH,) into y (m,). ``use_merge``: the
-    ranked panel merge, tables = (p2, l2) from :func:`merge_tables`;
-    else the scalar fallback, ``index_add_`` on the unique heavy rows,
-    tables = (hid,)."""
-    if use_merge:
-        H8 = _merge_h8(NH)
-
-        def apply(y, ys, p2, l2, ops):
-            ysp = torch.zeros(H8 * BC, dtype=torch.float32, device=y.device)
-            ysp[:NH] = ys
-            return y + ops.ranked_gather(
-                ysp.view(H8, BC), p2, l2).view(-1)[:m]
-    else:
-        def apply(y, ys, hid, ops):
-            return y.index_add_(0, hid, ys)
-    return apply
-
-
-def make_merge_apply_windowed(NH: int, m: int, H8: int,
-                              r_h: int = MERGE_R_H):
-    """``apply(y, ys, base8, p2, l2, ops=ops) -> y'`` for the
-    windowed merge tables, O(r_h) per output row."""
-
-    def apply(y, ys, base8, p2, l2, ops):
-        ysp = torch.zeros(H8 * BC, dtype=torch.float32, device=y.device)
-        ysp[:NH] = ys
-        return y + ops.window_gather(
-            base8, ysp.view(H8, BC), p2, l2, r_h).view(-1)[:m]
-
-    return apply
-
-
-def landing_tables(heavy_ids: np.ndarray, m: int, G_pad: int,
-                   budget: float = 6e8):
-    """The landing's host decision: ``("windowed", (base8, p2, l2,
-    H8))``, ``("ranked", (p2, l2))`` or ``("scatter", None)``."""
-    tw = merge_tables_windowed(heavy_ids, m, G_pad)
-    if tw is not None:
-        return "windowed", tw
-    t = merge_tables(heavy_ids, m, G_pad, budget)
-    return ("ranked", t) if t is not None else ("scatter", None)
-
-
-@trace.span("pack.upload", fn="make_landing")
-def make_landing(heavy_ids: np.ndarray, m: int, G_pad: int, device,
-                 budget: float = 6e8, tables: tuple | None = None):
-    """The heavy-row landing, composed: returns ``(land, use_merge,
-    extra_hbm)`` with ``land(y, ys, ops) -> y'`` adding the
-    per-heavy-row sums into a dense y. Prefers the windowed panel merge,
-    then the ranked one, and falls back to ``index_add_`` on the unique
-    heavy rows when the tables exceed the budgets. ``tables`` passes
-    :func:`landing_tables`' result when the caller already has it."""
-    NH = int(heavy_ids.size)
-    kind, t = tables if tables is not None else landing_tables(
-        heavy_ids, m, G_pad, budget)
-    if kind == "windowed":
-        base8, p2, l2, H8 = t
-        apply = make_merge_apply_windowed(NH, m, H8)
-        tabs = (_put(base8, torch.int32, device),
-                _put(p2, torch.int32, device), _put(l2, torch.int32, device))
-    elif kind == "ranked":
-        apply = make_merge_apply(NH, m, True)
-        tabs = (_put(t[0], torch.int32, device),
-                _put(t[1], torch.int32, device))
-    else:
-        apply = make_merge_apply(NH, m, False)
-        tabs = (_put(heavy_ids, torch.int64, device),)
-    use_merge = kind != "scatter"
-    extra = merge_hbm(NH, G_pad) if use_merge else 0
-
-    def land(y, ys, ops):
-        return apply(y, ys, *tabs, ops=ops)
-
-    return land, use_merge, extra
-
-
-# ---- the direct landing: heavy_land -----------------------------------------
+# ---- heavy_land -------------------------------------------------------------
 
 # Launches of ``heavy_land``'s CUDA kernel by its wrapper in this process.
 LAUNCHES = {"heavy_land": 0}
 
 
 def land_map(plans: list, ranks, size: int, row0) -> np.ndarray:
-    """The ``"direct"`` landing's map of the sums of :func:`bind_sums`
+    """The landing's map of the sums of :func:`bind_sums`
     (int64, (size,)): position ``ranks[j] + k`` holds ``row0[j] +
     heavy_ids_j[k]`` for each real heavy rank k of plan j (k <
     ``n_real``), -1 elsewhere: window padding, and a padded shard plan's
@@ -1249,13 +914,12 @@ def heavy_land_plain(y, ys, land) -> torch.Tensor:
 
 
 @trace.span("pack.upload", fn="land_chips")
-def land_chips(plan, n: int, m: int, device, chips_x: str = "slots"):
-    """The ``"direct"`` landing of one chips plan into y (m,): ``(add(y,
-    xf, ops) -> y, hbm)`` with ``add`` one segment-sum over all the
-    plan's streams (:func:`bind_sums`) and one ``heavy_land`` into y in
-    place; ``hbm`` the tail's bytes, the landing's 16 B a heavy row
-    among them."""
-    sums, ranks, hbm = bind_sums([plan], n, device, chips_x)
+def land_chips(plan, n: int, m: int, device):
+    """One chips plan landed into y (m,): ``(add(y, xf, ops) -> y,
+    hbm)`` with ``add`` one segment-sum over all the plan's streams
+    (:func:`bind_sums`) and one ``heavy_land`` into y in place; ``hbm``
+    the tail's bytes, the landing's 16 B a heavy row among them."""
+    sums, ranks, hbm = bind_sums([plan], n, device)
     land = land_map([plan], ranks, plan.NH, [0])
     t_land = bind_land(land, m, device)
 
@@ -1271,38 +935,25 @@ def land_chips(plan, n: int, m: int, device, chips_x: str = "slots"):
 class ChipsKernels(NamedTuple):
     """The functions a chips call runs, by name."""
 
-    sorted_gather: Callable
-    ranked_gather: Callable
-    window_gather: Callable
     window_segsum: Callable
     chips_products: Callable
     heavy_land: Callable
 
 
-KERNELS = ChipsKernels(ext_gather.sorted_gather, ext_gather.ranked_gather,
-                       ext_gather.window_gather, segsum_kernel.window_segsum,
+KERNELS = ChipsKernels(segsum_kernel.window_segsum,
                        chips_slots.chips_products, heavy_land)
-PLAIN = ChipsKernels(ext_gather.sorted_gather_plain,
-                     ext_gather.ranked_gather_plain,
-                     ext_gather.window_gather_plain,
-                     segsum_kernel.window_segsum_plain,
+PLAIN = ChipsKernels(segsum_kernel.window_segsum_plain,
                      chips_slots.chips_products_plain, heavy_land_plain)
 
 
-def prepare_chips_strategy(A: CSR, device="cuda", chips_x: str = "slots",
-                           landing: str = "direct", **_) -> Prepared:
+def prepare_chips_strategy(A: CSR, device="cuda", **_) -> Prepared:
     """``cuda-chips`` (the reference's ``pallas-chips``,
     ``prepare_chips_strategy``): the whole matrix as chips, every row
     reduced cooperatively (the reference study's block-per-row CSR
     kernel), through the single plan or the split plan, landed into a
-    zero y; ``chips_x`` as :func:`prepare_chips`; ``landing``
-    (:data:`LANDINGS`): ``"direct"`` (the default: one segment-sum over
-    all streams, then ``heavy_land``) or ``"merge"`` (the reference's
-    segment-sum per stream and panel merge). The meta has the
-    reference's keys (``panel_merge`` what the reference picks) and
-    ``landing``. Refuses (ValueError) a matrix neither plan fits."""
-    check_chips_x(chips_x)
-    check_landing(landing)
+    zero y (:func:`land_chips`). The meta has the reference's keys
+    (``panel_merge`` what the reference picks, :func:`merge_kind`).
+    Refuses (ValueError) a matrix neither plan fits."""
     dev = resolve_device(device)
     rows = A.row_ids().astype(np.int64)
     cols = A.ja.astype(np.int64)
@@ -1312,17 +963,7 @@ def prepare_chips_strategy(A: CSR, device="cuda", chips_x: str = "slots",
             "cuda-chips: matrix exceeds the resident-hot/VPU budget "
             f"(uniq cols or {A.nnz} entries too large)")
     m, n = A.m, A.n
-    tables = landing_tables(plan.heavy_ids, m, -(-m // BC))
-    if landing == "direct":
-        add, hbm = land_chips(plan, n, m, dev, chips_x)
-    else:
-        contrib, hbm = prepare_chips(plan, n, dev, chips_x)
-        land, _, extra = make_landing(plan.heavy_ids, m, -(-m // BC), dev,
-                                      tables=tables)
-        hbm += extra
-
-        def add(y, xf, ops):
-            return land(y, contrib(xf, ops), ops)
+    add, hbm = land_chips(plan, n, m, dev)
 
     def call(x, ops):
         xf = torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -1331,8 +972,9 @@ def prepare_chips_strategy(A: CSR, device="cuda", chips_x: str = "slots",
                              f"expected ({n},)")
         return add(torch.zeros(m, dtype=torch.float32, device=dev), xf, ops)
 
+    merge = merge_kind(plan.heavy_ids, m, -(-m // BC))
     meta = {"chunk": plan.rows_per_step,
-            **chips_meta(plan, tables[0] != "scatter"), "landing": landing}
+            **chips_meta(plan, merge != "scatter")}
     return Prepared("cuda-chips", A.name, lambda x: call(x, KERNELS),
                     device=dev, nnz=A.nnz, ref="pallas-chips",
                     hbm_bytes=hbm, meta=meta,

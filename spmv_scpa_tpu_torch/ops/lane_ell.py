@@ -20,25 +20,22 @@ Counterpart of ``spmv_scpa_tpu/ops/lane_ell.py:prepare_lane_ell_hybrid``
   ``"lanes"``, the planes through ``lane_ell_spmv`` with x staged (the
   ``loc_w`` left pad, the hot columns, and the ext panels through the
   two gather stages of ``ops/ext_gather.py``); then it adds the tail,
-  the same on both layouts: the chips tail (``ops/chips_tail.py``; its
-  x side on ``chips_x``, one slot kernel by default; its sums landed on
-  ``landing``, one segment-sum and the direct scatter ``heavy_land`` by
-  default) for
-  2048 entries or more, else the compact tail with ``index_add_``, or,
-  past ``tail_xla_max`` entries,
-  the big-tail branch: the port's strategy for ``tail_strategy`` (PELL
-  by default; any of :data:`COMPACT_TAILS`, the reference's names) over
-  the tail's rows renumbered 0..NH-1, run inside the call with the
-  kernels of this call's ``ops`` (``Prepared.run``), landed by
-  ``chips_tail.heavy_land`` (``landing="merge"``: through
-  ``chips_tail.make_landing``), or under ``tail_strategy="pallas-hybrid"``
-  (``"auto"`` when the tail has locality) a second hybrid over the
-  tail, y summed on the device. A matrix whose widest diagonal
-  window covers under 40% of its entries goes to ``cuda-pell`` whole
-  (the no-locality escape). ``pell_layout`` is the PELL layout of the
-  escape and of a compact PELL tail (``ops/pell.py``): ``"auto"``, the
-  row quanta of ``ops/pell_rows.py``, or ``"tiles"``, the reference's;
-  a compact BCSR tail takes it too (the bitmap tiles, or the dense).
+  the same on both layouts: the chips tail (``ops/chips_tail.py``: the
+  slot products, one segment-sum and ``heavy_land`` into the core's y)
+  for 2048 entries or more, else the compact tail with ``index_add_``,
+  or, past ``tail_xla_max`` entries, the big-tail branch: the port's
+  strategy for ``tail_strategy`` (PELL by default; any of
+  :data:`COMPACT_TAILS`, the reference's names) over the tail's rows
+  renumbered 0..NH-1, run inside the call with the kernels of this
+  call's ``ops`` (``Prepared.run``), landed by ``chips_tail.heavy_land``,
+  or under ``tail_strategy="pallas-hybrid"`` (``"auto"`` when the tail
+  has locality) a second hybrid over the tail, y summed on the device.
+  A matrix whose widest diagonal window covers under 40% of its entries
+  goes to ``cuda-pell`` whole (the no-locality escape). ``pell_layout``
+  is the PELL layout of the escape and of a compact PELL tail
+  (``ops/pell.py``): ``"auto"``, the row quanta of ``ops/pell_rows.py``,
+  or ``"tiles"``, the reference's; a compact BCSR tail takes it too (the
+  bitmap tiles, or the dense).
 
 ``pack_lane_ell(..., x_off=r0, core_only=True)`` packs one row shard
 for ``parallel/distributed.py``: the window frame shifts by the shard's
@@ -123,6 +120,14 @@ REFUSED_TAILS = {
 # ``lane_ell_sharded`` in this process.
 KERNEL_LAUNCHES = 0
 SHARDED_LAUNCHES = 0
+
+
+def x_fits(x_bytes: int) -> bool:
+    """Whether a resident x of ``x_bytes`` fits :data:`X_VMEM_BUDGET`,
+    the reference's TPU VMEM bound, kept for parity until ROADMAP #5
+    re-derives it on the card: :func:`pack_lane_ell` refuses a padded x
+    past it, and ``registry.pick_auto``'s quick test asks it first."""
+    return x_bytes <= X_VMEM_BUDGET
 
 
 def idx8_partition(sets: list, chunk: int):
@@ -282,7 +287,6 @@ class LanePlan:
     ext_l2: np.ndarray | None = None
     ext_b8: np.ndarray | None = None        # windowed stage-2 bases
     chips: chips_tail.ChipsPlan | None = None   # the chips tail's plan
-    landing: tuple | None = None            # chips_tail.landing_tables
     big_tail: str | None = None   # the big-tail route: "pallas-hybrid"
                                   # or "pallas-pell"
     core: np.ndarray | None = None  # the core's entries: indices into A's,
@@ -899,9 +903,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     # resident x: loc_w left pad + local span + window slack, then hot
     P_pad = G_pad + S            # window read for the last step fits
     x_bytes = (P_pad + Hs) * BC * 4
-    if x_bytes > X_VMEM_BUDGET:
-        # the reference's TPU VMEM refusal, kept for parity until
-        # ROADMAP queue 1 #5 drops it
+    if not x_fits(x_bytes):
         raise ValueError(
             f"lane-ELL hybrid: resident x ({x_bytes} B) exceeds the "
             f"budget {X_VMEM_BUDGET} B")
@@ -962,7 +964,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
     if "notail" in diag:        # diag-only: results invalid, core cost
         tail_nnz = 0
     tm = ~take if tail_nnz else np.zeros(nnz, bool)
-    cplan = landing = chips_meta = big = None
+    cplan = chips_meta = big = None
     if tail_nnz >= 2048 and "nochips" not in diag:
         # past BIG_TAIL entries the reference drops a split plan for the
         # big-tail branch ("forcechips" keeps it), so none is planned
@@ -970,8 +972,9 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
             rows[tm], cols[tm], A.as_[tm], m, n,
             big_tail=tail_nnz > BIG_TAIL and "forcechips" not in diag)
     if cplan is not None:
-        landing = chips_tail.landing_tables(cplan.heavy_ids, m, G_pad)
-        chips_meta = chips_tail.chips_meta(cplan, landing[0] != "scatter")
+        chips_meta = chips_tail.chips_meta(
+            cplan, chips_tail.merge_kind(cplan.heavy_ids, m, G_pad)
+            != "scatter")
     elif tail_nnz > tail_xla_max:
         # big tails: a second hybrid when the tail keeps diagonal or hub
         # locality ("auto"), else PELL (or XPOSE when asked for) over
@@ -1026,7 +1029,7 @@ def pack_lane_ell(A: CSR, chunk: int | None = None,
         Q=Q, Qo=Qo, loc_w=loc_w, n_local=n_local, m=m,
         trows=rows[tm], tcols=cols[tm], tvals=A.as_[tm], meta=meta,
         ext=eplan, ext_p2=ext_p2, ext_l2=ext_l2, ext_b8=ext_b8,
-        chips=cplan, landing=landing, big_tail=big, core=core)
+        chips=cplan, big_tail=big, core=core)
 
 
 # ---------------------------------------------------------------------------
@@ -1211,12 +1214,11 @@ def lane_ell_sharded_plain(xpad, r0, vals, idx8, idx16, plane_tabs, ext,
 
 # The functions one hybrid call runs: the core (``lane_rows`` on the
 # rows layout, ``lane_ell_spmv`` on the lanes layout), the three gathers
-# of the ext route, the merge landing and the chips tail on
-# ``chips_x="hot"``, the chips tail's slot products, the direct landing
-# ``heavy_land``, the PELL family's
-# (:class:`pell.PellKernels`, the window segment-sum among them) for the
-# chips tail, the no-locality escape and the compact big tail, and
-# XPOSE's (:class:`xpose.XposeKernels`) for the compact XPOSE big tail.
+# of the lanes core's ext route, the chips tail's slot products, the
+# landing ``heavy_land``, the PELL family's (:class:`pell.PellKernels`,
+# the window segment-sum among them) for the chips tail, the no-locality
+# escape and the compact big tail, and XPOSE's
+# (:class:`xpose.XposeKernels`) for the compact XPOSE big tail.
 HybridKernels = NamedTuple("HybridKernels", [
     (name, Callable) for name in ("lane_ell_spmv", "lane_rows",
                                   "sorted_gather", "ranked_gather",
@@ -1240,24 +1242,13 @@ PLAIN = HybridKernels(lane_ell_spmv_plain, lane_rows.lane_rows_plain,
 CORE_LAYOUTS = ("rows", "lanes")
 
 
-def designs(layouts, chips_x: str = "slots", landing: str = "direct") -> list:
-    """``(key, core layout, chips_x, landing)`` of each entry of
-    ``layouts``: a core layout (with ``chips_x`` and ``landing``), a
-    ``(core layout, chips_x)`` pair (with ``landing``) or a ``(core
-    layout, chips_x, landing)`` triple. Raises ValueError for a layout
-    not in ``CORE_LAYOUTS``, a chips_x not in ``chips_tail.CHIPS_X`` or a
-    landing not in ``chips_tail.LANDINGS``."""
-    out = []
-    for key in layouts:
-        layout, cx, ld = ((key + (landing,))[:3] if isinstance(key, tuple)
-                          else (key, chips_x, landing))
+def check_layouts(layouts) -> None:
+    """Raise ValueError for a layout of ``layouts`` not in
+    ``CORE_LAYOUTS``."""
+    for layout in layouts:
         if layout not in CORE_LAYOUTS:
             raise ValueError(f"core_layout {layout!r} is not one of "
                              f"{CORE_LAYOUTS}")
-        chips_tail.check_chips_x(cx)
-        chips_tail.check_landing(ld)
-        out.append((key, layout, cx, ld))
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1283,8 +1274,7 @@ def no_locality(A: CSR, loc_w="auto", ext="auto",
 
 def prepare_lane_ell_hybrid(A: CSR, device="cuda", pell_layout="auto",
                             core_layout="rows", xpose_s3="rows",
-                            xpose_s1="auto", chips_x="slots",
-                            landing="direct", **knobs):
+                            xpose_s1="auto", **knobs):
     """Pack ``A`` (:func:`pack_lane_ell`, same knobs as the reference)
     and bind ``fn(x) -> y`` on ``device``: run the core, add the tail
     (chips tail and landing, the compact ``index_add_``, or the big-tail
@@ -1298,31 +1288,19 @@ def prepare_lane_ell_hybrid(A: CSR, device="cuda", pell_layout="auto",
     marked ``delegated``. ``pell_layout``: the layout of that escape and
     of a compact PELL tail; ``xpose_s3`` and ``xpose_s1``: the S3 and S1
     designs of a compact XPOSE tail (``xpose.S3_DESIGNS``,
-    ``xpose.S1_DESIGNS``); ``chips_x``: the chips tail's x side
-    (``chips_tail.CHIPS_X``: ``"slots"``, one kernel over a host slot
-    table, or ``"hot"``, the reference's two gather stages); ``landing``:
-    how the chips tail's sums and a compact big tail's rows reach y
-    (``chips_tail.LANDINGS``: ``"direct"``, one segment-sum over the
-    chips tail's streams and one ``heavy_land``, or ``"merge"``, the
-    reference's segment-sum per stream and panel merge). The meta adds
-    ``landing`` to the packer's. ``device`` defaults to the card and
-    raises without one; ``"cpu"`` runs the plain versions."""
+    ``xpose.S1_DESIGNS``). ``device`` defaults to the card and raises
+    without one; ``"cpu"`` runs the plain versions."""
     return prepare_hybrid_layouts(A, (core_layout,), device, pell_layout,
-                                  xpose_s3, xpose_s1, chips_x, landing,
-                                  **knobs)[core_layout]
+                                  xpose_s3, xpose_s1, **knobs)[core_layout]
 
 
 def prepare_hybrid_layouts(A: CSR, layouts=CORE_LAYOUTS, device="cuda",
                            pell_layout="auto", xpose_s3="rows",
-                           xpose_s1="auto", chips_x="slots",
-                           landing="direct", **knobs) -> dict:
-    """:func:`prepare_lane_ell_hybrid` on each design of ``layouts``
-    from one pack: ``{design: Prepared}``. A design is a core layout
-    (its chips tail on ``chips_x`` and ``landing``), a ``(core layout,
-    chips_x)`` pair or a ``(core layout, chips_x, landing)`` triple
-    (:func:`designs`); each core and each (chips_x, landing) tail is
-    bound once and shared."""
-    ds = designs(layouts, chips_x, landing)
+                           xpose_s1="auto", **knobs) -> dict:
+    """:func:`prepare_lane_ell_hybrid` on each core layout of
+    ``layouts`` from one pack: ``{layout: Prepared}``, the tail bound
+    once and shared."""
+    check_layouts(layouts)
     xpose.resolve_s1(xpose_s1, xpose_s3)
     dev = resolve_device(device)
     pell.use_layout(pell_layout)
@@ -1334,14 +1312,14 @@ def prepare_hybrid_layouts(A: CSR, layouts=CORE_LAYOUTS, device="cuda",
         prep.meta["d_cov"] = round(d_cov, 4)
         return dict.fromkeys(layouts, prep)
     plan, bound = _bind(A, dev, pell_layout, layouts, (xpose_s3, xpose_s1),
-                        chips_x, landing, **knobs)
+                        **knobs)
     out = {}
-    for key, *_, ld in ds:
+    for key in layouts:
         run, stage, hbm = bound[key]
         out[key] = Prepared(
             "cuda-hybrid", A.name, functools.partial(run, ops=KERNELS),
             device=dev, nnz=A.nnz, ref="pallas-hybrid", hbm_bytes=int(hbm),
-            meta={**plan.meta, "landing": ld},
+            meta=dict(plan.meta),
             plain=functools.partial(run, ops=PLAIN),
             kernel_inputs=stage,
             kernel_calls=functools.partial(_record, run), run=run)
@@ -1463,31 +1441,24 @@ def _lanes_core(A: CSR, plan: LanePlan, dev):
 
 
 def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xdesign,
-               chips_x, landing, knobs):
+               knobs):
     """The tail of ``plan``, bound once for every core layout: returns
     (``add(y, xf, ops, layout) -> y'``, {layout: its bytes}). Fills the
     plan's meta for a big tail. ``xdesign``: (S3, S1) design of a compact
-    XPOSE tail; ``chips_x``: the chips tail's x side; ``landing``: how
-    the chips tail's sums and a compact tail's rows reach y (the direct
-    landing adds into the core's y in place)."""
-    m, n, G_pad = plan.m, A.n, plan.cfg.G_pad
+    XPOSE tail. The chips tail's sums and a compact tail's rows land in
+    the core's y in place (``chips_tail.heavy_land``)."""
+    m, n = plan.m, A.n
     if plan.chips is not None:
-        if landing == "direct":
-            add, hbm = chips_tail.land_chips(plan.chips, n, m, dev, chips_x)
-            return ((lambda y, xf, ops, layout: add(y, xf, ops)),
-                    dict.fromkeys(layouts, hbm))
-        contrib, hbm = chips_tail.prepare_chips(plan.chips, n, dev, chips_x)
-        land, _, extra = chips_tail.make_landing(
-            plan.chips.heavy_ids, m, G_pad, dev, tables=plan.landing)
-        return ((lambda y, xf, ops, layout: land(y, contrib(xf, ops), ops)),
-                dict.fromkeys(layouts, hbm + extra))
+        add, hbm = chips_tail.land_chips(plan.chips, n, m, dev)
+        return ((lambda y, xf, ops, layout: add(y, xf, ops)),
+                dict.fromkeys(layouts, hbm))
     if plan.big_tail == "pallas-hybrid":
         # the tail as a second hybrid over all m rows (the reference
         # passes on only the depth and tail_xla_max), on the same layouts
         tail = CSR.from_coo(A.name + "_tail", m, n, plan.trows, plan.tcols,
                             plan.tvals)
         sub, subs = _bind(
-            tail, dev, pell_layout, layouts, xdesign, chips_x, landing,
+            tail, dev, pell_layout, layouts, xdesign,
             depth=knobs.get("depth", 0) + 1,
             max_depth=knobs.get("max_depth", 2),
             tail_xla_max=knobs.get("tail_xla_max", 32768))
@@ -1505,9 +1476,7 @@ def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xdesign,
         kw = {"cuda-pell": {"layout": pell_layout},
               "cuda-bcsr": {"layout": pell_layout},
               "cuda-xpose": {"s3": s3, "s1": s1},
-              "cuda-chips": {"chips_x": chips_x, "landing": landing},
-              "cuda-nearfar": {"s3": s3, "s1": s1, "pell_layout": pell_layout,
-                               "chips_x": chips_x, "landing": landing},
+              "cuda-nearfar": {"s3": s3, "s1": s1, "pell_layout": pell_layout},
               }.get(name, {})
         sub = get_strategy(name).prepare(tail, device=dev, **kw)
         sub_run = sub.run or (lambda xf, ops: sub.fn(xf))
@@ -1515,14 +1484,10 @@ def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xdesign,
         plan.meta["tail_meta"] = sub.meta
         plan.meta["tail_kind"] = f"compact-{name}" + (
             f"-{sub.meta['layout']}" if "layout" in sub.meta else "")
-        if landing == "direct":
-            t_land = chips_tail.bind_land(R, m, dev)
-            return ((lambda y, xf, ops, layout:
-                     ops.heavy_land(y, sub_run(xf, ops), t_land)),
-                    dict.fromkeys(layouts, chips_tail.land_hbm(R) + t_hbm))
-        land, _, extra = chips_tail.make_landing(R, m, G_pad, dev)
-        return ((lambda y, xf, ops, layout: land(y, sub_run(xf, ops), ops)),
-                dict.fromkeys(layouts, extra + t_hbm))
+        t_land = chips_tail.bind_land(R, m, dev)
+        return ((lambda y, xf, ops, layout:
+                 ops.heavy_land(y, sub_run(xf, ops), t_land)),
+                dict.fromkeys(layouts, chips_tail.land_hbm(R) + t_hbm))
     if plan.trows.size:
         trows = _put(plan.trows, torch.int64, dev)
         tcols = _put(plan.tcols, torch.int64, dev)
@@ -1534,35 +1499,28 @@ def _bind_tail(A: CSR, plan: LanePlan, dev, pell_layout, layouts, xdesign,
 
 
 def _bind(A: CSR, dev, pell_layout="auto", layouts=("rows",),
-          xdesign=("rows", "auto"), chips_x="slots", landing="direct",
-          **knobs):
-    """Pack ``A`` once and bind it on ``dev`` for each design of
-    ``layouts`` (:func:`designs`): returns (plan, {design: (run, stage,
-    hbm_bytes)}) with ``run(x, ops) -> y`` (m,) and ``stage(xf)`` the
-    core kernel's arguments. Each core layout is bound once, and the
-    tail once per (chips_x, landing) (``chips_x``, ``landing``: the
-    defaults of a design that names none); ``xdesign`` is the (S3, S1)
-    design of a compact XPOSE tail."""
+          xdesign=("rows", "auto"), **knobs):
+    """Pack ``A`` once and bind it on ``dev`` for each core layout of
+    ``layouts``: returns (plan, {layout: (run, stage, hbm_bytes)}) with
+    ``run(x, ops) -> y`` (m,) and ``stage(xf)`` the core kernel's
+    arguments. The tail is bound once; ``xdesign`` is the (S3, S1) design
+    of a compact XPOSE tail."""
     plan = pack_lane_ell(A, **knobs)
     n = A.n
-    ds = designs(layouts, chips_x, landing)
-    cores = [c for c in CORE_LAYOUTS if any(d[1] == c for d in ds)]
-    tails = {(cx, ld): _bind_tail(A, plan, dev, pell_layout, cores, xdesign,
-                                  cx, ld, knobs)
-             for cx, ld in dict.fromkeys(d[2:] for d in ds)}
-    bound = {c: (_rows_core if c == "rows" else _lanes_core)(A, plan, dev)
-             for c in cores}
+    cores = [c for c in CORE_LAYOUTS if c in layouts]
+    add_tail, tail_hbm = _bind_tail(A, plan, dev, pell_layout, cores,
+                                    xdesign, knobs)
     out = {}
-    for key, layout, cx, ld in ds:
-        core, stage, core_hbm = bound[layout]
-        add_tail, tail_hbm = tails[cx, ld]
+    for layout in cores:
+        core, stage, core_hbm = (_rows_core if layout == "rows"
+                                 else _lanes_core)(A, plan, dev)
 
-        def run(x, ops, core=core, layout=layout, add_tail=add_tail):
+        def run(x, ops, core=core, layout=layout):
             xf = torch.as_tensor(x, dtype=torch.float32, device=dev)
             if xf.shape != (n,):
                 raise ValueError(f"cuda-hybrid: x has shape "
                                  f"{tuple(xf.shape)}, expected ({n},)")
             return add_tail(core(xf, ops), xf, ops, layout)
 
-        out[key] = (run, stage, core_hbm + tail_hbm[layout])
+        out[layout] = (run, stage, core_hbm + tail_hbm[layout])
     return plan, out

@@ -246,15 +246,16 @@ def pick_auto(A: CSR) -> str:
     ``pallas-hybrid`` -> ``cuda-hybrid``, ``pallas-xpose`` ->
     ``cuda-xpose`` (``quick_envelope_ok`` is necessary only: a mid-plan
     refusal is ``spmv``'s fallback), ``pallas-pell`` -> ``cuda-pell``.
-    The thresholds are the TPU's, kept until ROADMAP queue 1 #5
-    measures them on the card."""
+    The thresholds are the TPU's, kept until ROADMAP #5 measures them
+    on the card."""
     if A.m * A.n <= 500_000:
         return "torch-dense"
     if A.nnz:
-        # resident-x bound of the hybrid (lane_ell.X_VMEM_BUDGET)
+        from spmv_scpa_tpu_torch.ops.lane_ell import x_fits
+        # the hybrid's resident x (its widest window, 65 strips of 128
+        # rows past the groups), and x itself
         g_pad = -(-A.m // 128)
-        fits = ((g_pad + 65) * 128 * 4 <= 10 << 20
-                and A.n <= (10 << 20) // 4)
+        fits = x_fits((g_pad + 65) * 128 * 4) and x_fits(A.n * 4)
         if fits:
             avg = A.nnz / max(A.m, 1)
             d = np.abs(A.ja.astype(np.int64) - A.row_ids())

@@ -33,12 +33,10 @@ Four prepare functions, as in the reference:
   padded x from ``r0``, out-of-window entries through per-shard ext
   panels. The tail rides per-shard chips pipelines (single plans or
   split plans, padded to shared shapes by ``chips_tail.pad_resident_plan``
-  / ``pad_split_plan``; on ``chips_x="slots"`` one ``chips_products``
-  launch per device over all its shards' slot tables; on
-  ``landing="direct"`` one ``window_segsum`` launch per device over
-  every stream of every shard and one ``heavy_land`` into the core's
-  (k, rows) y; on ``"merge"`` per-shard segment-sums landed by the panel
-  merge or ``index_add_``), or a padded segment-sum, on either layout;
+  / ``pad_split_plan``: one ``chips_products`` launch per device over
+  all its shards' slot tables, one ``window_segsum`` launch over every
+  stream of every shard and one ``heavy_land`` into the core's (k, rows)
+  y), or a padded segment-sum, on either layout;
 * :func:`prepare_row_sharded_pell`: on ``layout="rows"`` (the default)
   a device's shards as one row-quantum plan over their padded rows
   (``ops/pell_rows.py``), one :func:`pell_rows.pell_rows` launch per
@@ -129,7 +127,6 @@ class DistKernels(NamedTuple):
     lane_rows: Callable
     sorted_gather: Callable
     ranked_gather: Callable
-    window_gather: Callable
     window_segsum: Callable
     chips_products: Callable
     heavy_land: Callable
@@ -138,10 +135,14 @@ class DistKernels(NamedTuple):
     pell_rows: Callable
 
 
-KERNELS = DistKernels(LE.lane_ell_sharded, lane_rows.lane_rows, *CT.KERNELS,
-                      pell.pell_fused, pell.unpermute, prows.pell_rows)
+KERNELS = DistKernels(LE.lane_ell_sharded, lane_rows.lane_rows,
+                      ext_gather.sorted_gather, ext_gather.ranked_gather,
+                      *CT.KERNELS, pell.pell_fused, pell.unpermute,
+                      prows.pell_rows)
 PLAIN = DistKernels(LE.lane_ell_sharded_plain, lane_rows.lane_rows_plain,
-                    *CT.PLAIN, pell.pell_fused_plain, pell.unpermute_plain,
+                    ext_gather.sorted_gather_plain,
+                    ext_gather.ranked_gather_plain, *CT.PLAIN,
+                    pell.pell_fused_plain, pell.unpermute_plain,
                     prows.pell_rows_plain)
 
 
@@ -380,9 +381,7 @@ def prepare_row_sharded_hybrid(A: CSR, mesh=None,
                                core_layout: str = "rows", **knobs):
     """Row shards of the lane-ELL hybrid (module docstring), the
     reference's knobs and defaults (:func:`row_sharded_hybrid_layouts`).
-    ``core_layout``: ``"rows"`` (the default) or ``"lanes"``;
-    ``chips_x`` and ``landing`` (knobs): the chips tails' x side and
-    how their sums reach y."""
+    ``core_layout``: ``"rows"`` (the default) or ``"lanes"``."""
     return row_sharded_hybrid_layouts(A, (core_layout,), mesh, n_shards,
                                       **knobs)[core_layout]
 
@@ -395,38 +394,28 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
                                strip_cov: float | None = 0.985,
                                tail_kind: str = "auto",
                                ext: bool | str = "auto",
-                               idx8: bool = False,
-                               chips_x: str = "slots",
-                               landing: str = "direct") -> dict:
-    """The row-sharded hybrid on each design of ``layouts`` from one
-    packing of the shards: ``{design: RowShardedSpmv}``, each core
-    layout bound once and the tails once per (chips_x, landing).
+                               idx8: bool = False) -> dict:
+    """The row-sharded hybrid on each core layout of ``layouts`` from one
+    packing of the shards: ``{layout: RowShardedSpmv}``, the tails bound
+    once.
     ``tail_kind``: ``"auto"`` (per-shard chips pipelines for 2048 tail
     entries or more when they fit, else the padded segment-sum),
     ``"chips"`` (the chips
     pipelines, ValueError when a shard's tail fits no plan or there is no
     tail),
     ``"chips-split"`` (split plans even where single ones fit) or
-    ``"xla"`` (the segment-sum). ``chips_x``: the chips tails' x side
-    (``chips_tail.CHIPS_X``): ``"slots"`` (the default: the slot tables
-    of a device's shards concatenated, one ``chips_products`` launch per
-    device and call, each shard's segment-sums over its rows of the
-    products) or ``"hot"`` (each shard's two gather stages).
-    ``landing`` (``chips_tail.LANDINGS``): ``"direct"`` (the default: one
-    segment-sum launch per device over every stream of every shard, the
-    shards' heavy-row spaces stacked, then one ``heavy_land`` launch into
-    the core's y, in place) or ``"merge"`` (each shard's segment-sums and
-    the reference's panel merge, or ``index_add_``). f32, as the
-    reference's default ``dtype``. ``layouts`` holds designs, as
-    ``lane_ell.designs`` reads them (a core layout, a ``(core layout,
-    chips_x)`` pair or a ``(core layout, chips_x, landing)`` triple), and
-    the result is keyed by them. The meta has the reference's keys, and
-    ``strip_sets`` (the union strip set of each plane), ``tail_meta``
-    (each shard's chips plan, as the hybrid's meta states it) and the
-    design's ``landing`` beside them; ``args`` are the reference's
-    stacked arrays on every design; ``hbm_bytes`` counts the design's
-    own."""
-    ds = LE.designs(layouts, chips_x, landing)
+    ``"xla"`` (the segment-sum). A device's chips tails run as one: the
+    slot tables of its shards concatenated (one ``chips_products``
+    launch), one segment-sum launch over every stream of every shard (the
+    shards' heavy-row spaces stacked), then one ``heavy_land`` launch
+    into the core's y, in place. f32, as the reference's default
+    ``dtype``. The meta has the reference's keys (``panel_merge``: the
+    reference's choice, ``chips_tail.merge_kind``), and ``strip_sets``
+    (the union strip set of each plane) and ``tail_meta`` (each shard's
+    chips plan, as the hybrid's meta states it) beside them; ``args`` are
+    the reference's stacked arrays but its merge tables, the same on
+    every layout; ``hbm_bytes`` counts the layout's own."""
+    LE.check_layouts(layouts)
     if mesh is None:
         mesh = make_mesh(n_shards)
     n_dev = len(mesh)
@@ -522,10 +511,11 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
     split_mode = use_merge = False
     if use_chips:
         split_mode = isinstance(cplans[0], CT.SplitChipsPlan)
-        # the zero-scatter merge, all shards or none; else index_add_
-        mtabs = [CT.merge_tables(p.heavy_ids, h_rows, G_pad) for p in cplans]
-        use_merge = all(t is not None for t in mtabs)
-        apply_m = CT.make_merge_apply(cplans[0].NH, h_rows, use_merge)
+        # the reference's landing: its ranked merge where every shard's
+        # tables would fit, else index_add_ on the heavy rows
+        use_merge = all(CT.merge_kind(p.heavy_ids, h_rows, G_pad,
+                                      windowed=False) != "scatter"
+                        for p in cplans)
     else:
         t_max = max(1, max(c.trows.size for c in cores))
         seg_a = np.full((n_dev, t_max), h_rows, np.int32)  # dump row
@@ -557,10 +547,7 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
                                    ("l2", np.int32), ("vals", np.float32),
                                    ("rbl", np.int32),
                                    ("win_of_step", np.int32))]
-        if use_merge:
-            args += [np.stack([t[0] for t in mtabs]),
-                     np.stack([t[1] for t in mtabs])]
-        elif not split_mode:
+        if not (use_merge or split_mode):
             args.append(np.stack([p.heavy_ids.astype(np.int32)
                                   for p in cplans]))
     else:
@@ -572,7 +559,6 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
     tabs_np = LE.plane_tabs(used_t, n8)
     xw = P_pad * BC
     n, m = A.n, A.m
-    tail_hbm = dict.fromkeys((tuple(d[2:]) for d in ds), 0)
 
     def ext_fn(ids, dev):
         """The ext panels (k, G_pad, 128) of a device's shards ``ids``:
@@ -595,86 +581,57 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
                 for j, (p2, l2) in enumerate(st2)])
         return fn
 
-    def tail_group(ids, dev, key):
-        """The tails of a device's shards ``ids`` on ``key`` = (chips_x,
-        landing): ``fn(y, xf, ops) -> [y_j]`` taking the device's core
-        output y (k, W) and giving each shard's padded y (h_rows,), its
-        tail added (a shard without one adds exactly zero)."""
-        cx, ld = key
+    tail_hbm = 0
+
+    def tail_group(ids, dev):
+        """The tails of a device's shards ``ids``: ``fn(y, xf, ops) ->
+        [y_j]`` taking the device's core output y (k, W) and giving each
+        shard's padded y (h_rows,), its tail added (a shard without one
+        adds nothing). The chips shards' sums come from one segment-sum
+        (``CT.bind_sums``) and land by one ``heavy_land`` launch into y in
+        place, shard j's heavy row r at ``j * W + r`` (a land map per core
+        width: the rows core's ``h_rows``, the lanes core's ``G_pad *
+        128``)."""
+        nonlocal tail_hbm
+        k = len(ids)
         chips = [d for d in ids if cores[d].trows.size] if use_chips else []
-        if chips and ld == "direct":
-            return direct_group(ids, chips, dev, cx)
-        share, sums = None, {}
-        if chips and cx == "slots":
-            share, sums, hbm = CT.bind_slots([cplans[d] for d in chips],
-                                             n, dev)
-            tail_hbm[key] += hbm
-            sums = dict(zip(chips, sums))
-        tails = [tail_fn(d, dev, key, sums.get(d)) for d in ids]
+        if chips:
+            plans = [cplans[d] for d in chips]
+            sums, ranks, hbm = CT.bind_sums(plans, n, dev)
+            pos = [ids.index(d) for d in chips]
+            size = ranks[-1] + plans[-1].NH
+            lands = {}
+            for W in widths:
+                land = CT.land_map(plans, ranks, size, [j * W for j in pos])
+                lands[W] = CT.bind_land(land, k * W, dev)
+            tail_hbm += hbm + CT.land_hbm(land)
+
+            def fn(y, xf, ops):
+                ops.heavy_land(y, sums(xf, ops), lands[y.shape[1]])
+                return [y[j, :h_rows] for j in range(k)]
+            return fn
+        tails = [segsum_tail(d, dev) for d in ids]
 
         def fn(y, xf, ops):
-            shared = None if share is None else share(xf, ops)
-            return [y[j, :h_rows] if tail is None else
-                    tail(y[j, :h_rows], xf, ops, shared)
+            return [y[j, :h_rows] if tail is None else tail(y[j, :h_rows], xf)
                     for j, tail in enumerate(tails)]
         return fn
 
-    def direct_group(ids, chips, dev, cx):
-        """``landing="direct"``: every stream of the chips shards' plans
-        in one segment-sum launch (``CT.bind_sums``), their sums added by
-        one ``heavy_land`` launch into the core's y (k, W) in place, shard
-        j's heavy row r at ``j * W + r`` (a land map per core width: the
-        rows core's ``h_rows``, the lanes core's ``G_pad * 128``)."""
-        plans = [cplans[d] for d in chips]
-        sums, ranks, hbm = CT.bind_sums(plans, n, dev, cx)
-        pos = [ids.index(d) for d in chips]
-        k, size = len(ids), ranks[-1] + plans[-1].NH
-        lands = {}
-        for W in widths:
-            land = CT.land_map(plans, ranks, size, [j * W for j in pos])
-            lands[W] = CT.bind_land(land, k * W, dev)
-        tail_hbm[cx, "direct"] += hbm + CT.land_hbm(land)
-
-        def fn(y, xf, ops):
-            ops.heavy_land(y, sums(xf, ops), lands[y.shape[1]])
-            return [y[j, :h_rows] for j in range(k)]
-        return fn
-
-    def tail_fn(d, dev, key, sums=None):
-        """Shard d's tail on the merge landing or without chips
-        (``tail_group``); ``sums(prod, ops)``: its chips' segment-sums over
-        its rows of the shared products."""
+    def segsum_tail(d, dev):
+        """Shard d's tail without chips: the reference's padded
+        segment-sum, its real entries added into y in place (as the
+        single-card compact tail does); None for a shard without one."""
+        nonlocal tail_hbm
         c = cores[d]
         if not c.trows.size:
             return None
-        if not use_chips:
-            # the reference's padded segment-sum, its real entries added
-            # into y in place (as the single-card compact tail does)
-            rows = _put(c.trows, torch.int64, dev)
-            tcol = _put(c.tcols, torch.int64, dev)
-            tv = _put(c.tvals, torch.float32, dev)
-            tail_hbm[key] += c.trows.size * 12
+        rows = _put(c.trows, torch.int64, dev)
+        tcol = _put(c.tcols, torch.int64, dev)
+        tv = _put(c.tvals, torch.float32, dev)
+        tail_hbm += c.trows.size * 12
 
-            def fn(y, xf, ops, shared):
-                return y.index_add_(0, rows, tv * xf[tcol])
-            return fn
-        if sums is None:                       # chips_x="hot"
-            hot, hbm = CT.prepare_chips(cplans[d], n, dev, "hot")
-            tail_hbm[key] += hbm
-
-            def contrib(xf, ops, shared):
-                return hot(xf, ops)
-        else:
-            def contrib(xf, ops, shared):
-                return sums(shared, ops)
-        if use_merge:
-            mt = tuple(_put(t, torch.int32, dev) for t in mtabs[d])
-            tail_hbm[key] += CT.merge_hbm(cplans[d].NH, G_pad)
-        else:
-            mt = (_put(cplans[d].heavy_ids, torch.int64, dev),)
-
-        def fn(y, xf, ops, shared):
-            return apply_m(y, contrib(xf, ops, shared), *mt, ops=ops)
+        def fn(y, xf):
+            return y.index_add_(0, rows, tv * xf[tcol])
         return fn
 
     def rows_plan(ids):
@@ -688,21 +645,19 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
         return lane_rows.plan_core(len(ids) * h_rows, n, r, col,
                                    v.astype(np.float32))
 
-    # the core's y (k, W) on each bound layout, into which the direct
-    # landing adds
+    # the core's y (k, W) on each bound layout, into which the tails land
     widths = {h_rows if layout == "rows" else cfg.G_pad * BC
-              for _, layout, *_ in ds}
+              for layout in layouts}
     groups = []
     rows_hbm = 0
     for dev, ids in _device_groups(mesh):
         k = len(ids)
-        g = dict(dev=dev, ids=ids, tails={
-            key: tail_group(ids, dev, key) for key in tail_hbm})
-        if any(layout == "rows" for _, layout, *_ in ds):
+        g = dict(dev=dev, ids=ids, tail=tail_group(ids, dev))
+        if "rows" in layouts:
             cp = rows_plan(ids)
             rows_hbm += cp.hbm_bytes
             g["rows"] = lane_rows.bind(cp, dev)
-        if any(layout == "lanes" for _, layout, *_ in ds):
+        if "lanes" in layouts:
             g.update(
                 vals=_put(vals_s[ids], torch.float32, dev),
                 idx8=_put(idx8_s[ids], torch.int8, dev),
@@ -724,12 +679,12 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
     def rows_core(g, xf, ops):
         return ops.lane_rows(*g["rows"], xf).view(len(g["ids"]), h_rows)
 
-    def run_on(core, key):
+    def run_on(core):
         def run(xs, ops):
             y_pad = [None] * n_dev
             for g in groups:
                 xf = xs[g["dev"]]
-                ys = g["tails"][key](core(g, xf, ops), xf, ops)
+                ys = g["tail"](core(g, xf, ops), xf, ops)
                 for d, y in zip(g["ids"], ys):
                     y_pad[d] = y
             return _unpad_rows(y_pad, bounds, m, mesh[0])
@@ -751,12 +706,12 @@ def row_sharded_hybrid_layouts(A: CSR, layouts=LE.CORE_LAYOUTS, mesh=None,
     if use_chips:
         meta["tail_meta"] = [CT.chips_meta(p, use_merge) for p in cplans]
     core_hbm = {"rows": rows_hbm, "lanes": n_dev * G_pad * BC * slot_b}
-    return {key: _finish(
+    return {layout: _finish(
         "row-sharded-hybrid", A, mesh, bounds,
-        run_on(rows_core if layout == "rows" else lanes_core, (cx, ld)),
-        meta={**meta, "landing": ld}, args=tuple(args),
-        hbm_bytes=core_hbm[layout] + tail_hbm[cx, ld])
-        for key, layout, cx, ld in ds}
+        run_on(rows_core if layout == "rows" else lanes_core),
+        meta=dict(meta), args=tuple(args),
+        hbm_bytes=core_hbm[layout] + tail_hbm)
+        for layout in layouts}
 
 
 # ---------------------------------------------------------------------------

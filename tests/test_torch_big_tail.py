@@ -39,14 +39,10 @@ PORT_NAMES = {"xla-compact": "torch-compact", "pallas-pell": "cuda-pell",
               "compact-pallas-pell": "compact-cuda-pell"}
 
 
-def _port_meta(meta, landing=None):
+def _port_meta(meta):
     """The JAX meta with the reference's route names mapped to the
-    port's (hybrid-rN keeps its name), nested tail meta included, and
-    the port's ``landing`` beside them where given (a hybrid's own meta:
-    a call delegated to PELL lands nothing)."""
+    port's (hybrid-rN keeps its name), nested tail meta included."""
     out = dict(meta)
-    if landing is not None and "delegated" not in out:
-        out["landing"] = landing
     for key in ("tail_kind", "delegated"):
         if out.get(key) in PORT_NAMES:
             out[key] = PORT_NAMES[out[key]]
@@ -82,8 +78,8 @@ ROUTES = {
 
 @functools.cache
 def _route(name):
-    """The port on the tile layout and the reference's landing
-    (``landing="merge"``), bound on both core layouts from one pack: (A,
+    """The port on the tile layout, bound on both core layouts from one
+    pack: (A,
     x, the lanes core's Prepared, whose PELL meta and bytes are the
     reference's, the JAX Prepared, the lanes y, the JAX y, the rows
     core's Prepared). The PELL row layout: tests/test_torch_pell_rows.py;
@@ -92,8 +88,7 @@ def _route(name):
     A = make(synth)
     x = make_x(A.n)
     preps = lane_ell.prepare_hybrid_layouts(A, device="cpu",
-                                            pell_layout="tiles",
-                                            landing="merge", **kw)
+                                            pell_layout="tiles", **kw)
     prep = preps["lanes"]
     jprep = jax_prepare(make(jax_synth), interpret=True, **kw)
     return A, x, prep, jprep, to_numpy(prep.fn(x)), \
@@ -102,8 +97,15 @@ def _route(name):
 
 def check_route(name):
     A, x, prep, jprep, y, y_jax, rows = _route(name)
-    assert prep.meta == _port_meta(jprep.meta, "merge") == rows.meta
-    assert prep.hbm_bytes == jprep.hbm_bytes
+    assert prep.meta == _port_meta(jprep.meta) == rows.meta
+    if name == "compact-pell":
+        # the reference's bytes but for the landing: its panel merge's
+        # (where its tables fit), heavy_land's 16 B a heavy row here
+        plan = lane_ell.pack_lane_ell(A, **ROUTES[name][1])
+        R, G_pad = np.unique(plan.trows), plan.cfg.G_pad
+        merge = chips_tail.merge_kind(R, A.m, G_pad) != "scatter"
+        assert prep.hbm_bytes - chips_tail.land_hbm(R) == \
+            jprep.hbm_bytes - merge * jax_ct.merge_hbm(R.size, G_pad)
     assert PORT_NAMES.get(jprep.strategy, "cuda-hybrid") == prep.strategy
     gold = spmv_oracle(A, x)
     for layout, yl in (("lanes", y), ("rows", to_numpy(rows.fn(x)))):
@@ -161,7 +163,7 @@ def _xpose_tail(s3):
     A = cases.make(spec)
     x = make_x(A.n)
     preps = lane_ell.prepare_hybrid_layouts(A, device="cpu", xpose_s3=s3,
-                                            landing="merge", **kw)
+                                            **kw)
     return A, x, preps, _jax_xpose_tail()
 
 
@@ -174,8 +176,9 @@ def _jax_xpose_tail():
 @pytest.mark.parametrize("s3", ["rows", "prefix"])
 def test_xpose_tail_matches_jax(s3):
     """``tail_strategy="pallas-xpose"``: the 3,091-entry tail runs as
-    ``cuda-xpose`` over its rows compacted and lands through the merge,
-    as the reference's ``compact-pallas-xpose`` does, on both S3 designs
+    ``cuda-xpose`` over its rows compacted and lands by ``heavy_land``,
+    as the reference's ``compact-pallas-xpose`` lands by its merge, on
+    both S3 designs
     (``xpose_s3``; S1 on ``"auto"``: the slot table on the row sums, the
     slab on the prefix S3). The hybrid's meta equals the reference's but
     for the
@@ -193,7 +196,7 @@ def test_xpose_tail_matches_jax(s3):
         assert (m.pop("tail_kind"), jm.pop("tail_kind")) == (
             "compact-cuda-xpose", "compact-pallas-xpose")
         tail, jtail = m.pop("tail_meta"), jm.pop("tail_meta")
-        assert m == {**jm, "landing": "merge"}
+        assert m == jm
         for k in ("J1", "B2", "W1", "W3", "NWm", "fill"):
             assert tail[k] == jtail[k], k
         assert tail["s3"] == s3
@@ -205,7 +208,7 @@ def test_xpose_tail_matches_jax(s3):
                         "XPOSE tail")
         assert [k for k, _ in prep.kernel_calls(
             torch.as_tensor(x, dtype=torch.float32))] == [
-                core, *s3_kernels, "window_gather"]
+                core, *s3_kernels, "heavy_land"]
 
 
 def test_xpose_tail_refusal_is_a_value_error(monkeypatch):
@@ -252,16 +255,14 @@ def test_plan_chips_gives_up_only_for_big_tails():
 def test_forcechips_keeps_raising():
     """``diag="forcechips"`` keeps the split plan of webbase200k's
     184,079-entry tail past ``BIG_TAIL``: the same meta as the reference,
-    y against the JAX hybrid's and the oracle (on the reference's
-    landing, whose meta this pins)."""
+    y against the JAX hybrid's and the oracle."""
     A = synth.webbase_csr(m=200_000, seed=7)
     jA = jax_synth.webbase_csr(m=200_000, seed=7)
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", diag="forcechips",
-                                            landing="merge")
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", diag="forcechips")
     jprep = jax_prepare(jA, interpret=True, diag="forcechips")
     assert prep.meta["tail_nnz"] > lane_ell.BIG_TAIL
     assert prep.meta["tail_meta"]["split"]
-    assert _port_meta(jprep.meta, "merge") == prep.meta
+    assert _port_meta(jprep.meta) == prep.meta
     x = make_x(A.n)
     y = to_numpy(prep.fn(x))
     assert _rel_l2(y, np.asarray(jprep.fn(x), np.float64)) <= 1e-6

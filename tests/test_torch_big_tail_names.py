@@ -3,7 +3,7 @@
 ``compact_strategy``): the names whose compact branch runs in the JAX
 package's ``prepare_lane_ell_hybrid`` (lane_ell.py:1563-1590) run in the
 port through the strategy that holds each name as its ``ref``, on both
-landings; every other name is refused at prepare time with a
+core layouts; every other name is refused at prepare time with a
 ``ValueError`` that says what the reference does with it.
 
 The matrix is the one the reference's names were tried on:
@@ -12,8 +12,8 @@ The matrix is the one the reference's names were tried on:
 JAX side in interpret mode on the CPU.
 
 Tolerances: tail_nnz, the tail's route and its meta (the reference's
-keys, on the reference's layouts: ``pell_layout="tiles"``,
-``landing="merge"``) against JAX: exact; y (the plain versions) against
+keys, on the reference's layouts: ``pell_layout="tiles"``) against JAX:
+exact; y (the plain versions) against
 the JAX y: f32 rel-L2 <= 1e-5, and against ``spmv_oracle``: rel-L2 <=
 1e-6 and ``validate_result``. The PELL and XPOSE tails' y is held
 against the JAX y on this matrix in tests/test_torch_big_tail.py (the
@@ -93,12 +93,16 @@ def test_the_names_that_run_and_those_refused_cover_the_reference():
     assert not set(lane_ell.COMPACT_TAILS) & set(lane_ell.REFUSED_TAILS)
 
 
-@pytest.mark.parametrize("landing", ["direct", "merge"])
+CORE = {"rows": "lane_rows", "lanes": "lane_ell_spmv"}
+
+
+@pytest.mark.parametrize("core_layout", lane_ell.CORE_LAYOUTS)
 @pytest.mark.parametrize("name", lane_ell.COMPACT_TAILS)
-def test_compact_tail_matches_jax_and_oracle(name, landing):
+def test_compact_tail_matches_jax_and_oracle(name, core_layout):
     A, x, gold = _matrix()
     prep = lane_ell.prepare_lane_ell_hybrid(
-        A, device="cpu", tail_strategy=name, landing=landing, **KNOBS)
+        A, device="cpu", tail_strategy=name, core_layout=core_layout,
+        **KNOBS)
     jmeta, y_jax = _jax(name)
     port = by_ref(name).name
     assert prep.meta["tail_nnz"] == jmeta["tail_nnz"] == 3091
@@ -108,27 +112,26 @@ def test_compact_tail_matches_jax_and_oracle(name, landing):
     y = to_numpy(prep.fn(x))
     assert y_jax is None or _rel(y, y_jax) <= VS_JAX_REL_L2
     assert _rel(y, gold) <= VS_ORACLE_REL_L2
-    validate_result(gold, y, what=f"cuda-hybrid, {name} tail, {landing}")
-    # the tail's rows land once: the core and the tail are the call's
+    validate_result(gold, y, what=f"cuda-hybrid, {name} tail, "
+                    f"{core_layout} core")
+    # the tail's rows land once: the core and the landing are the call's
     # only kernel calls but the tail strategy's own
     xf = torch.as_tensor(x, dtype=torch.float32)
     calls = [k for k, _ in prep.kernel_calls(xf)]
-    assert calls[0] == "lane_rows"
-    assert calls[-1] == ("heavy_land" if landing == "direct"
-                         else "window_gather")
+    assert calls[0] == CORE[core_layout]
+    assert calls[-1] == "heavy_land"
     assert np.array_equal(to_numpy(prep.plain(x)), y)
 
 
 @pytest.mark.parametrize("name", lane_ell.COMPACT_TAILS)
 def test_compact_tail_meta_matches_jax_on_its_layouts(name):
     """On the reference's layouts the tail's meta holds each of the
-    reference's keys at its value (the port adds ``landing`` where the
-    tail has a landing of its own), but XPOSE's ``x_bytes``, which counts
+    reference's keys at its value, but XPOSE's ``x_bytes``, which counts
     the port's own x table (as in tests/test_torch_big_tail.py)."""
     A, *_ = _matrix()
     prep = lane_ell.prepare_lane_ell_hybrid(
-        A, device="cpu", tail_strategy=name, landing="merge",
-        pell_layout="tiles", xpose_s3="prefix", **KNOBS)
+        A, device="cpu", tail_strategy=name, pell_layout="tiles",
+        xpose_s3="prefix", **KNOBS)
     jmeta, _ = _jax(name)
     assert prep.meta["tail_kind"] == _port_names(jmeta["tail_kind"])
     want = _port_names(jmeta["tail_meta"])

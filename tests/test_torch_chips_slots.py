@@ -1,8 +1,7 @@
 """The chips tail's slot products (spmv_scpa_tpu_torch/ops/chips_slots.py):
-the host slot table against the two gather stages it replaces, the
-plain products, the ``chips_x`` knob of ``cuda-hybrid``, ``cuda-chips``
-and the row-sharded hybrid against the reference's gathers and the JAX
-package's y.
+the host slot table against the reference's two gather stages it
+replaces, the plain products, and ``cuda-hybrid``, ``cuda-chips`` and the
+row-sharded hybrid against the JAX package's y.
 
 Cases: single plans (a synthetic tail, ``amazon60k``'s tail), every
 split-stream kind (``windowed-x``, the dedup'd ``windowed``, ``resident``
@@ -12,14 +11,14 @@ small matrices of tests/test_torch_chips_split.py and
 tests/test_torch_distributed.py.
 
 Tolerances: the products over the slot table against ``vals`` times
-the old pipeline's gathered values (``sorted_gather_plain`` then
-``ranked_gather_plain`` or ``window_gather_plain``), and y on
-``chips_x="slots"`` against y on ``"hot"``: equal (``torch.equal``; a
-0.0 may differ in sign where the old pipeline multiplied a padding
-value by an x). y against the JAX package's (Pallas in interpret mode):
-rel-L2 <= 1e-6, as tests/test_torch_chips_split.py states (the
-reference's segment-sum is a one-hot matmul on b split into three bf16
-terms). Against ``spmv_oracle``: ``validate_result`` defaults.
+the values the two stages gather (``sorted_gather_plain`` then
+``ranked_gather_plain`` or ``window_gather_plain``): equal
+(``torch.equal``; a 0.0 may differ in sign where the stages multiply a
+padding value by an x). y against the JAX package's (Pallas in
+interpret mode): rel-L2 <= 1e-6, as tests/test_torch_chips_split.py
+states (the reference's segment-sum is a one-hot matmul on b split into
+three bf16 terms). Against ``spmv_oracle``: ``validate_result``
+defaults.
 """
 
 import jax
@@ -63,16 +62,16 @@ def _rel_l2(a, b):
 # ---- the host table against the two gather stages ---------------------------
 
 def _hot(base, p1, l1, R, n1p_blocks, n, x):
-    """Stage 1 (``sorted_gather_plain``) over x zero-padded, as the old
-    pipeline ran it."""
+    """Stage 1 (``sorted_gather_plain``) over x zero-padded, as the
+    reference runs it."""
     x1 = torch.zeros(n1p_blocks * R * BC)
     x1[:n] = x
     return eg.sorted_gather_plain(_t(base), x1.view(-1, BC), _t(p1), _t(l1),
                                   R)
 
 
-def _old_products(part, n, x):
-    """``vals *`` the values the old pipeline gathered for each slot of a
+def _stage_products(part, n, x):
+    """``vals *`` the values the two gather stages read for each slot of a
     single plan or one stream of a split plan."""
     if not hasattr(part, "kind"):                   # a single plan
         hot = _hot(part.base, part.p1, part.l1, part.R, part.n1p_blocks, n,
@@ -98,7 +97,7 @@ def _old_products(part, n, x):
 
 
 def _check_table(plan, n, seed=0):
-    """The products over the slot table equal the old pipeline's, part
+    """The products over the slot table equal the two stages', part
     by part, and a slot without an entry reads column -1."""
     x = torch.as_tensor(np.random.default_rng(seed).standard_normal(n),
                         dtype=torch.float32)
@@ -107,12 +106,12 @@ def _check_table(plan, n, seed=0):
     assert cols.dtype == np.int32 and cols.shape == vals.shape
     got = cs.chips_products_plain(_t(cols), _t(vals), x)
     parts = plan.streams if isinstance(plan, ct.SplitChipsPlan) else [plan]
-    want = torch.cat([_old_products(p, n, x) for p in parts])
+    want = torch.cat([_stage_products(p, n, x) for p in parts])
     assert torch.equal(got, want)
     live = np.concatenate([p.live for p in parts])
     assert (cols[~live] == -1).all()
     assert ((cols[live] >= 0) & (cols[live] < n)).all()
-    assert sum(cs.slot_rows(plan)) == cols.shape[0]
+    assert sum(p.E8 for p in parts) == cols.shape[0]
     return plan
 
 
@@ -202,7 +201,7 @@ def test_split_stream_tables_equal_the_two_stages(name):
         assert torch.equal(
             cs.chips_products_plain(_t(cs.slots_table(s, n)),
                                     _t(cs.slot_vals(s)), x),
-            _old_products(s, n, x))
+            _stage_products(s, n, x))
 
 
 def test_padded_resident_plans_read_no_x_at_padding():
@@ -235,8 +234,8 @@ def test_padded_resident_plans_read_no_x_at_padding():
 
 def test_padded_split_plans_read_no_x_at_padding():
     """Two shards' split plans with forced decisions padded to one
-    template (placeholder streams among them): equal to the old
-    pipeline, padding at column -1."""
+    template (placeholder streams among them): equal to the two stages,
+    padding at column -1."""
     rng = np.random.default_rng(11)
     n = 40_000
     shards = []
@@ -269,8 +268,8 @@ def test_padded_split_plans_read_no_x_at_padding():
 
 def test_explicit_zero_keeps_its_column_and_nonfinite_x_stays_out():
     """A real entry of value 0.0 keeps its column (0 * inf is NaN, as the
-    old pipeline gives); x non-finite only at columns no entry names
-    leaves every product finite, where the old pipeline's padding read
+    two stages give); x non-finite only at columns no entry names
+    leaves every product finite, where the two stages' padding read
     it."""
     rng = np.random.default_rng(2)
     n = 4000
@@ -333,31 +332,23 @@ def test_chips_products_refuses_bad_arguments():
 
 
 def test_bind_slots_concatenates_the_plans():
-    """Several plans' tables in one launch: each plan's sums over its rows
-    of the products equal its own pipeline's."""
+    """Several plans' tables in one launch: each plan's rows of the
+    products equal its own, the two gather stages' products."""
     plans = [ct.plan_chips(*_random_tail(s, n_rows=300))
              for s in (3, 4)]
     n = 60_000
     x = torch.as_tensor(make_x(n), dtype=torch.float32)
-    products, sums, hbm = ct.bind_slots(plans, n, "cpu")
+    products, hbm = ct.bind_slots(plans, n, "cpu")
     prod = products(x, ct.PLAIN)
     assert prod.shape[0] == sum(p.E8 for p in plans)
-    assert hbm == prod.numel() * 12 + sum(p.NH for p in plans) * 4
-    for p, s in zip(plans, sums):
-        contrib, _ = ct.prepare_chips(p, n, "cpu", "hot")
-        assert torch.equal(s(prod, ct.PLAIN), contrib(x, ct.PLAIN))
+    assert hbm == prod.numel() * 12
+    r0 = 0
+    for p in plans:
+        assert torch.equal(prod[r0:r0 + p.E8], _stage_products(p, n, x))
+        r0 += p.E8
 
 
-def test_chips_x_is_checked():
-    with pytest.raises(ValueError, match="chips_x"):
-        ct.prepare_chips(ct.plan_chips(*_random_tail(3, n_rows=50)), 60_000,
-                         "cpu", "gathers")
-    with pytest.raises(ValueError, match="chips_x"):
-        lane_ell.prepare_lane_ell_hybrid(synth.diag_csr(300), device="cpu",
-                                         chips_x="x")
-
-
-# ---- the strategies on both settings ------------------------------------------
+# ---- the strategies -----------------------------------------------------------
 
 def _routes(prep, n):
     return [k for k, _ in prep.kernel_calls(
@@ -365,11 +356,10 @@ def _routes(prep, n):
 
 
 @pytest.mark.parametrize("name", ["amazon60k", "heavy-scatter"])
-def test_cuda_hybrid_slots_equal_hot_and_jax(name):
+def test_cuda_hybrid_matches_jax(name):
     """``cuda-hybrid``'s chips tail (single plan on amazon60k, the split
-    plan on heavy_scatter) on both settings from one pack: y equal, the
-    default's x side one ``chips_products`` call with no stage-1 gather,
-    y against the JAX hybrid's."""
+    plan on heavy_scatter): its x side one ``chips_products`` call with no
+    stage-1 gather, y against the JAX hybrid's."""
     if name == "amazon60k":
         make, kw = cases.SMALL_CASES[name]
         A = make()
@@ -377,35 +367,28 @@ def test_cuda_hybrid_slots_equal_hot_and_jax(name):
     else:
         A, kw = cases.heavy_scatter(), {}
         jA = JaxCSR(A.name, A.m, A.n, A.irp, A.ja, A.as_)
-    preps = lane_ell.prepare_hybrid_layouts(
-        A, ("rows", ("rows", "hot")), device="cpu", **kw)
-    slots, hot = preps["rows"], preps[("rows", "hot")]
-    assert slots.meta == hot.meta and slots.meta["tail_kind"] == "chips"
+    slots = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", **kw)
+    assert slots.meta["tail_kind"] == "chips"
     x = make_x(A.n)
     y = slots.fn(x)
-    assert torch.equal(y, hot.fn(x))
-    routes = _routes(slots, A.n)
-    assert routes.count("chips_products") == 1
-    assert routes[:routes.index("window_segsum")] == ["lane_rows",
-                                                      "chips_products"]
-    assert "chips_products" not in _routes(hot, A.n)
-    assert slots.hbm_bytes < hot.hbm_bytes
+    assert _routes(slots, A.n) == ["lane_rows", "chips_products",
+                                   "window_segsum", "heavy_land"]
     y_jax = np.asarray(jax_hybrid(jA, interpret=True, **kw).fn(x))
     assert _rel_l2(y.numpy(), y_jax) <= VS_JAX_REL_L2
     validate_result(spmv_oracle(A, x), y.double().numpy(), what=name)
 
 
 @pytest.mark.parametrize("name", sorted(cases.CHIPS_CASES))
-def test_cuda_chips_slots_equal_hot_and_jax(name):
+def test_cuda_chips_matches_jax(name):
+    """``cuda-chips`` lands into a zeroed y: its three kernels once each,
+    y against the JAX package's ``pallas-chips`` and the oracle."""
     make = cases.CHIPS_CASES[name]
     A = make(synth)
     slots = get_strategy("cuda-chips").prepare(A, device="cpu")
-    hot = get_strategy("cuda-chips").prepare(A, device="cpu", chips_x="hot")
-    assert slots.meta == hot.meta
     x = make_x(A.n)
     y = slots.fn(x)
-    assert torch.equal(y, hot.fn(x))
-    assert _routes(slots, A.n).count("chips_products") == 1
+    assert _routes(slots, A.n) == ["chips_products", "window_segsum",
+                                   "heavy_land"]
     jprep = jax_ct.prepare_chips_strategy(make(jax_synth), interpret=True)
     assert _rel_l2(y.numpy(), np.asarray(jprep.fn(x))) <= VS_JAX_REL_L2
     validate_result(spmv_oracle(A, x), y.double().numpy(), what=name)
@@ -441,19 +424,16 @@ DIST_CHIPS = {
 
 
 @pytest.mark.parametrize("name", sorted(DIST_CHIPS))
-def test_row_sharded_slots_equal_hot_and_jax(name):
-    """The row-sharded hybrid's chips tails on both settings from one
-    pack: y equal; on the default one ``chips_products`` call a call for
-    the card's shards; y against the JAX package's."""
+def test_row_sharded_matches_jax(name):
+    """The row-sharded hybrid's chips tails: one ``chips_products`` call a
+    call for the card's shards and no gather; y against the JAX
+    package's."""
     make, k, kw = DIST_CHIPS[name]
     A = make(synth)
-    preps = D.row_sharded_hybrid_layouts(A, ("rows", ("rows", "hot")),
-                                         mesh=["cpu"] * k, **kw)
-    slots, hot = preps["rows"], preps[("rows", "hot")]
+    slots = D.prepare_row_sharded_hybrid(A, mesh=["cpu"] * k, **kw)
     assert slots.meta["tail_kind"].startswith("chips")
     x = make_x(A.n)
     y = slots.fn(x)
-    assert torch.equal(y, hot.fn(x))
     routes = _routes(slots, A.n)
     assert routes.count("chips_products") == 1 and \
         "sorted_gather" not in routes

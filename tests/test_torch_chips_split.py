@@ -88,10 +88,11 @@ def assert_same_plan(want, got):
 
 
 def _sums(plan, rows, cols, vals, m, n, x):
-    """The plan's per-row sums through the port's plain pipeline, landed
-    into (m,), and the fp64 sums of the same f32 values and x."""
-    contrib, _ = ct.prepare_chips(plan, n, torch.device("cpu"))
-    ys = contrib(torch.as_tensor(x, dtype=torch.float32), ct.PLAIN)
+    """The plan's per-row sums through the port's plain pipeline (the
+    slot products and one segment-sum), landed into (m,), and the fp64
+    sums of the same f32 values and x."""
+    sums, _, _ = ct.bind_sums([plan], n, torch.device("cpu"))
+    ys = sums(torch.as_tensor(x, dtype=torch.float32), ct.PLAIN)
     got = np.zeros(m)
     np.add.at(got, plan.heavy_ids, ys.double().numpy())
     want = np.zeros(m)
@@ -189,20 +190,19 @@ def test_split_plan_popularity_cold_stream(monkeypatch):
 
 
 def test_split_plan_sums_match_jax():
-    """The split pipeline's per-row sums against the reference's (its
-    Pallas gathers and segment-sum in interpret mode)."""
+    """The split plan's per-row sums (the slot products of every stream
+    and one segment-sum) against the reference's (its Pallas gathers and
+    segment-sums in interpret mode)."""
     rows, cols, vals, m, n = _band_and_hubs()
     x = make_x(n)
     jplan = jax_ct.plan_chips_split(rows, cols, vals, m, n)
-    raw, args, jhbm = jax_ct.prepare_chips(jplan, n, jnp.float32, True)
+    raw, args, _ = jax_ct.prepare_chips(jplan, n, jnp.float32, True)
     ys_jax, hid = raw(jnp.asarray(x, jnp.float32), *args)
     plan = ct.plan_chips_split(rows, cols, vals, m, n)
-    # the reference's pipeline (its bytes): the gather stages
-    contrib, hbm = ct.prepare_chips(plan, n, torch.device("cpu"), "hot")
-    ys = contrib(torch.as_tensor(x, dtype=torch.float32), ct.PLAIN)
+    sums, _, _ = ct.bind_sums([plan], n, torch.device("cpu"))
+    ys = sums(torch.as_tensor(x, dtype=torch.float32), ct.PLAIN)
     np.testing.assert_array_equal(np.asarray(hid), plan.heavy_ids)
     assert _rel_l2(ys.numpy(), np.asarray(ys_jax, np.float64)) <= REL_L2
-    assert hbm == jhbm
 
 
 def test_split_plans_pad_to_one_template():
@@ -333,20 +333,17 @@ def test_plan_chips_falls_back_to_the_split_plan():
 def test_heavy_scatter_takes_the_split_plan():
     """``heavy_scatter`` through ``cuda-hybrid``: a 128,000-entry tail
     whose single plan does not fit rides the split plan (a direct-x local
-    stream and a far resident one) and the panel merge; meta as the
-    reference's (and the port's ``landing``), y against the JAX hybrid's
-    and the oracle; on ``chips_x="hot"`` and ``landing="merge"`` the
-    streams run the reference's gathers and segment-sums (the slot
-    products: tests/test_torch_chips_slots.py; the direct landing:
+    stream and a far resident one), which the reference lands by its
+    panel merge; meta as the reference's, y against the JAX hybrid's and
+    the oracle; both streams' slot products in one ``chips_products``
+    call and one segment-sum (tests/test_torch_chips_slots.py,
     tests/test_torch_landing.py)."""
     A = cases.heavy_scatter()
     jA = JaxCSR(A.name, A.m, A.n, A.irp, A.ja, A.as_)
-    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu", chips_x="hot",
-                                            landing="merge")
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device="cpu")
     jprep = jax_hybrid(jA, interpret=True)
     assert prep.meta["tail_kind"] == jprep.meta["tail_kind"] == "chips"
-    assert prep.meta == {**jprep.meta, "tail_kind": "chips",
-                         "landing": "merge"}
+    assert prep.meta == jprep.meta
     assert prep.meta["tail_meta"]["split"]
     x = make_x(A.n)
     y = prep.fn(x).double().numpy()
@@ -354,8 +351,8 @@ def test_heavy_scatter_takes_the_split_plan():
     validate_result(spmv_oracle(A, x), y, what="heavy_scatter, split tail")
     names = [k for k, _ in prep.kernel_calls(
         torch.as_tensor(x, dtype=torch.float32))]
-    assert {"window_gather", "sorted_gather", "ranked_gather",
-            "window_segsum"} <= set(names)
+    assert names == ["lane_rows", "chips_products", "window_segsum",
+                     "heavy_land"]
 
 
 # ---- cuda-chips ------------------------------------------------------------
@@ -364,12 +361,9 @@ def test_heavy_scatter_takes_the_split_plan():
 def test_cuda_chips_matches_pallas_chips(name):
     make = cases.CHIPS_CASES[name]
     A = make(synth)
-    # the reference's pipeline and landing, whose bytes hbm_bytes counts
-    prep = get_strategy("cuda-chips").prepare(A, device="cpu", chips_x="hot",
-                                              landing="merge")
+    prep = get_strategy("cuda-chips").prepare(A, device="cpu")
     jprep = jax_ct.prepare_chips_strategy(make(jax_synth), interpret=True)
-    assert prep.meta == {**jprep.meta, "landing": "merge"}
-    assert prep.hbm_bytes == jprep.hbm_bytes
+    assert prep.meta == jprep.meta
     assert prep.ref == "pallas-chips"
     assert prep.meta["split"] == (name == "webbase30k-split")
     x = make_x(A.n)

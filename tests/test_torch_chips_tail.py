@@ -1,11 +1,11 @@
 """The port's chips tail, single-plan route
 (spmv_scpa_tpu_torch/ops/chips_tail.py and ops/segsum_kernel.py),
-against the JAX package's: the planner's arrays and the landing's merge
-tables exactly; the landing, the per-row sums and the windowed
-segment-sum against the Pallas pipeline run in interpret mode.
+against the JAX package's: the planner's arrays exactly, the landing the
+meta records (``merge_kind``) as the reference's ``make_landing``
+chooses it; the per-row sums and the windowed segment-sum against the
+Pallas pipeline run in interpret mode.
 
-Tolerances: tables and plans, exact. The landing adds gathered sums
-(exact moves) to y in f32 as JAX does: exact. The segment-sum and the
+Tolerances: plans and the landing's kind, exact. The segment-sum and the
 per-row sums: rel-L2 <= 1e-6, because ``make_window_segsum`` reduces
 with a one-hot matmul on b split into three bf16 terms (24 bits of b,
 f32-grade, summed in another order) while the port adds the f32
@@ -79,16 +79,17 @@ def test_plan_chips_matches_jax(tail):
 
 
 def test_per_row_sums_match_jax(tail):
+    """The slot products and the one segment-sum (``bind_sums``) against
+    the reference's gathers and segment-sum."""
     _, (rows, cols, vals, m, n) = tail
     plan = ct.plan_chips(rows, cols, vals, m, n)
     x = np.random.default_rng(5).standard_normal(n).astype(np.float32)
-    # the reference's pipeline (its bytes): the two gather stages
-    contrib, hbm = ct.prepare_chips(plan, n, torch.device("cpu"), "hot")
-    raw, args, jhbm = jax_ct.prepare_chips(jax_ct.plan_chips(
+    sums, (r0,), _ = ct.bind_sums([plan], n, torch.device("cpu"))
+    raw, args, _ = jax_ct.prepare_chips(jax_ct.plan_chips(
         rows, cols, vals, m, n), n, jnp.float32, True)
     ys_jax, hid = raw(jnp.asarray(x), *args)
-    ys = contrib(torch.as_tensor(x), lane_ell.KERNELS).numpy()
-    assert hbm == jhbm
+    ys = sums(torch.as_tensor(x), lane_ell.KERNELS).numpy()
+    assert r0 == 0 and ys.shape == (plan.NH,)
     np.testing.assert_array_equal(np.asarray(hid), plan.heavy_ids)
     assert _rel_l2(ys, np.asarray(ys_jax)) <= REL_L2
     want = np.zeros(m)
@@ -121,64 +122,65 @@ def test_split_plan_raises_not_implemented():
 
 def test_constants_match_jax():
     for c in ("H_CAP", "VPU_BUDGET", "R_PANELS", "H_WIN_CAP", "W_LOC",
-              "MERGE_R_H", "SPLIT_VPU_BUDGET", "R_HOT"):
+              "SPLIT_VPU_BUDGET", "R_HOT"):
         assert getattr(ct, c) == getattr(jax_ct, c), c
 
 
-# ---- the landing -------------------------------------------------------------
+# ---- the landing the meta records ---------------------------------------------
 
-LANDINGS = {
+def _ids(rng, m, k, ascending):
+    ids = rng.choice(m, k, replace=False)
+    return np.sort(ids) if ascending else rng.permutation(ids)
+
+
+# name -> (m, heavy ids, merge budget, the kind)
+MERGE_CASES = {
     # ascending heavy ids: the windowed merge
-    "windowed": (lambda rng, m: np.sort(rng.choice(m, 900, replace=False)),
-                 6e8),
-    # ids ordered by row length, as the chips plan orders them: ranked
-    "ranked": (lambda rng, m: rng.permutation(
-        rng.choice(m, 900, replace=False)), 6e8),
+    "windowed": (50_000, lambda rng, m: _ids(rng, m, 900, True), 6e8,
+                 "windowed"),
+    # ids ordered by row length, as the chips plan orders them: the
+    # windowed tables refuse them, the ranked merge
+    "ranked": (50_000, lambda rng, m: _ids(rng, m, 900, False), 6e8,
+               "ranked"),
     # the ranked tables over budget: index_add_ on the unique rows
-    "scatter": (lambda rng, m: rng.permutation(
-        rng.choice(m, 900, replace=False)), 0.0),
+    "scatter": (50_000, lambda rng, m: _ids(rng, m, 900, False), 0.0,
+                "scatter"),
+    # unsorted ids past the resident cap (H_CAP rows of padded sums)
+    "unsorted-past-the-cap": (400_000,
+                              lambda rng, m: _ids(rng, m, 140_000, False),
+                              6e8, "scatter"),
+    # ascending ids past the windowed cap (H_WIN_CAP rows)
+    "ascending-past-the-cap": (2_300_000,
+                               lambda rng, m: np.arange(2_100_000),
+                               6e8, "scatter"),
+    # no heavy row
+    "empty": (1000, lambda rng, m: np.zeros(0, np.int64), 6e8, "windowed"),
 }
 
 
-@pytest.mark.parametrize("kind", sorted(LANDINGS))
-def test_landing_matches_jax(kind):
-    rng = np.random.default_rng(len(kind))
-    m = 50_000
+@pytest.mark.parametrize("name", sorted(MERGE_CASES))
+def test_panel_merge_record_matches_the_reference(name):
+    """``merge_kind`` (no tables built) against the reference's tables:
+    the windowed merge where ``merge_tables_windowed`` builds them, else
+    the ranked one where ``merge_tables`` does, else the scatter; and, on
+    ``windowed=False`` (the row-sharded reference), the ranked tables
+    alone. ``panel_merge`` is what ``make_landing`` reports."""
+    m, make_ids, budget, kind = MERGE_CASES[name]
     G_pad = -(-m // BC)
-    make_ids, budget = LANDINGS[kind]
-    hid = make_ids(rng, m).astype(np.int64)
-    tables = ct.landing_tables(hid, m, G_pad, budget)
-    assert tables[0] == kind
+    hid = make_ids(np.random.default_rng(len(name)), m).astype(np.int64)
     tw = jax_ct.merge_tables_windowed(hid, m, G_pad)
     tr = jax_ct.merge_tables(hid, m, G_pad, budget)
-    want_tabs = tw if kind == "windowed" else tr
-    for got, exp in zip(tables[1] or (), want_tabs or ()):
-        np.testing.assert_array_equal(got, exp)
-    assert (ct.merge_tables_windowed(hid, m, G_pad) is None) == (tw is None)
-    assert (ct.merge_tables(hid, m, G_pad, budget) is None) == (tr is None)
-
-    y = rng.standard_normal(m).astype(np.float32)
-    ys = rng.standard_normal(hid.size).astype(np.float32)
-    land, use_merge, extra = ct.make_landing(hid, m, G_pad,
-                                             torch.device("cpu"), budget)
-    jland, margs, jmerge, jextra = jax_ct.make_landing(
-        hid, m, G_pad, jnp.float32, True, budget)
-    assert (use_merge, extra) == (jmerge, jextra)
-    got = land(torch.as_tensor(y.copy()), torch.as_tensor(ys),
-               lane_ell.KERNELS).numpy()
-    want = np.asarray(jland(jnp.asarray(y), jnp.asarray(ys),
-                            jnp.asarray(hid, jnp.int32), *margs))
-    np.testing.assert_array_equal(got, want)
-    expect = y.astype(np.float64)
-    expect[hid] += ys
-    np.testing.assert_allclose(got, expect, rtol=1e-6)
-
-
-def test_merge_tables_refuse_bad_heavy_ids():
+    want = ("windowed" if tw is not None else
+            "ranked" if tr is not None else "scatter")
+    assert ct.merge_kind(hid, m, G_pad, budget) == want == kind
+    assert (ct.merge_kind(hid, m, G_pad, budget, windowed=False)
+            == ("ranked" if tr is not None else "scatter"))
+    if hid.size <= 1000:
+        _, _, use_merge, _ = jax_ct.make_landing(hid, m, G_pad, jnp.float32,
+                                                 True, budget)
+        assert use_merge == (kind != "scatter")
     with pytest.raises(ValueError, match="heavy_ids"):
-        ct.merge_tables(np.array([5, 300]), 200, 2)
-    with pytest.raises(ValueError, match="heavy_ids"):
-        ct.merge_tables_windowed(np.array([5, 300]), 200, 2)
+        ct.merge_kind(np.append(hid, m), m, G_pad, budget)
 
 
 # ---- the windowed segment-sum --------------------------------------------------

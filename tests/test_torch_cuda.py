@@ -46,14 +46,12 @@ plain versions' fixed order without atomics: bit-equal to them on the
 card and run on the CPU, at 1 to 100 columns, each branch of the SpMM's
 dispatch; each SpMM launch's span names its design. The chips
 tail's slot products ``chips_products`` round one f32 product a slot as
-their plain version does: bit-equal on the card and run on the CPU; y on
-``chips_x="slots"`` equals y on ``"hot"``. The direct landing
-``heavy_land`` adds one f32 sum into each heavy row as its plain version
-does: bit-equal on the card and run on the CPU; its one segment-sum over
-every stream of every shard (a split plan at 4 shards of one card) is
-held as the segment-sums are, and the call's y within rel-L2 1e-6 of the
-merge landing's (the one segment-sum adds a heavy row's streams in
-another order). The row-sharded PELL on row
+their plain version does: bit-equal on the card and run on the CPU. The
+landing ``heavy_land`` adds one f32 sum into each heavy row as its plain
+version does: bit-equal on the card and run on the CPU; its one
+segment-sum over every stream of every shard (a split plan at 4 shards
+of one card) is held as the segment-sums are, and the call against its
+plain call and the oracle. The row-sharded PELL on row
 quanta, one ``pell_rows`` launch a call, as the whole hybrid call. The
 benchmark runner (``bench/runner.py``) on the card: every row validated
 against the oracle (``validate_result`` defaults; fp64 rows at rel-L2
@@ -1019,32 +1017,23 @@ def test_split_streams_match_plain(card):
     whole webbase stand-in through cuda-chips (split)."""
     A = cases.heavy_scatter()
     B = synth.webbase_csr(m=30000)
-    ys = {}
-    for chips_x, kernel in (("hot", "window_gather"),
-                            ("slots", "chips_products")):
-        prep = lane_ell.prepare_lane_ell_hybrid(A, device=card,
-                                                chips_x=chips_x)
-        assert prep.meta["tail_meta"]["split"]
-        chips = get_strategy("cuda-chips").prepare(B, device=card,
-                                                   chips_x=chips_x)
-        assert chips.meta["split"]
-        for M, p in ((A, prep), (B, chips)):
-            x = make_x(M.n)
-            xd = torch.as_tensor(x, dtype=torch.float32, device=card)
-            yk = p.fn(xd)
-            ys.setdefault(M.name, []).append(yk)
-            yk = to_numpy(yk)
-            yt = to_numpy(p.plain(xd))
-            assert np.linalg.norm(yk - yt) <= \
-                KERNEL_VS_PLAIN_REL_L2 * np.linalg.norm(yt)
-            validate_result(spmv_oracle(M, x), yk,
-                            what=f"split on {M.name}, {chips_x}")
-            calls = p.kernel_calls(xd)
-            assert {kernel, "window_segsum"} <= {k for k, _ in calls}
-            for kname, args in calls:
-                _replay(kname, args)
-    for name, (hot, slots) in ys.items():
-        assert torch.equal(hot, slots), name
+    prep = lane_ell.prepare_lane_ell_hybrid(A, device=card)
+    assert prep.meta["tail_meta"]["split"]
+    chips = get_strategy("cuda-chips").prepare(B, device=card)
+    assert chips.meta["split"]
+    for M, p in ((A, prep), (B, chips)):
+        x = make_x(M.n)
+        xd = torch.as_tensor(x, dtype=torch.float32, device=card)
+        yk = to_numpy(p.fn(xd))
+        yt = to_numpy(p.plain(xd))
+        assert np.linalg.norm(yk - yt) <= \
+            KERNEL_VS_PLAIN_REL_L2 * np.linalg.norm(yt)
+        validate_result(spmv_oracle(M, x), yk, what=f"split on {M.name}")
+        calls = p.kernel_calls(xd)
+        assert {"chips_products", "window_segsum", "heavy_land"} <= {
+            k for k, _ in calls}
+        for kname, args in calls:
+            _replay(kname, args)
 
 
 # ---- the chips tail's slot products and the row-sharded PELL on rows ------
@@ -1105,22 +1094,19 @@ def test_chips_products_refuses_bad_arguments(card):
 
 def test_sharded_chips_launch_once_per_card(card):
     """amazon40k at 4 shards of one card: the shards' chips tails share
-    one ``chips_products`` launch a call, and y equals the two gather
-    stages' (``chips_x="hot"``)."""
+    one ``chips_products`` launch a call, against the call's plain
+    version and the oracle."""
     from spmv_scpa_tpu_torch.ops import chips_slots
     A = synth.amazon_csr(40_000, seed=11)
     slots = distributed.prepare_row_sharded_hybrid(A, mesh=[card] * 4)
-    hot = distributed.prepare_row_sharded_hybrid(A, mesh=[card] * 4,
-                                                 chips_x="hot")
     assert slots.meta["tail_kind"] == "chips"
     calls = _dist_check(slots, A, card)
     assert [k for k, _ in calls].count("chips_products") == 1
     assert "sorted_gather" not in {k for k, _ in calls}
     xd = torch.as_tensor(make_x(A.n), dtype=torch.float32, device=card)
     before = chips_slots.LAUNCHES["chips_products"]
-    y = slots.fn(xd)
+    slots.fn(xd)
     assert chips_slots.LAUNCHES["chips_products"] == before + 1
-    assert torch.equal(y, hot.fn(xd))
 
 
 @pytest.mark.parametrize("k", [1, 4])
@@ -1513,33 +1499,26 @@ def test_heavy_land_refuses_bad_arguments(card):
 
 
 def test_one_table_segsum_on_four_shards_matches_plain(card):
-    """A split chips plan on 4 shards of one card, the direct landing:
-    one ``window_segsum`` over every stream of every shard and one
-    ``heavy_land`` a call; the segment-sum bit-equal to its plain version
-    run on the CPU (and within rel-L2 1e-6 of it on the card), the call
-    against its plain call, the oracle and the merge landing's y."""
+    """A split chips plan on 4 shards of one card: one ``window_segsum``
+    over every stream of every shard, the products of all of them, and
+    one ``heavy_land`` a call; the segment-sum bit-equal to its plain
+    version run on the CPU (and within rel-L2 1e-6 of it on the card),
+    the call against its plain call and the oracle."""
     from spmv_scpa_tpu_torch.ops import chips_tail
     A = synth.webbase_csr(m=12000, seed=5)
     direct = distributed.prepare_row_sharded_hybrid(
         A, mesh=[card] * 4, tail_kind="chips-split")
-    merge = distributed.prepare_row_sharded_hybrid(
-        A, mesh=[card] * 4, tail_kind="chips-split", landing="merge")
     assert direct.meta["tail_kind"] == "chips-split"
     calls = _dist_check(direct, A, card)
     names = [k for k, _ in calls]
     assert names.count("window_segsum") == names.count("heavy_land") == 1
     (args,) = [a for k, a in calls if k == "window_segsum"]
-    assert args[0].shape[0] == sum(a[0].shape[0] for k, a in
-                                   merge.kernel_calls(torch.zeros(
-                                       A.n, device=card))
-                                   if k == "window_segsum")
+    (prod,) = [a for k, a in calls if k == "chips_products"]
+    assert args[0].shape == prod[0].shape
     xd = torch.as_tensor(make_x(A.n), dtype=torch.float32, device=card)
     before = (segsum_kernel.KERNEL_LAUNCHES,
               chips_tail.LAUNCHES["heavy_land"])
-    y = direct.fn(xd)
+    direct.fn(xd)
     torch.cuda.synchronize()
     assert (segsum_kernel.KERNEL_LAUNCHES - before[0],
             chips_tail.LAUNCHES["heavy_land"] - before[1]) == (1, 1)
-    y_m = merge.fn(xd)
-    assert float((y - y_m).norm()) <= \
-        KERNEL_VS_PLAIN_REL_L2 * float(y_m.norm())

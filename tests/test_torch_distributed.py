@@ -12,8 +12,9 @@ generator from the same seed.
 Tolerances:
 * the stacked host arrays (the reference's ``out.args``: planes, int8
   codes over the union strip sets, r0, ext tables, padded chips or split
-  plans, merge tables, segment-sum tails, PELL tables on
-  ``layout="tiles"``) and the meta: exact;
+  plans, segment-sum tails, PELL tables on ``layout="tiles"``; but the
+  reference's merge tables, which the port does not build: it lands the
+  sums by ``heavy_land``) and the meta: exact;
 * the union strip sets: exact, read from the reference kernel's closure;
 * the port's y (plain versions on the CPU, the default rows core and
   the PELL's default row layout) against the JAX y, once per route at 4
@@ -111,10 +112,13 @@ def _closure_value(fn, fname: str, var: str, seen=None):
 
 
 def assert_same_arrays(prep_fn, jd, pd):
-    """The shards' stacked host arrays equal the reference's, and the
-    meta (the hybrid's, without the port's per-shard ``tail_meta``,
-    ``strip_sets`` and ``landing``)."""
+    """The shards' stacked host arrays equal the reference's (but its
+    merge tables, the last two where its meta records the panel merge),
+    and the meta (the hybrid's, without the port's per-shard
+    ``tail_meta`` and ``strip_sets``)."""
     ja = [np.asarray(a) for a in jd.args]
+    if prep_fn == HYBRID and jd.meta["panel_merge"]:
+        ja = ja[:-2]
     pa = list(pd.args)
     if prep_fn == PELL:
         # the reference ships the visit masks and, for superpanels, the
@@ -141,7 +145,7 @@ def assert_same_arrays(prep_fn, jd, pd):
         np.testing.assert_array_equal(want, got, err_msg=str(i))
     if prep_fn == HYBRID:
         meta = {k: v for k, v in pd.meta.items()
-                if k not in ("tail_meta", "strip_sets", "landing")}
+                if k not in ("tail_meta", "strip_sets")}
         assert meta == jd.meta
         used = _closure_value(jd.raw, "kernel", "used")
         assert used is not None and used == pd.meta["strip_sets"]
@@ -254,12 +258,11 @@ def test_reference_cases_pack_like_the_reference(name, k):
 
 # the kernels a call with ext panels and chips tails runs, by core layout:
 # the rows core reads x in place, the ext gathers only build the lanes
-# core's panels (the chips tails on chips_x="hot" gather on both; the
-# slot products: tests/test_torch_chips_slots.py)
+# core's panels (the chips tails read x in place on both)
+CHIPS_ROUTE = {"chips_products", "window_segsum", "heavy_land"}
 EXT_ROUTE = {"lanes": {"lane_ell_sharded", "sorted_gather", "ranked_gather",
-                       "window_segsum"},
-             "rows": {"lane_rows", "sorted_gather", "ranked_gather",
-                      "window_segsum"}}
+                       *CHIPS_ROUTE},
+             "rows": {"lane_rows", *CHIPS_ROUTE}}
 
 
 @pytest.mark.parametrize("layout", sorted(EXT_ROUTE))
@@ -268,14 +271,13 @@ def test_ext_panels_absorb_the_out_of_window_entries(layout):
     tail at 4 shards is under a quarter of the tail without them."""
     make = REF_CASES["hybrid-amazon40k-ext"][1]
     A = make(synth)
-    on = D.prepare_row_sharded_hybrid(A, mesh=_mesh(4), core_layout=layout,
-                                      chips_x="hot")
+    on = D.prepare_row_sharded_hybrid(A, mesh=_mesh(4), core_layout=layout)
     off = D.prepare_row_sharded_hybrid(A, mesh=_mesh(4), ext=False,
-                                       core_layout=layout, chips_x="hot")
+                                       core_layout=layout)
     assert on.meta["ext"] and on.meta["ext_n_out"] > 0 and not off.meta["ext"]
     assert on.meta["tail_nnz"] < 0.25 * off.meta["tail_nnz"]
     calls = on.kernel_calls(torch.zeros(A.n))
-    assert EXT_ROUTE[layout] <= {k for k, _ in calls}
+    assert EXT_ROUTE[layout] == {k for k, _ in calls}
     core = {"lanes": "lane_ell_sharded", "rows": "lane_rows"}[layout]
     assert [k for k, _ in calls].count(core) == 1
 
@@ -298,10 +300,11 @@ def test_ext_mixed_shards():
 
 
 def test_chips_scatter_fallback(monkeypatch):
-    """Merge tables over budget on every shard: the heavy rows land by
-    ``index_add_`` (the reference's scatter), heavy ids as shard data."""
+    """Merge tables over budget on every shard: the reference lands the
+    heavy rows by ``index_add_`` (its scatter), heavy ids as shard data,
+    and the meta records no panel merge."""
     monkeypatch.setattr(jax_ct, "merge_tables", lambda *a, **k: None)
-    monkeypatch.setattr(chips_tail, "merge_tables", lambda *a, **k: None)
+    monkeypatch.setattr(chips_tail, "merge_kind", lambda *a, **k: "scatter")
     jd, pd, A = _build(HYBRID, _gen("amazon_csr", m=6000, seed=30), 4,
                        tail_kind="chips")
     assert_same_arrays(HYBRID, jd, pd)

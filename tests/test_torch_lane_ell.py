@@ -7,8 +7,8 @@ tests/test_torch_cuda.py.
 
 The cases are ``bench/cases.py``'s small cases: the core's branches,
 and ``amazon60k`` (ext panels with the resident stage 2, a chips tail
-landing through the ranked merge) and ``ext-windowed40k`` (the windowed
-stage 2). Each case is packed once and bound on both core layouts:
+that the reference lands through its ranked merge) and
+``ext-windowed40k`` (the windowed stage 2). Each case is packed once and bound on both core layouts:
 ``"rows"`` (the default, ``ops/lane_rows.py``) and ``"lanes"`` (the
 reference's planes, whose meta and bytes are the reference's; the rows
 layout's own tests: tests/test_torch_lane_rows.py).
@@ -43,7 +43,7 @@ from spmv_scpa_tpu_torch import spmv
 from spmv_scpa_tpu_torch import testing as synth
 from spmv_scpa_tpu_torch.bench.cases import SMALL_CASES as CASES
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
-from spmv_scpa_tpu_torch.ops import lane_ell, lane_rows
+from spmv_scpa_tpu_torch.ops import chips_tail, lane_ell, lane_rows
 from spmv_scpa_tpu_torch.ops.oracle import spmv_oracle
 from spmv_scpa_tpu_torch.ops.registry import pick_auto, to_numpy
 from spmv_scpa_tpu_torch.utils.validation import validate_result
@@ -96,15 +96,12 @@ def _port(name):
     """One small case's matrix, knobs, packed plan and CPU-bound
     ``cuda-hybrid`` on each core layout ({layout: Prepared}, one pack),
     built once for the whole module (the tests do not mutate them). The
-    chips tail runs the reference's gathers (``chips_x="hot"``) and
-    landing (``landing="merge"``), whose bytes and kernels these tests
-    pin; the slot products: tests/test_torch_chips_slots.py; the direct
+    chips tail's slot products: tests/test_torch_chips_slots.py; its
     landing: tests/test_torch_landing.py."""
     make, kw = CASES[name]
     A = make()
     return (A, kw, lane_ell.pack_lane_ell(A, **kw),
-            lane_ell.prepare_hybrid_layouts(A, device="cpu", chips_x="hot",
-                                            landing="merge", **kw))
+            lane_ell.prepare_hybrid_layouts(A, device="cpu", **kw))
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
@@ -122,7 +119,7 @@ def case(request):
 def _jax_arrays(jprep, plan):
     """The JAX Prepared's args by role (lane_ell.py:1398-1528): the core's
     (vals, idx streams, hot, ext tables, dynamic strips), then the
-    tail's (chips pipeline and landing tables, or the compact tail). The
+    tail's (chips pipeline and its merge tables, or the compact tail). The
     idx streams are mapped by n8/n16: idx16 is absent when n8 == QT
     (lane_ell.py:1270-1274)."""
     args = [np.asarray(a) for a in jprep.args]
@@ -149,7 +146,8 @@ def _jax_arrays(jprep, plan):
     if plan.chips is not None:
         take("c_base", "c_p1", "c_l1", "c_p2", "c_l2", "c_vals", "c_rbl",
              "c_hid", "c_win")
-        kind = plan.landing[0]
+        kind = chips_tail.merge_kind(plan.chips.heavy_ids, plan.m,
+                                     plan.cfg.G_pad)
         take(*{"windowed": ("m_b8", "m_p2", "m_l2"),
                "ranked": ("m_p2", "m_l2"), "scatter": ()}[kind])
     elif plan.trows.size:
@@ -198,11 +196,6 @@ def test_plan_arrays_match_jax(case):
                           (cp.heavy_ids, "c_hid"),
                           (cp.win_of_step, "c_win")):
             np.testing.assert_array_equal(mine, ja[key], err_msg=key)
-        kind, tabs = plan.landing
-        names = {"windowed": ("m_b8", "m_p2", "m_l2"),
-                 "ranked": ("m_p2", "m_l2"), "scatter": ()}[kind]
-        for mine, key in zip(tabs or (), names):
-            np.testing.assert_array_equal(mine, ja[key], err_msg=key)
     elif plan.trows.size:
         np.testing.assert_array_equal(plan.tcols, ja["tc"])
         np.testing.assert_array_equal(plan.tvals.astype(np.float32),
@@ -211,16 +204,18 @@ def test_plan_arrays_match_jax(case):
 
 
 def test_plan_meta_matches_jax(case):
-    """The lanes layout's meta and bytes are the reference's (the meta
-    with the port's ``landing`` beside its keys); the rows layout keeps
-    the packer's meta (its bytes: test_torch_lane_rows)."""
-    name, A, kw, _, jprep, _, _, preps = case
+    """The lanes layout's meta is the reference's, and its bytes but
+    where a chips tail runs the slot products and ``heavy_land`` in place
+    of the reference's gathers and merge; the rows layout keeps the
+    packer's meta (its bytes: test_torch_lane_rows)."""
+    name, A, kw, _, jprep, _, plan, preps = case
     prep = preps["lanes"]
-    want = {**jprep.meta, "landing": "merge"}
+    want = dict(jprep.meta)
     if want["tail_kind"] == "xla-compact":
         want["tail_kind"] = "torch-compact"
     assert prep.meta == want
-    assert prep.hbm_bytes == jprep.hbm_bytes
+    if plan.chips is None:
+        assert prep.hbm_bytes == jprep.hbm_bytes
     assert prep.ref == "pallas-hybrid"
     assert preps["rows"].meta == want and preps["rows"].ref == prep.ref
 
@@ -336,15 +331,14 @@ def test_strip_pairs_is_the_sorted_unique(kind, slice_, monkeypatch):
 KERNEL_ROUTES = {
     "lanes": {
         "amazon60k": ["sorted_gather", "ranked_gather", "lane_ell_spmv",
-                      "sorted_gather", "ranked_gather", "window_segsum",
-                      "ranked_gather"],
+                      "chips_products", "window_segsum", "heavy_land"],
         "ext-windowed40k": ["sorted_gather", "window_gather",
                             "lane_ell_spmv"],
         "banded512": ["lane_ell_spmv"],
     },
     "rows": {
-        "amazon60k": ["lane_rows", "sorted_gather", "ranked_gather",
-                      "window_segsum", "ranked_gather"],
+        "amazon60k": ["lane_rows", "chips_products", "window_segsum",
+                      "heavy_land"],
         "ext-windowed40k": ["lane_rows"],
         "banded512": ["lane_rows"],
     },

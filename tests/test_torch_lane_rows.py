@@ -403,8 +403,8 @@ def test_row_sharded_rows_core_matches_lanes_and_oracle(name, k):
 
 def test_rows_core_runs_no_ext_gather():
     """The rows core reads x in place: amazon60k's call runs
-    ``lane_rows`` and the chips tail's gathers, not the core's ext route
-    (whose stage-2 gather over all groups the lanes call runs first)."""
+    ``lane_rows`` and the chips tail, not the core's ext route (whose
+    stage-2 gather over all groups the lanes call runs first)."""
     A, kw, _ = _small("amazon60k")
     preps = lane_ell.prepare_hybrid_layouts(A, device="cpu", **kw)
     xf = torch.as_tensor(make_x(A.n), dtype=torch.float32)
@@ -413,13 +413,17 @@ def test_rows_core_runs_no_ext_gather():
     assert rows[0] == "lane_rows" and "lane_ell_spmv" not in rows
     assert lanes[:3] == ["sorted_gather", "ranked_gather", "lane_ell_spmv"]
     assert lanes[3:] == rows[1:]              # the same tail
+    assert not {"sorted_gather", "ranked_gather", "window_gather"} & set(rows)
 
 
 def test_landing_takes_the_rows_core_y():
-    """The chips tail's landing tables cover G_pad groups; the core's y
-    it lands into is (m,) on both layouts, and the landed y agree."""
+    """The chips tail (whose sums the reference would land by a panel
+    merge over G_pad groups) lands into the core's y, (m,) on the rows
+    layout and (G_pad * 128,) on the lanes one, and the landed y agree."""
     A, kw, plan = _small("amazon60k")
-    assert plan.chips is not None and plan.landing[0] != "scatter"
+    assert plan.chips is not None and chips_tail.merge_kind(
+        plan.chips.heavy_ids, A.m, plan.cfg.G_pad) == "ranked"
+    assert plan.meta["tail_meta"]["panel_merge"]
     preps = lane_ell.prepare_hybrid_layouts(A, device="cpu", **kw)
     xf = torch.as_tensor(make_x(A.n), dtype=torch.float32)
     for layout, core in (("rows", "lane_rows"), ("lanes", "lane_ell_spmv")):

@@ -184,8 +184,17 @@ def test_auto_falls_back_when_xpose_refuses_mid_plan(monkeypatch):
 
 
 def test_auto_falls_back_on_a_refusal(monkeypatch):
-    """A ValueError mid-plan sends "auto" down the fallback chain."""
-    monkeypatch.setattr(lane_ell, "X_VMEM_BUDGET", 1024)
+    """A ValueError mid-plan sends "auto" down the fallback chain: the
+    packer's resident-x budget lowered while it packs (``pick_auto`` reads
+    the same budget, ``lane_ell.x_fits``, so it is lowered only there)."""
+    pack = lane_ell.pack_lane_ell
+
+    def pack_tight(*args, **kw):
+        with monkeypatch.context() as mp:
+            mp.setattr(lane_ell, "X_VMEM_BUDGET", 1024)
+            return pack(*args, **kw)
+
+    monkeypatch.setattr(lane_ell, "pack_lane_ell", pack_tight)
     A = synth.banded_csr(2000, row_nnz=16, seed=1)
     assert pick_auto(A) == "cuda-hybrid"
     x = make_x(A.n)
@@ -193,6 +202,31 @@ def test_auto_falls_back_on_a_refusal(monkeypatch):
                     what="auto fallback")
     with pytest.raises(ValueError):
         spmv(A, x, "cuda-hybrid", device="cpu")
+
+
+# (m, n) on each side of the hybrid's resident-x bound, 10 MiB: its
+# widest window, (ceil(m / 128) + 65) * 512 B, and x itself, 4n B
+X_FIT = {"rows-at-the-bound": (2_613_120, 1000, "cuda-hybrid"),
+         "rows-past-the-bound": (2_613_121, 1000, "cuda-pell"),
+         "x-at-the-bound": (1000, 2_621_440, "cuda-hybrid"),
+         "x-past-the-bound": (1000, 2_621_441, "cuda-xpose")}
+
+
+@pytest.mark.parametrize("name", sorted(X_FIT))
+def test_pick_auto_resident_x_fit_on_both_sides(monkeypatch, name):
+    """``pick_auto``'s quick test of the hybrid's resident x
+    (``lane_ell.x_fits``) at and one row or column past the bound, on a
+    matrix with all its entries near the diagonal: the hybrid up to it,
+    past it what the JAX package's TPU branch picks."""
+    m, n, want = X_FIT[name]
+    k = min(m, n)
+    irp = np.concatenate([np.arange(k + 1), np.full(m - k, k)])
+    ja, vals = np.arange(k), np.ones(k)
+    monkeypatch.setattr(jax_platform, "is_tpu", lambda: True)
+    from spmv_scpa_tpu.formats.csr import CSR as JaxCSR
+    assert jax_registry.pick_auto(JaxCSR(name, m, n, irp, ja, vals)) \
+        == {port: ref for ref, port in PORT_OF.items()}[want]
+    assert pick_auto(CSR(name, m, n, irp, ja, vals)) == want
 
 
 @pytest.mark.parametrize("index", range(ZOO_SIZE))
