@@ -1014,7 +1014,7 @@ def s3_rows_slots(args):
     """The product slots an ``xpose_s3_rows`` call adds: each one's flat
     index into mid and its row of y (pointers clamped as the kernel
     clamps them, positions outside mid left out: they read 0.0)."""
-    mid, rowptr, pos = args
+    mid, rowptr, pos = args[:3]
     S = pos.numel()
     lo = rowptr[:-1].long().clamp(0, S)
     hi = torch.maximum(rowptr[1:].long().clamp(0, S), lo)

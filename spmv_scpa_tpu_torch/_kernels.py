@@ -83,7 +83,7 @@ SIGNATURES = {
               "xpose_s1": (P, I64, P, I, I, P, P, P, P, P, P, I, I, P),
               "xpose_s1_slots": (P, I64, P, P, P, I, I, P, I64, I, P),
               "xpose_s3": (P, P, P, I, I, I64, P),
-              "xpose_s3_rows": (P, I64, P, P, I, P, I, P)},
+              "xpose_s3_rows": (P, I64, P, P, I, P, I, P, I, P)},
     "spmm": {"bcsr_spmm": (P, P, P, P, P, I, I, I, P)},
     "bcsr_bits": {"bcsr_bits": (P, P, P, P, P, P, P, I, I, P),
                   "bcsr_bits_spmm": (P, P, P, P, P, P, P, I, I, I, P),
@@ -222,3 +222,14 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 def stream_handle(device) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def stream_getter(device):
+    """A function of no argument that returns :func:`stream_handle` of
+    ``device`` (a CUDA device with its index), through PyTorch's raw
+    stream query where this build has it: no stream object is made."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None or device.index is None:
+        return lambda: stream_handle(device)
+    index = device.index
+    return lambda: raw(index)

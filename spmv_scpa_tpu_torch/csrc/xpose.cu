@@ -43,7 +43,8 @@
 //   S3 rows: y[r] = sum of mid[pos[k]] over rowptr[r] <= k < rowptr[r + 1]
 //           (ops/xpose.py:s3_rows_table turns the planes, once per plan,
 //           into each real row's product slots, its virtual rows' folded
-//           in, ascending). A row of at most kShortRow slots adds them in
+//           in, ascending; and the list of rows past kShortRow slots,
+//           longest first). A row of at most kShortRow slots adds them in
 //           order from 0.0; a longer one is dealt round-robin to 32 lanes,
 //           each adding its share in order from 0.0, and the lanes combine
 //           by the halving tree (xor shuffles 16, 8, 4, 2, 1).
@@ -59,7 +60,8 @@
 // the eight planes (128 KB an out-block, about 95 B per product on
 // amazon262k's far part) for xpose_s3, or the slot table (a 4-byte
 // position per product and a 4-byte pointer per row) and the occupied
-// product slots for xpose_s3_rows. No arithmetic worth counting.
+// product slots for xpose_s3_rows (and its long-row list, 4 B a row past
+// 32 slots). No arithmetic worth counting.
 //
 // Design. The TPU needs transpose/lane-gather/transpose chains and batches
 // of 8 steps because Mosaic has no per-element gather; here a thread reads
@@ -89,20 +91,32 @@
 // same way, and the extraction reads psg from shared memory. S3 rows: the
 // prefix trick is how a TPU, which has no scatter, sums rows; its routing
 // depends on the plan alone, so the host resolves it once and the kernel
-// reads only the occupied products, the table and y. A warp owns 32
-// consecutive rows, one a lane, so y is written coalesced with no atomics
-// and no second launch: each lane walks its row of at most kShortRow slots
-// with kDepth positions, then kDepth products, in flight; then the warp
-// takes its longer rows one at a time (ballot), all lanes on one row. The
-// planner refuses a row of more than 16k entries, so a warp's longest walk
-// is 512 slots a lane (the webbase-1M stand-in's longest row: 1,894). A
-// position is a 32-bit flat index into mid (B2 * J1 * 128 < 2^31): a
-// 16-bit offset within the row's out-block would save 2 B a product but
-// not fit a row whose virtual rows lie in other out-blocks. All adds are
-// plain f32 adds in the order the plain PyTorch version repeats
-// (p[l] + p[l - d] per step; the rows' fixed orders above), products and
-// sums rounded separately, so all five kernels equal their plain versions
-// bit for bit. No tensor cores: an f32 MMA would run in TF32.
+// reads only the occupied products, the table and y. Its warps are
+// assigned by slot count, not by position. A power-law matrix puts half
+// its slots in rows past kShortRow (the webbase-1M benchmark matrix: 8,433
+// such rows hold 50.6% of its 3,106,075 slots, the longest 2,878), and a
+// warp of 32 consecutive rows that met one ran it as a serial whole-warp
+// pass while its other lanes waited: a quarter of the warps carried half
+// the work. So the grid's first blocks give each row past kShortRow a warp
+// of its own, from a host list ordered longest first (ties by row), so
+// that no block waits behind a hub row that starts last; the remaining
+// blocks are the 32-row warps, a lane each, writing y coalesced, a lane
+// whose row is long writing nothing. One launch, no atomics, each y
+// written once. A lane walks its row (or its share of a long row) with
+// kDepth positions, then kDepth products, in flight (16 by measurement:
+// 4, 8 or 32 in either walk gained at most 2% on that matrix and lost up
+// to 11%). The planner refuses a row of more than
+// 16k entries, so a long row's walk is at most 512 slots a lane. Which
+// warp sums a row does not change its order of adds: a short row in table
+// order by one lane, a long one round-robin over 32 lanes and the halving
+// tree. A position is a 32-bit flat index into mid (B2 * J1 * 128 <
+// 2^31): a 16-bit offset within the row's out-block would save 2 B a
+// product but not fit a row whose virtual rows lie in other out-blocks.
+// All adds are plain f32 adds in the order the plain PyTorch version
+// repeats (p[l] + p[l - d] per step; the rows' fixed orders above),
+// products and sums rounded separately, so all five kernels equal their
+// plain versions bit for bit. No tensor cores: an f32 MMA would run in
+// TF32.
 // Deterministic: no atomics.
 
 #include <cstdint>
@@ -119,6 +133,7 @@ constexpr int kS3Threads = 512;
 constexpr int kS3Warps = kS3Threads / 32;
 constexpr int kStageRows = 64;             // y staging rows per out-block
 constexpr int kRowThreads = 256;
+constexpr int kRowWarps = kRowThreads / 32;
 constexpr int kShortRow = 32;              // longest row a single lane sums
 constexpr int kDepth = 16;                 // a lane's loads in flight
 constexpr int kSlotThreads = 256;
@@ -354,35 +369,41 @@ __device__ __forceinline__ float strided_sum(const float* __restrict__ mid,
   return acc;
 }
 
-// Warp w owns rows 32 w .. 32 w + 31, lane l row 32 w + l. Row pointers
-// are clamped into [0, n_pos], an end below its start to the start.
+// Two kinds of warp in one grid. The first long_blocks blocks give warp
+// i the long row long_rows[i] (more than kShortRow slots; the host lists
+// them longest first): its 32 lanes take the row's slots round-robin and
+// combine by the halving tree. Every later warp w owns rows 32 w .. 32 w
+// + 31, lane l row 32 w + l, and sums it alone where it has at most
+// kShortRow slots; a longer row is its own warp's. A listed row outside
+// y, or of at most kShortRow slots, is skipped. Row pointers are clamped
+// into [0, n_pos], an end below its start to the start.
 __global__ void __launch_bounds__(kRowThreads)
 s3_rows_kernel(const float* __restrict__ mid, int64_t n_mid,
                const int* __restrict__ rowptr, const int* __restrict__ pos,
-               int n_pos, float* __restrict__ y, int m) {
+               int n_pos, const int* __restrict__ long_rows, int n_long,
+               int long_blocks, float* __restrict__ y, int m) {
   const int lane = threadIdx.x & 31;
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
-  if (r - lane >= m) return;                 // the whole warp is past y
-  int lo = 0, hi = 0;
-  if (r < m) {
-    lo = min(max(__ldg(rowptr + r), 0), n_pos);
-    hi = min(max(__ldg(rowptr + r + 1), lo), n_pos);
-  }
-  float acc = 0.0f;
-  if (hi - lo <= kShortRow) acc = strided_sum(mid, n_mid, pos, lo, hi, 1);
-  unsigned long_rows = __ballot_sync(kFull, hi - lo > kShortRow);
-  while (long_rows) {
-    const int owner = __ffs(long_rows) - 1;
-    long_rows &= long_rows - 1;
-    const int llo = __shfl_sync(kFull, lo, owner);
-    const int lhi = __shfl_sync(kFull, hi, owner);
-    float part = strided_sum(mid, n_mid, pos, llo + lane, lhi, 32);
+  if (static_cast<int>(blockIdx.x) < long_blocks) {
+    const int i = blockIdx.x * kRowWarps + threadIdx.x / 32;
+    if (i >= n_long) return;                 // the whole warp: no row
+    const int r = __ldg(long_rows + i);
+    if (r < 0 || r >= m) return;
+    const int lo = min(max(__ldg(rowptr + r), 0), n_pos);
+    const int hi = min(max(__ldg(rowptr + r + 1), lo), n_pos);
+    if (hi - lo <= kShortRow) return;        // its lane sums it
+    float part = strided_sum(mid, n_mid, pos, lo + lane, hi, 32);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       part = __fadd_rn(part, __shfl_xor_sync(kFull, part, off));
-    if (lane == owner) acc = part;
+    if (lane == 0) y[r] = part;
+    return;
   }
-  if (r < m) y[r] = acc;
+  const int64_t r = static_cast<int64_t>(blockIdx.x - long_blocks) * kRowThreads +
+                    threadIdx.x;
+  if (r >= m) return;
+  const int lo = min(max(__ldg(rowptr + r), 0), n_pos);
+  const int hi = min(max(__ldg(rowptr + r + 1), lo), n_pos);
+  if (hi - lo <= kShortRow) y[r] = strided_sum(mid, n_mid, pos, lo, hi, 1);
 }
 
 template <class K>
@@ -462,16 +483,20 @@ extern "C" int xpose_s3(const void* mid, const void* planes, void* y_all,
 }
 
 // mid (B2, J1, 128) f32, n_mid elements; rowptr (m + 1,) i32; pos (n_pos,)
-// i32 flat indices into mid; y (m,) f32.
+// i32 flat indices into mid; long_rows (n_long,) i32, every row of more
+// than kShortRow slots, longest first; y (m,) f32.
 extern "C" int xpose_s3_rows(const void* mid, int64_t n_mid, const void* rowptr,
-                             const void* pos, int n_pos, void* y, int m,
-                             void* stream) {
+                             const void* pos, int n_pos, const void* long_rows,
+                             int n_long, void* y, int m, void* stream) {
   if (m > 0) {
-    const int64_t blocks = (static_cast<int64_t>(m) + kRowThreads - 1) / kRowThreads;
+    const int64_t long_blocks = (static_cast<int64_t>(n_long) + kRowWarps - 1) / kRowWarps;
+    const int64_t blocks =
+        long_blocks + (static_cast<int64_t>(m) + kRowThreads - 1) / kRowThreads;
     s3_rows_kernel<<<static_cast<unsigned>(blocks), kRowThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(mid), n_mid, static_cast<const int*>(rowptr),
-        static_cast<const int*>(pos), n_pos, static_cast<float*>(y), m);
+        static_cast<const int*>(pos), n_pos, static_cast<const int*>(long_rows),
+        n_long, static_cast<int>(long_blocks), static_cast<float*>(y), m);
   }
   return static_cast<int>(cudaGetLastError());
 }

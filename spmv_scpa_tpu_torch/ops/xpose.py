@@ -29,7 +29,9 @@ Stage S3 (``s3``):
   sum of its product slots, read through a table that
   :func:`s3_rows_table` builds from the plan's S3 planes once (each real
   row's slots in ``mid``, its virtual rows' folded in), so y comes out
-  whole;
+  whole; its warps are assigned by slot count: a warp of its own for
+  each row past ``SHORT_ROW`` slots (:func:`s3_long_rows`, longest
+  first), then a lane a row for the rest;
 * ``"prefix"``, :func:`xpose_s3`: the reference's design carried over,
   per out-block routing the products to dense row-major slots, taking
   the block's prefix sum and writing ``y[row] = prefix(end of row) -
@@ -43,7 +45,8 @@ runs its plain PyTorch version on a CPU tensor; an index outside its
 range reads 0.0. The slot-table designs' wrappers are their checks and
 a card launch (:func:`_launch_s1_slots`, :func:`_launch_s3_rows`); the
 prepared call of those designs on the card checks its tables once, when
-:func:`bind_plan` binds them, and then makes the two launches alone.
+:func:`bind_plan` binds them, takes their pointers then too, and makes
+the two launches alone (:func:`_slots_rows_call`).
 The plain versions repeat the kernels' arithmetic (one
 f32 product per slot; the prefix sums as Hillis-Steele steps ``p[l] +
 p[l - d]``; the row sums in :func:`xpose_s3_rows_plain`'s fixed order),
@@ -372,7 +375,7 @@ def xpose_s3_plain(mid, planes, m2: int) -> torch.Tensor:
 
 
 @trace.launch("xpose_s3_rows")
-def xpose_s3_rows(mid, rowptr, pos) -> torch.Tensor:
+def xpose_s3_rows(mid, rowptr, pos, long_rows=None) -> torch.Tensor:
     """Stage S3 as row sums (replaces ``_s3_kernel``, the un-blocking of y
     and the virtual rows' scatter-add): ``y[r]`` = the sum of
     ``mid.flat[pos[k]]`` over ``rowptr[r] <= k < rowptr[r + 1]``, in
@@ -380,7 +383,13 @@ def xpose_s3_rows(mid, rowptr, pos) -> torch.Tensor:
     ``rowptr`` (m + 1,) int32 and ``pos`` (S,) int32 from
     :func:`s3_rows_table`; returns (m,) f32. A pointer outside [0, S] is
     clamped into it, an end below its start taken as the start, and a
-    position outside ``mid`` reads 0.0."""
+    position outside ``mid`` reads 0.0.
+
+    On the card the launch's first warps each sum one row of
+    ``long_rows`` (int32, :func:`s3_long_rows` of the table, built here
+    when None: every row past ``SHORT_ROW`` slots, longest first), the
+    rest a row a lane; a row past ``SHORT_ROW`` that the list leaves out
+    is not written. Which warp sums a row does not change its sum."""
     if mid.dtype != torch.float32 or mid.dim() != 3 or mid.shape[2] != BC:
         raise ValueError(f"xpose_s3_rows: mid is {mid.dtype} "
                          f"{tuple(mid.shape)}, expected float32 (B2, J1, "
@@ -388,20 +397,24 @@ def xpose_s3_rows(mid, rowptr, pos) -> torch.Tensor:
     _check_row_table(rowptr, pos, mid.numel(), mid.device)
     _check("xpose_s3_rows", {"mid": (mid, torch.float32, mid.shape)},
            mid.device)
+    if long_rows is not None:
+        _check_long_rows(long_rows, mid.device)
     if mid.device.type == "cpu":
         return xpose_s3_rows_plain(mid, rowptr, pos)
-    return _launch_s3_rows(mid, rowptr, pos)
+    if long_rows is None:
+        long_rows = s3_long_rows(rowptr, pos.numel())
+    return _launch_s3_rows(mid, rowptr, pos, long_rows)
 
 
-def _launch_s3_rows(mid, rowptr, pos) -> torch.Tensor:
+def _launch_s3_rows(mid, rowptr, pos, long_rows) -> torch.Tensor:
     """:func:`xpose_s3_rows`' launch on the card, with ``mid`` float32
-    (B2, J1, 128) and the table checked (:func:`_check_row_table`) on its
-    device."""
+    (B2, J1, 128), the table (:func:`_check_row_table`) and the long-row
+    list (:func:`_check_long_rows`) checked on its device."""
     m = rowptr.numel() - 1
     y = torch.empty(m, dtype=torch.float32, device=mid.device)
     return _launch("xpose_s3_rows", y, mid.data_ptr(), mid.numel(),
                    rowptr.data_ptr(), pos.data_ptr(), pos.numel(),
-                   y.data_ptr(), m)
+                   long_rows.data_ptr(), long_rows.numel(), y.data_ptr(), m)
 
 
 def _check_row_table(rowptr, pos, n_mid: int, dev) -> None:
@@ -418,6 +431,36 @@ def _check_row_table(rowptr, pos, n_mid: int, dev) -> None:
                              "pos": (pos, torch.int32, pos.shape)}, dev)
 
 
+def _check_long_rows(long_rows, dev) -> None:
+    """:func:`xpose_s3_rows`' check of its long-row list: int32, 1-D,
+    contiguous, on ``dev``."""
+    _check("xpose_s3_rows", {"long_rows": (long_rows, torch.int32,
+                                           (long_rows.numel(),))}, dev)
+
+
+def s3_long_rows(rowptr, n_pos: int) -> torch.Tensor:
+    """The rows of a row table (``rowptr`` (m + 1,), a tensor or an array,
+    over ``n_pos`` positions) with more than ``SHORT_ROW`` slots, its
+    pointers clamped as :func:`xpose_s3_rows` clamps them: int32 on
+    ``rowptr``'s device, longest first, ties by row. The kernel gives
+    each a warp of its own, in this order, ahead of its 32-row warps."""
+    rowptr = torch.as_tensor(rowptr)
+    lo = rowptr[:-1].to(torch.int64).clamp(0, n_pos)
+    n = torch.maximum(rowptr[1:].to(torch.int64).clamp(0, n_pos), lo) - lo
+    rows = torch.nonzero(n > SHORT_ROW).view(-1)
+    order = torch.sort(n[rows], descending=True, stable=True).indices
+    return rows[order].to(torch.int32)
+
+
+def long_row_counts(tables: dict) -> dict:
+    """``s3_long_rows`` (the rows of ``tables["long"]``) and
+    ``s3_long_slots`` (their slots in the row table ``tables["rows"]``)."""
+    rowptr, long_rows = tables["rows"][0], tables["long"]
+    n = np.diff(rowptr.astype(np.int64))
+    return {"s3_long_rows": int(long_rows.size),
+            "s3_long_slots": int(n[long_rows].sum())}
+
+
 def _halve(v):
     """The lanes' halving tree along the last axis (the kernel's xor
     shuffles 16, 8, 4, 2, 1): ``v[:h] + v[h:2h]`` until one is left."""
@@ -427,11 +470,12 @@ def _halve(v):
     return v[..., 0]
 
 
-def xpose_s3_rows_plain(mid, rowptr, pos) -> torch.Tensor:
+def xpose_s3_rows_plain(mid, rowptr, pos, long_rows=None) -> torch.Tensor:
     """:func:`xpose_s3_rows` in PyTorch ops, in the kernel's order: a row
     of at most ``SHORT_ROW`` slots adds them in table order from 0.0; a
     longer one deals them round-robin to 32 lanes, each adding its share
-    in order from 0.0, and takes the lanes' halving tree."""
+    in order from 0.0, and takes the lanes' halving tree. ``long_rows``,
+    the kernel's assignment of warps, is not read: it changes no sum."""
     dev = mid.device
     S = pos.numel()
     lo = rowptr[:-1].to(torch.int64).clamp(0, S)
@@ -730,13 +774,19 @@ def resolve_s1(s1: str, s3: str) -> str:
 def host_tables(plan: XposePlan, s3: str = "rows", s1: str = "auto",
                 tables=None) -> dict:
     """``tables`` (a dict, may be None) completed with the host tables
-    that design (``s3``, ``s1``) reads: ``"rows"``, :func:`s3_rows_table`;
+    that design (``s3``, ``s1``) reads: ``"rows"``, :func:`s3_rows_table`,
+    and ``"long"``, its rows past ``SHORT_ROW`` slots (:func:`s3_long_rows`,
+    whose counts :func:`long_row_counts` notes on the open span);
     ``"slots"``, :func:`s1_slots_table` over those rows' positions."""
     check_designs(plan, s3, s1)
     s1 = resolve_s1(s1, s3)
     out = dict(tables or {})
     if s3 == "rows" and "rows" not in out:
         out["rows"] = s3_rows_table(plan)
+    if s3 == "rows" and "long" not in out:
+        rowptr, pos = out["rows"]
+        out["long"] = s3_long_rows(rowptr, pos.size).numpy()
+        trace.note(**long_row_counts(out))
     if s1 == "slots" and "slots" not in out:
         out["slots"] = s1_slots_table(plan, out["rows"][1])
     return out
@@ -750,13 +800,15 @@ def hbm_bytes(plan: XposePlan, s3: str = "rows", s1: str = "auto",
     used rows of r2/r3), the mirror's planes and table (written, then
     read), the product array written whole and x. Then S3's own: on
     ``"rows"`` the slot table (a pointer per row, a position per
-    product), the occupied products and y; on ``"prefix"`` the product
-    array whole, the eight planes and y with its virtual rows. ``tables``
-    as :func:`host_tables` gives them (built here when missing)."""
+    product), the long-row list, the occupied products and y; on
+    ``"prefix"`` the product array whole, the eight planes and y with its
+    virtual rows. ``tables`` as :func:`host_tables` gives them (built here
+    when missing)."""
     s1 = resolve_s1(s1, s3)
     J1, B2, NWm = plan.J1, plan.B2, plan.NWm
-    if s1 == "slots":
+    if s3 == "rows":
         tables = host_tables(plan, s3, s1, tables)
+    if s1 == "slots":
         head, code, val = tables["slots"]
         s1_bytes = (head.nbytes + code.nbytes + val.nbytes
                     + tables["rows"][1].size * 4 + plan.n * 4)
@@ -768,7 +820,8 @@ def hbm_bytes(plan: XposePlan, s3: str = "rows", s1: str = "auto",
         return (s1_bytes + B2 * J1 * BC * 4 + N_S3_PLANES * B2 * BC * BC
                 + plan.m2 * 4)
     # each entry fills one product slot: the table holds nnz positions
-    return s1_bytes + (plan.m + 1) * 4 + plan.nnz * 8 + plan.m * 4
+    return (s1_bytes + (plan.m + 1) * 4 + plan.nnz * 8 + plan.m * 4
+            + tables["long"].nbytes)
 
 
 def plan_meta(plan: XposePlan, nnz: int) -> dict:
@@ -824,6 +877,7 @@ def bind_plan(plan: XposePlan, dev, s3: str = "rows", s1: str = "auto",
         r3 = put(compact_routes(plan, plan.r3), u8)
     if s3 == "rows":
         rowptr, pos = (put(a, torch.int32) for a in tables["rows"])
+        long_rows = put(tables["long"], torch.int32)
     else:
         planes = put(s3_planes(plan), u8)
         v_row = put(plan.v_row, torch.int64)
@@ -836,7 +890,7 @@ def bind_plan(plan: XposePlan, dev, s3: str = "rows", s1: str = "auto",
                   else no_mirror)
             mid = ops.xpose_s1(xf, xm, win, gidx, asv, r2, r3, nw0, B2)
         if s3 == "rows":
-            return ops.xpose_s3_rows(mid, rowptr, pos)
+            return ops.xpose_s3_rows(mid, rowptr, pos, long_rows)
         y_all = ops.xpose_s3(mid, planes, m2)
         y = y_all[:m]
         if m2 > m:
@@ -847,14 +901,59 @@ def bind_plan(plan: XposePlan, dev, s3: str = "rows", s1: str = "auto",
         return run, lambda xf: run(xf, KERNELS)
     _check_slot_table(head, code, val, B2, J1, dev)
     _check_row_table(rowptr, pos, B2 * J1 * BC, dev)
-    s1_launch = trace.launch("xpose_s1_slots")(_launch_s1_slots)
-    s3_launch = trace.launch("xpose_s3_rows")(_launch_s3_rows)
+    _check_long_rows(long_rows, dev)
+    return run, _slots_rows_call(dev, (head, code, val), B2, J1,
+                                 (rowptr, pos, long_rows))
 
-    def call(xf):
-        return s3_launch(s1_launch(xf, head, code, val, B2, J1), rowptr,
-                         pos)
 
-    return run, call
+def _slots_rows_call(dev, slots, B2: int, J1: int, rows) -> Callable:
+    """The slot-table designs' ``call(xf) -> y`` on the card, over the
+    checked tables ``slots`` (head, code, val) and ``rows`` (rowptr, pos,
+    long_rows): :func:`_launch_s1_slots` then :func:`_launch_s3_rows`,
+    each a ``launch.<kernel>`` span, with the tables' pointers and sizes
+    and the stream's lookup (:func:`_kernels.stream_getter`) taken once
+    here. A call's host then allocates mid and y and makes the two
+    launches, and little else: where the card is faster than the host,
+    the host's time a call is the call's time."""
+    head, code, val = slots
+    rowptr, pos, long_rows = rows
+    C, chunk = code.shape
+    m = rowptr.numel() - 1
+    mid_shape, n_mid = (B2, J1, BC), B2 * J1 * BC
+    s1_tables = (head.data_ptr(), code.data_ptr(), val.data_ptr(), C,
+                 chunk)
+    s3_tables = (rowptr.data_ptr(), pos.data_ptr(), pos.numel(),
+                 long_rows.data_ptr(), long_rows.numel())
+    stream = _kernels.stream_getter(dev)
+    f32 = torch.float32
+
+    @trace.launch("xpose_s1_slots")
+    def s1_launch(xf, s):
+        lib = _kernels.load("xpose")
+        mid = torch.empty(mid_shape, dtype=f32, device=dev)
+        err = lib.xpose_s1_slots(xf.data_ptr(), xf.numel(), *s1_tables,
+                                 mid.data_ptr(), n_mid, J1, s)
+        if err:
+            _kernels.check(lib, err, "xpose_s1_slots")
+        LAUNCHES["xpose_s1_slots"] += 1
+        return mid
+
+    @trace.launch("xpose_s3_rows")
+    def s3_launch(mid, s):
+        lib = _kernels.load("xpose")
+        y = torch.empty(m, dtype=f32, device=dev)
+        err = lib.xpose_s3_rows(mid.data_ptr(), n_mid, *s3_tables,
+                                y.data_ptr(), m, s)
+        if err:
+            _kernels.check(lib, err, "xpose_s3_rows")
+        LAUNCHES["xpose_s3_rows"] += 1
+        return y
+
+    def call(xf, _tables=slots + rows):
+        s = stream()
+        return s3_launch(s1_launch(xf, s), s)
+
+    return call
 
 
 def prepare_xpose(A: CSR, device="cuda", s3: str = "rows", s1: str = "auto",
@@ -902,7 +1001,9 @@ def prepare_xpose_designs(A: CSR, designs=S3_DESIGNS,
                         device=dev, nnz=A.nnz, ref="pallas-xpose",
                         hbm_bytes=hbm_bytes(plan, s3, s1, tables),
                         meta={**plan_meta(plan, A.nnz), "s3": s3,
-                              "s1": resolve_s1(s1, s3)},
+                              "s1": resolve_s1(s1, s3),
+                              **(long_row_counts(tables) if s3 == "rows"
+                                 else {})},
                         plain=lambda x: call(x, PLAIN),
                         kernel_calls=lambda xf: record_calls(
                             lambda ops: call(xf, ops), PLAIN), run=call)

@@ -502,6 +502,26 @@ def test_xpose_bound_call_equals_the_checked_wrappers(card, name):
     assert torch.equal(y, prep.fn(xd))
 
 
+def test_xpose_bound_call_follows_the_current_stream(card):
+    """The bound call launches on the stream current at the call: on a
+    side stream held by a spin, the default stream is left idle, and y,
+    once the side stream is done, equals the call's on the default
+    stream."""
+    A = cases.make(cases.XPOSE_CASES["webbase30k"])
+    prep = get_strategy("cuda-xpose").prepare(A, device=card)
+    xd = torch.as_tensor(make_x(A.n), dtype=torch.float32, device=card)
+    want = prep.fn(xd)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(card)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1 << 26)
+        y = prep.fn(xd)
+    assert not side.query()
+    assert torch.cuda.current_stream(card).query()
+    side.synchronize()
+    assert torch.equal(y, want)
+
+
 def test_xpose_s1_slots_matches_plain_and_the_slab(card):
     """On every case the slot kernel launches once, equals its plain
     version on the card and on the CPU at every slot it writes, equals
@@ -628,7 +648,7 @@ def test_xpose_s3_rows_matches_plain_on_every_case(card):
         (_, args), = [c for c in prep.kernel_calls(
             torch.as_tensor(make_x(A.n), dtype=torch.float32, device=card))
             if c[0] == "xpose_s3_rows"]
-        mid, rowptr, pos = args
+        mid, rowptr, pos, long_rows = args
         before = xpose.LAUNCHES["xpose_s3_rows"]
         y = xpose.xpose_s3_rows(*args)
         assert xpose.LAUNCHES["xpose_s3_rows"] == before + 1
@@ -641,6 +661,66 @@ def test_xpose_s3_rows_matches_plain_on_every_case(card):
         seen["empty"] |= bool((n == 0).any())
         seen["long"] |= bool((n > xpose.SHORT_ROW).any())
     assert all(seen.values()), seen
+
+
+def _long_row_table(kind, rng):
+    """Row lengths of a table of 600 short rows (0 to 32 slots) with long
+    rows placed by ``kind``."""
+    lens = rng.choice([0, 1, 3, 17, 32], 600)
+    if kind == "mixed":                 # 33, 64, 511 and 2,000+ slots
+        lens[[5, 77, 300, 301]] = [33, 64, 511, 2047]
+    elif kind == "warp_of_long":        # rows 64..95: one whole warp
+        lens[64:96] = rng.integers(33, 300, 32)
+    elif kind == "last_long":
+        lens[-1] = 700
+    return lens
+
+
+@pytest.mark.parametrize("kind", ["mixed", "warp_of_long", "last_long",
+                                  "no_long"])
+def test_xpose_s3_rows_gives_long_rows_their_own_warps(card, kind):
+    """Rows past SHORT_ROW summed by warps of their own ahead of the
+    32-row warps: one launch, bit-equal to the plain version on the card
+    and on the CPU, with the long-row list given and built by the
+    wrapper; values over seven decades, so an order of adds shows."""
+    rng = np.random.default_rng(5)
+    mid = torch.as_tensor(rng.standard_normal((7, 9, BC))
+                          * 10.0 ** rng.integers(-3, 4, (7, 9, BC)),
+                          dtype=torch.float32, device=card)
+    lens = _long_row_table(kind, rng)
+    rowptr = np.r_[0, np.cumsum(lens)]
+    pos = rng.integers(0, mid.numel(), int(rowptr[-1]))
+    rowptr, pos = (torch.as_tensor(a, dtype=torch.int32, device=card)
+                   for a in (rowptr, pos))
+    long_rows = xpose.s3_long_rows(rowptr, pos.numel())
+    assert long_rows.tolist() == xpose.s3_long_rows(
+        rowptr.cpu(), pos.numel()).tolist()
+    assert long_rows.numel() == int((torch.as_tensor(lens)
+                                     > xpose.SHORT_ROW).sum())
+    want = xpose.xpose_s3_rows_plain(mid, rowptr, pos)
+    assert torch.equal(want.cpu(), xpose.xpose_s3_rows_plain(
+        mid.cpu(), rowptr.cpu(), pos.cpu()))
+    for given in (long_rows, None):
+        before = xpose.LAUNCHES["xpose_s3_rows"]
+        y = xpose.xpose_s3_rows(mid, rowptr, pos, given)
+        assert xpose.LAUNCHES["xpose_s3_rows"] == before + 1
+        assert torch.equal(y, want), kind
+
+
+def test_xpose_s3_rows_matches_plain_on_the_webbase1m_cell(card):
+    """The benchmark's webbase-1M matrix at its source's size: S3's row
+    sums, one launch, bit-equal to the plain version on the card."""
+    A = cases.make(cases.WEBBASE1M)
+    prep = get_strategy("cuda-xpose").prepare(A, device=card)
+    xd = torch.as_tensor(make_x(A.n), dtype=torch.float32, device=card)
+    (_, args), = [c for c in prep.kernel_calls(xd)
+                  if c[0] == "xpose_s3_rows"]
+    assert prep.meta["s3_long_rows"] == args[3].numel() > 0
+    before = xpose.LAUNCHES["xpose_s3_rows"]
+    y = xpose.xpose_s3_rows(*args)
+    assert xpose.LAUNCHES["xpose_s3_rows"] == before + 1
+    assert torch.equal(y, xpose.xpose_s3_rows_plain(*args))
+    assert torch.equal(prep.fn(xd), prep.plain(xd))
 
 
 def test_xpose_s3_rows_reads_zero_out_of_range(card):

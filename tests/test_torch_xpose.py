@@ -35,7 +35,7 @@ from spmv_scpa_tpu.formats.csr import CSR as JaxCSR
 from spmv_scpa_tpu.ops import xpose_plan as jax_xp
 from spmv_scpa_tpu.ops.xpose import prepare_xpose as jax_prepare_xpose
 
-from spmv_scpa_tpu_torch import get_strategy, spmv
+from spmv_scpa_tpu_torch import get_strategy, spmv, trace
 from spmv_scpa_tpu_torch import testing as synth
 from spmv_scpa_tpu_torch.bench import cases
 from spmv_scpa_tpu_torch.formats.csr import BC, CSR
@@ -407,7 +407,7 @@ def test_hbm_bytes_counts_the_port_layout(s3):
     "prefix" the product array read whole, the eight planes and y with
     its virtual rows, below the plan's padded planes plus the reference's
     S2 and staging traffic; on "rows" the table (a pointer a row, a
-    position a product), the occupied products and y. (S1 on the slot
+    position a product), its long-row list, the occupied products and y. (S1 on the slot
     table: tests/test_torch_xpose_s1.py.)"""
     _, plan, _, _ = _case("webbase200k")
     got = xpose.hbm_bytes(plan, s3, "slab")
@@ -421,5 +421,94 @@ def test_hbm_bytes_counts_the_port_layout(s3):
                        + xpose.s3_planes(plan).nbytes + 4 * plan.m2)
     else:
         rowptr, pos = xpose.s3_rows_table(plan)
-        assert got == shared + rowptr.nbytes + 2 * pos.nbytes + 4 * plan.m
+        long_rows = xpose.host_tables(plan, s3, "slab")["long"]
+        assert long_rows.size > 0
+        assert got == (shared + rowptr.nbytes + 2 * pos.nbytes + 4 * plan.m
+                       + long_rows.nbytes)
         assert got < xpose.hbm_bytes(plan, "prefix", "slab")
+
+
+# ---- S3's long-row list --------------------------------------------------------
+
+def _long_rows_by_hand(rowptr, S):
+    """Every row past SHORT_ROW slots (pointers clamped as the kernel
+    clamps them), sorted by (slot count descending, row)."""
+    n = [min(max(rowptr[r + 1], min(max(rowptr[r], 0), S)), S)
+         - min(max(rowptr[r], 0), S) for r in range(len(rowptr) - 1)]
+    return [r for _, r in sorted((-k, r) for r, k in enumerate(n)
+                                 if k > xpose.SHORT_ROW)]
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_long_row_list_names_the_rows_past_short_row_longest_first(name):
+    """On each case's row table: exactly the rows past SHORT_ROW, each
+    once, longest first, ties by row; empty on the plans without them."""
+    _, plan, _, _ = _case(name)
+    tables = xpose.host_tables(plan)
+    rowptr, pos = tables["rows"]
+    got = tables["long"]
+    assert got.dtype == np.int32
+    assert got.tolist() == _long_rows_by_hand(rowptr.tolist(), pos.size)
+    assert len(set(got.tolist())) == got.size
+    n = np.diff(rowptr.astype(np.int64))
+    assert (got.size > 0) == bool((n > xpose.SHORT_ROW).any())
+    if name in ("rand-1k", "banded-2k", "rand-8k"):
+        assert got.size == 0
+
+
+def test_long_row_list_breaks_ties_by_row_and_clamps_pointers():
+    """Equal lengths keep row order; a pointer past the positions or an
+    end below its start counts as the kernel reads it."""
+    lens = [40, 5, 33, 40, 33, 32, 100, 40]
+    rowptr = np.r_[0, np.cumsum(lens)].astype(np.int32)
+    S = int(rowptr[-1])
+    got = xpose.s3_long_rows(rowptr, S)
+    assert got.dtype == torch.int32
+    assert got.tolist() == [6, 0, 3, 7, 2, 4]
+    bad = rowptr.copy()
+    bad[2] = S + 500                    # row 1 runs to S, row 2 is empty
+    bad[4] = -9                         # row 4 starts at 0, row 3 is empty
+    want = _long_rows_by_hand(bad.tolist(), S)
+    assert xpose.s3_long_rows(bad, S).tolist() == want
+    assert xpose.s3_long_rows(torch.as_tensor(bad), S).tolist() == want
+    assert xpose.s3_long_rows(np.zeros(1, np.int32), 0).numel() == 0
+
+
+@pytest.mark.parametrize("name", ["rand-1k", "webbase30k"])
+def test_pack_notes_the_long_rows_on_the_layout_span_and_meta(name):
+    """``s3_long_rows`` and ``s3_long_slots`` on the pack's
+    ``pack.layout`` span and in the row sums' meta; the list's bytes in
+    hbm_bytes."""
+    A, plan, _, _ = _case(name)
+    trace.take()
+    prep = xpose.prepare_xpose(A, device="cpu")
+    layout, = [s for s in trace.take() if s.name == "pack.layout"]
+    tables = xpose.host_tables(plan)
+    n = np.diff(tables["rows"][0].astype(np.int64))
+    want = {"s3_long_rows": int((n > xpose.SHORT_ROW).sum()),
+            "s3_long_slots": int(n[n > xpose.SHORT_ROW].sum())}
+    assert {k: layout.attrs[k] for k in want} == want
+    assert {k: prep.meta[k] for k in want} == want
+    assert (want["s3_long_rows"] > 0) == (name == "webbase30k")
+    without = dict(tables, long=np.zeros(0, np.int32))
+    assert prep.hbm_bytes - xpose.hbm_bytes(plan, tables=without) == \
+        4 * want["s3_long_rows"]
+
+
+def test_stream_getter_reads_the_raw_stream_and_falls_back(monkeypatch):
+    """The bound call's stream lookup: PyTorch's raw query of the
+    device's index where the build has it, :func:`_kernels.stream_handle`
+    where it has not or the device has no index."""
+    from spmv_scpa_tpu_torch import _kernels
+    asked = []
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda i: asked.append(i) or 1000 + i, raising=False)
+    monkeypatch.setattr(_kernels, "stream_handle",
+                        lambda dev: ("handle", str(dev)))
+    assert _kernels.stream_getter(torch.device("cuda", 3))() == 1003
+    assert asked == [3]
+    assert _kernels.stream_getter(torch.device("cuda"))() == \
+        ("handle", "cuda")
+    monkeypatch.delattr(torch._C, "_cuda_getCurrentRawStream")
+    assert _kernels.stream_getter(torch.device("cuda", 1))() == \
+        ("handle", "cuda:1")

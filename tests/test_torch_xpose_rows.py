@@ -150,7 +150,7 @@ def test_rows_plain_matches_simulate(name):
     """S3 as row sums on S1's products against simulate_xpose, and
     against the prefix design on the same products."""
     A, plan, preps, x = _case(name)
-    mid, rowptr, pos = _call(preps["rows"], "xpose_s3_rows", x)
+    mid, rowptr, pos, _ = _call(preps["rows"], "xpose_s3_rows", x)
     y = xpose.xpose_s3_rows_plain(mid, rowptr, pos)
     assert y.shape == (A.m,) and y.dtype == torch.float32
     want = jax_xp.simulate_xpose(plan, x.astype(np.float64))
@@ -162,13 +162,15 @@ def test_rows_plain_matches_simulate(name):
 @pytest.mark.parametrize("name", ["rand-1k", "webbase30k"])
 def test_designs_share_one_plan(name):
     """prepare_xpose_designs binds both designs from one plan: the meta
-    differs only in ``s3`` and the S1 design ``"auto"`` resolves to
-    (``s1``), the row sums move fewer bytes, and prepare_xpose's default
-    is the row sums."""
+    differs only in ``s3``, the S1 design ``"auto"`` resolves to (``s1``)
+    and the row sums' long-row counts, the row sums move fewer bytes, and
+    prepare_xpose's default is the row sums."""
     A, plan, preps, x = _case(name)
     rows, prefix = preps["rows"].meta, preps["prefix"].meta
-    assert {k: v for k, v in rows.items() if k not in ("s3", "s1")} == \
-        {k: v for k, v in prefix.items() if k not in ("s3", "s1")}
+    own = ("s3", "s1", "s3_long_rows", "s3_long_slots")
+    assert {k: v for k, v in rows.items() if k not in own} == \
+        {k: v for k, v in prefix.items() if k not in own}
+    assert set(rows) - set(prefix) == {"s3_long_rows", "s3_long_slots"}
     assert (rows["s3"], prefix["s3"]) == ("rows", "prefix")
     assert (rows["s1"], prefix["s1"]) == ("slots", "slab")
     assert preps["rows"].hbm_bytes < preps["prefix"].hbm_bytes

@@ -312,7 +312,7 @@ def test_hbm_bytes_counts_the_slot_table():
     got = xpose.hbm_bytes(plan, "rows", "slots")
     assert got == (head.nbytes + code.nbytes + val.nbytes + 4 * pos.size
                    + 4 * plan.n + rowptr.nbytes + 2 * pos.nbytes
-                   + 4 * plan.m)
+                   + 4 * plan.m + xpose.host_tables(plan)["long"].nbytes)
     assert head.nbytes + code.nbytes + val.nbytes < 8.2 * code.size
     assert got == preps["rows"].hbm_bytes == xpose.hbm_bytes(plan)
     assert got < xpose.hbm_bytes(plan, "rows", "slab") \
