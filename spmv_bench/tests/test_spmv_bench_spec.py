@@ -23,6 +23,7 @@ PER_LAYER = {
     # span covers the whole pack
     "flagship-fp64.spmv": FIRST + ["pack_upload_s", "kernel_load_s",
                                    "call_host_ms"],
+    "webbase1m.spmv": FIRST + SPANS,
 }
 CELLS = tuple(PER_LAYER)
 

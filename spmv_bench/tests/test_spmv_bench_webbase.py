@@ -1,8 +1,8 @@
 """The cell ``webbase1m.spmv``: the configuration ``webbase1m`` (SuiteSparse
 Williams/webbase-1M at its source's size), the traffic ``spmv-xpose``,
-its limits, and the five metrics of ``cuda-xpose``'s stages
-(``xpose_roofline.py``). At sizes the CPU holds, on a copy whose
-configuration has fewer rows."""
+its limits, the eleven per-layer metrics the cells share, and the four
+metrics of ``cuda-xpose``'s stages (``xpose_roofline.py``). At sizes the
+CPU holds, on a copy whose configuration has fewer rows."""
 
 import inspect
 import json
@@ -18,12 +18,13 @@ from spmv_bench.harness import inputs
 from spmv_bench.run import execute
 from spmv_bench.spec import ROOT, load_cell
 from spmv_bench.tests.small import copy_bench
+from spmv_bench.tests.test_spmv_bench_spec import FIRST, SPANS
 from spmv_scpa_tpu_torch import testing
 
 H100 = "NVIDIA H100 80GB HBM3"
 CELL = "webbase1m.spmv"
 METRICS = ["xpose_s1_ms", "xpose_s3_ms", "xpose_s1_roofline",
-           "xpose_s3_roofline", "xpose_plan_s"]
+           "xpose_s3_roofline"]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 
 
@@ -76,7 +77,7 @@ def test_the_cell_names_cuda_xpose_and_its_metrics():
                             "strategy": "cuda-xpose", "knobs": {}}
     assert [m["name"] for m in cell.end_to_end] == [
         "gflops", "call_p95_ms", "setup_s"]
-    assert [m["name"] for m in cell.per_layer] == METRICS
+    assert [m["name"] for m in cell.per_layer] == FIRST + SPANS + METRICS
     assert set(cell.checks["limits"]) == {"row_err", "rel_l2"}
     for m in cell.end_to_end + cell.per_layer:
         assert callable(cell.module("metrics", m["name"]).read)
@@ -170,10 +171,16 @@ def test_the_cell_runs_and_is_correct_on_a_small_copy(root):
     assert out["correct"] is True and out["attempted"] > 0
     for c in out["checks"].values():
         assert c["value"] < c["limit"] / 10
-    # off the card the device readers find nothing; the plan's span is
-    # the host's
-    assert set(out["metrics"]) == {"xpose_plan_s"}
-    assert out["metrics"]["xpose_plan_s"]["value"] > 0
+    # off the card the device readers find nothing; the pack's spans
+    # and counters are the host's
+    metrics = out["metrics"]
+    assert set(metrics) == {"pack_s", "port_kernel_calls", "pack_plan_s",
+                            "pack_layout_s", "pack_upload_s"}
+    for name in ("pack_s", "pack_plan_s", "pack_layout_s", "pack_upload_s"):
+        assert metrics[name]["value"] > 0
+    parts = sum(metrics[name]["value"] for name in
+                ("pack_plan_s", "pack_layout_s", "pack_upload_s"))
+    assert parts <= metrics["pack_s"]["value"]
 
 
 @pytest.mark.parametrize("seed", [3, 2**31 + 5])
